@@ -10,18 +10,38 @@ Phases, each of which fails the script (non-zero exit, no result line):
 
 1. device: the card's name and power limit; TF32 switched off for f32
    matmuls and convolutions, so f32 means f32;
-2. build: the CUDA kernel of the serving path, from the sources in the
-   checkout (``nvcc`` for sm_90a);
-3. kernel vs plain: each kernel's wrapper against its plain PyTorch
-   version on the card over the listed shapes (f32 within 1e-4, bf16
-   within 3e-2), and its time beside its bound, the plain version's and
-   one PyTorch library call's at the serving path's shape;
+2. build: the two CUDA libraries (flash-attention forward; the dq, dk/dv
+   and merged backward kernels) from the sources in the checkout, one
+   ``nvcc`` for sm_90a each, started together; ptxas's register and
+   spill report;
+3. kernels vs plain: the forward kernel against its plain version (o and
+   lse within f32 1e-4 / bf16 3e-2) on 35 shapes, and the three backward
+   kernels, through the autograd Function, against
+   ``flash_attention_bwd_plain`` (each gradient's max |d| / max |plain|
+   within f32 1e-4 / bf16 5e-2, a nonzero lse cotangent, two calls
+   bitwise equal) on 38 shapes; each kernel's time at its main path's
+   shape beside its bound, the plain version's and one PyTorch library
+   call's (``scaled_dot_product_attention``, forward or
+   ``autograd.grad`` through it);
 4. the serving slice at full width (BASELINE config #5, f32): warmup and
-   16 requests through ``ServeEngine`` + ``run_serve`` with the launch
-   counts set to 0 just before and read just after, every request
+   16 requests through ``ServeEngine`` + ``run_serve``, every request
    completed, and one prefill's logits through the engine (kernel)
-   against the non-cached forward through the plain version.
+   against the non-cached forward through the plain version;
+5. the train CLI at full width (BASELINE config #5, f32, batch 8,
+   ``--lm-head auto``) at seq 2048 for 2 epochs (8 steps): the dq and
+   dk/dv kernels in every layer's backward;
+6. the same at seq 512 (the JAX package's bench shape) for 1 epoch (4
+   steps): the merged backward kernel;
+7. one full-width training step at seq 512 and 2048: the loss and every
+   param grad through the kernels against the plain versions on the card
+   (f32, 1e-4 of each tensor's largest element).
 
+Phases 4-6 are the main paths: each runs with every launch count set to
+0 just before and read just after, and each kernel must have launched
+the exact number of times its path calls it (phases 5-6 also check the
+stdout contract, a falling loss and the ``success`` verdict file).
+``--profile`` adds torch.profiler breakdowns of the serving windows and
+of two training steps at each seq (device time by kernel, busy share).
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -29,11 +49,19 @@ The last two lines are the kernels' JSON record and the result line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
 # cores (the flash kernel's f32 path refuses TF32), bf16 tensor cores,
@@ -41,6 +69,8 @@ import time
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# backward gradients: max |kernel - plain| / max |plain|
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def fail(msg: str) -> None:
@@ -54,6 +84,24 @@ def card_line() -> str:
          "--format=csv,noheader", "--id=0"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def build_all(build, fa):
+    """Phase 2: build every kernel library of the port's paths from the
+    checkout, one nvcc each, all started together; print ptxas's
+    register and spill report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = ((fa.LIBRARY, fa.SOURCES), (fa.BWD_LIBRARY, fa.BWD_SOURCES))
+    with ThreadPoolExecutor(len(libs)) as pool:
+        results = list(pool.map(lambda lib: build.build(*lib), libs))
+    for (name, _), res in zip(libs, results):
+        ptxas = [ln.strip() for ln in res.log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
+        print(f"build: {name}: {res.path.name} ({res.seconds:.2f} s)")
+        for ln in ptxas:
+            print(f"build:   {ln}")
 
 
 def time_ms(torch, fn, *, warmup: int = 3, runs: int = 25,
@@ -168,10 +216,175 @@ def check_flash(torch, fa, F):
             "source": "tpudist_torch/csrc/flash_attention_fwd.cu",
             "replaces": "tpudist/ops/pallas/flash_attention.py:149",
             "launches": None, "max_abs_err": serving_err,
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "shape": f"b{b} s{s} h{h} kv{kv} hd{hd} float32 causal"}
+
+
+def backward_bound(b, s, h, kv, hd, dtype: str, causal: bool,
+                   products: int, outputs: str):
+    """(bound_ms, bound_by) of one flash backward kernel: ``products``
+    matrix products over the kept query-key pairs (dq 3, dk/dv 4, merged
+    5) over the peak for ``dtype``, against the bytes of q, k, v, do,
+    lse, delta and the RoPE tables read once and of ``outputs`` (a
+    string of q/k/v: which gradients it writes) written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = products * 2 * b * h * hd * pairs
+    elt = 4 if dtype == "float32" else 2
+    qsz, ksz = b * s * h * hd, b * s * kv * hd
+    nbytes = (elt * (2 * qsz + 2 * ksz) + 2 * 4 * b * h * s
+              + 2 * 4 * s * hd // 2
+              + elt * sum(qsz if o == "q" else ksz for o in outputs))
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _bwd_inputs(torch, gen, b, s, h, kv, hd, dtype, rope):
+    q = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, s, kv, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, s, kv, hd, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(dtype)
+    dlse = torch.randn(b, h, s, device="cuda", generator=gen) * 0.1
+    cos = sin = None
+    if rope:
+        ang = torch.rand(s, hd // 2, device="cuda", generator=gen) * 6.3
+        cos, sin = ang.cos(), ang.sin()
+    return q, k, v, do, dlse, cos, sin
+
+
+def check_flash_bwd(torch, fa):
+    """Phase 3b: the three backward kernels, through the autograd
+    Function, against ``flash_attention_bwd_plain`` on the same forward
+    outputs; each gradient judged by max |d| / max |plain| (f32 1e-4,
+    bf16 5e-2), and two calls bitwise equal. Returns each kernel's max
+    |kernel - plain| over its own outputs at the slice's shapes."""
+    shapes = []
+    for (b, s, h) in ((4, 512, 8), (1, 2048, 4)):            # selfcheck
+        for kv in ((8, 2) if h == 8 else (4, 2)):
+            for dt in ("bfloat16", "float32"):
+                for causal in (True, False):
+                    for rope in (False, True):
+                        shapes.append((b, s, h, kv, 128, dt, causal, rope))
+    for dt in ("bfloat16", "float32"):                       # hd 256
+        shapes.append((1, 512, 4, 2, 256, dt, True, True))
+        shapes.append((1, 1024, 4, 2, 256, dt, False, True))
+    shapes.append((8, 2048, 16, 16, 128, "float32", True, True))  # slice
+    shapes.append((8, 512, 16, 16, 128, "float32", True, True))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    bad, slice_err = [], {}
+    print(f"{'backward shape':48s} {'kernel':>6s} {'dq':>9s} {'dk':>9s} "
+          f"{'dv':>9s} {'tol':>6s} bitwise")
+    for (b, s, h, kv, hd, dt, causal, rope) in shapes:
+        tol = BWD_RTOL[dt]
+        q, k, v, do, dlse, cos, sin = _bwd_inputs(
+            torch, gen, b, s, h, kv, hd, getattr(torch, dt), rope)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        counts = (fa.dq_launches, fa.dkv_launches, fa.dqkv_launches)
+        o, lse = fa._Flash.apply(q, k, v, cos, sin, causal)
+        grads = torch.autograd.grad((o, lse), (q, k, v), (do, dlse),
+                                    retain_graph=True)
+        again = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+        torch.cuda.synchronize()
+        ran = [n for n, c0, c1 in zip(
+            ("dq", "dkv", "dqkv"), counts,
+            (fa.dq_launches, fa.dkv_launches, fa.dqkv_launches))
+            if c1 > c0]
+        with torch.no_grad():
+            ref = fa.flash_attention_bwd_plain(
+                q.detach(), k.detach(), v.detach(), o.detach(),
+                lse.detach(), do, dlse, cos=cos, sin=sin, causal=causal)
+        abs_errs = [(g.float() - r.float()).abs().max().item()
+                    for g, r in zip(grads, ref)]
+        errs = [e / max(r.float().abs().max().item(), 1e-30)
+                for e, r in zip(abs_errs, ref)]
+        bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
+        want = (["dqkv"] if fa.uses_merged_backward(s, s)
+                else ["dq", "dkv"])
+        ok = max(errs) <= tol and bitwise and finite and ran == want
+        name = (f"b{b} s{s} h{h} kv{kv} hd{hd} {dt} "
+                f"{'causal' if causal else 'full'}"
+                f"{' rope' if rope else ''}")
+        print(f"{name:48s} {'+'.join(ran):>6s} {errs[0]:9.2e} "
+              f"{errs[1]:9.2e} {errs[2]:9.2e} {tol:6.0e} {bitwise}"
+              f"{'' if ok else '  FAIL'}")
+        if not ok:
+            bad.append(name)
+        if b == 8:   # the slice's shapes: each kernel's own outputs
+            outputs = {"dq": (0,), "dkv": (1, 2), "dqkv": (0, 1, 2)}
+            for kname in ran:
+                slice_err[kname] = max(abs_errs[i] for i in outputs[kname])
+        del q, k, v, o, lse, grads, again, ref
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"flash backward kernels disagree with their plain version "
+             f"(or are not deterministic, or took the wrong route) on "
+             f"{len(bad)} shape(s): {bad}")
+    return slice_err
+
+
+def time_flash_bwd(torch, fa, F, slice_err):
+    """Phase 3c: each backward kernel's time at the shape the training
+    slice gives it (dq and dk/dv at seq 2048, the merged kernel at seq
+    512; b8 h16 kv16 hd128 f32 causal with RoPE), beside its bound, the
+    plain backward's time and torch.autograd.grad through
+    scaled_dot_product_attention at the same shape. Returns the kernels'
+    records (launches filled in by the training phase)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    records = []
+    for s, kernels in ((2048, ("dq", "dkv")), (512, ("dqkv",))):
+        b, h, kv, hd = 8, 16, 16, 128
+        q, k, v, do, dlse, cos, sin = _bwd_inputs(
+            torch, gen, b, s, h, kv, hd, torch.float32, True)
+        with torch.no_grad():
+            o, lse = fa._Flash.apply(q, k, v, cos, sin, True)
+            delta = fa._delta(o, do, dlse)
+            plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, dlse, cos=cos, sin=sin, causal=True))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dout = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dout, retain_graph=True))
+        for name in kernels:
+            fn = {"dq": fa.flash_attention_bwd_dq,
+                  "dkv": fa.flash_attention_bwd_dkv,
+                  "dqkv": fa.flash_attention_bwd_dqkv}[name]
+            with torch.no_grad():
+                kernel_ms = time_ms(torch, lambda: fn(
+                    q, k, v, do, lse, delta, cos=cos, sin=sin,
+                    causal=True))
+            products, outputs = {"dq": (3, "q"), "dkv": (4, "kv"),
+                                 "dqkv": (5, "qkv")}[name]
+            bound_ms, bound_by = backward_bound(b, s, h, kv, hd, "float32",
+                                                True, products, outputs)
+            shape = f"b{b} s{s} h{h} kv{kv} hd{hd} float32 causal rope"
+            print(f"flash_attention_bwd_{name} at {shape}: kernel "
+                  f"{kernel_ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
+                  f"autograd.grad through scaled_dot_product_attention "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
+            records.append({
+                "name": f"flash_attention_bwd_{name}", "route": "cuda",
+                "source": "tpudist_torch/csrc/flash_attention_bwd.cu",
+                "replaces": {"dq": "tpudist/ops/pallas/flash_attention.py"
+                                   ":296",
+                             "dkv": "tpudist/ops/pallas/flash_attention.py"
+                                    ":354",
+                             "dqkv": "tpudist/ops/pallas/flash_attention"
+                                     ".py:423"}[name],
+                "launches": None, "max_abs_err": slice_err.get(name),
+                "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "shape": shape})
+        del q, k, v, do, o, lse, delta, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    return records
 
 
 def serve_slice(torch, fa, profile: bool):
@@ -197,7 +410,7 @@ def serve_slice(torch, fa, profile: bool):
                                    vocab_size=cfg.vocab_size, max_new=32,
                                    rate=0.0, seed=0)
 
-    fa.launches = 0
+    _reset_launches(fa)
     t0 = time.perf_counter()
     engine.warmup(params)
     warm_s = time.perf_counter() - t0
@@ -262,6 +475,226 @@ def serve_slice(torch, fa, profile: bool):
     if profile:
         profile_serve(torch, engine, params, requests)
     return launches
+
+
+class _Tee(io.TextIOBase):
+    """stdout that is also kept, to read the train CLI's contract."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _launch_counts(fa):
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "flash_attention_bwd_dqkv": fa.dqkv_launches}
+
+
+def _reset_launches(fa):
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.dqkv_launches = 0
+
+
+def train_slice(torch, fa, seq: int, epochs: int, n_samples: int):
+    """Phases 5 and 6: ``python -m tpudist_torch.train`` (its ``main``)
+    on the card at full width: BASELINE config #5, f32, global batch 8,
+    seed 42, ``--lm-head auto``. The launch counts are set to 0 just
+    before and read just after; the stdout contract, a falling loss, the
+    verdict file and the exact launch counts are checked. Returns the
+    counts."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch import train as train_lib
+
+    save = ROOT / "build" / "chip_smoke_train" / f"seq{seq}"
+    shutil.rmtree(save, ignore_errors=True)
+    argv = ["--model", "transformer", "--seq-len", str(seq),
+            "--train-batch-size", "8", "--n-samples", str(n_samples),
+            "--epochs", str(epochs), "--seed", "42", "--log-every", "1",
+            "--save-dir", str(save)]
+    cfg = config_lib.parse_args(argv)
+    head = engine_lib._resolve_lm_head(cfg, torch.device("cuda"))
+    m = cfg.model
+    print(f"train seq {seq}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} float32, batch "
+          f"{cfg.batch_size}, {n_samples} samples, {epochs} epoch(s); "
+          f"--lm-head auto -> {'fused' if head[0] else 'plain'}")
+    verdict = save / "job_status.txt"
+    os.environ["TPUDIST_VERDICT_PATH"] = str(verdict)
+    tee = _Tee(sys.stdout)
+    _reset_launches(fa)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = train_lib.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["TPUDIST_VERDICT_PATH"]
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(fa)
+    out = tee.buf.getvalue()
+    recs = [json.loads(ln) for ln in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    timing = [r for r in recs if r["kind"] == "timing"]
+    losses = [r["loss"] for r in recs if r["kind"] == "step"]
+    status = verdict.read_text() if verdict.is_file() else None
+    shutil.rmtree(save, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if rc != 0 or status != "success" or not timing:
+        fail(f"train seq {seq}: exit {rc}, verdict {status!r}")
+    for epoch in range(1, epochs + 1):
+        for line in (f"Epoch {epoch:2d} finished. Avg loss: ",
+                     f"Epoch {epoch:2d} eval loss: "):
+            if line not in out:
+                fail(f"train seq {seq}: no {line!r} line on stdout")
+    if "Training completed." not in out:
+        fail(f"train seq {seq}: no 'Training completed.' line")
+    if not (losses and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"train seq {seq}: step losses {losses} do not fall")
+    steps = epochs * (n_samples // cfg.batch_size)
+    fwd = m.n_layers * (steps + epochs)       # + one eval forward an epoch
+    split = not fa.uses_merged_backward(seq, seq)
+    want = {"flash_attention_fwd": fwd,
+            "flash_attention_bwd_dq": m.n_layers * steps if split else 0,
+            "flash_attention_bwd_dkv": m.n_layers * steps if split else 0,
+            "flash_attention_bwd_dqkv": 0 if split else m.n_layers * steps}
+    t = timing[-1]
+    sps = t["steps"] / t["run_s"]
+    print(f"train seq {seq}: step losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; verdict {status}; {sps:.4f} steps/s, "
+          f"{sps * cfg.batch_size * m.max_seq_len:.1f} tokens/s, step "
+          f"{1e3 * t['run_s'] / t['steps']:.2f} ms (over {t['steps']} "
+          f"steps after the first); first step + builds "
+          f"{t['compile_warmup_s']:.2f} s; wall {wall:.2f} s")
+    print(f"train seq {seq}: kernel launches {counts} (want {want})")
+    if counts != want:
+        fail(f"train seq {seq}: kernel launches {counts}, want {want}")
+    return counts
+
+
+def plain_attention(torch, fa):
+    """Attention through the plain versions on the card, forward and
+    backward: the reference the step-level check holds the kernels
+    against."""
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, cos, sin, causal):
+            o, lse = fa.flash_attention_plain(q, k, v, cos=cos, sin=sin,
+                                              causal=causal)
+            ctx.save_for_backward(q, k, v, o, lse, cos, sin)
+            ctx.causal = causal
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse, cos, sin = ctx.saved_tensors
+            dq, dk, dv = fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, torch.zeros_like(lse), cos=cos,
+                sin=sin, causal=ctx.causal)
+            return dq, dk, dv, None, None, None
+
+    def attention(q, k, v, *, cos=None, sin=None, causal=True):
+        return Plain.apply(q, k, v, cos, sin, causal)
+    attention.accepts_rope = True
+    return attention
+
+
+def step_check(torch, fa, seq: int):
+    """Phase 7: one training step's loss and every param grad at full
+    width, through the kernels and through the plain versions on the
+    card, within f32 1e-4 (max |d| / max |plain| per tensor)."""
+    from tpudist_torch import data as data_lib
+    from tpudist_torch.config import flagship_model_config
+    from tpudist_torch.models import transformer
+
+    cfg = flagship_model_config(seq)
+    model = transformer.init(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(42))
+    tokens = torch.as_tensor(data_lib.make_synthetic_tokens(
+        8, seq + 1, cfg.vocab_size, 42), device="cuda").long()
+
+    def loss_and_grads(attn_impl):
+        h = transformer.hidden_states(model, tokens[:, :-1], cfg,
+                                      dtype=torch.float32,
+                                      attn_impl=attn_impl)
+        loss = transformer.head_loss(model.embed, h, tokens[:, 1:])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.detach(), grads
+
+    before = _launch_counts(fa)
+    loss_k, grads_k = loss_and_grads(transformer._attention)
+    ran = {k: v - before[k] for k, v in _launch_counts(fa).items()}
+    loss_p, grads_p = loss_and_grads(plain_attention(torch, fa))
+    torch.cuda.synchronize()
+    errs = {"loss": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())}
+    for (name, _), gk, gp in zip(model.named_parameters(), grads_k,
+                                 grads_p):
+        errs[name] = ((gk - gp).abs().max()
+                      / gp.abs().max().clamp_min(1e-30)).item()
+    worst = max(errs, key=errs.get)
+    print(f"step check seq {seq}: loss {loss_k.item():.6f} (kernels) vs "
+          f"{loss_p.item():.6f} (plain); worst relative error "
+          f"{errs[worst]:.3e} ({worst}) over the loss and "
+          f"{len(errs) - 1} grads (tol 1e-4); kernel launches {ran}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+    if errs[worst] > 1e-4 or not math.isfinite(errs[worst]):
+        fail(f"step check seq {seq}: {worst} off by {errs[worst]:.3e}")
+    if not ran["flash_attention_bwd_dqkv" if seq <= 512
+               else "flash_attention_bwd_dkv"]:
+        fail(f"step check seq {seq}: the backward kernels did not run")
+
+
+def profile_train(torch, seq: int):
+    """--profile: device time by kernel over two steady training steps at
+    full width, and the device's busy share of their wall time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+
+    cfg = config_lib.parse_args(["--model", "transformer", "--seq-len",
+                                 str(seq), "--train-batch-size", "8",
+                                 "--lm-head", "plain"])
+    dev = torch.device("cuda")
+    state = engine_lib.init_state(cfg, dev)
+    step = engine_lib.make_train_step(cfg, dev)
+    batch = (torch.as_tensor(data_lib.make_synthetic_tokens(
+        8, seq + 1, cfg.model.vocab_size), device=dev).long(),)
+    state, loss = step(state, batch)
+    loss.item()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, loss = step(state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    busy = sum(r[1] for r in rows)
+    print(f"profile: 2 train steps at seq {seq}: {wall:.3f} ms wall, "
+          f"device kernel time {busy:.3f} ms ({100 * busy / wall:.1f}% "
+          f"busy)")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"profile:   {ms:9.3f} ms {100 * ms / busy:5.1f}% {count:5d}x"
+              f"  {key[:80]}")
+    del state
+    torch.cuda.empty_cache()
 
 
 def profile_serve(torch, engine, params, requests):
@@ -334,23 +767,44 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("device: TF32 off for f32 matmuls and cuDNN convolutions")
 
-    # phase 2: build every kernel of the path from the checkout
-    res = build.build(fa.LIBRARY, fa.SOURCES)
-    ptxas = [ln.strip() for ln in res.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: {fa.LIBRARY}: {res.path.name} ({res.seconds:.2f} s): "
-          + "; ".join(ptxas))
+    # phase 2: build every kernel of the paths from the checkout
+    build_all(build, fa)
 
-    # phase 3: kernel vs plain, timings
-    record = check_flash(torch, fa, F)
+    # phase 3: kernels vs plain versions, timings
+    fwd = check_flash(torch, fa, F)
+    bwd = time_flash_bwd(torch, fa, F, check_flash_bwd(torch, fa))
 
-    # phase 4: the serving slice at full width
-    record["launches"] = serve_slice(torch, fa, args.profile)
-    if record["launches"] < 1:
-        fail("the serving path launched the flash kernel no time")
+    # phases 4-6: the serving path and the two training paths at full
+    # width, each with the launch counts set to 0 just before
+    paths = {"serve": {"flash_attention_fwd":
+                       serve_slice(torch, fa, args.profile)},
+             "train_seq2048": train_slice(torch, fa, 2048, epochs=2,
+                                          n_samples=32),
+             "train_seq512": train_slice(torch, fa, 512, epochs=1,
+                                         n_samples=32)}
+
+    # phase 7: one full-width training step, kernels vs plain versions
+    for seq in (512, 2048):
+        step_check(torch, fa, seq)
+    if args.profile:
+        for seq in (2048, 512):
+            profile_train(torch, seq)
+
+    reaches = {"flash_attention_fwd": tuple(paths),
+               "flash_attention_bwd_dq": ("train_seq2048",),
+               "flash_attention_bwd_dkv": ("train_seq2048",),
+               "flash_attention_bwd_dqkv": ("train_seq512",)}
+    records = [fwd] + bwd
+    for rec in records:
+        by_path = {p: paths[p].get(rec["name"], 0) for p in paths}
+        rec["launches_by_path"] = by_path
+        rec["launches"] = sum(by_path.values())
+        missing = [p for p in reaches[rec["name"]] if by_path[p] < 1]
+        if missing:
+            fail(f"{rec['name']} launched no time on {missing}")
 
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

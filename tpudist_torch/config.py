@@ -1,18 +1,42 @@
-"""Model configuration: the ``ModelConfig`` fields the serving lane reads,
-with the JAX package's defaults (``tpudist/config.py``; BASELINE config
-#5, the Llama-style transformer, is ``ModelConfig(name="transformer")``).
+"""Configuration: the model, data, parallel and training fields the
+port's serving and training lanes read, with the JAX package's defaults
+(``tpudist/config.py``; BASELINE config #5, the Llama-style transformer,
+is ``ModelConfig(name="transformer")``), and the train CLI's
+``parse_args``.
+
+The training lane runs on one process and one device. Flags of the JAX
+CLI that this slice does not carry are refused by :func:`check_supported`
+with the ROADMAP item that brings them, never silently ignored; flags
+neither package knows are tolerated (``parse_known_args``), as the JAX
+CLI tolerates them.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Synthetic dataset shape."""
+
+    n_samples: int = 2000
+    n_features: int = 20
+    seed: int = 42
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Model selection and transformer shape."""
+    """Model selection and shape. ``mlp`` is the parity model,
+    ``transformer`` the Llama-style block stack."""
 
     name: str = "mlp"
+    n_features: int = 20
+    hidden: int = 64
+    # transformer-only fields
     vocab_size: int = 32000
     n_layers: int = 4
     d_model: int = 2048
@@ -21,3 +45,214 @@ class ModelConfig:
     d_ff: int = 5504
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh axis sizes; this slice runs every axis at 1 (one process, one
+    device)."""
+
+    data: int = -1
+    pipe: int = 1
+    fsdp: int = 1
+    expert: int = 1
+    tensor: int = 1
+    context: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Top-level training config (the subset of the JAX package's
+    ``TrainConfig`` the per-step train path reads, plus ``device``)."""
+
+    batch_size: int = 64          # GLOBAL batch size
+    epochs: int = 5
+    lr: float = 1e-3
+    seed: int = 42
+    save_dir: str = "ckpt"
+    resume: Any = False           # False | "latest" | "auto"
+    ckpt_every_steps: int = 0     # also save mid-epoch every N steps
+    grad_accum_steps: int = 1
+    dtype: str = "float32"        # compute dtype: float32 | bfloat16
+    adam_nu_dtype: str = "float32"
+    remat: bool = False           # checkpoint transformer layers
+    xent_chunks: int = 0
+    fused_xent: bool = False
+    lm_head: str = "auto"         # auto | plain (fused/chunked: later)
+    fail_at: Optional[int] = None  # fault injection: fail after this epoch
+    log_every: int = 100
+    steps_per_dispatch: int = 0   # 0 = auto, which is 1 here
+    autotune: Optional[str] = None
+    live: Optional[str] = None
+    device: Optional[str] = None  # None = cuda
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
+
+
+RESUME_MODES = ("latest", "auto")
+
+
+def resolve_resume(cfg: TrainConfig) -> Optional[str]:
+    """``--resume`` as a concrete mode or None (off): ``True`` means
+    ``latest``, which raises when the newest checkpoint cannot drive this
+    run; ``auto`` degrades a failed restore to a fresh start."""
+    r = cfg.resume
+    if not r:
+        return None
+    if r is True:
+        return "latest"
+    if r not in RESUME_MODES:
+        raise ValueError(
+            f"--resume must be one of {RESUME_MODES}, got {r!r}")
+    return r
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Refuse what this slice of the port does not carry, naming the
+    ROADMAP item (Queue A) that brings it."""
+    p = cfg.parallel
+    axes = {"pipe": p.pipe, "fsdp": p.fsdp, "expert": p.expert,
+            "tensor": p.tensor, "context": p.context}
+    wide = {k: v for k, v in axes.items() if v != 1}
+    if wide:
+        raise ValueError(
+            f"mesh axes {wide}: the port trains on one device; sharded "
+            f"layouts and multi-axis parallelism come with ROADMAP Queue A "
+            f"item 8 (data parallelism with item 4)")
+    if cfg.model.name not in ("mlp", "transformer"):
+        raise ValueError(
+            f"--model {cfg.model.name}: the port trains mlp and "
+            f"transformer; the MoE model comes with ROADMAP Queue A item 8")
+    if cfg.steps_per_dispatch > 1:
+        raise ValueError(
+            f"--steps-per-dispatch {cfg.steps_per_dispatch}: the port "
+            f"dispatches one step at a time; the superstep comes with "
+            f"ROADMAP Queue A item 7")
+    if cfg.lm_head in ("fused", "chunked") or cfg.fused_xent \
+            or cfg.xent_chunks:
+        raise ValueError(
+            "--lm-head fused|chunked, --fused-xent and --xent-chunks: the "
+            "port's head is the plain tied head; the fused and chunked "
+            "heads (kernels 5-6) come with ROADMAP Queue A item 5")
+    if cfg.lm_head not in ("auto", "plain"):
+        raise ValueError(f"unknown --lm-head {cfg.lm_head!r}")
+    if cfg.adam_nu_dtype != "float32":
+        raise ValueError(
+            "--adam-nu-dtype bfloat16: the stochastically rounded bf16 "
+            "second moment comes with ROADMAP Queue A item 5")
+    if cfg.live not in (None, "off"):
+        raise ValueError(
+            "--live on: the live telemetry bus comes with ROADMAP Queue A "
+            "item 11")
+    if cfg.autotune not in (None, "off"):
+        raise ValueError(
+            f"--autotune {cfg.autotune}: autotuning comes with ROADMAP "
+            f"Queue A item 7")
+
+
+def flagship_model_config(max_seq_len: int = 512) -> ModelConfig:
+    """BASELINE config #5: the synthetic Llama-block transformer (4
+    layers, 2048 hidden, 16 heads, SwiGLU 5504)."""
+    return ModelConfig(name="transformer", vocab_size=32000, n_layers=4,
+                       d_model=2048, n_heads=16, n_kv_heads=16, d_ff=5504,
+                       max_seq_len=max_seq_len)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
+    """CLI -> TrainConfig, the JAX CLI's flags and defaults. Unknown
+    flags are tolerated; flags this slice does not carry parse and are
+    refused by :func:`check_supported` when the run starts."""
+    p = argparse.ArgumentParser(
+        prog="python -m tpudist_torch.train",
+        description="tpudist synthetic training workload on PyTorch/CUDA")
+    p.add_argument("--train-batch-size", type=int, default=64,
+                   help="global batch size")
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--save-dir", type=str, default="ckpt")
+    p.add_argument("--resume", nargs="?", const="latest", default=False,
+                   choices=list(RESUME_MODES),
+                   help="resume from the newest checkpoint in --save-dir: "
+                        "bare/latest raises when it cannot drive this "
+                        "run; auto degrades a failed restore to a fresh "
+                        "start")
+    p.add_argument("--ckpt-every-steps", type=int, default=0,
+                   help="also checkpoint mid-epoch every N steps")
+    p.add_argument("--model", type=str, default="mlp",
+                   choices=["mlp", "transformer", "moe"])
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--grad-accum-steps", type=int, default=1)
+    p.add_argument("--adam-nu-dtype", type=str, default="float32",
+                   choices=("float32", "bfloat16"))
+    p.add_argument("--remat", action="store_true",
+                   help="recompute transformer layers in backward")
+    p.add_argument("--xent-chunks", type=int, default=0)
+    p.add_argument("--lm-head", type=str, default="auto",
+                   choices=("auto", "plain", "chunked", "fused"),
+                   help="LM-head strategy; auto picks from the logits-pair "
+                        "+ activation memory estimate")
+    p.add_argument("--fused-xent", action="store_true")
+    p.add_argument("--n-samples", type=int, default=2000)
+    p.add_argument("--n-features", type=int, default=20)
+    p.add_argument("--vocab-size", type=int, default=32000)
+    p.add_argument("--n-layers", type=int, default=4)
+    p.add_argument("--d-model", type=int, default=2048)
+    p.add_argument("--n-heads", type=int, default=16)
+    p.add_argument("--n-kv-heads", type=int, default=None)
+    p.add_argument("--d-ff", type=int, default=5504)
+    p.add_argument("--seq-len", type=int, default=2048)
+    for axis in ("fsdp", "tensor", "context", "pipe", "expert"):
+        p.add_argument(f"--{axis}", type=int, default=1,
+                       help=f"{axis} mesh axis size (1 in this slice)")
+    p.add_argument("--fail-at", type=int, default=None,
+                   help="fault injection: fail after this epoch")
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--steps-per-dispatch", type=int, default=0)
+    p.add_argument("--autotune", type=str, default=None,
+                   choices=("off", "probe", "cache-only"))
+    p.add_argument("--live", type=str, default=None, choices=("on", "off"))
+    p.add_argument("--device", type=str, default=None,
+                   choices=("cuda", "cpu"),
+                   help="where the model trains; cuda (the default) fails "
+                        "when no card is present rather than falling back "
+                        "to the CPU")
+    args = p.parse_known_args(argv)[0]
+    return TrainConfig(
+        batch_size=args.train_batch_size,
+        epochs=args.epochs,
+        lr=args.lr,
+        seed=args.seed,
+        save_dir=args.save_dir,
+        resume=args.resume,
+        ckpt_every_steps=args.ckpt_every_steps,
+        grad_accum_steps=args.grad_accum_steps,
+        dtype=args.dtype,
+        adam_nu_dtype=args.adam_nu_dtype,
+        remat=args.remat,
+        xent_chunks=args.xent_chunks,
+        fused_xent=args.fused_xent,
+        lm_head=args.lm_head,
+        fail_at=args.fail_at,
+        log_every=args.log_every,
+        steps_per_dispatch=args.steps_per_dispatch,
+        autotune=args.autotune,
+        live=args.live,
+        device=args.device,
+        data=DataConfig(n_samples=args.n_samples,
+                        n_features=args.n_features, seed=args.seed),
+        model=ModelConfig(name=args.model, n_features=args.n_features,
+                          vocab_size=args.vocab_size,
+                          n_layers=args.n_layers, d_model=args.d_model,
+                          n_heads=args.n_heads,
+                          n_kv_heads=(args.n_kv_heads
+                                      if args.n_kv_heads is not None
+                                      else args.n_heads),
+                          d_ff=args.d_ff, max_seq_len=args.seq_len),
+        parallel=ParallelConfig(pipe=args.pipe, fsdp=args.fsdp,
+                                expert=args.expert, tensor=args.tensor,
+                                context=args.context),
+    )

@@ -1,8 +1,9 @@
 """Carry the JAX package's parameters into the port's modules.
 
 The JAX package keeps parameters as a nested dict of arrays; the port's
-modules keep the same names and layouts as a flat ``state_dict``
-(``{"layers": {"wq": ...}}`` ↔ ``"layers.wq"``). A caller fetches the
+modules (the transformer and the MLP) keep the same names and layouts as
+a flat ``state_dict`` (``{"layers": {"wq": ...}}`` ↔ ``"layers.wq"``,
+``{"fc1": {"w": ...}}`` ↔ ``"fc1.w"``). A caller fetches the
 JAX params to host memory as numpy arrays (``jax.device_get``) and
 loads the result with ``module.load_state_dict``; both packages then
 compute the same function.

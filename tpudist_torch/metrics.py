@@ -1,8 +1,9 @@
-"""Rank-0 logging and the JSONL metrics stream.
+"""Rank-0 logging, step timing and the JSONL metrics stream.
 
-Counterpart of the serving lane's part of ``tpudist/metrics.py``: the
-same record shapes (``kind=serve`` / ``serve_request`` / ``serve_tick``,
-each stamped with wall ``ts`` and monotonic ``mono`` clocks), so the JAX
+Counterpart of ``tpudist/metrics.py``: the same record shapes (the serve
+lane's ``kind=serve`` / ``serve_request`` / ``serve_tick``, the train
+lane's ``step`` / ``epoch`` / ``ckpt`` / ``timing`` / ``attempt``, each
+stamped with wall ``ts`` and monotonic ``mono`` clocks), so the JAX
 package's offline readers fold the port's runs unchanged.
 """
 
@@ -13,7 +14,7 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import IO, List, Optional
+from typing import IO, Any, Dict, List, Optional
 
 import torch
 
@@ -28,6 +29,58 @@ def log0(msg: str) -> None:
     """Print on rank 0 only."""
     if _rank() == 0:
         print(msg, flush=True)
+
+
+@dataclass
+class StepTimer:
+    """Wall clock over completed device work.
+
+    ``stop_many(result, n)`` copies ``result`` to the host before reading
+    the clock (PyTorch returns before the card finishes, so the copy is
+    the fence), and counts ``n`` steps. The first stop (the first step:
+    the kernels' build and the allocator's first growth) is kept out of
+    the throughput aggregate. One process on one chip."""
+
+    WARMUP = 1
+    t0: float = 0.0
+    elapsed: float = 0.0
+    steps: int = 0
+    warmup_s: float = 0.0
+    _seen: int = 0
+
+    def start(self) -> None:
+        self.t0 = time.perf_counter()
+
+    @property
+    def warming(self) -> bool:
+        """Still inside the warmup stops."""
+        return self._seen < self.WARMUP
+
+    def stop_many(self, result: Any, n: int) -> float:
+        if n <= 0:
+            return 0.0
+        if isinstance(result, torch.Tensor):
+            result.detach().cpu()
+        dt = time.perf_counter() - self.t0
+        self._seen += 1
+        if self._seen <= self.WARMUP:
+            self.warmup_s += dt
+        else:
+            self.elapsed += dt
+            self.steps += n
+        return dt
+
+    def split(self) -> Dict[str, Any]:
+        """Warmup-vs-run wall split for the metrics stream, full
+        precision."""
+        return {"compile_warmup_s": self.warmup_s,
+                "run_s": self.elapsed, "steps": self.steps}
+
+    def steps_per_sec(self) -> float:
+        return self.steps / self.elapsed if self.elapsed > 0 else 0.0
+
+    def steps_per_sec_per_chip(self) -> float:
+        return self.steps_per_sec()
 
 
 @dataclass

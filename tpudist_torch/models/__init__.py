@@ -1,8 +1,8 @@
-"""Model zoo of the port (the serving slice carries the transformer)."""
+"""Model zoo of the port: the MLP parity model and the transformer."""
 
-from tpudist_torch.models import transformer
+from tpudist_torch.models import mlp, transformer
 
-_REGISTRY = {"transformer": transformer}
+_REGISTRY = {"mlp": mlp, "transformer": transformer}
 
 
 def get_model(name: str):

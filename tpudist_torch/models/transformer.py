@@ -1,4 +1,5 @@
-"""Llama-style transformer (BASELINE config #5), forward only.
+"""Llama-style transformer (BASELINE config #5): forward, serving and
+training loss.
 
 Counterpart of ``tpudist/models/transformer.py``: RMSNorm, RoPE, SwiGLU,
 grouped-query attention and a tied output head. The model is an
@@ -9,10 +10,13 @@ layout (``embed`` (V, d), ``layers.wq`` (L, d, h·hd), …, ``final_norm``
 are plain functions of that module and tensors, as the JAX package's are
 of its params pytree; the scan over layers is a Python loop.
 
-Attention routing (``_attention``): shapes the flash kernel takes go to
+Attention routing (``_attention``): shapes the flash kernels take go to
 :func:`tpudist_torch.ops.cuda.flash_attention.flash_attention`, which
-launches the Hopper kernel for CUDA tensors and runs its plain version
-for CPU tensors; other long causal shapes go blockwise, the rest dense.
+launches the Hopper kernels (forward, and the backward ones under
+autograd) for CUDA tensors and runs their plain versions for CPU
+tensors; other long causal shapes go blockwise, the rest dense. Training
+(:func:`loss_fn`) rotates q/k inside the flash kernels; the serving
+prefill rotates them up front, since the cache keeps rotated keys.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tpudist_torch.config import ModelConfig
@@ -311,9 +316,11 @@ def _cached_hidden_states(params: Transformer, tokens: torch.Tensor,
 
 def hidden_states(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, *, dtype=torch.bfloat16,
-                  attn_impl=_attention, kv_cache=None, cur_index=None):
+                  attn_impl=_attention, remat: bool = False, kv_cache=None,
+                  cur_index=None):
     """Backbone forward: tokens (batch, seq) -> final-norm hidden states
-    (batch, seq, d_model) in ``dtype``. ``kv_cache``/``cur_index``
+    (batch, seq, d_model) in ``dtype``. ``remat`` checkpoints each layer
+    (activations recomputed in backward). ``kv_cache``/``cur_index``
     select the serving path (:func:`_cached_hidden_states`) and the
     return becomes ``(h, kv_cache)``."""
     if kv_cache is not None:
@@ -324,7 +331,13 @@ def hidden_states(params: Transformer, tokens: torch.Tensor,
     cos, sin = precompute_rope(s, hd, cfg.rope_theta, device=tokens.device)
     x = _embed(params, tokens, dtype)
     for i in range(cfg.n_layers):
-        x = _layer(x, params.layers.layer(i), cfg, cos, sin, attn_impl)
+        lp = params.layers.layer(i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, x, lp, cfg, cos, sin, attn_impl,
+                use_reentrant=False)
+        else:
+            x = _layer(x, lp, cfg, cos, sin, attn_impl)
     return rmsnorm(x, params.final_norm)
 
 
@@ -340,3 +353,74 @@ def apply(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         return (x @ params.embed.to(dtype).T).to(torch.float32), kv_cache
     x = hidden_states(params, tokens, cfg, dtype=dtype, attn_impl=attn_impl)
     return (x @ params.embed.to(dtype).T).to(torch.float32)
+
+
+class _Xent(torch.autograd.Function):
+    """Mean cross-entropy of (..., vocab) logits against int targets,
+    reduced in f32 whatever the logits dtype. The backward is the JAX
+    package's ``_xent_bwd``: dlogits = (softmax - onehot) * ct / n with
+    the onehot an iota compare, in the logits' own dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        lf = logits.to(torch.float32)
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+        ctx.save_for_backward(logits, logz, targets)
+        return torch.mean(logz - gold)
+
+    @staticmethod
+    def backward(ctx, ct):
+        logits, logz, targets = ctx.saved_tensors
+        n = logits.numel() // logits.shape[-1]
+        p = torch.exp(logits.to(torch.float32) - logz[..., None])
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = iota == targets[..., None].long()
+        dlogits = ((p - onehot.to(torch.float32)) * (ct / n)).to(
+            logits.dtype)
+        return dlogits, None
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return _Xent.apply(logits, targets)
+
+
+def pick_lm_head(n_tokens_per_device: int, vocab: int, d_model: int,
+                 n_layers: int, dtype_bytes: int, state_bytes: float,
+                 hbm_bytes: float) -> tuple[bool, int]:
+    """Memory-driven LM-head strategy -> (fused_xent, xent_chunks), a
+    copy of the JAX package's policy: the plain whole-logits head while
+    the (tokens, vocab) logits pair plus ~12 live (tokens, d_model)
+    buffers per layer fit in 0.75 of the memory left beside the train
+    state, else the fused head. The 0.75 was fitted on a v5e; the port
+    keeps it until an H100 calibration replaces it (ROADMAP)."""
+    pair = 2 * n_tokens_per_device * vocab * dtype_bytes
+    act = 12 * n_tokens_per_device * d_model * n_layers * dtype_bytes
+    if pair + act <= 0.75 * max(hbm_bytes - state_bytes, 0.0):
+        return False, 0
+    return True, 0
+
+
+def head_loss(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
+              *, xent_chunks: int = 0,
+              fused_xent: bool = False) -> torch.Tensor:
+    """Tied LM head + mean cross-entropy: the plain whole-logits
+    strategy, logits in the model dtype. The fused and chunked heads are
+    not in the port yet."""
+    if fused_xent or xent_chunks:
+        raise ValueError(
+            "the fused and chunked LM heads (fused_xent kernels 5-6, "
+            "chunked streaming) come with ROADMAP Queue A item 5; the "
+            "port computes the plain head")
+    return _xent(h @ emb.T, targets)
+
+
+def loss_fn(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
+            dtype=torch.bfloat16, remat: bool = False, xent_chunks: int = 0,
+            fused_xent: bool = False) -> torch.Tensor:
+    """Causal next-token cross-entropy: tokens (batch, seq + 1) -> the
+    mean over the batch's seq positions."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    h = hidden_states(params, inputs, cfg, dtype=dtype, remat=remat)
+    return head_loss(params.embed.to(dtype), h, targets,
+                     xent_chunks=xent_chunks, fused_xent=fused_xent)

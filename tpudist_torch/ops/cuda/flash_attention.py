@@ -1,16 +1,25 @@
-"""Flash-attention forward on Hopper: the wrapper, its gate and its plain
-version.
+"""Flash attention on Hopper: the wrappers, their gate and their plain
+versions, forward and backward.
 
-Counterpart of ``tpudist/ops/pallas/flash_attention.py`` (forward only:
-its three backward kernels come with the training slice). The kernel is
-``tpudist_torch/csrc/flash_attention_fwd.cu``, built at first use
+Counterpart of ``tpudist/ops/pallas/flash_attention.py``. The kernels are
+``tpudist_torch/csrc/flash_attention_fwd.cu`` (forward) and
+``tpudist_torch/csrc/flash_attention_bwd.cu`` (dq, dk/dv and the merged
+dq/dk/dv backward), each built at first use
 (:mod:`tpudist_torch.ops.cuda.build`) and called through ctypes on
 PyTorch's current stream.
 
-The wrapper launches the kernel for CUDA tensors and runs
-:func:`flash_attention_plain` for CPU tensors; there is no other route.
-``launches`` counts the kernel launches, so a run can show that its main
-path went through the kernel.
+:class:`_Flash` is the ``torch.autograd.Function`` (the JAX package's
+custom VJP ``_flash``): its forward returns ``(o, lse)`` and saves the
+unrotated q/k, v, o and lse; its backward folds the lse cotangent into
+``delta = rowsum(do * o) - dlse`` (f32 PyTorch ops, as the JAX package
+computes it outside Pallas) and runs the merged backward when one 512-row
+block covers both sequences (the JAX routing at its default blocks), the
+dq and dk/dv pair otherwise.
+
+Every wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors; there is no other route. ``launches`` (forward),
+``dq_launches``, ``dkv_launches`` and ``dqkv_launches`` count the kernel
+launches, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -22,16 +31,22 @@ from typing import Optional, Tuple
 import torch
 
 from tpudist_torch.ops.cuda import build
-from tpudist_torch.ops.rope import apply_rope
+from tpudist_torch.ops.rope import apply_rope, apply_rope_t
 
 NEG = -1e30
-HEAD_DIMS = (128, 256)      # the kernel's instantiations
-MAX_BATCH_HEADS = 65535     # the grid's y extent: one row per (batch, head)
+HEAD_DIMS = (128, 256)      # the kernels' instantiations
+MAX_BATCH_HEADS = 65535     # the grids' y extent: one row per (batch, head)
+MERGED_MAX_SEQ = 512        # the JAX package's default block_q / block_k
 LIBRARY = "flash_attention_fwd"
 SOURCES = ("flash_attention_fwd.cu",)
+BWD_LIBRARY = "flash_attention_bwd"
+BWD_SOURCES = ("flash_attention_bwd.cu",)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+dq_launches = 0
+dkv_launches = 0
+dqkv_launches = 0
 
 
 def supports(q_shape, k_shape, *, causal: bool = True) -> bool:
@@ -39,8 +54,8 @@ def supports(q_shape, k_shape, *, causal: bool = True) -> bool:
     sites gate on this and route other shapes dense or blockwise, as
     the JAX package's ``supports`` does: seq multiples of 128, whole kv
     groups, and seq_q == seq_k under the causal mask (it has no kv
-    offset). The head dims are those the kernel is built for, and
-    batch x heads stays within its grid."""
+    offset). The head dims are those the kernels are built for, and
+    batch x heads stays within their grids."""
     b, s, h, hd = q_shape
     _, sk, kv, _ = k_shape
     return (hd in HEAD_DIMS and kv > 0 and h % kv == 0
@@ -49,17 +64,24 @@ def supports(q_shape, k_shape, *, causal: bool = True) -> bool:
             and s > 0 and s % 128 == 0 and sk > 0 and sk % 128 == 0)
 
 
+def uses_merged_backward(s: int, sk: int) -> bool:
+    """Does the backward take the merged dq/dk/dv kernel? The JAX package
+    does when one block covers both sequences (``_bwd``: one q block and
+    one kv block), which at its default 512-row blocks is seq <= 512."""
+    return s <= MERGED_MAX_SEQ and sk <= MERGED_MAX_SEQ
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *,
                           cos: Optional[torch.Tensor] = None,
                           sin: Optional[torch.Tensor] = None,
                           causal: bool = True
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function with materialised scores: returns (o (b, s,
-    h, hd) in q's dtype, lse (b, h, s) f32). Scores, softmax statistics
-    and the PV sum in f32; the probabilities are rounded to v's dtype
-    before the PV product and rotated q/k to their own, as in the
-    kernel. Any shape with h % kv == 0."""
+    """The forward kernel's function with materialised scores: returns
+    (o (b, s, h, hd) in q's dtype, lse (b, h, s) f32). Scores, softmax
+    statistics and the PV sum in f32; the probabilities are rounded to
+    v's dtype before the PV product and rotated q/k to their own, as in
+    the kernel. Any shape with h % kv == 0."""
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if causal and s != sk:
@@ -85,6 +107,67 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return o.permute(0, 2, 1, 3).to(q.dtype), lse
 
 
+def _delta(o: torch.Tensor, do: torch.Tensor,
+           dlse: torch.Tensor) -> torch.Tensor:
+    """(b, h, s) f32 softmax-jacobian row constant rowsum(do * o) - dlse:
+    the lse cotangent folds in here (d lse_i / d s_ij = p_ij)."""
+    d = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1)
+    return (d - dlse.float()).contiguous()
+
+
+def _bwd_plain(q, k, v, lse, do, delta, cos, sin, causal):
+    """The backward kernels' function from delta, with materialised
+    scores, as the JAX kernels compute it (``_p_and_ds``, ``_rot_t``,
+    ``_group_sum``): f32 scores, p and ds, rounded to the input dtype
+    before the dq/dk/dv products; dq/dk scaled, then counter-rotated."""
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    scale = 1.0 / hd ** 0.5
+    dt = q.dtype
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    qf, kf, dof = q.float(), k.float(), do.float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        keep = torch.ones(s, sk, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, NEG)
+    p = torch.exp(sc - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    if rep > 1:
+        dv = dv.reshape(b, sk, kv, rep, hd).sum(dim=3)
+        dk = dk.reshape(b, sk, kv, rep, hd).sum(dim=3)
+    dk = dk * scale
+    if cos is not None:
+        dq = apply_rope_t(dq, cos, sin)
+        dk = apply_rope_t(dk, cos, sin)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              dlse: torch.Tensor, *,
+                              cos: Optional[torch.Tensor] = None,
+                              sin: Optional[torch.Tensor] = None,
+                              causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernels' function with materialised scores: the
+    cotangents (dq, dk, dv) of (q, k, v) given those (do, dlse) of the
+    forward's (o, lse). q/k are unrotated, as the forward took them."""
+    return _bwd_plain(q, k, v, lse, do, _delta(o, do, dlse), cos, sin,
+                      causal)
+
+
 @functools.cache
 def _kernel():
     lib = build.load(LIBRARY, SOURCES)
@@ -99,18 +182,40 @@ def _kernel():
     return fn, err_str
 
 
+@functools.cache
+def _bwd_kernels():
+    lib = build.load(BWD_LIBRARY, BWD_SOURCES)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # dtype, hd, q, k, v, do, lse, delta, cos, sin, <outputs>, b, s, sk,
+    # h, kv, scale, causal, stream
+    head = [i32, i32] + [ptr] * 8
+    tail = [i32] * 5 + [f32, i32, ptr]
+    fns = {"dq": (lib.tpudist_flash_attention_bwd_dq, 1),
+           "dkv": (lib.tpudist_flash_attention_bwd_dkv, 2),
+           "dqkv": (lib.tpudist_flash_attention_bwd_dqkv, 4)}
+    for fn, n_out in fns.values():
+        fn.argtypes = head + [ptr] * n_out + tail
+        fn.restype = i32
+    tile = lib.tpudist_flash_attention_bwd_tile
+    tile.argtypes = [i32]
+    tile.restype = i32
+    err_str = lib.tpudist_flash_bwd_error_string
+    err_str.argtypes = [i32]
+    err_str.restype = ctypes.c_char_p
+    return {name: fn for name, (fn, _) in fns.items()}, tile, err_str
+
+
+def _check_dtypes(what: str, *tensors) -> None:
+    dt = tensors[0].dtype
+    if dt not in _DTYPE_CODES or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{what} kernel takes float32 or bfloat16 tensors "
+                        f"of one dtype, got "
+                        f"{', '.join(str(t.dtype) for t in tensors)}")
+
+
 def _launch(q, k, v, cos, sin, causal):
     global launches
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes float32 or "
-                        f"bfloat16 q/k/v of one dtype, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward only: its backward "
-            "kernels (_dq/_dkv/_dqkv) come with the training slice; "
-            "call it under torch.no_grad() or torch.inference_mode()")
+    _check_dtypes("flash_attention", q, k, v)
     tensors = (q, k, v) if cos is None else (q, k, v, cos, sin)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention kernel needs contiguous inputs")
@@ -134,7 +239,9 @@ def _launch(q, k, v, cos, sin, causal):
     return o, lse
 
 
-def _flash(q, k, v, cos, sin, causal):
+def _check(q, k, v, cos, sin, causal):
+    """Shape, RoPE-table and device checks shared by every entry point;
+    returns the RoPE tables as f32 (or None)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention takes q (b, s, h, hd) and k/v "
@@ -161,32 +268,144 @@ def _flash(q, k, v, cos, sin, causal):
     tensors = (q, k, v) if cos is None else (q, k, v, cos, sin)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("flash_attention inputs must share one device")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, cos=cos, sin=sin,
-                                     causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
                          f"(plain version), got {q.device}")
-    return _launch(q, k, v, cos, sin, causal)
+    return cos, sin
+
+
+def _bwd_launch(name: str, q, k, v, do, lse, delta, cos, sin, causal):
+    """Launch backward kernel ``name`` (dq, dkv or dqkv) and return its
+    outputs."""
+    global dq_launches, dkv_launches, dqkv_launches
+    _check_dtypes(f"flash_attention backward ({name})", q, k, v, do)
+    tensors = (q, k, v, do, lse, delta) + (() if cos is None
+                                          else (cos, sin))
+    if not all(t.is_contiguous() for t in tensors) \
+            or lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError("flash_attention backward kernels need contiguous "
+                         "inputs and f32 lse/delta")
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    fns, tile, err_str = _bwd_kernels()
+    outs = {"dq": (torch.empty_like(q),),
+            "dkv": (torch.empty_like(k), torch.empty_like(v)),
+            "dqkv": (torch.empty_like(q), torch.empty_like(k),
+                     torch.empty_like(v))}[name]
+    extra = ()
+    if name == "dqkv":
+        # one f32 dq partial of q's (b*h, s, hd) per key tile
+        extra = (torch.empty((sk // tile(hd), b * h, s, hd),
+                             dtype=torch.float32, device=q.device),)
+    with torch.cuda.device(q.device):
+        err = fns[name](
+            _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if cos is None else cos.data_ptr(),
+            None if sin is None else sin.data_ptr(),
+            *(t.data_ptr() for t in outs + extra), b, s, sk, h, kv,
+            1.0 / hd ** 0.5, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward kernel ({name}) "
+                           f"launch failed: cudaError {err} "
+                           f"({err_str(err).decode()})")
+    if name == "dq":
+        dq_launches += 1
+    elif name == "dkv":
+        dkv_launches += 1
+    else:
+        dqkv_launches += 1
+    return outs
+
+
+def _bwd(name: str, q, k, v, do, lse, delta, *, cos=None, sin=None,
+         causal=True):
+    cos, sin = _check(q, k, v, cos, sin, causal)
+    if q.device.type == "cpu":
+        dq, dk, dv = _bwd_plain(q, k, v, lse, do, delta, cos, sin, causal)
+        return {"dq": (dq,), "dkv": (dk, dv), "dqkv": (dq, dk, dv)}[name]
+    return _bwd_launch(name, q, k, v, do.contiguous(), lse, delta, cos, sin,
+                       causal)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, cos=None, sin=None,
+                           causal=True) -> torch.Tensor:
+    """dq of the flash backward (the ``_dq_kernel`` counterpart), from
+    the forward's inputs, ``do``, ``lse`` and ``delta`` (b, h, s) f32."""
+    return _bwd("dq", q, k, v, do, lse, delta, cos=cos, sin=sin,
+                causal=causal)[0]
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, cos=None, sin=None,
+                            causal=True
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), group-summed to the compact kv heads (the
+    ``_dkv_kernel`` counterpart)."""
+    return _bwd("dkv", q, k, v, do, lse, delta, cos=cos, sin=sin,
+                causal=causal)
+
+
+def flash_attention_bwd_dqkv(q, k, v, do, lse, delta, *, cos=None,
+                             sin=None, causal=True
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) from one p/ds recompute per (q tile, key tile) pair
+    (the ``_dqkv_kernel`` counterpart)."""
+    return _bwd("dqkv", q, k, v, do, lse, delta, cos=cos, sin=sin,
+                causal=causal)
+
+
+class _Flash(torch.autograd.Function):
+    """(o, lse) of flash attention, both differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, causal):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, cos=cos, sin=sin,
+                                           causal=causal)
+        else:
+            o, lse = _launch(q, k, v, cos, sin, causal)
+        ctx.save_for_backward(q, k, v, o, lse, cos, sin)
+        ctx.causal = causal
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, cos, sin = ctx.saved_tensors
+        delta = _delta(o, do, dlse)
+        kw = dict(cos=cos, sin=sin, causal=ctx.causal)
+        if uses_merged_backward(q.shape[1], k.shape[1]):
+            dq, dk, dv = flash_attention_bwd_dqkv(q, k, v, do, lse, delta,
+                                                  **kw)
+        else:
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     cos: Optional[torch.Tensor] = None,
                     sin: Optional[torch.Tensor] = None,
                     causal: bool = True) -> torch.Tensor:
-    """Attention without the (b, h, s, s) score tensor in device memory.
+    """Attention without the (b, h, s, s) score tensor in device memory,
+    differentiable in q, k and v.
 
     q: (batch, seq, heads, head_dim); k/v: (batch, seq_k, kv_heads,
     head_dim), grouped-query k/v kept compact (consecutive q heads share
     a kv head). ``cos``/``sin``: optional (seq, head_dim/2) RoPE tables;
-    q and k are then rotated inside the kernel. Returns o like q."""
-    return _flash(q, k, v, cos, sin, causal)[0]
+    q and k are then rotated inside the kernels (the tables are
+    positional constants: no gradient). Returns o like q."""
+    cos, sin = _check(q, k, v, cos, sin, causal)
+    return _Flash.apply(q, k, v, cos, sin, causal)[0]
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention` that also returns the per-row log-sum-exp:
-    (o (b, s, h, hd), lse (b, h, s) f32). No RoPE fusion here, as in the
-    JAX package: rotate q/k before calling."""
-    return _flash(q, k, v, None, None, causal)
+    (o (b, s, h, hd), lse (b, h, s) f32), both differentiable (the lse
+    cotangent folds into the backward's delta). No RoPE fusion here, as
+    in the JAX package: rotate q/k before calling."""
+    _check(q, k, v, None, None, causal)
+    return _Flash.apply(q, k, v, None, None, causal)

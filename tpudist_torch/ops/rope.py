@@ -25,3 +25,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x: (batch, seq, heads, head_dim); cos/sin: (seq, head_dim/2)."""
     return rotate(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def apply_rope_t(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """The transpose (inverse) rotation of :func:`apply_rope`, for the
+    cotangents of rotated q/k (the flash kernel's ``_rot_t``)."""
+    return apply_rope(x, cos, -sin)

@@ -1,0 +1,267 @@
+"""``python -m tpudist_torch.train`` — the training acceptance lane.
+
+Counterpart of the per-step path of ``tpudist/train.py`` on one process:
+seeded synthetic data and a per-epoch permutation, the train step (loss,
+grads, Adam), the epoch loop with the stdout contract (``Epoch N
+finished. Avg loss: X``, ``Epoch N eval loss: X``, ``Training
+completed.``), a checkpoint per epoch (and every ``--ckpt-every-steps``),
+``--resume``, ``--fail-at`` fault injection, the ``metrics.jsonl``
+records (``kind=attempt`` / ``step`` / ``epoch`` / ``ckpt`` / ``timing``)
+and the verdict file at ``TPUDIST_VERDICT_PATH``. Exit code 0 on
+success, 1 on any failure. It runs on the card (``--device cuda``, the
+default) unless asked for the CPU.
+
+Run:  python -m tpudist_torch.train --epochs 5 --train-batch-size 64
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import sys
+import time
+from typing import Optional, Sequence
+
+import torch
+
+from tpudist_torch import checkpoint as ckpt_lib
+from tpudist_torch import config as config_lib
+from tpudist_torch import data as data_lib
+from tpudist_torch import engine as engine_lib
+from tpudist_torch import verdict as verdict_lib
+from tpudist_torch.config import TrainConfig, parse_args
+from tpudist_torch.metrics import MetricsLogger, StepTimer, log0
+from tpudist_torch.utils.platform import resolve_device
+
+
+def _to_device(batch, device: torch.device):
+    """Host arrays of one step -> device tensors (token ids as int64)."""
+    return tuple(torch.tensor(a).to(device, torch.int64 if a.dtype.kind
+                                    == "i" else None) for a in batch)
+
+
+def device_kind(device: torch.device) -> str:
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+def run(cfg: TrainConfig) -> float:
+    """Train per config; returns the last epoch's average loss. Raises on
+    failure: :func:`main` turns exceptions into the fail verdict and
+    exit 1."""
+    config_lib.check_supported(cfg)
+    device = resolve_device(cfg.device)
+    if cfg.batch_size % cfg.grad_accum_steps:
+        raise ValueError(
+            f"--train-batch-size {cfg.batch_size} must be divisible by "
+            f"--grad-accum-steps {cfg.grad_accum_steps}")
+    log0(f"tpudist: 1 {device_kind(device)} device(s), 1 process(es), "
+         f"model {cfg.model.name}, {cfg.dtype}")
+
+    if cfg.model.name == "mlp":
+        sources = data_lib.make_synthetic_data(
+            cfg.data.n_samples, cfg.data.n_features, cfg.data.seed)
+        eval_src = data_lib.make_synthetic_data(
+            cfg.batch_size, cfg.data.n_features, cfg.data.seed + 1)
+    else:
+        # seq_len + 1 tokens: the causal shift consumes one, so the model
+        # sees exactly max_seq_len positions
+        sources = (data_lib.make_synthetic_tokens(
+            cfg.data.n_samples, cfg.model.max_seq_len + 1,
+            cfg.model.vocab_size, cfg.data.seed),)
+        eval_src = (data_lib.make_synthetic_tokens(
+            cfg.batch_size, cfg.model.max_seq_len + 1,
+            cfg.model.vocab_size, cfg.data.seed + 1),)
+    eval_batch = _to_device(eval_src, device)
+
+    def epoch_plan(epoch):
+        return data_lib.plan_epoch(sources, batch_size=cfg.batch_size,
+                                   seed=cfg.seed, epoch=epoch)
+
+    state = engine_lib.init_state(cfg, device)
+    log0(f"tpudist: train state "
+         f"{engine_lib.state_bytes_per_device(state) / 1e9:.3f} GB "
+         f"(params + Adam moments)")
+    metrics = MetricsLogger(path=os.path.join(cfg.save_dir, "metrics.jsonl"))
+    metrics.log(kind="attempt", phase="start", process_count=1)
+    metrics.flush()
+    train_step = engine_lib.make_train_step(cfg, device)
+    eval_fn = engine_lib.make_eval_fn(cfg, device)
+
+    start_epoch, start_step_in_epoch = 0, 0
+    resume_mode = config_lib.resolve_resume(cfg)
+    resume_verdict = verdict_lib.UNGATEABLE
+    if resume_mode:
+        restored, err = None, None
+        try:
+            restored = ckpt_lib.restore_latest_full(cfg.save_dir, state)
+        except Exception as e:
+            if resume_mode != "auto":
+                raise
+            err = e
+        if restored is not None:
+            state, start_epoch, start_step_in_epoch = restored
+            resume_verdict = verdict_lib.SUCCESS
+            log0(f"Resumed at epoch {start_epoch}, step "
+                 f"{start_step_in_epoch} (global step {state.step}).")
+        elif err is not None:
+            resume_verdict = verdict_lib.FAIL
+            log0(f"tpudist: resume {resume_verdict}: restore failed, "
+                 f"starting fresh ({err!r})")
+        metrics.log(kind="resume", status=resume_verdict,
+                    epoch=start_epoch, step_in_epoch=start_step_in_epoch,
+                    resumed_from_step=state.step,
+                    error=repr(err) if err else None)
+
+    timer = StepTimer()
+    ckpt = ckpt_lib.Checkpointer(cfg.save_dir)
+    try:
+        last_avg = _epoch_loop(cfg, device, state, train_step, epoch_plan,
+                               start_epoch, start_step_in_epoch, metrics,
+                               timer, eval_fn, eval_batch, ckpt)
+    finally:
+        metrics.close()
+
+    sps = timer.steps_per_sec()
+    lm = cfg.model.name != "mlp"
+    tokens = cfg.batch_size * (cfg.model.max_seq_len if lm else 1)
+    log0(f"throughput: {sps:.2f} steps/s "
+         f"({timer.steps_per_sec_per_chip():.2f} steps/s/chip, "
+         f"{sps * tokens:.1f} {'tokens' if lm else 'samples'}/s) on 1 "
+         f"chip(s)")
+    log0(f"timing: compile+warmup {timer.warmup_s:.2f}s, "
+         f"run {timer.elapsed:.2f}s over {timer.steps} steps")
+    metrics.log(kind="timing", steps_per_dispatch=1, **timer.split(),
+                samples_per_step=cfg.batch_size, tokens_per_step=tokens,
+                resume_status=resume_verdict, device=device_kind(device))
+    log0("Training completed.")
+    metrics.close()
+    return last_avg
+
+
+def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
+                start_step_in_epoch, metrics, timer, eval_fn, eval_batch,
+                ckpt):
+    last_avg = float("nan")
+    for epoch in range(start_epoch, cfg.epochs):
+        plan = epoch_plan(epoch)
+        n_steps = plan.n_steps
+        # mid-epoch resume: the epoch's batch order is stateless by
+        # (seed, epoch), so skipping the first batches replays the
+        # uninterrupted trajectory
+        first = start_step_in_epoch if epoch == start_epoch else 0
+        # losses accumulate on the device; the loop fences only at
+        # logging and checkpoint boundaries
+        total, counted, pending = None, 0, 0
+        timer.start()
+        batches = plan.slab(0, n_steps)
+        for i in range(first, n_steps):
+            batch = _to_device(tuple(a[i] for a in batches), device)
+            state, loss = train_step(state, batch)
+            total = loss if total is None else total + loss
+            counted += 1
+            pending += 1
+            if i == first and timer.warming:
+                # the first step alone is the warmup: kernel builds and
+                # the allocator's first growth stay out of steps/s
+                timer.stop_many(loss, 1)
+                pending = 0
+                timer.start()
+            if cfg.log_every and (i + 1) % cfg.log_every == 0:
+                loss_val = float(loss)
+                timer.stop_many(loss, pending)
+                pending = 0
+                metrics.log(kind="step", epoch=epoch, step=state.step,
+                            loss=loss_val,
+                            steps_per_sec=timer.steps_per_sec())
+                timer.start()
+            elif pending >= 100:
+                timer.stop_many(loss, pending)
+                pending = 0
+                timer.start()
+            if (cfg.ckpt_every_steps and (i + 1) % cfg.ckpt_every_steps == 0
+                    and i + 1 < n_steps):
+                timer.stop_many(loss, pending)
+                pending = 0
+                ckpt.save(state, epoch=epoch, step_in_epoch=i + 1)
+                metrics.log(kind="ckpt", epoch=epoch, step=state.step,
+                            step_in_epoch=i + 1,
+                            enqueue_ms=round(ckpt.last_enqueue_ms, 1))
+                metrics.flush()
+                timer.start()
+        last_avg = _epoch_end(cfg, state, total, counted, pending, n_steps,
+                              epoch, metrics, timer, eval_fn, eval_batch,
+                              ckpt)
+    return last_avg
+
+
+def _epoch_end(cfg, state, total, counted, pending, n_steps, epoch, metrics,
+               timer, eval_fn, eval_batch, ckpt):
+    """Epoch tail: drain, the Avg line, eval, the epoch record, the
+    epoch-end checkpoint, fault injection."""
+    last_avg = float(total) / max(counted, 1) if counted else float("nan")
+    timer.stop_many(total, pending)
+    log0(f"Epoch {epoch + 1:2d} finished. Avg loss: {last_avg:.4f}")
+    t_eval = time.perf_counter()
+    eval_loss = float(eval_fn(state, eval_batch))
+    eval_s = time.perf_counter() - t_eval
+    log0(f"Epoch {epoch + 1:2d} eval loss: {eval_loss:.4f}")
+    # steps_counted < n_steps marks a resumed partial epoch
+    metrics.log(kind="epoch", epoch=epoch, avg_loss=last_avg,
+                eval_loss=eval_loss, eval_s=round(eval_s, 6),
+                steps_counted=counted, n_steps=n_steps,
+                steps_per_sec=timer.steps_per_sec(),
+                steps_per_sec_per_chip=timer.steps_per_sec_per_chip())
+    ckpt.save(state, epoch=epoch + 1, step_in_epoch=0)
+    metrics.log(kind="ckpt", epoch=epoch, step=state.step, step_in_epoch=0,
+                enqueue_ms=round(ckpt.last_enqueue_ms, 1))
+    metrics.flush()
+    if cfg.fail_at is not None and epoch >= cfg.fail_at:
+        raise RuntimeError(
+            f"fault injection: --fail-at {cfg.fail_at} triggered")
+    return last_avg
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    verdict_path = os.environ.get("TPUDIST_VERDICT_PATH")
+
+    # the launcher bounds the job with `timeout` -> SIGTERM: turn it into
+    # an orderly exit so the verdict below is still written
+    def _sigterm(signum, frame):
+        raise SystemExit(128 + signum)
+    try:
+        prev_sigterm = signal.signal(signal.SIGTERM, _sigterm)
+    except (ValueError, OSError):
+        prev_sigterm = None
+    ok = all_ok = False
+    try:
+        run(parse_args(argv))
+        ok = True
+    except SystemExit:
+        print("tpudist: training terminated by signal", file=sys.stderr,
+              flush=True)
+    except Exception as e:
+        print(f"tpudist: training failed: {e!r}", file=sys.stderr,
+              flush=True)
+    finally:
+        try:
+            if verdict_path:
+                verdict_lib.write_worker_verdict(verdict_path, ok)
+            all_ok, _ = verdict_lib.aggregate_status(ok)
+            if verdict_path:
+                verdict_lib.write_final_verdict(verdict_path, all_ok)
+        except Exception as e:
+            print(f"tpudist: verdict plumbing failed: {e!r}",
+                  file=sys.stderr, flush=True)
+            all_ok = False
+        if prev_sigterm is not None:
+            try:
+                signal.signal(signal.SIGTERM, prev_sigterm)
+            except (ValueError, OSError):
+                pass
+    return 0 if ok and all_ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
