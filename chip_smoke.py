@@ -10,10 +10,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
 
 1. device: the card's name and power limit; TF32 switched off for f32
    matmuls and convolutions, so f32 means f32;
-2. build: the two CUDA libraries (flash-attention forward; the dq, dk/dv
-   and merged backward kernels) from the sources in the checkout, one
-   ``nvcc`` for sm_90a each, started together; ptxas's register and
-   spill report;
+2. build: the three CUDA libraries (flash-attention forward; the dq,
+   dk/dv and merged backward kernels; the fused LM-head cross-entropy
+   forward and backward) from the sources in the checkout, one ``nvcc``
+   for sm_90a each, started together; ptxas's register and spill report;
 3. kernels vs plain: the forward kernel against its plain version (o and
    lse within f32 1e-4 / bf16 3e-2) on 35 shapes, and the three backward
    kernels, through the autograd Function, against
@@ -23,6 +23,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
    shape beside its bound, the plain version's and one PyTorch library
    call's (``scaled_dot_product_attention``, forward or
    ``autograd.grad`` through it);
+   3c. the fused LM-head kernels, through their autograd Function,
+   against ``fused_xent_fwd_plain`` / ``fused_xent_bwd_plain`` on
+   ``tpudist/selfcheck.py``'s four shapes (d 256 f32), the bench
+   geometry (t 1024, V 32000, d 2048, bf16) and the slice's shape (t
+   16384, f32), two calls bitwise equal; their times at the slice's
+   shape beside their bounds, the plain versions' and
+   ``F.cross_entropy(h @ emb.T)`` (forward, and ``autograd.grad``
+   through it), and the head's peak device memory, fused against that;
 4. the serving slice at full width (BASELINE config #5, f32): warmup and
    16 requests through ``ServeEngine`` + ``run_serve``, every request
    completed, and one prefill's logits through the engine (kernel)
@@ -32,16 +40,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
    dk/dv kernels in every layer's backward;
 6. the same at seq 512 (the JAX package's bench shape) for 1 epoch (4
    steps): the merged backward kernel;
-7. one full-width training step at seq 512 and 2048: the loss and every
-   param grad through the kernels against the plain versions on the card
-   (f32, 1e-4 of each tensor's largest element).
+7. one full-width training step at seq 512 and 2048, and at 2048 with
+   the fused head: the loss and every param grad through the kernels
+   against the plain versions on the card (f32, 1e-4 of each tensor's
+   largest element);
+8. the train CLI at seq 2048 with ``--lm-head fused``, 1 epoch (4 steps):
+   the fused head's kernels beside the flash kernels;
+9. the train CLI at seq 512 in bf16 with ``--lm-head auto`` and
+   ``--adam-nu-dtype bfloat16``, the device memory pinned so that auto
+   picks the fused head, 1 epoch (4 steps).
 
-Phases 4-6 are the main paths: each runs with every launch count set to
-0 just before and read just after, and each kernel must have launched
-the exact number of times its path calls it (phases 5-6 also check the
-stdout contract, a falling loss and the ``success`` verdict file).
-``--profile`` adds torch.profiler breakdowns of the serving windows and
-of two training steps at each seq (device time by kernel, busy share).
+Phases 4-6 and 8-9 are the main paths: each runs with every launch count
+set to 0 just before and read just after, and each kernel must have
+launched the exact number of times its path calls it (the training
+phases also check the stdout contract, a falling loss and the
+``success`` verdict file). ``--profile`` adds torch.profiler breakdowns
+of the serving windows and of two training steps at seq 2048 (plain and
+fused head) and 512 (device time by kernel, busy share).
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -86,13 +101,14 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def build_all(build, fa):
+def build_all(build, fa, fx):
     """Phase 2: build every kernel library of the port's paths from the
     checkout, one nvcc each, all started together; print ptxas's
     register and spill report."""
     from concurrent.futures import ThreadPoolExecutor
 
-    libs = ((fa.LIBRARY, fa.SOURCES), (fa.BWD_LIBRARY, fa.BWD_SOURCES))
+    libs = ((fa.LIBRARY, fa.SOURCES), (fa.BWD_LIBRARY, fa.BWD_SOURCES),
+            (fx.LIBRARY, fx.SOURCES))
     with ThreadPoolExecutor(len(libs)) as pool:
         results = list(pool.map(lambda lib: build.build(*lib), libs))
     for (name, _), res in zip(libs, results):
@@ -387,9 +403,193 @@ def time_flash_bwd(torch, fa, F, slice_err):
     return records
 
 
-def serve_slice(torch, fa, profile: bool):
-    """Phase 4: the serving slice at full width. Returns the flash
-    kernel's launch count from the main path's run."""
+def xent_bound(t, v, d, dtype: str, products: int, backward: bool):
+    """(bound_ms, bound_by) of the fused head: ``products`` matrix
+    products of 2 t V d operations over the peak for ``dtype``, against
+    the bytes of h, E, the int64 targets and the f32 per-token vectors
+    (loss and lse out; or lse and ct in, dh and dE out) moved once."""
+    flops = products * 2 * t * v * d
+    elt = 4 if dtype == "float32" else 2
+    operands = elt * (t * d + v * d)
+    nbytes = operands * (2 if backward else 1) + 8 * t + 2 * 4 * t
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _xent_inputs(torch, gen, t, v, d, dtype):
+    """selfcheck's data: h ~ N(0, 1), E ~ 0.02 N(0, 1), uniform targets."""
+    h = torch.randn(t, d, device="cuda", generator=gen).to(dtype)
+    emb = (torch.randn(v, d, device="cuda", generator=gen) * 0.02).to(dtype)
+    tgt = torch.randint(0, v, (t,), device="cuda", generator=gen)
+    return h, emb, tgt
+
+
+def check_fused_xent(torch, fx):
+    """Phase 3c: the fused LM-head kernels, through the autograd Function
+    (mean loss, grads by ``torch.autograd.grad``), against
+    ``fused_xent_fwd_plain`` / ``fused_xent_bwd_plain`` on the card.
+    ``tpudist/selfcheck.py``'s shapes at d 256 f32 (loss rtol 1e-4; dh
+    and dE rtol 1e-3, atol 5e-3/t), the bench geometry in bf16 (loss
+    within 5e-2 of the f32 plain loss, grads finite and within 5e-2 of
+    each gradient's largest element against the bf16 plain version) and
+    the slice's shape in f32; every shape also run twice, bitwise equal.
+    The bf16 case at t 4096 (= b8 x s512, phase 9's shape) is above the
+    backward's 2048-token chunk, so it holds the separate f32 dE
+    accumulator and its final cast to bf16 against the plain version.
+    Returns each kernel's max |kernel - plain| at the slice's shape."""
+    shapes = [(512, 4096, 256, "float32"), (400, 4096, 256, "float32"),
+              (512, 5000, 256, "float32"), (20000, 4096, 256, "float32"),
+              (1024, 32000, 2048, "bfloat16"),
+              (4096, 32000, 2048, "bfloat16"),
+              (16384, 32000, 2048, "float32")]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    bad, slice_err = [], {}
+    print(f"{'fused xent shape':34s} {'loss':>9s} {'dh':>9s} {'dE':>9s} "
+          f"bitwise")
+    for t, v, d, dt in shapes:
+        h, emb, tgt = _xent_inputs(torch, gen, t, v, d, getattr(torch, dt))
+        h.requires_grad_()
+        emb.requires_grad_()
+        n0 = (fx.fwd_launches, fx.bwd_launches)
+        runs = []
+        for _ in range(2):
+            per_token = fx._FusedXent.apply(h, emb, tgt)
+            loss = torch.mean(per_token)
+            runs.append((per_token.detach(), loss.detach(),
+                         *torch.autograd.grad(loss, (h, emb))))
+        torch.cuda.synchronize()
+        ran = (fx.fwd_launches - n0[0], fx.bwd_launches - n0[1]) == (2, 2)
+        per_token, loss, dh, de = runs[0]
+        bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+        finite = all(bool(torch.isfinite(x.float()).all())
+                     for x in (per_token, dh, de))
+        with torch.no_grad():
+            hd, ed = h.detach(), emb.detach()
+            p_tok, p_lse = fx.fused_xent_fwd_plain(hd, ed, tgt)
+            ct = torch.full((t,), 1.0 / t, device="cuda")
+            p_dh, p_de = fx.fused_xent_bwd_plain(hd, ed, tgt, p_lse, ct)
+            if dt == "float32":
+                p_loss = p_tok.mean()
+                loss_err = (abs(loss.item() - p_loss.item())
+                            / abs(p_loss.item()))
+                loss_ok = loss_err <= 1e-4
+                # allclose(rtol 1e-3, atol 5e-3 / t), as the ratio of
+                # each element's error to its allowance
+                errs = [((g.float() - r.float()).abs()
+                         / (5e-3 / t + 1e-3 * r.float().abs())).max().item()
+                        for g, r in ((dh, p_dh), (de, p_de))]
+                grads_ok = max(errs) <= 1.0
+            else:
+                f32_loss = fx.fused_xent_fwd_plain(hd.float(), ed.float(),
+                                                   tgt)[0].mean()
+                loss_err = (abs(loss.item() - f32_loss.item())
+                            / abs(f32_loss.item()))
+                loss_ok = loss_err <= 5e-2
+                errs = [((g.float() - r.float()).abs().max()
+                         / r.float().abs().max()).item()
+                        for g, r in ((dh, p_dh), (de, p_de))]
+                grads_ok = max(errs) <= 5e-2
+        ok = loss_ok and grads_ok and bitwise and finite and ran
+        name = f"t{t} V{v} d{d} {dt}"
+        print(f"{name:34s} {loss_err:9.2e} {errs[0]:9.2e} {errs[1]:9.2e} "
+              f"{bitwise}{'' if ok else '  FAIL'}")
+        if not ok:
+            bad.append(name)
+        if t == 16384:
+            slice_err = {
+                "fused_xent_fwd": (per_token - p_tok).abs().max().item(),
+                "fused_xent_bwd": max((dh - p_dh).abs().max().item(),
+                                      (de - p_de).abs().max().item())}
+        del h, emb, tgt, runs, per_token, loss, dh, de, p_tok, p_lse, ct, \
+            p_dh, p_de
+        torch.cuda.empty_cache()
+    print("fused xent: loss |d| / |plain|; f32 grads max |d| / (5e-3/t + "
+          "1e-3 |plain|) (pass <= 1); bf16 grads max |d| / max |plain|")
+    if bad:
+        fail(f"fused xent kernels disagree with their plain versions (or "
+             f"are not deterministic) on {len(bad)} shape(s): {bad}")
+    return slice_err
+
+
+def time_fused_xent(torch, fx, F, slice_err):
+    """Phase 3c, timings: each fused kernel at the training slice's shape
+    (t 16384 = b8 x s2048, V 32000, d 2048, f32) beside its bound, its
+    plain version and one PyTorch call (forward
+    ``F.cross_entropy(h @ emb.T, tgt)``; backward ``torch.autograd.grad``
+    through it w.r.t. (h, emb)); and the device memory the head adds
+    over its inputs, forward and backward, fused against that library
+    head. Returns the kernels' records."""
+    t, v, d = 16384, 32000, 2048
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    h, emb, tgt = _xent_inputs(torch, gen, t, v, d, torch.float32)
+    few = dict(warmup=1, runs=5, inner=2)
+    with torch.no_grad():
+        loss, lse = fx.fused_xent_fwd(h, emb, tgt)
+        ct = torch.full((t,), 1.0 / t, device="cuda")
+        fwd_ms = time_ms(torch, lambda: fx.fused_xent_fwd(h, emb, tgt),
+                         **few)
+        fwd_plain = time_ms(torch, lambda: fx.fused_xent_fwd_plain(
+            h, emb, tgt), **few)
+        fwd_lib = time_ms(torch, lambda: F.cross_entropy(h @ emb.T, tgt),
+                          **few)
+        bwd_ms = time_ms(torch, lambda: fx.fused_xent_bwd(
+            h, emb, tgt, lse, ct), **few)
+        bwd_plain = time_ms(torch, lambda: fx.fused_xent_bwd_plain(
+            h, emb, tgt, lse, ct), **few)
+    hl, el = (x.detach().requires_grad_() for x in (h, emb))
+    out = F.cross_entropy(hl @ el.T, tgt)
+    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+        out, (hl, el), retain_graph=True), **few)
+    del out
+
+    def head_peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del grads
+        return peak / 1e9
+    fused_gb = head_peak(lambda: torch.autograd.grad(
+        fx.fused_lm_head_xent(hl, el, tgt), (hl, el)))
+    lib_gb = head_peak(lambda: torch.autograd.grad(
+        F.cross_entropy(hl @ el.T, tgt), (hl, el)))
+    shape = f"t{t} V{v} d{d} float32"
+    print(f"fused xent peak device memory over the inputs, forward + "
+          f"backward at {shape}: fused {fused_gb:.4f} GB, "
+          f"F.cross_entropy(h @ emb.T) {lib_gb:.4f} GB")
+    records = []
+    for name, ms, plain_ms, lib_ms, products, backward, line, lib in (
+            ("fused_xent_fwd", fwd_ms, fwd_plain, fwd_lib, 1, False, 74,
+             "F.cross_entropy(h @ emb.T, tgt)"),
+            ("fused_xent_bwd", bwd_ms, bwd_plain, bwd_lib, 3, True, 168,
+             "autograd.grad through it")):
+        bound_ms, bound_by = xent_bound(t, v, d, "float32", products,
+                                        backward)
+        print(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, {lib} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "tpudist_torch/csrc/fused_xent.cu",
+            "replaces": f"tpudist/ops/pallas/fused_xent.py:{line}",
+            "launches": None, "max_abs_err": slice_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "shape": shape,
+            "head_peak_gb": fused_gb, "library_head_peak_gb": lib_gb})
+    del h, emb, tgt, hl, el, loss, lse, ct
+    torch.cuda.empty_cache()
+    return records
+
+
+def serve_slice(torch, fa, fx, profile: bool):
+    """Phase 4: the serving slice at full width. Returns the kernels'
+    launch counts from the main path's run."""
     from tpudist_torch.config import ModelConfig
     from tpudist_torch.models import transformer
     from tpudist_torch.serve import scheduler as sched
@@ -410,13 +610,14 @@ def serve_slice(torch, fa, profile: bool):
                                    vocab_size=cfg.vocab_size, max_new=32,
                                    rate=0.0, seed=0)
 
-    _reset_launches(fa)
+    _reset_launches(fa, fx)
     t0 = time.perf_counter()
     engine.warmup(params)
     warm_s = time.perf_counter() - t0
     summary = sched.run_serve(engine, params, requests)
     torch.cuda.synchronize()
-    launches = fa.launches
+    counts = _launch_counts(fa, fx)
+    launches = counts["flash_attention_fwd"]
 
     prefills = summary["admitted"] + 1          # + the warmup's
     want = cfg.n_layers * prefills
@@ -474,7 +675,7 @@ def serve_slice(torch, fa, profile: bool):
 
     if profile:
         profile_serve(torch, engine, params, requests)
-    return launches
+    return counts
 
 
 class _Tee(io.TextIOBase):
@@ -492,92 +693,118 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _launch_counts(fa):
+def _launch_counts(fa, fx):
     return {"flash_attention_fwd": fa.launches,
             "flash_attention_bwd_dq": fa.dq_launches,
             "flash_attention_bwd_dkv": fa.dkv_launches,
-            "flash_attention_bwd_dqkv": fa.dqkv_launches}
+            "flash_attention_bwd_dqkv": fa.dqkv_launches,
+            "fused_xent_fwd": fx.fwd_launches,
+            "fused_xent_bwd": fx.bwd_launches}
 
 
-def _reset_launches(fa):
+def _reset_launches(fa, fx):
     fa.launches = fa.dq_launches = fa.dkv_launches = fa.dqkv_launches = 0
+    fx.fwd_launches = fx.bwd_launches = 0
 
 
-def train_slice(torch, fa, seq: int, epochs: int, n_samples: int):
-    """Phases 5 and 6: ``python -m tpudist_torch.train`` (its ``main``)
-    on the card at full width: BASELINE config #5, f32, global batch 8,
-    seed 42, ``--lm-head auto``. The launch counts are set to 0 just
-    before and read just after; the stdout contract, a falling loss, the
-    verdict file and the exact launch counts are checked. Returns the
-    counts."""
+def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
+                n_samples: int, extra=(), hbm_bytes=None, want_head=None):
+    """Phases 5, 6, 8 and 9, the path ``tag``: ``python -m
+    tpudist_torch.train`` (its ``main``) on the card at full width:
+    BASELINE config #5, global batch 8, seed 42, f32 and ``--lm-head
+    auto`` unless ``extra`` flags say otherwise; ``hbm_bytes`` pins the auto head policy's device memory
+    (``TPUDIST_HBM_BYTES``), and the resolved head must be ``want_head``
+    when given. The launch counts are set to 0 just before and read just
+    after; the stdout contract, a falling loss, the verdict file and the
+    exact launch counts are checked. Returns the counts."""
     from tpudist_torch import config as config_lib
     from tpudist_torch import engine as engine_lib
     from tpudist_torch import train as train_lib
 
-    save = ROOT / "build" / "chip_smoke_train" / f"seq{seq}"
+    save = ROOT / "build" / "chip_smoke_train" / tag
     shutil.rmtree(save, ignore_errors=True)
     argv = ["--model", "transformer", "--seq-len", str(seq),
             "--train-batch-size", "8", "--n-samples", str(n_samples),
             "--epochs", str(epochs), "--seed", "42", "--log-every", "1",
-            "--save-dir", str(save)]
+            "--save-dir", str(save), *extra]
     cfg = config_lib.parse_args(argv)
-    head = engine_lib._resolve_lm_head(cfg, torch.device("cuda"))
-    m = cfg.model
-    print(f"train seq {seq}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
-          f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} float32, batch "
-          f"{cfg.batch_size}, {n_samples} samples, {epochs} epoch(s); "
-          f"--lm-head auto -> {'fused' if head[0] else 'plain'}")
-    verdict = save / "job_status.txt"
-    os.environ["TPUDIST_VERDICT_PATH"] = str(verdict)
-    tee = _Tee(sys.stdout)
-    _reset_launches(fa)
-    t0 = time.perf_counter()
+    env = {"TPUDIST_VERDICT_PATH": str(save / "job_status.txt")}
+    if hbm_bytes is not None:
+        env["TPUDIST_HBM_BYTES"] = str(hbm_bytes)
+    os.environ.update(env)
     try:
+        fused, chunks = engine_lib._resolve_lm_head(cfg,
+                                                    torch.device("cuda"))
+        head = "fused" if fused else f"chunked({chunks})" if chunks \
+            else "plain"
+        m = cfg.model
+        print(f"train {tag}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+              f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} {cfg.dtype}, "
+              f"batch {cfg.batch_size}, {n_samples} samples, {epochs} "
+              f"epoch(s), adam nu {cfg.adam_nu_dtype}; --lm-head "
+              f"{cfg.lm_head} -> {head}"
+              + ("" if hbm_bytes is None
+                 else f" (TPUDIST_HBM_BYTES={hbm_bytes:.0f})"))
+        if want_head is not None and head != want_head:
+            fail(f"train {tag}: the head resolved to {head}, want "
+                 f"{want_head}")
+        tee = _Tee(sys.stdout)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(fa, fx)
+        t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
             rc = train_lib.main(argv)
         torch.cuda.synchronize()
     finally:
-        del os.environ["TPUDIST_VERDICT_PATH"]
+        for k in env:
+            del os.environ[k]
     wall = time.perf_counter() - t0
-    counts = _launch_counts(fa)
+    counts = _launch_counts(fa, fx)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     out = tee.buf.getvalue()
     recs = [json.loads(ln) for ln in
             (save / "metrics.jsonl").read_text().splitlines()]
     timing = [r for r in recs if r["kind"] == "timing"]
     losses = [r["loss"] for r in recs if r["kind"] == "step"]
+    verdict = save / "job_status.txt"
     status = verdict.read_text() if verdict.is_file() else None
     shutil.rmtree(save, ignore_errors=True)
     torch.cuda.empty_cache()
     if rc != 0 or status != "success" or not timing:
-        fail(f"train seq {seq}: exit {rc}, verdict {status!r}")
+        fail(f"train {tag}: exit {rc}, verdict {status!r}")
     for epoch in range(1, epochs + 1):
         for line in (f"Epoch {epoch:2d} finished. Avg loss: ",
                      f"Epoch {epoch:2d} eval loss: "):
             if line not in out:
-                fail(f"train seq {seq}: no {line!r} line on stdout")
+                fail(f"train {tag}: no {line!r} line on stdout")
     if "Training completed." not in out:
-        fail(f"train seq {seq}: no 'Training completed.' line")
+        fail(f"train {tag}: no 'Training completed.' line")
     if not (losses and all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]):
-        fail(f"train seq {seq}: step losses {losses} do not fall")
+        fail(f"train {tag}: step losses {losses} do not fall")
     steps = epochs * (n_samples // cfg.batch_size)
     fwd = m.n_layers * (steps + epochs)       # + one eval forward an epoch
     split = not fa.uses_merged_backward(seq, seq)
     want = {"flash_attention_fwd": fwd,
             "flash_attention_bwd_dq": m.n_layers * steps if split else 0,
             "flash_attention_bwd_dkv": m.n_layers * steps if split else 0,
-            "flash_attention_bwd_dqkv": 0 if split else m.n_layers * steps}
+            "flash_attention_bwd_dqkv": 0 if split else m.n_layers * steps,
+            # the fused head: one forward a step and an eval batch an
+            # epoch, one backward a step
+            "fused_xent_fwd": steps + epochs if fused else 0,
+            "fused_xent_bwd": steps if fused else 0}
     t = timing[-1]
     sps = t["steps"] / t["run_s"]
-    print(f"train seq {seq}: step losses {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; verdict {status}; {sps:.4f} steps/s, "
+    print(f"train {tag}: step losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"verdict {status}; {sps:.4f} steps/s, "
           f"{sps * cfg.batch_size * m.max_seq_len:.1f} tokens/s, step "
           f"{1e3 * t['run_s'] / t['steps']:.2f} ms (over {t['steps']} "
           f"steps after the first); first step + builds "
-          f"{t['compile_warmup_s']:.2f} s; wall {wall:.2f} s")
-    print(f"train seq {seq}: kernel launches {counts} (want {want})")
+          f"{t['compile_warmup_s']:.2f} s; wall {wall:.2f} s; peak device "
+          f"memory {peak_gb:.3f} GB")
+    print(f"train {tag}: kernel launches {counts} (want {want})")
     if counts != want:
-        fail(f"train seq {seq}: kernel launches {counts}, want {want}")
+        fail(f"train {tag}: kernel launches {counts}, want {want}")
     return counts
 
 
@@ -608,10 +835,34 @@ def plain_attention(torch, fa):
     return attention
 
 
-def step_check(torch, fa, seq: int):
+def plain_head(torch, fx):
+    """The fused head through the kernels' plain versions on the card,
+    forward and backward: the step-level check's reference for it."""
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, emb, tgt):
+            loss, lse = fx.fused_xent_fwd_plain(h, emb, tgt)
+            ctx.save_for_backward(h, emb, tgt, lse)
+            return loss
+
+        @staticmethod
+        def backward(ctx, ct):
+            h, emb, tgt, lse = ctx.saved_tensors
+            return (*fx.fused_xent_bwd_plain(h, emb, tgt, lse, ct), None)
+
+    def head(emb, h, targets):
+        b, s, d = h.shape
+        return torch.mean(Plain.apply(h.reshape(b * s, d), emb,
+                                      targets.reshape(b * s)))
+    return head
+
+
+def step_check(torch, fa, fx, seq: int, fused: bool = False):
     """Phase 7: one training step's loss and every param grad at full
     width, through the kernels and through the plain versions on the
-    card, within f32 1e-4 (max |d| / max |plain| per tensor)."""
+    card, within f32 1e-4 (max |d| / max |plain| per tensor). ``fused``
+    takes the fused LM head (its kernels against their plain versions)
+    where the plain whole-logits head is the default."""
     from tpudist_torch import data as data_lib
     from tpudist_torch.config import flagship_model_config
     from tpudist_torch.models import transformer
@@ -622,18 +873,23 @@ def step_check(torch, fa, seq: int):
     tokens = torch.as_tensor(data_lib.make_synthetic_tokens(
         8, seq + 1, cfg.vocab_size, 42), device="cuda").long()
 
-    def loss_and_grads(attn_impl):
+    def loss_and_grads(attn_impl, head):
         h = transformer.hidden_states(model, tokens[:, :-1], cfg,
                                       dtype=torch.float32,
                                       attn_impl=attn_impl)
-        loss = transformer.head_loss(model.embed, h, tokens[:, 1:])
+        loss = head(model.embed, h, tokens[:, 1:])
         grads = torch.autograd.grad(loss, list(model.parameters()))
         return loss.detach(), grads
 
-    before = _launch_counts(fa)
-    loss_k, grads_k = loss_and_grads(transformer._attention)
-    ran = {k: v - before[k] for k, v in _launch_counts(fa).items()}
-    loss_p, grads_p = loss_and_grads(plain_attention(torch, fa))
+    def kernel_head(emb, h, targets):
+        return transformer.head_loss(emb, h, targets, fused_xent=fused)
+
+    before = _launch_counts(fa, fx)
+    loss_k, grads_k = loss_and_grads(transformer._attention, kernel_head)
+    ran = {k: v - before[k] for k, v in _launch_counts(fa, fx).items()}
+    loss_p, grads_p = loss_and_grads(
+        plain_attention(torch, fa),
+        plain_head(torch, fx) if fused else kernel_head)
     torch.cuda.synchronize()
     errs = {"loss": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())}
     for (name, _), gk, gp in zip(model.named_parameters(), grads_k,
@@ -641,22 +897,26 @@ def step_check(torch, fa, seq: int):
         errs[name] = ((gk - gp).abs().max()
                       / gp.abs().max().clamp_min(1e-30)).item()
     worst = max(errs, key=errs.get)
-    print(f"step check seq {seq}: loss {loss_k.item():.6f} (kernels) vs "
+    tag = f"seq {seq}{' fused head' if fused else ''}"
+    print(f"step check {tag}: loss {loss_k.item():.6f} (kernels) vs "
           f"{loss_p.item():.6f} (plain); worst relative error "
           f"{errs[worst]:.3e} ({worst}) over the loss and "
           f"{len(errs) - 1} grads (tol 1e-4); kernel launches {ran}")
     del model, grads_k, grads_p
     torch.cuda.empty_cache()
     if errs[worst] > 1e-4 or not math.isfinite(errs[worst]):
-        fail(f"step check seq {seq}: {worst} off by {errs[worst]:.3e}")
+        fail(f"step check {tag}: {worst} off by {errs[worst]:.3e}")
     if not ran["flash_attention_bwd_dqkv" if seq <= 512
                else "flash_attention_bwd_dkv"]:
-        fail(f"step check seq {seq}: the backward kernels did not run")
+        fail(f"step check {tag}: the backward kernels did not run")
+    if fused and (ran["fused_xent_fwd"], ran["fused_xent_bwd"]) != (1, 1):
+        fail(f"step check {tag}: the fused head kernels did not run once")
 
 
-def profile_train(torch, seq: int):
+def profile_train(torch, seq: int, lm_head: str = "plain"):
     """--profile: device time by kernel over two steady training steps at
-    full width, and the device's busy share of their wall time."""
+    full width with the ``lm_head`` head, and the device's busy share of
+    their wall time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -666,7 +926,7 @@ def profile_train(torch, seq: int):
 
     cfg = config_lib.parse_args(["--model", "transformer", "--seq-len",
                                  str(seq), "--train-batch-size", "8",
-                                 "--lm-head", "plain"])
+                                 "--lm-head", lm_head])
     dev = torch.device("cuda")
     state = engine_lib.init_state(cfg, dev)
     step = engine_lib.make_train_step(cfg, dev)
@@ -687,7 +947,8 @@ def profile_train(torch, seq: int):
             for e in prof.key_averages()
             if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     busy = sum(r[1] for r in rows)
-    print(f"profile: 2 train steps at seq {seq}: {wall:.3f} ms wall, "
+    print(f"profile: 2 train steps at seq {seq}, --lm-head {lm_head}: "
+          f"{wall:.3f} ms wall, "
           f"device kernel time {busy:.3f} ms ({100 * busy / wall:.1f}% "
           f"busy)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
@@ -756,6 +1017,7 @@ def main() -> int:
 
     from tpudist_torch.ops.cuda import build
     from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
 
     # phase 1: device
     card = card_line()
@@ -768,33 +1030,51 @@ def main() -> int:
     print("device: TF32 off for f32 matmuls and cuDNN convolutions")
 
     # phase 2: build every kernel of the paths from the checkout
-    build_all(build, fa)
+    build_all(build, fa, fx)
 
     # phase 3: kernels vs plain versions, timings
     fwd = check_flash(torch, fa, F)
     bwd = time_flash_bwd(torch, fa, F, check_flash_bwd(torch, fa))
+    xent = time_fused_xent(torch, fx, F, check_fused_xent(torch, fx))
 
-    # phases 4-6: the serving path and the two training paths at full
+    # phases 4-6 and 8-9: the serving path and the training paths at full
     # width, each with the launch counts set to 0 just before
-    paths = {"serve": {"flash_attention_fwd":
-                       serve_slice(torch, fa, args.profile)},
-             "train_seq2048": train_slice(torch, fa, 2048, epochs=2,
-                                          n_samples=32),
-             "train_seq512": train_slice(torch, fa, 512, epochs=1,
-                                         n_samples=32)}
+    paths = {"serve": serve_slice(torch, fa, fx, args.profile)}
+    for tag, seq, epochs, kw in (
+            ("train_seq2048", 2048, 2, {}),
+            ("train_seq512", 512, 1, {}),
+            # phase 8: the fused head at the slice's shape
+            ("train_seq2048_fused", 2048, 1,
+             dict(extra=("--lm-head", "fused"), want_head="fused")),
+            # phase 9: bf16, bf16 Adam nu, the auto policy picking the
+            # fused head under a device memory pinned at 3 GB (the state
+            # alone is 2.15 GB there)
+            ("train_seq512_bf16_auto", 512, 1,
+             dict(extra=("--dtype", "bfloat16", "--lm-head", "auto",
+                         "--adam-nu-dtype", "bfloat16"),
+                  hbm_bytes=3e9, want_head="fused"))):
+        paths[tag] = train_slice(torch, fa, fx, tag, seq, epochs=epochs,
+                                 n_samples=32, **kw)
 
     # phase 7: one full-width training step, kernels vs plain versions
-    for seq in (512, 2048):
-        step_check(torch, fa, seq)
+    for seq, fused in ((512, False), (2048, False), (2048, True)):
+        step_check(torch, fa, fx, seq, fused)
     if args.profile:
-        for seq in (2048, 512):
-            profile_train(torch, seq)
+        for seq, head in ((2048, "plain"), (2048, "fused"), (512, "plain")):
+            profile_train(torch, seq, head)
 
     reaches = {"flash_attention_fwd": tuple(paths),
-               "flash_attention_bwd_dq": ("train_seq2048",),
-               "flash_attention_bwd_dkv": ("train_seq2048",),
-               "flash_attention_bwd_dqkv": ("train_seq512",)}
-    records = [fwd] + bwd
+               "flash_attention_bwd_dq": ("train_seq2048",
+                                          "train_seq2048_fused"),
+               "flash_attention_bwd_dkv": ("train_seq2048",
+                                           "train_seq2048_fused"),
+               "flash_attention_bwd_dqkv": ("train_seq512",
+                                            "train_seq512_bf16_auto"),
+               "fused_xent_fwd": ("train_seq2048_fused",
+                                  "train_seq512_bf16_auto"),
+               "fused_xent_bwd": ("train_seq2048_fused",
+                                  "train_seq512_bf16_auto")}
+    records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}
         rec["launches_by_path"] = by_path

@@ -207,14 +207,33 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
 @pytest.mark.parametrize("flag", [
     ["--fsdp", "2"], ["--tensor", "2"], ["--context", "2"], ["--pipe", "2"],
     ["--expert", "2"], ["--model", "moe"], ["--steps-per-dispatch", "4"],
-    ["--lm-head", "fused"], ["--lm-head", "chunked"], ["--fused-xent"],
-    ["--xent-chunks", "4"], ["--adam-nu-dtype", "bfloat16"],
     ["--live", "on"], ["--autotune", "probe"],
 ])
 def test_flags_this_slice_does_not_carry_are_refused(flag):
     cfg = tconfig.parse_args(flag + ["--device", "cpu"])
     with pytest.raises(ValueError, match="ROADMAP Queue A item"):
         ttrain.run(cfg)
+
+
+TINY_TF_ARGV = ["--model", "transformer", "--vocab-size", "256",
+                "--n-layers", "2", "--d-model", "256", "--n-heads", "2",
+                "--d-ff", "256", "--seq-len", "128", "--n-samples", "8",
+                "--train-batch-size", "4", "--epochs", "1", "--device",
+                "cpu"]
+
+
+@pytest.mark.parametrize("flag", [
+    ["--lm-head", "fused"], ["--lm-head", "chunked"], ["--fused-xent"],
+    ["--xent-chunks", "4"], ["--adam-nu-dtype", "bfloat16"],
+])
+def test_head_and_nu_flags_train_a_tiny_transformer(flag, tmp_path, capsys,
+                                                    monkeypatch):
+    vpath = tmp_path / "job_status.txt"
+    monkeypatch.setenv("TPUDIST_VERDICT_PATH", str(vpath))
+    assert ttrain.main(TINY_TF_ARGV + flag + ["--save-dir",
+                                              str(tmp_path / "ck")]) == 0
+    assert "Training completed." in capsys.readouterr().out
+    assert vpath.read_text() == "success"
 
 
 def test_without_a_card_the_default_device_is_an_error(tmp_path,
@@ -331,11 +350,14 @@ def test_xent_backward_matches_jax():
 
 
 def test_head_loss_refuses_the_fused_and_chunked_heads():
-    h, emb = torch.zeros(1, 2, 4), torch.zeros(8, 4)
-    t = torch.zeros(1, 2, dtype=torch.long)
-    for kw in (dict(fused_xent=True), dict(xent_chunks=2)):
-        with pytest.raises(ValueError, match="ROADMAP Queue A item 5"):
-            ttf.head_loss(emb, h, t, **kw)
+    """Both strategies at once, and a chunk count that does not divide
+    the sequence, are errors (the JAX package's ``head_loss``)."""
+    h, emb = torch.zeros(1, 6, 4), torch.zeros(8, 4)
+    t = torch.zeros(1, 6, dtype=torch.long)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ttf.head_loss(emb, h, t, fused_xent=True, xent_chunks=2)
+    with pytest.raises(ValueError, match="not divisible by xent_chunks=4"):
+        ttf.head_loss(emb, h, t, xent_chunks=4)
 
 
 def test_pick_lm_head_equals_jax():
@@ -361,12 +383,10 @@ def test_auto_head_resolves_plain_at_the_slice_shape(monkeypatch, capsys):
         name="transformer")})
     assert tengine._resolve_lm_head(tcfg) == jengine._resolve_lm_head(
         jcfg, None) == (False, 0)
-    # past the budget the JAX package picks fused, which the port refuses
+    # past the budget both packages pick the fused head
     big = dataclasses.replace(tcfg, batch_size=512)
-    assert jengine._resolve_lm_head(dataclasses.replace(
-        jcfg, batch_size=512), None) == (True, 0)
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 5"):
-        tengine._resolve_lm_head(big)
+    assert tengine._resolve_lm_head(big) == jengine._resolve_lm_head(
+        dataclasses.replace(jcfg, batch_size=512), None) == (True, 0)
 
 
 # --------------------------------------------------------- engine, data
@@ -391,7 +411,7 @@ def test_adam_steps_match_optax(dtype):
         jp = optax.apply_updates(jp, upd)
     ttx = tengine.make_optimizer(tconfig.TrainConfig(lr=1e-2, dtype=dtype))
     tp = [torch.from_numpy(params[n].copy()) for n in shapes]
-    tst = ttx.init(tp)
+    tst = ttx.init(tp, list(shapes))
     for g in grads:
         ttx.update([torch.from_numpy(g[n]) for n in shapes], tst, tp)
     adam = jst[0]

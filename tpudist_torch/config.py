@@ -78,7 +78,7 @@ class TrainConfig:
     remat: bool = False           # checkpoint transformer layers
     xent_chunks: int = 0
     fused_xent: bool = False
-    lm_head: str = "auto"         # auto | plain (fused/chunked: later)
+    lm_head: str = "auto"         # auto | plain | chunked | fused
     fail_at: Optional[int] = None  # fault injection: fail after this epoch
     log_every: int = 100
     steps_per_dispatch: int = 0   # 0 = auto, which is 1 here
@@ -130,18 +130,6 @@ def check_supported(cfg: TrainConfig) -> None:
             f"--steps-per-dispatch {cfg.steps_per_dispatch}: the port "
             f"dispatches one step at a time; the superstep comes with "
             f"ROADMAP Queue A item 7")
-    if cfg.lm_head in ("fused", "chunked") or cfg.fused_xent \
-            or cfg.xent_chunks:
-        raise ValueError(
-            "--lm-head fused|chunked, --fused-xent and --xent-chunks: the "
-            "port's head is the plain tied head; the fused and chunked "
-            "heads (kernels 5-6) come with ROADMAP Queue A item 5")
-    if cfg.lm_head not in ("auto", "plain"):
-        raise ValueError(f"unknown --lm-head {cfg.lm_head!r}")
-    if cfg.adam_nu_dtype != "float32":
-        raise ValueError(
-            "--adam-nu-dtype bfloat16: the stochastically rounded bf16 "
-            "second moment comes with ROADMAP Queue A item 5")
     if cfg.live not in (None, "off"):
         raise ValueError(
             "--live on: the live telemetry bus comes with ROADMAP Queue A "

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import functools
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +30,9 @@ class AdamState:
     count: int                 # steps taken
     mu: List[torch.Tensor]     # first moments, one per param
     nu: List[torch.Tensor]     # second moments, one per param
+    # each param's leaf index in the JAX package's params pytree (sorted
+    # dict keys): the salt of the bf16 second moment's rounding dither
+    salts: List[int] = field(default_factory=list)
 
 
 @dataclass
@@ -39,25 +42,78 @@ class TrainState:
     opt_state: AdamState
 
 
+def jax_leaf_order(names: Sequence[str]) -> List[int]:
+    """Each ``state_dict`` name's index among ``jax.tree.flatten``'s
+    leaves of the JAX package's nested params dict, whose keys flatten
+    sorted at every level (``embed``, ``final_norm``, ``layers.*``)."""
+    order = sorted(range(len(names)), key=lambda i: names[i].split("."))
+    rank = [0] * len(names)
+    for leaf, i in enumerate(order):
+        rank[i] = leaf
+    return rank
+
+
+def _stochastic_round_bf16(x: torch.Tensor, count: int,
+                           salt: int) -> torch.Tensor:
+    """f32 -> bf16 with stochastic rounding, bitwise the JAX package's
+    ``_stochastic_round_bf16``: add a uniform dither in [0, ulp) to the
+    low 16 bits of the f32 pattern, then truncate. Unbiased, which is what
+    lets a bf16-stored EMA track sub-ulp updates that round-to-nearest
+    would drop. The dither is a murmur-style hash of (flat element index,
+    step count, salt) on uint32, computed here in int64 with every
+    product and sum masked to its low 32 bits (exact under int64
+    wraparound)."""
+    m32 = 0xFFFFFFFF
+    bits = x.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & m32
+    idx = torch.arange(x.numel(), dtype=torch.int64,
+                       device=x.device).reshape(x.shape)
+    h = (idx * 0x9E3779B1) & m32
+    h = (h + ((count & m32) * 0x85EBCA6B & m32)
+         + (salt * 0xC2B2AE35 & m32)) & m32
+    h = h ^ (h >> 15)
+    h = (h * 0x27D4EB2F) & m32
+    h = h ^ (h >> 13)
+    bits = (bits + (h >> 16)) & 0xFFFF0000
+    # back to the int32 pattern (two's complement) and its f32 value; the
+    # low 16 bits are zero, so the bf16 cast is exact
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    return bits.view(torch.float32).to(torch.bfloat16)
+
+
 class Adam:
     """optax ``adam(lr, mu_dtype=...)`` over a list of params, updating
     them and the moments in place. The update runs in f32 in optax's
     order: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, then
     (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) times -lr; mu is
     stored in ``mu_dtype`` (bf16 under mixed precision) after the update
-    has used its f32 value. f32 runs give ``torch.optim.Adam``'s math."""
+    has used its f32 value. f32 runs give ``torch.optim.Adam``'s math.
+
+    ``nu_bf16`` is the JAX package's ``_adam_low_precision_nu``: the same
+    math in f32 in that function's order (mu = b1 mu + (1 - b1) g, nu =
+    b2 nu + (1 - b2) g g, update -lr (mu / c1) / (sqrt(nu / c2) + eps)),
+    with nu stored bf16 by :func:`_stochastic_round_bf16` (salted by the
+    state's ``salts``) and upcast at use."""
 
     def __init__(self, lr: float, *, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, mu_dtype: Optional[torch.dtype] = None):
+                 eps: float = 1e-8, mu_dtype: Optional[torch.dtype] = None,
+                 nu_bf16: bool = False):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.mu_dtype = mu_dtype
+        self.nu_bf16 = nu_bf16
 
-    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+    def init(self, params: Sequence[torch.Tensor],
+             names: Sequence[str]) -> AdamState:
+        """Zero moments for ``params``, whose ``state_dict`` names are
+        ``names``; the salts are their JAX leaf indices
+        (:func:`jax_leaf_order`)."""
         return AdamState(
             count=0,
             mu=[torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                 for p in params],
-            nu=[torch.zeros_like(p) for p in params])
+            nu=[torch.zeros_like(p, dtype=(torch.bfloat16 if self.nu_bf16
+                                           else p.dtype)) for p in params],
+            salts=jax_leaf_order(names))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: AdamState,
@@ -67,7 +123,17 @@ class Adam:
         # the bias corrections in f32, as optax computes them
         c1 = float(1 - np.float32(b1) ** np.float32(count))
         c2 = float(1 - np.float32(b2) ** np.float32(count))
-        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+        for i, (p, g, mu, nu) in enumerate(zip(params, grads, state.mu,
+                                               state.nu)):
+            if self.nu_bf16:
+                g = g.to(torch.float32)
+                m = b1 * mu.to(torch.float32) + (1 - b1) * g
+                v = b2 * nu.to(torch.float32) + (1 - b2) * g * g
+                p.add_((-self.lr * (m / c1)) / (torch.sqrt(v / c2)
+                                                + self.eps))
+                nu.copy_(_stochastic_round_bf16(v, count, state.salts[i]))
+                mu.copy_(m)
+                continue
             # optax's b1 * mu takes b1 in mu's dtype (JAX weak typing:
             # 0.8984375 for a bf16 mu) and, jitted as the JAX trainer
             # runs it, keeps the product in f32
@@ -82,9 +148,11 @@ class Adam:
 
 def make_optimizer(cfg: TrainConfig) -> Adam:
     """Adam; under ``--dtype bfloat16`` the first moment is stored bf16
-    (the JAX package's optax ``mu_dtype``), the second stays f32."""
+    (the JAX package's optax ``mu_dtype``); ``--adam-nu-dtype bfloat16``
+    stores the second moment bf16 with stochastic rounding."""
     return Adam(cfg.lr, mu_dtype=(torch.bfloat16 if cfg.dtype == "bfloat16"
-                                  else None))
+                                  else None),
+                nu_bf16=cfg.adam_nu_dtype == "bfloat16")
 
 
 def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
@@ -106,45 +174,55 @@ def _device_hbm_bytes(device: Optional[torch.device] = None) -> float:
 def _resolve_lm_head(cfg: TrainConfig,
                      device: Optional[torch.device] = None
                      ) -> Tuple[bool, int]:
-    """cfg.lm_head -> concrete (fused_xent, xent_chunks). ``plain`` is
-    (False, 0); ``auto`` asks :func:`_auto_lm_head`. The fused and
-    chunked heads are refused by ``config.check_supported``."""
+    """cfg.lm_head -> concrete (fused_xent, xent_chunks), the JAX
+    package's rules: a forced mode with a contradictory explicit flag is
+    an error; ``plain`` is (False, 0), ``fused`` (True, 0), ``chunked``
+    (False, --xent-chunks or 4); ``auto`` honours an explicit
+    --fused-xent/--xent-chunks, else asks :func:`_auto_lm_head`."""
+    if cfg.lm_head != "auto":
+        if cfg.lm_head == "plain" and (cfg.fused_xent or cfg.xent_chunks):
+            raise ValueError(
+                "--lm-head plain contradicts --fused-xent/--xent-chunks")
+        if cfg.lm_head == "fused" and cfg.xent_chunks:
+            raise ValueError("--lm-head fused contradicts --xent-chunks")
+        if cfg.lm_head == "chunked" and cfg.fused_xent:
+            raise ValueError("--lm-head chunked contradicts --fused-xent")
     if cfg.lm_head == "plain":
         return False, 0
-    if cfg.lm_head != "auto" or cfg.fused_xent or cfg.xent_chunks:
-        raise ValueError(
-            f"--lm-head {cfg.lm_head} (fused_xent={cfg.fused_xent}, "
-            f"xent_chunks={cfg.xent_chunks}): the port's head is the plain "
-            f"tied head; the others come with ROADMAP Queue A item 5")
+    if cfg.lm_head == "fused":
+        return True, 0
+    if cfg.lm_head == "chunked":
+        return False, cfg.xent_chunks or 4
+    if cfg.lm_head != "auto":
+        raise ValueError(f"unknown --lm-head {cfg.lm_head!r}")
+    if cfg.fused_xent or cfg.xent_chunks:
+        return cfg.fused_xent, cfg.xent_chunks
     return _auto_lm_head(cfg, device)
 
 
 def _auto_lm_head(cfg: TrainConfig,
                   device: Optional[torch.device] = None) -> Tuple[bool, int]:
     """The auto policy's pick, logged once per choice: per-device head
-    tokens and an analytic train-state estimate (f32 master + mu at its
-    storage dtype + f32 nu) against the device's memory."""
+    tokens and an analytic train-state estimate (f32 master + mu and nu
+    at their storage dtypes: 12 B/param in f32 down to 8 B with bf16 mu
+    and nu) against the device's memory."""
     m = cfg.model
     n_tok = max(cfg.batch_size, 1) * max(m.max_seq_len, 1)
     hd = m.d_model // m.n_heads
     attn = 2 * m.d_model * m.d_model + 2 * m.d_model * m.n_kv_heads * hd
     ffn = 3 * m.d_model * m.d_ff
     n_params = m.vocab_size * m.d_model + m.n_layers * (attn + ffn)
-    state_bytes_per_param = 4 + (2 if cfg.dtype == "bfloat16" else 4) + 4
+    state_bytes_per_param = (4 + (2 if cfg.dtype == "bfloat16" else 4)
+                             + (2 if cfg.adam_nu_dtype == "bfloat16" else 4))
     dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
     fused_xent, xent_chunks = transformer.pick_lm_head(
         n_tok, m.vocab_size, m.d_model, m.n_layers, dtype_bytes,
         n_params * state_bytes_per_param, _device_hbm_bytes(device))
-    choice = "fused" if fused_xent else "plain"
+    choice = ("fused" if fused_xent
+              else f"chunked({xent_chunks})" if xent_chunks else "plain")
     if choice not in _AUTO_HEAD_LOGGED:
         _AUTO_HEAD_LOGGED.add(choice)
         log0(f"tpudist: --lm-head auto -> {choice}")
-    if fused_xent:
-        raise ValueError(
-            "--lm-head auto picked the fused head for this shape (logits "
-            "pair + activations over the memory budget); the fused head "
-            "comes with ROADMAP Queue A item 5: lower --train-batch-size "
-            "or --seq-len")
     return fused_xent, xent_chunks
 
 
@@ -175,9 +253,9 @@ def init_state(cfg: TrainConfig, device: torch.device) -> TrainState:
     model = get_model(cfg.model.name)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     params = model.init(cfg.model, generator=gen)
+    names, plist = zip(*params.named_parameters())
     return TrainState(step=0, params=params,
-                      opt_state=make_optimizer(cfg).init(
-                          list(params.parameters())))
+                      opt_state=make_optimizer(cfg).init(plist, names))
 
 
 def _microbatch(loss_fn, params: nn.Module, batch, n_accum: int):

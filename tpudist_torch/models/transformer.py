@@ -17,6 +17,11 @@ autograd) for CUDA tensors and runs their plain versions for CPU
 tensors; other long causal shapes go blockwise, the rest dense. Training
 (:func:`loss_fn`) rotates q/k inside the flash kernels; the serving
 prefill rotates them up front, since the cache keeps rotated keys.
+
+The training loss's LM head (:func:`head_loss`) is plain (whole logits),
+chunked over the sequence with checkpointing, or fused
+(:func:`tpudist_torch.ops.cuda.fused_xent.fused_lm_head_xent`: the Hopper
+kernels for CUDA tensors, their plain versions for CPU tensors).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 from tpudist_torch.config import ModelConfig
 from tpudist_torch.ops.blockwise_attention import blockwise_causal_attention
 from tpudist_torch.ops.cuda import flash_attention as fa
+from tpudist_torch.ops.cuda import fused_xent as fx
 from tpudist_torch.ops.gqa import expand_gqa
 from tpudist_torch.ops.rope import apply_rope, rotate
 
@@ -401,17 +407,59 @@ def pick_lm_head(n_tokens_per_device: int, vocab: int, d_model: int,
     return True, 0
 
 
+def _chunked_head_xent(embed: torch.Tensor, h: torch.Tensor,
+                       targets: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """Tied head + cross-entropy over ``n_chunks`` sequence chunks, each
+    chunk's logits recomputed in the backward (``torch.utils.checkpoint``),
+    so the whole (batch, seq, vocab) logits tensor never exists: the chunk
+    means summed in order in f32, then divided by ``n_chunks``."""
+    b, s, d = h.shape
+    hc = h.reshape(b, n_chunks, s // n_chunks, d).transpose(0, 1)
+    tc = targets.reshape(b, n_chunks, s // n_chunks).transpose(0, 1)
+
+    def chunk_loss(hx, tx, e):
+        # logits keep the model dtype; _xent reduces in f32 internally
+        return _xent(hx @ e.T, tx)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        total = total + torch.utils.checkpoint.checkpoint(
+            chunk_loss, hc[i], tc[i], embed, use_reentrant=False)
+    return total / n_chunks
+
+
+def _fused_head_xent(embed: torch.Tensor, h: torch.Tensor,
+                     targets: torch.Tensor) -> torch.Tensor:
+    """Tied head + cross-entropy through the fused kernels
+    (:func:`tpudist_torch.ops.cuda.fused_xent.fused_lm_head_xent`): the
+    logits never reach device memory. CPU tensors run the kernels' plain
+    versions, so the same code path is CPU-testable."""
+    b, s, d = h.shape
+    return fx.fused_lm_head_xent(h.reshape(b * s, d), embed,
+                                 targets.reshape(b * s))
+
+
 def head_loss(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
               *, xent_chunks: int = 0,
               fused_xent: bool = False) -> torch.Tensor:
-    """Tied LM head + mean cross-entropy: the plain whole-logits
-    strategy, logits in the model dtype. The fused and chunked heads are
-    not in the port yet."""
-    if fused_xent or xent_chunks:
-        raise ValueError(
-            "the fused and chunked LM heads (fused_xent kernels 5-6, "
-            "chunked streaming) come with ROADMAP Queue A item 5; the "
-            "port computes the plain head")
+    """Tied LM head + mean cross-entropy, the one head-strategy dispatch.
+    ``fused_xent`` routes through the fused kernels (no logits in device
+    memory); ``xent_chunks`` > 0 streams the head over that many sequence
+    chunks with checkpointing; neither keeps the plain whole-logits path,
+    logits in the model dtype."""
+    if fused_xent and xent_chunks:
+        raise ValueError("--fused-xent and --xent-chunks are mutually "
+                         "exclusive LM-head strategies")
+    if fused_xent:
+        return _fused_head_xent(emb, h, targets)
+    if xent_chunks:
+        if targets.shape[1] % xent_chunks:
+            # erroring beats silently materialising the full logits tensor
+            # the flag was passed to avoid
+            raise ValueError(
+                f"sequence length {targets.shape[1]} not divisible by "
+                f"xent_chunks={xent_chunks}")
+        return _chunked_head_xent(emb, h, targets, xent_chunks)
     return _xent(h @ emb.T, targets)
 
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch reference attention: materialised scores, f32 softmax.
+"""Plain PyTorch references: attention with materialised scores and an f32
+softmax; the tied LM head's cross-entropy with whole f32 logits.
 Deliberately the naive formulation, because obviousness is the point of
 a reference."""
 
@@ -31,3 +32,13 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sc = sc.masked_fill(~keep, -1e30)
     p = torch.softmax(sc.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def lm_head_xent(h: torch.Tensor, emb: torch.Tensor,
+                 targets: torch.Tensor) -> torch.Tensor:
+    """Tied-head mean cross-entropy with whole f32 logits.
+    h: (tokens, d); emb: (vocab, d); targets: (tokens,) int."""
+    logits = h.float() @ emb.float().T
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[:, None])[:, 0]
+    return torch.mean(logz - gold)
