@@ -15,14 +15,19 @@ Phases, each of which fails the script (non-zero exit, no result line):
    forward and backward) from the sources in the checkout, one ``nvcc``
    for sm_90a each, started together; ptxas's register and spill report;
 3. kernels vs plain: the forward kernel against its plain version (o and
-   lse within f32 1e-4 / bf16 3e-2) on 35 shapes, and the three backward
-   kernels, through the autograd Function, against
-   ``flash_attention_bwd_plain`` (each gradient's max |d| / max |plain|
-   within f32 1e-4 / bf16 5e-2, a nonzero lse cotangent, two calls
-   bitwise equal) on 38 shapes; each kernel's time at its main path's
-   shape beside its bound, the plain version's and one PyTorch library
-   call's (``scaled_dot_product_attention``, forward or
-   ``autograd.grad`` through it);
+   lse within f32 1e-4 / bf16 3e-2, two calls bitwise equal) on 41
+   shapes (35 that take its 64-row blocks with split kv tiles, 6 whose
+   grids take its 128-row blocks), and the three backward kernels,
+   through the autograd Function, against ``flash_attention_bwd_plain``
+   (each gradient's max |d| / max |plain| within f32 1e-4 / bf16 5e-2, a
+   nonzero lse cotangent, two calls bitwise equal) on 38 shapes; each
+   kernel's time at its main paths' shapes beside its bound, the plain
+   version's and one PyTorch library call's
+   (``scaled_dot_product_attention``, forward or ``autograd.grad``
+   through it): the forward at the serving prefill (b1 s512 f32), the
+   training slice (b8 s2048 f32, RoPE in the kernel) and phase 9 (b8
+   s512 bf16, RoPE in the kernel), where the library call takes q/k
+   rotated before it and its time excludes the rotation;
    3c. the fused LM-head kernels, through their autograd Function,
    against ``fused_xent_fwd_plain`` / ``fused_xent_bwd_plain`` on
    ``tpudist/selfcheck.py``'s four shapes (d 256 f32), the bench
@@ -56,7 +61,8 @@ launched the exact number of times its path calls it (the training
 phases also check the stdout contract, a falling loss and the
 ``success`` verdict file). ``--profile`` adds torch.profiler breakdowns
 of the serving windows and of two training steps at seq 2048 (plain and
-fused head) and 512 (device time by kernel, busy share).
+fused head) and 512 (device time by kernel, busy share), and the rates
+mma.sync reaches (``tpudist_torch/csrc/mma_peak.cu``).
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -79,9 +85,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
-# cores (the flash kernel's f32 path refuses TF32), bf16 tensor cores,
-# HBM3 bandwidth
+# cores (the backward and fused-xent kernels do f32 FMA), bf16 tensor
+# cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the flash forward runs its f32 products on the tensor cores as 3xTF32:
+# three TF32 products for each f32 one, so a third of the 495 TFLOP/s
+# TF32 peak
+FWD_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # backward gradients: max |kernel - plain| / max |plain|
@@ -122,8 +132,11 @@ def build_all(build, fa, fx):
 
 def time_ms(torch, fn, *, warmup: int = 3, runs: int = 25,
             inner: int = 10) -> float:
-    """Median over ``runs`` of the mean time of ``inner`` back-to-back
-    calls, by CUDA events, after ``warmup`` calls."""
+    """Median over ``runs`` of the mean device time of ``inner``
+    back-to-back calls, by CUDA events, after ``warmup`` calls. Each run
+    first queues a ~10 ms spin on the card, so the host has queued the
+    calls before the start event: a call shorter than its own host-side
+    cost is timed on the device, not at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -131,6 +144,7 @@ def time_ms(torch, fn, *, warmup: int = 3, runs: int = 25,
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)   # cycles
         start.record()
         for _ in range(inner):
             fn()
@@ -140,24 +154,28 @@ def time_ms(torch, fn, *, warmup: int = 3, runs: int = 25,
     return statistics.median(times)
 
 
-def attention_bound(b, s, sk, h, kv, hd, dtype: str, causal: bool):
+def attention_bound(b, s, sk, h, kv, hd, dtype: str, causal: bool,
+                    rope: bool = False):
     """(bound_ms, bound_by) of one attention forward: the larger of the
-    FLOPs of the two products over the peak for ``dtype`` and the bytes
-    of q, k, v, o and lse (each once) over HBM bandwidth. Causal counts
-    the s(s+1)/2 query-key pairs the mask keeps."""
+    FLOPs of the two products over the forward's peak for ``dtype``
+    (``FWD_PEAK_FLOPS``: 3xTF32 for f32) and the bytes
+    of q, k, v, o and lse (each once; and the f32 RoPE tables with
+    ``rope``) over HBM bandwidth. Causal counts the s(s+1)/2 query-key
+    pairs the mask keeps."""
     pairs = s * (s + 1) // 2 if causal else s * sk
     flops = 4 * b * h * hd * pairs
     elt = 4 if dtype == "float32" else 2
     nbytes = elt * (2 * b * s * h * hd + 2 * b * sk * kv * hd) \
-        + 4 * b * h * s
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        + 4 * b * h * s + (2 * 4 * s * hd // 2 if rope else 0)
+    t_ops = flops / FWD_PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_flash(torch, fa, F):
-    """Phase 3: the flash kernel against its plain version, and its
-    times at the serving path's shape. Returns the kernel's record."""
+    """Phase 3: the flash kernel against its plain version, two calls
+    bitwise equal, on every shape; and its times at the main paths'
+    shapes. Returns the kernel's record."""
     from tpudist_torch.ops.rope import apply_rope
 
     shapes = [(1, 512, 16, 16, 128, "float32", True, False)]   # serving
@@ -169,11 +187,18 @@ def check_flash(torch, fa, F):
                         shapes.append((b, s, h, kv, 128, dt, causal, rope))
     for dt in ("bfloat16", "float32"):                       # hd 256
         shapes.append((1, 512, 4, 2, 256, dt, True, True))
+    # grids that fill the card: the kernel's 128-row blocks (the shapes
+    # above take its 64-row blocks with split kv tiles)
+    for dt in ("bfloat16", "float32"):
+        shapes += [(8, 512, 16, 16, 128, dt, True, True),
+                   (8, 512, 16, 4, 128, dt, False, dt == "bfloat16"),
+                   (8, 512, 16, 8, 256, dt, True, True)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     bad = []
     serving_err = None
-    print(f"{'shape':44s} {'o err':>10s} {'lse err':>10s} {'atol':>7s}")
+    print(f"{'shape':44s} {'o err':>10s} {'lse err':>10s} {'atol':>7s} "
+          f"bitwise")
     for (b, s, h, kv, hd, dt, causal, rope) in shapes:
         dtype = getattr(torch, dt)
         q = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(dtype)
@@ -183,59 +208,94 @@ def check_flash(torch, fa, F):
         if rope:
             ang = torch.rand(s, hd // 2, device="cuda", generator=gen) * 6.3
             cos, sin = ang.cos(), ang.sin()
-        with torch.no_grad():
+
+        def run():
             if rope:
                 o = fa.flash_attention(q, k, v, cos=cos, sin=sin,
                                        causal=causal)
                 qr, kr = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-                _, lse = fa.flash_attention_with_lse(qr, kr, v,
-                                                     causal=causal)
-            else:
-                o, lse = fa.flash_attention_with_lse(q, k, v,
-                                                     causal=causal)
+                return o, fa.flash_attention_with_lse(qr, kr, v,
+                                                      causal=causal)[1]
+            return fa.flash_attention_with_lse(q, k, v, causal=causal)
+        with torch.no_grad():
+            o, lse = run()
+            o2, lse2 = run()
             torch.cuda.synchronize()
             po, plse = fa.flash_attention_plain(q, k, v, cos=cos, sin=sin,
                                                 causal=causal)
         o_err = (o.float() - po.float()).abs().max().item()
         l_err = (lse - plse).abs().max().item()
+        bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
         name = (f"b{b} s{s} h{h} kv{kv} hd{hd} {dt} "
                 f"{'causal' if causal else 'full'}"
                 f"{' rope' if rope else ''}")
-        ok = max(o_err, l_err) <= ATOL[dt] and bool(
+        ok = max(o_err, l_err) <= ATOL[dt] and bitwise and bool(
             torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
-        print(f"{name:44s} {o_err:10.3e} {l_err:10.3e} {ATOL[dt]:7.0e}"
-              f"{'' if ok else '  FAIL'}")
+        print(f"{name:44s} {o_err:10.3e} {l_err:10.3e} {ATOL[dt]:7.0e} "
+              f"{bitwise}{'' if ok else '  FAIL'}")
         if not ok:
             bad.append(name)
         if serving_err is None:
             serving_err = max(o_err, l_err)
     if bad:
-        fail(f"flash kernel disagrees with its plain version on "
-             f"{len(bad)} shape(s): {bad}")
+        fail(f"flash kernel disagrees with its plain version (or is not "
+             f"deterministic) on {len(bad)} shape(s): {bad}")
 
-    b, s, h, kv, hd = 1, 512, 16, 16, 128
-    q, k, v = (torch.randn(b, s, n, hd, device="cuda", generator=gen)
-               for n in (h, kv, kv))
-    with torch.no_grad():
-        kernel_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
-        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-    bound_ms, bound_by = attention_bound(b, s, s, h, kv, hd, "float32",
-                                         True)
-    print(f"flash_attention_fwd at b{b} s{s} h{h} kv{kv} hd{hd} float32 "
-          f"causal: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+    # the main paths' shapes: serving prefill (b1 s512, no RoPE), the
+    # training slice (b8 s2048, RoPE in the kernel) and phase 9 (b8 s512
+    # bf16, RoPE in the kernel)
+    rows = []
+    few = dict(warmup=1, runs=5, inner=2)
+    for (b, s, h, kv, hd, dt, rope) in (
+            (1, 512, 16, 16, 128, "float32", False),
+            (8, 2048, 16, 16, 128, "float32", True),
+            (8, 512, 16, 16, 128, "bfloat16", True)):
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(b, s, n, hd, device="cuda",
+                               generator=gen).to(dtype)
+                   for n in (h, kv, kv))
+        cos = sin = None
+        if rope:
+            ang = torch.rand(s, hd // 2, device="cuda", generator=gen) * 6.3
+            cos, sin = ang.cos(), ang.sin()
+        big = b * s > 4096   # the plain version's scores take seconds
+        with torch.no_grad():
+            kernel_ms = time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, cos=cos, sin=sin))
+            plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, cos=cos, sin=sin), **(few if big else {}))
+            # the library call takes q/k rotated up front: its time
+            # excludes the rotation
+            qr, kr = ((apply_rope(q, cos, sin), apply_rope(k, cos, sin))
+                      if rope else (q, k))
+            qt, kt, vt = (x.transpose(1, 2) for x in (qr, kr, v))
+            library_ms = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+        bound_ms, bound_by = attention_bound(b, s, s, h, kv, hd, dt, True,
+                                             rope)
+        shape = (f"b{b} s{s} h{h} kv{kv} hd{hd} {dt} causal"
+                 f"{' rope' if rope else ''}")
+        note = " (on q/k rotated before it, not timed)" if rope else ""
+        print(f"flash_attention_fwd at {shape}: kernel {kernel_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+              f"{library_ms:.4f} ms{note}, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        rows.append({"shape": shape, "ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        del q, k, v, qr, kr, qt, kt, vt
+        torch.cuda.empty_cache()
+    serving = rows[0]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "tpudist_torch/csrc/flash_attention_fwd.cu",
             "replaces": "tpudist/ops/pallas/flash_attention.py:149",
             "launches": None, "max_abs_err": serving_err,
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "shape": f"b{b} s{s} h{h} kv{kv} hd{hd} float32 causal"}
+            "ms": serving["ms"], "plain_ms": serving["plain_ms"],
+            "bound_ms": serving["bound_ms"],
+            "bound_by": serving["bound_by"],
+            "library_ms": serving["library_ms"], "shape": serving["shape"],
+            "timings": rows}
 
 
 def backward_bound(b, s, h, kv, hd, dtype: str, causal: bool,
@@ -958,6 +1018,29 @@ def profile_train(torch, seq: int, lm_head: str = "plain"):
     torch.cuda.empty_cache()
 
 
+def mma_peaks(torch, build):
+    """--profile: the rate the tensor cores reach through mma.sync, the
+    flash forward's instruction (``tpudist_torch/csrc/mma_peak.cu``:
+    independent accumulator chains, no loads, 4 blocks of 8 warps an
+    SM), beside the data sheet's dense peaks, which only wgmma reaches."""
+    import ctypes
+
+    fn = build.load("mma_peak", ("mma_peak.cu",)).tpudist_mma_peak
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_float)]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind, name, peak in ((0, "TF32 m16n8k8", 495.0),
+                             (1, "bf16 m16n8k16", 989.0)):
+        rate = ctypes.c_float()
+        err = fn(kind, 4 * sms, 2000, ctypes.byref(rate))
+        if err:
+            fail(f"mma_peak ({name}) failed: cudaError {err}")
+        print(f"profile: mma.sync {name}: {rate.value:.1f} TFLOP/s "
+              f"({100 * rate.value / peak:.1f} % of the data sheet's "
+              f"{peak:.0f} dense)")
+
+
 def profile_serve(torch, engine, params, requests):
     """Device time by kernel in two windows at the slice's shapes, one
     prefill per slot and then one decode superstep over the full batch,
@@ -1062,6 +1145,7 @@ def main() -> int:
     if args.profile:
         for seq, head in ((2048, "plain"), (2048, "fused"), (512, "plain")):
             profile_train(torch, seq, head)
+        mma_peaks(torch, build)
 
     reaches = {"flash_attention_fwd": tuple(paths),
                "flash_attention_bwd_dq": ("train_seq2048",

@@ -85,6 +85,58 @@ def test_forward_matches_jax_kernel(kv, causal, rope, dtype):
                                rtol=tol)
 
 
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest with ties away from zero, the low 13 mantissa bits cleared
+    (half of their range added to the magnitude first carries into the
+    kept bits exactly when rna rounds up)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor,
+                  split: str) -> torch.Tensor:
+    """a @ b as the forward kernel's tensor-core products form it on the
+    card: TF32 operands (their products exact in f32), f32 sums.
+    ``3xtf32``: a = ahi + alo, b = bhi + blo with hi = rna(x) and lo =
+    rna(x - hi), summed as alo bhi + ahi blo + ahi bhi; ``tf32``: one
+    product of the rounded operands."""
+    ahi, bhi = _rna_tf32(a), _rna_tf32(b)
+    if split == "tf32":
+        return ahi @ bhi
+    alo, blo = _rna_tf32(a - ahi), _rna_tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+@pytest.mark.parametrize("split", ["3xtf32", "tf32"])
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_tf32_split_products_hold_the_f32_tolerance(product, split):
+    """The numeric claim behind the kernel's f32 path: the scaled scores
+    q k^T / sqrt(hd) at hd 128 and the PV accumulator P v over 512 keys
+    (P = exp(s - rowmax) in (0, 1], as the kernel accumulates it before
+    dividing by the row sum), computed by the 3xTF32 split, agree with
+    float64 within chip_smoke's f32 atol (1e-4); one TF32 product misses
+    it by more than 10x."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((256, 128), np.float32)
+    k = rng.standard_normal((512, 128), np.float32)
+    v = rng.standard_normal((512, 128), np.float32)
+    scale = 1.0 / 128 ** 0.5
+    s64 = q.astype(np.float64) @ k.T.astype(np.float64) * scale
+    if product == "qk":
+        got = _tf32_product(torch.from_numpy(q),
+                            torch.from_numpy(k.T.copy()), split) * scale
+        want = s64
+    else:
+        p = np.exp(s64 - s64.max(axis=1, keepdims=True)).astype(np.float32)
+        got = _tf32_product(torch.from_numpy(p), torch.from_numpy(v), split)
+        want = p.astype(np.float64) @ v.astype(np.float64)
+    err = np.abs(got.double().numpy() - want).max()
+    if split == "3xtf32":
+        assert err <= 1e-4, err
+    else:
+        assert err > 1e-3, err
+
+
 def test_cpu_tensors_never_count_a_launch():
     """The CPU route is the plain version: the launch counter only moves
     where the kernel ran."""
