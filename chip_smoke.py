@@ -20,14 +20,17 @@ Phases, each of which fails the script (non-zero exit, no result line):
    grids take its 128-row blocks), and the three backward kernels,
    through the autograd Function, against ``flash_attention_bwd_plain``
    (each gradient's max |d| / max |plain| within f32 1e-4 / bf16 5e-2, a
-   nonzero lse cotangent, two calls bitwise equal) on 38 shapes; each
-   kernel's time at its main paths' shapes beside its bound, the plain
-   version's and one PyTorch library call's
-   (``scaled_dot_product_attention``, forward or ``autograd.grad``
-   through it): the forward at the serving prefill (b1 s512 f32), the
-   training slice (b8 s2048 f32, RoPE in the kernel) and phase 9 (b8
-   s512 bf16, RoPE in the kernel), where the library call takes q/k
-   rotated before it and its time excludes the rotation;
+   nonzero lse cotangent, two calls bitwise equal, the predicted route)
+   on 48 shapes, 10 of them at the edges of the split pair's tiling; each
+   kernel's time at its main paths' shapes beside its bound (on the
+   tensor cores' peak for the forward and the split backward pair at hd
+   128, the CUDA cores' for the merged kernel), the plain version's and
+   one PyTorch library call's (``scaled_dot_product_attention``, forward
+   or ``autograd.grad`` through it): the forward at the serving prefill
+   (b1 s512 f32), the training slice (b8 s2048 f32, RoPE in the kernel)
+   and phase 9 (b8 s512 bf16, RoPE in the kernel), where the library
+   call takes q/k rotated before it and its time excludes the rotation;
+   the dq + dk/dv pair's sum beside that call's whole backward;
    3c. the fused LM-head kernels, through their autograd Function,
    against ``fused_xent_fwd_plain`` / ``fused_xent_bwd_plain`` on
    ``tpudist/selfcheck.py``'s four shapes (d 256 f32), the bench
@@ -85,13 +88,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
-# cores (the backward and fused-xent kernels do f32 FMA), bf16 tensor
-# cores, HBM3 bandwidth
+# cores (the merged flash backward, hd 256 and the fused-xent kernels do
+# f32 FMA), bf16 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the flash forward runs its f32 products on the tensor cores as 3xTF32:
-# three TF32 products for each f32 one, so a third of the 495 TFLOP/s
-# TF32 peak
-FWD_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# the flash forward and the split flash backward at hd 128 run their f32
+# products on the tensor cores as 3xTF32: three TF32 products for each
+# f32 one, so a third of the 495 TFLOP/s TF32 peak
+TC_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # backward gradients: max |kernel - plain| / max |plain|
@@ -157,8 +160,8 @@ def time_ms(torch, fn, *, warmup: int = 3, runs: int = 25,
 def attention_bound(b, s, sk, h, kv, hd, dtype: str, causal: bool,
                     rope: bool = False):
     """(bound_ms, bound_by) of one attention forward: the larger of the
-    FLOPs of the two products over the forward's peak for ``dtype``
-    (``FWD_PEAK_FLOPS``: 3xTF32 for f32) and the bytes
+    FLOPs of the two products over the tensor cores' peak for ``dtype``
+    (``TC_PEAK_FLOPS``: 3xTF32 for f32) and the bytes
     of q, k, v, o and lse (each once; and the f32 RoPE tables with
     ``rope``) over HBM bandwidth. Causal counts the s(s+1)/2 query-key
     pairs the mask keeps."""
@@ -167,7 +170,7 @@ def attention_bound(b, s, sk, h, kv, hd, dtype: str, causal: bool,
     elt = 4 if dtype == "float32" else 2
     nbytes = elt * (2 * b * s * h * hd + 2 * b * sk * kv * hd) \
         + 4 * b * h * s + (2 * 4 * s * hd // 2 if rope else 0)
-    t_ops = flops / FWD_PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / TC_PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -298,13 +301,23 @@ def check_flash(torch, fa, F):
             "timings": rows}
 
 
+def backward_peak(name: str, hd: int):
+    """The peak a flash backward kernel's operations are bounded by, per
+    route: the split pair (dq, dk/dv) runs on the tensor cores at hd 128
+    (``TC_PEAK_FLOPS``), the merged kernel and hd 256 do f32 FMA on the
+    CUDA cores (``PEAK_FLOPS``)."""
+    return TC_PEAK_FLOPS if name in ("dq", "dkv") and hd == 128 \
+        else PEAK_FLOPS
+
+
 def backward_bound(b, s, h, kv, hd, dtype: str, causal: bool,
-                   products: int, outputs: str):
+                   products: int, outputs: str, peak):
     """(bound_ms, bound_by) of one flash backward kernel: ``products``
     matrix products over the kept query-key pairs (dq 3, dk/dv 4, merged
-    5) over the peak for ``dtype``, against the bytes of q, k, v, do,
-    lse, delta and the RoPE tables read once and of ``outputs`` (a
-    string of q/k/v: which gradients it writes) written once."""
+    5) over ``peak[dtype]`` (:func:`backward_peak`), against the bytes of
+    q, k, v, do, lse, delta and the RoPE tables read once and of
+    ``outputs`` (a string of q/k/v: which gradients it writes) written
+    once."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = products * 2 * b * h * hd * pairs
     elt = 4 if dtype == "float32" else 2
@@ -312,15 +325,16 @@ def backward_bound(b, s, h, kv, hd, dtype: str, causal: bool,
     nbytes = (elt * (2 * qsz + 2 * ksz) + 2 * 4 * b * h * s
               + 2 * 4 * s * hd // 2
               + elt * sum(qsz if o == "q" else ksz for o in outputs))
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / peak[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _bwd_inputs(torch, gen, b, s, h, kv, hd, dtype, rope):
+def _bwd_inputs(torch, gen, b, s, h, kv, hd, dtype, rope, sk=None):
+    sk = s if sk is None else sk
     q = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(b, s, kv, hd, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(b, s, kv, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, sk, kv, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, sk, kv, hd, device="cuda", generator=gen).to(dtype)
     do = torch.randn(b, s, h, hd, device="cuda", generator=gen).to(dtype)
     dlse = torch.randn(b, h, s, device="cuda", generator=gen) * 0.1
     cos = sin = None
@@ -334,29 +348,43 @@ def check_flash_bwd(torch, fa):
     """Phase 3b: the three backward kernels, through the autograd
     Function, against ``flash_attention_bwd_plain`` on the same forward
     outputs; each gradient judged by max |d| / max |plain| (f32 1e-4,
-    bf16 5e-2), and two calls bitwise equal. Returns each kernel's max
-    |kernel - plain| over its own outputs at the slice's shapes."""
-    shapes = []
+    bf16 5e-2), two calls bitwise equal, and the route the Python rule
+    (``uses_merged_backward``) predicts. Beside selfcheck's shapes and the
+    slice's, shapes at the edges of the split pair's tensor-core tiling:
+    seq 384 (the split pair, as in the JAX package) and 640, four q heads
+    a kv head at seq 1024, a non-causal seq 512 over 1024 keys and a grid
+    of 64 blocks (b1 h4 s2048), each in f32 and bf16. Returns each
+    kernel's max |kernel - plain| over its own outputs at the slice's
+    shapes."""
+    shapes = []   # (b, s, sk, h, kv, hd, dtype, causal, rope)
     for (b, s, h) in ((4, 512, 8), (1, 2048, 4)):            # selfcheck
         for kv in ((8, 2) if h == 8 else (4, 2)):
             for dt in ("bfloat16", "float32"):
                 for causal in (True, False):
                     for rope in (False, True):
-                        shapes.append((b, s, h, kv, 128, dt, causal, rope))
+                        shapes.append((b, s, s, h, kv, 128, dt, causal,
+                                       rope))
     for dt in ("bfloat16", "float32"):                       # hd 256
-        shapes.append((1, 512, 4, 2, 256, dt, True, True))
-        shapes.append((1, 1024, 4, 2, 256, dt, False, True))
-    shapes.append((8, 2048, 16, 16, 128, "float32", True, True))  # slice
-    shapes.append((8, 512, 16, 16, 128, "float32", True, True))
+        shapes.append((1, 512, 512, 4, 2, 256, dt, True, True))
+        shapes.append((1, 1024, 1024, 4, 2, 256, dt, False, True))
+    for dt in ("bfloat16", "float32"):                       # tiling edges
+        shapes += [(2, 384, 384, 8, 2, 128, dt, True, True),
+                   (2, 640, 640, 4, 4, 128, dt, True, True),
+                   (2, 1024, 1024, 16, 4, 128, dt, True, True),
+                   (2, 512, 1024, 8, 8, 128, dt, False, False),
+                   (1, 2048, 2048, 4, 4, 128, dt, True, True)]
+    shapes.append((8, 2048, 2048, 16, 16, 128, "float32", True,
+                   True))                                    # slice
+    shapes.append((8, 512, 512, 16, 16, 128, "float32", True, True))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     bad, slice_err = [], {}
-    print(f"{'backward shape':48s} {'kernel':>6s} {'dq':>9s} {'dk':>9s} "
+    print(f"{'backward shape':52s} {'kernel':>6s} {'dq':>9s} {'dk':>9s} "
           f"{'dv':>9s} {'tol':>6s} bitwise")
-    for (b, s, h, kv, hd, dt, causal, rope) in shapes:
+    for (b, s, sk, h, kv, hd, dt, causal, rope) in shapes:
         tol = BWD_RTOL[dt]
         q, k, v, do, dlse, cos, sin = _bwd_inputs(
-            torch, gen, b, s, h, kv, hd, getattr(torch, dt), rope)
+            torch, gen, b, s, h, kv, hd, getattr(torch, dt), rope, sk)
         q, k, v = (x.requires_grad_() for x in (q, k, v))
         counts = (fa.dq_launches, fa.dkv_launches, fa.dqkv_launches)
         o, lse = fa._Flash.apply(q, k, v, cos, sin, causal)
@@ -378,13 +406,13 @@ def check_flash_bwd(torch, fa):
                 for e, r in zip(abs_errs, ref)]
         bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
-        want = (["dqkv"] if fa.uses_merged_backward(s, s)
+        want = (["dqkv"] if fa.uses_merged_backward(s, sk)
                 else ["dq", "dkv"])
         ok = max(errs) <= tol and bitwise and finite and ran == want
-        name = (f"b{b} s{s} h{h} kv{kv} hd{hd} {dt} "
-                f"{'causal' if causal else 'full'}"
+        name = (f"b{b} s{s}{f' sk{sk}' if sk != s else ''} h{h} kv{kv} "
+                f"hd{hd} {dt} {'causal' if causal else 'full'}"
                 f"{' rope' if rope else ''}")
-        print(f"{name:48s} {'+'.join(ran):>6s} {errs[0]:9.2e} "
+        print(f"{name:52s} {'+'.join(ran):>6s} {errs[0]:9.2e} "
               f"{errs[1]:9.2e} {errs[2]:9.2e} {tol:6.0e} {bitwise}"
               f"{'' if ok else '  FAIL'}")
         if not ok:
@@ -407,8 +435,10 @@ def time_flash_bwd(torch, fa, F, slice_err):
     slice gives it (dq and dk/dv at seq 2048, the merged kernel at seq
     512; b8 h16 kv16 hd128 f32 causal with RoPE), beside its bound, the
     plain backward's time and torch.autograd.grad through
-    scaled_dot_product_attention at the same shape. Returns the kernels'
-    records (launches filled in by the training phase)."""
+    scaled_dot_product_attention at the same shape; and the dq + dk/dv
+    pair's sum, the function that library call computes, beside it.
+    Returns the kernels' records (launches filled in by the training
+    phase)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     records = []
@@ -427,6 +457,7 @@ def time_flash_bwd(torch, fa, F, slice_err):
         dout = do.transpose(1, 2)
         library_ms = time_ms(torch, lambda: torch.autograd.grad(
             out, (qt, kt, vt), dout, retain_graph=True))
+        shape = f"b{b} s{s} h{h} kv{kv} hd{hd} float32 causal rope"
         for name in kernels:
             fn = {"dq": fa.flash_attention_bwd_dq,
                   "dkv": fa.flash_attention_bwd_dkv,
@@ -437,14 +468,16 @@ def time_flash_bwd(torch, fa, F, slice_err):
                     causal=True))
             products, outputs = {"dq": (3, "q"), "dkv": (4, "kv"),
                                  "dqkv": (5, "qkv")}[name]
+            peak = backward_peak(name, hd)
             bound_ms, bound_by = backward_bound(b, s, h, kv, hd, "float32",
-                                                True, products, outputs)
-            shape = f"b{b} s{s} h{h} kv{kv} hd{hd} float32 causal rope"
+                                                True, products, outputs,
+                                                peak)
             print(f"flash_attention_bwd_{name} at {shape}: kernel "
                   f"{kernel_ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
                   f"autograd.grad through scaled_dot_product_attention "
                   f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+                  f"({bound_by}, f32 peak {peak['float32'] / 1e12:.0f} "
+                  f"TFLOP/s)")
             records.append({
                 "name": f"flash_attention_bwd_{name}", "route": "cuda",
                 "source": "tpudist_torch/csrc/flash_attention_bwd.cu",
@@ -457,7 +490,21 @@ def time_flash_bwd(torch, fa, F, slice_err):
                 "launches": None, "max_abs_err": slice_err.get(name),
                 "ms": kernel_ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_peak": ("tensor cores 3xTF32"
+                               if peak is TC_PEAK_FLOPS
+                               else "cuda cores fma"),
                 "library_ms": library_ms, "shape": shape})
+        if s == 2048:
+            pair = records[-2:]
+            pair_ms = sum(r["ms"] for r in pair)
+            bound_ms = sum(r["bound_ms"] for r in pair)
+            for r in pair:
+                r["pair_ms"] = pair_ms
+            print(f"flash backward pair (dq + dk/dv) at {shape}: "
+                  f"{pair_ms:.4f} ms, bound {bound_ms:.4f} ms; "
+                  f"autograd.grad through scaled_dot_product_attention "
+                  f"(all three gradients) {library_ms:.4f} ms "
+                  f"({pair_ms / library_ms:.2f}x)")
         del q, k, v, do, o, lse, delta, qt, kt, vt, out
         torch.cuda.empty_cache()
     return records
@@ -966,7 +1013,8 @@ def step_check(torch, fa, fx, seq: int, fused: bool = False):
     torch.cuda.empty_cache()
     if errs[worst] > 1e-4 or not math.isfinite(errs[worst]):
         fail(f"step check {tag}: {worst} off by {errs[worst]:.3e}")
-    if not ran["flash_attention_bwd_dqkv" if seq <= 512
+    merged = fa.uses_merged_backward(seq, seq)
+    if not ran["flash_attention_bwd_dqkv" if merged
                else "flash_attention_bwd_dkv"]:
         fail(f"step check {tag}: the backward kernels did not run")
     if fused and (ran["fused_xent_fwd"], ran["fused_xent_bwd"]) != (1, 1):

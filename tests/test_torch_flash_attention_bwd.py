@@ -135,19 +135,29 @@ def test_plain_backward_is_the_gradient_of_the_plain_forward():
 
 
 def test_routing_takes_the_merged_kernel_up_to_512():
-    for s, sk, merged in ((128, 128, True), (512, 512, True),
+    """The merged kernel runs where the JAX package's default blocks
+    (``_pick_block`` at 512) leave one block on each side: seq 128, 256
+    and 512. At 384 the JAX block is 128, three of them: the split
+    pair."""
+    for s, sk, merged in ((128, 128, True), (256, 256, True),
+                          (512, 512, True), (384, 384, False),
                           (640, 640, False), (512, 640, False),
                           (1024, 128, False)):
         assert tfa.uses_merged_backward(s, sk) == merged
-    assert tfa.MERGED_MAX_SEQ == 512   # the JAX default block_q/block_k
+    for s in range(128, 4097, 128):
+        assert tfa._pick_block(s) == jfa._pick_block(s, 512)
+        assert tfa.uses_merged_backward(s, s) == (jfa._pick_block(s, 512)
+                                                  == s)
+    assert tfa.BLOCK == 512   # the JAX default block_q/block_k
 
 
-@pytest.mark.parametrize("s,route", [(512, ["dqkv"]), (640, ["dq", "dkv"])])
+@pytest.mark.parametrize("s,route", [(512, ["dqkv"]), (640, ["dq", "dkv"]),
+                                     (384, ["dq", "dkv"])])
 def test_backward_routes_through_the_kernel_wrappers(s, route,
                                                      monkeypatch):
-    """The autograd Function reaches the merged wrapper at seq <= 512 and
-    the dq + dk/dv pair above; on the CPU the wrappers run the plain
-    version and count no launch."""
+    """The autograd Function reaches the merged wrapper at seq 512 and
+    the dq + dk/dv pair at 384 and 640; on the CPU the wrappers run the
+    plain version and count no launch."""
     calls = []
     for name in ("dq", "dkv", "dqkv"):
         real = getattr(tfa, f"flash_attention_bwd_{name}")
@@ -182,3 +192,63 @@ def test_kernel_wrappers_equal_the_plain_backward_on_cpu():
                                              **rope)):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as the kernels round it (``cvt.rna``: to
+    nearest, ties away from zero, the low 13 mantissa bits cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor,
+                  split: str) -> torch.Tensor:
+    """a @ b as the kernels' tensor-core products form it: TF32 operands
+    (their products exact in f32), f32 sums. ``3xtf32``: hi = rna(x), lo
+    = rna(x - hi), summed as alo bhi + ahi blo + ahi bhi; ``tf32``: one
+    product of the rounded operands."""
+    ahi, bhi = _rna_tf32(a), _rna_tf32(b)
+    if split == "tf32":
+        return ahi @ bhi
+    alo, blo = _rna_tf32(a - ahi), _rna_tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+@pytest.mark.parametrize("split", ["3xtf32", "tf32"])
+@pytest.mark.parametrize("product", ["dp", "ds", "dv", "dk", "dq"])
+def test_tf32_split_products_hold_the_f32_tolerance(product, split):
+    """The numeric claim behind the f32 backward kernels on the tensor
+    cores, at hd 128 over 512 keys: dP = dO V^T, ds = p (dP - delta) with
+    its cancellation, dV = P^T dO, dK = dS^T Q and dQ = dS K, each formed
+    by the 3xTF32 split from f32 operands, agree with float64 within
+    chip_smoke's f32 backward tolerance (1e-4 of the largest element);
+    one TF32 product misses it."""
+    rng = np.random.default_rng(6)
+    q, do = (rng.standard_normal((256, HD), np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((512, HD), np.float32) for _ in range(2))
+    q64, k64, v64, do64 = (x.astype(np.float64) for x in (q, k, v, do))
+    s64 = q64 @ k64.T / HD ** 0.5
+    p64 = np.exp(s64 - s64.max(axis=1, keepdims=True))
+    p64 /= p64.sum(axis=1, keepdims=True)
+    dp64 = do64 @ v64.T
+    delta64 = (p64 * dp64).sum(axis=1, keepdims=True)   # rowsum(do * o)
+    ds64 = p64 * (dp64 - delta64)
+    p, ds = p64.astype(np.float32), ds64.astype(np.float32)
+    t = torch.from_numpy
+    if product in ("dp", "ds"):
+        dp = _tf32_product(t(do), t(v.T.copy()), split)
+        if product == "dp":
+            got, want = dp, dp64
+        else:
+            got = t(p) * (dp - t(delta64.astype(np.float32)))
+            want = ds64
+    elif product == "dv":
+        got, want = _tf32_product(t(p.T.copy()), t(do), split), p64.T @ do64
+    elif product == "dk":
+        got, want = _tf32_product(t(ds.T.copy()), t(q), split), ds64.T @ q64
+    else:
+        got, want = _tf32_product(t(ds), t(k), split), ds64 @ k64
+    err = np.abs(got.double().numpy() - want).max() / np.abs(want).max()
+    if split == "3xtf32":
+        assert err <= 1e-4, err
+    else:
+        assert err > 1e-4, err

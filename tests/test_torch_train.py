@@ -20,9 +20,11 @@ against the JAX package's.
   ``tests/test_torch_serve.py``).
 """
 
+import argparse
 import dataclasses
 import json
 import re
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -242,6 +244,87 @@ def test_without_a_card_the_default_device_is_an_error(tmp_path,
     rc = ttrain.main(["--epochs", "1", "--save-dir", str(tmp_path)])
     assert rc == 1
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+def _options(parse_args):
+    """Every option string ``parse_args([])`` declares, with its
+    add_argument keywords (recorded by wrapping the parser)."""
+    seen = {}
+    real = argparse.ArgumentParser.add_argument
+
+    def record(self, *names, **kw):
+        seen.update(dict.fromkeys(names, kw))
+        return real(self, *names, **kw)
+    with mock.patch.object(argparse.ArgumentParser, "add_argument", record):
+        parse_args([])
+    return seen
+
+
+def _turn_on(kw, off):
+    """Command-line words that give an option a value other than its
+    default and its ``off`` values."""
+    if kw.get("action") == "store_true":
+        return []
+    default = kw.get("default")
+    if kw.get("choices"):
+        return [next(c for c in kw["choices"]
+                     if c != default and c not in off)]
+    step = {int: 3, float: 1.5}.get(kw.get("type"))
+    return [str((default or 0) + step)] if step else ["x"]
+
+
+def test_every_jax_train_flag_is_carried_or_refused():
+    """Each option string of the JAX train parser is declared by the
+    port's (so none is swallowed by parse_known_args). Those the port does
+    not carry keep the JAX default, parse at their JAX "off" values, and
+    are refused at any other value naming their Queue A item. Every
+    ``$TPUDIST_`` variable a JAX help string names is refused when set
+    (``ENV_NOT_CARRIED``), and the port pairs it with the same option."""
+    jax_opts = _options(jconfig.parse_args)
+    port_opts = _options(tconfig.parse_args)
+    rows = {flag: row for flag, *row in tconfig.NOT_CARRIED}
+    assert set(rows) <= set(jax_opts)
+    tconfig.check_supported(tconfig.parse_args([]))
+    for opt, kw in jax_opts.items():
+        assert opt in port_opts, opt
+        named = re.findall(r"\$(TPUDIST_\w+)", kw.get("help", ""))
+        assert set(named) <= set(tconfig.ENV_NOT_CARRIED), (opt, named)
+        if opt not in rows:
+            continue
+        _, off, env, item = rows[opt]
+        assert named == ([env] if env else []), opt
+        assert port_opts[opt].get("default") == kw.get("default"), opt
+        for value in off:
+            tconfig.parse_args([opt, str(value)])
+        with pytest.raises(ValueError,
+                           match=f"ROADMAP Queue A item {item}$"):
+            tconfig.parse_args([opt, *_turn_on(kw, off)])
+
+
+ENV_ON = {"TPUDIST_CHAOS": "kill@0:1", "TPUDIST_TEST_KILL": "0:1",
+          "TPUDIST_CKPT_MODE": "sharded", "TPUDIST_LIVE": "on",
+          "TPUDIST_AUTOTUNE": "probe", "TPUDIST_TRACE": "on",
+          "TPUDIST_GRAD_OVERLAP": "bucketed",
+          "TPUDIST_CROSS_SLICE": "hierarchical", "TPUDIST_NO_FLASH": "1"}
+
+
+@pytest.mark.parametrize("name", sorted(tconfig.ENV_NOT_CARRIED))
+def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch):
+    """Each variable is tolerated unset and at the values that leave its
+    feature off in the JAX package, and refused by ``run`` at any other,
+    naming its Queue A item. ``TPUDIST_NO_FLASH`` is refused too: the
+    port's attention always takes its flash kernels."""
+    cfg = tconfig.parse_args(["--device", "cpu"])
+    off, item = tconfig.ENV_NOT_CARRIED[name]
+    for value in off:
+        if value is not None:
+            monkeypatch.setenv(name, str(value).upper())
+            tconfig.check_supported(cfg)
+    monkeypatch.setenv(name, ENV_ON.get(name, "3"))
+    want = ("its attention always takes the flash kernels$" if item is None
+            else f"ROADMAP Queue A item {item}$")
+    with pytest.raises(ValueError, match=want):
+        ttrain.run(cfg)
 
 
 def test_unknown_flags_are_tolerated():

@@ -4,17 +4,21 @@ port's serving and training lanes read, with the JAX package's defaults
 is ``ModelConfig(name="transformer")``), and the train CLI's
 ``parse_args``.
 
-The training lane runs on one process and one device. Flags of the JAX
-CLI that this slice does not carry are refused by :func:`check_supported`
-with the ROADMAP item that brings them, never silently ignored; flags
-neither package knows are tolerated (``parse_known_args``), as the JAX
-CLI tolerates them.
+The training lane runs on one process and one device. ``parse_args``
+declares every option of the JAX train CLI; those this slice does not
+carry (``NOT_CARRIED``) are refused there unless left off, and their
+environment twins, with the JAX package's other switches this slice does
+not carry (``ENV_NOT_CARRIED``), are refused by :func:`check_supported`
+when set: each names the ROADMAP item that brings it, none is silently
+ignored. Flags neither package knows are tolerated
+(``parse_known_args``), as the JAX CLI tolerates them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -93,6 +97,88 @@ class TrainConfig:
 
 RESUME_MODES = ("latest", "auto")
 
+# The JAX train CLI's options this slice does not carry: option string;
+# its argparse keywords (type, choices, the JAX default); the values
+# besides the default that leave the feature off in the JAX package; the
+# environment variable that package reads when the option is not given;
+# the ROADMAP Queue A item that brings it. parse_args refuses any other
+# value, check_supported any other setting of the variable.
+NOT_CARRIED = (
+    ("--ckpt-sync", dict(action="store_true"), (), None, 10),
+    ("--ckpt-mode", dict(choices=("orbax", "sharded")), ("orbax",),
+     "TPUDIST_CKPT_MODE", 10),
+    ("--requeue-attempt", dict(type=int, default=0), (),
+     "TPUDIST_REQUEUE_ATTEMPT", 10),
+    ("--chaos", {}, (), "TPUDIST_CHAOS", 10),
+    ("--pp-microbatches", dict(type=int, default=0), (), None, 8),
+    ("--pipeline-interleave", dict(type=int, default=0), (1,),
+     "TPUDIST_PIPELINE_INTERLEAVE", 8),
+    ("--cp-impl", dict(choices=("ring", "ulysses"), default="ring"), (),
+     None, 8),
+    ("--grad-overlap", dict(choices=("off", "bucketed")), ("off",),
+     "TPUDIST_GRAD_OVERLAP", 8),
+    ("--grad-bucket-mb", dict(type=float), (), "TPUDIST_GRAD_BUCKET_MB", 8),
+    ("--cross-slice", dict(choices=("flat", "hierarchical")), ("flat",),
+     "TPUDIST_CROSS_SLICE", 8),
+    ("--n-experts", dict(type=int, default=8), (), None, 8),
+    ("--expert-top-k", dict(type=int, default=2), (), None, 8),
+    ("--capacity-factor", dict(type=float, default=1.25), (), None, 8),
+    ("--router-aux-weight", dict(type=float, default=0.01), (), None, 8),
+    ("--moe-group-size", dict(type=int, default=4096), (), None, 8),
+    ("--staging-budget-mb", dict(type=float), (),
+     "TPUDIST_STAGING_BUDGET_MB", 7),
+    ("--compilation-cache-dir", {}, (), "TPUDIST_COMPILATION_CACHE_DIR", 7),
+    ("--autotune-cache-dir", {}, (), "TPUDIST_AUTOTUNE_CACHE_DIR", 7),
+    ("--autotune-trials", dict(type=int, default=0), (),
+     "TPUDIST_AUTOTUNE_TRIALS", 7),
+    ("--profile-dir", {}, (), None, 11),
+    ("--profile-window", dict(type=int, default=0), (),
+     "TPUDIST_PROFILE_WINDOW", 11),
+    ("--trace", dict(choices=("on", "off")), ("off",), "TPUDIST_TRACE", 11),
+    ("--trace-dir", {}, (), "TPUDIST_TRACE_DIR", 11),
+    ("--stall-timeout-s", dict(type=float), (0,), "TPUDIST_STALL_TIMEOUT_S",
+     11),
+    ("--heartbeat-dir", {}, (), "TPUDIST_HEARTBEAT_DIR", 11),
+    ("--hbm-sample-s", dict(type=float), (0,), "TPUDIST_HBM_SAMPLE_S", 11),
+    ("--live-port", dict(type=int, default=0), (), "TPUDIST_LIVE_PORT", 11),
+    ("--live-endpoint", {}, (), "TPUDIST_LIVE_ENDPOINT", 11),
+)
+
+# The environment variables the JAX package reads for what this slice does
+# not carry (the twins of NOT_CARRIED and of --live/--autotune, and two
+# switches of its own): the values that leave each off there, and the
+# Queue A item that brings it (None: no item does; the port's attention
+# always takes its flash kernels).
+ENV_NOT_CARRIED = {
+    **{env: ((kw.get("default"), *off), item)
+       for _, kw, off, env, item in NOT_CARRIED if env},
+    "TPUDIST_TEST_KILL": ((), 10),
+    "TPUDIST_LIVE": (("off",), 11),
+    "TPUDIST_AUTOTUNE": (("off",), 7),
+    "TPUDIST_NO_FLASH": ((), None),
+}
+
+
+def _is_off(value: Any, off: Sequence[Any]) -> bool:
+    """Is ``value`` (typed, or a string from the environment) one of
+    ``off``? Numbers compare as numbers, words case-blind."""
+    if isinstance(value, str):
+        try:
+            value = float(value)
+        except ValueError:
+            value = value.lower()
+    return value in off
+
+
+def _refusal(what: str, item: Optional[int]) -> ValueError:
+    if item is None:
+        return ValueError(
+            f"{what}: the port does not carry it; its attention always "
+            f"takes the flash kernels")
+    return ValueError(
+        f"{what}: the port does not carry it yet; it comes with ROADMAP "
+        f"Queue A item {item}")
+
 
 def resolve_resume(cfg: TrainConfig) -> Optional[str]:
     """``--resume`` as a concrete mode or None (off): ``True`` means
@@ -138,6 +224,10 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(
             f"--autotune {cfg.autotune}: autotuning comes with ROADMAP "
             f"Queue A item 7")
+    for name, (off, item) in ENV_NOT_CARRIED.items():
+        value = os.environ.get(name, "")
+        if value and not _is_off(value, off):
+            raise _refusal(f"{name}={value}", item)
 
 
 def flagship_model_config(max_seq_len: int = 512) -> ModelConfig:
@@ -150,8 +240,9 @@ def flagship_model_config(max_seq_len: int = 512) -> ModelConfig:
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     """CLI -> TrainConfig, the JAX CLI's flags and defaults. Unknown
-    flags are tolerated; flags this slice does not carry parse and are
-    refused by :func:`check_supported` when the run starts."""
+    flags are tolerated; a flag this slice does not carry
+    (``NOT_CARRIED``) is refused with a ``ValueError`` unless its value
+    leaves the feature off."""
     p = argparse.ArgumentParser(
         prog="python -m tpudist_torch.train",
         description="tpudist synthetic training workload on PyTorch/CUDA")
@@ -208,7 +299,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                    help="where the model trains; cuda (the default) fails "
                         "when no card is present rather than falling back "
                         "to the CPU")
+    for flag, kw, _, _, _ in NOT_CARRIED:
+        p.add_argument(flag, **kw)
     args = p.parse_known_args(argv)[0]
+    for flag, _, off, _, item in NOT_CARRIED:
+        dest = flag[2:].replace("-", "_")
+        value = getattr(args, dest)
+        if value != p.get_default(dest) and not _is_off(value, off):
+            raise _refusal(f"{flag} {value}", item)
     return TrainConfig(
         batch_size=args.train_batch_size,
         epochs=args.epochs,

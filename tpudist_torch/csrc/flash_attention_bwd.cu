@@ -3,15 +3,15 @@
 // Replaces the three backward kernels of tpudist/ops/pallas/flash_attention.py
 // (launched by `_bwd`, the custom VJP of `_flash`):
 //   * `_dq_kernel`   -> flash_bwd_dq_kernel (tpudist_flash_attention_bwd_dq)
-//   * `_dkv_kernel`  -> flash_bwd_dkv_kernel<.., false>
-//                       (tpudist_flash_attention_bwd_dkv)
-//   * `_dqkv_kernel` -> flash_bwd_dkv_kernel<.., true> + flash_bwd_dq_reduce
+//   * `_dkv_kernel`  -> flash_bwd_dkv_kernel (tpudist_flash_attention_bwd_dkv)
+//   * `_dqkv_kernel` -> flash_bwd_dkv_fma_kernel<.., true> +
+//                       flash_bwd_dq_reduce_kernel
 //                       (tpudist_flash_attention_bwd_dqkv)
 // They compute what the TPU kernels compute. For each kept (query row i, key
 // row j) pair of a q head and its kv head: the rotated q/k (RoPE from (s,
 // hd/2) f32 tables, split-halves pairs, rounded to the input type), the f32
-// score s_ij = q_i.k_j * scale with the top-left causal mask (-1e30), the
-// exact softmax p_ij = exp(s_ij - lse_i), dp_ij = do_i.v_j and
+// score s_ij = q_i.k_j * scale with the top-left causal mask, the exact
+// softmax p_ij = exp(s_ij - lse_i), dp_ij = do_i.v_j and
 // ds_ij = p_ij (dp_ij - delta_i), where delta = rowsum(do * o) - dlse comes
 // in from the caller. Then dv_j += p_ij do_i, dk_j += ds_ij q_i (both summed
 // over the q heads of the kv group: compact GQA) and dq_i += ds_ij k_j, with
@@ -25,24 +25,70 @@
 // Layout: q/do/o (b, s, h, hd), k/v (b, sk, kv, hd), dq like q, dk/dv like
 // k, lse and delta (b, h, s) f32, all contiguous.
 //
-// Bound at the training slice's shapes (h16 kv16 hd128, f32, causal): every
-// kernel does its products as f32 FMA on the CUDA cores, so the operation
-// bound divides by the H100's f32 peak outside the tensor cores (67 TFLOP/s,
-// SXM data sheet). One product over the kept pairs is
-// 2 * b * h * hd * s(s+1)/2 FLOP: 68.7 GFLOP at b8 s2048, 4.30 GFLOP at
-// b8 s512. dq needs three (q.k, do.v, ds.k: 3.1 ms at s2048), dk/dv four
-// (q.k, do.v, p^T.do, ds^T.q: 4.1 ms), the merged kernel five (0.32 ms at
-// s512). Their bytes (q, k, v, do, lse, delta in; dq, dk, dv out) take
-// 0.2-0.3 ms at 3.35 TB/s at s2048: all three are bound by operations.
+// Bound at the training slice's shape (b8 s2048 h16 kv16 hd128, causal): one
+// product over the kept pairs is 2 * b * h * hd * s(s+1)/2 FLOP = 68.75
+// GFLOP. dq needs three (q.k, do.v, ds.k: 206.3 GFLOP), dk/dv four (q.k,
+// do.v, p^T.do, ds^T.q: 275.0 GFLOP). The split pair at hd 128 runs them on
+// the tensor cores: f32 as 3xTF32 (three TF32 products for each f32 one, so
+// 495 / 3 = 165 TFLOP/s from the H100 SXM data sheet's TF32 peak), bf16 at
+// 989. In f32 that is 1.250 ms for dq and 1.667 ms for dk/dv; their bytes
+// (q, k, v, do, lse, delta in; dq or dk, dv out) take ~0.2 ms at 3.35 TB/s:
+// both are bound by operations. The merged kernel and hd 256 do f32 FMA on
+// the CUDA cores (67 TFLOP/s): five products, 0.32 ms at b8 s512.
 //
-// Design, kept simple on purpose: 256 threads as 16 row groups x 16 column
-// lanes; tiles of 64 rows at hd 128 and 32 at hd 256 (the shared memory of
-// four f32 tiles at hd 256 would not fit otherwise), held in dynamic shared
-// memory as f32 with a row stride of hd + 1.
-//   * dq: one block per (b*h, q tile), the q and do tiles resident, looping
-//     over the key tiles up to the diagonal; the dq accumulator lives in
-//     registers (the mirror of the forward kernel's schedule).
-//   * dk/dv: one block per (b, kv head, key tile), the k and v tiles
+// Design of the split pair at hd 128 (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel). The CUDA-core design kept below for the merged
+// kernel and hd 256 does every product as f32 FMA, stages tiles
+// synchronously as f32 with an hd + 1 stride, sends p and ds through shared
+// memory and starts the light causal blocks first; at the training shapes
+// that is 3-4x the bound. The split pair instead:
+// - Products run on the tensor cores through mma.sync, as in the forward
+//   kernel: f32 as 3xTF32 on m16n8k8 (x ~ hi + lo, both rounded to TF32;
+//   lo*hi + hi*lo + hi*hi accumulate in f32, accurate to f32 where one TF32
+//   product keeps about three digits), bf16 on m16n8k16 with f32
+//   accumulation.
+// - dq: a block owns 128 q rows, 8 warps of 16. q and do stay resident; a
+//   warp computes S = Q K^T and dP = dO V^T for its rows over a key tile,
+//   then p and ds in registers, and dQ += dS K into its 16 x 128
+//   accumulator (64 registers a thread), which lives in registers across
+//   the key loop. dS goes from the C fragment to the A fragment without
+//   shared memory: for bf16 directly; for TF32, C holds columns (2t, 2t + 1)
+//   where A wants (t, t + 4), so the keys are relabelled and K's B fragment
+//   rows are read in the same order.
+// - dk/dv: a block owns 128 key rows, 8 warps of 16; k and v stay resident.
+//   A warp computes S^T = K Q^T and dP^T = V dO^T with its key rows as M, so
+//   that lse and delta index columns, then dV += P^T dO and dK += dS^T Q
+//   with the same C->A reuse. Its two accumulators (128 registers a thread)
+//   live in registers across the q tiles of every q head of the kv group.
+//   With p and ds kept in registers no warp waits on another's.
+// - What streams (k/v tiles in dq; q/do tiles with their RoPE table rows,
+//   lse and delta in dk/dv) comes in by 16-byte cp.async into a two-stage
+//   ring: tile j + 1 loads while tile j computes, one barrier a tile. Rows
+//   are padded 16 bytes, which keeps cp.async aligned and ldmatrix free of
+//   bank conflicts. Each thread rotates (RoPE, rounded to T) and, for f32,
+//   splits into hi (in place) and lo (a second array) the chunks it copied,
+//   as they land: once per block, never per warp, and with no barrier of its
+//   own. The resident tiles are rotated once; in f32 they stay unsplit (hi
+//   and lo of both would not fit beside the ring) and each warp splits its
+//   A fragments, once per k-step for all of a tile's n-tiles.
+// - Shared memory: 214 KB in f32 (16-row streamed tiles), 135 KB in bf16
+//   (32-row tiles); one block of 8 warps an SM.
+// - Causal balance: dq walks q tiles heaviest first (the last see the most
+//   keys), dk/dv key tiles heaviest first (the first see the most q rows);
+//   warps whose rows lie wholly on the masked side skip a tile, and the mask
+//   is applied only on tiles that cross the diagonal.
+// What it still leaves: wgmma (mma.sync stops well below the tensor cores'
+// peak), TMA loads and warp specialisation (a producer warp and consumer
+// warpgroups), and the smaller f32 streamed tiles that shared memory forces.
+//
+// The merged kernel (one block covers both sequences) and hd 256 keep the
+// CUDA-core design, f32 FMA: 256 threads as 16 row groups x 16
+// column lanes; tiles of 64 rows at hd 128 and 32 at hd 256, held in dynamic
+// shared memory as f32 with a row stride of hd + 1.
+//   * dq (hd 256): one block per (b*h, q tile), the q and do tiles resident,
+//     looping over the key tiles up to the diagonal; the dq accumulator lives
+//     in registers.
+//   * dk/dv (hd 256): one block per (b, kv head, key tile), the k and v tiles
 //     resident, looping over the rep q heads of the group and over the q
 //     tiles from the diagonal on; the group-summed dk/dv accumulators live in
 //     registers.
@@ -51,20 +97,25 @@
 //     per-key-tile workspace slot: one p/ds recompute per pair where the split
 //     pair pays two. A second launch sums the slots in key-tile order, then
 //     scales, counter-rotates and casts dq.
-// What it leaves on the table, for later work: the tensor cores (wgmma), TMA
-// or cp.async double buffering, and balance of the uneven causal work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
+
+#include "mma_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;   // 16 row groups x 16 column lanes
+// 8 warps in the tensor-core kernels; 16 row groups x 16 column lanes in the
+// FMA kernels
+constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Cfg {
@@ -75,26 +126,6 @@ struct Cfg {
   static constexpr int LDP = TILE + 1;    // row stride of the p/ds tiles
   static constexpr int H2 = HD / 2;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T's precision, kept as f32.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // Rows [row0, row0 + TILE) of head `head` of a (b, seq, nheads, HD) tensor
 // into shared memory (row stride LD) as f32, RoPE-rotated at their absolute
@@ -210,7 +241,7 @@ constexpr size_t dkv_smem_bytes() {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    flash_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
@@ -295,7 +326,7 @@ __global__ void __launch_bounds__(THREADS)
 // blockIdx.x of dq_part (n_key_tiles, b*h, s, HD).
 template <typename T, int HD, bool WITH_DQ>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    flash_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
@@ -463,19 +494,612 @@ __global__ void __launch_bounds__(THREADS)
                      row, cos, sin, rope, scale);
 }
 
+// ---------------------------------------------------------------------------
+// The split pair at hd 128 on the tensor cores: flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel.
+
+// Tiling of the tensor-core kernels at hd 128. A block is 8 warps; every
+// warp owns 16 rows of the resident tile (q rows in dq, key rows in dk/dv)
+// and walks the streamed tiles of the other side.
+template <typename T>
+struct Tc {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int HD = 128, H2 = HD / 2;
+  static constexpr int PER = 16 / (int)sizeof(T);   // elements in 16 bytes
+  static constexpr int LD = HD + PER;               // rows padded 16 bytes
+  static constexpr int IPR = H2 / PER;              // items per row
+  static constexpr int BM = 128;   // dq: resident q rows
+  static constexpr int BK = 128;   // dk/dv: resident key rows
+  // rows of one streamed tile (keys in dq, q rows in dk/dv): one item per
+  // thread; f32 holds hi and lo parts, so its tiles are half as tall
+  static constexpr int BS = F32 ? 16 : 32;
+  // T arrays in one stage of the ring: two tiles, and for f32 their lo parts
+  static constexpr int ARRAYS = F32 ? 4 : 2;
+  // one stage: the arrays, then the f32 cos and sin rows of the tile, then
+  // (dk/dv) the tile's lse and delta
+  static constexpr size_t STAGE = sizeof(T) * (size_t)ARRAYS * BS * LD +
+                                  sizeof(float) * (size_t)(2 * BS * H2 + 2 * BS);
+  static constexpr size_t SMEM = sizeof(T) * (size_t)2 * BM * LD + 2 * STAGE;
+  static_assert(BM == BK, "one shared-memory size serves both kernels");
+  static_assert(BS * IPR == THREADS, "one item of a streamed tile a thread");
+  static_assert(STAGE % 16 == 0, "16-byte aligned stages");
+};
+
+// 16 bytes of T as floats, and back (rounded to T).
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x, x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store16(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&x)[8]) {
+  uint4 v;
+  v.x = pack_bf16(x[0], x[1]), v.y = pack_bf16(x[2], x[3]);
+  v.z = pack_bf16(x[4], x[5]), v.w = pack_bf16(x[6], x[7]);
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// Two adjacent columns of an output row.
+__device__ __forceinline__ void store2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+// Item `idx` of a tile: row r, elements d .. d + PER - 1 and the same
+// + hd/2, the pairs that RoPE rotates together. A thread copies its items
+// and then rotates and splits them itself, so that needs no barrier.
+template <typename T>
+__device__ __forceinline__ void item(int idx, int& r, int& d) {
+  r = idx / Tc<T>::IPR;
+  d = (idx % Tc<T>::IPR) * Tc<T>::PER;
+}
+
+// Start copying item idx of the rows at src (row stride `stride` elements)
+// into dst (row stride LD).
+template <typename T>
+__device__ __forceinline__ void issue_item(T* dst, const T* __restrict__ src,
+                                           size_t stride, int idx) {
+  using C = Tc<T>;
+  int r, d;
+  item<T>(idx, r, d);
+  cp_async16(dst + r * C::LD + d, src + r * stride + d);
+  cp_async16(dst + r * C::LD + d + C::H2, src + r * stride + d + C::H2);
+}
+
+// Start copying the RoPE table entries item idx needs, rows pos0 + r of
+// the (s, hd/2) f32 tables, into rows of hd/2 at tc and ts.
+template <typename T>
+__device__ __forceinline__ void issue_tables(float* tc, float* ts,
+                                             const float* __restrict__ cos,
+                                             const float* __restrict__ sin,
+                                             int pos0, int idx) {
+  using C = Tc<T>;
+  int r, d;
+  item<T>(idx, r, d);
+  const size_t at = (size_t)(pos0 + r) * C::H2 + d;
+#pragma unroll
+  for (int c = 0; c < C::PER; c += 4) {
+    cp_async16(tc + r * C::H2 + d + c, cos + at + c);
+    cp_async16(ts + r * C::H2 + d + c, sin + at + c);
+  }
+}
+
+// Item idx of a landed tile: rotated with the tables' rows at tc/ts (shared
+// or device memory, rows of hd/2) when `rope`, each value rounded to T as
+// the TPU kernels' casts do; with SPLIT (f32 only) then split into TF32 hi
+// (in place) and lo (to `lo`, same layout).
+template <typename T, bool SPLIT>
+__device__ __forceinline__ void land_item(T* tile, T* lo, const float* tc,
+                                          const float* ts, bool rope,
+                                          int idx) {
+  using C = Tc<T>;
+  static_assert(!SPLIT || C::F32, "only f32 is split");
+  int r, d;
+  item<T>(idx, r, d);
+  T* row = tile + r * C::LD;
+  float x1[C::PER], x2[C::PER];
+  load16(row + d, x1);
+  load16(row + d + C::H2, x2);
+  if (rope) {
+    float cs[C::PER], sn[C::PER];
+#pragma unroll
+    for (int c = 0; c < C::PER; c += 4) {
+      load16(tc + r * C::H2 + d + c, *reinterpret_cast<float(*)[4]>(cs + c));
+      load16(ts + r * C::H2 + d + c, *reinterpret_cast<float(*)[4]>(sn + c));
+    }
+#pragma unroll
+    for (int e = 0; e < C::PER; ++e) {
+      const float c = round_to<T>(cs[e]), s = round_to<T>(sn[e]);
+      const float y1 = x1[e] * c - x2[e] * s;
+      x2[e] = round_to<T>(x2[e] * c + x1[e] * s);
+      x1[e] = round_to<T>(y1);
+    }
+  }
+  if constexpr (SPLIT) {
+    float h1[C::PER], l1[C::PER], h2[C::PER], l2[C::PER];
+#pragma unroll
+    for (int e = 0; e < C::PER; ++e) {
+      uint32_t hb, lb;
+      split(x1[e], hb, lb);
+      h1[e] = __uint_as_float(hb), l1[e] = __uint_as_float(lb);
+      split(x2[e], hb, lb);
+      h2[e] = __uint_as_float(hb), l2[e] = __uint_as_float(lb);
+    }
+    store16(row + d, h1);
+    store16(row + d + C::H2, h2);
+    store16(lo + r * C::LD + d, l1);
+    store16(lo + r * C::LD + d + C::H2, l2);
+  } else {
+    if (rope) {
+      store16(row + d, x1);
+      store16(row + d + C::H2, x2);
+    }
+  }
+}
+
+// sc (16 x 8 NT) += A B^T over hd, f32 operands as 3xTF32. A: this warp's
+// 16 rows of a resident tile (raw f32, split here, once per k-step for all
+// NT n-tiles); B: 8 NT rows of a streamed tile, split when it landed (hi at
+// sb, lo at the same offsets in sblo). Fragments by ldmatrix.
+template <int NT>
+__device__ __forceinline__ void mma_abt(float (&sc)[NT][4], const float* sa,
+                                        const float* sb, const float* sblo,
+                                        int lane) {
+  constexpr int LD = Tc<float>::LD;
+  static_assert(NT % 2 == 0, "B fragments come in pairs of n-tiles");
+  const int lr = lane % 8, m1 = (lane / 8) % 2, m2 = lane / 16;
+  // A's matrices: rows +0/+8 (m1), columns +0/+4 (m2); B's: columns +0/+4
+  // (m1), rows +0/+8 (m2)
+  const int aoff = (lr + 8 * m1) * LD + 4 * m2;
+  const int boff = (lr + 8 * m2) * LD + 4 * m1;
+#pragma unroll
+  for (int kk = 0; kk < Tc<float>::HD; kk += 8) {
+    uint32_t ahi[4], alo[4];
+    ldmatrix_x4(ahi, sa + aoff + kk);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(__uint_as_float(ahi[i]), ahi[i], alo[i]);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t bh[4], bl[4];
+      ldmatrix_x4(bh, sb + 8 * n * LD + kk + boff);
+      ldmatrix_x4(bl, sblo + 8 * n * LD + kk + boff);
+      mma_3xtf32(sc[n], ahi, alo, bh[0], bh[1], bl[0], bl[1]);
+      mma_3xtf32(sc[n + 1], ahi, alo, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// sc += A B^T, bf16 operands (A and B as above, no lo parts).
+template <int NT>
+__device__ __forceinline__ void mma_abt(float (&sc)[NT][4],
+                                        const __nv_bfloat16* sa,
+                                        const __nv_bfloat16* sb,
+                                        const __nv_bfloat16*, int lane) {
+  constexpr int LD = Tc<__nv_bfloat16>::LD;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll 4
+  for (int kk = 0; kk < Tc<__nv_bfloat16>::HD; kk += 16) {
+    const __nv_bfloat16* pa = sa + g * LD + kk + 2 * t;
+    const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * LD), ld32(pa + 8),
+                           ld32(pa + 8 * LD + 8)};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const __nv_bfloat16* pb = sb + (8 * n + g) * LD + kk + 2 * t;
+      mma_bf16(sc[n], a, ld32(pb), ld32(pb + 8));
+    }
+  }
+}
+
+// acc (16 x hd) += P B, f32: P is the C fragments of a 16 x 8 NT product,
+// whose columns are this product's k. C holds columns (2t, 2t + 1) where
+// the A fragment wants (t, t + 4), and the sum runs over k in any order: so
+// k-step n is C tile n with its columns relabelled (logical k = t is column
+// 2t, k = t + 4 is 2t + 1), split here, and B's rows (a streamed tile, split
+// when it landed) are read in the same order.
+template <int NT>
+__device__ __forceinline__ void mma_pb(float (&acc)[16][4],
+                                       const float (&p)[NT][4],
+                                       const float* sb, const float* sblo,
+                                       int lane) {
+  constexpr int LD = Tc<float>::LD;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t ahi[4], alo[4];
+    split(p[n][0], ahi[0], alo[0]);
+    split(p[n][2], ahi[1], alo[1]);
+    split(p[n][1], ahi[2], alo[2]);
+    split(p[n][3], ahi[3], alo[3]);
+    const int off = (8 * n + 2 * t) * LD + g;
+#pragma unroll
+    for (int d = 0; d < 16; ++d) {
+      mma_3xtf32(acc[d], ahi, alo, __float_as_uint(sb[off + 8 * d]),
+                 __float_as_uint(sb[off + LD + 8 * d]),
+                 __float_as_uint(sblo[off + 8 * d]),
+                 __float_as_uint(sblo[off + LD + 8 * d]));
+    }
+  }
+}
+
+// acc += P B, bf16: P (rounded to bf16 here) packs straight into the A
+// fragment; B's fragments come transposed by ldmatrix.
+template <int NT>
+__device__ __forceinline__ void mma_pb(float (&acc)[16][4],
+                                       const float (&p)[NT][4],
+                                       const __nv_bfloat16* sb,
+                                       const __nv_bfloat16*, int lane) {
+  constexpr int LD = Tc<__nv_bfloat16>::LD;
+  static_assert(NT % 2 == 0, "16-deep k-steps");
+  // this lane's row for ldmatrix: matrix lane / 8 is (k +0 or +8, columns
+  // +0 or +8)
+  const int mat = lane / 8;
+  const __nv_bfloat16* brow =
+      sb + ((mat & 1) * 8 + lane % 8) * LD + (mat >> 1) * 8;
+#pragma unroll
+  for (int m = 0; m < NT / 2; ++m) {
+    const uint32_t a[4] = {pack_bf16(p[2 * m][0], p[2 * m][1]),
+                           pack_bf16(p[2 * m][2], p[2 * m][3]),
+                           pack_bf16(p[2 * m + 1][0], p[2 * m + 1][1]),
+                           pack_bf16(p[2 * m + 1][2], p[2 * m + 1][3])};
+#pragma unroll
+    for (int d = 0; d < 16; d += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, brow + 16 * m * LD + 8 * d);
+      mma_bf16(acc[d], a, b[0], b[1]);
+      mma_bf16(acc[d + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The epilogue of dq and dk: the two rows (g, g + 8) of this lane's C
+// fragments of a 16 x hd accumulator, scaled, counter-rotated with the f32
+// tables (the transpose rotation) at the rows' positions, cast and stored.
+// Columns c and c + hd/2 are fragments d and d + 8, in the same lane.
+template <typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[16][4], T* out0,
+                                           size_t row_stride, int pos0,
+                                           const float* __restrict__ cos,
+                                           const float* __restrict__ sin,
+                                           bool rope, float scale, int lane) {
+  constexpr int H2 = Tc<T>::H2;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    T* out = out0 + row * row_stride;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      const int col = 8 * d + 2 * t;
+      float x1[2], x2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        x1[e] = acc[d][2 * r + e] * scale;
+        x2[e] = acc[d + 8][2 * r + e] * scale;
+      }
+      if (rope) {
+        const size_t at = (size_t)(pos0 + row) * H2 + col;
+        const float2 c = *reinterpret_cast<const float2*>(cos + at);
+        const float2 s = *reinterpret_cast<const float2*>(sin + at);
+        const float cc[2] = {c.x, c.y}, ss[2] = {s.x, s.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float y1 = x1[e] * cc[e] + x2[e] * ss[e];
+          x2[e] = x2[e] * cc[e] - x1[e] * ss[e];
+          x1[e] = y1;
+        }
+      }
+      store2(out + col, x1[0], x1[1]);
+      store2(out + col + H2, x2[0], x2[1]);
+    }
+  }
+}
+
+// dq of one (b*h, 128-row q tile): q and do resident (q rotated once), the
+// key tiles streamed through a two-stage cp.async ring, each landed tile
+// rotated and (f32) split once by the threads that copied it. A warp owns
+// 16 q rows: S = Q K^T and dP = dO V^T (16 x BS), p, ds, then
+// dQ += dS K into its 16 x 128 accumulator, which lives in registers across
+// the key loop.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ cos,
+                        const float* __restrict__ sin, T* __restrict__ dq,
+                        int s, int sk, int h, int kv, float scale, int causal,
+                        int rope) {
+  using C = Tc<T>;
+  constexpr int LD = C::LD, BM = C::BM, BS = C::BS, H2 = C::H2, HD = C::HD;
+  constexpr int NT = BS / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sdo = sq + BM * LD;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sdo + BM * LD);
+  // stage i: k, v, (f32) k lo, v lo, then the cos and sin rows of its keys
+  auto stage = [&](int i) { return reinterpret_cast<T*>(ring + i * C::STAGE); };
+  auto tables = [&](int i) {
+    return reinterpret_cast<float*>(ring + i * C::STAGE +
+                                    sizeof(T) * C::ARRAYS * BS * LD);
+  };
+
+  const int bh = blockIdx.x;
+  const int b = bh / h, head = bh % h;
+  const int kvh = head / (h / kv);
+  // heaviest q tiles first under the causal mask
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int row0 = qt * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow = row0 + 16 * warp;   // this warp's first row
+
+  const size_t q_stride = (size_t)h * HD, kv_stride = (size_t)kv * HD;
+  const size_t q_at = (((size_t)b * s + row0) * h + head) * HD;
+  const T* ksrc = k + ((size_t)b * sk * kv + kvh) * HD;
+  const T* vsrc = v + ((size_t)b * sk * kv + kvh) * HD;
+
+  auto issue_tile = [&](int j) {   // key tile j into stage j & 1
+    T* st = stage(j & 1);
+    const size_t off = (size_t)j * BS * kv_stride;
+    issue_item<T>(st, ksrc + off, kv_stride, threadIdx.x);
+    issue_item<T>(st + BS * LD, vsrc + off, kv_stride, threadIdx.x);
+    if (rope) {
+      float* tb = tables(j & 1);
+      issue_tables<T>(tb, tb + BS * H2, cos, sin, j * BS, threadIdx.x);
+    }
+    cp_async_commit();
+  };
+  auto land_tile = [&](int j) {    // this thread's items of key tile j
+    T* st = stage(j & 1);
+    const float* tb = tables(j & 1);
+    land_item<T, C::F32>(st, st + 2 * BS * LD, tb, tb + BS * H2, rope,
+                         threadIdx.x);
+    if constexpr (C::F32)
+      land_item<T, true>(st + BS * LD, st + 3 * BS * LD, tb, tb, false,
+                         threadIdx.x);
+  };
+
+  for (int idx = threadIdx.x; idx < BM * C::IPR; idx += THREADS) {
+    issue_item<T>(sq, q + q_at, q_stride, idx);
+    issue_item<T>(sdo, dout + q_at, q_stride, idx);
+  }
+  issue_tile(0);
+  // this lane's rows g and g + 8: lse in the log2 domain, delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at = (size_t)bh * s + wrow + g + 8 * r;
+    lse2[r] = lse[at] * LOG2E;
+    dl[r] = delta[at];
+  }
+  cp_async_wait_all();
+  if (rope) {
+    for (int idx = threadIdx.x; idx < BM * C::IPR; idx += THREADS)
+      land_item<T, false>(sq, nullptr, cos + (size_t)row0 * H2,
+                          sin + (size_t)row0 * H2, true, idx);
+  }
+  land_tile(0);
+  __syncthreads();   // q, do and key tile 0 are ready for every warp
+
+  float acc[16][4];
+#pragma unroll
+  for (int d = 0; d < 16; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  const float scale2 = scale * LOG2E;
+  // under the causal mask, q tile qt needs keys up to its last row
+  const int n_tiles = causal ? (row0 + BM) / BS : sk / BS;
+  for (int j = 0; j < n_tiles; ++j) {
+    const bool next = j + 1 < n_tiles;
+    if (next) issue_tile(j + 1);   // tile j + 1 loads while tile j computes
+    const T* skt = stage(j & 1);
+    const int c0 = j * BS;
+    // a warp whose rows all precede the tile's keys has nothing to add
+    if (!causal || c0 <= wrow + 15) {
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      mma_abt<NT>(sc, sq + 16 * warp * LD, skt, skt + 2 * BS * LD, lane);
+      mma_abt<NT>(dp, sdo + 16 * warp * LD, skt + BS * LD,
+                  skt + 3 * BS * LD, lane);
+      // the mask only where the tile crosses the diagonal
+      const bool mask = causal && c0 + BS - 1 > wrow;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(sc[n][e], scale2, -lse2[e >> 1]));
+          if (mask && c0 + 8 * n + 2 * t + (e & 1) > wrow + g + 8 * (e >> 1))
+            p = 0.f;
+          // ds, rounded to T by the product below
+          sc[n][e] = p * (dp[n][e] - dl[e >> 1]);
+        }
+      mma_pb<NT>(acc, sc, skt, skt + 2 * BS * LD, lane);
+    }
+    if (next) {
+      cp_async_wait_all();   // this thread's copies of tile j + 1
+      land_tile(j + 1);
+    }
+    __syncthreads();   // tile j + 1 is ready; tile j is consumed
+  }
+
+  store_rows<T>(acc, dq + (((size_t)b * s + wrow) * h + head) * HD,
+                q_stride, wrow, cos, sin, rope, scale, lane);
+}
+
+// dk/dv of one (b, kv head, 128-row key tile): k (rotated once) and v
+// resident, the (q head, q tile) pairs of the kv group streamed through a
+// two-stage cp.async ring with their lse and delta, each landed tile
+// rotated and (f32) split once by the threads that copied it. A warp owns
+// 16 key rows: S^T = K Q^T and dP^T = V dO^T (16 x BS, keys as M, so that
+// lse and delta index columns), p and ds, then dV += P^T dO and
+// dK += dS^T Q into its two 16 x 128 accumulators (128 registers), which
+// live in registers across the whole group: the compact-GQA group sum.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ cos,
+                         const float* __restrict__ sin, T* __restrict__ dk,
+                         T* __restrict__ dv, int s, int sk, int h, int kv,
+                         float scale, int causal, int rope) {
+  using C = Tc<T>;
+  constexpr int LD = C::LD, BK = C::BK, BS = C::BS, H2 = C::H2, HD = C::HD;
+  constexpr int NT = BS / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* skr = reinterpret_cast<T*>(smem_raw);   // resident keys, rotated
+  T* svr = skr + BK * LD;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(svr + BK * LD);
+  // stage i: q, do, (f32) q lo, do lo, then the cos and sin rows of its q
+  // rows, then their lse and delta
+  auto stage = [&](int i) { return reinterpret_cast<T*>(ring + i * C::STAGE); };
+  auto tables = [&](int i) {
+    return reinterpret_cast<float*>(ring + i * C::STAGE +
+                                    sizeof(T) * C::ARRAYS * BS * LD);
+  };
+
+  const int b = blockIdx.x / kv, grp = blockIdx.x % kv;
+  const int rep = h / kv;
+  // key tiles in launch order: the first ones see the most q rows
+  const int col0 = blockIdx.y * BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wkey = col0 + 16 * warp;   // this warp's first key
+
+  const size_t q_stride = (size_t)h * HD, kv_stride = (size_t)kv * HD;
+  const size_t kv_at = (((size_t)b * sk + col0) * kv + grp) * HD;
+  // under the causal mask, q tiles before the key tile see none of its keys
+  const int i_first = causal ? col0 / BS : 0;
+  const int per_head = s / BS - i_first;
+  const int n_tiles = rep * per_head;
+
+  auto issue_tile = [&](int n) {   // (q head, q tile) pair n, stage n & 1
+    const int head = grp * rep + n / per_head;
+    const int row0 = (i_first + n % per_head) * BS;
+    const size_t at = (((size_t)b * s + row0) * h + head) * HD;
+    T* st = stage(n & 1);
+    float* tb = tables(n & 1);
+    issue_item<T>(st, q + at, q_stride, threadIdx.x);
+    issue_item<T>(st + BS * LD, dout + at, q_stride, threadIdx.x);
+    if (rope) issue_tables<T>(tb, tb + BS * H2, cos, sin, row0, threadIdx.x);
+    const size_t rows = ((size_t)b * h + head) * s + row0;
+    float* sl = tb + 2 * BS * H2;
+    if (threadIdx.x < BS / 4)
+      cp_async16(sl + 4 * threadIdx.x, lse + rows + 4 * threadIdx.x);
+    else if (threadIdx.x < BS / 2)
+      cp_async16(sl + BS + 4 * (threadIdx.x - BS / 4),
+                 delta + rows + 4 * (threadIdx.x - BS / 4));
+    cp_async_commit();
+  };
+  auto land_tile = [&](int n) {    // this thread's items of pair n
+    T* st = stage(n & 1);
+    const float* tb = tables(n & 1);
+    land_item<T, C::F32>(st, st + 2 * BS * LD, tb, tb + BS * H2, rope,
+                         threadIdx.x);
+    if constexpr (C::F32)
+      land_item<T, true>(st + BS * LD, st + 3 * BS * LD, tb, tb, false,
+                         threadIdx.x);
+  };
+
+  for (int idx = threadIdx.x; idx < BK * C::IPR; idx += THREADS) {
+    issue_item<T>(skr, k + kv_at, kv_stride, idx);
+    issue_item<T>(svr, v + kv_at, kv_stride, idx);
+  }
+  issue_tile(0);
+  cp_async_wait_all();
+  if (rope) {
+    for (int idx = threadIdx.x; idx < BK * C::IPR; idx += THREADS)
+      land_item<T, false>(skr, nullptr, cos + (size_t)col0 * H2,
+                          sin + (size_t)col0 * H2, true, idx);
+  }
+  land_tile(0);
+  __syncthreads();   // k, v and the first q tile are ready for every warp
+
+  float dk_acc[16][4], dv_acc[16][4];
+#pragma unroll
+  for (int d = 0; d < 16; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+  const float scale2 = scale * LOG2E;
+  for (int n = 0; n < n_tiles; ++n) {
+    const bool next = n + 1 < n_tiles;
+    if (next) issue_tile(n + 1);   // pair n + 1 loads while pair n computes
+    const T* st = stage(n & 1);
+    const float* sl = tables(n & 1) + 2 * BS * H2;
+    const int row0 = (i_first + n % per_head) * BS;
+    // a warp whose keys all follow the tile's rows has nothing to add
+    if (!causal || row0 + BS - 1 >= wkey) {
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int m = 0; m < NT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[m][e] = dp[m][e] = 0.f;
+      mma_abt<NT>(sc, skr + 16 * warp * LD, st, st + 2 * BS * LD, lane);
+      mma_abt<NT>(dp, svr + 16 * warp * LD, st + BS * LD, st + 3 * BS * LD,
+                  lane);
+      // the mask only where the tile crosses the diagonal
+      const bool mask = causal && row0 < wkey + 15;
+#pragma unroll
+      for (int m = 0; m < NT; ++m) {
+        const int col = 8 * m + 2 * t;   // this lane's q rows col, col + 1
+        const float2 l = *reinterpret_cast<const float2*>(sl + col);
+        const float2 dd = *reinterpret_cast<const float2*>(sl + BS + col);
+        const float lse2[2] = {l.x * LOG2E, l.y * LOG2E}, dl[2] = {dd.x, dd.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(sc[m][e], scale2, -lse2[e & 1]));
+          if (mask && wkey + g + 8 * (e >> 1) > row0 + col + (e & 1)) p = 0.f;
+          // p and ds, each rounded to T by the products below
+          dp[m][e] = p * (dp[m][e] - dl[e & 1]);
+          sc[m][e] = p;
+        }
+      }
+      mma_pb<NT>(dv_acc, sc, st + BS * LD, st + 3 * BS * LD, lane);
+      mma_pb<NT>(dk_acc, dp, st, st + 2 * BS * LD, lane);
+    }
+    if (next) {
+      cp_async_wait_all();   // this thread's copies of pair n + 1
+      land_tile(n + 1);
+    }
+    __syncthreads();   // pair n + 1 is ready; pair n is consumed
+  }
+
+  T* dk0 = dk + (((size_t)b * sk + wkey) * kv + grp) * HD;
+  store_rows<T>(dk_acc, dk0, kv_stride, wkey, cos, sin, rope, scale, lane);
+  store_rows<T>(dv_acc, dv + (dk0 - dk), kv_stride, wkey, cos, sin, false,
+                1.f, lane);
+}
+
 template <typename T, int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const float* cos, const float* sin, void* dq, int b,
-                      int s, int sk, int h, int kv, float scale, int causal,
-                      cudaStream_t stream) {
+cudaError_t launch_dq_fma(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, const float* cos,
+                          const float* sin, void* dq, int b, int s, int sk,
+                          int h, int kv, float scale, int causal,
+                          cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_fma_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(s / Cfg<HD>::TILE, b * h);
-  flash_bwd_dq_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dq_fma_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, cos,
       sin, static_cast<T*>(dq), s, sk, h, kv, scale, causal, cos != nullptr);
@@ -483,18 +1107,20 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 }
 
 template <typename T, int HD, bool WITH_DQ>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* delta,
-                       const float* cos, const float* sin, void* dk, void* dv,
-                       float* dq_part, int b, int s, int sk, int h, int kv,
-                       float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_dkv_fma(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const float* cos,
+                           const float* sin, void* dk, void* dv,
+                           float* dq_part, int b, int s, int sk, int h,
+                           int kv, float scale, int causal,
+                           cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, HD, WITH_DQ>,
+      flash_bwd_dkv_fma_kernel<T, HD, WITH_DQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(sk / Cfg<HD>::TILE, b * kv);
-  flash_bwd_dkv_kernel<T, HD, WITH_DQ><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dkv_fma_kernel<T, HD, WITH_DQ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, cos,
       sin, static_cast<T*>(dk), static_cast<T*>(dv), dq_part, b, s, sk, h, kv,
@@ -509,15 +1135,58 @@ cudaError_t launch_dqkv(const void* q, const void* k, const void* v,
                         const float* sin, void* dq, void* dk, void* dv,
                         float* workspace, int b, int s, int sk, int h, int kv,
                         float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = launch_dkv<T, HD, true>(q, k, v, dout, lse, delta, cos,
-                                            sin, dk, dv, workspace, b, s, sk,
-                                            h, kv, scale, causal, stream);
+  cudaError_t err = launch_dkv_fma<T, HD, true>(q, k, v, dout, lse, delta,
+                                                cos, sin, dk, dv, workspace,
+                                                b, s, sk, h, kv, scale,
+                                                causal, stream);
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)b * h * s * Cfg<HD>::H2;
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   flash_bwd_dq_reduce_kernel<T, HD><<<blocks, THREADS, 0, stream>>>(
       workspace, cos, sin, static_cast<T*>(dq), b, s, h, sk / Cfg<HD>::TILE,
       scale, causal, cos != nullptr);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, const float* cos,
+                         const float* sin, void* dq, int b, int s, int sk,
+                         int h, int kv, float scale, int causal,
+                         cudaStream_t stream) {
+  constexpr size_t smem = Tc<T>::SMEM;
+  static_assert(smem <= 232448, "shared memory beyond the H100's 227 KB");
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * h, s / Tc<T>::BM);
+  flash_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, cos,
+      sin, static_cast<T*>(dq), s, sk, h, kv, scale, causal, cos != nullptr);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, const float* cos,
+                          const float* sin, void* dk, void* dv, int b, int s,
+                          int sk, int h, int kv, float scale, int causal,
+                          cudaStream_t stream) {
+  constexpr size_t smem = Tc<T>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * kv, sk / Tc<T>::BK);
+  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, cos,
+      sin, static_cast<T*>(dk), static_cast<T*>(dv), s, sk, h, kv, scale,
+      causal, cos != nullptr);
   return cudaGetLastError();
 }
 
@@ -534,6 +1203,16 @@ bool valid(int dtype, int hd, int b, int s, int sk, int h, int kv, int causal,
          sk >= 1 && kv >= 1 && h % kv == 0 && b * h <= 65535 &&
          s % tile == 0 && sk % tile == 0 && (!causal || s == sk) &&
          (cos == nullptr) == (sin == nullptr) && (cos == nullptr || s == sk);
+}
+
+// The split pair's tensor-core kernels at hd 128 take 128-row blocks and
+// 16-byte copies.
+cudaError_t tc_check(int s, int sk, std::initializer_list<const void*> ptrs) {
+  if (s % Tc<float>::BM != 0 || sk % Tc<float>::BK != 0)
+    return cudaErrorInvalidValue;
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return bits % 16 ? cudaErrorMisalignedAddress : cudaSuccess;
 }
 
 template <int HD>
@@ -558,14 +1237,16 @@ extern "C" const char* tpudist_flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Rows of one tile at head dim hd (0 for head dims without a kernel): the
-// merged kernel's workspace holds sk / tile f32 dq partials of q's shape.
+// Rows of one tile of the merged kernel at head dim hd (0 for head dims
+// without a kernel): its workspace holds sk / tile f32 dq partials of q's
+// shape.
 extern "C" int tpudist_flash_attention_bwd_tile(int hd) {
   return tile_rows(hd);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. cos/sin: null for no RoPE. stream: a
-// cudaStream_t. Each returns a cudaError_t (0 on a successful launch).
+// cudaStream_t. Each returns a cudaError_t (0 on a successful launch). At hd
+// 128 dq and dk/dv run on the tensor cores, at hd 256 on the CUDA cores.
 
 extern "C" int tpudist_flash_attention_bwd_dq(
     int dtype, int hd, const void* q, const void* k, const void* v,
@@ -576,9 +1257,18 @@ extern "C" int tpudist_flash_attention_bwd_dq(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, hd, [&](auto t, auto hdc) {
-    return launch_dq<decltype(t), decltype(hdc)::value>(
-        q, k, v, dout, lse, delta, cos, sin, dq, b, s, sk, h, kv, scale,
-        causal, st);
+    using T = decltype(t);
+    if constexpr (decltype(hdc)::value == 128) {
+      const cudaError_t err =
+          tc_check(s, sk, {q, k, v, dout, lse, delta, cos, sin, dq});
+      if (err != cudaSuccess) return err;
+      return launch_dq_tc<T>(q, k, v, dout, lse, delta, cos, sin, dq, b, s,
+                             sk, h, kv, scale, causal, st);
+    } else {
+      return launch_dq_fma<T, decltype(hdc)::value>(
+          q, k, v, dout, lse, delta, cos, sin, dq, b, s, sk, h, kv, scale,
+          causal, st);
+    }
   });
 }
 
@@ -591,9 +1281,18 @@ extern "C" int tpudist_flash_attention_bwd_dkv(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, hd, [&](auto t, auto hdc) {
-    return launch_dkv<decltype(t), decltype(hdc)::value, false>(
-        q, k, v, dout, lse, delta, cos, sin, dk, dv, nullptr, b, s, sk, h,
-        kv, scale, causal, st);
+    using T = decltype(t);
+    if constexpr (decltype(hdc)::value == 128) {
+      const cudaError_t err =
+          tc_check(s, sk, {q, k, v, dout, lse, delta, cos, sin, dk, dv});
+      if (err != cudaSuccess) return err;
+      return launch_dkv_tc<T>(q, k, v, dout, lse, delta, cos, sin, dk, dv, b,
+                              s, sk, h, kv, scale, causal, st);
+    } else {
+      return launch_dkv_fma<T, decltype(hdc)::value, false>(
+          q, k, v, dout, lse, delta, cos, sin, dk, dv, nullptr, b, s, sk, h,
+          kv, scale, causal, st);
+    }
   });
 }
 

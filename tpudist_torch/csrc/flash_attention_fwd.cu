@@ -82,6 +82,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // 8 warps
@@ -113,26 +115,6 @@ struct Cfg {
       (BM + 4 * BN + (PS ? 4 * BN : 0) + (QS ? BM : 0));
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T's precision, kept as f32.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
@@ -152,95 +134,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
   __nv_bfloat162 v[2] = {__floats2bfloat162_rn(x[0], x[1]),
                          __floats2bfloat162_rn(x[2], x[3])};
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x rounded to TF32, to nearest with ties away from zero: cvt.rna.tf32.f32
-// for every non-NaN x (adding half of the 13 dropped bits to the magnitude
-// carries into the kept ones exactly when rna rounds up).
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// The 3xTF32 split: x ~ hi + lo, both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(x);
-  lo = rna_tf32(x - __uint_as_float(hi));
-}
-
-// d += a b, m16n8k8, TF32 in, f32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b with f32 operands, as lo*hi + hi*lo + hi*hi (the lo*lo term is
-// below f32's precision).
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(d, alo, bh0, bh1);
-  mma_tf32(d, ahi, bl0, bl1);
-  mma_tf32(d, ahi, bh0, bh1);
-}
-
-// d += a b, m16n8k16, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four 8x8 b16 matrices from shared memory; on f32 data each is 8 rows of 4
-// words, and lane 4 g + t gets word t of row g: an m16n8k8 TF32 fragment.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// Four transposed 8x8 b16 matrices from shared memory (B fragments of V).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
 }
 
 // Start copying ROWS rows of HD elements (global row stride `stride`
@@ -360,17 +253,6 @@ __device__ __forceinline__ void split_rows(float* tile, float* lo, bool rope,
     store4(lo + r * LD + i, l1);
     store4(lo + r * LD + i + H2, l2);
   }
-}
-
-// d += a b with a split and b's hi/lo parts given.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4],
-                                           uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, alo, bh0, bh1);
-  mma_tf32(d, ahi, bl0, bl1);
-  mma_tf32(d, ahi, bh0, bh1);
 }
 
 // S (16 x 8 NT, this warp's rows and keys) = Q K^T, f32 operands, 3xTF32.

@@ -3,10 +3,11 @@
 Each library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) from the
 sources under ``tpudist_torch/csrc/`` into
 ``build/tpudist_torch/<name>-<hash>/lib<name>.so`` at the repository
-root, where ``<hash>`` covers the sources and the compiler flags: a
-checkout builds what it holds, and a changed source never loads a stale
-library. The libraries have a plain C interface and are loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
+root, where ``<hash>`` covers the sources, the headers beside them and
+the compiler flags: a checkout builds what it holds, and a changed source
+or header never loads a stale library. The libraries have a plain C
+interface and are loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds, not minutes).
 
 Nothing here runs at import time: the CPU test lane imports every module
 of the port on a machine with no ``nvcc``.
@@ -57,9 +58,11 @@ def nvcc() -> str:
 
 def library_path(name: str, sources: Sequence[str]) -> Path:
     """Where ``name`` built from ``sources`` (file names under csrc/)
-    lives: keyed by the sources' bytes and the flags."""
+    lives: keyed by the flags and the bytes of the sources and of every
+    header under csrc/ (which any source may include)."""
     h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for src in (*sources, *headers):
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"

@@ -12,9 +12,10 @@ PyTorch's current stream.
 custom VJP ``_flash``): its forward returns ``(o, lse)`` and saves the
 unrotated q/k, v, o and lse; its backward folds the lse cotangent into
 ``delta = rowsum(do * o) - dlse`` (f32 PyTorch ops, as the JAX package
-computes it outside Pallas) and runs the merged backward when one 512-row
-block covers both sequences (the JAX routing at its default blocks), the
-dq and dk/dv pair otherwise.
+computes it outside Pallas) and runs the merged backward where the JAX
+package does: when its default 512-row block choice (``_pick_block``)
+leaves one block on each sequence, i.e. seq 128, 256 or 512. Every other
+length, 384 among them, takes the dq and dk/dv pair.
 
 Every wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no other route. ``launches`` (forward),
@@ -36,7 +37,7 @@ from tpudist_torch.ops.rope import apply_rope, apply_rope_t
 NEG = -1e30
 HEAD_DIMS = (128, 256)      # the kernels' instantiations
 MAX_BATCH_HEADS = 65535     # the grids' y extent: one row per (batch, head)
-MERGED_MAX_SEQ = 512        # the JAX package's default block_q / block_k
+BLOCK = 512                 # the JAX package's default block_q / block_k
 LIBRARY = "flash_attention_fwd"
 SOURCES = ("flash_attention_fwd.cu",)
 BWD_LIBRARY = "flash_attention_bwd"
@@ -64,11 +65,21 @@ def supports(q_shape, k_shape, *, causal: bool = True) -> bool:
             and s > 0 and s % 128 == 0 and sk > 0 and sk % 128 == 0)
 
 
+def _pick_block(s: int) -> Optional[int]:
+    """The JAX package's block choice (``_pick_block``) at its default
+    block: the largest of 512, 256 and 128 that divides s."""
+    for b in (BLOCK, 256, 128):
+        if s % b == 0:
+            return b
+    return None
+
+
 def uses_merged_backward(s: int, sk: int) -> bool:
     """Does the backward take the merged dq/dk/dv kernel? The JAX package
-    does when one block covers both sequences (``_bwd``: one q block and
-    one kv block), which at its default 512-row blocks is seq <= 512."""
-    return s <= MERGED_MAX_SEQ and sk <= MERGED_MAX_SEQ
+    does when its default blocks leave one q block and one kv block
+    (``_bwd``): seq 128, 256 or 512 on both sides. At 384 its block is
+    128, three of them, so it runs the split pair, and so does the port."""
+    return _pick_block(s) == s and _pick_block(sk) == sk
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
