@@ -31,14 +31,19 @@ Phases, each of which fails the script (non-zero exit, no result line):
    and phase 9 (b8 s512 bf16, RoPE in the kernel), where the library
    call takes q/k rotated before it and its time excludes the rotation;
    the dq + dk/dv pair's sum beside that call's whole backward;
-   3c. the fused LM-head kernels, through their autograd Function,
-   against ``fused_xent_fwd_plain`` / ``fused_xent_bwd_plain`` on
-   ``tpudist/selfcheck.py``'s four shapes (d 256 f32), the bench
-   geometry (t 1024, V 32000, d 2048, bf16) and the slice's shape (t
-   16384, f32), two calls bitwise equal; their times at the slice's
-   shape beside their bounds, the plain versions' and
-   ``F.cross_entropy(h @ emb.T)`` (forward, and ``autograd.grad``
-   through it), and the head's peak device memory, fused against that;
+   3c. the fused LM-head kernels (tensor cores, ``mma.sync``: f32 as
+   3xTF32, bf16), through their autograd Function, against
+   ``fused_xent_fwd_plain`` / ``fused_xent_bwd_plain`` on 11 shapes:
+   ``tpudist/selfcheck.py``'s four (d 256 f32), the bench geometry (t
+   1024, V 32000, d 2048, bf16), phase 9's (t 4096, bf16), the slice's
+   (t 16384, f32) and four at the edges of the kernels' tiling (t, V
+   and d off the tiles and off 16-byte rows; d not a multiple of 8 in
+   bf16; just over one backward chunk; t 16), two calls bitwise equal;
+   their times at the slice's shape (f32) and at phase 9's (bf16)
+   beside their bounds on the tensor cores, the plain versions' and
+   ``F.cross_entropy(h @ emb.T)``'s in the same dtype (forward, and
+   ``autograd.grad`` through it), and the head's peak device memory at
+   the slice's shape, fused against that;
 4. the serving slice at full width (BASELINE config #5, f32): warmup and
    16 requests through ``ServeEngine`` + ``run_serve``, every request
    completed, and one prefill's logits through the engine (kernel)
@@ -51,7 +56,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
 7. one full-width training step at seq 512 and 2048, and at 2048 with
    the fused head: the loss and every param grad through the kernels
    against the plain versions on the card (f32, 1e-4 of each tensor's
-   largest element);
+   largest element); with the fused head it also reports the head alone
+   (lse, dh, dE) against float64, kernels and plain versions;
 8. the train CLI at seq 2048 with ``--lm-head fused``, 1 epoch (4 steps):
    the fused head's kernels beside the flash kernels;
 9. the train CLI at seq 512 in bf16 with ``--lm-head auto`` and
@@ -64,7 +70,8 @@ launched the exact number of times its path calls it (the training
 phases also check the stdout contract, a falling loss and the
 ``success`` verdict file). ``--profile`` adds torch.profiler breakdowns
 of the serving windows and of two training steps at seq 2048 (plain and
-fused head) and 512 (device time by kernel, busy share), and the rates
+fused head), 512 and 512 in bf16 with the fused head (phase 9's
+configuration; device time by kernel, busy share), and the rates
 mma.sync reaches (``tpudist_torch/csrc/mma_peak.cu``).
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -88,12 +95,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
-# cores (the merged flash backward, hd 256 and the fused-xent kernels do
-# f32 FMA), bf16 tensor cores, HBM3 bandwidth
+# cores (the merged flash backward and hd 256 do f32 FMA), bf16 tensor
+# cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the flash forward and the split flash backward at hd 128 run their f32
-# products on the tensor cores as 3xTF32: three TF32 products for each
-# f32 one, so a third of the 495 TFLOP/s TF32 peak
+# the flash forward, the split flash backward at hd 128 and the fused
+# LM-head kernels run their f32 products on the tensor cores as 3xTF32:
+# three TF32 products for each f32 one, so a third of the 495 TFLOP/s
+# TF32 peak
 TC_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 ATOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -512,14 +520,15 @@ def time_flash_bwd(torch, fa, F, slice_err):
 
 def xent_bound(t, v, d, dtype: str, products: int, backward: bool):
     """(bound_ms, bound_by) of the fused head: ``products`` matrix
-    products of 2 t V d operations over the peak for ``dtype``, against
+    products of 2 t V d operations over the tensor cores' peak for
+    ``dtype`` (``TC_PEAK_FLOPS``: 3xTF32 for f32), against
     the bytes of h, E, the int64 targets and the f32 per-token vectors
     (loss and lse out; or lse and ct in, dh and dE out) moved once."""
     flops = products * 2 * t * v * d
     elt = 4 if dtype == "float32" else 2
     operands = elt * (t * d + v * d)
     nbytes = operands * (2 if backward else 1) + 8 * t + 2 * 4 * t
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / TC_PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -539,8 +548,10 @@ def check_fused_xent(torch, fx):
     ``tpudist/selfcheck.py``'s shapes at d 256 f32 (loss rtol 1e-4; dh
     and dE rtol 1e-3, atol 5e-3/t), the bench geometry in bf16 (loss
     within 5e-2 of the f32 plain loss, grads finite and within 5e-2 of
-    each gradient's largest element against the bf16 plain version) and
-    the slice's shape in f32; every shape also run twice, bitwise equal.
+    each gradient's largest element against the bf16 plain version), the
+    slice's shape in f32 and four shapes at the edges of the kernels'
+    tiling, each held to its dtype's tolerance; every shape also run
+    twice, bitwise equal.
     The bf16 case at t 4096 (= b8 x s512, phase 9's shape) is above the
     backward's 2048-token chunk, so it holds the separate f32 dE
     accumulator and its final cast to bf16 against the plain version.
@@ -549,7 +560,13 @@ def check_fused_xent(torch, fx):
               (512, 5000, 256, "float32"), (20000, 4096, 256, "float32"),
               (1024, 32000, 2048, "bfloat16"),
               (4096, 32000, 2048, "bfloat16"),
-              (16384, 32000, 2048, "float32")]
+              (16384, 32000, 2048, "float32"),
+              # the edges of the kernels' tiling: t, V and d all off the
+              # 128-wide tiles and off 16-byte rows; d not a multiple of 8
+              # in bf16; just over one backward chunk; a tiny t that the
+              # vocab split has to spread over the card
+              (384, 4099, 255, "float32"), (300, 1000, 250, "bfloat16"),
+              (2100, 4096, 256, "float32"), (16, 32000, 2048, "float32")]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     bad, slice_err = [], {}
@@ -622,35 +639,42 @@ def check_fused_xent(torch, fx):
 
 def time_fused_xent(torch, fx, F, slice_err):
     """Phase 3c, timings: each fused kernel at the training slice's shape
-    (t 16384 = b8 x s2048, V 32000, d 2048, f32) beside its bound, its
-    plain version and one PyTorch call (forward
-    ``F.cross_entropy(h @ emb.T, tgt)``; backward ``torch.autograd.grad``
-    through it w.r.t. (h, emb)); and the device memory the head adds
-    over its inputs, forward and backward, fused against that library
+    (t 16384 = b8 x s2048, V 32000, d 2048, f32) and at phase 9's (t 4096
+    = b8 x s512, bf16) beside its bound, its plain version and one
+    PyTorch call in the same dtype (forward ``F.cross_entropy(h @ emb.T,
+    tgt)``; backward ``torch.autograd.grad`` through it w.r.t. (h,
+    emb)); and the device memory the head adds over its inputs at the
+    slice's shape, forward and backward, fused against that library
     head. Returns the kernels' records."""
-    t, v, d = 16384, 32000, 2048
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
-    h, emb, tgt = _xent_inputs(torch, gen, t, v, d, torch.float32)
     few = dict(warmup=1, runs=5, inner=2)
-    with torch.no_grad():
-        loss, lse = fx.fused_xent_fwd(h, emb, tgt)
-        ct = torch.full((t,), 1.0 / t, device="cuda")
-        fwd_ms = time_ms(torch, lambda: fx.fused_xent_fwd(h, emb, tgt),
-                         **few)
-        fwd_plain = time_ms(torch, lambda: fx.fused_xent_fwd_plain(
-            h, emb, tgt), **few)
-        fwd_lib = time_ms(torch, lambda: F.cross_entropy(h @ emb.T, tgt),
-                          **few)
-        bwd_ms = time_ms(torch, lambda: fx.fused_xent_bwd(
-            h, emb, tgt, lse, ct), **few)
-        bwd_plain = time_ms(torch, lambda: fx.fused_xent_bwd_plain(
-            h, emb, tgt, lse, ct), **few)
-    hl, el = (x.detach().requires_grad_() for x in (h, emb))
-    out = F.cross_entropy(hl @ el.T, tgt)
-    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
-        out, (hl, el), retain_graph=True), **few)
-    del out
+
+    def times(t, v, d, dtype, seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        h, emb, tgt = _xent_inputs(torch, gen, t, v, d, dtype)
+        with torch.no_grad():
+            _, lse = fx.fused_xent_fwd(h, emb, tgt)
+            ct = torch.full((t,), 1.0 / t, device="cuda")
+            out = {
+                "fwd": time_ms(torch, lambda: fx.fused_xent_fwd(
+                    h, emb, tgt), **few),
+                "fwd_plain": time_ms(torch, lambda: fx.fused_xent_fwd_plain(
+                    h, emb, tgt), **few),
+                "fwd_lib": time_ms(torch, lambda: F.cross_entropy(
+                    h @ emb.T, tgt), **few),
+                "bwd": time_ms(torch, lambda: fx.fused_xent_bwd(
+                    h, emb, tgt, lse, ct), **few),
+                "bwd_plain": time_ms(torch, lambda: fx.fused_xent_bwd_plain(
+                    h, emb, tgt, lse, ct), **few)}
+        hl, el = (x.detach().requires_grad_() for x in (h, emb))
+        loss = F.cross_entropy(hl @ el.T, tgt)
+        out["bwd_lib"] = time_ms(torch, lambda: torch.autograd.grad(
+            loss, (hl, el), retain_graph=True), **few)
+        del loss, lse, ct
+        return out, (hl, el, tgt)
+
+    t, v, d = 16384, 32000, 2048
+    ms, (hl, el, tgt) = times(t, v, d, torch.float32, 4)
 
     def head_peak(fn):
         torch.cuda.synchronize()
@@ -666,31 +690,47 @@ def time_fused_xent(torch, fx, F, slice_err):
         fx.fused_lm_head_xent(hl, el, tgt), (hl, el)))
     lib_gb = head_peak(lambda: torch.autograd.grad(
         F.cross_entropy(hl @ el.T, tgt), (hl, el)))
+    del hl, el, tgt
+    torch.cuda.empty_cache()
     shape = f"t{t} V{v} d{d} float32"
     print(f"fused xent peak device memory over the inputs, forward + "
           f"backward at {shape}: fused {fused_gb:.4f} GB, "
           f"F.cross_entropy(h @ emb.T) {lib_gb:.4f} GB")
+    bt = 4096
+    bms = times(bt, v, d, torch.bfloat16, 5)[0]
+    torch.cuda.empty_cache()
+    bshape = f"t{bt} V{v} d{d} bfloat16"
     records = []
-    for name, ms, plain_ms, lib_ms, products, backward, line, lib in (
-            ("fused_xent_fwd", fwd_ms, fwd_plain, fwd_lib, 1, False, 74,
+    for name, key, products, backward, line, lib in (
+            ("fused_xent_fwd", "fwd", 1, False, 74,
              "F.cross_entropy(h @ emb.T, tgt)"),
-            ("fused_xent_bwd", bwd_ms, bwd_plain, bwd_lib, 3, True, 168,
+            ("fused_xent_bwd", "bwd", 3, True, 168,
              "autograd.grad through it")):
         bound_ms, bound_by = xent_bound(t, v, d, "float32", products,
                                         backward)
-        print(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, {lib} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+        bbound_ms, bbound_by = xent_bound(bt, v, d, "bfloat16", products,
+                                          backward)
+        for sh, m, b_ms, b_by in ((shape, ms, bound_ms, bound_by),
+                                  (bshape, bms, bbound_ms, bbound_by)):
+            print(f"{name} at {sh}: kernel {m[key]:.4f} ms, plain "
+                  f"{m[key + '_plain']:.4f} ms, {lib} "
+                  f"{m[key + '_lib']:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, tensor cores)")
         records.append({
             "name": name, "route": "cuda",
             "source": "tpudist_torch/csrc/fused_xent.cu",
             "replaces": f"tpudist/ops/pallas/fused_xent.py:{line}",
-            "launches": None, "max_abs_err": slice_err[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms, "shape": shape,
-            "head_peak_gb": fused_gb, "library_head_peak_gb": lib_gb})
-    del h, emb, tgt, hl, el, loss, lse, ct
-    torch.cuda.empty_cache()
+            "launches": None, "max_abs_err": slice_err[name],
+            "ms": ms[key], "plain_ms": ms[key + "_plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_peak": "tensor cores 3xTF32",
+            "library_ms": ms[key + "_lib"], "shape": shape,
+            "head_peak_gb": fused_gb, "library_head_peak_gb": lib_gb,
+            "bf16": {"shape": bshape, "ms": bms[key],
+                     "plain_ms": bms[key + "_plain"],
+                     "library_ms": bms[key + "_lib"],
+                     "bound_ms": bbound_ms, "bound_by": bbound_by,
+                     "bound_peak": "tensor cores bf16"}})
     return records
 
 
@@ -964,6 +1004,33 @@ def plain_head(torch, fx):
     return head
 
 
+def head_vs_f64(torch, fx, h, emb, tgt) -> str:
+    """The fused head alone at a training step's data: max |x - float64|
+    / max |float64| of lse, dh and dE (ct = 1 / t), for the kernels and
+    for the plain versions."""
+    t = h.shape[0]
+    ct = torch.full((t,), 1.0 / t, device="cuda")
+    with torch.no_grad():
+        _, lse = fx.fused_xent_fwd(h, emb, tgt)
+        kernel = (lse, *fx.fused_xent_bwd(h, emb, tgt, lse, ct))
+        _, lse = fx.fused_xent_fwd_plain(h, emb, tgt)
+        plain = (lse, *fx.fused_xent_bwd_plain(h, emb, tgt, lse, ct))
+        hd, ed = h.double(), emb.double()
+        dl = hd @ ed.T
+        lse = torch.logsumexp(dl, dim=1)
+        dl = torch.exp(dl - lse[:, None])
+        dl[torch.arange(t, device="cuda"), tgt] -= 1.0
+        dl /= t
+        exact = (lse, dl @ ed, dl.T @ hd)
+        del dl
+    errs = []
+    for name, k, p, x in zip(("lse", "dh", "dE"), kernel, plain, exact):
+        m = x.abs().max()
+        errs.append(f"{name} {((k.double() - x).abs().max() / m).item():.2e} "
+                    f"(plain {((p.double() - x).abs().max() / m).item():.2e})")
+    return "; ".join(errs)
+
+
 def step_check(torch, fa, fx, seq: int, fused: bool = False):
     """Phase 7: one training step's loss and every param grad at full
     width, through the kernels and through the plain versions on the
@@ -986,15 +1053,15 @@ def step_check(torch, fa, fx, seq: int, fused: bool = False):
                                       attn_impl=attn_impl)
         loss = head(model.embed, h, tokens[:, 1:])
         grads = torch.autograd.grad(loss, list(model.parameters()))
-        return loss.detach(), grads
+        return loss.detach(), grads, h.detach()
 
     def kernel_head(emb, h, targets):
         return transformer.head_loss(emb, h, targets, fused_xent=fused)
 
     before = _launch_counts(fa, fx)
-    loss_k, grads_k = loss_and_grads(transformer._attention, kernel_head)
+    loss_k, grads_k, h = loss_and_grads(transformer._attention, kernel_head)
     ran = {k: v - before[k] for k, v in _launch_counts(fa, fx).items()}
-    loss_p, grads_p = loss_and_grads(
+    loss_p, grads_p, _ = loss_and_grads(
         plain_attention(torch, fa),
         plain_head(torch, fx) if fused else kernel_head)
     torch.cuda.synchronize()
@@ -1009,7 +1076,12 @@ def step_check(torch, fa, fx, seq: int, fused: bool = False):
           f"{loss_p.item():.6f} (plain); worst relative error "
           f"{errs[worst]:.3e} ({worst}) over the loss and "
           f"{len(errs) - 1} grads (tol 1e-4); kernel launches {ran}")
-    del model, grads_k, grads_p
+    if fused:
+        print(f"step check {tag}: the head alone against float64, max |d| "
+              f"/ max |f64|: " + head_vs_f64(
+                  torch, fx, h.reshape(-1, cfg.d_model), model.embed.detach(),
+                  tokens[:, 1:].reshape(-1)))
+    del model, grads_k, grads_p, h
     torch.cuda.empty_cache()
     if errs[worst] > 1e-4 or not math.isfinite(errs[worst]):
         fail(f"step check {tag}: {worst} off by {errs[worst]:.3e}")
@@ -1021,10 +1093,12 @@ def step_check(torch, fa, fx, seq: int, fused: bool = False):
         fail(f"step check {tag}: the fused head kernels did not run once")
 
 
-def profile_train(torch, seq: int, lm_head: str = "plain"):
+def profile_train(torch, seq: int, lm_head: str = "plain",
+                  dtype: str = "float32"):
     """--profile: device time by kernel over two steady training steps at
-    full width with the ``lm_head`` head, and the device's busy share of
-    their wall time."""
+    full width with the ``lm_head`` head in ``dtype`` (bf16 with the bf16
+    Adam second moment, as phase 9), and the device's busy share of their
+    wall time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1032,9 +1106,10 @@ def profile_train(torch, seq: int, lm_head: str = "plain"):
     from tpudist_torch import data as data_lib
     from tpudist_torch import engine as engine_lib
 
-    cfg = config_lib.parse_args(["--model", "transformer", "--seq-len",
-                                 str(seq), "--train-batch-size", "8",
-                                 "--lm-head", lm_head])
+    cfg = config_lib.parse_args(
+        ["--model", "transformer", "--seq-len", str(seq),
+         "--train-batch-size", "8", "--lm-head", lm_head, "--dtype", dtype]
+        + (["--adam-nu-dtype", "bfloat16"] if dtype == "bfloat16" else []))
     dev = torch.device("cuda")
     state = engine_lib.init_state(cfg, dev)
     step = engine_lib.make_train_step(cfg, dev)
@@ -1055,13 +1130,20 @@ def profile_train(torch, seq: int, lm_head: str = "plain"):
             for e in prof.key_averages()
             if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     busy = sum(r[1] for r in rows)
-    print(f"profile: 2 train steps at seq {seq}, --lm-head {lm_head}: "
+    print(f"profile: 2 train steps at seq {seq} {dtype}, --lm-head "
+          f"{lm_head}: "
           f"{wall:.3f} ms wall, "
           f"device kernel time {busy:.3f} ms ({100 * busy / wall:.1f}% "
           f"busy)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"profile:   {ms:9.3f} ms {100 * ms / busy:5.1f}% {count:5d}x"
               f"  {key[:80]}")
+    head = [r for r in rows if "xent_" in r[0]]
+    if head:
+        ms = sum(r[1] for r in head)
+        print(f"profile:   the fused head's kernels: {ms:.3f} ms "
+              f"({100 * ms / busy:.1f}%, {sum(r[2] for r in head)} "
+              f"launches)")
     del state
     torch.cuda.empty_cache()
 
@@ -1191,8 +1273,11 @@ def main() -> int:
     for seq, fused in ((512, False), (2048, False), (2048, True)):
         step_check(torch, fa, fx, seq, fused)
     if args.profile:
-        for seq, head in ((2048, "plain"), (2048, "fused"), (512, "plain")):
-            profile_train(torch, seq, head)
+        for seq, head, dt in ((2048, "plain", "float32"),
+                              (2048, "fused", "float32"),
+                              (512, "plain", "float32"),
+                              (512, "fused", "bfloat16")):
+            profile_train(torch, seq, head, dt)
         mma_peaks(torch, build)
 
     reaches = {"flash_attention_fwd": tuple(paths),

@@ -7,6 +7,7 @@ import torch
 
 from tpudist_torch.ops.cuda import build
 from tpudist_torch.ops.cuda import flash_attention as tfa
+from tpudist_torch.ops.cuda import fused_xent as tfx
 
 torch.set_num_threads(1)
 
@@ -26,8 +27,8 @@ def test_library_path_covers_the_shared_header(tmp_path, monkeypatch):
 
 
 def test_flash_libraries_include_the_header_they_share():
-    """Both flash-attention libraries include ``mma_common.cuh``, which
-    ``library_path`` hashes."""
+    """Both flash-attention libraries and the fused LM-head library
+    include ``mma_common.cuh``, which ``library_path`` hashes."""
     assert (build.CSRC / "mma_common.cuh").is_file()
-    for src in tfa.SOURCES + tfa.BWD_SOURCES:
+    for src in tfa.SOURCES + tfa.BWD_SOURCES + tfx.SOURCES:
         assert '#include "mma_common.cuh"' in (build.CSRC / src).read_text()

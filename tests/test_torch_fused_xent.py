@@ -11,6 +11,8 @@ package's own test cases (``tests/test_fused_xent.py``). Inputs come from
 numpy and go to both packages.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -186,3 +188,150 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     h, emb, tgt = _inputs(8, 4, 12)
     _torch(h, emb, tgt)
     assert (tfx.fwd_launches, tfx.bwd_launches) == before
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as the kernels round it (``cvt.rna``: to
+    nearest, ties away from zero, the low 13 mantissa bits cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor,
+                  split: str) -> torch.Tensor:
+    """a @ b as the kernels' tensor-core products form it: TF32 operands
+    (their products exact in f32), f32 sums. ``3xtf32``: hi = rna(x), lo
+    = rna(x - hi), summed as alo bhi + ahi blo + ahi bhi; ``tf32``: one
+    product of the rounded operands."""
+    ahi, bhi = _rna_tf32(a), _rna_tf32(b)
+    if split == "tf32":
+        return ahi @ bhi
+    alo, blo = _rna_tf32(a - ahi), _rna_tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+@functools.lru_cache(maxsize=None)
+def _head_by_products(scale: float, split: str):
+    """The fused head's loss, dl, dh and dE at a selfcheck shape (t 256, V
+    2048, d 256; h ~ N(0, 1), E ~ scale N(0, 1)) with every product formed
+    as the kernels form it (``split``) from f32 operands, the softmax in
+    f32 and dl from those logits, as the kernels chain them; and the same
+    in float64."""
+    t, v, d = 256, 2048, 256
+    rng = np.random.default_rng(8)
+    h = rng.standard_normal((t, d), np.float32)
+    emb = (rng.standard_normal((v, d)) * scale).astype(np.float32)
+    tgt = rng.integers(0, v, t)
+    rows = np.arange(t)
+
+    h64, e64 = h.astype(np.float64), emb.astype(np.float64)
+    lg64 = h64 @ e64.T
+    m = lg64.max(axis=1, keepdims=True)
+    lse64 = m[:, 0] + np.log(np.exp(lg64 - m).sum(axis=1))
+    dl64 = np.exp(lg64 - lse64[:, None])
+    dl64[rows, tgt] -= 1.0
+    dl64 /= t
+    want = {"loss": (lse64 - lg64[rows, tgt]).mean(), "dl": dl64,
+            "dh": dl64 @ e64, "de": dl64.T @ h64}
+
+    th, te = torch.from_numpy(h), torch.from_numpy(emb)
+    lg = _tf32_product(th, te.T.contiguous(), split)
+    lse = torch.logsumexp(lg, dim=1)
+    dl = torch.exp(lg - lse[:, None])
+    dl[rows, tgt] -= 1.0
+    dl /= t
+    got = {"loss": (lse - lg[rows, tgt]).double().mean().item(),
+           "dl": dl.double().numpy(),
+           "dh": _tf32_product(dl, te, split).double().numpy(),
+           "de": _tf32_product(dl.T.contiguous(), th, split).double().numpy()}
+    return t, got, want
+
+
+@pytest.mark.parametrize("product,scale,split", [
+    *((p, s, "3xtf32") for p in ("loss", "dl", "dh", "de")
+      for s in (0.02, 1.0)),
+    # one TF32 product misses the f32 tolerance where the softmax is
+    # peaked (E ~ N(0, 1), logits of magnitude ~16); at selfcheck's scale
+    # it stays inside, so only these cases are kept
+    ("dh", 1.0, "tf32"), ("de", 1.0, "tf32"),
+])
+def test_tf32_split_products_hold_the_f32_tolerance(product, scale, split):
+    """The numeric claim behind the f32 fused-head kernels on the tensor
+    cores: the logits, and so lse and the loss, dl, dh = dl E and dE =
+    dl^T h, each formed by the 3xTF32 split from f32 operands, agree with
+    float64 within chip_smoke's f32 tolerances (loss rtol 1e-4; dl, dh and
+    dE allclose at rtol 1e-3, atol 5e-3 / t), at selfcheck's scale (E ~
+    0.02 N(0, 1)) and with a peaked softmax (E ~ N(0, 1))."""
+    t, got, want = _head_by_products(scale, split)
+    g, w = got[product], want[product]
+    if product == "loss":
+        err = abs(g - w) / abs(w)
+    else:
+        err = (np.abs(g - w) / (5e-3 / t + 1e-3 * np.abs(w))).max()
+    if split == "3xtf32":
+        assert err <= (1e-4 if product == "loss" else 1.0), err
+    else:
+        assert err > 1.0, err
+
+
+def _rz_f32(y: torch.Tensor) -> torch.Tensor:
+    """float64 ``y`` rounded to f32 toward zero."""
+    r = y.float()
+    over = r.double().abs() > y.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _mma_chain(a: torch.Tensor, b: torch.Tensor, kbeg: int, kend: int
+               ) -> torch.Tensor:
+    """sum over kbeg <= k < kend of a[:, k] b[k] as the f32 kernels' mma
+    chain forms it: k-steps of 8, each as 3xTF32 (lo*hi, hi*lo, hi*hi),
+    each mma's exact sum of products added to the f32 accumulator and
+    rounded toward zero, as the tensor cores round."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(kbeg, kend, 8):
+        x, y = a[:, k:k + 8], b[k:k + 8]
+        xh, yh = _rna_tf32(x), _rna_tf32(y)
+        xl, yl = _rna_tf32(x - xh), _rna_tf32(y - yh)
+        for p, q in ((xl, yh), (xh, yl), (xh, yh)):
+            acc = _rz_f32(acc.double() + p.double() @ q.double())
+    return acc
+
+
+@pytest.mark.parametrize("scheme", ["one chain", "segments and gold last"])
+def test_dh_sum_over_the_vocab_holds_f32_under_round_toward_zero(scheme):
+    """Why the f32 dh kernel sums V in segments of 2048 (the kernel's kSeg)
+    and adds each row's gold term last: the tensor cores round each mma's
+    sum toward zero, so over one chain of V / 8 x 3 mma after the gold term
+    (~V times every other term) a row's sum drifts. At the slice's V
+    (32000) one chain misses the f32 plain product's accuracy (1e-5 of
+    the largest element against float64); the segments with the gold term
+    last hold it."""
+    t, v, d, kseg = 4, 32000, 8, 2048
+    rng = np.random.default_rng(9)
+    h = rng.standard_normal((t, 256))
+    emb = rng.standard_normal((v, 256)) / 16.0
+    logits = h @ emb.T
+    p = np.exp(logits - logits.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    tgt = rng.integers(0, v, t)
+    rows = np.arange(t)
+    dl = p.copy()
+    dl[rows, tgt] -= 1.0
+    dl /= 16384                    # ct = 1 / t at the slice's t
+    e = emb[:, :d]
+    want = dl @ e
+    a = torch.from_numpy(dl.astype(np.float32))
+    b = torch.from_numpy(e.astype(np.float32))
+    if scheme == "one chain":
+        got = _mma_chain(a, b, 0, v)
+    else:
+        gold = a[rows, tgt].clone()
+        a[rows, tgt] = 0.0
+        got = torch.zeros(t, d)
+        for k0 in range(0, v, kseg):
+            got = got + _mma_chain(a, b, k0, min(v, k0 + kseg))
+        got = gold[:, None] * b[tgt] + got
+    err = np.abs(got.double().numpy() - want).max() / np.abs(want).max()
+    if scheme == "one chain":
+        assert err > 1e-5, err
+    else:
+        assert err <= 1e-5, err

@@ -1,9 +1,9 @@
-// Device helpers shared by the flash-attention kernels: conversions to and
-// from the input type, cp.async, the 3xTF32 split, mma.sync and ldmatrix.
-// Included by flash_attention_fwd.cu and flash_attention_bwd.cu; each
-// translation unit keeps its own copy (anonymous namespace), and
-// tpudist_torch/ops/cuda/build.py hashes this header into every library's
-// key.
+// Device helpers shared by the tensor-core kernels: conversions to and
+// from the input type, cp.async (with its zero-filling form), the 3xTF32
+// split, mma.sync and ldmatrix. Included by flash_attention_fwd.cu,
+// flash_attention_bwd.cu and fused_xent.cu; each translation unit keeps its
+// own copy (anonymous namespace), and tpudist_torch/ops/cuda/build.py hashes
+// this header into every library's key.
 
 #pragma once
 
@@ -41,12 +41,29 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// 16 bytes to shared memory at dst, of which the first `bytes` (0 to 16)
+// come from src and the rest are zero: the edge of a tile. src is not read
+// when bytes is 0, but must still be a valid address.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // x rounded to TF32, to nearest with ties away from zero: cvt.rna.tf32.f32
