@@ -21,16 +21,18 @@ Phases, each of which fails the script (non-zero exit, no result line):
    through the autograd Function, against ``flash_attention_bwd_plain``
    (each gradient's max |d| / max |plain| within f32 1e-4 / bf16 5e-2, a
    nonzero lse cotangent, two calls bitwise equal, the predicted route)
-   on 48 shapes, 10 of them at the edges of the split pair's tiling; each
-   kernel's time at its main paths' shapes beside its bound (on the
-   tensor cores' peak for the forward and the split backward pair at hd
-   128, the CUDA cores' for the merged kernel), the plain version's and
-   one PyTorch library call's (``scaled_dot_product_attention``, forward
-   or ``autograd.grad`` through it): the forward at the serving prefill
-   (b1 s512 f32), the training slice (b8 s2048 f32, RoPE in the kernel)
-   and phase 9 (b8 s512 bf16, RoPE in the kernel), where the library
-   call takes q/k rotated before it and its time excludes the rotation;
-   the dq + dk/dv pair's sum beside that call's whole backward;
+   on 54 shapes, 10 of them at the edges of the split pair's tiling and
+   6 at the merged kernel's (seq 128 and 256, seq 512 over 256 keys);
+   each kernel's time at its main paths' shapes beside its bound (on the
+   tensor cores' peak at hd 128), the plain version's and one PyTorch
+   library call's (``scaled_dot_product_attention``, forward or
+   ``autograd.grad`` through it): the forward at the serving prefill (b1
+   s512 f32), the training slice (b8 s2048 f32, RoPE in the kernel) and
+   phase 9 (b8 s512 bf16, RoPE in the kernel), where the library call
+   takes q/k rotated before it and its time excludes the rotation; the
+   dq + dk/dv pair's sum beside that call's whole backward; the merged
+   kernel at seq 512 in f32 (phase 6) and bf16 (phase 9), with the split
+   pair called on its inputs as a yardstick;
    3c. the fused LM-head kernels (tensor cores, ``mma.sync``: f32 as
    3xTF32, bf16), through their autograd Function, against
    ``fused_xent_fwd_plain`` / ``fused_xent_bwd_plain`` on 11 shapes:
@@ -95,11 +97,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor
-# cores (the merged flash backward and hd 256 do f32 FMA), bf16 tensor
-# cores, HBM3 bandwidth
+# cores (the flash backward at hd 256 does f32 FMA), bf16 tensor cores,
+# HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the flash forward, the split flash backward at hd 128 and the fused
-# LM-head kernels run their f32 products on the tensor cores as 3xTF32:
+# the flash forward, the flash backward at hd 128 and the fused LM-head
+# kernels run their f32 products on the tensor cores as 3xTF32:
 # three TF32 products for each f32 one, so a third of the 495 TFLOP/s
 # TF32 peak
 TC_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
@@ -309,13 +311,11 @@ def check_flash(torch, fa, F):
             "timings": rows}
 
 
-def backward_peak(name: str, hd: int):
-    """The peak a flash backward kernel's operations are bounded by, per
-    route: the split pair (dq, dk/dv) runs on the tensor cores at hd 128
-    (``TC_PEAK_FLOPS``), the merged kernel and hd 256 do f32 FMA on the
-    CUDA cores (``PEAK_FLOPS``)."""
-    return TC_PEAK_FLOPS if name in ("dq", "dkv") and hd == 128 \
-        else PEAK_FLOPS
+def backward_peak(hd: int):
+    """The peak a flash backward kernel's operations are bounded by: every
+    backward kernel runs on the tensor cores at hd 128 (``TC_PEAK_FLOPS``)
+    and does f32 FMA on the CUDA cores at hd 256 (``PEAK_FLOPS``)."""
+    return TC_PEAK_FLOPS if hd == 128 else PEAK_FLOPS
 
 
 def backward_bound(b, s, h, kv, hd, dtype: str, causal: bool,
@@ -325,7 +325,8 @@ def backward_bound(b, s, h, kv, hd, dtype: str, causal: bool,
     5) over ``peak[dtype]`` (:func:`backward_peak`), against the bytes of
     q, k, v, do, lse, delta and the RoPE tables read once and of
     ``outputs`` (a string of q/k/v: which gradients it writes) written
-    once."""
+    once. The merged kernel's workspace is its own traffic, not the
+    function's."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = products * 2 * b * h * hd * pairs
     elt = 4 if dtype == "float32" else 2
@@ -361,9 +362,10 @@ def check_flash_bwd(torch, fa):
     slice's, shapes at the edges of the split pair's tensor-core tiling:
     seq 384 (the split pair, as in the JAX package) and 640, four q heads
     a kv head at seq 1024, a non-causal seq 512 over 1024 keys and a grid
-    of 64 blocks (b1 h4 s2048), each in f32 and bf16. Returns each
-    kernel's max |kernel - plain| over its own outputs at the slice's
-    shapes."""
+    of 64 blocks (b1 h4 s2048); and at the merged kernel's: one key tile
+    (seq 128, four q heads a kv head), two (seq 256) and a non-causal seq
+    512 over 256 keys; each in f32 and bf16. Returns each kernel's max
+    |kernel - plain| over its own outputs at the slice's shapes."""
     shapes = []   # (b, s, sk, h, kv, hd, dtype, causal, rope)
     for (b, s, h) in ((4, 512, 8), (1, 2048, 4)):            # selfcheck
         for kv in ((8, 2) if h == 8 else (4, 2)):
@@ -381,6 +383,10 @@ def check_flash_bwd(torch, fa):
                    (2, 1024, 1024, 16, 4, 128, dt, True, True),
                    (2, 512, 1024, 8, 8, 128, dt, False, False),
                    (1, 2048, 2048, 4, 4, 128, dt, True, True)]
+    for dt in ("bfloat16", "float32"):                       # merged edges
+        shapes += [(4, 128, 128, 8, 2, 128, dt, True, True),
+                   (4, 256, 256, 8, 8, 128, dt, True, True),
+                   (4, 512, 256, 8, 4, 128, dt, False, False)]
     shapes.append((8, 2048, 2048, 16, 16, 128, "float32", True,
                    True))                                    # slice
     shapes.append((8, 512, 512, 16, 16, 128, "float32", True, True))
@@ -439,54 +445,67 @@ def check_flash_bwd(torch, fa):
 
 
 def time_flash_bwd(torch, fa, F, slice_err):
-    """Phase 3c: each backward kernel's time at the shape the training
-    slice gives it (dq and dk/dv at seq 2048, the merged kernel at seq
-    512; b8 h16 kv16 hd128 f32 causal with RoPE), beside its bound, the
-    plain backward's time and torch.autograd.grad through
-    scaled_dot_product_attention at the same shape; and the dq + dk/dv
-    pair's sum, the function that library call computes, beside it.
+    """Phase 3c: each backward kernel's time at the shapes its main paths
+    give it (b8 h16 kv16 hd128 causal with RoPE: dq and dk/dv at seq 2048
+    f32; the merged kernel at seq 512 in f32, phase 6, and in bf16, phase
+    9), beside its bound, the plain backward's time and
+    torch.autograd.grad through scaled_dot_product_attention at the same
+    shape and dtype; the dq + dk/dv pair's sum, the function that library
+    call computes, beside it; and at seq 512 the split pair called
+    directly on the merged kernel's inputs, a yardstick (not a route).
     Returns the kernels' records (launches filled in by the training
-    phase)."""
+    phases)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    records = []
-    for s, kernels in ((2048, ("dq", "dkv")), (512, ("dqkv",))):
+    records = {}
+    for s, dt, kernels in ((2048, "float32", ("dq", "dkv")),
+                           (512, "float32", ("dqkv",)),
+                           (512, "bfloat16", ("dqkv",))):
         b, h, kv, hd = 8, 16, 16, 128
         q, k, v, do, dlse, cos, sin = _bwd_inputs(
-            torch, gen, b, s, h, kv, hd, torch.float32, True)
+            torch, gen, b, s, h, kv, hd, getattr(torch, dt), True)
+        kw = dict(cos=cos, sin=sin, causal=True)
         with torch.no_grad():
             o, lse = fa._Flash.apply(q, k, v, cos, sin, True)
             delta = fa._delta(o, do, dlse)
             plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, lse, do, dlse, cos=cos, sin=sin, causal=True))
+                q, k, v, o, lse, do, dlse, **kw))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dout = do.transpose(1, 2)
         library_ms = time_ms(torch, lambda: torch.autograd.grad(
             out, (qt, kt, vt), dout, retain_graph=True))
-        shape = f"b{b} s{s} h{h} kv{kv} hd{hd} float32 causal rope"
+        shape = f"b{b} s{s} h{h} kv{kv} hd{hd} {dt} causal rope"
+        peak = backward_peak(hd)
+        bound_peak = ("cuda cores fma" if peak is PEAK_FLOPS else
+                      "tensor cores 3xTF32" if dt == "float32"
+                      else "tensor cores bf16")
         for name in kernels:
             fn = {"dq": fa.flash_attention_bwd_dq,
                   "dkv": fa.flash_attention_bwd_dkv,
                   "dqkv": fa.flash_attention_bwd_dqkv}[name]
             with torch.no_grad():
-                kernel_ms = time_ms(torch, lambda: fn(
-                    q, k, v, do, lse, delta, cos=cos, sin=sin,
-                    causal=True))
+                kernel_ms = time_ms(torch, lambda: fn(q, k, v, do, lse,
+                                                      delta, **kw))
             products, outputs = {"dq": (3, "q"), "dkv": (4, "kv"),
                                  "dqkv": (5, "qkv")}[name]
-            peak = backward_peak(name, hd)
-            bound_ms, bound_by = backward_bound(b, s, h, kv, hd, "float32",
-                                                True, products, outputs,
-                                                peak)
+            bound_ms, bound_by = backward_bound(b, s, h, kv, hd, dt, True,
+                                                products, outputs, peak)
             print(f"flash_attention_bwd_{name} at {shape}: kernel "
                   f"{kernel_ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
                   f"autograd.grad through scaled_dot_product_attention "
                   f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}, f32 peak {peak['float32'] / 1e12:.0f} "
-                  f"TFLOP/s)")
-            records.append({
+                  f"({bound_by}, {bound_peak} "
+                  f"{peak[dt] / 1e12:.0f} TFLOP/s)")
+            timing = {"ms": kernel_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bound_peak": bound_peak, "library_ms": library_ms,
+                      "shape": shape}
+            if dt == "bfloat16":
+                records[name]["bf16"] = timing
+                continue
+            records[name] = {
                 "name": f"flash_attention_bwd_{name}", "route": "cuda",
                 "source": "tpudist_torch/csrc/flash_attention_bwd.cu",
                 "replaces": {"dq": "tpudist/ops/pallas/flash_attention.py"
@@ -496,14 +515,9 @@ def time_flash_bwd(torch, fa, F, slice_err):
                              "dqkv": "tpudist/ops/pallas/flash_attention"
                                      ".py:423"}[name],
                 "launches": None, "max_abs_err": slice_err.get(name),
-                "ms": kernel_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bound_peak": ("tensor cores 3xTF32"
-                               if peak is TC_PEAK_FLOPS
-                               else "cuda cores fma"),
-                "library_ms": library_ms, "shape": shape})
+                **timing}
         if s == 2048:
-            pair = records[-2:]
+            pair = [records["dq"], records["dkv"]]
             pair_ms = sum(r["ms"] for r in pair)
             bound_ms = sum(r["bound_ms"] for r in pair)
             for r in pair:
@@ -513,9 +527,25 @@ def time_flash_bwd(torch, fa, F, slice_err):
                   f"autograd.grad through scaled_dot_product_attention "
                   f"(all three gradients) {library_ms:.4f} ms "
                   f"({pair_ms / library_ms:.2f}x)")
+        else:
+            with torch.no_grad():
+                split_ms = time_ms(torch, lambda: (
+                    fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                    fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               **kw)))
+            ws = fa.dqkv_workspace_shape(b, s, s, h, hd)
+            rec = records["dqkv"] if dt == "float32" \
+                else records["dqkv"]["bf16"]
+            rec["split_pair_ms"] = split_ms
+            rec["workspace_slots"] = ws[0]
+            print(f"flash backward at {shape}: merged kernel "
+                  f"{rec['ms']:.4f} ms; the split pair (dq + dk/dv called "
+                  f"directly, a yardstick, not a route) {split_ms:.4f} ms; "
+                  f"the merged kernel's f32 workspace {ws[0]} slots, "
+                  f"{4 * math.prod(ws) / 1e6:.1f} MB")
         del q, k, v, do, o, lse, delta, qt, kt, vt, out
         torch.cuda.empty_cache()
-    return records
+    return list(records.values())
 
 
 def xent_bound(t, v, d, dtype: str, products: int, backward: bool):

@@ -3,10 +3,14 @@
 // Replaces the three backward kernels of tpudist/ops/pallas/flash_attention.py
 // (launched by `_bwd`, the custom VJP of `_flash`):
 //   * `_dq_kernel`   -> flash_bwd_dq_kernel (tpudist_flash_attention_bwd_dq)
-//   * `_dkv_kernel`  -> flash_bwd_dkv_kernel (tpudist_flash_attention_bwd_dkv)
-//   * `_dqkv_kernel` -> flash_bwd_dkv_fma_kernel<.., true> +
+//   * `_dkv_kernel`  -> flash_bwd_dkv_kernel<T, false>
+//                       (tpudist_flash_attention_bwd_dkv)
+//   * `_dqkv_kernel` -> flash_bwd_dkv_kernel<T, true> +
 //                       flash_bwd_dq_reduce_kernel
 //                       (tpudist_flash_attention_bwd_dqkv)
+// These run at hd 128 on the tensor cores. At hd 256 the CUDA-core kernels
+// flash_bwd_dq_fma_kernel and flash_bwd_dkv_fma_kernel<T, WITH_DQ> take
+// their places.
 // They compute what the TPU kernels compute. For each kept (query row i, key
 // row j) pair of a q head and its kv head: the rotated q/k (RoPE from (s,
 // hd/2) f32 tables, split-halves pairs, rounded to the input type), the f32
@@ -28,20 +32,23 @@
 // Bound at the training slice's shape (b8 s2048 h16 kv16 hd128, causal): one
 // product over the kept pairs is 2 * b * h * hd * s(s+1)/2 FLOP = 68.75
 // GFLOP. dq needs three (q.k, do.v, ds.k: 206.3 GFLOP), dk/dv four (q.k,
-// do.v, p^T.do, ds^T.q: 275.0 GFLOP). The split pair at hd 128 runs them on
-// the tensor cores: f32 as 3xTF32 (three TF32 products for each f32 one, so
-// 495 / 3 = 165 TFLOP/s from the H100 SXM data sheet's TF32 peak), bf16 at
-// 989. In f32 that is 1.250 ms for dq and 1.667 ms for dk/dv; their bytes
-// (q, k, v, do, lse, delta in; dq or dk, dv out) take ~0.2 ms at 3.35 TB/s:
-// both are bound by operations. The merged kernel and hd 256 do f32 FMA on
-// the CUDA cores (67 TFLOP/s): five products, 0.32 ms at b8 s512.
+// do.v, p^T.do, ds^T.q: 275.0 GFLOP). On the tensor cores f32 runs as
+// 3xTF32 (three TF32 products for each f32 one, so 495 / 3 = 165 TFLOP/s
+// from the H100 SXM data sheet's TF32 peak), bf16 at 989. In f32 that is
+// 1.250 ms for dq and 1.667 ms for dk/dv; their bytes (q, k, v, do, lse,
+// delta in; dq or dk, dv out) take ~0.2 ms at 3.35 TB/s: both are bound by
+// operations. The merged kernel at seq 512 (b8 h16 kv16 hd128, causal)
+// does all five products once, 21.5 GFLOP: 0.130 ms in f32, bound by
+// operations; in bf16 its ~118 MB in and out take 0.035 ms at 3.35 TB/s,
+// against 0.022 ms of products: bound by bytes. hd 256 does f32 FMA on the
+// CUDA cores (67 TFLOP/s).
 //
-// Design of the split pair at hd 128 (flash_bwd_dq_kernel,
-// flash_bwd_dkv_kernel). The CUDA-core design kept below for the merged
-// kernel and hd 256 does every product as f32 FMA, stages tiles
-// synchronously as f32 with an hd + 1 stride, sends p and ds through shared
-// memory and starts the light causal blocks first; at the training shapes
-// that is 3-4x the bound. The split pair instead:
+// Design of the tensor-core kernels at hd 128 (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel<T, WITH_DQ>). The CUDA-core design kept below for
+// hd 256 does every product as f32 FMA, stages tiles synchronously as f32
+// with an hd + 1 stride, sends p and ds through shared memory and starts
+// the light causal blocks first; at the training shapes that is 3-4x the
+// bound. The tensor-core kernels instead:
 // - Products run on the tensor cores through mma.sync, as in the forward
 //   kernel: f32 as 3xTF32 on m16n8k8 (x ~ hi + lo, both rounded to TF32;
 //   lo*hi + hi*lo + hi*hi accumulate in f32, accurate to f32 where one TF32
@@ -61,6 +68,25 @@
 //   with the same C->A reuse. Its two accumulators (128 registers a thread)
 //   live in registers across the q tiles of every q head of the kv group.
 //   With p and ds kept in registers no warp waits on another's.
+// - merged (dk/dv with WITH_DQ): the dk/dv block also forms dq's share of
+//   its 128 keys from the same p/ds, where the split pair recomputes them
+//   twice. Each warp writes its dS^T C fragments, rounded to T, into a
+//   shared dS tile (the streamed tile's q rows x the block's keys). After a
+//   barrier the 8 warps multiply it by the resident rotated K, 16 head-dim
+//   columns a warp (a 16 x 16 accumulator in f32, 32 x 16 in bf16: 8 or 16
+//   registers), and store that f32 partial to workspace slot blockIdx.y,
+//   the key tile. A second launch (flash_bwd_dq_reduce_kernel) sums a row's
+//   slots in key-tile order, then scales, counter-rotates and casts dq: sk /
+//   128 slots, each written before it is read. Under the causal mask the
+//   product runs only over the keys of the warps that did not skip the
+//   tile, so it reads no dS column left from an earlier tile. Beside the f32
+//   ring there is room for one unsplit dS tile (8.5 KB of the 13 KB left),
+//   not for hi and lo parts, and the resident K is unsplit as well: the
+//   product splits both as their fragments load, and a second barrier a
+//   tile guards the dS tile's reuse. bf16 double-buffers the tile and needs
+//   one barrier a tile. Within a TF32 k-step, logical k = t is key 2t and
+//   k = t + 4 is key 2t + 1, as in dq's dS K: K's fragment rows then fall
+//   in distinct banks and dS's two values are adjacent.
 // - What streams (k/v tiles in dq; q/do tiles with their RoPE table rows,
 //   lse and delta in dk/dv) comes in by 16-byte cp.async into a two-stage
 //   ring: tile j + 1 loads while tile j computes, one barrier a tile. Rows
@@ -71,8 +97,9 @@
 //   own. The resident tiles are rotated once; in f32 they stay unsplit (hi
 //   and lo of both would not fit beside the ring) and each warp splits its
 //   A fragments, once per k-step for all of a tile's n-tiles.
-// - Shared memory: 214 KB in f32 (16-row streamed tiles), 135 KB in bf16
-//   (32-row tiles); one block of 8 warps an SM.
+// - Shared memory: 214 KB in f32 (16-row streamed tiles; 223 KB merged),
+//   135 KB in bf16 (32-row tiles; 152 KB merged); one block of 8 warps an
+//   SM.
 // - Causal balance: dq walks q tiles heaviest first (the last see the most
 //   keys), dk/dv key tiles heaviest first (the first see the most q rows);
 //   warps whose rows lie wholly on the masked side skip a tile, and the mask
@@ -81,22 +108,19 @@
 // peak), TMA loads and warp specialisation (a producer warp and consumer
 // warpgroups), and the smaller f32 streamed tiles that shared memory forces.
 //
-// The merged kernel (one block covers both sequences) and hd 256 keep the
-// CUDA-core design, f32 FMA: 256 threads as 16 row groups x 16
-// column lanes; tiles of 64 rows at hd 128 and 32 at hd 256, held in dynamic
-// shared memory as f32 with a row stride of hd + 1.
-//   * dq (hd 256): one block per (b*h, q tile), the q and do tiles resident,
-//     looping over the key tiles up to the diagonal; the dq accumulator lives
-//     in registers.
-//   * dk/dv (hd 256): one block per (b, kv head, key tile), the k and v tiles
+// hd 256 keeps the CUDA-core design, f32 FMA: 256 threads as 16 row groups
+// x 16 column lanes; tiles of 32 rows, held in dynamic shared memory as f32
+// with a row stride of hd + 1.
+//   * dq: one block per (b*h, q tile), the q and do tiles resident, looping
+//     over the key tiles up to the diagonal; the dq accumulator lives in
+//     registers.
+//   * dk/dv: one block per (b, kv head, key tile), the k and v tiles
 //     resident, looping over the rep q heads of the group and over the q
 //     tiles from the diagonal on; the group-summed dk/dv accumulators live in
 //     registers.
 //   * merged: the dk/dv block, which also multiplies each (q tile, key tile)
-//     pair's ds tile by its key tile and writes that f32 dq partial to a
-//     per-key-tile workspace slot: one p/ds recompute per pair where the split
-//     pair pays two. A second launch sums the slots in key-tile order, then
-//     scales, counter-rotates and casts dq.
+//     pair's ds tile by its key tile and writes that f32 dq partial to the
+//     key tile's workspace slot; the same reduce follows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,7 +129,6 @@
 #include <stdint.h>
 
 #include <initializer_list>
-#include <type_traits>
 
 #include "mma_common.cuh"
 
@@ -117,9 +140,10 @@ constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+// The FMA kernels' tiling, at hd 256.
 struct Cfg {
-  static constexpr int TILE = HD <= 128 ? 64 : 32;   // q rows = key rows
+  static constexpr int HD = 256;
+  static constexpr int TILE = 32;         // q rows = key rows
   static constexpr int PT = TILE / 16;    // tile rows (or columns) a thread owns
   static constexpr int DPT = HD / 16;     // head-dim columns a thread owns
   static constexpr int LD = HD + 1;       // row stride of the q/k/v/do tiles
@@ -130,12 +154,13 @@ struct Cfg {
 // Rows [row0, row0 + TILE) of head `head` of a (b, seq, nheads, HD) tensor
 // into shared memory (row stride LD) as f32, RoPE-rotated at their absolute
 // positions and rounded to T when `rope` (as the forward kernel loads them).
-template <typename T, int HD>
+template <typename T>
 __device__ void load_tile(float* dst, const T* __restrict__ src, int batch,
                           int seq, int nheads, int head, int row0,
                           const float* __restrict__ cos,
                           const float* __restrict__ sin, bool rope) {
-  using C = Cfg<HD>;
+  using C = Cfg;
+  constexpr int HD = C::HD;
   for (int idx = threadIdx.x; idx < C::TILE * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD;
     const int pos = row0 + r;
@@ -157,21 +182,19 @@ __device__ void load_tile(float* dst, const T* __restrict__ src, int batch,
 // The thread's PT x PT cells of one (q tile, key tile) pair: p and ds
 // (f32), from the q/do tiles (rows rg*PT + r) and the k/v tiles (rows
 // cg + 16*c). Rows of the pair start at row0 and col0 in the sequences.
-template <int HD>
 __device__ __forceinline__ void p_and_ds(
     const float* sq, const float* sdo, const float* sk, const float* sv,
-    int rg, int cg, int row0, int col0, const float (&lse)[Cfg<HD>::PT],
-    const float (&delta)[Cfg<HD>::PT], float scale, int causal,
-    float (&p)[Cfg<HD>::PT][Cfg<HD>::PT],
-    float (&ds)[Cfg<HD>::PT][Cfg<HD>::PT]) {
-  using C = Cfg<HD>;
+    int rg, int cg, int row0, int col0, const float (&lse)[Cfg::PT],
+    const float (&delta)[Cfg::PT], float scale, int causal,
+    float (&p)[Cfg::PT][Cfg::PT], float (&ds)[Cfg::PT][Cfg::PT]) {
+  using C = Cfg;
   float sc[C::PT][C::PT], dp[C::PT][C::PT];
 #pragma unroll
   for (int r = 0; r < C::PT; ++r)
 #pragma unroll
     for (int c = 0; c < C::PT; ++c) sc[r][c] = dp[r][c] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < C::HD; ++d) {
     float qa[C::PT], oa[C::PT], kb[C::PT], vb[C::PT];
 #pragma unroll
     for (int r = 0; r < C::PT; ++r) {
@@ -204,42 +227,40 @@ __device__ __forceinline__ void p_and_ds(
   }
 }
 
-// dq/dk epilogue: x1 = acc[dd], x2 = acc[dd + DPT/2] are head-dim columns
-// d and d + hd/2 of one row at sequence position pos; scale, counter-rotate
-// with the f32 tables, cast and store.
+// dq/dk epilogue: x1 and x2 are head-dim columns d and d + hd/2 of one row
+// at sequence position pos; scale, counter-rotate with the f32 tables, cast
+// and store.
 template <typename T, int HD>
 __device__ __forceinline__ void store_rot_t(T* out, float x1, float x2,
                                             int d, int pos,
                                             const float* __restrict__ cos,
                                             const float* __restrict__ sin,
                                             int rope, float scale) {
-  using C = Cfg<HD>;
+  constexpr int H2 = HD / 2;
   x1 *= scale;
   x2 *= scale;
   if (rope) {
-    const float c = cos[(size_t)pos * C::H2 + d];
-    const float s = sin[(size_t)pos * C::H2 + d];
+    const float c = cos[(size_t)pos * H2 + d];
+    const float s = sin[(size_t)pos * H2 + d];
     const float y1 = x1 * c + x2 * s, y2 = x2 * c - x1 * s;
     x1 = y1;
     x2 = y2;
   }
   out[d] = from_f<T>(x1);
-  out[d + C::H2] = from_f<T>(x2);
+  out[d + H2] = from_f<T>(x2);
 }
 
-template <int HD>
 constexpr size_t dq_smem_bytes() {
-  using C = Cfg<HD>;
+  using C = Cfg;
   return sizeof(float) * (size_t)(4 * C::TILE * C::LD + C::TILE * C::LDP);
 }
 
-template <int HD>
 constexpr size_t dkv_smem_bytes() {
-  using C = Cfg<HD>;
+  using C = Cfg;
   return sizeof(float) * (size_t)(4 * C::TILE * C::LD + 2 * C::TILE * C::LDP);
 }
 
-template <typename T, int HD>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -249,7 +270,8 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ sin, T* __restrict__ dq,
                         int s, int sk, int h, int kv, float scale, int causal,
                         int rope) {
-  using C = Cfg<HD>;
+  using C = Cfg;
+  constexpr int HD = C::HD;
   extern __shared__ float smem[];
   float* sq = smem;                    // rotated q tile
   float* sdo = sq + C::TILE * C::LD;
@@ -263,8 +285,8 @@ __global__ void __launch_bounds__(THREADS)
   const int row0 = blockIdx.x * C::TILE;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
 
-  load_tile<T, HD>(sq, q, b, s, h, head, row0, cos, sin, rope);
-  load_tile<T, HD>(sdo, dout, b, s, h, head, row0, cos, sin, false);
+  load_tile<T>(sq, q, b, s, h, head, row0, cos, sin, rope);
+  load_tile<T>(sdo, dout, b, s, h, head, row0, cos, sin, false);
   float lse_r[C::PT], delta_r[C::PT];
 #pragma unroll
   for (int r = 0; r < C::PT; ++r) {
@@ -283,12 +305,12 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = 0; j < n_tiles; ++j) {
     const int col0 = j * C::TILE;
     __syncthreads();   // the previous key tile and its ds are consumed
-    load_tile<T, HD>(skt, k, b, sk, kv, kvh, col0, cos, sin, rope);
-    load_tile<T, HD>(sv, v, b, sk, kv, kvh, col0, cos, sin, false);
+    load_tile<T>(skt, k, b, sk, kv, kvh, col0, cos, sin, rope);
+    load_tile<T>(sv, v, b, sk, kv, kvh, col0, cos, sin, false);
     __syncthreads();
     float p[C::PT][C::PT], ds[C::PT][C::PT];
-    p_and_ds<HD>(sq, sdo, skt, sv, rg, cg, row0, col0, lse_r, delta_r, scale,
-                 causal, p, ds);
+    p_and_ds(sq, sdo, skt, sv, rg, cg, row0, col0, lse_r, delta_r, scale,
+             causal, p, ds);
 #pragma unroll
     for (int r = 0; r < C::PT; ++r)
 #pragma unroll
@@ -324,7 +346,7 @@ __global__ void __launch_bounds__(THREADS)
 // dk/dv of one (b, kv head, key tile); with WITH_DQ (the merged kernel) also
 // the f32 dq partial of every (q head, q tile) pair it visits, into slot
 // blockIdx.x of dq_part (n_key_tiles, b*h, s, HD).
-template <typename T, int HD, bool WITH_DQ>
+template <typename T, bool WITH_DQ>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -335,7 +357,8 @@ __global__ void __launch_bounds__(THREADS)
                          T* __restrict__ dv, float* __restrict__ dq_part,
                          int nb, int s, int sk, int h, int kv, float scale,
                          int causal, int rope) {
-  using C = Cfg<HD>;
+  using C = Cfg;
+  constexpr int HD = C::HD;
   extern __shared__ float smem[];
   float* skt = smem;                   // rotated key tile (resident)
   float* sv = skt + C::TILE * C::LD;   // value tile (resident)
@@ -349,8 +372,8 @@ __global__ void __launch_bounds__(THREADS)
   const int col0 = blockIdx.x * C::TILE;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
 
-  load_tile<T, HD>(skt, k, b, sk, kv, g, col0, cos, sin, rope);
-  load_tile<T, HD>(sv, v, b, sk, kv, g, col0, cos, sin, false);
+  load_tile<T>(skt, k, b, sk, kv, g, col0, cos, sin, rope);
+  load_tile<T>(sv, v, b, sk, kv, g, col0, cos, sin, false);
 
   // key rows rg*PT + c, head-dim columns cg + 16*dd
   float dk_acc[C::PT][C::DPT], dv_acc[C::PT][C::DPT];
@@ -368,8 +391,8 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = i_first; i < n_q_tiles; ++i) {
       const int row0 = i * C::TILE;
       __syncthreads();   // the previous q/do/p/ds tiles are consumed
-      load_tile<T, HD>(sq, q, b, s, h, head, row0, cos, sin, rope);
-      load_tile<T, HD>(sdo, dout, b, s, h, head, row0, cos, sin, false);
+      load_tile<T>(sq, q, b, s, h, head, row0, cos, sin, rope);
+      load_tile<T>(sdo, dout, b, s, h, head, row0, cos, sin, false);
       float lse_r[C::PT], delta_r[C::PT];
 #pragma unroll
       for (int r = 0; r < C::PT; ++r) {
@@ -380,8 +403,8 @@ __global__ void __launch_bounds__(THREADS)
       __syncthreads();
       {
         float p[C::PT][C::PT], ds[C::PT][C::PT];
-        p_and_ds<HD>(sq, sdo, skt, sv, rg, cg, row0, col0, lse_r, delta_r,
-                     scale, causal, p, ds);
+        p_and_ds(sq, sdo, skt, sv, rg, cg, row0, col0, lse_r, delta_r, scale,
+                 causal, p, ds);
 #pragma unroll
         for (int r = 0; r < C::PT; ++r)
 #pragma unroll
@@ -461,34 +484,34 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// The merged kernel's epilogue: one thread per (b*h, row, d < HD/2) sums the
-// dq partials of the key tiles the row needs, in key-tile order, then scales,
-// counter-rotates and casts.
+// The merged kernels' epilogue: one thread per (b*h, row, d < HD/2) sums the
+// dq partials of the key tiles (`tile` rows each) the row needs, in key-tile
+// order, then scales, counter-rotates and casts.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_reduce_kernel(const float* __restrict__ dq_part,
                                const float* __restrict__ cos,
                                const float* __restrict__ sin,
                                T* __restrict__ dq, int nb, int s, int h,
-                               int n_key_tiles, float scale, int causal,
-                               int rope) {
-  using C = Cfg<HD>;
-  const size_t total = (size_t)nb * h * s * C::H2;
+                               int tile, int n_key_tiles, float scale,
+                               int causal, int rope) {
+  constexpr int H2 = HD / 2;
+  const size_t total = (size_t)nb * h * s * H2;
   const size_t idx = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= total) return;
-  const int d = (int)(idx % C::H2);
-  const size_t rest = idx / C::H2;
+  const int d = (int)(idx % H2);
+  const size_t rest = idx / H2;
   const int row = (int)(rest % s);
   const int bh = (int)(rest / s);
   const int b = bh / h, head = bh % h;
-  // causal (s == sk): q tile i has partials from key tiles 0..i only
-  const int last = causal ? row / C::TILE : n_key_tiles - 1;
+  // causal (s == sk): a row has partials from key tiles 0..row / tile only
+  const int last = causal ? row / tile : n_key_tiles - 1;
   float x1 = 0.f, x2 = 0.f;
   for (int j = 0; j <= last; ++j) {
     const float* part =
         dq_part + (((size_t)j * nb * h + bh) * s + row) * HD;
     x1 += part[d];
-    x2 += part[d + C::H2];
+    x2 += part[d + H2];
   }
   store_rot_t<T, HD>(dq + (((size_t)b * s + row) * h + head) * HD, x1, x2, d,
                      row, cos, sin, rope, scale);
@@ -520,6 +543,13 @@ struct Tc {
   static constexpr size_t STAGE = sizeof(T) * (size_t)ARRAYS * BS * LD +
                                   sizeof(float) * (size_t)(2 * BS * H2 + 2 * BS);
   static constexpr size_t SMEM = sizeof(T) * (size_t)2 * BM * LD + 2 * STAGE;
+  // the merged kernel's dS tile (a streamed tile's q rows x the block's
+  // keys, row stride LDS: conflict-free fragment loads), after the ring;
+  // bf16 has room to double-buffer it
+  static constexpr int LDS = BK + 8;
+  static constexpr int DS_BUFS = F32 ? 1 : 2;
+  static constexpr size_t DS_TILE = sizeof(T) * (size_t)BS * LDS;
+  static constexpr size_t SMEM_DQKV = SMEM + DS_BUFS * DS_TILE;
   static_assert(BM == BK, "one shared-memory size serves both kernels");
   static_assert(BS * IPR == THREADS, "one item of a streamed tile a thread");
   static_assert(STAGE % 16 == 0, "16-byte aligned stages");
@@ -764,6 +794,62 @@ __device__ __forceinline__ void mma_pb(float (&acc)[16][4],
   }
 }
 
+// part (16 q rows x 16 head-dim columns d0 .. d0 + 15) += dS K over the
+// dS tile's first nk keys, f32 as 3xTF32: the merged kernel's dq partial.
+// dS (q rows x keys, row stride LDS) and the resident rotated K are raw
+// f32, split here as their fragments load. In a k-step of 8 keys, logical
+// k = t is key 2t and k = t + 4 is key 2t + 1: dS's two values are adjacent
+// (one 8-byte load), and K's rows 2t fall in distinct banks.
+__device__ __forceinline__ void mma_dsk(float (&part)[1][2][4],
+                                        const float* sds, const float* skr,
+                                        int d0, int nk, int lane) {
+  constexpr int LD = Tc<float>::LD, LDS = Tc<float>::LDS;
+  const int g = lane / 4, t = lane % 4;
+  const float* pa = sds + g * LDS + 2 * t;
+  const float* pb = skr + 2 * t * LD + d0 + g;
+#pragma unroll 2
+  for (int kk = 0; kk < nk; kk += 8) {
+    const float2 x0 = *reinterpret_cast<const float2*>(pa + kk);
+    const float2 x1 = *reinterpret_cast<const float2*>(pa + 8 * LDS + kk);
+    uint32_t ahi[4], alo[4];
+    split(x0.x, ahi[0], alo[0]);
+    split(x1.x, ahi[1], alo[1]);
+    split(x0.y, ahi[2], alo[2]);
+    split(x1.y, ahi[3], alo[3]);
+    const float* b = pb + kk * LD;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      mma_3xtf32(part[0][j], ahi, alo, b[8 * j], b[LD + 8 * j]);
+  }
+}
+
+// part (32 q rows x 16 head-dim columns d0 .. d0 + 15) += dS K, bf16: dS's
+// A fragments by ldmatrix, K's B fragments transposed by ldmatrix, as in
+// mma_pb.
+__device__ __forceinline__ void mma_dsk(float (&part)[2][2][4],
+                                        const __nv_bfloat16* sds,
+                                        const __nv_bfloat16* skr, int d0,
+                                        int nk, int lane) {
+  constexpr int LD = Tc<__nv_bfloat16>::LD, LDS = Tc<__nv_bfloat16>::LDS;
+  const int lr = lane % 8, mat = lane / 8;
+  // A's matrices: rows +0/+8, keys +0/+8; B's: keys +0/+8, columns +0/+8
+  const int row = lr + 8 * (mat & 1), col = 8 * (mat >> 1);
+  const __nv_bfloat16* pa = sds + row * LDS + col;
+  const __nv_bfloat16* pb = skr + row * LD + col + d0;
+#pragma unroll 2
+  for (int kk = 0; kk < nk; kk += 16) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, pb + kk * LD);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      uint32_t a[4];
+      ldmatrix_x4(a, pa + 16 * mt * LDS + kk);
+      mma_bf16(part[mt][0], a, b[0], b[1]);
+      mma_bf16(part[mt][1], a, b[2], b[3]);
+    }
+  }
+}
+
 // The epilogue of dq and dk: the two rows (g, g + 8) of this lane's C
 // fragments of a 16 x hd accumulator, scaled, counter-rotated with the f32
 // tables (the transpose rotation) at the rows' positions, cast and stored.
@@ -949,7 +1035,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 // lse and delta index columns), p and ds, then dV += P^T dO and
 // dK += dS^T Q into its two 16 x 128 accumulators (128 registers), which
 // live in registers across the whole group: the compact-GQA group sum.
-template <typename T>
+// With WITH_DQ (the merged kernel) the warps also gather dS in the shared
+// dS tile and multiply it by the resident K, 16 head-dim columns a warp:
+// each pair's f32 dq partial, into slot blockIdx.y of dq_part
+// (sk / 128, nb*h, s, 128).
+template <typename T, bool WITH_DQ>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -957,8 +1047,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const float* __restrict__ delta,
                          const float* __restrict__ cos,
                          const float* __restrict__ sin, T* __restrict__ dk,
-                         T* __restrict__ dv, int s, int sk, int h, int kv,
-                         float scale, int causal, int rope) {
+                         T* __restrict__ dv, float* __restrict__ dq_part,
+                         int nb, int s, int sk, int h, int kv, float scale,
+                         int causal, int rope) {
   using C = Tc<T>;
   constexpr int LD = C::LD, BK = C::BK, BS = C::BS, H2 = C::H2, HD = C::HD;
   constexpr int NT = BS / 8;
@@ -972,6 +1063,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto tables = [&](int i) {
     return reinterpret_cast<float*>(ring + i * C::STAGE +
                                     sizeof(T) * C::ARRAYS * BS * LD);
+  };
+  // the merged kernel's dS tile for pair n
+  auto ds_tile = [&](int n) {
+    return reinterpret_cast<T*>(ring + 2 * C::STAGE +
+                                (n % C::DS_BUFS) * C::DS_TILE);
   };
 
   const int b = blockIdx.x / kv, grp = blockIdx.x % kv;
@@ -1042,7 +1138,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (next) issue_tile(n + 1);   // pair n + 1 loads while pair n computes
     const T* st = stage(n & 1);
     const float* sl = tables(n & 1) + 2 * BS * H2;
+    const int head = grp * rep + n / per_head;
     const int row0 = (i_first + n % per_head) * BS;
+    T* sds = ds_tile(n);
     // a warp whose keys all follow the tile's rows has nothing to add
     if (!causal || row0 + BS - 1 >= wkey) {
       float sc[NT][4], dp[NT][4];
@@ -1072,12 +1170,49 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       mma_pb<NT>(dv_acc, sc, st + BS * LD, st + 3 * BS * LD, lane);
       mma_pb<NT>(dk_acc, dp, st, st + 2 * BS * LD, lane);
+      if constexpr (WITH_DQ) {
+        // dS^T's C fragments, rounded to T, into the dS tile: q row
+        // 8m + 2t (+1), key 16 warp + g (+8)
+        T* w = sds + 16 * warp + g;
+#pragma unroll
+        for (int m = 0; m < NT; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w[(8 * m + 2 * t + (e & 1)) * C::LDS + 8 * (e >> 1)] =
+                from_f<T>(dp[m][e]);
+      }
     }
     if (next) {
       cp_async_wait_all();   // this thread's copies of pair n + 1
       land_tile(n + 1);
     }
-    __syncthreads();   // pair n + 1 is ready; pair n is consumed
+    // pair n + 1 is ready; pair n is consumed and its dS tile written
+    __syncthreads();
+    if constexpr (WITH_DQ) {
+      // under the causal mask only the warps whose keys precede the tile's
+      // last row wrote dS; the keys after them are masked for every row
+      const int nk = causal ? min(BK, row0 + BS - col0) : BK;
+      float part[BS / 16][2][4];
+#pragma unroll
+      for (int mt = 0; mt < BS / 16; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][j][e] = 0.f;
+      mma_dsk(part, sds, skr, 16 * warp, nk, lane);
+      float* out = dq_part +
+                   (((size_t)blockIdx.y * nb * h + (size_t)b * h + head) * s +
+                    row0 + g) * HD + 16 * warp + 2 * t;
+#pragma unroll
+      for (int mt = 0; mt < BS / 16; ++mt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            store2(out + (16 * mt + 8 * r) * HD + 8 * j, part[mt][j][2 * r],
+                   part[mt][j][2 * r + 1]);
+      if constexpr (C::DS_BUFS == 1) __syncthreads();   // dS is consumed
+    }
   }
 
   T* dk0 = dk + (((size_t)b * sk + wkey) * kv + grp) * HD;
@@ -1086,27 +1221,27 @@ __global__ void __launch_bounds__(THREADS, 1)
                 1.f, lane);
 }
 
-template <typename T, int HD>
+template <typename T>
 cudaError_t launch_dq_fma(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, const float* cos,
                           const float* sin, void* dq, int b, int s, int sk,
                           int h, int kv, float scale, int causal,
                           cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<HD>();
+  constexpr size_t smem = dq_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_fma_kernel<T, HD>,
+      flash_bwd_dq_fma_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(s / Cfg<HD>::TILE, b * h);
-  flash_bwd_dq_fma_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(s / Cfg::TILE, b * h);
+  flash_bwd_dq_fma_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, cos,
       sin, static_cast<T*>(dq), s, sk, h, kv, scale, causal, cos != nullptr);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool WITH_DQ>
+template <typename T, bool WITH_DQ>
 cudaError_t launch_dkv_fma(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* delta, const float* cos,
@@ -1114,36 +1249,16 @@ cudaError_t launch_dkv_fma(const void* q, const void* k, const void* v,
                            float* dq_part, int b, int s, int sk, int h,
                            int kv, float scale, int causal,
                            cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<HD>();
+  constexpr size_t smem = dkv_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_fma_kernel<T, HD, WITH_DQ>,
+      flash_bwd_dkv_fma_kernel<T, WITH_DQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(sk / Cfg<HD>::TILE, b * kv);
-  flash_bwd_dkv_fma_kernel<T, HD, WITH_DQ><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(sk / Cfg::TILE, b * kv);
+  flash_bwd_dkv_fma_kernel<T, WITH_DQ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, cos,
       sin, static_cast<T*>(dk), static_cast<T*>(dv), dq_part, b, s, sk, h, kv,
-      scale, causal, cos != nullptr);
-  return cudaGetLastError();
-}
-
-template <typename T, int HD>
-cudaError_t launch_dqkv(const void* q, const void* k, const void* v,
-                        const void* dout, const float* lse,
-                        const float* delta, const float* cos,
-                        const float* sin, void* dq, void* dk, void* dv,
-                        float* workspace, int b, int s, int sk, int h, int kv,
-                        float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = launch_dkv_fma<T, HD, true>(q, k, v, dout, lse, delta,
-                                                cos, sin, dk, dv, workspace,
-                                                b, s, sk, h, kv, scale,
-                                                causal, stream);
-  if (err != cudaSuccess) return err;
-  const size_t total = (size_t)b * h * s * Cfg<HD>::H2;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  flash_bwd_dq_reduce_kernel<T, HD><<<blocks, THREADS, 0, stream>>>(
-      workspace, cos, sin, static_cast<T*>(dq), b, s, h, sk / Cfg<HD>::TILE,
       scale, causal, cos != nullptr);
   return cudaGetLastError();
 }
@@ -1156,7 +1271,6 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          int h, int kv, float scale, int causal,
                          cudaStream_t stream) {
   constexpr size_t smem = Tc<T>::SMEM;
-  static_assert(smem <= 232448, "shared memory beyond the H100's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -1169,33 +1283,71 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+// dk/dv, and with WITH_DQ the dq partials into dq_part.
+template <typename T, bool WITH_DQ>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, const float* cos,
-                          const float* sin, void* dk, void* dv, int b, int s,
-                          int sk, int h, int kv, float scale, int causal,
-                          cudaStream_t stream) {
-  constexpr size_t smem = Tc<T>::SMEM;
+                          const float* sin, void* dk, void* dv,
+                          float* dq_part, int b, int s, int sk, int h, int kv,
+                          float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = WITH_DQ ? Tc<T>::SMEM_DQKV : Tc<T>::SMEM;
+  static_assert(smem <= 232448, "shared memory beyond the H100's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkv_kernel<T, WITH_DQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * kv, sk / Tc<T>::BK);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, WITH_DQ><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, cos,
-      sin, static_cast<T*>(dk), static_cast<T*>(dv), s, sk, h, kv, scale,
-      causal, cos != nullptr);
+      sin, static_cast<T*>(dk), static_cast<T*>(dv), dq_part, b, s, sk, h,
+      kv, scale, causal, cos != nullptr);
   return cudaGetLastError();
 }
 
+// Rows of one key tile of the merged kernel at head dim hd (its workspace
+// slots), which are also the sequence multiples the kernels take; 0 for
+// head dims without a kernel.
 int tile_rows(int hd) {
-  return hd == 128 ? Cfg<128>::TILE : hd == 256 ? Cfg<256>::TILE : 0;
+  return hd == 128 ? Tc<float>::BK : hd == 256 ? Cfg::TILE : 0;
+}
+
+// The merged backward: dk/dv and the dq partials (tensor cores at hd 128,
+// CUDA cores at 256), then their ordered sum.
+template <typename T>
+cudaError_t launch_dqkv(int hd, const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse,
+                        const float* delta, const float* cos,
+                        const float* sin, void* dq, void* dk, void* dv,
+                        float* workspace, int b, int s, int sk, int h, int kv,
+                        float scale, int causal, cudaStream_t stream) {
+  cudaError_t err =
+      hd == 128
+          ? launch_dkv_tc<T, true>(q, k, v, dout, lse, delta, cos, sin, dk,
+                                   dv, workspace, b, s, sk, h, kv, scale,
+                                   causal, stream)
+          : launch_dkv_fma<T, true>(q, k, v, dout, lse, delta, cos, sin, dk,
+                                    dv, workspace, b, s, sk, h, kv, scale,
+                                    causal, stream);
+  if (err != cudaSuccess) return err;
+  const int tile = tile_rows(hd);
+  const size_t total = (size_t)b * h * s * (hd / 2);
+  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+  if (hd == 128)
+    flash_bwd_dq_reduce_kernel<T, 128><<<blocks, THREADS, 0, stream>>>(
+        workspace, cos, sin, static_cast<T*>(dq), b, s, h, tile, sk / tile,
+        scale, causal, cos != nullptr);
+  else
+    flash_bwd_dq_reduce_kernel<T, 256><<<blocks, THREADS, 0, stream>>>(
+        workspace, cos, sin, static_cast<T*>(dq), b, s, h, tile, sk / tile,
+        scale, causal, cos != nullptr);
+  return cudaGetLastError();
 }
 
 // Shapes the kernels take (the wrapper's gate is stricter: seq multiples of
-// 128); anything else returns cudaErrorInvalidValue without launching.
+// 128 at either head dim); anything else returns cudaErrorInvalidValue
+// without launching.
 bool valid(int dtype, int hd, int b, int s, int sk, int h, int kv, int causal,
            const float* cos, const float* sin) {
   const int tile = tile_rows(hd);
@@ -1205,29 +1357,18 @@ bool valid(int dtype, int hd, int b, int s, int sk, int h, int kv, int causal,
          (cos == nullptr) == (sin == nullptr) && (cos == nullptr || s == sk);
 }
 
-// The split pair's tensor-core kernels at hd 128 take 128-row blocks and
-// 16-byte copies.
-cudaError_t tc_check(int s, int sk, std::initializer_list<const void*> ptrs) {
-  if (s % Tc<float>::BM != 0 || sk % Tc<float>::BK != 0)
-    return cudaErrorInvalidValue;
+// The tensor-core kernels copy by 16-byte cp.async.
+cudaError_t aligned16(std::initializer_list<const void*> ptrs) {
   uintptr_t bits = 0;
   for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
   return bits % 16 ? cudaErrorMisalignedAddress : cudaSuccess;
 }
 
-template <int HD>
-using HeadDim = std::integral_constant<int, HD>;
-
-// Calls launch(T{}, HeadDim<HD>{}) for the kernel's (dtype, hd)
-// instantiation; dtype 0 = float32, 1 = bfloat16.
+// Calls launch(T{}) for dtype 0 = float32, 1 = bfloat16.
 template <typename F>
-int dispatch(int dtype, int hd, F launch) {
-  if (dtype == 0 && hd == 128) return (int)launch(float{}, HeadDim<128>{});
-  if (dtype == 0 && hd == 256) return (int)launch(float{}, HeadDim<256>{});
-  if (dtype == 1 && hd == 128)
-    return (int)launch(__nv_bfloat16{}, HeadDim<128>{});
-  if (dtype == 1 && hd == 256)
-    return (int)launch(__nv_bfloat16{}, HeadDim<256>{});
+int dispatch(int dtype, F launch) {
+  if (dtype == 0) return (int)launch(float{});
+  if (dtype == 1) return (int)launch(__nv_bfloat16{});
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1246,7 +1387,7 @@ extern "C" int tpudist_flash_attention_bwd_tile(int hd) {
 
 // dtype: 0 = float32, 1 = bfloat16. cos/sin: null for no RoPE. stream: a
 // cudaStream_t. Each returns a cudaError_t (0 on a successful launch). At hd
-// 128 dq and dk/dv run on the tensor cores, at hd 256 on the CUDA cores.
+// 128 every kernel runs on the tensor cores, at hd 256 on the CUDA cores.
 
 extern "C" int tpudist_flash_attention_bwd_dq(
     int dtype, int hd, const void* q, const void* k, const void* v,
@@ -1256,19 +1397,16 @@ extern "C" int tpudist_flash_attention_bwd_dq(
   if (!valid(dtype, hd, b, s, sk, h, kv, causal, cos, sin))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, hd, [&](auto t, auto hdc) {
+  return dispatch(dtype, [&](auto t) {
     using T = decltype(t);
-    if constexpr (decltype(hdc)::value == 128) {
-      const cudaError_t err =
-          tc_check(s, sk, {q, k, v, dout, lse, delta, cos, sin, dq});
-      if (err != cudaSuccess) return err;
-      return launch_dq_tc<T>(q, k, v, dout, lse, delta, cos, sin, dq, b, s,
-                             sk, h, kv, scale, causal, st);
-    } else {
-      return launch_dq_fma<T, decltype(hdc)::value>(
-          q, k, v, dout, lse, delta, cos, sin, dq, b, s, sk, h, kv, scale,
-          causal, st);
-    }
+    if (hd == 256)
+      return launch_dq_fma<T>(q, k, v, dout, lse, delta, cos, sin, dq, b, s,
+                              sk, h, kv, scale, causal, st);
+    const cudaError_t err =
+        aligned16({q, k, v, dout, lse, delta, cos, sin, dq});
+    if (err != cudaSuccess) return err;
+    return launch_dq_tc<T>(q, k, v, dout, lse, delta, cos, sin, dq, b, s, sk,
+                           h, kv, scale, causal, st);
   });
 }
 
@@ -1280,19 +1418,18 @@ extern "C" int tpudist_flash_attention_bwd_dkv(
   if (!valid(dtype, hd, b, s, sk, h, kv, causal, cos, sin))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, hd, [&](auto t, auto hdc) {
+  return dispatch(dtype, [&](auto t) {
     using T = decltype(t);
-    if constexpr (decltype(hdc)::value == 128) {
-      const cudaError_t err =
-          tc_check(s, sk, {q, k, v, dout, lse, delta, cos, sin, dk, dv});
-      if (err != cudaSuccess) return err;
-      return launch_dkv_tc<T>(q, k, v, dout, lse, delta, cos, sin, dk, dv, b,
-                              s, sk, h, kv, scale, causal, st);
-    } else {
-      return launch_dkv_fma<T, decltype(hdc)::value, false>(
-          q, k, v, dout, lse, delta, cos, sin, dk, dv, nullptr, b, s, sk, h,
-          kv, scale, causal, st);
-    }
+    if (hd == 256)
+      return launch_dkv_fma<T, false>(q, k, v, dout, lse, delta, cos, sin,
+                                      dk, dv, nullptr, b, s, sk, h, kv, scale,
+                                      causal, st);
+    const cudaError_t err =
+        aligned16({q, k, v, dout, lse, delta, cos, sin, dk, dv});
+    if (err != cudaSuccess) return err;
+    return launch_dkv_tc<T, false>(q, k, v, dout, lse, delta, cos, sin, dk,
+                                   dv, nullptr, b, s, sk, h, kv, scale, causal,
+                                   st);
   });
 }
 
@@ -1307,10 +1444,15 @@ extern "C" int tpudist_flash_attention_bwd_dqkv(
   if (!valid(dtype, hd, b, s, sk, h, kv, causal, cos, sin) ||
       workspace == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (hd == 128) {
+    const cudaError_t err = aligned16(
+        {q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, workspace});
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, hd, [&](auto t, auto hdc) {
-    return launch_dqkv<decltype(t), decltype(hdc)::value>(
-        q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, workspace, b, s, sk,
-        h, kv, scale, causal, st);
+  return dispatch(dtype, [&](auto t) {
+    return launch_dqkv<decltype(t)>(hd, q, k, v, dout, lse, delta, cos, sin,
+                                    dq, dk, dv, workspace, b, s, sk, h, kv,
+                                    scale, causal, st);
   });
 }

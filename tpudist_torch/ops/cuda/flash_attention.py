@@ -38,6 +38,9 @@ NEG = -1e30
 HEAD_DIMS = (128, 256)      # the kernels' instantiations
 MAX_BATCH_HEADS = 65535     # the grids' y extent: one row per (batch, head)
 BLOCK = 512                 # the JAX package's default block_q / block_k
+# rows of the merged backward's key tile by head dim (tensor cores at 128,
+# CUDA cores at 256): one f32 dq partial of q's shape a key tile
+MERGED_TILE = {128: 128, 256: 32}
 LIBRARY = "flash_attention_fwd"
 SOURCES = ("flash_attention_fwd.cu",)
 BWD_LIBRARY = "flash_attention_bwd"
@@ -116,6 +119,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                      v.float()) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return o.permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+def dqkv_workspace_shape(b: int, s: int, sk: int, h: int,
+                         hd: int) -> Tuple[int, int, int, int]:
+    """The merged backward's f32 workspace: one dq partial (b*h, s, hd)
+    for each of the sk / ``MERGED_TILE[hd]`` key tiles, which its second
+    launch sums in key-tile order."""
+    return (sk // MERGED_TILE[hd], b * h, s, hd)
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor,
@@ -210,10 +221,14 @@ def _bwd_kernels():
     tile = lib.tpudist_flash_attention_bwd_tile
     tile.argtypes = [i32]
     tile.restype = i32
+    built = {hd: tile(hd) for hd in HEAD_DIMS}
+    if built != MERGED_TILE:
+        raise RuntimeError(f"{BWD_LIBRARY}: merged key tiles {built}, the "
+                           f"workspace is sized for {MERGED_TILE}")
     err_str = lib.tpudist_flash_bwd_error_string
     err_str.argtypes = [i32]
     err_str.restype = ctypes.c_char_p
-    return {name: fn for name, (fn, _) in fns.items()}, tile, err_str
+    return {name: fn for name, (fn, _) in fns.items()}, err_str
 
 
 def _check_dtypes(what: str, *tensors) -> None:
@@ -298,15 +313,14 @@ def _bwd_launch(name: str, q, k, v, do, lse, delta, cos, sin, causal):
                          "inputs and f32 lse/delta")
     b, s, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    fns, tile, err_str = _bwd_kernels()
+    fns, err_str = _bwd_kernels()
     outs = {"dq": (torch.empty_like(q),),
             "dkv": (torch.empty_like(k), torch.empty_like(v)),
             "dqkv": (torch.empty_like(q), torch.empty_like(k),
                      torch.empty_like(v))}[name]
     extra = ()
     if name == "dqkv":
-        # one f32 dq partial of q's (b*h, s, hd) per key tile
-        extra = (torch.empty((sk // tile(hd), b * h, s, hd),
+        extra = (torch.empty(dqkv_workspace_shape(b, s, sk, h, hd),
                              dtype=torch.float32, device=q.device),)
     with torch.cuda.device(q.device):
         err = fns[name](
