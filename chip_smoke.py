@@ -21,8 +21,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
    through the autograd Function, against ``flash_attention_bwd_plain``
    (each gradient's max |d| / max |plain| within f32 1e-4 / bf16 5e-2, a
    nonzero lse cotangent, two calls bitwise equal, the predicted route)
-   on 54 shapes, 10 of them at the edges of the split pair's tiling and
-   6 at the merged kernel's (seq 128 and 256, seq 512 over 256 keys);
+   on 55 shapes, 10 of them at the edges of the split pair's tiling, 6
+   at the merged kernel's (seq 128 and 256, seq 512 over 256 keys) and
+   the slice's three (b8 s2048 f32, b8 s512 f32 and bf16);
    each kernel's time at its main paths' shapes beside its bound (on the
    tensor cores' peak at hd 128), the plain version's and one PyTorch
    library call's (``scaled_dot_product_attention``, forward or
@@ -364,8 +365,11 @@ def check_flash_bwd(torch, fa):
     a kv head at seq 1024, a non-causal seq 512 over 1024 keys and a grid
     of 64 blocks (b1 h4 s2048); and at the merged kernel's: one key tile
     (seq 128, four q heads a kv head), two (seq 256) and a non-causal seq
-    512 over 256 keys; each in f32 and bf16. Returns each kernel's max
-    |kernel - plain| over its own outputs at the slice's shapes."""
+    512 over 256 keys; each in f32 and bf16. The slice's shapes are b8
+    h16 kv16 hd128 causal with RoPE: seq 2048 f32 (the split pair), seq
+    512 f32 (phase 6) and bf16 (phase 9; the merged kernel). Returns each
+    kernel's max |kernel - plain| over its own outputs at the slice's
+    shapes, keyed by (kernel, dtype)."""
     shapes = []   # (b, s, sk, h, kv, hd, dtype, causal, rope)
     for (b, s, h) in ((4, 512, 8), (1, 2048, 4)):            # selfcheck
         for kv in ((8, 2) if h == 8 else (4, 2)):
@@ -389,7 +393,8 @@ def check_flash_bwd(torch, fa):
                    (4, 512, 256, 8, 4, 128, dt, False, False)]
     shapes.append((8, 2048, 2048, 16, 16, 128, "float32", True,
                    True))                                    # slice
-    shapes.append((8, 512, 512, 16, 16, 128, "float32", True, True))
+    for dt in ("float32", "bfloat16"):                      # phases 6, 9
+        shapes.append((8, 512, 512, 16, 16, 128, dt, True, True))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     bad, slice_err = [], {}
@@ -434,7 +439,8 @@ def check_flash_bwd(torch, fa):
         if b == 8:   # the slice's shapes: each kernel's own outputs
             outputs = {"dq": (0,), "dkv": (1, 2), "dqkv": (0, 1, 2)}
             for kname in ran:
-                slice_err[kname] = max(abs_errs[i] for i in outputs[kname])
+                slice_err[kname, dt] = max(abs_errs[i]
+                                           for i in outputs[kname])
         del q, k, v, o, lse, grads, again, ref
     torch.cuda.empty_cache()
     if bad:
@@ -498,7 +504,8 @@ def time_flash_bwd(torch, fa, F, slice_err):
                   f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}, {bound_peak} "
                   f"{peak[dt] / 1e12:.0f} TFLOP/s)")
-            timing = {"ms": kernel_ms, "plain_ms": plain_ms,
+            timing = {"max_abs_err": slice_err.get((name, dt)),
+                      "ms": kernel_ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bound_peak": bound_peak, "library_ms": library_ms,
                       "shape": shape}
@@ -514,8 +521,7 @@ def time_flash_bwd(torch, fa, F, slice_err):
                                     ":354",
                              "dqkv": "tpudist/ops/pallas/flash_attention"
                                      ".py:423"}[name],
-                "launches": None, "max_abs_err": slice_err.get(name),
-                **timing}
+                "launches": None, **timing}
         if s == 2048:
             pair = [records["dq"], records["dkv"]]
             pair_ms = sum(r["ms"] for r in pair)
@@ -528,21 +534,23 @@ def time_flash_bwd(torch, fa, F, slice_err):
                   f"(all three gradients) {library_ms:.4f} ms "
                   f"({pair_ms / library_ms:.2f}x)")
         else:
+            fa.dqkv_workspace_slots = None
             with torch.no_grad():
+                fa.flash_attention_bwd_dqkv(q, k, v, do, lse, delta, **kw)
+                slots = fa.dqkv_workspace_slots
                 split_ms = time_ms(torch, lambda: (
                     fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
                     fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                **kw)))
-            ws = fa.dqkv_workspace_shape(b, s, s, h, hd)
             rec = records["dqkv"] if dt == "float32" \
                 else records["dqkv"]["bf16"]
             rec["split_pair_ms"] = split_ms
-            rec["workspace_slots"] = ws[0]
+            rec["workspace_slots"] = slots
             print(f"flash backward at {shape}: merged kernel "
                   f"{rec['ms']:.4f} ms; the split pair (dq + dk/dv called "
                   f"directly, a yardstick, not a route) {split_ms:.4f} ms; "
-                  f"the merged kernel's f32 workspace {ws[0]} slots, "
-                  f"{4 * math.prod(ws) / 1e6:.1f} MB")
+                  f"the merged kernel's f32 workspace {slots} slots, "
+                  f"{4 * slots * b * h * s * hd / 1e6:.1f} MB")
         del q, k, v, do, o, lse, delta, qt, kt, vt, out
         torch.cuda.empty_cache()
     return list(records.values())

@@ -1307,8 +1307,9 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
 }
 
 // Rows of one key tile of the merged kernel at head dim hd (its workspace
-// slots), which are also the sequence multiples the kernels take; 0 for
-// head dims without a kernel.
+// holds sk / tile_rows(hd) slots; MERGED_TILE in ops/cuda/flash_attention.py
+// sizes it and must agree), which are also the sequence multiples the
+// kernels take; 0 for head dims without a kernel.
 int tile_rows(int hd) {
   return hd == 128 ? Tc<float>::BK : hd == 256 ? Cfg::TILE : 0;
 }
@@ -1378,13 +1379,6 @@ extern "C" const char* tpudist_flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Rows of one tile of the merged kernel at head dim hd (0 for head dims
-// without a kernel): its workspace holds sk / tile f32 dq partials of q's
-// shape.
-extern "C" int tpudist_flash_attention_bwd_tile(int hd) {
-  return tile_rows(hd);
-}
-
 // dtype: 0 = float32, 1 = bfloat16. cos/sin: null for no RoPE. stream: a
 // cudaStream_t. Each returns a cudaError_t (0 on a successful launch). At hd
 // 128 every kernel runs on the tensor cores, at hd 256 on the CUDA cores.
@@ -1434,7 +1428,7 @@ extern "C" int tpudist_flash_attention_bwd_dkv(
 }
 
 // workspace: (sk / tile, b*h, s, hd) f32, tile from
-// tpudist_flash_attention_bwd_tile(hd); every slot a row needs is written
+// tile_rows(hd); every slot a row needs is written
 // before it is read.
 extern "C" int tpudist_flash_attention_bwd_dqkv(
     int dtype, int hd, const void* q, const void* k, const void* v,

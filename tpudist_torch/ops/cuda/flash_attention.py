@@ -39,7 +39,8 @@ HEAD_DIMS = (128, 256)      # the kernels' instantiations
 MAX_BATCH_HEADS = 65535     # the grids' y extent: one row per (batch, head)
 BLOCK = 512                 # the JAX package's default block_q / block_k
 # rows of the merged backward's key tile by head dim (tensor cores at 128,
-# CUDA cores at 256): one f32 dq partial of q's shape a key tile
+# CUDA cores at 256): one f32 dq partial of q's shape a key tile. The
+# kernels' tile_rows() in csrc/flash_attention_bwd.cu must agree.
 MERGED_TILE = {128: 128, 256: 32}
 LIBRARY = "flash_attention_fwd"
 SOURCES = ("flash_attention_fwd.cu",)
@@ -51,6 +52,7 @@ launches = 0
 dq_launches = 0
 dkv_launches = 0
 dqkv_launches = 0
+dqkv_workspace_slots = None   # dq partials of the last merged launch
 
 
 def supports(q_shape, k_shape, *, causal: bool = True) -> bool:
@@ -218,13 +220,6 @@ def _bwd_kernels():
     for fn, n_out in fns.values():
         fn.argtypes = head + [ptr] * n_out + tail
         fn.restype = i32
-    tile = lib.tpudist_flash_attention_bwd_tile
-    tile.argtypes = [i32]
-    tile.restype = i32
-    built = {hd: tile(hd) for hd in HEAD_DIMS}
-    if built != MERGED_TILE:
-        raise RuntimeError(f"{BWD_LIBRARY}: merged key tiles {built}, the "
-                           f"workspace is sized for {MERGED_TILE}")
     err_str = lib.tpudist_flash_bwd_error_string
     err_str.argtypes = [i32]
     err_str.restype = ctypes.c_char_p
@@ -303,7 +298,7 @@ def _check(q, k, v, cos, sin, causal):
 def _bwd_launch(name: str, q, k, v, do, lse, delta, cos, sin, causal):
     """Launch backward kernel ``name`` (dq, dkv or dqkv) and return its
     outputs."""
-    global dq_launches, dkv_launches, dqkv_launches
+    global dq_launches, dkv_launches, dqkv_launches, dqkv_workspace_slots
     _check_dtypes(f"flash_attention backward ({name})", q, k, v, do)
     tensors = (q, k, v, do, lse, delta) + (() if cos is None
                                           else (cos, sin))
@@ -341,6 +336,7 @@ def _bwd_launch(name: str, q, k, v, do, lse, delta, cos, sin, causal):
         dkv_launches += 1
     else:
         dqkv_launches += 1
+        dqkv_workspace_slots = extra[0].shape[0]
     return outs
 
 
