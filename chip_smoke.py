@@ -65,13 +65,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the fused head's kernels beside the flash kernels;
 9. the train CLI at seq 512 in bf16 with ``--lm-head auto`` and
    ``--adam-nu-dtype bfloat16``, the device memory pinned so that auto
-   picks the fused head, 1 epoch (4 steps).
+   picks the fused head, 1 epoch (4 steps);
+10. data parallelism: (a) the train CLI as one process per visible card
+   under the ``TPUDIST_COORDINATOR`` / ``TPUDIST_NUM_PROCESSES`` /
+   ``TPUDIST_PROCESS_ID`` contract, NCCL, at seq 512, f32, ``--lm-head
+   fused``, global batch 8, 1 epoch (4 steps): the contract on rank 0
+   only, every rank's verdict and the final one, and each rank's own
+   launch counts; (b) two ranks on the one card: NCCL refused (two ranks
+   cannot share a card), then gloo passed explicitly (host copies) for
+   two steps of the engine's data-parallel step at local batch 4, against
+   one process at the global batch of 8: the losses and the gradients
+   each step hands to Adam within f32 1e-4 (of each gradient's largest
+   element), the two ranks' params bitwise equal, the params after the 2
+   steps within 1e-4 of each param's largest element wherever the first
+   gradient's |g| is at least 1 % of that tensor's largest (the elements
+   left out are counted), and the step time labelled as gloo through
+   host memory.
 
-Phases 4-6 and 8-9 are the main paths: each runs with every launch count
-set to 0 just before and read just after, and each kernel must have
-launched the exact number of times its path calls it (the training
-phases also check the stdout contract, a falling loss and the
-``success`` verdict file). ``--profile`` adds torch.profiler breakdowns
+Phases 4-6, 8-9 and 10a are the main paths: each runs with every launch
+count set to 0 just before and read just after (10a in each rank's
+process), and each kernel must have launched the exact number of times
+its path calls it (the training phases also check the stdout contract,
+a falling loss and the ``success`` verdict files). ``--profile`` adds torch.profiler breakdowns
 of the serving windows and of two training steps at seq 2048 (plain and
 fused head), 512 and 512 in bf16 with the fused head (phase 9's
 configuration; device time by kernel, busy share), and the rates
@@ -89,6 +104,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -892,6 +908,36 @@ def _reset_launches(fa, fx):
     fx.fwd_launches = fx.bwd_launches = 0
 
 
+def check_contract(tag: str, out: str, epochs: int, losses) -> None:
+    """The train CLI's stdout contract on ``out`` and falling, finite step
+    ``losses``."""
+    for epoch in range(1, epochs + 1):
+        for line in (f"Epoch {epoch:2d} finished. Avg loss: ",
+                     f"Epoch {epoch:2d} eval loss: "):
+            if line not in out:
+                fail(f"train {tag}: no {line!r} line on stdout")
+    if "Training completed." not in out:
+        fail(f"train {tag}: no 'Training completed.' line")
+    if not (losses and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"train {tag}: step losses {losses} do not fall")
+
+
+def want_launches(fa, m, seq: int, steps: int, epochs: int, fused: bool):
+    """Each kernel's launches in one process of a training run of
+    ``steps`` steps over ``epochs`` epochs of model ``m``."""
+    fwd = m.n_layers * (steps + epochs)       # + one eval forward an epoch
+    split = not fa.uses_merged_backward(seq, seq)
+    return {"flash_attention_fwd": fwd,
+            "flash_attention_bwd_dq": m.n_layers * steps if split else 0,
+            "flash_attention_bwd_dkv": m.n_layers * steps if split else 0,
+            "flash_attention_bwd_dqkv": 0 if split else m.n_layers * steps,
+            # the fused head: one forward a step and an eval batch an
+            # epoch, one backward a step
+            "fused_xent_fwd": steps + epochs if fused else 0,
+            "fused_xent_bwd": steps if fused else 0}
+
+
 def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
                 n_samples: int, extra=(), hbm_bytes=None, want_head=None):
     """Phases 5, 6, 8 and 9, the path ``tag``: ``python -m
@@ -957,27 +1003,9 @@ def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
     torch.cuda.empty_cache()
     if rc != 0 or status != "success" or not timing:
         fail(f"train {tag}: exit {rc}, verdict {status!r}")
-    for epoch in range(1, epochs + 1):
-        for line in (f"Epoch {epoch:2d} finished. Avg loss: ",
-                     f"Epoch {epoch:2d} eval loss: "):
-            if line not in out:
-                fail(f"train {tag}: no {line!r} line on stdout")
-    if "Training completed." not in out:
-        fail(f"train {tag}: no 'Training completed.' line")
-    if not (losses and all(math.isfinite(x) for x in losses)
-            and losses[-1] < losses[0]):
-        fail(f"train {tag}: step losses {losses} do not fall")
-    steps = epochs * (n_samples // cfg.batch_size)
-    fwd = m.n_layers * (steps + epochs)       # + one eval forward an epoch
-    split = not fa.uses_merged_backward(seq, seq)
-    want = {"flash_attention_fwd": fwd,
-            "flash_attention_bwd_dq": m.n_layers * steps if split else 0,
-            "flash_attention_bwd_dkv": m.n_layers * steps if split else 0,
-            "flash_attention_bwd_dqkv": 0 if split else m.n_layers * steps,
-            # the fused head: one forward a step and an eval batch an
-            # epoch, one backward a step
-            "fused_xent_fwd": steps + epochs if fused else 0,
-            "fused_xent_bwd": steps if fused else 0}
+    check_contract(tag, out, epochs, losses)
+    want = want_launches(fa, m, seq, epochs * (n_samples // cfg.batch_size),
+                         epochs, fused)
     t = timing[-1]
     sps = t["steps"] / t["run_s"]
     print(f"train {tag}: step losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
@@ -991,6 +1019,353 @@ def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
     if counts != want:
         fail(f"train {tag}: kernel launches {counts}, want {want}")
     return counts
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(target, args_by_rank, timeout_s: float, what: str):
+    """Run ``target(*args, queue)`` in one fresh process per entry of
+    ``args_by_rank`` (``spawn``: the card's state is not forked); each puts
+    one dict with its ``rank`` on the queue. Returns them by rank; fails
+    when a process exits non-zero, puts nothing or outlives
+    ``timeout_s``. Every process is gone when it returns."""
+    import multiprocessing as mp
+    import queue as queue_lib
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(*args, q))
+             for args in args_by_rank]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(results) < len(procs) and time.monotonic() < deadline:
+            try:
+                r = q.get(timeout=5)
+            except queue_lib.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            results[r["rank"]] = r
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if len(results) < len(procs) or any(codes):
+        fail(f"{what}: process exit codes {codes}, results from ranks "
+             f"{sorted(results)}")
+    return [results[r] for r in range(len(procs))]
+
+
+def _dp_train_rank(rank, world, port, argv, verdict, queue):
+    """Phase 10a, one rank in a process of its own: the train CLI's
+    ``main`` under the env contract, its launch counts set to 0 just
+    before and read just after."""
+    os.environ.update(TPUDIST_COORDINATOR=f"localhost:{port}",
+                      TPUDIST_NUM_PROCESSES=str(world),
+                      TPUDIST_PROCESS_ID=str(rank),
+                      TPUDIST_VERDICT_PATH=verdict)
+    import torch
+
+    from tpudist_torch import train as train_lib
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tee = _Tee(sys.stdout)
+    _reset_launches(fa, fx)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = train_lib.main(argv)
+    torch.cuda.synchronize()
+    queue.put({"rank": rank, "rc": rc, "counts": _launch_counts(fa, fx),
+               "out": tee.buf.getvalue(),
+               "wall": time.perf_counter() - t0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def dp_train_slice(torch, fa, card: str):
+    """Phase 10a, the path ``train_seq512_dp``: ``python -m
+    tpudist_torch.train`` as one process per visible card under the
+    ``TPUDIST_COORDINATOR`` / ``TPUDIST_NUM_PROCESSES`` /
+    ``TPUDIST_PROCESS_ID`` contract (NCCL, one card a rank), BASELINE
+    config #5 at seq 512, f32, ``--lm-head fused``, global batch 8, 32
+    samples, 1 epoch. Rank 0 alone prints the contract, every rank's
+    verdict and the final one say success, and every rank launches each
+    kernel exactly as its share of the path calls it. Returns the
+    launches summed over the ranks."""
+    from tpudist_torch import config as config_lib
+
+    tag, seq, epochs, n_samples = "train_seq512_dp", 512, 1, 32
+    world = torch.cuda.device_count()
+    save = ROOT / "build" / "chip_smoke_train" / tag
+    shutil.rmtree(save, ignore_errors=True)
+    argv = ["--model", "transformer", "--seq-len", str(seq),
+            "--train-batch-size", "8", "--n-samples", str(n_samples),
+            "--epochs", str(epochs), "--seed", "42", "--log-every", "1",
+            "--lm-head", "fused", "--save-dir", str(save)]
+    cfg = config_lib.parse_args(argv)
+    m = cfg.model
+    print(f"train {tag}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} {cfg.dtype}, global "
+          f"batch {cfg.batch_size} over {world} process(es) (local "
+          f"{cfg.batch_size // world}), {n_samples} samples, {epochs} "
+          f"epoch(s), --lm-head fused; {card}")
+    verdict = save / "job_status.txt"
+    port = _free_port()
+    ranks = _spawn(_dp_train_rank,
+                   [(r, world, port, argv, str(verdict))
+                    for r in range(world)], 300, f"train {tag}")
+    recs = [json.loads(ln) for ln in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    timing = [r for r in recs if r["kind"] == "timing"]
+    losses = [r["loss"] for r in recs if r["kind"] == "step"]
+    statuses = [verdict.read_text() if verdict.is_file() else None] + [
+        (save / f"job_status.txt.worker{r}").read_text()
+        if (save / f"job_status.txt.worker{r}").is_file() else None
+        for r in range(world)]
+    shutil.rmtree(save, ignore_errors=True)
+    if [r["rc"] for r in ranks] != [0] * world or not timing \
+            or statuses != ["success"] * (world + 1):
+        fail(f"train {tag}: exit codes {[r['rc'] for r in ranks]}, final "
+             f"and worker verdicts {statuses}")
+    out = ranks[0]["out"]
+    check_contract(tag, out, epochs, losses)
+    if f"{world} process(es) (nccl)" not in out:
+        fail(f"train {tag}: rank 0 did not report {world} NCCL process(es)")
+    for r in ranks[1:]:
+        if "Epoch" in r["out"] or "Training completed." in r["out"]:
+            fail(f"train {tag}: rank {r['rank']} printed the contract")
+    want = want_launches(fa, m, seq, epochs * (n_samples // cfg.batch_size),
+                         epochs, fused=True)
+    t = timing[-1]
+    sps = t["steps"] / t["run_s"]
+    print(f"train {tag}: step losses {losses}; "
+          f"verdicts {statuses}; {sps:.4f} steps/s, "
+          f"{sps * cfg.batch_size * m.max_seq_len:.1f} tokens/s over "
+          f"{world} card(s), step {1e3 * t['run_s'] / t['steps']:.2f} ms "
+          f"(over {t['steps']} steps after the first); first step + "
+          f"loads {t['compile_warmup_s']:.2f} s; rank walls "
+          f"{[round(r['wall'], 2) for r in ranks]} s; peak device memory "
+          f"by rank {[round(r['peak_gb'], 3) for r in ranks]} GB")
+    total = dict.fromkeys(want, 0)
+    for r in ranks:
+        print(f"train {tag}: rank {r['rank']} kernel launches "
+              f"{r['counts']} (want {want})")
+        if r["counts"] != want:
+            fail(f"train {tag}: rank {r['rank']} kernel launches "
+                 f"{r['counts']}, want {want}")
+        for k, v in r["counts"].items():
+            total[k] += v
+    return total
+
+
+def _dp_batches(torch, cfg, rank: int, world: int, device):
+    """Two steps' batches of this rank: its shard of global batches of 8
+    (``plan_epoch``), on ``device``."""
+    from tpudist_torch import data as data_lib
+    tokens = data_lib.make_synthetic_tokens(
+        16, cfg.model.max_seq_len + 1, cfg.model.vocab_size, cfg.seed)
+    plan = data_lib.plan_epoch((tokens,), batch_size=cfg.batch_size,
+                               seed=cfg.seed, epoch=0, process_index=rank,
+                               process_count=world)
+    slab, = plan.slab(0, 2)
+    return [(torch.as_tensor(b, device=device).long(),) for b in slab]
+
+
+# Phase 10b holds a param to the one process's only where its first |g|
+# is at least this share of its tensor's largest. Adam's first steps are
+# near lr sign(g), so a gradient that the reduce rounds by dg (~4e-6 of
+# the largest) moves its param by ~lr dg / |g|: a good part of lr where
+# |g| is small. Measured at full width (PERF.md, PR 9), the params' worst
+# distance falls with the floor: 1.5e-3 of the largest element at |g| >=
+# 1e-6, 2.3e-4 at 1e-5, 3.2e-5 at 1 % of the largest |g|.
+G_FLOOR = 1e-2
+
+
+def _dp_reduce_rank(rank, ports, queue):
+    """Phase 10b, one of two ranks on card 0: NCCL's refusal; on rank 0,
+    two steps of one process at the global batch of 8 before any group
+    is up; then two steps of the engine's data-parallel step over gloo,
+    timed alone. Rank 0 then holds the reduced gradients each step
+    handed to Adam against the global batch's gradients at the same
+    params, and its losses and params against the one process's (the
+    params where the first reduced gradient's |g| is at least ``G_FLOOR``
+    of its tensor's largest); the replicas are compared bitwise."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refusal = None
+    try:
+        distributed.initialize(f"localhost:{ports[0]}", 2, rank,
+                               device="cuda")
+        distributed.shutdown()
+    except ValueError as e:
+        refusal = str(e)
+    # phase 10a's model, f32, fused head
+    cfg = config_lib.parse_args(
+        ["--model", "transformer", "--seq-len", "512", "--train-batch-size",
+         "8", "--lm-head", "fused", "--seed", "42"])
+    dev = torch.device("cuda", 0)
+    # rank 0 keeps, of each data-parallel step, the reduced gradients
+    # the step hands to Adam and the params they were taken at
+    taken, live = [], {}
+    real_update = engine_lib.Adam.update
+
+    def update(self, grads, state, params):
+        if live.get("keep"):
+            taken.append(([g.detach().clone() for g in grads],
+                          [p.detach().clone() for p in params]))
+        return real_update(self, grads, state, params)
+    engine_lib.Adam.update = update
+
+    def two_steps(index, count):
+        state = engine_lib.init_state(cfg, dev)
+        step = engine_lib.make_train_step(cfg, dev)
+        losses, step_ms = [], []
+        for batch in _dp_batches(torch, cfg, index, count, dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, step_ms
+
+    if rank == 0:
+        one = two_steps(0, 1)
+        live["keep"] = True
+    distributed.initialize(f"localhost:{ports[1]}", 2, rank, device="cuda",
+                           backend="gloo")
+    state, losses, step_ms = two_steps(rank, 2)
+    same = True
+    for p in state.params.parameters():
+        theirs = p.detach().clone() if rank == 1 else torch.empty_like(p)
+        dist.broadcast(theirs, src=1)
+        same = same and torch.equal(theirs, p.detach())
+    distributed.shutdown()
+    out = {"rank": rank, "refusal": refusal, "losses": losses,
+           "step_ms": step_ms, "same": same}
+    if rank == 0:
+        one_state, out["one_losses"], out["one_step_ms"] = one
+        names = [n for n, _ in state.params.named_parameters()]
+        out["params"] = {}
+        for name, p, w, g1 in zip(names, state.params.parameters(),
+                                  one_state.params.parameters(),
+                                  taken[0][0]):
+            d = (p - w).detach().abs()
+            worst = int(d.argmax())
+            w_max = w.abs().max().item()
+
+            def within(held):
+                """(max |d| / max |w| where held, elements not held)"""
+                return ((d[held].max().item() / w_max if held.any()
+                         else 0.0), int((~held).sum()))
+            out["params"][name] = {
+                "err": d.max().item() / w_max,
+                "held": within(g1.abs() >= G_FLOOR * g1.abs().max()),
+                # the same at absolute floors, for the reader
+                "abs_floors": {f: within(g1.abs() >= f)
+                               for f in (1e-6, 1e-5)},
+                "beyond": int((d > 1e-4 * w_max).sum()),
+                "numel": d.numel(), "lr_units": d.max().item() / cfg.lr,
+                "g1_at_worst": g1.flatten()[worst].abs().item()}
+        # the global batch's gradients at each step's params, in the
+        # one process's (now spare) model
+        loss_fn = engine_lib.make_loss_fn(cfg, dev)
+        scratch = one_state.params
+        out["grad_errs"] = []
+        for (grads, before), batch in zip(
+                taken, _dp_batches(torch, cfg, 0, 1, dev)):
+            with torch.no_grad():
+                for p, b in zip(scratch.parameters(), before):
+                    p.copy_(b)
+            _, want = engine_lib._microbatch(loss_fn, scratch, batch, 1)
+            out["grad_errs"].append({
+                name: ((g - w).abs().max()
+                       / w.abs().max().clamp_min(1e-30)).item()
+                for name, g, w in zip(names, grads, want)})
+    queue.put(out)
+
+
+def dp_reduce_check(torch, card: str):
+    """Phase 10b: the gradient reduce across two ranks on the one card.
+    NCCL cannot put two ranks on one card, and ``initialize`` must say so;
+    with gloo (host copies) passed explicitly, two steps of the engine's
+    data-parallel step at local batch 4: at each, the reduced gradients
+    handed to Adam against the global batch of 8's at the same params
+    within f32 1e-4 of each gradient's largest element (phase 7's
+    yardstick); against one process stepping the global batch on the
+    card, the losses within f32 1e-4, and the params after the 2 steps
+    within f32 1e-4 of each param's largest element where the first
+    gradient's |g| is at least ``G_FLOOR`` of its tensor's largest (the
+    elements left out are counted: there Adam's near-sign step turns the
+    reduce's rounding of g into a good part of lr); the two ranks' losses
+    equal and their params bitwise equal."""
+    ports = (_free_port(), _free_port())
+    a, b = _spawn(_dp_reduce_rank, [(r, ports) for r in range(2)], 300,
+                  "dp reduce")
+    for r in (a, b):
+        if not (r["refusal"] and "would share one card" in r["refusal"]):
+            fail(f"dp reduce: rank {r['rank']}: two NCCL ranks on one "
+                 f"card were not refused ({r['refusal']!r})")
+    print(f"dp reduce: NCCL refused two ranks on one card: {a['refusal']}")
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       a["one_losses"]))
+    grad_worst = [max(e, key=e.get) for e in a["grad_errs"]]
+    grad_err = max(e[w] for e, w in zip(a["grad_errs"], grad_worst))
+    print(f"dp reduce: 2 gloo ranks on one card, local batch 4, 2 steps: "
+          f"reduced gradients vs the global batch's at the same params, "
+          f"worst of each step "
+          + ", ".join(f"{w} {e[w]:.3e}" for e, w in
+                      zip(a["grad_errs"], grad_worst))
+          + f" of its largest element over {len(a['grad_errs'][0])} "
+          f"params (tol 1e-4); losses {a['losses']} (rank 1 "
+          f"{b['losses']}) vs one process {a['one_losses']}, relative "
+          f"error {loss_err:.3e} (tol 1e-4); ranks' params bitwise "
+          f"equal: {a['same'] and b['same']}")
+    for name, p in a["params"].items():
+        print(f"dp reduce: param {name} after 2 steps vs one process, max "
+              f"|d| / its largest element: {p['held'][0]:.3e} where the "
+              f"first |g| >= {G_FLOOR:g} of its largest (tol 1e-4; "
+              f"{p['held'][1]} of {p['numel']} elements left out); "
+              + "; ".join(f"{e:.3e} where |g| >= {f:g} ({n} left out)"
+                          for f, (e, n) in p["abs_floors"].items())
+              + f"; {p['err']:.3e} over all elements ({p['lr_units']:.3f} "
+              f"lr, {p['beyond']} beyond 1e-4), the worst one's first |g| "
+              f"{p['g1_at_worst']:.3e}")
+    print(f"dp reduce: step times (gloo through host memory, two ranks "
+          f"on one card: not a fabric number) rank 0 "
+          f"{[round(x, 3) for x in a['step_ms']]} ms, rank 1 "
+          f"{[round(x, 3) for x in b['step_ms']]} ms; one process at "
+          f"batch 8 {[round(x, 3) for x in a['one_step_ms']]} ms; {card}")
+    if len(a["grad_errs"]) != 2 or a["losses"] != b["losses"] \
+            or not (a["same"] and b["same"]):
+        fail("dp reduce: the two ranks disagree")
+    param_worst = max(a["params"], key=lambda n: a["params"][n]["held"][0])
+    param_err = a["params"][param_worst]["held"][0]
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4 and param_err <= 1e-4):
+        fail(f"dp reduce: off by {loss_err:.3e} (loss against one "
+             f"process), {grad_err:.3e} (gradients at the same params), "
+             f"{param_err:.3e} ({param_worst} after 2 steps, where the "
+             f"first |g| >= {G_FLOOR:g} of its largest)")
 
 
 def plain_attention(torch, fa):
@@ -1310,6 +1685,12 @@ def main() -> int:
     # phase 7: one full-width training step, kernels vs plain versions
     for seq, fused in ((512, False), (2048, False), (2048, True)):
         step_check(torch, fa, fx, seq, fused)
+
+    # phase 10: data parallelism, the CLI at one process a card (NCCL),
+    # then the reduce across two ranks on one card (gloo)
+    torch.cuda.empty_cache()
+    paths["train_seq512_dp"] = dp_train_slice(torch, fa, card)
+    dp_reduce_check(torch, card)
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -1324,11 +1705,14 @@ def main() -> int:
                "flash_attention_bwd_dkv": ("train_seq2048",
                                            "train_seq2048_fused"),
                "flash_attention_bwd_dqkv": ("train_seq512",
-                                            "train_seq512_bf16_auto"),
+                                            "train_seq512_bf16_auto",
+                                            "train_seq512_dp"),
                "fused_xent_fwd": ("train_seq2048_fused",
-                                  "train_seq512_bf16_auto"),
+                                  "train_seq512_bf16_auto",
+                                  "train_seq512_dp"),
                "fused_xent_bwd": ("train_seq2048_fused",
-                                  "train_seq512_bf16_auto")}
+                                  "train_seq512_bf16_auto",
+                                  "train_seq512_dp")}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

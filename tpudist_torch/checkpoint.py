@@ -10,7 +10,9 @@ epoch and batch index training continues from, ``(finished + 1, 0)``
 after an epoch. The newest ``KEEP`` saves are kept, as the JAX package's
 checkpoint manager keeps them. Writes are synchronous and atomic (a
 temporary directory renamed into place), so a killed run never leaves a
-half-written newest checkpoint.
+half-written newest checkpoint. Under data parallelism the state is
+replicated, so rank 0 alone writes, and every rank waits at a barrier
+until the save is on disk; every rank restores, onto its own device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import time
 from typing import Optional, Tuple
 
 import torch
+
+from tpudist_torch.metrics import _rank
+from tpudist_torch.parallel import distributed
 
 KEEP = 3
 STATE_FILE = "state.pt"
@@ -36,7 +41,8 @@ def _steps(save_dir: str):
 
 class Checkpointer:
     """Step-keyed saves for the train loop. ``last_enqueue_ms`` is the
-    time of the last save (the whole write: saves are synchronous)."""
+    time of the last save (the whole write and the barrier after it:
+    saves are synchronous)."""
 
     def __init__(self, save_dir: str):
         self.save_dir = os.path.abspath(os.path.expanduser(save_dir))
@@ -44,8 +50,19 @@ class Checkpointer:
 
     def save(self, state, *, epoch: int, step_in_epoch: int = 0) -> None:
         """Save ``state`` (a ``TrainState``) keyed by its global step, with
-        the resume position ``(epoch, step_in_epoch)``."""
+        the resume position ``(epoch, step_in_epoch)``: rank 0 writes, and
+        no rank returns before the write is done."""
         t0 = time.perf_counter()
+        try:
+            if _rank() == 0:
+                self._write(state, epoch, step_in_epoch)
+        finally:
+            # reached on a failed write too, so the ranks' host
+            # collectives stay paired
+            distributed.barrier()
+        self.last_enqueue_ms = (time.perf_counter() - t0) * 1000
+
+    def _write(self, state, epoch: int, step_in_epoch: int) -> None:
         final = os.path.join(self.save_dir, str(int(state.step)))
         tmp = f"{final}.tmp.{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
@@ -60,7 +77,6 @@ class Checkpointer:
         os.replace(tmp, final)
         for old in _steps(self.save_dir)[:-KEEP]:
             shutil.rmtree(os.path.join(self.save_dir, str(old)))
-        self.last_enqueue_ms = (time.perf_counter() - t0) * 1000
 
 
 def latest_step(save_dir: str) -> Optional[int]:
@@ -73,8 +89,9 @@ def latest_step(save_dir: str) -> Optional[int]:
 def restore_latest_full(save_dir: str, template
                         ) -> Optional[Tuple[object, int, int]]:
     """Restore the newest checkpoint into ``template`` (a ``TrainState``
-    of the same model, on its device) as ``(state, epoch,
-    step_in_epoch)``, or None if ``save_dir`` holds none."""
+    of the same model, on this rank's device, which the tensors are
+    mapped to) as ``(state, epoch, step_in_epoch)``, or None if
+    ``save_dir`` holds none."""
     step = latest_step(save_dir)
     if step is None:
         return None

@@ -4,7 +4,9 @@ port's serving and training lanes read, with the JAX package's defaults
 is ``ModelConfig(name="transformer")``), and the train CLI's
 ``parse_args``.
 
-The training lane runs on one process and one device. ``parse_args``
+The training lane runs data-parallel over the processes of the JAX
+package's env contract (``tpudist_torch.parallel.distributed``), one
+device a process, and every other mesh axis at 1. ``parse_args``
 declares every option of the JAX train CLI; those this slice does not
 carry (``NOT_CARRIED``) are refused there unless left off, and their
 environment twins, with the JAX package's other switches this slice does
@@ -53,8 +55,9 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh axis sizes; this slice runs every axis at 1 (one process, one
-    device)."""
+    """Mesh axis sizes. ``data`` is -1, "all remaining devices": the
+    world size, one device a process; the port runs every other axis at
+    1."""
 
     data: int = -1
     pipe: int = 1
@@ -204,9 +207,9 @@ def check_supported(cfg: TrainConfig) -> None:
     wide = {k: v for k, v in axes.items() if v != 1}
     if wide:
         raise ValueError(
-            f"mesh axes {wide}: the port trains on one device; sharded "
-            f"layouts and multi-axis parallelism come with ROADMAP Queue A "
-            f"item 8 (data parallelism with item 4)")
+            f"mesh axes {wide}: the port trains data-parallel only; "
+            f"sharded layouts and multi-axis parallelism come with ROADMAP "
+            f"Queue A item 8")
     if cfg.model.name not in ("mlp", "transformer"):
         raise ValueError(
             f"--model {cfg.model.name}: the port trains mlp and "

@@ -1,11 +1,14 @@
-"""Training engine on one process: state, optimizer, loss, step, eval.
+"""Training engine: state, optimizer, loss, the train step, eval.
 
-Counterpart of the single-device part of ``tpudist/engine.py``. The JAX
-package's state is a pytree and its step a compiled pure function; here
-the params are an ``nn.Module``, the step runs eagerly, and the
-optimizer updates the params and its moments in place (one copy of the
-train state on the device instead of two). The data-parallel gradient
-mean, the collective under test, comes with ROADMAP Queue A item 4.
+Counterpart of ``tpudist/engine.py``'s replicated data-parallel path
+(``--grad-overlap off``). The JAX package's state is a pytree and its
+step a compiled pure function; here the params are an ``nn.Module``, the
+step runs eagerly, and the optimizer updates the params and its moments
+in place (one copy of the train state on the device instead of two).
+Every process holds the whole state, made alike from one seed; when a
+process group is up (``tpudist_torch.parallel.distributed``), the step
+means the gradients and the loss over the processes with an explicit
+all-reduce after the whole backward: the collective under test.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tpudist_torch.config import TrainConfig
@@ -279,17 +283,37 @@ def _microbatch(loss_fn, params: nn.Module, batch, n_accum: int):
     return total * inv, [g * inv for g in grads]
 
 
+def pmean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``lax.pmean`` over the processes, in place: one all-reduce SUM a
+    tensor, in order, then a divide by the world size (psum, then divide:
+    ``ReduceOp.AVG`` does not exist on gloo)."""
+    world = dist.get_world_size()
+    for t in tensors:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        t.div_(world)
+    return list(tensors)
+
+
 def make_train_step(cfg: TrainConfig,
                     device: Optional[torch.device] = None) -> Callable:
-    """``(state, batch) -> (state, loss)``: loss and grads (with
-    ``--grad-accum-steps`` microbatching), then the Adam update in
-    place. One process, no collective."""
+    """``(state, batch) -> (state, loss)``: loss and grads over this
+    process's batch (with ``--grad-accum-steps`` microbatching), their
+    mean over the processes when a process group is up, then the Adam
+    update in place."""
     loss_fn = make_loss_fn(cfg, device)
     tx = make_optimizer(cfg)
+    data_parallel = dist.is_initialized()
 
     def step(state: TrainState, batch):
         loss, grads = _microbatch(loss_fn, state.params, batch,
                                   cfg.grad_accum_steps)
+        if data_parallel:
+            # THE collective under test: the gradient mean over the data
+            # axis, one all-reduce a param in param order after the whole
+            # backward (the JAX package's --grad-overlap off), and the
+            # loss's mean as lax.pmean(loss, "data") gives it
+            grads = pmean(grads)
+            loss, = pmean([loss])
         tx.update(grads, state.opt_state, list(state.params.parameters()))
         state.step += 1
         return state, loss
@@ -298,19 +322,29 @@ def make_train_step(cfg: TrainConfig,
 
 def make_eval_fn(cfg: TrainConfig,
                  device: Optional[torch.device] = None) -> Callable:
-    """``(state, batch) -> loss``, a forward with no update and no
-    graph."""
+    """``(state, batch) -> loss``, a forward with no update and no graph,
+    over the GLOBAL ``batch``: with a process group up, each process
+    evaluates its contiguous slice of it (as the JAX package shards the
+    eval batch over the data axis) and the mean comes back from an
+    all-reduce, the same on every process."""
     loss_fn = make_loss_fn(cfg, device)
+    data_parallel = dist.is_initialized()
 
     @torch.no_grad()
     def ev(state: TrainState, batch):
-        return loss_fn(state.params, batch)
+        if not data_parallel:
+            return loss_fn(state.params, batch)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        local = tuple(x.reshape(world, x.shape[0] // world,
+                                *x.shape[1:])[rank] for x in batch)
+        loss, = pmean([loss_fn(state.params, local)])
+        return loss
     return ev
 
 
 def state_bytes_per_device(state: TrainState) -> int:
-    """Bytes of the params and optimizer moments (one device holds them
-    all in this slice)."""
+    """Bytes of the params and optimizer moments (every device holds them
+    all: they are replicated)."""
     tensors = list(state.params.parameters()) + state.opt_state.mu \
         + state.opt_state.nu
     return sum(t.numel() * t.element_size() for t in tensors)

@@ -39,9 +39,11 @@ class StepTimer:
     the clock (PyTorch returns before the card finishes, so the copy is
     the fence), and counts ``n`` steps. The first stop (the first step:
     the kernels' build and the allocator's first growth) is kept out of
-    the throughput aggregate. One process on one chip."""
+    the throughput aggregate. ``chips`` is the job's device count, one a
+    process."""
 
     WARMUP = 1
+    chips: int = 1
     t0: float = 0.0
     elapsed: float = 0.0
     steps: int = 0
@@ -80,7 +82,7 @@ class StepTimer:
         return self.steps / self.elapsed if self.elapsed > 0 else 0.0
 
     def steps_per_sec_per_chip(self) -> float:
-        return self.steps_per_sec()
+        return self.steps_per_sec() / max(self.chips, 1)
 
 
 @dataclass

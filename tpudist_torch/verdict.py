@@ -3,17 +3,21 @@
 Copy of the part of ``tpudist/verdict.py`` the serving and training
 lanes use: the three-valued status vocabulary, the per-worker and final
 verdict files, written atomically (a ``gs://`` path goes through
-``gsutil``), and the AND-aggregation over processes. Standard library
-only, apart from the rank query.
+``gsutil``), and the bounded AND-aggregation over processes.
 """
 
 from __future__ import annotations
 
 import os
 import subprocess
-from typing import Tuple
+import threading
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 from tpudist_torch.metrics import _rank
+from tpudist_torch.parallel import distributed
 
 SUCCESS = "success"
 FAIL = "fail"
@@ -54,15 +58,44 @@ def write_final_status(path: str, status: str) -> None:
         _write(path, status)
 
 
-def aggregate_status(local_ok: bool) -> Tuple[bool, bool]:
-    """AND-reduce success over all processes -> ``(all_ok, timed_out)``.
-    The training lane runs one process, where the local verdict is the
-    job's; the bounded all-process reduce comes with data parallelism
-    (ROADMAP Queue A item 4)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "verdict aggregation over several processes comes with "
-            "ROADMAP Queue A item 4")
-    return local_ok, False
+def aggregate_status(local_ok: bool, timeout_s: Optional[float] = None
+                     ) -> Tuple[bool, bool]:
+    """AND-reduce success over all processes (one bad worker fails the
+    job) -> ``(all_ok, timed_out)``.
+
+    A peer that died or is late never joins the reduce, which then waits
+    on it. So it runs on the host's gloo group in a daemon thread, and
+    the wait is bounded by ``TPUDIST_AGGREGATE_TIMEOUT_S`` (120 s) unless
+    ``timeout_s`` is given: past it, or when the reduce raises (gloo sees
+    a peer's connection close), the result is ``(False, True)``.
+    ``timed_out`` tells the caller to start no further collective (the
+    end barrier, shutdown) and just exit: they would wait on the same
+    peer or race the abandoned reduce."""
+    if not dist.is_initialized():
+        return local_ok, False
+    if timeout_s is None:
+        timeout_s = float(os.environ.get("TPUDIST_AGGREGATE_TIMEOUT_S", 120))
+    result: list = []
+
+    def gather():
+        flag = torch.tensor([1 if local_ok else 0], dtype=torch.int32)
+        try:
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN,
+                            group=distributed.host_group())
+        except RuntimeError as e:
+            result.append(e)
+            return
+        result.append(bool(flag.item() == 1))
+
+    t = threading.Thread(target=gather, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if not result:
+        print(f"tpudist: verdict aggregation timed out after {timeout_s}s "
+              "(a peer likely died before the barrier) -> fail", flush=True)
+        return False, True
+    if isinstance(result[0], RuntimeError):
+        print(f"tpudist: verdict aggregation failed ({result[0]}): a peer "
+              "left -> fail", flush=True)
+        return False, True
+    return result[0], False
