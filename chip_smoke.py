@@ -47,10 +47,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ``F.cross_entropy(h @ emb.T)``'s in the same dtype (forward, and
    ``autograd.grad`` through it), and the head's peak device memory at
    the slice's shape, fused against that;
-4. the serving slice at full width (BASELINE config #5, f32): warmup and
-   16 requests through ``ServeEngine`` + ``run_serve``, every request
-   completed, and one prefill's logits through the engine (kernel)
-   against the non-cached forward through the plain version;
+4. the serving slice at full width (BASELINE config #5, f32) on the
+   graph engine: warmup (each body once eagerly, then the prefill and
+   the decode ladder (8, 4, 2) captured as CUDA graphs) and 16 requests
+   through ``ServeEngine`` + ``run_serve``, every request completed, the
+   program pin (1 prefill, 3 decode graphs), the flash forward launched
+   exactly n_layers x prefills (counted through the engine's graph
+   accounting: a replay does not move the wrapper's counter), every
+   request's tokens and one replayed prefill's first token against the
+   engine's bodies called eagerly (a check, not a route), and that
+   prefill's logits against the non-cached forward through the plain
+   version;
+   4b. serve overload on the same engine: a Poisson stream of 64
+   requests at twice the requests/s phase 4 completed, a queue cap of 8,
+   a TTFT deadline of 4 x phase 4's TTFT p50 and the ladder walked by
+   the pressure controller: the exact shed partition, the pin, every
+   admitted request completed with the tokens it gets in an unloaded
+   run, the flash launches exact; then two runs of one seed on virtual
+   time with equal summaries;
 5. the train CLI at full width (BASELINE config #5, f32, batch 8,
    ``--lm-head auto``) at seq 2048 for 2 epochs (8 steps): the dq and
    dk/dv kernels in every layer's backward;
@@ -82,12 +96,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
    left out are counted), and the step time labelled as gloo through
    host memory.
 
-Phases 4-6, 8-9 and 10a are the main paths: each runs with every launch
-count set to 0 just before and read just after (10a in each rank's
-process), and each kernel must have launched the exact number of times
-its path calls it (the training phases also check the stdout contract,
-a falling loss and the ``success`` verdict files). ``--profile`` adds torch.profiler breakdowns
-of the serving windows and of two training steps at seq 2048 (plain and
+Phases 4, 4b, 5-6, 8-9 and 10a are the main paths: each runs with every
+launch count set to 0 just before and read just after (10a in each
+rank's process), and each kernel must have launched the exact number of
+times its path calls it (the training phases also check the stdout
+contract, a falling loss and the ``success`` verdict files).
+``--profile`` adds torch.profiler breakdowns of the serving windows (8
+prefills and one decode superstep, replayed and as eager bodies, with
+the flash kernels counted in the replayed prefills) and of two training
+steps at seq 2048 (plain and
 fused head), 512 and 512 in bf16 with the fused head (phase 9's
 configuration; device time by kernel, busy share), and the rates
 mma.sync reaches (``tpudist_torch/csrc/mma_peak.cu``).
@@ -99,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -788,17 +806,49 @@ def time_fused_xent(torch, fx, F, slice_err):
     return records
 
 
+class _EagerBodies:
+    """The serve engine with ``prefill``/``decode`` running its bodies
+    eagerly instead of replaying its graphs: the reference the graphs
+    are held to, never a serving route."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def prefill(self, *args):
+        return self.engine.eager_prefill(*args)
+
+    def decode(self, *args):
+        return self.engine.eager_decode(*args)
+
+
+def _serve_counts(engine):
+    """The serve paths' launch counts: the flash forward's through the
+    engine's graph accounting, no other kernel."""
+    return {"flash_attention_fwd": engine.kernel_launches()}
+
+
+def _tokens_of(summary, rids=None):
+    return {rid: r["tokens"] for rid, r in summary["results"].items()
+            if rids is None or rid in rids}
+
+
 def serve_slice(torch, fa, fx, profile: bool):
-    """Phase 4: the serving slice at full width. Returns the kernels'
-    launch counts from the main path's run."""
+    """Phase 4: the serving slice at full width on the graph engine, the
+    ladder (8, 4, 2) captured. Returns the engine, its params, phase 4's
+    summary and the kernels' launch counts from the main path's run."""
     from tpudist_torch.config import ModelConfig
     from tpudist_torch.models import transformer
+    from tpudist_torch.serve import resilience as res_lib
     from tpudist_torch.serve import scheduler as sched
     from tpudist_torch.serve.engine import ServeEngine, init_params
 
     cfg = ModelConfig(name="transformer")
     engine = ServeEngine(cfg, slots=8, max_seq=1024, prompt_pad=512,
-                         decode_k=8, dtype=torch.float32, device="cuda")
+                         decode_k=8, dtype=torch.float32, device="cuda",
+                         adapt_ladder=res_lib.default_ladder(8))
     params = init_params(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in params.parameters())
     print(f"serve slice: V{cfg.vocab_size} L{cfg.n_layers} d{cfg.d_model} "
@@ -806,7 +856,7 @@ def serve_slice(torch, fa, fx, profile: bool):
           f"params {n_params * 4 / 1e9:.3f} GB, kv cache "
           f"{engine.spec.bytes / 1e9:.3f} GB; slots {engine.slots} "
           f"max_seq {engine.max_seq} prompt_pad {engine.prompt_pad} "
-          f"decode_k {engine.decode_k}")
+          f"decode_k ladder {engine.ladder}")
     requests = sched.make_requests(16, prompt_pad=engine.prompt_pad,
                                    vocab_size=cfg.vocab_size, max_new=32,
                                    rate=0.0, seed=0)
@@ -817,16 +867,23 @@ def serve_slice(torch, fa, fx, profile: bool):
     warm_s = time.perf_counter() - t0
     summary = sched.run_serve(engine, params, requests)
     torch.cuda.synchronize()
-    counts = _launch_counts(fa, fx)
+    counts = _serve_counts(engine)
     launches = counts["flash_attention_fwd"]
+    engine.assert_two_programs()
 
-    prefills = summary["admitted"] + 1          # + the warmup's
+    prefills = summary["admitted"] + 1     # + the warmup's eager body
     want = cfg.n_layers * prefills
     print(f"serve slice: {summary['completed']}/{summary['requests']} "
           f"requests, {summary['generated_tokens']} tokens in "
-          f"{summary['wall_s']} s; warmup {warm_s:.3f} s; flash kernel "
+          f"{summary['wall_s']} s over {summary['dispatches']} "
+          f"dispatches; warmup {warm_s:.3f} s, of it capture "
+          f"{engine.capture_s:.3f} s of 1 prefill + "
+          f"{len(engine.ladder)} decode graphs holding "
+          f"{engine.graph_pool_bytes / 1e6:.1f} MB; flash kernel "
           f"launches {launches} (want n_layers x prefills = "
-          f"{cfg.n_layers} x {prefills} = {want})")
+          f"{cfg.n_layers} x {prefills} = {want}), "
+          f"{fa.launches} of them outside a graph; programs "
+          f"{engine.compile_counts()}")
     print(f"serve slice: tokens/s/chip {summary['tokens_per_sec_per_chip']}"
           f"; ttft p50 {summary['ttft_p50_s']} s p99 "
           f"{summary['ttft_p99_s']} s; itl p50 {summary['itl_p50_s']} s "
@@ -838,26 +895,43 @@ def serve_slice(torch, fa, fx, profile: bool):
     if launches != want:
         fail(f"flash kernel launched {launches} times in the serve run, "
              f"want {want}")
+    if fa.launches != cfg.n_layers:
+        fail(f"{fa.launches} flash launches outside the graphs, want the "
+             f"warmup's {cfg.n_layers}: a prefill did not replay")
     for rid, res in summary["results"].items():
         toks = res["tokens"]
         if len(toks) != 32 or not all(0 <= t < cfg.vocab_size
                                       for t in toks):
             fail(f"request {rid} produced {toks!r}")
 
-    # one prefill's last-position logits through the engine (cached
-    # path, kernel, q/k rotated up front) against the non-cached forward
-    # with RoPE fused into the plain version
+    # the graphs against the engine's bodies called eagerly: every
+    # request's tokens, then one prefill's first token and logits
+    eager = sched.run_serve(_EagerBodies(engine), params, requests)
+    same = _tokens_of(eager) == _tokens_of(summary)
+    print(f"serve slice: every request's tokens, graphs vs the eager "
+          f"bodies: equal {same}")
+    if not same:
+        fail("the graph engine's tokens differ from its eager bodies'")
+
+    # one replayed prefill's last-position logits (cached path, kernel,
+    # q/k rotated up front) against the non-cached forward with RoPE
+    # fused into the plain version, and against the eager body
     def plain_attention(q, k, v, *, cos=None, sin=None, causal=True):
         return fa.flash_attention_plain(q, k, v, cos=cos, sin=sin,
                                         causal=causal)[0]
     plain_attention.accepts_rope = True
 
     req = requests[0]
-    n0 = fa.launches
-    got = engine.prefill_logits(params, engine.init_state(),
-                                req.tokens[None, :], req.prompt_len, 0)[0]
-    if fa.launches != n0 + cfg.n_layers:
-        fail("the engine's prefill did not run the flash kernel")
+    args = (req.tokens[None, :], req.prompt_len, 0, req.max_new)
+    n0 = engine.kernel_launches()
+    _, first = engine.prefill(params, engine.init_state(), *args)
+    got = engine.last_logits[0].clone()
+    first = int(first)
+    if engine.kernel_launches() != n0 + cfg.n_layers:
+        fail("the replayed prefill did not count its flash kernels")
+    _, first_eager = engine.eager_prefill(params, engine.init_state(),
+                                          *args)
+    d_eager = (got - engine.last_logits[0]).abs().max().item()
     tokens = torch.as_tensor(req.tokens[None, :], dtype=torch.int64,
                              device="cuda")
     with torch.no_grad():
@@ -865,17 +939,103 @@ def serve_slice(torch, fa, fx, profile: bool):
                                 attn_impl=plain_attention)[
             0, req.prompt_len - 1]
     err = (got - ref).abs().max().item()
-    same = int(got.argmax()) == int(ref.argmax())
-    print(f"serve slice: prefill logits (rid {req.rid}, prompt_len "
-          f"{req.prompt_len}) engine vs plain forward: max |d| {err:.3e} "
-          f"(atol 1e-3), argmax equal {same}")
+    same = first == int(got.argmax()) == int(ref.argmax())
+    print(f"serve slice: replayed prefill (rid {req.rid}, prompt_len "
+          f"{req.prompt_len}): first token {first}, eager body's "
+          f"{int(first_eager)} (logits max |d| {d_eager:.3e}); logits vs "
+          f"plain forward max |d| {err:.3e} (atol 1e-3), argmax equal "
+          f"{same}")
     if got.shape != (cfg.vocab_size,) or not bool(torch.isfinite(got).all()):
         fail(f"prefill logits shape {tuple(got.shape)} or not finite")
     if err > 1e-3:
         fail(f"prefill logits differ from the plain forward by {err:.3e}")
+    if first != int(first_eager):
+        fail("the replayed prefill's first token differs from the eager "
+             "body's")
 
     if profile:
         profile_serve(torch, engine, params, requests)
+    return engine, params, summary, counts
+
+
+def serve_overload(torch, engine, params, base):
+    """Phase 4b: overload on phase 4's graph engine. A Poisson stream of
+    64 requests at twice the requests/s phase 4 completed, a queue cap of
+    8, a TTFT deadline of 4 x phase 4's TTFT p50 and ``--adapt``'s ladder
+    with the JAX package's adapt-drill thresholds. Hard checks: the exact
+    partition, the program pin, every admitted request completed, and
+    the admitted requests' tokens equal to the same requests' in an
+    unloaded run; then two runs of one seed on virtual time give equal
+    summaries. Returns the launch counts of the overload run."""
+    from tpudist_torch.serve import resilience as res_lib
+    from tpudist_torch.serve import scheduler as sched
+
+    rate = 2 * base["completed"] / base["wall_s"]
+    deadline_s = 4 * base["ttft_p50_s"]
+    # the JAX package's adapt drill thresholds (its resilience tests):
+    # --adapt's default depth_high of 8 never trips under a cap of 8
+    res = res_lib.ResilienceConfig(queue_cap=8, ttft_deadline_s=deadline_s,
+                                   adapt=True, validate=True,
+                                   depth_high=4.0, depth_low=1.0,
+                                   trip_ticks=1, clear_ticks=4, window=2)
+
+    def stream(r):
+        return sched.make_requests(64, prompt_pad=engine.prompt_pad,
+                                   vocab_size=engine.model_cfg.vocab_size,
+                                   max_new=32, rate=r, seed=1)
+
+    engine.reset_kernel_launches()
+    s = sched.run_serve(engine, params, stream(rate), resilience=res)
+    torch.cuda.synchronize()
+    counts = _serve_counts(engine)
+    engine.assert_two_programs()
+    part = s["partition"]
+    want = engine.model_cfg.n_layers * s["admitted"]
+    moves = [(t["from_level"], t["to_level"])
+             for t in s["adapt_transitions"]]
+    print(f"serve overload: 64 requests at {rate:.2f}/s, queue cap 8, "
+          f"deadline {deadline_s * 1e3:.3f} ms, ladder {engine.ladder}: "
+          f"admitted {s['admitted']}, completed {s['completed']}, shed "
+          f"at admission {s['shed_at_admission']}, expired in queue "
+          f"{s['expired_in_queue']}, rejected {s['rejected']} (shed "
+          f"fraction {s['shed_fraction']}); adapt transitions "
+          f"{moves}, final decode_k {s['decode_k_current']}; ttft p50 "
+          f"{s['ttft_p50_s']} s p99 {s['ttft_p99_s']} s; itl p99 "
+          f"{s['itl_p99_s']} s; tokens/s/chip "
+          f"{s['tokens_per_sec_per_chip']}; flash launches "
+          f"{counts['flash_attention_fwd']} (want {want})")
+    if not (part["admission_exact"] and part["outcome_exact"]) \
+            or part["arrived"] != 64:
+        fail(f"serve overload partition is not exact: {part}")
+    if s["completed"] != s["admitted"] or s["truncated"]:
+        fail(f"serve overload completed {s['completed']} of "
+             f"{s['admitted']} admitted ({s['truncated']} truncated)")
+    if counts["flash_attention_fwd"] != want:
+        fail(f"flash kernel launched {counts['flash_attention_fwd']} "
+             f"times in the overload run, want {want}")
+    # the same requests, every one present at t=0 and none shed
+    unloaded = sched.run_serve(engine, params, [
+        dataclasses.replace(r, arrival_s=0.0) for r in stream(rate)])
+    admitted = set(s["results"])
+    same = _tokens_of(s) == _tokens_of(unloaded, admitted)
+    print(f"serve overload: the {len(admitted)} admitted requests' tokens "
+          f"vs an unloaded run of the stream: equal {same}")
+    if not same:
+        fail("the overload run's tokens differ from the unloaded run's")
+
+    virtual = [sched.run_serve(
+        engine, params, stream(rate), resilience=res,
+        virtual=res_lib.VirtualTiming(prefill_s=0.005,
+                                      decode_s=8 * base["itl_p50_s"]))
+        for _ in range(2)]
+    same = virtual[0] == virtual[1]
+    v = virtual[0]
+    print(f"serve overload: two virtual-time runs of one seed: summaries "
+          f"equal {same}; admitted {v['admitted']}, shed "
+          f"{v['shed_total']}, transitions {len(v['adapt_transitions'])}, "
+          f"ttft p99 {v['ttft_p99_s']} s (virtual)")
+    if not same:
+        fail("two virtual-time runs of one seed gave different summaries")
     return counts
 
 
@@ -1585,12 +1745,16 @@ def mma_peaks(torch, build):
 
 
 def profile_serve(torch, engine, params, requests):
-    """Device time by kernel in two windows at the slice's shapes, one
+    """Device time by kernel in windows at the slice's shapes, one
     prefill per slot and then one decode superstep over the full batch,
-    and the device's busy share of each window's wall time (the
-    profiler's own host cost is inside the wall)."""
+    each replayed from its graph and run as the engine's eager body, and
+    the device's busy share of each window's wall time (the profiler's
+    own host cost is inside the wall). Returns each window's (wall ms,
+    busy ms, flash forward kernels)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+
+    out = {}
 
     def window(name, fn):
         torch.cuda.synchronize()
@@ -1604,27 +1768,34 @@ def profile_serve(torch, engine, params, requests):
                 for e in prof.key_averages()
                 if e.device_time_total > 0 and e.device_type.name == "CUDA"]
         busy = sum(r[1] for r in rows)
+        flash = sum(c for k, _, c in rows if "flash_fwd_kernel" in k)
         print(f"profile: {name}: {wall:.3f} ms wall, device kernel time "
-              f"{busy:.3f} ms ({100 * busy / wall:.1f}% busy)")
+              f"{busy:.3f} ms ({100 * busy / wall:.1f}% busy), "
+              f"flash_fwd_kernel x{flash}")
         for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
             print(f"profile:   {ms:9.3f} ms {count:5d}x  {key[:80]}")
+        out[name] = (wall, busy, flash)
 
-    state = engine.init_state()
+    for how, eng in (("graphs", engine), ("eager bodies",
+                                          _EagerBodies(engine))):
+        state = engine.init_state()
 
-    def prefills():
-        nonlocal state
-        for slot, req in enumerate(requests[:engine.slots]):
-            state, first = engine.prefill(params, state,
-                                          req.tokens[None, :],
-                                          req.prompt_len, slot,
-                                          req.max_new)
+        def prefills():
+            for slot, req in enumerate(requests[:engine.slots]):
+                eng.prefill(params, state, req.tokens[None, :],
+                            req.prompt_len, slot, req.max_new)[1].item()
 
-    def superstep():
-        engine.decode(params, state)[1].cpu()
+        def superstep():
+            eng.decode(params, state)[1].cpu()
 
-    window(f"{engine.slots} prefills", prefills)
-    window(f"one decode superstep ({engine.decode_k} steps, "
-           f"{engine.slots} slots)", superstep)
+        window(f"{engine.slots} prefills, {how}", prefills)
+        window(f"one decode superstep ({engine.decode_k} steps, "
+               f"{engine.slots} slots), {how}", superstep)
+    n = engine.model_cfg.n_layers * engine.slots
+    print(f"profile: flash_fwd_kernel in the replayed prefills: "
+          f"{out[f'{engine.slots} prefills, graphs'][2]} (n_layers x "
+          f"prefills = {n})")
+    return out
 
 
 def main() -> int:
@@ -1663,9 +1834,15 @@ def main() -> int:
     bwd = time_flash_bwd(torch, fa, F, check_flash_bwd(torch, fa))
     xent = time_fused_xent(torch, fx, F, check_fused_xent(torch, fx))
 
-    # phases 4-6 and 8-9: the serving path and the training paths at full
-    # width, each with the launch counts set to 0 just before
-    paths = {"serve": serve_slice(torch, fa, fx, args.profile)}
+    # phases 4-6 and 8-9: the serving paths and the training paths at
+    # full width, each with the launch counts set to 0 just before
+    paths = {}
+    engine, params, base, paths["serve"] = serve_slice(torch, fa, fx,
+                                                       args.profile)
+    # phase 4b: overload on the same graph engine
+    paths["serve_overload"] = serve_overload(torch, engine, params, base)
+    del engine, params
+    torch.cuda.empty_cache()
     for tag, seq, epochs, kw in (
             ("train_seq2048", 2048, 2, {}),
             ("train_seq512", 512, 1, {}),

@@ -9,8 +9,8 @@ package's.
 * the CLI runs end to end on the CPU when asked, and refuses to run
   without a card otherwise;
 * the copies the port keeps of the JAX package's standard-library
-  modules (serve thresholds, SLO grading, verdict file) equal their
-  sources.
+  modules (serve thresholds with the shed gate, SLO grading and
+  histograms, verdict file) equal their sources.
 """
 
 import dataclasses
@@ -62,14 +62,16 @@ LANES = {
     "hd128": (HD128, dict(slots=2, max_seq=144, prompt_pad=128,
                           decode_k=4), 3, 5),
 }
-SERVE_RULES = ("ttft", "itl", "tokens_per_chip")
-# the latency, throughput and grade keys of the JAX summary that the
-# port's kind=serve record carries
+SERVE_RULES = ("ttft", "itl", "tokens_per_chip", "serve_shed")
+# the latency, throughput, shed, program and grade keys of the JAX
+# summary that the port's kind=serve record carries
 SUMMARY_KEYS = {"ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s",
                 "e2e_p50_s", "e2e_p99_s", "tokens_per_sec",
                 "tokens_per_sec_per_chip", "wall_s", "generated_tokens",
                 "requests", "completed", "status", "ttft_status",
-                "itl_status", "tokens_per_chip_status"}
+                "itl_status", "tokens_per_chip_status", "shed_fraction",
+                "serve_shed_status", "prefill_compiles",
+                "decode_compiles"}
 # the CLI's green-verdict pin grades the wiring, not this host's load
 LOOSE_SLO = {"TPUDIST_TTFT_P99_MAX": "120", "TPUDIST_ITL_P99_MAX": "60",
              "TPUDIST_TOKENS_PER_CHIP_MIN": "0.001"}
@@ -225,6 +227,12 @@ def test_slo_grading_equals_jax(monkeypatch):
         xs = list(rng.exponential(0.1, n))
         for q in (0, 1, 50, 99, 100):
             assert tslo.percentile(xs, q) == jslo.percentile(xs, q)
+        for buckets in ("TTFT_BUCKETS_S", "ITL_BUCKETS_S"):
+            assert tslo.hist_block(xs, getattr(tslo, buckets)) == \
+                jslo.hist_block(xs, getattr(jslo, buckets))
+    assert (tslo.TTFT_BUCKETS_S, tslo.ITL_BUCKETS_S) == (
+        jslo.TTFT_BUCKETS_S, jslo.ITL_BUCKETS_S)
+    assert tslo.SERVE_RULES == jslo.SERVE_RULES
     stats_t, stats_j = tslo.LatencyStats(), jslo.LatencyStats()
     for s in (tslo, jslo):
         assert s.SUCCESS == "success" and s.FAIL == "fail"
@@ -233,16 +241,18 @@ def test_slo_grading_equals_jax(monkeypatch):
         st.note_itl(0.01, 3)
         st.note_e2e(0.5)
     assert stats_t.summary() == stats_j.summary()
+    assert stats_t.ttft_hist() == stats_j.ttft_hist()
+    assert stats_t.itl_hist() == stats_j.itl_hist()
     monkeypatch.setenv("TPUDIST_TTFT_P99_MAX", "0.5")
     vals = (None, 0.1, 0.6, 2.5)
     for ttft in vals:
         for itl in vals:
             for tps in (None, 0.5, 10.0):
-                want = jslo.grade(ttft, itl, tps)
-                # the port has no admission shedding: its gate stays
-                # UNGATEABLE in the JAX package's grade
-                assert want.pop("serve_shed_status") == jslo.UNGATEABLE
-                assert tslo.grade(ttft, itl, tps) == want
+                for shed in (None, 0.0, 0.7):
+                    assert tslo.grade(ttft, itl, tps, shed) == \
+                        jslo.grade(ttft, itl, tps, shed_fraction=shed)
+                assert tslo.grade(ttft, itl, tps) == \
+                    jslo.grade(ttft, itl, tps)
                 assert tslo.serve_status(ttft, itl, tps) == \
                     jslo.serve_status(ttft, itl, tps)
 

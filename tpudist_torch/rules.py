@@ -1,7 +1,8 @@
 """The serve gate thresholds, copied from ``tpudist/rules.py``.
 
 The port keeps its own copy of the rules the serving lane grades
-against (p99 TTFT, p99 inter-token latency, tokens/s/chip) with the same
+against (p99 TTFT, p99 inter-token latency, tokens/s/chip, the shed
+fraction of arrivals) with the same
 env overrides, read at call time; ``tests/test_torch_serve.py`` holds
 this copy equal to the JAX package's table so the two cannot drift.
 Standard library only.
@@ -19,6 +20,12 @@ from typing import Optional, Tuple
 TTFT_P99_MAX = 2.0          # serve: p99 time-to-first-token (seconds)
 ITL_P99_MAX = 1.0           # serve: p99 inter-token latency (seconds)
 TOKENS_PER_CHIP_MIN = 1.0   # serve: decode throughput floor (tok/s/chip)
+# Serve admission shedding (tpudist_torch.serve.resilience): the fraction
+# of arrivals turned away (shed at admission + expired in queue +
+# rejected). Admission control keeps the ADMITTED percentiles honest
+# under overload, so the shed share itself is gated, or a pod could pass
+# its latency SLOs by serving almost nobody.
+SERVE_SHED_MAX = 0.6        # serve: max shed fraction of arrivals
 
 
 @dataclass(frozen=True)
@@ -57,6 +64,14 @@ THRESHOLDS: Tuple[Threshold, ...] = (
         observable="generated tokens per second per chip",
         description="below this floor the pod serves fewer users than "
                     "its chip count should carry"),
+    Threshold(
+        name="serve_shed", env="TPUDIST_SERVE_SHED_MAX",
+        default=SERVE_SHED_MAX, sense="max", alert=True,
+        observable="fraction of arrived requests shed at admission, "
+                   "expired in queue, or rejected as malformed",
+        description="past this the admission controller is the only "
+                    "thing meeting the latency SLO — the pod is "
+                    "under-provisioned for its offered load"),
 )
 
 _BY_NAME = {t.name: t for t in THRESHOLDS}

@@ -3,12 +3,23 @@
 Counterpart of the dense path of ``tpudist/serve/cli.py``: build the
 transformer and its KV cache on the card (``--device cuda``, the
 default) or, when asked, on the CPU; warm the engine (the first call
-builds the CUDA kernel); run the continuous-batching loop over a seeded
-request stream; grade the latency SLOs. Artifacts: ``metrics.jsonl``
-(``kind=serve`` / ``serve_tick`` / ``serve_request`` records) under
-``--save-dir``, an optional ``BENCH_SERVE.json`` (``--bench-out``) and
-the verdict file (``TPUDIST_VERDICT_PATH``). Exit code: 0 unless an SLO
-gate FAILED or the run failed.
+builds the CUDA kernel, then the prefill and each decode rung are
+captured as CUDA graphs); run the continuous-batching loop over a seeded
+request stream, with admission control, deadline shedding and graceful
+degradation when the resilience knobs are on (``--queue-cap``,
+``--ttft-deadline-ms``, ``--adapt``; :mod:`tpudist_torch.serve.resilience`)
+and on a virtual clock under ``--virtual-clock``; pin the program count;
+grade the latency SLOs and the shed gate. Artifacts: ``metrics.jsonl``
+(``kind=serve`` / ``serve_tick`` / ``serve_request`` / ``serve_adapt``
+records) under ``--save-dir``, an optional ``BENCH_SERVE.json``
+(``--bench-out``) and the verdict file (``TPUDIST_VERDICT_PATH``). Exit
+code: 0 unless an SLO gate FAILED or the run failed.
+
+``parse_args`` declares every option of the JAX serve CLI. Those this
+slice does not carry (``NOT_CARRIED``) are refused unless left off, and
+their environment twins (``ENV_NOT_CARRIED``) when set on, each naming
+the ROADMAP Queue A item that brings it, as the train CLI does
+(:mod:`tpudist_torch.config`).
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ import os
 import sys
 from typing import Any, Dict, Optional, Sequence
 
+from tpudist_torch.config import _is_off, _refusal
 from tpudist_torch.serve import slo as slo_lib
 
 DEFAULT_SLOTS = 4
@@ -26,14 +38,67 @@ DEFAULT_MAX_SEQ = 64
 DEFAULT_PROMPT_PAD = 16
 DEFAULT_DECODE_K = 8
 
+# The JAX serve CLI's options this slice does not carry: option string;
+# its argparse keywords (type, choices, the JAX default when its
+# environment variable is unset); the values besides the default that
+# leave the feature off in the JAX package; that variable; the ROADMAP
+# Queue A item that brings it. parse_args refuses any other value,
+# check_supported any other setting of the variable.
+NOT_CARRIED = (
+    ("--kv-page-tokens", dict(type=int, default=0), (),
+     "TPUDIST_SERVE_KV_PAGE_TOKENS", 6),
+    ("--kv-pages", dict(type=int, default=0), (), "TPUDIST_SERVE_KV_PAGES",
+     6),
+    ("--shared-prefix", dict(type=int, default=0), (),
+     "TPUDIST_SERVE_SHARED_PREFIX", 6),
+    ("--speculate-k", dict(type=int, default=0), (),
+     "TPUDIST_SERVE_SPECULATE_K", 6),
+    ("--requeue-attempt", dict(type=int), (), None, 6),
+    ("--chaos", dict(type=str), (), "TPUDIST_CHAOS", 6),
+    ("--serve-tune", dict(choices=("off", "probe", "cache-only"),
+                          default="off"), (), "TPUDIST_SERVE_TUNE", 6),
+    ("--tune-cache-dir", dict(type=str), (), None, 6),
+    ("--trace", dict(choices=("on", "off")), ("off",), "TPUDIST_TRACE", 11),
+    ("--trace-dir", dict(type=str), (), "TPUDIST_TRACE_DIR", 11),
+    ("--live-port", dict(type=int), (0,), "TPUDIST_LIVE_PORT", 11),
+)
+
+# The environment variables the JAX serve CLI reads for what this slice
+# does not carry: the values that leave each off there, and its item.
+ENV_NOT_CARRIED = {
+    **{env: ((kw.get("default"), *off), item)
+       for _, kw, off, env, item in NOT_CARRIED if env},
+    "TPUDIST_LIVE": (("off",), 11),
+}
+
+
+def _env_int(name: str) -> Optional[int]:
+    raw = os.environ.get(name)
+    try:
+        return int(raw) if raw else None
+    except ValueError:
+        return None
+
+
+def _env_float(name: str) -> Optional[float]:
+    raw = os.environ.get(name)
+    try:
+        return float(raw) if raw else None
+    except ValueError:
+        return None
+
 
 def parse_args(argv: Optional[Sequence[str]] = None
                ) -> argparse.Namespace:
+    """CLI -> Namespace, the JAX serve CLI's options and defaults (the
+    resilience knobs read their environment twins as it does). An option
+    of ``NOT_CARRIED`` is refused with a ``ValueError`` unless its value
+    leaves the feature off."""
     p = argparse.ArgumentParser(
         prog="python -m tpudist_torch.serve",
         description="tpudist serving acceptance lane on PyTorch/CUDA: "
                     "continuous batching + KV cache + latency-SLO verdict")
-    p.add_argument("--model", choices=("transformer",),
+    p.add_argument("--model", choices=("transformer", "moe"),
                    default="transformer")
     p.add_argument("--vocab-size", type=int, default=256)
     p.add_argument("--n-layers", type=int, default=2)
@@ -42,12 +107,16 @@ def parse_args(argv: Optional[Sequence[str]] = None
     p.add_argument("--n-kv-heads", type=int, default=2,
                    help="GQA: compact kv heads stored in the cache")
     p.add_argument("--d-ff", type=int, default=128)
+    # the MoE model's shape: read by --model moe only, which is refused
+    p.add_argument("--n-experts", type=int, default=4)
+    p.add_argument("--expert-top-k", type=int, default=2)
     p.add_argument("--slots", type=int, default=DEFAULT_SLOTS,
                    help="concurrent sequences (KV cache rows)")
     p.add_argument("--max-seq", type=int, default=DEFAULT_MAX_SEQ,
                    help="per-slot cache row length")
     p.add_argument("--prompt-pad", type=int, default=DEFAULT_PROMPT_PAD,
-                   help="static prompt width every admission pads to")
+                   help="static prompt width every admission pads to "
+                        "(one captured prefill program)")
     p.add_argument("--decode-steps-per-dispatch", type=int,
                    default=DEFAULT_DECODE_K, dest="decode_k",
                    help="decode superstep length (tokens per dispatch "
@@ -62,6 +131,39 @@ def parse_args(argv: Optional[Sequence[str]] = None
                         "(<= 0: closed loop, all present at t=0)")
     p.add_argument("--max-new-tokens", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
+    # ---- the resilience plane (tpudist_torch.serve.resilience) ----
+    p.add_argument("--queue-cap", type=int,
+                   default=_env_int("TPUDIST_SERVE_QUEUE_CAP") or 0,
+                   help="bounded admission queue: arrivals past this "
+                        "many waiting requests are SHED "
+                        "($TPUDIST_SERVE_QUEUE_CAP; 0 = unbounded)")
+    p.add_argument("--ttft-deadline-ms", type=float,
+                   default=_env_float("TPUDIST_SERVE_TTFT_DEADLINE_MS")
+                   or 0.0,
+                   help="per-request TTFT deadline: accepted requests "
+                        "still queued past this age are EXPIRED "
+                        "($TPUDIST_SERVE_TTFT_DEADLINE_MS; 0 = off)")
+    p.add_argument("--adapt", choices=("off", "on"),
+                   default=os.environ.get("TPUDIST_SERVE_ADAPT", "off"),
+                   help="graceful degradation: downshift decode_k on "
+                        "the captured ladder when rolling queue "
+                        "depth/ITL crosses the pressure thresholds, "
+                        "restore when it clears ($TPUDIST_SERVE_ADAPT)")
+    p.add_argument("--adapt-max-new-cap", type=int, default=0,
+                   help="under degradation, truncate admitted "
+                        "requests' generation budget to this many "
+                        "tokens (0 = no truncation)")
+    p.add_argument("--virtual-clock", action="store_true",
+                   default=os.environ.get(
+                       "TPUDIST_SERVE_VIRTUAL_CLOCK", "").lower()
+                   in ("on", "1", "true"),
+                   help="deterministic mode: the request clock advances "
+                        "by scripted per-prefill/per-dispatch costs "
+                        "instead of wall time; two runs of one seed give "
+                        "identical SLO summaries "
+                        "($TPUDIST_SERVE_VIRTUAL_CLOCK)")
+    p.add_argument("--virtual-prefill-ms", type=float, default=2.0)
+    p.add_argument("--virtual-decode-ms", type=float, default=4.0)
     p.add_argument("--save-dir", type=str, default="ckpt",
                    help="metrics.jsonl destination")
     p.add_argument("--bench-out", type=str, default=None,
@@ -73,7 +175,28 @@ def parse_args(argv: Optional[Sequence[str]] = None
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs; cuda fails when no card "
                         "is present rather than falling back to the CPU")
-    return p.parse_args(argv)
+    for flag, kw, _, _, _ in NOT_CARRIED:
+        p.add_argument(flag, **kw)
+    args = p.parse_args(argv)
+    for flag, _, off, _, item in NOT_CARRIED:
+        dest = flag[2:].replace("-", "_")
+        value = getattr(args, dest)
+        if value != p.get_default(dest) and not _is_off(value, off):
+            raise _refusal(f"{flag} {value}", item)
+    return args
+
+
+def check_supported(args: argparse.Namespace) -> None:
+    """Refuse what this slice of the port does not carry, naming the
+    ROADMAP item (Queue A) that brings it."""
+    if args.model != "transformer":
+        raise ValueError(
+            f"--model {args.model}: the port serves the transformer; the "
+            f"MoE serving path comes with ROADMAP Queue A item 6")
+    for name, (off, item) in ENV_NOT_CARRIED.items():
+        value = os.environ.get(name, "")
+        if value and not _is_off(value, off):
+            raise _refusal(f"{name}={value}", item)
 
 
 def device_name(device) -> str:
@@ -88,19 +211,31 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
 
     from tpudist_torch.config import ModelConfig
     from tpudist_torch.metrics import MetricsLogger, log0
+    from tpudist_torch.serve import resilience as res_lib
     from tpudist_torch.serve import scheduler as sched
     from tpudist_torch.serve.engine import ServeEngine, init_params
 
+    check_supported(args)
     model_cfg = ModelConfig(
         name=args.model, vocab_size=args.vocab_size,
         n_layers=args.n_layers, d_model=args.d_model,
         n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
         d_ff=args.d_ff, max_seq_len=args.max_seq)
     dtype = getattr(torch, args.dtype)
+    resilience = res_lib.ResilienceConfig(
+        queue_cap=max(args.queue_cap, 0),
+        ttft_deadline_s=max(args.ttft_deadline_ms, 0.0) / 1e3,
+        adapt=args.adapt == "on",
+        max_new_cap=max(args.adapt_max_new_cap, 0),
+        # malformed-request rejection is on whenever a resilience knob is
+        validate=bool(args.queue_cap or args.ttft_deadline_ms
+                      or args.adapt == "on"))
+    ladder = (res_lib.default_ladder(args.decode_k)
+              if resilience.adapt else None)
     engine = ServeEngine(model_cfg, slots=args.slots, max_seq=args.max_seq,
                          prompt_pad=args.prompt_pad, decode_k=args.decode_k,
                          layout=args.kv_layout, dtype=dtype,
-                         device=args.device)
+                         device=args.device, adapt_ladder=ladder)
     os.makedirs(args.save_dir, exist_ok=True)
     metrics = MetricsLogger(path=os.path.join(args.save_dir,
                                               "metrics.jsonl"))
@@ -110,12 +245,21 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         args.requests, prompt_pad=args.prompt_pad,
         vocab_size=args.vocab_size, max_new=args.max_new_tokens,
         rate=args.request_rate, seed=args.seed)
-    summary = sched.run_serve(engine, params, requests, metrics=metrics)
+    virtual = None
+    if args.virtual_clock:
+        virtual = res_lib.VirtualTiming(
+            prefill_s=args.virtual_prefill_ms / 1e3,
+            decode_s=args.virtual_decode_ms / 1e3)
+    summary = sched.run_serve(engine, params, requests, metrics=metrics,
+                              resilience=resilience, virtual=virtual)
+    engine.assert_two_programs()
     summary["model"] = args.model
     summary["dtype"] = args.dtype
     summary["device"] = device_name(engine.device)
     cache_bytes = engine.spec.bytes
     summary["kv_cache_bytes"] = cache_bytes
+    summary["capture_s"] = round(engine.capture_s, 6)
+    summary["graph_pool_bytes"] = engine.graph_pool_bytes
     metrics.log(kind="serve",
                 **{k: v for k, v in summary.items()
                    if k not in ("results", "thresholds")})
@@ -127,8 +271,11 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
          f"{summary['wall_s']:.3f}s "
          f"({summary['tokens_per_sec_per_chip']} tok/s/chip), "
          f"ttft p99 {summary['ttft_p99_s']}s, "
-         f"itl p99 {summary['itl_p99_s']}s "
+         f"itl p99 {summary['itl_p99_s']}s, "
+         f"shed {summary['shed_total']}/{summary['arrived']} "
          f"[{summary['device']}, {args.dtype}, "
+         f"{summary['prefill_compiles']} prefill / "
+         f"{summary['decode_compiles']} decode program(s), "
          f"kv cache {cache_bytes / 2**20:.2f} MB]")
     if args.bench_out:
         _write_bench(args.bench_out, summary)
@@ -149,7 +296,11 @@ def _write_bench(path: str, summary: Dict[str, Any]) -> None:
             "kv_layout", "kv_cache_bytes", "tokens_per_sec",
             "queue_depth_max", "queue_depth_mean", "ttft_p50_s",
             "ttft_p99_s", "itl_p50_s", "itl_p99_s", "e2e_p50_s",
-            "e2e_p99_s", "n_chips", "arrived", "admitted",
+            "e2e_p99_s", "prefill_compiles", "decode_compiles",
+            "capture_s", "graph_pool_bytes", "n_chips", "arrived",
+            "admitted", "shed_at_admission", "expired_in_queue",
+            "rejected", "lost", "shed_fraction", "queue_cap",
+            "ttft_deadline_s", "adapt_level", "decode_k_ladder",
             "active_slots_peak")},
         "slo": slo_lib.slo_block(summary),
         "device": summary["device"],
@@ -164,11 +315,10 @@ def _write_bench(path: str, summary: Dict[str, Any]) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = parse_args(argv)
     verdict_path = os.environ.get("TPUDIST_VERDICT_PATH")
     status = slo_lib.FAIL
     try:
-        summary = run(args)
+        summary = run(parse_args(argv))
         status = summary["status"]
     except Exception as e:
         print(f"tpudist: serve failed: {e!r}", file=sys.stderr, flush=True)

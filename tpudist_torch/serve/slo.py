@@ -9,6 +9,9 @@ only). The observables:
   each token in a dispatch is attributed ``dispatch_wall / k``.
 * **tokens/s/chip** — generated tokens (first tokens included) over the
   serving wall clock, per chip.
+* **shed fraction** — the resilience plane's admission gate: (shed +
+  expired + rejected) / arrived, graded against
+  ``TPUDIST_SERVE_SHED_MAX``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,32 @@ UNGATEABLE = "ungateable"
 # The serve gates, in grading order; each is (rule name, summary key).
 SERVE_RULES = (("ttft", "ttft_p99_s"),
                ("itl", "itl_p99_s"),
-               ("tokens_per_chip", "tokens_per_sec_per_chip"))
+               ("tokens_per_chip", "tokens_per_sec_per_chip"),
+               ("serve_shed", "shed_fraction"))
+
+# Fixed histogram buckets (upper bounds, seconds): part of the metric
+# contract, so two runs' histograms are comparable edge for edge.
+TTFT_BUCKETS_S = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
+ITL_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
+
+
+def hist_block(samples: List[float],
+               buckets: tuple) -> Dict[str, Any]:
+    """A self-describing histogram record for one latency family:
+    per-bucket (NOT cumulative) counts with one overflow bin, plus
+    sum/count, with the bucket edges carried along."""
+    counts = [0] * (len(buckets) + 1)
+    total = 0.0
+    for s in samples:
+        total += s
+        for j, ub in enumerate(buckets):
+            if s <= ub:
+                counts[j] += 1
+                break
+        else:
+            counts[-1] += 1
+    return {"buckets": [float(b) for b in buckets], "counts": counts,
+            "sum": round(total, 6), "count": len(samples)}
 
 
 def percentile(xs: List[float], q: float) -> Optional[float]:
@@ -66,6 +94,12 @@ class LatencyStats:
             "e2e_p99_s": percentile(self.e2e_s, 99),
         }
 
+    def ttft_hist(self) -> Dict[str, Any]:
+        return hist_block(self.ttft_s, TTFT_BUCKETS_S)
+
+    def itl_hist(self) -> Dict[str, Any]:
+        return hist_block(self.itl_s, ITL_BUCKETS_S)
+
 
 def rule_status(rule: str, value: Optional[float]) -> str:
     """Three-valued per-gate verdict: no measurement is UNGATEABLE, else
@@ -76,11 +110,15 @@ def rule_status(rule: str, value: Optional[float]) -> str:
 
 
 def grade(ttft_p99_s: Optional[float], itl_p99_s: Optional[float],
-          tokens_per_sec_per_chip: Optional[float]) -> Dict[str, str]:
+          tokens_per_sec_per_chip: Optional[float],
+          shed_fraction: Optional[float] = None) -> Dict[str, str]:
     """Every serve gate + the fold: overall ``status`` is FAIL if any
-    gate fails, UNGATEABLE if nothing was measurable, else SUCCESS."""
+    gate fails, UNGATEABLE if nothing was measurable, else SUCCESS.
+    ``shed_fraction`` None (an empty run) grades the shed gate
+    UNGATEABLE."""
     vals = {"ttft_p99_s": ttft_p99_s, "itl_p99_s": itl_p99_s,
-            "tokens_per_sec_per_chip": tokens_per_sec_per_chip}
+            "tokens_per_sec_per_chip": tokens_per_sec_per_chip,
+            "shed_fraction": shed_fraction}
     out = {f"{rule}_status": rule_status(rule, vals[key])
            for rule, key in SERVE_RULES}
     statuses = list(out.values())
@@ -95,9 +133,11 @@ def grade(ttft_p99_s: Optional[float], itl_p99_s: Optional[float],
 
 
 def serve_status(ttft_p99_s: Optional[float], itl_p99_s: Optional[float],
-                 tokens_per_sec_per_chip: Optional[float]) -> str:
+                 tokens_per_sec_per_chip: Optional[float],
+                 shed_fraction: Optional[float] = None) -> str:
     """The folded serving verdict alone."""
-    return grade(ttft_p99_s, itl_p99_s, tokens_per_sec_per_chip)["status"]
+    return grade(ttft_p99_s, itl_p99_s, tokens_per_sec_per_chip,
+                 shed_fraction)["status"]
 
 
 def slo_block(summary: Dict[str, Any]) -> Dict[str, Any]:
