@@ -94,19 +94,39 @@ Phases, each of which fails the script (non-zero exit, no result line):
    steps within 1e-4 of each param's largest element wherever the first
    gradient's |g| is at least 1 % of that tensor's largest (the elements
    left out are counted), and the step time labelled as gloo through
-   host memory.
+   host memory;
+11. the superstep (k training steps a dispatch, CUDA graphs): (a) phase
+   9's configuration with ``--log-every 4`` over 80 samples (10 steps
+   an epoch: two full windows of k = 4 and a 2-step tail), 2 epochs,
+   per-step and as the superstep under a ``TPUDIST_STAGING_BUDGET_MB``
+   that holds two 4-step slabs of the staged token ids (each epoch
+   streams in 3 slabs): each epoch's Avg and eval loss bitwise equal
+   between the two, the programs pinned at 2, the replays those of the
+   windows, both step times, the capture time, the graph pool and the
+   staging verdict; (b) the MLP at the reference defaults (31 steps an
+   epoch, auto k = 25), per-step and as the superstep in turns
+   (per-step, superstep, superstep, per-step), the Avg and eval losses
+   bitwise equal, the steps/s of each run; (c) phase 10a's spawn at
+   80 samples with ``--log-every 4 --steps-per-dispatch 4``, the NCCL
+   all-reduce captured: every rank's verdict, launches, programs and
+   replays.
 
-Phases 4, 4b, 5-6, 8-9 and 10a are the main paths: each runs with every
-launch count set to 0 just before and read just after (10a in each
-rank's process), and each kernel must have launched the exact number of
-times its path calls it (the training phases also check the stdout
-contract, a falling loss and the ``success`` verdict files).
+Phases 4, 4b, 5-6, 8-9, 10a, 11a and 11c are the main paths: each runs
+with every launch count set to 0 just before and read just after (10a
+and 11c in each rank's process), and each kernel must have launched the
+exact number of times its path calls it, counting the launches a CUDA
+graph's replays ran (the superstep's record of its captures times its
+replays; a replay does not move the wrappers' counters). The training
+phases also check the stdout contract, a falling loss and the
+``success`` verdict files.
 ``--profile`` adds torch.profiler breakdowns of the serving windows (8
 prefills and one decode superstep, replayed and as eager bodies, with
 the flash kernels counted in the replayed prefills) and of two training
 steps at seq 2048 (plain and
 fused head), 512 and 512 in bf16 with the fused head (phase 9's
-configuration; device time by kernel, busy share), and the rates
+configuration; device time by kernel, busy share), of one replayed
+superstep against as many per-step steps (phase 11's MLP at k = 25 and
+seq 512 bf16 at k = 4; wall, kernel time, busy share), and the rates
 mma.sync reaches (``tpudist_torch/csrc/mma_peak.cu``).
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1098,6 +1118,87 @@ def want_launches(fa, m, seq: int, steps: int, epochs: int, fused: bool):
             "fused_xent_bwd": steps if fused else 0}
 
 
+@contextlib.contextmanager
+def _supersteps():
+    """Every superstep the train CLI makes inside the block (through
+    ``engine.make_superstep``), for the kernel launches its graphs'
+    replays ran: a replay does not move the wrappers' counters."""
+    from tpudist_torch import engine as engine_lib
+
+    made, real = [], engine_lib.make_superstep
+
+    def make(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+    engine_lib.make_superstep = make
+    try:
+        yield made
+    finally:
+        engine_lib.make_superstep = real
+
+
+def _path_launches(fa, fx, supersteps):
+    """The kernels' launches on a path: the wrappers' counters (eager
+    launches) plus each superstep's replayed ones."""
+    counts = _launch_counts(fa, fx)
+    for sup in supersteps:
+        for name, n in sup.kernel_launches().items():
+            counts[name] += n
+    return counts
+
+
+def _cli_run(torch, fa, fx, tag: str, argv, env=None):
+    """``python -m tpudist_torch.train`` (its ``main``) on the card with
+    ``argv`` (plus a ``--save-dir`` of its own) and ``env``, the launch
+    counts set to 0 just before and read just after. Fails unless it
+    exits 0 with a ``success`` verdict and a timing record. Returns its
+    stdout, metrics records, launches, supersteps, wall and peak device
+    memory."""
+    from tpudist_torch import train as train_lib
+
+    save = ROOT / "build" / "chip_smoke_train" / tag
+    shutil.rmtree(save, ignore_errors=True)
+    env = {"TPUDIST_VERDICT_PATH": str(save / "job_status.txt"),
+           **(env or {})}
+    os.environ.update(env)
+    try:
+        tee = _Tee(sys.stdout)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(fa, fx)
+        t0 = time.perf_counter()
+        with _supersteps() as made, contextlib.redirect_stdout(tee):
+            rc = train_lib.main(argv + ["--save-dir", str(save)])
+        torch.cuda.synchronize()
+    finally:
+        for k in env:
+            del os.environ[k]
+    run = {"wall": time.perf_counter() - t0,
+           "counts": _path_launches(fa, fx, made), "supersteps": made,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "out": tee.buf.getvalue(),
+           "recs": [json.loads(ln) for ln in
+                    (save / "metrics.jsonl").read_text().splitlines()]}
+    verdict = save / "job_status.txt"
+    status = verdict.read_text() if verdict.is_file() else None
+    shutil.rmtree(save, ignore_errors=True)
+    torch.cuda.empty_cache()
+    run["timing"] = [r for r in run["recs"] if r["kind"] == "timing"]
+    if rc != 0 or status != "success" or not run["timing"]:
+        fail(f"train {tag}: exit {rc}, verdict {status!r}")
+    run["timing"] = run["timing"][-1]
+    return run
+
+
+def _step_line(run, per_step: int, unit: str = "tokens") -> str:
+    t = run["timing"]
+    sps = t["steps"] / t["run_s"]
+    return (f"{sps:.4f} steps/s, {sps * per_step:.1f} {unit}/s, step "
+            f"{1e3 * t['run_s'] / t['steps']:.3f} ms (over {t['steps']} "
+            f"steps after the warm-up); warm-up + builds "
+            f"{t['compile_warmup_s']:.2f} s; wall {run['wall']:.2f} s; "
+            f"peak device memory {run['peak_gb']:.3f} GB")
+
+
 def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
                 n_samples: int, extra=(), hbm_bytes=None, want_head=None):
     """Phases 5, 6, 8 and 9, the path ``tag``: ``python -m
@@ -1110,75 +1211,183 @@ def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
     exact launch counts are checked. Returns the counts."""
     from tpudist_torch import config as config_lib
     from tpudist_torch import engine as engine_lib
-    from tpudist_torch import train as train_lib
 
-    save = ROOT / "build" / "chip_smoke_train" / tag
-    shutil.rmtree(save, ignore_errors=True)
     argv = ["--model", "transformer", "--seq-len", str(seq),
             "--train-batch-size", "8", "--n-samples", str(n_samples),
             "--epochs", str(epochs), "--seed", "42", "--log-every", "1",
-            "--save-dir", str(save), *extra]
+            *extra]
     cfg = config_lib.parse_args(argv)
-    env = {"TPUDIST_VERDICT_PATH": str(save / "job_status.txt")}
-    if hbm_bytes is not None:
-        env["TPUDIST_HBM_BYTES"] = str(hbm_bytes)
+    env = {} if hbm_bytes is None else {"TPUDIST_HBM_BYTES": str(hbm_bytes)}
     os.environ.update(env)
     try:
         fused, chunks = engine_lib._resolve_lm_head(cfg,
                                                     torch.device("cuda"))
-        head = "fused" if fused else f"chunked({chunks})" if chunks \
-            else "plain"
-        m = cfg.model
-        print(f"train {tag}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
-              f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} {cfg.dtype}, "
-              f"batch {cfg.batch_size}, {n_samples} samples, {epochs} "
-              f"epoch(s), adam nu {cfg.adam_nu_dtype}; --lm-head "
-              f"{cfg.lm_head} -> {head}"
-              + ("" if hbm_bytes is None
-                 else f" (TPUDIST_HBM_BYTES={hbm_bytes:.0f})"))
-        if want_head is not None and head != want_head:
-            fail(f"train {tag}: the head resolved to {head}, want "
-                 f"{want_head}")
-        tee = _Tee(sys.stdout)
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launches(fa, fx)
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            rc = train_lib.main(argv)
-        torch.cuda.synchronize()
     finally:
         for k in env:
             del os.environ[k]
-    wall = time.perf_counter() - t0
-    counts = _launch_counts(fa, fx)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    out = tee.buf.getvalue()
-    recs = [json.loads(ln) for ln in
-            (save / "metrics.jsonl").read_text().splitlines()]
-    timing = [r for r in recs if r["kind"] == "timing"]
-    losses = [r["loss"] for r in recs if r["kind"] == "step"]
-    verdict = save / "job_status.txt"
-    status = verdict.read_text() if verdict.is_file() else None
-    shutil.rmtree(save, ignore_errors=True)
-    torch.cuda.empty_cache()
-    if rc != 0 or status != "success" or not timing:
-        fail(f"train {tag}: exit {rc}, verdict {status!r}")
-    check_contract(tag, out, epochs, losses)
+    head = "fused" if fused else f"chunked({chunks})" if chunks \
+        else "plain"
+    m = cfg.model
+    print(f"train {tag}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} {cfg.dtype}, "
+          f"batch {cfg.batch_size}, {n_samples} samples, {epochs} "
+          f"epoch(s), adam nu {cfg.adam_nu_dtype}; --lm-head "
+          f"{cfg.lm_head} -> {head}"
+          + ("" if hbm_bytes is None
+             else f" (TPUDIST_HBM_BYTES={hbm_bytes:.0f})"))
+    if want_head is not None and head != want_head:
+        fail(f"train {tag}: the head resolved to {head}, want "
+             f"{want_head}")
+    run = _cli_run(torch, fa, fx, tag, argv, env)
+    counts = run["counts"]
+    losses = [r["loss"] for r in run["recs"] if r["kind"] == "step"]
+    check_contract(tag, run["out"], epochs, losses)
     want = want_launches(fa, m, seq, epochs * (n_samples // cfg.batch_size),
                          epochs, fused)
-    t = timing[-1]
-    sps = t["steps"] / t["run_s"]
     print(f"train {tag}: step losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"verdict {status}; {sps:.4f} steps/s, "
-          f"{sps * cfg.batch_size * m.max_seq_len:.1f} tokens/s, step "
-          f"{1e3 * t['run_s'] / t['steps']:.2f} ms (over {t['steps']} "
-          f"steps after the first); first step + builds "
-          f"{t['compile_warmup_s']:.2f} s; wall {wall:.2f} s; peak device "
-          f"memory {peak_gb:.3f} GB")
+          f"verdict success; "
+          + _step_line(run, cfg.batch_size * m.max_seq_len))
     print(f"train {tag}: kernel launches {counts} (want {want})")
     if counts != want:
         fail(f"train {tag}: kernel launches {counts}, want {want}")
     return counts
+
+
+def _epochs_of(run):
+    """Each epoch's (Avg loss, eval loss) of a run's metrics."""
+    return [(r["avg_loss"], r["eval_loss"]) for r in run["recs"]
+            if r["kind"] == "epoch"]
+
+
+def _graphs_line(run) -> str:
+    sup = run["supersteps"][0]
+    return (f"{sup.programs} captured programs, capture "
+            f"{sup.capture_s:.3f} s, graph pool "
+            f"{sup.graph_pool_bytes / 2**20:.1f} MB, replays "
+            f"{sup.replays}")
+
+
+# phase 11's kernel paths
+SUPERSTEP = ("train_seq512_bf16_per_step", "train_seq512_bf16_superstep",
+             "train_seq512_dp_superstep")
+
+
+def superstep_slice(torch, fa, fx, card: str):
+    """Phase 11a, the paths ``train_seq512_bf16_per_step`` and
+    ``train_seq512_bf16_superstep``: phase 9's configuration (BASELINE
+    config #5 at seq 512, bf16, bf16 Adam nu, ``--lm-head fused``, global
+    batch 8, seed 42) with ``--log-every 4`` over 80 samples (10 steps an
+    epoch: two full windows of k = 4 and a 2-step tail), 2 epochs, run
+    per-step (``--steps-per-dispatch 1``) and as the superstep (``0``,
+    auto -> 4) under a ``TPUDIST_STAGING_BUDGET_MB`` that holds two
+    4-step slabs of the staged (int64) token ids, so each epoch streams
+    in 3 slabs. Each epoch's Avg and eval loss must be bitwise equal
+    between the two runs, each run's launches exact over the 20 true
+    steps and 2 evals, the superstep's programs 2 and its replays those
+    of the windows. Returns each path's launches."""
+    from tpudist_torch import config as config_lib
+
+    seq, epochs, n_samples, k = 512, 2, 80, 4
+    argv = ["--model", "transformer", "--seq-len", str(seq),
+            "--train-batch-size", "8", "--n-samples", str(n_samples),
+            "--epochs", str(epochs), "--seed", "42", "--log-every", str(k),
+            "--dtype", "bfloat16", "--adam-nu-dtype", "bfloat16",
+            "--lm-head", "fused"]
+    cfg = config_lib.parse_args(argv)
+    m = cfg.model
+    step_bytes = cfg.batch_size * (seq + 1) * 8
+    budget_mb = 2 * k * step_bytes / 2**20
+    print(f"superstep: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} {cfg.dtype}, adam "
+          f"nu {cfg.adam_nu_dtype}, --lm-head fused, batch "
+          f"{cfg.batch_size}, {n_samples} samples, {epochs} epochs, "
+          f"--log-every {k}; staged step {step_bytes} B, "
+          f"TPUDIST_STAGING_BUDGET_MB={budget_mb!r}; {card}")
+    tokens = cfg.batch_size * seq
+    want = want_launches(fa, m, seq, epochs * (n_samples // cfg.batch_size),
+                         epochs, fused=True)
+    runs, paths = {}, {}
+    for how, extra, env in (
+            ("per_step", ["--steps-per-dispatch", "1"], {}),
+            ("superstep", ["--steps-per-dispatch", "0"],
+             {"TPUDIST_STAGING_BUDGET_MB": repr(budget_mb)})):
+        tag = f"train_seq512_bf16_{how}"
+        run = runs[how] = _cli_run(torch, fa, fx, tag, argv + extra, env)
+        t = run["timing"]
+        losses = [r["loss"] for r in run["recs"] if r["kind"] == "step"]
+        check_contract(tag, run["out"], epochs, losses)
+        print(f"superstep {how}: k={t['steps_per_dispatch']}, "
+              + _step_line(run, tokens))
+        print(f"superstep {how}: kernel launches {run['counts']} (want "
+              f"{want})")
+        if run["counts"] != want:
+            fail(f"superstep {how}: kernel launches {run['counts']}, want "
+                 f"{want}")
+        paths[tag] = run["counts"]
+    sup, t = runs["superstep"], runs["superstep"]["timing"]
+    print(f"superstep: {_graphs_line(sup)}; staging {t['staging_status']}"
+          f", {t['staging_slabs']} slabs, stage_wait_s "
+          f"{t['stage_wait_s']}, overlap {t['staging_overlap_fraction']}")
+    graphs = sup["supersteps"][0]
+    # the first window is the eager warm-up; the 10-step epochs have two
+    # full windows and a 2-step tail each
+    want_replays = {"superstep": 2 * epochs - 1, "step": 2 * epochs}
+    if (t["steps_per_dispatch"], graphs.programs, graphs.replays) != (
+            k, 2, want_replays):
+        fail(f"superstep: k={t['steps_per_dispatch']}, "
+             f"{graphs.programs} programs, replays {graphs.replays}; "
+             f"want k={k}, 2 programs, replays {want_replays}")
+    if not t["staging_streamed"] or t["staging_slabs"] != 3 * epochs:
+        fail(f"superstep: staging streamed {t['staging_streamed']} in "
+             f"{t['staging_slabs']} slabs, want 3 slabs an epoch")
+    a, b = _epochs_of(runs["per_step"]), _epochs_of(sup)
+    print(f"superstep: epochs (Avg, eval) per-step {a}, superstep {b}")
+    if a != b or len(a) != epochs:
+        fail(f"superstep: the epochs' losses differ: per-step {a}, "
+             f"superstep {b}")
+    p, q = (runs[h]["timing"] for h in ("per_step", "superstep"))
+    print(f"superstep: step {1e3 * p['run_s'] / p['steps']:.3f} ms "
+          f"per-step, {1e3 * q['run_s'] / q['steps']:.3f} ms superstep "
+          f"(ratio {(p['run_s'] / p['steps']) / (q['run_s'] / q['steps']):.4f}"
+          f"); {card}")
+    return paths
+
+
+def superstep_mlp(torch, fa, fx, card: str):
+    """Phase 11b: ``python -m tpudist_torch.train`` at the reference
+    defaults (the MLP, 2000 samples, batch 64, 5 epochs: 31 steps an
+    epoch), per-step and at the auto k = 25 (one full window and a
+    6-step tail an epoch, the full-epoch fast path). The Avg and eval
+    losses must be bitwise equal, the superstep's programs 2 and its
+    replays those of the windows."""
+    runs, rates = {}, {"per_step": [], "superstep": []}
+    # in turns: the host-bound rates spread from run to run
+    for how in ("per_step", "superstep", "superstep", "per_step"):
+        extra = ["--steps-per-dispatch", "1"] if how == "per_step" else []
+        run = _cli_run(torch, fa, fx, f"train_mlp_{how}", extra)
+        if how in runs and _epochs_of(run) != _epochs_of(runs[how]):
+            fail(f"mlp: two {how} runs differ")
+        runs[how] = run
+        rates[how].append(run["timing"]["steps"] / run["timing"]["run_s"])
+        print(f"mlp {how}: k={run['timing']['steps_per_dispatch']}, "
+              + _step_line(run, 64, "samples"))
+    sup = runs["superstep"]
+    graphs = sup["supersteps"][0]
+    want_replays = {"superstep": 4, "step": 5 * 6}
+    if (sup["timing"]["steps_per_dispatch"], graphs.programs,
+            graphs.replays) != (25, 2, want_replays):
+        fail(f"mlp: k={sup['timing']['steps_per_dispatch']}, "
+             f"{graphs.programs} programs, replays {graphs.replays}")
+    a, b = _epochs_of(runs["per_step"]), _epochs_of(sup)
+    print(f"mlp: {_graphs_line(sup)}; epochs (Avg, eval) per-step {a}, "
+          f"superstep {b}")
+    if a != b or len(a) != 5:
+        fail(f"mlp: the epochs' losses differ: per-step {a}, superstep "
+             f"{b}")
+    p, q = (statistics.median(rates[h]) for h in ("per_step", "superstep"))
+    print(f"mlp: steps/s per-step {rates['per_step']}, superstep "
+          f"{rates['superstep']}; medians {p:.1f} and {q:.1f} (ratio "
+          f"{q / p:.4f}); {card}")
 
 
 def _free_port() -> int:
@@ -1246,16 +1455,20 @@ def _dp_train_rank(rank, world, port, argv, verdict, queue):
     tee = _Tee(sys.stdout)
     _reset_launches(fa, fx)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
+    with _supersteps() as made, contextlib.redirect_stdout(tee):
         rc = train_lib.main(argv)
     torch.cuda.synchronize()
-    queue.put({"rank": rank, "rc": rc, "counts": _launch_counts(fa, fx),
+    queue.put({"rank": rank, "rc": rc,
+               "counts": _path_launches(fa, fx, made),
+               "graphs": [(sup.programs, sup.replays) for sup in made],
                "out": tee.buf.getvalue(),
                "wall": time.perf_counter() - t0,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
-def dp_train_slice(torch, fa, card: str):
+def dp_train_slice(torch, fa, card: str, tag: str = "train_seq512_dp",
+                   n_samples: int = 32, dispatch=("--log-every", "1"),
+                   want_graphs=None):
     """Phase 10a, the path ``train_seq512_dp``: ``python -m
     tpudist_torch.train`` as one process per visible card under the
     ``TPUDIST_COORDINATOR`` / ``TPUDIST_NUM_PROCESSES`` /
@@ -1264,16 +1477,19 @@ def dp_train_slice(torch, fa, card: str):
     samples, 1 epoch. Rank 0 alone prints the contract, every rank's
     verdict and the final one say success, and every rank launches each
     kernel exactly as its share of the path calls it. Returns the
-    launches summed over the ranks."""
+    launches summed over the ranks. Phase 11c runs it as the path ``tag``
+    with other ``n_samples`` and ``dispatch`` flags (the superstep, its
+    NCCL all-reduce captured), where each rank's ``(programs,
+    replays)`` must be ``want_graphs``."""
     from tpudist_torch import config as config_lib
 
-    tag, seq, epochs, n_samples = "train_seq512_dp", 512, 1, 32
+    seq, epochs = 512, 1
     world = torch.cuda.device_count()
     save = ROOT / "build" / "chip_smoke_train" / tag
     shutil.rmtree(save, ignore_errors=True)
     argv = ["--model", "transformer", "--seq-len", str(seq),
             "--train-batch-size", "8", "--n-samples", str(n_samples),
-            "--epochs", str(epochs), "--seed", "42", "--log-every", "1",
+            "--epochs", str(epochs), "--seed", "42", *dispatch,
             "--lm-head", "fused", "--save-dir", str(save)]
     cfg = config_lib.parse_args(argv)
     m = cfg.model
@@ -1326,6 +1542,12 @@ def dp_train_slice(torch, fa, card: str):
         if r["counts"] != want:
             fail(f"train {tag}: rank {r['rank']} kernel launches "
                  f"{r['counts']}, want {want}")
+        if want_graphs is not None:
+            print(f"train {tag}: rank {r['rank']} (programs, replays) "
+                  f"{r['graphs']}")
+            if r["graphs"] != [want_graphs]:
+                fail(f"train {tag}: rank {r['rank']} (programs, replays) "
+                     f"{r['graphs']}, want {[want_graphs]}")
         for k, v in r["counts"].items():
             total[k] += v
     return total
@@ -1388,14 +1610,14 @@ def _dp_reduce_rank(rank, ports, queue):
     # rank 0 keeps, of each data-parallel step, the reduced gradients
     # the step hands to Adam and the params they were taken at
     taken, live = [], {}
-    real_update = engine_lib.Adam.update
+    real_apply = engine_lib.Adam.apply
 
-    def update(self, grads, state, params):
+    def apply(self, grads, state, params, *scalars):
         if live.get("keep"):
             taken.append(([g.detach().clone() for g in grads],
                           [p.detach().clone() for p in params]))
-        return real_update(self, grads, state, params)
-    engine_lib.Adam.update = update
+        return real_apply(self, grads, state, params, *scalars)
+    engine_lib.Adam.apply = apply
 
     def two_steps(index, count):
         state = engine_lib.init_state(cfg, dev)
@@ -1744,6 +1966,75 @@ def mma_peaks(torch, build):
               f"{peak:.0f} dense)")
 
 
+def _profiled(torch, fn):
+    """``fn()`` under torch.profiler, fenced: its wall ms and the device
+    kernels' (name, ms, count) rows."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, [(e.key, e.device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_time_total > 0
+                  and e.device_type.name == "CUDA"]
+
+
+def profile_superstep(torch, tag: str, argv, k: int):
+    """--profile: phase 11's configuration ``argv``: one replayed k-step
+    superstep against k per-step steps on the same state and batches,
+    each window's wall, device kernel time and busy share."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.parallel import staging as staging_lib
+
+    cfg = config_lib.parse_args(argv)
+    dev = torch.device("cuda")
+    if cfg.model.name == "mlp":
+        sources = data_lib.make_synthetic_data(
+            cfg.data.n_samples, cfg.data.n_features, cfg.data.seed)
+    else:
+        sources = (data_lib.make_synthetic_tokens(
+            cfg.data.n_samples, cfg.model.max_seq_len + 1,
+            cfg.model.vocab_size, cfg.data.seed),)
+    plan = data_lib.plan_epoch(sources, batch_size=cfg.batch_size,
+                               seed=cfg.seed, epoch=0)
+    slab = staging_lib.put_slab(plan.slab(0, k), dev).arrays_for()
+    state = engine_lib.init_state(cfg, dev)
+    sup = engine_lib.make_superstep(cfg, dev, k)
+    step = engine_lib.make_train_step(cfg, dev)
+    total = torch.zeros((), device=dev)
+    for _ in range(2):          # the eager warm-up and captures, a replay
+        state, total, _ = sup(state, total, slab, 0, k)
+    for i in range(k):
+        state, _ = step(state, tuple(a[i] for a in slab))
+
+    def replay():
+        sup(state, total, slab, 0, k)[2].cpu()
+
+    def per_step():
+        for i in range(k):
+            loss = step(state, tuple(a[i] for a in slab))[1]
+        loss.cpu()
+
+    for how, fn in (("one replayed superstep", replay),
+                    (f"{k} per-step steps", per_step)):
+        wall, rows = _profiled(torch, fn)
+        busy = sum(r[1] for r in rows)
+        print(f"profile: {tag}, {how} (k={k}): {wall:.3f} ms wall, "
+              f"device kernel time {busy:.3f} ms "
+              f"({100 * busy / wall:.1f}% busy), "
+              f"{sum(r[2] for r in rows)} kernels")
+    del state, sup, step
+    torch.cuda.empty_cache()
+
+
 def profile_serve(torch, engine, params, requests):
     """Device time by kernel in windows at the slice's shapes, one
     prefill per slot and then one decode superstep over the full batch,
@@ -1751,22 +2042,10 @@ def profile_serve(torch, engine, params, requests):
     the device's busy share of each window's wall time (the profiler's
     own host cost is inside the wall). Returns each window's (wall ms,
     busy ms, flash forward kernels)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     out = {}
 
     def window(name, fn):
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = [(e.key, e.device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+        wall, rows = _profiled(torch, fn)
         busy = sum(r[1] for r in rows)
         flash = sum(c for k, _, c in rows if "flash_fwd_kernel" in k)
         print(f"profile: {name}: {wall:.3f} ms wall, device kernel time "
@@ -1868,12 +2147,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["train_seq512_dp"] = dp_train_slice(torch, fa, card)
     dp_reduce_check(torch, card)
+
+    # phase 11: the superstep on CUDA graphs: (a) phase 9's configuration
+    # per-step and as the superstep under a streaming staging budget,
+    # (b) the MLP default, (c) phase 10a's spawn with the all-reduce
+    # captured
+    torch.cuda.empty_cache()
+    paths.update(superstep_slice(torch, fa, fx, card))
+    superstep_mlp(torch, fa, fx, card)
+    paths["train_seq512_dp_superstep"] = dp_train_slice(
+        torch, fa, card, tag="train_seq512_dp_superstep", n_samples=80,
+        dispatch=("--log-every", "4", "--steps-per-dispatch", "4"),
+        want_graphs=(2, {"superstep": 1, "step": 2}))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
                               (512, "plain", "float32"),
                               (512, "fused", "bfloat16")):
             profile_train(torch, seq, head, dt)
+        profile_superstep(torch, "mlp", [], 25)
+        profile_superstep(
+            torch, "seq 512 bf16 fused", [
+                "--model", "transformer", "--seq-len", "512",
+                "--train-batch-size", "8", "--n-samples", "80",
+                "--dtype", "bfloat16", "--adam-nu-dtype", "bfloat16",
+                "--lm-head", "fused"], 4)
         mma_peaks(torch, build)
 
     reaches = {"flash_attention_fwd": tuple(paths),
@@ -1883,13 +2181,13 @@ def main() -> int:
                                            "train_seq2048_fused"),
                "flash_attention_bwd_dqkv": ("train_seq512",
                                             "train_seq512_bf16_auto",
-                                            "train_seq512_dp"),
+                                            "train_seq512_dp", *SUPERSTEP),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
-                                  "train_seq512_dp"),
+                                  "train_seq512_dp", *SUPERSTEP),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
-                                  "train_seq512_dp")}
+                                  "train_seq512_dp", *SUPERSTEP)}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

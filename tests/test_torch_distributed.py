@@ -13,6 +13,9 @@ JAX package's env contract (``TPUDIST_COORDINATOR`` /
   the contract and writes the metrics, every process writes its own
   verdict: one coordinated job, where the port used to run one whole
   uncoordinated copy a process;
+* the superstep (k = 4) at 2 processes over gloo: every epoch within
+  1e-6 of one process at the same k, which is bitwise one process's
+  per-step run;
 * a tiny transformer at 2 processes: the final checkpoint's params within
   f32 1e-5 of one process's;
 * the failure paths: ``--fail-at 0`` on every process, or on one alone
@@ -57,6 +60,9 @@ CONTRACT = re.compile(r"^(Epoch +\d+ (finished\. Avg|eval) loss: .*"
                       r"|Training completed\.)$", re.M)
 MLP_ARGV = ["--epochs", "3", "--n-samples", "512", "--train-batch-size",
             "64", "--steps-per-dispatch", "1", "--seed", "7"]
+# the superstep: k = 4 (the later flag wins), two full windows an epoch
+SUPERSTEP_ARGV = MLP_ARGV + ["--steps-per-dispatch", "4", "--log-every",
+                             "4"]
 # the _TF shape of tests/test_multiprocess.py
 TF_ARGV = ["--model", "transformer", "--n-samples", "32",
            "--train-batch-size", "8", "--seq-len", "64", "--d-model", "128",
@@ -185,6 +191,9 @@ def mlp_runs(tmp_path_factory):
     _jax_reference(ref)
     waits = {n: _launch(str(root / f"p{n}"), MLP_ARGV, n, ref=ref)
              for n in (1, 2, 4)}
+    waits.update({f"k4-{n}": _launch(str(root / f"pk4-{n}"),
+                                     SUPERSTEP_ARGV, n, ref=ref)
+                  for n in (1, 2)})
     assert jtrain.main(MLP_ARGV + ["--save-dir",
                                    str(root / "jax" / "ck")]) == 0
     runs = {n: wait() for n, wait in waits.items()}
@@ -225,6 +234,27 @@ def test_mlp_processes_match_one_process_and_jax(nprocs, mlp_runs):
     for rank in range(1, nprocs):
         for name, t in _params(str(root / f"p{nprocs}"), rank).items():
             assert torch.equal(t, p0[name]), (rank, name)
+
+
+def test_superstep_on_two_processes_matches_one(mlp_runs):
+    root, runs = mlp_runs
+    for n in (1, 2):
+        rcs, outs = runs[f"k4-{n}"]
+        assert rcs == [0] * n, outs
+        assert "tpudist: superstep dispatch k=4" in outs[0]
+    one, per_step = (_epochs(str(root / d)) for d in ("pk4-1", "p1"))
+    dp = _epochs(str(root / "pk4-2"))
+    assert len(dp) == 3
+    assert [(r["avg_loss"], r["eval_loss"]) for r in one] == [
+        (r["avg_loss"], r["eval_loss"]) for r in per_step]
+    for key in ("avg_loss", "eval_loss"):
+        np.testing.assert_allclose([r[key] for r in dp],
+                                   [r[key] for r in one], rtol=0, atol=1e-6)
+    assert _verdicts(str(root / "pk4-2"), 2) == ("success",
+                                                 ["success"] * 2)
+    p0, p1 = (_params(str(root / "pk4-2"), r) for r in (0, 1))
+    for name, t in p0.items():
+        assert torch.equal(t, p1[name]), name
 
 
 def test_transformer_on_two_processes_matches_one(tmp_path):

@@ -63,6 +63,9 @@ LANES = {
                           decode_k=4), 3, 5),
 }
 SERVE_RULES = ("ttft", "itl", "tokens_per_chip", "serve_shed")
+# every rule of the port's table: the train lane's staging overlap, then
+# the serve rules, in the JAX table's order
+PORT_RULES = ("staging",) + SERVE_RULES
 # the latency, throughput, shed, program and grade keys of the JAX
 # summary that the port's kind=serve record carries
 SUMMARY_KEYS = {"ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s",
@@ -207,8 +210,9 @@ def test_serve_thresholds_equal_jax(monkeypatch):
     assert (trules.TTFT_P99_MAX, trules.ITL_P99_MAX,
             trules.TOKENS_PER_CHIP_MIN) == (
         jrules.TTFT_P99_MAX, jrules.ITL_P99_MAX, jrules.TOKENS_PER_CHIP_MIN)
-    assert tuple(t.name for t in trules.THRESHOLDS) == SERVE_RULES
-    for name in SERVE_RULES:
+    assert trules.STAGING_OVERLAP_MIN == jrules.STAGING_OVERLAP_MIN
+    assert tuple(t.name for t in trules.THRESHOLDS) == PORT_RULES
+    for name in PORT_RULES:
         assert dataclasses.asdict(trules.get(name)) == \
             dataclasses.asdict(jrules.get(name))
         assert trules.resolve(name) == jrules.resolve(name)

@@ -88,7 +88,10 @@ class TrainConfig:
     lm_head: str = "auto"         # auto | plain | chunked | fused
     fail_at: Optional[int] = None  # fault injection: fail after this epoch
     log_every: int = 100
-    steps_per_dispatch: int = 0   # 0 = auto, which is 1 here
+    steps_per_dispatch: int = 0   # 0 = auto (resolve_steps_per_dispatch)
+    staging_budget_mb: Optional[float] = None  # per-device MB of batch
+    # slabs; None = $TPUDIST_STAGING_BUDGET_MB, else auto
+    # (resolve_staging_budget_bytes)
     autotune: Optional[str] = None
     live: Optional[str] = None
     device: Optional[str] = None  # None = cuda
@@ -128,12 +131,11 @@ NOT_CARRIED = (
     ("--capacity-factor", dict(type=float, default=1.25), (), None, 8),
     ("--router-aux-weight", dict(type=float, default=0.01), (), None, 8),
     ("--moe-group-size", dict(type=int, default=4096), (), None, 8),
-    ("--staging-budget-mb", dict(type=float), (),
-     "TPUDIST_STAGING_BUDGET_MB", 7),
-    ("--compilation-cache-dir", {}, (), "TPUDIST_COMPILATION_CACHE_DIR", 7),
-    ("--autotune-cache-dir", {}, (), "TPUDIST_AUTOTUNE_CACHE_DIR", 7),
+    ("--compilation-cache-dir", {}, (), "TPUDIST_COMPILATION_CACHE_DIR",
+     "7b"),
+    ("--autotune-cache-dir", {}, (), "TPUDIST_AUTOTUNE_CACHE_DIR", "7b"),
     ("--autotune-trials", dict(type=int, default=0), (),
-     "TPUDIST_AUTOTUNE_TRIALS", 7),
+     "TPUDIST_AUTOTUNE_TRIALS", "7b"),
     ("--profile-dir", {}, (), None, 11),
     ("--profile-window", dict(type=int, default=0), (),
      "TPUDIST_PROFILE_WINDOW", 11),
@@ -157,7 +159,7 @@ ENV_NOT_CARRIED = {
        for _, kw, off, env, item in NOT_CARRIED if env},
     "TPUDIST_TEST_KILL": ((), 10),
     "TPUDIST_LIVE": (("off",), 11),
-    "TPUDIST_AUTOTUNE": (("off",), 7),
+    "TPUDIST_AUTOTUNE": (("off",), "7b"),
     "TPUDIST_NO_FLASH": ((), None),
 }
 
@@ -173,7 +175,7 @@ def _is_off(value: Any, off: Sequence[Any]) -> bool:
     return value in off
 
 
-def _refusal(what: str, item: Optional[int]) -> ValueError:
+def _refusal(what: str, item: Optional[Any]) -> ValueError:
     if item is None:
         return ValueError(
             f"{what}: the port does not carry it; its attention always "
@@ -214,11 +216,6 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(
             f"--model {cfg.model.name}: the port trains mlp and "
             f"transformer; the MoE model comes with ROADMAP Queue A item 8")
-    if cfg.steps_per_dispatch > 1:
-        raise ValueError(
-            f"--steps-per-dispatch {cfg.steps_per_dispatch}: the port "
-            f"dispatches one step at a time; the superstep comes with "
-            f"ROADMAP Queue A item 7")
     if cfg.live not in (None, "off"):
         raise ValueError(
             "--live on: the live telemetry bus comes with ROADMAP Queue A "
@@ -226,11 +223,121 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.autotune not in (None, "off"):
         raise ValueError(
             f"--autotune {cfg.autotune}: autotuning comes with ROADMAP "
-            f"Queue A item 7")
+            f"Queue A item 7b")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):
             raise _refusal(f"{name}={value}", item)
+
+
+# auto superstep cap: past ~32 steps per dispatch the per-dispatch
+# overhead is already amortised to noise and longer supersteps only delay
+# log/fence boundaries
+SUPERSTEP_CAP = 32
+
+
+def resolve_steps_per_dispatch(cfg: TrainConfig) -> int:
+    """Resolve/validate ``--steps-per-dispatch`` to the concrete superstep
+    length ``k`` for this run, as the JAX package's
+    ``config.resolve_steps_per_dispatch`` does.
+
+    The train loop only fences and logs at superstep edges, so ``k`` must
+    divide ``--log-every`` and ``--ckpt-every-steps`` (when enabled):
+    boundaries then land exactly on superstep edges and the logged
+    loss/step stream is indistinguishable from per-step dispatch. An
+    explicit ``k`` violating that is a config error, as is ``k > 1``
+    combined with ``--fail-at`` (fault-injection timing is defined in
+    per-step terms).
+
+    Auto (``0``) picks 1 under ``--log-every 1`` or fault injection (each
+    wants true per-step dispatch; the JAX package's third case,
+    profiling, is refused by the port's ``parse_args``), else the largest
+    divisor of the log/ckpt intervals <= :data:`SUPERSTEP_CAP`. The
+    epoch's trailing partial superstep is not a config concern: its
+    steps past the epoch are masked (``engine.make_superstep``).
+    """
+    k = cfg.steps_per_dispatch
+    if k < 0:
+        raise ValueError(
+            f"--steps-per-dispatch must be >= 1 (or 0 = auto), got {k}")
+    if k == 0:
+        if cfg.fail_at is not None or cfg.log_every == 1:
+            return 1
+        cap = SUPERSTEP_CAP if cfg.log_every <= 0 else min(cfg.log_every,
+                                                           SUPERSTEP_CAP)
+        best = 1
+        for d in range(1, cap + 1):
+            if cfg.log_every > 0 and cfg.log_every % d:
+                continue
+            if cfg.ckpt_every_steps and cfg.ckpt_every_steps % d:
+                continue
+            best = d
+        return best
+    if k > 1:
+        if cfg.fail_at is not None:
+            raise ValueError(
+                f"--steps-per-dispatch {k} with --fail-at: fault injection "
+                f"must observe per-step/epoch boundaries; use "
+                f"--steps-per-dispatch 1")
+        if cfg.log_every > 0 and cfg.log_every % k:
+            raise ValueError(
+                f"--steps-per-dispatch {k} must divide --log-every "
+                f"{cfg.log_every} so logging boundaries land on superstep "
+                f"edges")
+        if cfg.ckpt_every_steps and cfg.ckpt_every_steps % k:
+            raise ValueError(
+                f"--steps-per-dispatch {k} must divide --ckpt-every-steps "
+                f"{cfg.ckpt_every_steps} so checkpoint boundaries land on "
+                f"superstep edges")
+    return k
+
+
+# Auto staging budget: leave the train state (params + opt moments) plus
+# this multiple of it for grads / activations / workspace, then stage
+# batches into half of what remains (the other half is slack for the
+# allocator: device memory figures are an estimate, not a reservation).
+# The floor keeps the budget positive when the 4x estimate exceeds the
+# device's memory: a zero budget would make plan_slabs reject every epoch.
+STAGING_STATE_HEADROOM = 4.0
+STAGING_FREE_FRACTION = 0.5
+STAGING_FLOOR_FRACTION = 0.05
+
+
+def resolve_staging_budget_bytes(cfg: TrainConfig, *, state_bytes: int = 0,
+                                 hbm_bytes: Optional[float] = None,
+                                 program_temp_bytes: Optional[int] = None
+                                 ) -> Optional[int]:
+    """Resolve ``--staging-budget-mb`` to a per-device byte budget for
+    epoch staging (``parallel.staging.plan_slabs``), or ``None`` for
+    "unbounded" (always the full-epoch fast path), as the JAX package's
+    ``config.resolve_staging_budget_bytes`` does.
+
+    Precedence: explicit flag > ``TPUDIST_STAGING_BUDGET_MB`` > auto.
+    Auto derives from the device's memory minus the train state and its
+    working margin: ``state + program_temp_bytes`` when a prior run
+    measured the programs' scratch, else ``STAGING_STATE_HEADROOM x
+    state`` (the port has no memory ledger yet, so its train loop passes
+    None and takes the heuristic). The budget only moves slab cut
+    points, which the superstep's ``[lo, hi)`` masking keeps
+    loss-invariant."""
+    mb = cfg.staging_budget_mb
+    if mb is None:
+        env = os.environ.get("TPUDIST_STAGING_BUDGET_MB")
+        if env:
+            mb = float(env)
+    if mb is not None:
+        if mb <= 0:
+            raise ValueError(
+                f"--staging-budget-mb must be > 0, got {mb}")
+        return int(mb * 2**20)
+    if hbm_bytes is None:
+        return None
+    if program_temp_bytes is not None and program_temp_bytes >= 0:
+        margin = state_bytes + program_temp_bytes
+    else:
+        margin = STAGING_STATE_HEADROOM * state_bytes
+    free = max(hbm_bytes - margin, hbm_bytes * STAGING_FLOOR_FRACTION)
+    return int(free * STAGING_FREE_FRACTION)
 
 
 def flagship_model_config(max_seq_len: int = 512) -> ModelConfig:
@@ -293,7 +400,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     p.add_argument("--fail-at", type=int, default=None,
                    help="fault injection: fail after this epoch")
     p.add_argument("--log-every", type=int, default=100)
-    p.add_argument("--steps-per-dispatch", type=int, default=0)
+    p.add_argument("--steps-per-dispatch", type=int, default=0,
+                   help="training steps per dispatch (a superstep); 0 = "
+                        "auto: the largest divisor of --log-every and "
+                        "--ckpt-every-steps up to 32")
+    p.add_argument("--staging-budget-mb", type=float, default=None,
+                   help="per-device MB for staged batch slabs; epochs "
+                        "over it stream in double-buffered slabs "
+                        "(default: $TPUDIST_STAGING_BUDGET_MB, else auto)")
     p.add_argument("--autotune", type=str, default=None,
                    choices=("off", "probe", "cache-only"))
     p.add_argument("--live", type=str, default=None, choices=("on", "off"))
@@ -328,6 +442,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         fail_at=args.fail_at,
         log_every=args.log_every,
         steps_per_dispatch=args.steps_per_dispatch,
+        staging_budget_mb=args.staging_budget_mb,
         autotune=args.autotune,
         live=args.live,
         device=args.device,

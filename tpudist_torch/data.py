@@ -82,11 +82,28 @@ def _epoch_index(n: int, *, batch_size: int, seed: int, epoch: int,
     return perm.reshape(steps, process_count, local_bs)[:, process_index, :]
 
 
+def pad_steps(arrays: Sequence[np.ndarray],
+              to_steps: int) -> Tuple[np.ndarray, ...]:
+    """Zero-pad ``(steps, batch, ...)`` arrays along the step axis to
+    ``to_steps``. The padded steps are masked out of the superstep
+    (``engine.make_superstep``'s ``[lo, hi)`` bounds), so the pad value
+    never reaches the trajectory; zeros keep every model's forward
+    finite (token id 0 is always in the vocabulary)."""
+    def pad(a):
+        a = np.asarray(a)
+        if a.shape[0] >= to_steps:
+            return a
+        fill = np.zeros((to_steps - a.shape[0],) + a.shape[1:], a.dtype)
+        return np.concatenate([a, fill], axis=0)
+    return tuple(pad(a) for a in arrays)
+
+
 class EpochPlan:
     """One epoch's batches, gathered on demand: the permutation (a pure
     function of ``(seed, epoch)``) and the source arrays; ``slab(start,
     stop)`` gathers that step range into host ``(steps, local_batch,
-    ...)`` arrays."""
+    ...)`` arrays, so the streaming train loop never needs the whole
+    epoch at once."""
 
     def __init__(self, arrays: Sequence[np.ndarray], idx: np.ndarray):
         self.arrays = tuple(np.asarray(a) for a in arrays)
@@ -96,9 +113,20 @@ class EpochPlan:
     def n_steps(self) -> int:
         return self.idx.shape[0]
 
-    def slab(self, start: int, stop: int) -> Tuple[np.ndarray, ...]:
+    @property
+    def local_batch(self) -> int:
+        return self.idx.shape[1]
+
+    def slab(self, start: int, stop: int,
+             pad_to: int = 0) -> Tuple[np.ndarray, ...]:
+        """Steps ``[start, stop)`` as ``(steps, local_batch, ...)`` host
+        arrays, zero-padded along the step axis to ``pad_to`` when that
+        exceeds the true length (:func:`pad_steps`)."""
         sl = self.idx[start:stop]
-        return tuple(a[sl] for a in self.arrays)
+        out = tuple(a[sl] for a in self.arrays)
+        if pad_to > sl.shape[0]:
+            out = pad_steps(out, pad_to)
+        return out
 
 
 def plan_epoch(arrays, *, batch_size: int, seed: int, epoch: int,

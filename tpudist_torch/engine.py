@@ -1,4 +1,5 @@
-"""Training engine: state, optimizer, loss, the train step, eval.
+"""Training engine: state, optimizer, loss, the train step, the
+superstep, eval.
 
 Counterpart of ``tpudist/engine.py``'s replicated data-parallel path
 (``--grad-overlap off``). The JAX package's state is a pytree and its
@@ -9,14 +10,22 @@ Every process holds the whole state, made alike from one seed; when a
 process group is up (``tpudist_torch.parallel.distributed``), the step
 means the gradients and the loss over the processes with an explicit
 all-reduce after the whole backward: the collective under test.
+
+One step body serves per-step dispatch (:func:`make_train_step`) and the
+k-step superstep (:func:`make_superstep`). It reads Adam's per-step
+scalars (the step count and the bias corrections) from device tensors
+(:class:`StepScalars`) and no host value that changes from step to step,
+so on the card the superstep captures it into CUDA graphs and replays
+them; on the CPU the superstep runs the body in a loop.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +36,8 @@ from tpudist_torch.config import TrainConfig
 from tpudist_torch.metrics import log0
 from tpudist_torch.models import get_model
 from tpudist_torch.models import transformer
+from tpudist_torch.ops.cuda import flash_attention as _fa
+from tpudist_torch.ops.cuda import fused_xent as _fx
 
 
 @dataclass
@@ -57,7 +68,7 @@ def jax_leaf_order(names: Sequence[str]) -> List[int]:
     return rank
 
 
-def _stochastic_round_bf16(x: torch.Tensor, count: int,
+def _stochastic_round_bf16(x: torch.Tensor, count,
                            salt: int) -> torch.Tensor:
     """f32 -> bf16 with stochastic rounding, bitwise the JAX package's
     ``_stochastic_round_bf16``: add a uniform dither in [0, ulp) to the
@@ -66,7 +77,8 @@ def _stochastic_round_bf16(x: torch.Tensor, count: int,
     would drop. The dither is a murmur-style hash of (flat element index,
     step count, salt) on uint32, computed here in int64 with every
     product and sum masked to its low 32 bits (exact under int64
-    wraparound)."""
+    wraparound). ``count`` is an int or a 0-dim int64 tensor (the
+    device-side step count a captured step reads)."""
     m32 = 0xFFFFFFFF
     bits = x.to(torch.float32).contiguous().view(torch.int32).to(
         torch.int64) & m32
@@ -120,13 +132,15 @@ class Adam:
             salts=jax_leaf_order(names))
 
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor], state: AdamState,
-               params: Sequence[torch.Tensor]) -> AdamState:
+    def apply(self, grads: Sequence[torch.Tensor], state: AdamState,
+              params: Sequence[torch.Tensor], count: torch.Tensor,
+              c1: torch.Tensor, c2: torch.Tensor) -> None:
+        """One update in place from the step's device scalars
+        (:meth:`StepScalars.row`): its count and the bias corrections
+        ``c1 = 1 - b1^count``, ``c2 = 1 - b2^count``. The host's
+        ``state.count`` is left to the caller, so a captured step reads
+        no host value."""
         b1, b2 = self.b1, self.b2
-        count = state.count + 1
-        # the bias corrections in f32, as optax computes them
-        c1 = float(1 - np.float32(b1) ** np.float32(count))
-        c2 = float(1 - np.float32(b2) ** np.float32(count))
         for i, (p, g, mu, nu) in enumerate(zip(params, grads, state.mu,
                                                state.nu)):
             if self.nu_bf16:
@@ -146,8 +160,52 @@ class Adam:
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
             p.add_(-self.lr * ((m / c1) / (torch.sqrt(nu / c2) + self.eps)))
             mu.copy_(m)
-        state.count = count
+
+    def update(self, grads: Sequence[torch.Tensor], state: AdamState,
+               params: Sequence[torch.Tensor]) -> AdamState:
+        """One update from the host's count: step ``state.count + 1``'s
+        scalars on the params' device, :meth:`apply`, and the count
+        advanced."""
+        scalars = StepScalars(self, 1, params[0].device)
+        scalars.fill(state.count + 1)
+        self.apply(grads, state, params, *scalars.row(0))
+        state.count += 1
         return state
+
+
+class StepScalars:
+    """Adam's per-step scalars on the device for the ``n`` steps of one
+    dispatch: the step count (int64; the bf16 second moment's rounding
+    hash reads it) and the bias corrections ``(1 - b1^t, 1 - b2^t)`` in
+    f32. The host computes them as optax does (numpy f32, one step at a
+    time) and copies them in before each dispatch, from pinned memory
+    without a host sync on the card, so per-step dispatch, the CPU
+    superstep and a captured graph read one source and stay bitwise
+    equal; a graph reads them from these fixed addresses at replay."""
+
+    def __init__(self, tx: Adam, n: int, device: torch.device):
+        self.b1, self.b2 = tx.b1, tx.b2
+        self.count = torch.zeros((n,), dtype=torch.int64, device=device)
+        self.corr = torch.ones((n, 2), dtype=torch.float32, device=device)
+
+    def fill(self, first: int, n: Optional[int] = None) -> None:
+        """Rows ``0 .. n-1`` (every row by default) <- the scalars of the
+        step counts ``first, first + 1, ...``."""
+        n = self.count.shape[0] if n is None else n
+        counts = np.arange(first, first + n, dtype=np.int64)
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        corr = np.array([(1 - b1 ** np.float32(t), 1 - b2 ** np.float32(t))
+                         for t in counts], dtype=np.float32).reshape(n, 2)
+        cuda = self.count.is_cuda
+        for dst, src in ((self.count, counts), (self.corr, corr)):
+            src = torch.from_numpy(src)
+            dst[:n].copy_(src.pin_memory() if cuda else src,
+                          non_blocking=cuda)
+
+    def row(self, i: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+        """Step ``i``'s ``(count, c1, c2)``, 0-dim views."""
+        return self.count[i], self.corr[i, 0], self.corr[i, 1]
 
 
 def make_optimizer(cfg: TrainConfig) -> Adam:
@@ -294,17 +352,21 @@ def pmean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(tensors)
 
 
-def make_train_step(cfg: TrainConfig,
-                    device: Optional[torch.device] = None) -> Callable:
-    """``(state, batch) -> (state, loss)``: loss and grads over this
-    process's batch (with ``--grad-accum-steps`` microbatching), their
-    mean over the processes when a process group is up, then the Adam
-    update in place."""
+def _build_step_body(cfg: TrainConfig,
+                     device: Optional[torch.device] = None
+                     ) -> Tuple[Callable, Adam]:
+    """``(body, tx)``: ``body(state, batch, count, c1, c2) -> loss``, one
+    step on device tensors: loss and grads over this process's batch
+    (with ``--grad-accum-steps`` microbatching), their mean over the
+    processes when a process group is up, then the Adam update in place
+    from the step's device scalars. It reads and writes no host counter,
+    so a CUDA graph can capture it; the caller advances ``state.step``
+    and ``state.opt_state.count``."""
     loss_fn = make_loss_fn(cfg, device)
     tx = make_optimizer(cfg)
     data_parallel = dist.is_initialized()
 
-    def step(state: TrainState, batch):
+    def body(state: TrainState, batch, count, c1, c2):
         loss, grads = _microbatch(loss_fn, state.params, batch,
                                   cfg.grad_accum_steps)
         if data_parallel:
@@ -314,10 +376,242 @@ def make_train_step(cfg: TrainConfig,
             # loss's mean as lax.pmean(loss, "data") gives it
             grads = pmean(grads)
             loss, = pmean([loss])
-        tx.update(grads, state.opt_state, list(state.params.parameters()))
-        state.step += 1
+        tx.apply(grads, state.opt_state, list(state.params.parameters()),
+                 count, c1, c2)
+        return loss
+    return body, tx
+
+
+def _advance(state: TrainState, n: int) -> None:
+    """The host's counters after ``n`` steps ran."""
+    state.opt_state.count += n
+    state.step += n
+
+
+def make_train_step(cfg: TrainConfig,
+                    device: Optional[torch.device] = None) -> Callable:
+    """``(state, batch) -> (state, loss)``: one step of the step body,
+    its scalars filled from the host's count first."""
+    body, tx = _build_step_body(cfg, device)
+    scalars = StepScalars(tx, 1, torch.device(device or "cpu"))
+
+    def step(state: TrainState, batch):
+        scalars.fill(state.opt_state.count + 1)
+        loss = body(state, batch, *scalars.row(0))
+        _advance(state, 1)
         return state, loss
     return step
+
+
+# each kernel wrapper's launch counter, by the kernel's name
+_COUNTERS = (("flash_attention_fwd", _fa, "launches"),
+             ("flash_attention_bwd_dq", _fa, "dq_launches"),
+             ("flash_attention_bwd_dkv", _fa, "dkv_launches"),
+             ("flash_attention_bwd_dqkv", _fa, "dqkv_launches"),
+             ("fused_xent_fwd", _fx, "fwd_launches"),
+             ("fused_xent_bwd", _fx, "bwd_launches"))
+
+
+def kernel_launch_counts() -> Dict[str, int]:
+    """The kernel wrappers' launch counters, by kernel name."""
+    return {name: getattr(mod, attr) for name, mod, attr in _COUNTERS}
+
+
+def _set_kernel_launch_counts(counts: Dict[str, int]) -> None:
+    for name, mod, attr in _COUNTERS:
+        setattr(mod, attr, counts[name])
+
+
+class Superstep:
+    """``superstep(state, total, slab, lo, hi) -> (state, total,
+    losses)``: steps ``[lo, hi)`` of a ``(k, local_batch, ...)`` slab of
+    device tensors, the JAX package's ``make_superstep`` contract.
+    ``total`` accumulates each valid step's loss in step order (start it
+    from a device zero: ``0 + l0 == l0``, so the epoch's Avg loss is
+    bitwise per-step dispatch's); only entries of ``losses`` in ``[lo,
+    hi)`` are meaningful, and the returned tensors may be the
+    superstep's own buffers, valid until its next call.
+
+    On the CPU the steps run one after another, each the step body of
+    :func:`make_train_step` (the gloo backend cannot be captured anyway).
+
+    On the card a superstep is a CUDA graph of k whole steps (forward,
+    ``autograd.grad``, the NCCL all-reduce when a process group is up,
+    Adam), replayed once per full window. Masked steps cost no device
+    work: a partial window (the epoch's tail, ``hi < k``, or the
+    realignment after a resume, ``lo > 0``) replays a second, one-step
+    graph ``hi - lo`` times. The first call runs its window eagerly, as
+    real steps, on a side stream (the warm-up: kernel builds, lazy
+    module loads and NCCL's communicator cannot happen in a capture),
+    then captures both graphs into one memory pool; capture executes
+    nothing. There are exactly two programs a run (``programs``), and a
+    capture that fails raises: there is no eager fallback (nor a second
+    capture after :meth:`release`). Before each
+    replay the window is copied into the graphs' static input buffer
+    (one device-to-device copy) and the step scalars into
+    :class:`StepScalars`. A replay does not move the kernel wrappers'
+    launch counters: a capture's increments move into this object's
+    record, and :meth:`kernel_launches` multiplies them by the
+    replays."""
+
+    def __init__(self, cfg: TrainConfig, device: Optional[torch.device],
+                 k: int):
+        if k < 1:
+            raise ValueError(f"superstep length must be >= 1, got {k}")
+        self.k = k
+        self.device = torch.device(device or "cpu")
+        self.body, tx = _build_step_body(cfg, device)
+        self.scalars = StepScalars(tx, k, self.device)
+        self.graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
+        self.captured_launches: Dict[str, Dict[str, int]] = {}
+        self.replays: Dict[str, int] = {}
+        self.capture_s = 0.0             # the two captures' wall time
+        self.graph_pool_bytes = 0        # device memory the captures hold
+        self._static: Tuple[torch.Tensor, ...] = ()
+        self._total: Optional[torch.Tensor] = None
+        self._outputs: Dict[str, torch.Tensor] = {}
+        self._partial: Optional[torch.Tensor] = None
+
+    @property
+    def programs(self) -> int:
+        """Graphs captured this run (0 on the CPU, or before the first
+        call); the count outlives :meth:`release`."""
+        return len(self.captured_launches)
+
+    def release(self) -> None:
+        """Drop the graphs, their pool and the static buffers; the record
+        of captures and replays stays. NCCL cannot destroy a communicator
+        while a graph holds work captured on it, so the train loop
+        releases the superstep before the process group goes."""
+        self.graphs.clear()
+        self._outputs.clear()
+        self._static, self._total, self._partial = (), None, None
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """Kernel launches that replays ran, by kernel name: each graph's
+        replays times the launches its capture recorded. The eager
+        warm-up window moved the wrappers' counters itself."""
+        out = dict.fromkeys(kernel_launch_counts(), 0)
+        for name, rec in self.captured_launches.items():
+            for key, n in rec.items():
+                out[key] += self.replays[name] * n
+        return out
+
+    def __call__(self, state: TrainState, total: torch.Tensor, slab,
+                 lo: int, hi: int):
+        if not 0 <= lo < hi <= self.k:
+            raise ValueError(f"superstep bounds need 0 <= lo < hi <= k = "
+                             f"{self.k}, got [{lo}, {hi})")
+        if any(a.shape[0] != self.k for a in slab):
+            raise ValueError(f"superstep slabs hold exactly k = {self.k} "
+                             f"steps, got {[a.shape[0] for a in slab]}")
+        if self.device.type != "cuda":
+            return self._eager(state, total, slab, lo, hi)
+        if not self.graphs:
+            return self._warm_up_and_capture(state, total, slab, lo, hi)
+        return self._replay(state, total, slab, lo, hi)
+
+    def _eager(self, state, total, slab, lo, hi):
+        """Steps ``[lo, hi)`` one after another, each the step body: the
+        CPU's superstep and the card's warm-up."""
+        losses = torch.zeros((self.k,), dtype=torch.float32,
+                             device=total.device)
+        # row i holds the scalars of the i - lo + 1-th step from here
+        self.scalars.fill(state.opt_state.count + 1 - lo)
+        for i in range(lo, hi):
+            loss = self.body(state, tuple(a[i] for a in slab),
+                             *self.scalars.row(i))
+            total = total + loss
+            losses[i] = loss
+        _advance(state, hi - lo)
+        return state, total, losses
+
+    def _warm_up_and_capture(self, state, total, slab, lo, hi):
+        if self.captured_launches:
+            raise RuntimeError("the superstep captures its two programs "
+                               "once a run, and was released")
+        dev = self.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            state, total, losses = self._eager(state, total, slab, lo, hi)
+        main.wait_stream(side)
+        for t in (total, losses):
+            t.record_stream(main)
+        self._capture(state, slab, side)
+        return state, total, losses
+
+    def _graph_body(self, state, n: int) -> torch.Tensor:
+        losses = []
+        for i in range(n):
+            loss = self.body(state, tuple(a[i] for a in self._static),
+                             *self.scalars.row(i))
+            self._total.add_(loss)
+            losses.append(loss)
+        return torch.stack(losses)
+
+    def _capture(self, state, slab, side) -> None:
+        """Capture the k-step and the one-step graph into one pool."""
+        dev = self.device
+        self._static = tuple(torch.empty_like(a) for a in slab)
+        self._total = torch.zeros((), dtype=torch.float32, device=dev)
+        self._partial = torch.zeros((self.k,), dtype=torch.float32,
+                                    device=dev)
+        # NCCL's watchdog thread queries its events while this thread
+        # captures: "global" mode would refuse those queries
+        mode = "thread_local" if dist.is_initialized() else "global"
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        pool = torch.cuda.graph_pool_handle()
+        for name, n in (("superstep", self.k), ("step", 1)):
+            graph = torch.cuda.CUDAGraph()
+            before = kernel_launch_counts()
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode=mode):
+                out = self._graph_body(state, n)
+            # the capture recorded these launches; each replay runs them
+            after = kernel_launch_counts()
+            self.captured_launches[name] = {
+                key: after[key] - before[key] for key in after}
+            _set_kernel_launch_counts(before)
+            self.graphs[name], self._outputs[name] = graph, out
+            self.replays[name] = 0
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def _replay(self, state, total, slab, lo, hi):
+        count = state.opt_state.count
+        if total is not self._total:
+            self._total.copy_(total)
+        if (lo, hi) == (0, self.k):
+            for dst, src in zip(self._static, slab):
+                dst.copy_(src)
+            self.scalars.fill(count + 1)
+            self.graphs["superstep"].replay()
+            self.replays["superstep"] += 1
+            losses = self._outputs["superstep"]
+        else:
+            losses = self._partial
+            for i in range(lo, hi):
+                for dst, src in zip(self._static, slab):
+                    dst[0].copy_(src[i])
+                self.scalars.fill(count + 1 + i - lo, 1)
+                self.graphs["step"].replay()
+                self.replays["step"] += 1
+                losses[i].copy_(self._outputs["step"][0])
+        _advance(state, hi - lo)
+        return state, self._total, losses
+
+
+def make_superstep(cfg: TrainConfig, device: Optional[torch.device],
+                   k: int) -> Superstep:
+    """The k-step superstep dispatch (:class:`Superstep`)."""
+    return Superstep(cfg, device, k)
 
 
 def make_eval_fn(cfg: TrainConfig,

@@ -4,7 +4,8 @@ Counterpart of ``tpudist/metrics.py``: the same record shapes (the serve
 lane's ``kind=serve`` / ``serve_request`` / ``serve_tick``, the train
 lane's ``step`` / ``epoch`` / ``ckpt`` / ``timing`` / ``attempt``, each
 stamped with wall ``ts`` and monotonic ``mono`` clocks), so the JAX
-package's offline readers fold the port's runs unchanged.
+package's offline readers fold the port's runs unchanged, and the epoch
+staging pipeline's accounting (:class:`StagingStats`).
 """
 
 from __future__ import annotations
@@ -125,3 +126,64 @@ class MetricsLogger:
             self._fh.close()
             self._fh = None
         atexit.unregister(self.flush)
+
+
+@dataclass
+class StagingStats:
+    """Host-side accounting of the epoch staging pipeline
+    (``train._superstep_epoch``): how many bytes were staged, the peak
+    resident staging footprint, and how much wall time the host spent
+    BLOCKED on a slab that compute was already waiting for.
+
+    ``wait_s`` is the exposure metric: the streaming loop fences compute
+    at slab boundaries, so by the time it blocks on the next slab's event
+    the device is idle, and any time spent there is host-to-device
+    transfer the pipeline failed to hide behind the previous slab's
+    compute. ``overlap_fraction`` folds that into one number for the
+    verdict and the metrics stream: 1.0 = all steady-state transfer
+    hidden.
+    """
+    streamed: bool = False
+    slabs: int = 0
+    staged_bytes: int = 0      # cumulative per-device H2D bytes
+    resident_bytes: int = 0
+    peak_bytes: int = 0
+    stage_host_s: float = 0.0  # host time materialising + issuing slabs
+    wait_s: float = 0.0        # host blocked on an un-arrived slab
+
+    def note_staged(self, nbytes: int, host_s: float) -> None:
+        self.slabs += 1
+        self.staged_bytes += nbytes
+        self.resident_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.resident_bytes)
+        self.stage_host_s += host_s
+
+    def note_released(self, nbytes: int) -> None:
+        self.resident_bytes = max(0, self.resident_bytes - nbytes)
+
+    def note_wait(self, slab) -> float:
+        """Block until ``slab`` (a ``parallel.staging.StagedSlab``) has
+        landed, on its copies' event; account the exposed time. Called
+        with the previous slab's compute already drained."""
+        t0 = time.perf_counter()
+        slab.synchronize()
+        dt = time.perf_counter() - t0
+        self.wait_s += dt
+        return dt
+
+    def overlap_fraction(self, run_s: float) -> Optional[float]:
+        """Fraction of steady-state wall time NOT exposed to staging
+        waits; None when nothing streamed (fast path: one slab, whose
+        transfer overlaps the warm-up by construction)."""
+        if not self.streamed or run_s <= 0:
+            return None
+        return max(0.0, min(1.0, 1.0 - self.wait_s / run_s))
+
+    def split(self) -> Dict[str, Any]:
+        """Staging-vs-compute fields for the ``kind=timing`` record."""
+        return {"staging_streamed": self.streamed,
+                "staging_slabs": self.slabs,
+                "staged_bytes": self.staged_bytes,
+                "staged_bytes_peak": self.peak_bytes,
+                "stage_host_s": round(self.stage_host_s, 3),
+                "stage_wait_s": round(self.wait_s, 3)}

@@ -1,11 +1,12 @@
-"""The serve gate thresholds, copied from ``tpudist/rules.py``.
+"""The gate thresholds the port grades against, copied from
+``tpudist/rules.py``.
 
-The port keeps its own copy of the rules the serving lane grades
-against (p99 TTFT, p99 inter-token latency, tokens/s/chip, the shed
-fraction of arrivals) with the same
-env overrides, read at call time; ``tests/test_torch_serve.py`` holds
-this copy equal to the JAX package's table so the two cannot drift.
-Standard library only.
+The port keeps its own copy of the rules its lanes grade against: the
+train lane's staging overlap, and the serving lane's p99 TTFT, p99
+inter-token latency, tokens/s/chip and shed fraction of arrivals, with
+the same env overrides, read at call time; ``tests/test_torch_serve.py``
+holds this copy equal to the JAX package's table so the two cannot
+drift. Standard library only.
 """
 
 from __future__ import annotations
@@ -14,6 +15,11 @@ import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+# Minimum steady-state staging overlap fraction (metrics.StagingStats)
+# before a streamed run is FLAGGED: below this, host->device transfer is
+# not hiding behind compute and the pod is silently input-bound.
+# Advisory, not exit-code-bearing.
+STAGING_OVERLAP_MIN = 0.5   # verdict.staging_status
 # Serving SLOs: latency-percentile bounds plus a throughput floor. The
 # defaults are loose enough for a CPU run of a tiny model; deployments
 # tighten them per model via the env overrides.
@@ -44,6 +50,13 @@ class Threshold:
 
 
 THRESHOLDS: Tuple[Threshold, ...] = (
+    Threshold(
+        name="staging", env="TPUDIST_STAGING_OVERLAP_MIN",
+        default=STAGING_OVERLAP_MIN, sense="min", alert=True,
+        observable="fraction of steady-state wall NOT exposed to "
+                   "staging waits",
+        description="below this, host->device transfer is not hiding "
+                    "behind compute and the pod is input-bound"),
     Threshold(
         name="ttft", env="TPUDIST_TTFT_P99_MAX",
         default=TTFT_P99_MAX, sense="max", alert=True,

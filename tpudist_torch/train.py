@@ -1,12 +1,17 @@
 """``python -m tpudist_torch.train`` — the training acceptance lane.
 
-Counterpart of the per-step data-parallel path of ``tpudist/train.py``:
+Counterpart of the data-parallel path of ``tpudist/train.py``:
 N processes under the JAX package's env contract (``TPUDIST_COORDINATOR``
 / ``TPUDIST_NUM_PROCESSES`` / ``TPUDIST_PROCESS_ID``; one process when
 unset), one device each, NCCL on the card and gloo on the CPU. Seeded
 synthetic data and a per-epoch permutation, each process training on its
 shard of every global batch; the train step (loss, grads, their
-all-reduced mean, Adam), the epoch loop with the stdout contract (``Epoch N
+all-reduced mean, Adam), dispatched k steps at a time
+(``--steps-per-dispatch``, auto as the JAX CLI resolves it: k = 25 at
+the defaults) through the superstep, whose batches are staged a slab at
+a time (the whole epoch, or double-buffered slabs under
+``--staging-budget-mb``), or one step at a time when k = 1; the epoch
+loop with the stdout contract (``Epoch N
 finished. Avg loss: X``, ``Epoch N eval loss: X``, ``Training
 completed.``), a checkpoint per epoch (and every ``--ckpt-every-steps``),
 ``--resume``, ``--fail-at`` fault injection, the ``metrics.jsonl``
@@ -39,8 +44,9 @@ from tpudist_torch import data as data_lib
 from tpudist_torch import engine as engine_lib
 from tpudist_torch import verdict as verdict_lib
 from tpudist_torch.config import TrainConfig, parse_args
-from tpudist_torch.metrics import MetricsLogger, StepTimer, log0
+from tpudist_torch.metrics import MetricsLogger, StagingStats, StepTimer, log0
 from tpudist_torch.parallel import distributed
+from tpudist_torch.parallel import staging as staging_lib
 from tpudist_torch.utils.platform import resolve_device
 
 
@@ -106,7 +112,28 @@ def run(cfg: TrainConfig) -> float:
     metrics = MetricsLogger(path=os.path.join(cfg.save_dir, "metrics.jsonl"))
     metrics.log(kind="attempt", phase="start", process_count=world)
     metrics.flush()
-    train_step = engine_lib.make_train_step(cfg, device)
+    k = config_lib.resolve_steps_per_dispatch(cfg)
+    budget_bytes = None
+    superstep = train_step = None
+    if k > 1:
+        superstep = engine_lib.make_superstep(cfg, device, k)
+        log0(f"tpudist: superstep dispatch k={k}"
+             f"{' (auto)' if not cfg.steps_per_dispatch else ''}")
+        # epochs over the budget stream in double-buffered slabs. The
+        # port has no memory ledger yet (ROADMAP item 11a), so the margin
+        # is always the 4x-state heuristic
+        budget_bytes = config_lib.resolve_staging_budget_bytes(
+            cfg, state_bytes=engine_lib.state_bytes_per_device(state),
+            hbm_bytes=engine_lib._device_hbm_bytes(device),
+            program_temp_bytes=None)
+        if budget_bytes is not None and cfg.staging_budget_mb is None \
+                and not os.environ.get("TPUDIST_STAGING_BUDGET_MB"):
+            log0(f"tpudist: staging budget auto "
+                 f"{budget_bytes / 2**20:.0f} MB (heuristic 4x-state "
+                 f"margin)")
+    else:
+        train_step = engine_lib.make_train_step(cfg, device)
+    staging = StagingStats()
     eval_fn = engine_lib.make_eval_fn(cfg, device)
 
     start_epoch, start_step_in_epoch = 0, 0
@@ -139,9 +166,12 @@ def run(cfg: TrainConfig) -> float:
     try:
         last_avg = _epoch_loop(cfg, device, state, train_step, epoch_plan,
                                start_epoch, start_step_in_epoch, metrics,
-                               timer, eval_fn, eval_batch, ckpt)
+                               timer, eval_fn, eval_batch, ckpt,
+                               superstep, k, budget_bytes, staging)
     finally:
         metrics.close()
+        if superstep is not None:
+            superstep.release()
 
     sps = timer.steps_per_sec()
     lm = cfg.model.name != "mlp"
@@ -152,17 +182,168 @@ def run(cfg: TrainConfig) -> float:
          f"{world} chip(s)")
     log0(f"timing: compile+warmup {timer.warmup_s:.2f}s, "
          f"run {timer.elapsed:.2f}s over {timer.steps} steps")
-    metrics.log(kind="timing", steps_per_dispatch=1, **timer.split(),
+    overlap = staging.overlap_fraction(timer.elapsed)
+    staging_verdict = verdict_lib.staging_status(staging.streamed, overlap)
+    if staging.streamed:
+        # a pod whose H2D is not hidden behind compute reads as "staging
+        # fail", not as an unexplained steps/s shortfall (the waits stay
+        # inside the timed windows, so steps/s itself stays honest)
+        log0(f"tpudist: staging {staging_verdict}: "
+             f"{staging.slabs} slabs, peak "
+             f"{staging.peak_bytes / 2**20:.2f} MB staged, "
+             f"overlap {overlap:.3f} "
+             f"(exposed wait {staging.wait_s:.2f}s of "
+             f"{timer.elapsed:.2f}s run)")
+    graphs = {}
+    if superstep is not None and superstep.programs:
+        graphs = dict(superstep_programs=superstep.programs,
+                      capture_s=superstep.capture_s,
+                      graph_pool_bytes=superstep.graph_pool_bytes,
+                      replays=dict(superstep.replays))
+        log0(f"tpudist: superstep graphs: {superstep.programs} captured "
+             f"in {superstep.capture_s:.3f}s, pool "
+             f"{superstep.graph_pool_bytes / 2**20:.1f} MB, replays "
+             f"{superstep.replays}")
+    metrics.log(kind="timing", steps_per_dispatch=k, **timer.split(),
+                **staging.split(), staging_overlap_fraction=overlap,
+                staging_status=staging_verdict,
+                tuning_status=verdict_lib.tuning_status("off"),
                 samples_per_step=cfg.batch_size, tokens_per_step=tokens,
-                resume_status=resume_verdict, device=device_kind(device))
+                resume_status=resume_verdict, device=device_kind(device),
+                **graphs)
     log0("Training completed.")
     metrics.close()
     return last_avg
 
 
+def _superstep_epoch(cfg, k, device, state, superstep, plan, first,
+                     n_steps, epoch, metrics, timer, ckpt, budget_bytes,
+                     staging):
+    """One epoch under superstep dispatch with bounded-memory staging,
+    the JAX package's ``train._superstep_epoch``.
+
+    ``staging.plan_slabs`` cuts the epoch into ``(slab_steps, batch,
+    ...)`` slabs sized by the budget. When the epoch fits, the plan is
+    one slab, the full-epoch fast path. Otherwise the loop streams
+    double-buffered: slab ``s+1``'s copy is issued (pinned host memory,
+    a side stream) before slab ``s``'s supersteps, so the transfer has
+    the whole slab's compute to hide behind, and at most two slabs are
+    resident. Compute is fenced at slab boundaries, which bounds the
+    queued work to one slab and makes the host's blocked time on the
+    next slab's event a true measurement of exposed transfer
+    (``StagingStats.note_wait``).
+
+    Every dispatch takes an exactly-``k``-step window; ``[lo, hi)``
+    masks the zero-padded tail and the pre-resume steps of the
+    realignment window. k divides --log-every/--ckpt-every-steps, so
+    logging and checkpoint boundaries land on superstep edges. Returns
+    ``(state, total, counted, pending)`` as the per-step loop leaves
+    them; ``total`` sums the losses in step order, so Avg loss is
+    bitwise per-step dispatch's, streamed or not."""
+    step_bytes = staging_lib.step_bytes(plan.arrays, plan.local_batch)
+    splan = staging_lib.plan_slabs(n_steps, k, step_bytes, budget_bytes)
+    if splan.streamed and not staging.streamed:
+        log0(f"tpudist: staging streamed: epoch "
+             f"{n_steps * step_bytes / 2**20:.2f} MB/device exceeds "
+             f"budget {splan.budget_bytes / 2**20:.2f} MB — "
+             f"{splan.n_slabs} double-buffered slabs of "
+             f"{splan.slab_steps} steps "
+             f"({splan.slab_bytes / 2**20:.2f} MB)")
+    staging.streamed = staging.streamed or splan.streamed
+    S = splan.slab_steps
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def stage(s):
+        """Gather and issue slab ``s`` (steps [s*S, s*S+S) of the epoch,
+        zero-padded to a k-multiple); returns (slab, per-device bytes)."""
+        t0 = time.perf_counter()
+        start = s * S
+        stop = min(n_steps, start + S)
+        pad_to = -(-(stop - start) // k) * k
+        slab = staging_lib.put_slab(plan.slab(start, stop, pad_to=pad_to),
+                                    device, stream)
+        nbytes = pad_to * splan.step_bytes
+        staging.note_staged(nbytes, time.perf_counter() - t0)
+        return slab, nbytes
+
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    counted = pending = 0
+    losses = None
+    dispatched = False
+    s0 = first // S
+    nxt = stage(s0)
+    for s in range(s0, splan.n_slabs):
+        cur, cur_bytes = nxt
+        if s + 1 < splan.n_slabs:
+            # double buffer: issue the NEXT slab's copy before this slab's
+            # compute so it has the whole compute window to hide in
+            nxt = stage(s + 1)
+        if s > s0:
+            # the previous slab's compute drained at its boundary fence,
+            # so time blocked here is exposed (un-hidden) transfer
+            staging.note_wait(cur)
+        arrays = cur.arrays_for()
+        base = s * S
+        staged_len = arrays[0].shape[0]
+        for j in range(staged_len // k):
+            gstart = base + j * k
+            if gstart + k <= first:
+                continue            # fully consumed before the resume point
+            if gstart >= n_steps:
+                break               # pure padding tail
+            lo = max(first - gstart, 0)
+            hi = min(n_steps - gstart, k)
+            window = tuple(a[j * k:(j + 1) * k] for a in arrays)
+            state, total, losses = superstep(state, total, window, lo, hi)
+            end = gstart + hi       # true steps of the epoch completed
+            counted += hi - lo
+            pending += hi - lo
+            if not dispatched:
+                dispatched = True
+                if timer.warming:
+                    # fence the first superstep alone: the warm-up absorbs
+                    # the staging fill, the eager window and the captures
+                    timer.stop_many(losses, pending)
+                    pending = 0
+                    timer.start()
+            if cfg.log_every and end % cfg.log_every == 0:
+                loss_val = float(losses[hi - 1])         # fence
+                timer.stop_many(losses, pending)
+                pending = 0
+                metrics.log(kind="step", epoch=epoch, step=state.step,
+                            loss=loss_val,
+                            steps_per_sec=timer.steps_per_sec())
+                timer.start()
+            elif pending >= 100:
+                # bound the queued work even when logging is off
+                timer.stop_many(losses, pending)
+                pending = 0
+                timer.start()
+            if (cfg.ckpt_every_steps and end % cfg.ckpt_every_steps == 0
+                    and end < n_steps):
+                timer.stop_many(losses, pending)
+                pending = 0
+                ckpt.save(state, epoch=epoch, step_in_epoch=end)
+                metrics.log(kind="ckpt", epoch=epoch, step=state.step,
+                            step_in_epoch=end,
+                            enqueue_ms=round(ckpt.last_enqueue_ms, 1))
+                metrics.flush()
+                timer.start()
+        if s + 1 < splan.n_slabs and pending:
+            # slab-boundary fence: bounds queued work to one slab and
+            # drains compute so the next note_wait measures pure exposure
+            timer.stop_many(losses, pending)
+            pending = 0
+            timer.start()
+        staging.note_released(cur_bytes)
+        # drop this slab before the next one is issued: two resident
+        cur = arrays = window = None
+    return state, total, counted, pending
+
+
 def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
                 start_step_in_epoch, metrics, timer, eval_fn, eval_batch,
-                ckpt):
+                ckpt, superstep, k, budget_bytes, staging):
     last_avg = float("nan")
     for epoch in range(start_epoch, cfg.epochs):
         plan = epoch_plan(epoch)
@@ -175,6 +356,14 @@ def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
         # logging and checkpoint boundaries
         total, counted, pending = None, 0, 0
         timer.start()
+        if superstep is not None:
+            state, total, counted, pending = _superstep_epoch(
+                cfg, k, device, state, superstep, plan, first, n_steps,
+                epoch, metrics, timer, ckpt, budget_bytes, staging)
+            last_avg = _epoch_end(cfg, state, total, counted, pending,
+                                  n_steps, epoch, metrics, timer, eval_fn,
+                                  eval_batch, ckpt)
+            continue
         batches = plan.slab(0, n_steps)
         for i in range(first, n_steps):
             batch = _to_device(tuple(a[i] for a in batches), device)

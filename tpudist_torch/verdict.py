@@ -3,7 +3,8 @@
 Copy of the part of ``tpudist/verdict.py`` the serving and training
 lanes use: the three-valued status vocabulary, the per-worker and final
 verdict files, written atomically (a ``gs://`` path goes through
-``gsutil``), and the bounded AND-aggregation over processes.
+``gsutil``), the bounded AND-aggregation over processes, and the
+advisory staging and tuning verdicts of the ``kind=timing`` record.
 """
 
 from __future__ import annotations
@@ -16,12 +17,54 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from tpudist_torch import rules as rules_lib
 from tpudist_torch.metrics import _rank
 from tpudist_torch.parallel import distributed
 
 SUCCESS = "success"
 FAIL = "fail"
 UNGATEABLE = "ungateable"
+
+
+def staging_status(streamed: bool, overlap_fraction,
+                   min_overlap: Optional[float] = None) -> str:
+    """Three-valued staging verdict for the run log + metrics stream:
+    UNGATEABLE when the epoch took the full-staging fast path (no
+    steady-state H2D to hide), else SUCCESS/FAIL by whether the measured
+    overlap fraction clears the threshold ($TPUDIST_STAGING_OVERLAP_MIN,
+    default ``rules.STAGING_OVERLAP_MIN``) — so a pod run failing to hide
+    H2D is flagged in the artifact stream, not silently slow."""
+    if min_overlap is None:
+        min_overlap = rules_lib.resolve("staging")
+    if not streamed or overlap_fraction is None:
+        return UNGATEABLE
+    return SUCCESS if overlap_fraction >= min_overlap else FAIL
+
+
+def tuning_status(mode: str, *, source: str = "heuristic",
+                  tuned_steps_per_sec: Optional[float] = None,
+                  baseline_steps_per_sec: Optional[float] = None) -> str:
+    """Three-valued autotune verdict for the run log + ``kind=timing``
+    record: UNGATEABLE when tuning was off (nothing measured, nothing to
+    certify) or a ``cache-only`` run missed the cache; SUCCESS when a
+    measured operating point was committed — from the cache, or from a
+    probe search whose commit did not regress the measured seed
+    heuristic; FAIL when ``probe`` mode had to fall back or the
+    committed point measured slower than the heuristic start. The port
+    runs with tuning off (the tuner is ROADMAP Queue A item 7b), so it
+    writes ``tuning_status("off")``."""
+    if mode == "off":
+        return UNGATEABLE
+    if source == "cache":
+        return SUCCESS
+    if source == "probe":
+        # a dead heuristic start (baseline 0: the guess itself OOMed)
+        # with a live tuned point is the tuner WORKING, not a regression
+        if tuned_steps_per_sec and tuned_steps_per_sec >= (
+                baseline_steps_per_sec or 0.0):
+            return SUCCESS
+        return FAIL
+    return UNGATEABLE if mode == "cache-only" else FAIL
 
 
 def _write(path: str, content: str) -> None:
