@@ -109,11 +109,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
    bitwise equal, the steps/s of each run; (c) phase 10a's spawn at
    80 samples with ``--log-every 4 --steps-per-dispatch 4``, the NCCL
    all-reduce captured: every rank's verdict, launches, programs and
-   replays.
+   replays;
+12. the measured-probe autotuner (``--autotune probe``), each trial
+   printed (k, staging budget, remat, accumulation, steps/s and spread,
+   peak reserved memory, graph pool, reserved memory after it, feasible
+   or its error) with the reserved memory before and after the search:
+   (a) the MLP at the reference defaults (the k ladder 1, 2, 4, 10, 20,
+   25): the search succeeds from a probe within its 12 trials (plus two
+   confirmations), the commit measures at least the heuristic start's
+   steps/s, the card holds at most one trial's graph pool more after
+   the search, every epoch's Avg and eval loss is bitwise an untuned
+   run's at the committed point, and a second run on the same cache is
+   a hit with 0 trials at the same point; then an OOM raised inside a
+   probe's capture comes back as a pruned trial with the capture
+   closed, the counters and reserved memory where they were, and the
+   same probe then measures; (b) one full-width step (seq 512, f32,
+   fused head) with and without ``--remat``, each replayed from a
+   graph, the loss and every grad within f32 1e-4; then phase 11a's
+   configuration at ``--log-every 8`` over 128 samples (16 steps; the k
+   ladder 1, 2, 4, 8), 1 epoch, ``--autotune-trials 8``: the same
+   search checks, the remat and accumulation points measured inside
+   captured probes or pruned with their error, the timed run's launches
+   exact with the probes' shown apart, its losses bitwise an untuned
+   run's at the committed point (within f32 1e-4 of the committed
+   schedule alone if a math knob moved), and the cached rerun.
 
-Phases 4, 4b, 5-6, 8-9, 10a, 11a and 11c are the main paths: each runs
-with every launch count set to 0 just before and read just after (10a
-and 11c in each rank's process), and each kernel must have launched the
+Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c and 12b are the main paths: each
+runs with every launch count set to 0 just before and read just after
+(10a and 11c in each rank's process; 12b's timed run, not its probes,
+which restore the counters and report their launches apart), and each
+kernel must have launched the
 exact number of times its path calls it, counting the launches a CUDA
 graph's replays ran (the superstep's record of its captures times its
 replays; a replay does not move the wrappers' counters). The training
@@ -1147,13 +1172,52 @@ def _path_launches(fa, fx, supersteps):
     return counts
 
 
-def _cli_run(torch, fa, fx, tag: str, argv, env=None):
+@contextlib.contextmanager
+def _tuner_watch(torch, made, trials, search):
+    """Every probe trial the tuner runs inside the block, appended to
+    ``trials`` with the device's reserved memory after it and the graph
+    pool its superstep captured, and the search's reserved memory before
+    and after in ``search``. The supersteps a probe made leave ``made``
+    (``_supersteps``), so a path's launches are the timed run's own: the
+    probes restore the wrappers' counters and carry their launches on
+    their results."""
+    from tpudist_torch import tune
+
+    real_probe, real_tune = tune.probe_mod.probe_candidate, tune.autotune
+
+    def probe(cfg, device, cand, plan, **kw):
+        n = len(made)
+        res = real_probe(cfg, device, cand, plan, **kw)
+        mine, made[n:] = made[n:], []
+        trials.append({"cand": cand, "res": res,
+                       "reserved": torch.cuda.memory_reserved(),
+                       "pool": max((m.graph_pool_bytes for m in mine),
+                                   default=0)})
+        return res
+
+    def autotune(*args, **kw):
+        torch.cuda.synchronize()
+        search["before"] = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        out = real_tune(*args, **kw)
+        search["wall"] = time.perf_counter() - t0
+        search["after"] = torch.cuda.memory_reserved()
+        return out
+    tune.probe_mod.probe_candidate, tune.autotune = probe, autotune
+    try:
+        yield
+    finally:
+        tune.probe_mod.probe_candidate, tune.autotune = real_probe, real_tune
+
+
+def _cli_run(torch, fa, fx, tag: str, argv, env=None, tuner=None):
     """``python -m tpudist_torch.train`` (its ``main``) on the card with
     ``argv`` (plus a ``--save-dir`` of its own) and ``env``, the launch
     counts set to 0 just before and read just after. Fails unless it
     exits 0 with a ``success`` verdict and a timing record. Returns its
     stdout, metrics records, launches, supersteps, wall and peak device
-    memory."""
+    memory. ``tuner`` = ``(trials, search)`` watches the autotuner
+    (``_tuner_watch``)."""
     from tpudist_torch import train as train_lib
 
     save = ROOT / "build" / "chip_smoke_train" / tag
@@ -1166,7 +1230,9 @@ def _cli_run(torch, fa, fx, tag: str, argv, env=None):
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(fa, fx)
         t0 = time.perf_counter()
-        with _supersteps() as made, contextlib.redirect_stdout(tee):
+        with _supersteps() as made, contextlib.redirect_stdout(tee), (
+                _tuner_watch(torch, made, *tuner) if tuner
+                else contextlib.nullcontext()):
             rc = train_lib.main(argv + ["--save-dir", str(save)])
         torch.cuda.synchronize()
     finally:
@@ -1388,6 +1454,331 @@ def superstep_mlp(torch, fa, fx, card: str):
     print(f"mlp: steps/s per-step {rates['per_step']}, superstep "
           f"{rates['superstep']}; medians {p:.1f} and {q:.1f} (ratio "
           f"{q / p:.4f}); {card}")
+
+
+# phase 12b's kernel path: the tuned run's timed steps
+TUNE_PATH = "tune_seq512_bf16"
+MB = 2**20
+
+
+def _tune_record(tag: str, run):
+    recs = [r for r in run["recs"] if r["kind"] == "tune"]
+    if len(recs) != 1:
+        fail(f"{tag}: {len(recs)} kind=tune records, want 1")
+    return recs[0]
+
+
+def _point(t) -> str:
+    return (f"k={t['steps_per_dispatch']}, staging "
+            f"{t['staging_budget_mb']} MB, remat={t['remat']}, "
+            f"grad_accum={t['grad_accum_steps']}")
+
+
+def _at_point(t, math: bool = True):
+    """The flags of an untuned run at the tuner's committed point (its
+    schedule knobs only, unless ``math``)."""
+    argv = ["--steps-per-dispatch", str(t["steps_per_dispatch"])]
+    if t["staging_budget_mb"] is not None:
+        argv += ["--staging-budget-mb", repr(t["staging_budget_mb"])]
+    if math:
+        argv += ["--grad-accum-steps", str(t["grad_accum_steps"])]
+        argv += ["--remat"] if t["remat"] else []
+    return argv
+
+
+def _tuned_search(torch, fa, fx, tag: str, argv, budget: int, card: str):
+    """The train CLI with ``--autotune probe`` (``argv`` holds it and a
+    fresh ``--autotune-cache-dir``): every trial printed (the discarded
+    cold one first) with the device's reserved memory before the search,
+    after each trial and after the search. Fails unless the search
+    succeeded from a probe within ``budget`` trials (plus the two
+    confirmations), the commit measured at least the heuristic start's
+    steps/s, the card holds at most one trial's graph pool more than
+    before the search, and an infeasible trial carries its error.
+    Returns the run, its tune record and the trials."""
+    trials, search = [], {}
+    run = _cli_run(torch, fa, fx, tag, argv, tuner=(trials, search))
+    t = _tune_record(tag, run)
+    print(f"{tag}: reserved before the search "
+          f"{search['before'] / MB:.1f} MB; {card}")
+    for i, tr in enumerate(trials):
+        c, r = tr["cand"], tr["res"]
+        what = "cold trial (discarded)" if i == 0 else f"trial {i}"
+        got = (f"{r.steps_per_sec:.2f} steps/s, spread {r.spread:.4f}"
+               if r.feasible else f"pruned: {r.error}")
+        peak = ("n/a" if r.hbm_peak_bytes is None
+                else f"{r.hbm_peak_bytes / MB:.1f} MB")
+        ran = {k: n for k, n in (r.launches or {}).items() if n}
+        print(f"{tag}: {what}: k={c.k}, staging {c.staging_budget_mb} MB, "
+              f"remat={c.remat}, accum={c.grad_accum_steps}: {got}; "
+              f"build+warm-up+capture {r.compile_s:.2f} s, peak reserved "
+              f"{peak}, graph pool {tr['pool'] / MB:.1f} MB, reserved "
+              f"after {tr['reserved'] / MB:.1f} MB; probe launches {ran}; "
+              f"{card}")
+        if not r.feasible and not r.error:
+            fail(f"{tag}: {what} pruned without an error")
+    grown = search["after"] - search["before"]
+    pool = max((tr["pool"] for tr in trials), default=0)
+    print(f"{tag}: reserved after the search {search['after'] / MB:.1f} MB "
+          f"({grown / MB:+.1f} MB; the largest trial pool "
+          f"{pool / MB:.1f} MB); search wall {search['wall']:.2f} s; "
+          f"{card}")
+    sps, base = t["steps_per_sec"], t["baseline_steps_per_sec"]
+    print(f"{tag}: tuning {t['status']} ({t['source']}): {_point(t)}; "
+          f"{sps} steps/s against the heuristic start's {base}"
+          + (f" (x{sps / base:.4f})" if sps and base else "")
+          + f", {t['trials']} trials, {t['pruned']} pruned; {card}")
+    if (t["source"], t["status"], run["timing"]["tuning_status"]) != (
+            "probe", "success", "success"):
+        fail(f"{tag}: tuning {t['status']} from {t['source']}, timing "
+             f"{run['timing']['tuning_status']}")
+    if len(trials) != 1 + t["trials"] or t["trials"] > budget + 2:
+        fail(f"{tag}: {len(trials)} probes for {t['trials']} trials "
+             f"(budget {budget} + 2 confirmations)")
+    if not (sps and base and sps >= base):
+        fail(f"{tag}: the commit's {sps} steps/s is not at least the "
+             f"heuristic start's {base}")
+    if grown > pool:
+        fail(f"{tag}: the card holds {grown / MB:.1f} MB more after the "
+             f"search, more than one trial's pool ({pool / MB:.1f} MB)")
+    if run["timing"]["steps_per_dispatch"] != t["steps_per_dispatch"]:
+        fail(f"{tag}: the run dispatched k="
+             f"{run['timing']['steps_per_dispatch']}, the tuner committed "
+             f"{t['steps_per_dispatch']}")
+    return run, t, trials
+
+
+def _cache_rerun(torch, fa, fx, tag: str, argv, t, card: str,
+                 per_step: int, unit: str):
+    """The same tuned command again on the same cache directory: a pure
+    cache hit, zero probes, the same point. Returns the run."""
+    trials, search = [], {}
+    run = _cli_run(torch, fa, fx, f"{tag}_cached", argv,
+                   tuner=(trials, search))
+    t2 = _tune_record(tag, run)
+    print(f"{tag} rerun: tuning {t2['status']} ({t2['source']}): "
+          f"{_point(t2)}, {t2['trials']} trials, {len(trials)} probes; "
+          + _step_line(run, per_step, unit) + f"; {card}")
+    keys = ("steps_per_dispatch", "staging_budget_mb", "remat",
+            "grad_accum_steps")
+    if (t2["source"], t2["trials"], len(trials)) != ("cache", 0, 0) or \
+            any(t2[key] != t[key] for key in keys):
+        fail(f"{tag} rerun: {t2['source']} with {t2['trials']} trials "
+             f"({len(trials)} probes) at {_point(t2)}, want a cache hit "
+             f"at {_point(t)}")
+    return run
+
+
+def capture_oom_drill(torch, card: str):
+    """Phase 12a's drill: an OOM raised inside a probe's capture (the MLP
+    default at k = 25) comes back as a pruned trial, the capture closed,
+    the launch counters and the reserved memory where they were, and the
+    same probe then measures on the card."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.tune import probe, search
+
+    cfg = config_lib.parse_args([])
+    plan = data_lib.plan_epoch(
+        data_lib.make_synthetic_data(cfg.data.n_samples,
+                                     cfg.data.n_features, cfg.data.seed),
+        batch_size=cfg.batch_size, seed=cfg.seed, epoch=0)
+    cand = search.Candidate(k=25)
+    dev = torch.device("cuda")
+    real = engine_lib.Superstep._graph_body
+
+    def oom(self, state, n):
+        real(self, state, n)            # some work into the pool first
+        raise torch.cuda.OutOfMemoryError("drill: out of memory inside "
+                                          "the capture")
+    probe.release_memory(dev)
+    counts = engine_lib.kernel_launch_counts()
+    before = torch.cuda.memory_reserved()
+    engine_lib.Superstep._graph_body = oom
+    try:
+        res = probe.probe_candidate(cfg, dev, cand, plan, repeats=1)
+    finally:
+        engine_lib.Superstep._graph_body = real
+    after = torch.cuda.memory_reserved()
+    capturing = torch.cuda.is_current_stream_capturing()
+    again = probe.probe_candidate(cfg, dev, cand, plan, repeats=1)
+    print(f"capture OOM drill: {res.error}; capturing after "
+          f"{capturing}; reserved {before / MB:.1f} -> {after / MB:.1f} MB; "
+          f"the same probe then {again.steps_per_sec:.2f} steps/s; {card}")
+    if res.feasible or "OutOfMemoryError" not in (res.error or "") \
+            or capturing or after > before \
+            or engine_lib.kernel_launch_counts() != counts \
+            or not again.feasible:
+        fail("capture OOM drill: the probe did not come back pruned with "
+             "the card as it found it")
+
+
+def tuner_mlp(torch, fa, fx, card: str):
+    """Phase 12a: ``python -m tpudist_torch.train --autotune probe`` at the
+    reference defaults (the MLP, 2000 samples, batch 64, 5 epochs,
+    --log-every 100: the k ladder 1, 2, 4, 10, 20, 25), the
+    dispatch-bound workload. The search must succeed from a probe (see
+    ``_tuned_search``), every epoch's Avg and eval loss must be bitwise
+    an untuned run's at the committed point, and a second run on the
+    same cache must be a pure hit. Then the capture OOM drill."""
+    from tpudist_torch import config as config_lib
+
+    cache = ROOT / "build" / "chip_smoke_tune" / "mlp"
+    shutil.rmtree(cache, ignore_errors=True)
+    argv = ["--autotune", "probe", "--autotune-cache-dir", str(cache)]
+    tag = "tune_mlp"
+    run, t, _ = _tuned_search(torch, fa, fx, tag, argv,
+                              config_lib.AUTOTUNE_DEFAULT_TRIALS, card)
+    ref = _cli_run(torch, fa, fx, f"{tag}_untuned", _at_point(t))
+    a, b = _epochs_of(run), _epochs_of(ref)
+    print(f"{tag}: tuned " + _step_line(run, 64, "samples")
+          + "; untuned at the point " + _step_line(ref, 64, "samples")
+          + f"; epochs (Avg, eval) tuned {a}, untuned {b}; {card}")
+    if a != b or len(a) != 5:
+        fail(f"{tag}: the epochs' losses differ: tuned {a}, untuned {b}")
+    _cache_rerun(torch, fa, fx, tag, argv, t, card, 64, "samples")
+    shutil.rmtree(cache, ignore_errors=True)
+    capture_oom_drill(torch, card)
+
+
+def tuner_full_width(torch, fa, fx, card: str):
+    """Phase 12b, the path ``tune_seq512_bf16``: the tuner at full width
+    on phase 11a's configuration (BASELINE config #5 at seq 512, bf16,
+    bf16 Adam nu, ``--lm-head fused``, global batch 8, seed 42) with
+    ``--log-every 8`` over 128 samples (16 steps an epoch: the k ladder
+    1, 2, 4, 8), 1 epoch, ``--autotune-trials 8``: the remat and
+    grad-accumulation axes and the flash forward, merged backward and
+    fused-head kernels inside captured probes. The search must succeed
+    (``_tuned_search``), the remat and accumulation points it reached be
+    measured or pruned with their error, the run's launches exact (the
+    probes' shown apart), its epoch losses bitwise an untuned run's at
+    the committed point (and, where a math knob moved, within f32 1e-4
+    of an untuned run at the committed schedule alone), and a rerun a
+    pure cache hit. Returns the path's launches."""
+    from tpudist_torch import config as config_lib
+
+    cache = ROOT / "build" / "chip_smoke_tune" / "seq512"
+    shutil.rmtree(cache, ignore_errors=True)
+    seq, n_samples = 512, 128
+    argv = ["--model", "transformer", "--seq-len", str(seq),
+            "--train-batch-size", "8", "--n-samples", str(n_samples),
+            "--epochs", "1", "--seed", "42", "--log-every", "8",
+            "--dtype", "bfloat16", "--adam-nu-dtype", "bfloat16",
+            "--lm-head", "fused"]
+    cfg = config_lib.parse_args(argv)
+    tuned_argv = argv + ["--autotune", "probe", "--autotune-trials", "8",
+                         "--autotune-cache-dir", str(cache)]
+    m = cfg.model
+    print(f"{TUNE_PATH}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} {cfg.dtype}, adam "
+          f"nu {cfg.adam_nu_dtype}, --lm-head fused, batch "
+          f"{cfg.batch_size}, {n_samples} samples, 1 epoch, --log-every "
+          f"8, --autotune probe --autotune-trials 8; {card}")
+    run, t, trials = _tuned_search(torch, fa, fx, TUNE_PATH, tuned_argv, 8,
+                                   card)
+    for axis, probed in (
+            ("remat", [tr for tr in trials[1:] if tr["cand"].remat]),
+            ("grad_accum", [tr for tr in trials[1:]
+                            if tr["cand"].grad_accum_steps > 1])):
+        print(f"{TUNE_PATH}: the {axis} axis: " + ("; ".join(
+            f"k={tr['cand'].k} accum={tr['cand'].grad_accum_steps} remat="
+            f"{tr['cand'].remat}: " + (
+                f"{tr['res'].steps_per_sec:.2f} steps/s"
+                + (" (captured)" if tr["cand"].k > 1 else " (per-step)")
+                if tr["res"].feasible else f"pruned: {tr['res'].error}")
+            for tr in probed) or "not reached within the budget"))
+    steps = n_samples // cfg.batch_size
+    want = want_launches(fa, m, seq, steps, 1, fused=True)
+    probes = dict.fromkeys(want, 0)
+    for tr in trials:
+        for name, n in (tr["res"].launches or {}).items():
+            probes[name] += n
+    print(f"{TUNE_PATH}: timed run {_step_line(run, cfg.batch_size * seq)}"
+          f"; kernel launches {run['counts']} (want {want}); the probes' "
+          f"launches apart {probes}; {card}")
+    if run["counts"] != want:
+        fail(f"{TUNE_PATH}: kernel launches {run['counts']}, want {want}")
+    ref = _cli_run(torch, fa, fx, f"{TUNE_PATH}_untuned",
+                   argv + _at_point(t))
+    a, b = _epochs_of(run), _epochs_of(ref)
+    print(f"{TUNE_PATH}: epochs (Avg, eval) tuned {a}, untuned at the "
+          f"point {b}")
+    if a != b or len(a) != 1:
+        fail(f"{TUNE_PATH}: the epochs' losses differ: tuned {a}, "
+             f"untuned {b}")
+    if t["remat"] != cfg.remat or t["grad_accum_steps"] != 1:
+        sched = _cli_run(torch, fa, fx, f"{TUNE_PATH}_schedule",
+                         argv + _at_point(t, math=False))
+        c = _epochs_of(sched)
+        err = max(abs(x - y) / abs(y) for p, q in zip(a, c)
+                  for x, y in zip(p, q))
+        print(f"{TUNE_PATH}: a math knob moved: epochs at the schedule "
+              f"alone {c}, worst relative difference {err:.3e} (tol 1e-4)")
+        if err > 1e-4:
+            fail(f"{TUNE_PATH}: the math knob moved the losses by {err:.3e}")
+    _cache_rerun(torch, fa, fx, TUNE_PATH, tuned_argv, t, card,
+                 cfg.batch_size * seq, "tokens")
+    shutil.rmtree(cache, ignore_errors=True)
+    return run["counts"]
+
+
+def remat_check(torch, card: str):
+    """Phase 12b: one full-width training step (BASELINE config #5, seq
+    512, f32, the fused head) with ``--remat`` (each layer checkpointed,
+    recomputed in the backward) and without, each captured as a CUDA
+    graph after an eager warm-up and replayed: the loss and every param
+    grad within f32 1e-4 (max |d| / max |no remat| per tensor)."""
+    from tpudist_torch import data as data_lib
+    from tpudist_torch.config import flagship_model_config
+    from tpudist_torch.models import transformer
+
+    cfg = flagship_model_config(512)
+    model = transformer.init(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(42))
+    tokens = torch.as_tensor(data_lib.make_synthetic_tokens(
+        8, 513, cfg.vocab_size, 42), device="cuda").long()
+    params = list(model.parameters())
+
+    def step(remat):
+        loss = transformer.loss_fn(model, tokens, cfg, dtype=torch.float32,
+                                   remat=remat, fused_xent=True)
+        return (loss.detach(), *torch.autograd.grad(loss, params))
+
+    outs, pools = {}, {}
+    main = torch.cuda.current_stream()
+    for remat in (False, True):
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            step(remat)
+        main.wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = step(remat)
+        graph.replay()
+        torch.cuda.synchronize()
+        pools[remat] = torch.cuda.memory_reserved() - reserved
+        outs[remat] = [x.clone() for x in out]
+        del graph, out
+        torch.cuda.empty_cache()
+    ref, got = outs[False], outs[True]
+    errs = [((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+            for g, r in zip(got, ref)]
+    worst = max(errs)
+    print(f"remat check: seq 512 f32 fused head, replayed graphs: loss "
+          f"{got[0].item():.6f} (remat) vs {ref[0].item():.6f}; worst "
+          f"relative difference {worst:.3e} over the loss and "
+          f"{len(errs) - 1} grads (tol 1e-4); graph pools "
+          f"{pools[True] / MB:.1f} MB with remat, {pools[False] / MB:.1f} "
+          f"MB without; {card}")
+    del model, outs, ref, got
+    torch.cuda.empty_cache()
+    if not worst <= 1e-4:
+        fail(f"remat check: remat moved the step by {worst:.3e}")
 
 
 def _free_port() -> int:
@@ -2159,6 +2550,14 @@ def main() -> int:
         torch, fa, card, tag="train_seq512_dp_superstep", n_samples=80,
         dispatch=("--log-every", "4", "--steps-per-dispatch", "4"),
         want_graphs=(2, {"superstep": 1, "step": 2}))
+
+    # phase 12: the autotuner on the card: (a) the MLP default and the
+    # capture OOM drill, (b) remat against no remat replayed, then the
+    # full-width search with remat and accumulation in captured probes
+    torch.cuda.empty_cache()
+    tuner_mlp(torch, fa, fx, card)
+    remat_check(torch, card)
+    paths[TUNE_PATH] = tuner_full_width(torch, fa, fx, card)
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -2181,13 +2580,16 @@ def main() -> int:
                                            "train_seq2048_fused"),
                "flash_attention_bwd_dqkv": ("train_seq512",
                                             "train_seq512_bf16_auto",
-                                            "train_seq512_dp", *SUPERSTEP),
+                                            "train_seq512_dp", *SUPERSTEP,
+                                            TUNE_PATH),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
-                                  "train_seq512_dp", *SUPERSTEP),
+                                  "train_seq512_dp", *SUPERSTEP,
+                                  TUNE_PATH),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
-                                  "train_seq512_dp", *SUPERSTEP)}
+                                  "train_seq512_dp", *SUPERSTEP,
+                                  TUNE_PATH)}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

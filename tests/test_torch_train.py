@@ -211,8 +211,8 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
 
 @pytest.mark.parametrize("flag", [
     ["--fsdp", "2"], ["--tensor", "2"], ["--context", "2"], ["--pipe", "2"],
-    ["--expert", "2"], ["--model", "moe"], ["--autotune", "cache-only"],
-    ["--live", "on"], ["--autotune", "probe"],
+    ["--expert", "2"], ["--model", "moe"], ["--tensor", "4"],
+    ["--live", "on"], ["--pipe", "4", "--context", "2"],
 ])
 def test_flags_this_slice_does_not_carry_are_refused(flag):
     cfg = tconfig.parse_args(flag + ["--device", "cpu"])
@@ -277,8 +277,11 @@ def _turn_on(kw, off):
 
 
 # the $TPUDIST_ twins of carried options, each read as the JAX package
-# reads it (tests/test_torch_staging.py drives the staging budget's)
-ENV_CARRIED = {"TPUDIST_STAGING_BUDGET_MB"}
+# reads it (tests/test_torch_staging.py drives the staging budget's,
+# tests/test_torch_tune.py the tuner's and the build root's)
+ENV_CARRIED = {"TPUDIST_STAGING_BUDGET_MB", "TPUDIST_AUTOTUNE",
+               "TPUDIST_AUTOTUNE_CACHE_DIR", "TPUDIST_AUTOTUNE_TRIALS",
+               "TPUDIST_COMPILATION_CACHE_DIR"}
 
 
 def test_every_jax_train_flag_is_carried_or_refused():
@@ -313,7 +316,7 @@ def test_every_jax_train_flag_is_carried_or_refused():
 
 ENV_ON = {"TPUDIST_CHAOS": "kill@0:1", "TPUDIST_TEST_KILL": "0:1",
           "TPUDIST_CKPT_MODE": "sharded", "TPUDIST_LIVE": "on",
-          "TPUDIST_AUTOTUNE": "probe", "TPUDIST_TRACE": "on",
+          "TPUDIST_TRACE": "on",
           "TPUDIST_GRAD_OVERLAP": "bucketed",
           "TPUDIST_CROSS_SLICE": "hierarchical", "TPUDIST_NO_FLASH": "1"}
 

@@ -7,3 +7,5 @@ numpy and the standard library only, never ``jax`` or ``tpudist``: what it
 needs from the JAX package's standard-library modules it keeps as its own
 copy.
 """
+
+__version__ = "0.1.0"

@@ -92,7 +92,12 @@ class TrainConfig:
     staging_budget_mb: Optional[float] = None  # per-device MB of batch
     # slabs; None = $TPUDIST_STAGING_BUDGET_MB, else auto
     # (resolve_staging_budget_bytes)
-    autotune: Optional[str] = None
+    compilation_cache_dir: Optional[str] = None  # the kernels' build
+    # root (ops/cuda/build.py); None = $TPUDIST_COMPILATION_CACHE_DIR,
+    # else build/tpudist_torch
+    autotune: Optional[str] = None  # off | probe | cache-only
+    autotune_cache_dir: Optional[str] = None  # tuning-cache directory
+    autotune_trials: int = 0      # probe-trial budget; 0 = auto
     live: Optional[str] = None
     device: Optional[str] = None  # None = cuda
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
@@ -131,11 +136,6 @@ NOT_CARRIED = (
     ("--capacity-factor", dict(type=float, default=1.25), (), None, 8),
     ("--router-aux-weight", dict(type=float, default=0.01), (), None, 8),
     ("--moe-group-size", dict(type=int, default=4096), (), None, 8),
-    ("--compilation-cache-dir", {}, (), "TPUDIST_COMPILATION_CACHE_DIR",
-     "7b"),
-    ("--autotune-cache-dir", {}, (), "TPUDIST_AUTOTUNE_CACHE_DIR", "7b"),
-    ("--autotune-trials", dict(type=int, default=0), (),
-     "TPUDIST_AUTOTUNE_TRIALS", "7b"),
     ("--profile-dir", {}, (), None, 11),
     ("--profile-window", dict(type=int, default=0), (),
      "TPUDIST_PROFILE_WINDOW", 11),
@@ -150,7 +150,7 @@ NOT_CARRIED = (
 )
 
 # The environment variables the JAX package reads for what this slice does
-# not carry (the twins of NOT_CARRIED and of --live/--autotune, and two
+# not carry (the twins of NOT_CARRIED and of --live, and two
 # switches of its own): the values that leave each off there, and the
 # Queue A item that brings it (None: no item does; the port's attention
 # always takes its flash kernels).
@@ -159,7 +159,6 @@ ENV_NOT_CARRIED = {
        for _, kw, off, env, item in NOT_CARRIED if env},
     "TPUDIST_TEST_KILL": ((), 10),
     "TPUDIST_LIVE": (("off",), 11),
-    "TPUDIST_AUTOTUNE": (("off",), "7b"),
     "TPUDIST_NO_FLASH": ((), None),
 }
 
@@ -220,10 +219,6 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(
             "--live on: the live telemetry bus comes with ROADMAP Queue A "
             "item 11")
-    if cfg.autotune not in (None, "off"):
-        raise ValueError(
-            f"--autotune {cfg.autotune}: autotuning comes with ROADMAP "
-            f"Queue A item 7b")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):
@@ -340,6 +335,66 @@ def resolve_staging_budget_bytes(cfg: TrainConfig, *, state_bytes: int = 0,
     return int(free * STAGING_FREE_FRACTION)
 
 
+# Autotune (tpudist_torch.tune): the measured-probe search that replaces
+# the two resolve_* heuristics above with a measurement when enabled. The
+# heuristics stay as the search's START point and its never-regress
+# floor.
+AUTOTUNE_MODES = ("off", "probe", "cache-only")
+AUTOTUNE_DEFAULT_TRIALS = 12
+
+
+def _env_float(name: str) -> Optional[float]:
+    """Optional float env var; a malformed value reads as unset (the JAX
+    package's ``config._env_float``)."""
+    raw = os.environ.get(name)
+    if not raw:
+        return None
+    try:
+        return float(raw)
+    except ValueError:
+        return None
+
+
+def resolve_autotune(cfg: TrainConfig) -> str:
+    """Resolve ``--autotune`` / ``TPUDIST_AUTOTUNE`` to a concrete mode, as
+    the JAX package's ``config.resolve_autotune`` does.
+
+    ``probe`` measures on a cache miss; ``cache-only`` reuses a prior
+    measurement but never probes. Fault injection forces ``off``: it is
+    defined in per-step-dispatch terms, so every knob the tuner searches
+    is already pinned (the JAX package's other forcing case, full-run
+    profiling, cannot arise: the port refuses ``--profile-dir``).
+    """
+    mode = cfg.autotune
+    if mode is None:
+        mode = os.environ.get("TPUDIST_AUTOTUNE") or "off"
+    if mode not in AUTOTUNE_MODES:
+        raise ValueError(
+            f"--autotune must be one of {AUTOTUNE_MODES}, got {mode!r}")
+    if mode != "off" and cfg.fail_at is not None:
+        return "off"
+    return mode
+
+
+def resolve_autotune_cache_dir(cfg: TrainConfig) -> str:
+    """Precedence: flag > ``TPUDIST_AUTOTUNE_CACHE_DIR`` > a ``tune/``
+    subdir of ``save_dir`` (next to metrics.jsonl)."""
+    return (cfg.autotune_cache_dir
+            or os.environ.get("TPUDIST_AUTOTUNE_CACHE_DIR")
+            or os.path.join(cfg.save_dir, "tune"))
+
+
+def resolve_autotune_trials(cfg: TrainConfig) -> int:
+    """Probe-trial budget: flag > ``TPUDIST_AUTOTUNE_TRIALS`` > 12."""
+    if cfg.autotune_trials < 0:
+        raise ValueError(
+            f"--autotune-trials must be >= 0, got {cfg.autotune_trials}")
+    if cfg.autotune_trials:
+        return cfg.autotune_trials
+    env = _env_float("TPUDIST_AUTOTUNE_TRIALS")
+    return int(env) if env and env > 0 else AUTOTUNE_DEFAULT_TRIALS
+
+
 def flagship_model_config(max_seq_len: int = 512) -> ModelConfig:
     """BASELINE config #5: the synthetic Llama-block transformer (4
     layers, 2048 hidden, 16 heads, SwiGLU 5504)."""
@@ -408,8 +463,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                    help="per-device MB for staged batch slabs; epochs "
                         "over it stream in double-buffered slabs "
                         "(default: $TPUDIST_STAGING_BUDGET_MB, else auto)")
+    p.add_argument("--compilation-cache-dir", type=str, default=None,
+                   help="build root of the CUDA kernel libraries "
+                        "(default: $TPUDIST_COMPILATION_CACHE_DIR, else "
+                        "build/tpudist_torch); repeat runs load them "
+                        "instead of running nvcc again")
     p.add_argument("--autotune", type=str, default=None,
-                   choices=("off", "probe", "cache-only"))
+                   choices=list(AUTOTUNE_MODES),
+                   help="measured-probe autotuning of the dispatch/"
+                        "staging/remat operating point (tpudist_torch."
+                        "tune): probe = short on-device trials before the "
+                        "timed run (cached by workload fingerprint; the "
+                        "second run costs zero probes), cache-only = "
+                        "reuse a prior measurement but never probe "
+                        "(default: $TPUDIST_AUTOTUNE, else off)")
+    p.add_argument("--autotune-cache-dir", type=str, default=None,
+                   help="tuning-cache directory (default: "
+                        "$TPUDIST_AUTOTUNE_CACHE_DIR, else "
+                        "<save-dir>/tune)")
+    p.add_argument("--autotune-trials", type=int, default=0,
+                   help="probe-trial budget for the autotune search "
+                        "(0 = $TPUDIST_AUTOTUNE_TRIALS, else 12)")
     p.add_argument("--live", type=str, default=None, choices=("on", "off"))
     p.add_argument("--device", type=str, default=None,
                    choices=("cuda", "cpu"),
@@ -443,7 +517,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         log_every=args.log_every,
         steps_per_dispatch=args.steps_per_dispatch,
         staging_budget_mb=args.staging_budget_mb,
+        compilation_cache_dir=args.compilation_cache_dir,
         autotune=args.autotune,
+        autotune_cache_dir=args.autotune_cache_dir,
+        autotune_trials=args.autotune_trials,
         live=args.live,
         device=args.device,
         data=DataConfig(n_samples=args.n_samples,

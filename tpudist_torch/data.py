@@ -139,6 +139,12 @@ def plan_epoch(arrays, *, batch_size: int, seed: int, epoch: int,
     return EpochPlan(arrays, idx)
 
 
+def to_device(batch, device: torch.device):
+    """Host arrays of one step -> device tensors (token ids as int64)."""
+    return tuple(torch.tensor(a).to(device, torch.int64 if a.dtype.kind
+                                    == "i" else None) for a in batch)
+
+
 def shard_epoch(x, y, *, batch_size: int, seed: int, epoch: int,
                 process_index: int = 0, process_count: int = 1):
     """This process's ``(steps, local_batch, ...)`` batches for one epoch,

@@ -417,9 +417,23 @@ def kernel_launch_counts() -> Dict[str, int]:
     return {name: getattr(mod, attr) for name, mod, attr in _COUNTERS}
 
 
-def _set_kernel_launch_counts(counts: Dict[str, int]) -> None:
+def set_kernel_launch_counts(counts: Dict[str, int]) -> None:
     for name, mod, attr in _COUNTERS:
         setattr(mod, attr, counts[name])
+
+
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream every superstep on ``device`` warms up and
+    captures on, one a card as ``torch.cuda.graph`` keeps one default
+    capture stream: cuBLAS keeps a workspace from the caching allocator
+    for each stream it has run on, so a fresh stream a superstep would
+    leave one behind for each (the tuner builds a superstep a trial)."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
 
 
 class Superstep:
@@ -532,7 +546,7 @@ class Superstep:
                                "once a run, and was released")
         dev = self.device
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _capture_stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             state, total, losses = self._eager(state, total, slab, lo, hi)
@@ -576,7 +590,7 @@ class Superstep:
             after = kernel_launch_counts()
             self.captured_launches[name] = {
                 key: after[key] - before[key] for key in after}
-            _set_kernel_launch_counts(before)
+            set_kernel_launch_counts(before)
             self.graphs[name], self._outputs[name] = graph, out
             self.replays[name] = 0
         torch.cuda.synchronize(dev)

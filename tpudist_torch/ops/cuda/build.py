@@ -2,12 +2,15 @@
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) from the
 sources under ``tpudist_torch/csrc/`` into
-``build/tpudist_torch/<name>-<hash>/lib<name>.so`` at the repository
-root, where ``<hash>`` covers the sources, the headers beside them and
-the compiler flags: a checkout builds what it holds, and a changed source
-or header never loads a stale library. The libraries have a plain C
-interface and are loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds, not minutes).
+``<root>/<name>-<hash>/lib<name>.so``, where ``<root>`` is
+:func:`build_root` (``build/tpudist_torch`` at the repository root
+unless ``--compilation-cache-dir`` or ``TPUDIST_COMPILATION_CACHE_DIR``
+names another directory: the port's counterpart of the JAX package's
+persistent compilation cache) and ``<hash>`` covers the sources, the
+headers beside them and the compiler flags: a checkout builds what it
+holds, and a changed source or header never loads a stale library. The
+libraries have a plain C interface and are loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds, not minutes).
 
 Nothing here runs at import time: the CPU test lane imports every module
 of the port on a machine with no ``nvcc``.
@@ -23,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "tpudist_torch"
@@ -31,6 +34,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+_root: Optional[Path] = None      # set_build_root's directory
+
+
+def set_build_root(path: Optional[str]) -> None:
+    """The train CLI's ``--compilation-cache-dir``: build (and look for)
+    the libraries under ``path`` from now on; None leaves the choice to
+    :func:`build_root`'s environment and default."""
+    global _root
+    _root = Path(path) if path else None
+
+
+def build_root() -> Path:
+    """The directory the libraries are built under: the one
+    :func:`set_build_root` named, else ``$TPUDIST_COMPILATION_CACHE_DIR``,
+    else :data:`BUILD_ROOT`."""
+    env = os.environ.get("TPUDIST_COMPILATION_CACHE_DIR")
+    return _root or (Path(env) if env else BUILD_ROOT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +85,7 @@ def library_path(name: str, sources: Sequence[str]) -> Path:
     for src in (*sources, *headers):
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
-    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+    return build_root() / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def build(name: str, sources: Sequence[str]) -> BuildResult:

@@ -10,7 +10,11 @@ all-reduced mean, Adam), dispatched k steps at a time
 (``--steps-per-dispatch``, auto as the JAX CLI resolves it: k = 25 at
 the defaults) through the superstep, whose batches are staged a slab at
 a time (the whole epoch, or double-buffered slabs under
-``--staging-budget-mb``), or one step at a time when k = 1; the epoch
+``--staging-budget-mb``), or one step at a time when k = 1; with
+``--autotune probe|cache-only`` those knobs (and ``--remat``,
+``--grad-accum-steps``) come from measured trials of the real dispatch
+before the timed run, or from the tuning cache
+(``tpudist_torch.tune``); the epoch
 loop with the stdout contract (``Epoch N
 finished. Avg loss: X``, ``Epoch N eval loss: X``, ``Training
 completed.``), a checkpoint per epoch (and every ``--ckpt-every-steps``),
@@ -45,15 +49,10 @@ from tpudist_torch import engine as engine_lib
 from tpudist_torch import verdict as verdict_lib
 from tpudist_torch.config import TrainConfig, parse_args
 from tpudist_torch.metrics import MetricsLogger, StagingStats, StepTimer, log0
+from tpudist_torch.ops.cuda import build as build_lib
 from tpudist_torch.parallel import distributed
 from tpudist_torch.parallel import staging as staging_lib
 from tpudist_torch.utils.platform import resolve_device
-
-
-def _to_device(batch, device: torch.device):
-    """Host arrays of one step -> device tensors (token ids as int64)."""
-    return tuple(torch.tensor(a).to(device, torch.int64 if a.dtype.kind
-                                    == "i" else None) for a in batch)
 
 
 def device_kind(device: torch.device) -> str:
@@ -67,6 +66,7 @@ def run(cfg: TrainConfig) -> float:
     failure: :func:`main` turns exceptions into the fail verdict and
     exit 1."""
     config_lib.check_supported(cfg)
+    build_lib.set_build_root(cfg.compilation_cache_dir)
     ctx = distributed.initialize(device=resolve_device(cfg.device))
     device, world = ctx.device, ctx.process_count
     if cfg.batch_size % world:
@@ -97,7 +97,7 @@ def run(cfg: TrainConfig) -> float:
         eval_src = (data_lib.make_synthetic_tokens(
             cfg.batch_size, cfg.model.max_seq_len + 1,
             cfg.model.vocab_size, cfg.data.seed + 1),)
-    eval_batch = _to_device(eval_src, device)
+    eval_batch = data_lib.to_device(eval_src, device)
 
     def epoch_plan(epoch):
         return data_lib.plan_epoch(sources, batch_size=cfg.batch_size,
@@ -112,6 +112,28 @@ def run(cfg: TrainConfig) -> float:
     metrics = MetricsLogger(path=os.path.join(cfg.save_dir, "metrics.jsonl"))
     metrics.log(kind="attempt", phase="start", process_count=world)
     metrics.flush()
+
+    # measured-probe autotune (tpudist_torch.tune): replace the static
+    # resolve_* guesses below with short trials of the real superstep on
+    # the device (or a cached prior measurement) BEFORE the timed run —
+    # the committed knobs land in cfg as explicit settings, so the rest
+    # of the loop is oblivious to how they were chosen
+    autotune_mode = config_lib.resolve_autotune(cfg)
+    tuning_status = verdict_lib.tuning_status(autotune_mode)
+    if autotune_mode != "off":
+        from tpudist_torch import tune as tune_lib
+        outcome = tune_lib.autotune(
+            cfg, device, epoch_plan(0), mode=autotune_mode,
+            metrics=metrics, is_coordinator=ctx.is_coordinator,
+            state_bytes=engine_lib.state_bytes_per_device(state),
+            hbm_bytes=engine_lib._device_hbm_bytes(device))
+        cfg = outcome.cfg
+        tuning_status = outcome.status
+        t = outcome.tuned
+        log0(f"tpudist: tuning {outcome.status} ({outcome.source}): "
+             f"k={t.k}, staging {t.staging_budget_mb} MB, "
+             f"remat={t.remat}, grad_accum={t.grad_accum_steps} "
+             f"({outcome.trials} probe trials, {outcome.pruned} pruned)")
     k = config_lib.resolve_steps_per_dispatch(cfg)
     budget_bytes = None
     superstep = train_step = None
@@ -207,7 +229,7 @@ def run(cfg: TrainConfig) -> float:
     metrics.log(kind="timing", steps_per_dispatch=k, **timer.split(),
                 **staging.split(), staging_overlap_fraction=overlap,
                 staging_status=staging_verdict,
-                tuning_status=verdict_lib.tuning_status("off"),
+                tuning_status=tuning_status,
                 samples_per_step=cfg.batch_size, tokens_per_step=tokens,
                 resume_status=resume_verdict, device=device_kind(device),
                 **graphs)
@@ -366,7 +388,7 @@ def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
             continue
         batches = plan.slab(0, n_steps)
         for i in range(first, n_steps):
-            batch = _to_device(tuple(a[i] for a in batches), device)
+            batch = data_lib.to_device(tuple(a[i] for a in batches), device)
             state, loss = train_step(state, batch)
             total = loss if total is None else total + loss
             counted += 1

@@ -50,9 +50,8 @@ def tuning_status(mode: str, *, source: str = "heuristic",
     measured operating point was committed — from the cache, or from a
     probe search whose commit did not regress the measured seed
     heuristic; FAIL when ``probe`` mode had to fall back or the
-    committed point measured slower than the heuristic start. The port
-    runs with tuning off (the tuner is ROADMAP Queue A item 7b), so it
-    writes ``tuning_status("off")``."""
+    committed point measured slower than the heuristic start
+    (``tpudist_torch.tune.autotune``)."""
     if mode == "off":
         return UNGATEABLE
     if source == "cache":
