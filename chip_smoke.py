@@ -132,9 +132,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
    captured probes or pruned with their error, the timed run's launches
    exact with the probes' shown apart, its losses bitwise an untuned
    run's at the committed point (within f32 1e-4 of the committed
-   schedule alone if a math knob moved), and the cached rerun.
+   schedule alone if a math knob moved), and the cached rerun;
+13. the observability every default run writes (on in every CLI run
+   above): (a) phase 11a's superstep run's directory: both traces with
+   the JAX span names and nothing dropped, the beacon at the final
+   step, a ``kind=hosts`` record an epoch, the memory ledger (its
+   partition summing to the card's memory), ``kind=timing`` with
+   ``0 < mfu <= 1.05`` over a flop count equal to its closed form,
+   ``hbm_source`` ``memory_stats`` and a watermark at or above the run's
+   ``max_memory_allocated``, ``run_id`` on every record; then the same
+   configuration with ``--trace off --stall-timeout-s 0 --hbm-sample-s
+   0`` and on again: the losses bitwise, the programs, replays and
+   launches the same, the step times in turns; (b) phase 4's serving
+   configuration through ``python -m tpudist_torch.serve`` (its
+   ``run``), traced and with ``--trace off``: one slot track per slot
+   that served, the ledger, the tokens equal, the program pin, the
+   flash launches exact, tokens/s/chip of each; (c) a CUDA graph
+   captured while an ``HbmSampler`` reads every millisecond (the capture
+   holds, its replay equals the eager body), then a stall drill: a
+   ``FlightRecorder`` with a 2 s window and no progress while that
+   graph replays writes ``flightrec.worker0`` with the threads' stacks
+   and the card's ``memory_stats``, the replays' output unchanged.
 
-Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c and 12b are the main paths: each
+Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a and 13b are the main
+paths: each
 runs with every launch count set to 0 just before and read just after
 (10a and 11c in each rank's process; 12b's timed run, not its probes,
 which restore the counters and report their launches apart), and each
@@ -1210,14 +1231,16 @@ def _tuner_watch(torch, made, trials, search):
         tune.probe_mod.probe_candidate, tune.autotune = real_probe, real_tune
 
 
-def _cli_run(torch, fa, fx, tag: str, argv, env=None, tuner=None):
+def _cli_run(torch, fa, fx, tag: str, argv, env=None, tuner=None,
+             keep: bool = False):
     """``python -m tpudist_torch.train`` (its ``main``) on the card with
     ``argv`` (plus a ``--save-dir`` of its own) and ``env``, the launch
     counts set to 0 just before and read just after. Fails unless it
     exits 0 with a ``success`` verdict and a timing record. Returns its
     stdout, metrics records, launches, supersteps, wall and peak device
     memory. ``tuner`` = ``(trials, search)`` watches the autotuner
-    (``_tuner_watch``)."""
+    (``_tuner_watch``). ``keep`` leaves the run directory (``run["dir"]``)
+    for the caller to read and remove."""
     from tpudist_torch import train as train_lib
 
     save = ROOT / "build" / "chip_smoke_train" / tag
@@ -1238,15 +1261,17 @@ def _cli_run(torch, fa, fx, tag: str, argv, env=None, tuner=None):
     finally:
         for k in env:
             del os.environ[k]
-    run = {"wall": time.perf_counter() - t0,
+    run = {"wall": time.perf_counter() - t0, "dir": save,
            "counts": _path_launches(fa, fx, made), "supersteps": made,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "out": tee.buf.getvalue(),
            "recs": [json.loads(ln) for ln in
                     (save / "metrics.jsonl").read_text().splitlines()]}
     verdict = save / "job_status.txt"
     status = verdict.read_text() if verdict.is_file() else None
-    shutil.rmtree(save, ignore_errors=True)
+    if not keep:
+        shutil.rmtree(save, ignore_errors=True)
     torch.cuda.empty_cache()
     run["timing"] = [r for r in run["recs"] if r["kind"] == "timing"]
     if rc != 0 or status != "success" or not run["timing"]:
@@ -1378,7 +1403,9 @@ def superstep_slice(torch, fa, fx, card: str):
             ("superstep", ["--steps-per-dispatch", "0"],
              {"TPUDIST_STAGING_BUDGET_MB": repr(budget_mb)})):
         tag = f"train_seq512_bf16_{how}"
-        run = runs[how] = _cli_run(torch, fa, fx, tag, argv + extra, env)
+        # the superstep's run directory is phase 13a's default run
+        run = runs[how] = _cli_run(torch, fa, fx, tag, argv + extra, env,
+                                   keep=how == "superstep")
         t = run["timing"]
         losses = [r["loss"] for r in run["recs"] if r["kind"] == "step"]
         check_contract(tag, run["out"], epochs, losses)
@@ -1416,7 +1443,8 @@ def superstep_slice(torch, fa, fx, card: str):
           f"per-step, {1e3 * q['run_s'] / q['steps']:.3f} ms superstep "
           f"(ratio {(p['run_s'] / p['steps']) / (q['run_s'] / q['steps']):.4f}"
           f"); {card}")
-    return paths
+    return paths, sup, argv + ["--steps-per-dispatch", "0"], {
+        "TPUDIST_STAGING_BUDGET_MB": repr(budget_mb)}
 
 
 def superstep_mlp(torch, fa, fx, card: str):
@@ -1721,6 +1749,334 @@ def tuner_full_width(torch, fa, fx, card: str):
                  cfg.batch_size * seq, "tokens")
     shutil.rmtree(cache, ignore_errors=True)
     return run["counts"]
+
+
+# phase 13: the observability every default run writes
+OBS_SPANS = ("distributed_init", "data_materialize", "model_init", "setup",
+             "ckpt_open", "epoch", "dispatch", "stage_slab", "fence",
+             "slab_wait", "eval", "hosts_gather", "ckpt_enqueue")
+OBS_OFF = ["--trace", "off", "--stall-timeout-s", "0", "--hbm-sample-s", "0"]
+OBS_PATHS = ("obs_seq512_bf16_off", "obs_seq512_bf16_on")
+OBS_SERVE = ("obs_serve_on", "obs_serve_off")
+
+
+def _read_json(path: Path, what: str):
+    if not path.is_file():
+        fail(f"{what}: no {path.name} in the run directory")
+    try:
+        return json.loads(path.read_text())
+    except ValueError as e:
+        fail(f"{what}: {path.name} does not parse ({e})")
+
+
+def _x_names(doc):
+    return {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+
+
+def _ledger_line(what: str, d: Path, recs) -> str:
+    """The run's memory ledger: one ``kind=memledger`` record and
+    ``memledger.json``, whose partition sums to the card's memory."""
+    led = _read_json(d / "memledger.json", what)
+    n = sum(r["kind"] == "memledger" for r in recs)
+    b = led["buckets"]
+    if n != 1 or sum(b.values()) != led["total_hbm_bytes"]:
+        fail(f"{what}: {n} kind=memledger records, buckets sum "
+             f"{sum(b.values())} of {led['total_hbm_bytes']}")
+    return (f"ledger {'exact' if led['exact'] else 'INEXACT'}, headroom "
+            f"{led['headroom_status']} ({led['headroom_fraction']}) of "
+            f"{led['total_hbm_bytes'] / MB:.1f} MB: "
+            + ", ".join(f"{k} {v / MB:.1f}" for k, v in b.items())
+            + f" MB; program_temp complete "
+            f"{led['program_temp_complete']}; problems {led['problems']}")
+
+
+def step_flops(m, b: int, s: int) -> int:
+    """One training step's model flops at batch ``b``, seq ``s`` of model
+    ``m``, the count's closed form (``tpudist_torch.obs.mfu``): 6 x
+    tokens x the linear layers' and the tied head's weights, plus the
+    causal attention's two products over s(s+1)/2 pairs, forward and
+    twice that backward."""
+    hd = m.d_model // m.n_heads
+    linear = m.n_layers * (m.d_model * m.n_heads * hd * 2
+                           + 2 * m.d_model * m.n_kv_heads * hd
+                           + 3 * m.d_model * m.d_ff)
+    pairs = s * (s + 1) // 2
+    return (6 * b * s * (linear + m.vocab_size * m.d_model)
+            + 12 * b * m.n_heads * hd * pairs * m.n_layers)
+
+
+def check_obs_dir(what: str, run, epochs: int, n_steps: int, flops: int,
+                  card: str) -> None:
+    """Phase 13a: a default train run's directory holds the JAX run's
+    artifact set: both traces with every span name and nothing dropped,
+    the beacon at the final step, a ``kind=hosts`` record an epoch, the
+    memory ledger, the timing record's MFU within (0, 1.05] over a flop
+    count equal to the closed form ``flops`` (the CPU's count: the
+    kernels report the plain versions' formulas), the watermark from the
+    card's counters at or above the run's peak allocation, and
+    ``run_id`` on every record."""
+    d, t = run["dir"], run["timing"]
+    for name in ("trace.worker0.json", "pod_trace.json"):
+        doc = _read_json(d / name, what)
+        missing = set(OBS_SPANS) - _x_names(doc)
+        meta = doc["metadata"]
+        if missing or meta.get("dropped") != 0 or not meta.get("run_id"):
+            fail(f"{what}: {name} lacks spans {sorted(missing)}, dropped "
+                 f"{meta.get('dropped')}, run_id {meta.get('run_id')}")
+    beat = _read_json(d / "heartbeat.worker0", what)
+    if (beat.get("epoch"), beat.get("step")) != (epochs - 1, n_steps):
+        fail(f"{what}: the beacon reads epoch {beat.get('epoch')} step "
+             f"{beat.get('step')}, want {epochs - 1} and {n_steps}")
+    hosts = [r for r in run["recs"] if r["kind"] == "hosts"]
+    if [r["epoch"] for r in hosts] != list(range(epochs)) or any(
+            "straggler_status" not in r for r in hosts):
+        fail(f"{what}: kind=hosts records {hosts}")
+    ledger = _ledger_line(what, d, run["recs"])
+    unstamped = {r["kind"] for r in run["recs"] if not r.get("run_id")}
+    if unstamped or len({r["run_id"] for r in run["recs"]}) != 1:
+        fail(f"{what}: records without the run's one run_id: {unstamped}")
+    mfu = t.get("mfu")
+    if t["model_flops_per_step"] != flops:
+        fail(f"{what}: {t['model_flops_per_step']} flops a step, the "
+             f"closed form {flops}")
+    if not (mfu and 0 < mfu <= 1.05) or t["trace_status"] != "success" \
+            or t["hbm_source"] != "memory_stats" \
+            or t["hbm_peak_bytes"] < run["peak_bytes"]:
+        fail(f"{what}: mfu {mfu}, trace {t['trace_status']}, hbm "
+             f"{t['hbm_source']} peak {t['hbm_peak_bytes']} against the "
+             f"run's max_memory_allocated {run['peak_bytes']}")
+    print(f"{what}: mfu {mfu:.4f} ({t['achieved_tflops_per_chip']:.2f} "
+          f"of {t['peak_tflops']} TFLOP/s, {t['model_flops_per_step']:.4e} "
+          f"flops a step); hbm peak {t['hbm_peak_bytes'] / MB:.1f} MB "
+          f"(max_memory_allocated {run['peak_bytes'] / MB:.1f}), in use "
+          f"{t['hbm_bytes_in_use'] / MB:.1f}, reserved "
+          f"{t['hbm_bytes_reserved'] / MB:.1f}, fragmentation "
+          f"{t['hbm_fragmentation_bytes'] / MB:.1f}, limit "
+          f"{t['hbm_limit_bytes'] / MB:.1f} MB; straggler "
+          f"{t['straggler_status']}; trace {t['trace_spans']} spans; "
+          f"{card}")
+    print(f"{what}: {ledger}")
+
+
+def obs_train(torch, fa, fx, card: str, on, argv, env):
+    """Phase 13a: phase 11a's superstep run (``on``: observability on by
+    default) is checked by :func:`check_obs_dir`, then the configuration
+    runs with ``--trace off --stall-timeout-s 0 --hbm-sample-s 0`` and
+    on again, in turns: the losses bitwise equal, the programs, replays
+    and launches the same, each run's step time printed. Returns the two
+    runs' launches."""
+    from tpudist_torch import config as config_lib
+
+    epochs, n_steps = 2, 10
+    flops = step_flops(config_lib.parse_args(argv).model, 8, 512)
+    check_obs_dir("obs 13a, phase 11a's default run", on, epochs, n_steps,
+                  flops, card)
+    shutil.rmtree(on["dir"], ignore_errors=True)
+    sup = on["supersteps"][0]
+    graphs = (sup.programs, sup.replays, sup.captured_launches)
+    step_ms = [("on", 1e3 * on["timing"]["run_s"] / on["timing"]["steps"])]
+    paths = {}
+    for how in ("off", "on"):
+        tag = f"obs_seq512_bf16_{how}"
+        run = _cli_run(torch, fa, fx, tag,
+                       argv + (OBS_OFF if how == "off" else []), env,
+                       keep=True)
+        t = run["timing"]
+        if how == "on":
+            check_obs_dir(tag, run, epochs, n_steps, flops, card)
+        elif t["trace_status"] != "ungateable" or t["hbm_source"] != "off" \
+                or (run["dir"] / "pod_trace.json").exists():
+            fail(f"{tag}: trace {t['trace_status']}, hbm "
+                 f"{t['hbm_source']}: the observability stayed on")
+        shutil.rmtree(run["dir"], ignore_errors=True)
+        s2 = run["supersteps"][0]
+        same = (_epochs_of(run) == _epochs_of(on)
+                and run["counts"] == on["counts"]
+                and (s2.programs, s2.replays, s2.captured_launches)
+                == graphs)
+        print(f"{tag}: epochs (Avg, eval) {_epochs_of(run)}, launches "
+              f"{run['counts']}, programs {s2.programs}, replays "
+              f"{s2.replays}: equal to the default run's {same}")
+        if not same:
+            fail(f"{tag}: the losses, launches or graphs differ from the "
+                 f"default run's")
+        paths[tag] = run["counts"]
+        step_ms.append((how, 1e3 * t["run_s"] / t["steps"]))
+    print("obs 13a: step ms in turns "
+          + ", ".join(f"{h} {ms:.3f}" for h, ms in step_ms) + f"; {card}")
+    return paths
+
+
+@contextlib.contextmanager
+def _serve_engines():
+    """Every serve engine the serve CLI builds inside the block, for the
+    launches its graphs' replays ran."""
+    from tpudist_torch.serve import engine as engine_mod
+
+    made, real = [], engine_mod.ServeEngine
+
+    def make(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+    engine_mod.ServeEngine = make
+    try:
+        yield made
+    finally:
+        engine_mod.ServeEngine = real
+
+
+# phase 4's serving configuration through the serve CLI
+SERVE_ARGV = ["--vocab-size", "32000", "--n-layers", "4", "--d-model",
+              "2048", "--n-heads", "16", "--n-kv-heads", "16", "--d-ff",
+              "5504", "--slots", "8", "--max-seq", "1024", "--prompt-pad",
+              "512", "--decode-steps-per-dispatch", "8", "--adapt", "on",
+              "--requests", "16", "--max-new-tokens", "32", "--seed", "0"]
+
+
+def obs_serve(torch, fa, fx, card: str):
+    """Phase 13b: ``python -m tpudist_torch.serve`` (its ``run``) at phase
+    4's configuration on the graph engine, its default trace and memory
+    ledger, then with ``--trace off``: one slot track in
+    ``pod_trace.json`` for each slot that served, the ledger, ``run_id``
+    on every record, the tokens equal, the program pin, the flash
+    launches exact. Returns each run's launches."""
+    from tpudist_torch.serve import cli as serve_cli
+
+    runs, paths = {}, {}
+    for how in ("on", "off"):
+        tag = f"obs_serve_{how}"
+        save = ROOT / "build" / "chip_smoke_serve" / how
+        shutil.rmtree(save, ignore_errors=True)
+        argv = SERVE_ARGV + ["--save-dir", str(save)] \
+            + (["--trace", "off"] if how == "off" else [])
+        _reset_launches(fa, fx)
+        with _serve_engines() as made:
+            summary = serve_cli.run(serve_cli.parse_args(argv))
+        torch.cuda.synchronize()
+        engine = made[0]
+        engine.assert_two_programs()
+        counts = {"flash_attention_fwd": engine.kernel_launches()}
+        want = engine.model_cfg.n_layers * (summary["admitted"] + 1)
+        recs = [json.loads(ln) for ln in
+                (save / "metrics.jsonl").read_text().splitlines()]
+        print(f"{tag}: {summary['completed']}/{summary['requests']} "
+              f"requests, tokens/s/chip "
+              f"{summary['tokens_per_sec_per_chip']}, programs "
+              f"{engine.compile_counts()}, graph pools "
+              f"{engine.graph_pool_bytes / MB:.1f} MB, flash launches "
+              f"{counts['flash_attention_fwd']} (want {want}); {card}")
+        if summary["completed"] != 16 or counts["flash_attention_fwd"] \
+                != want:
+            fail(f"{tag}: completed {summary['completed']}, flash "
+                 f"launches {counts['flash_attention_fwd']} (want {want})")
+        if how == "on":
+            pod = _read_json(save / "pod_trace.json", tag)
+            tracks = {e["args"]["name"] for e in pod["traceEvents"]
+                      if e.get("ph") == "M" and e.get("tid", 0) >= 1000}
+            served = {f"slot{r['slot']}" for r in recs
+                      if r["kind"] == "serve_request"
+                      and r["event"] == "admitted"}
+            if not served or tracks != served \
+                    or pod["metadata"].get("dropped") != 0:
+                fail(f"{tag}: slot tracks {sorted(tracks)}, slots that "
+                     f"served {sorted(served)}")
+            print(f"{tag}: {len(tracks)} slot tracks, "
+                  f"{pod['metadata']['spans']} spans; "
+                  + _ledger_line(tag, save, recs))
+            if any(not r.get("run_id") for r in recs):
+                fail(f"{tag}: a record without run_id")
+        elif (save / "pod_trace.json").exists():
+            fail(f"{tag}: --trace off wrote a trace")
+        runs[how] = summary
+        paths[tag] = counts
+        shutil.rmtree(save, ignore_errors=True)
+        del engine, made
+        torch.cuda.empty_cache()
+    same = _tokens_of(runs["on"]) == _tokens_of(runs["off"])
+    print(f"obs 13b: tokens traced vs --trace off equal {same}; "
+          f"tokens/s/chip on {runs['on']['tokens_per_sec_per_chip']}, off "
+          f"{runs['off']['tokens_per_sec_per_chip']}; {card}")
+    if not same:
+        fail("obs 13b: the traced run's tokens differ from --trace off's")
+    return paths
+
+
+def stall_drill(torch, card: str) -> None:
+    """Phase 13c: a CUDA graph (64 4096 x 4096 f32 products) is
+    captured while an ``HbmSampler`` reads the allocator's counters every
+    millisecond from its thread (the capture must hold, its replay equal
+    the eager body within f32 1e-5); then a ``FlightRecorder`` with a
+    2 s stall window gets no progress while the graph replays: its
+    watchdog writes ``flightrec.worker0`` with the threads' stacks and
+    the card's ``memory_stats``, and the replays' output stays equal to
+    the first replay's."""
+    from tpudist_torch.obs.hbm import HbmSampler
+    from tpudist_torch.obs.heartbeat import FlightRecorder
+
+    out = ROOT / "build" / "chip_smoke_stall"
+    shutil.rmtree(out, ignore_errors=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(4096, 4096, device=dev, generator=gen) / 64
+    w = torch.randn(4096, 4096, device=dev, generator=gen) / 64
+
+    def body():
+        y = x
+        for _ in range(64):
+            y = torch.tanh(y @ w)
+        return y
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    sampler = HbmSampler(period_s=0.001, devices=[0])
+    try:
+        reads = sampler.samples
+        with torch.cuda.graph(graph):
+            y = body()
+        reads = sampler.samples - reads
+    finally:
+        sampler.close()
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = y.clone()
+    d_eager = (ref - eager).abs().max().item()
+    print(f"stall drill: the capture ran beside {reads} sampler reads; "
+          f"replay vs eager max |d| {d_eager:.3e}; {card}")
+    if reads < 1 or d_eager > 1e-5:
+        fail(f"stall drill: {reads} sampler reads during the capture, "
+             f"replay vs eager {d_eager:.3e}")
+    rec = FlightRecorder(str(out), stall_timeout_s=2.0)
+    t0 = time.perf_counter()
+    n = 0
+    try:
+        while rec.dumps < 1 and time.perf_counter() - t0 < 30:
+            graph.replay()
+            n += 1
+            if n % 20 == 0:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = torch.equal(y, ref)
+    finally:
+        rec.close()
+    doc = _read_json(out / "flightrec.worker0", "stall drill")
+    mem = {m["id"]: m["stats"] for m in doc.get("memory_stats") or []}
+    card0 = (mem.get(0) or {}).get("allocated_bytes.all.current", 0)
+    print(f"stall drill: flight record after {wall:.2f} s and {n} replays "
+          f"(reason {doc['reason']}, stall_s {doc['stall_s']}), stacks "
+          f"{len(doc['thread_stacks'].splitlines())} lines, memory_stats "
+          f"of {len(mem)} card(s), card 0 allocated {card0 / MB:.1f} MB; "
+          f"output equal {same}; {card}")
+    if doc["reason"] != "stall" or "File" not in doc["thread_stacks"] \
+            or card0 <= 0 or not same:
+        fail("stall drill: no stall record with stacks and the card's "
+             "memory_stats, or the replay's output changed")
+    shutil.rmtree(out, ignore_errors=True)
+    del graph, x, w, y, ref, eager
+    torch.cuda.empty_cache()
 
 
 def remat_check(torch, card: str):
@@ -2544,7 +2900,9 @@ def main() -> int:
     # (b) the MLP default, (c) phase 10a's spawn with the all-reduce
     # captured
     torch.cuda.empty_cache()
-    paths.update(superstep_slice(torch, fa, fx, card))
+    sup_paths, obs_on, obs_argv, obs_env = superstep_slice(torch, fa, fx,
+                                                           card)
+    paths.update(sup_paths)
     superstep_mlp(torch, fa, fx, card)
     paths["train_seq512_dp_superstep"] = dp_train_slice(
         torch, fa, card, tag="train_seq512_dp_superstep", n_samples=80,
@@ -2558,6 +2916,15 @@ def main() -> int:
     tuner_mlp(torch, fa, fx, card)
     remat_check(torch, card)
     paths[TUNE_PATH] = tuner_full_width(torch, fa, fx, card)
+
+    # phase 13: the observability every default run writes: (a) phase
+    # 11a's default run's artifacts, then its configuration off and on
+    # again; (b) phase 4's serving configuration through the serve CLI,
+    # traced and not; (c) the stall watchdog during graph replays
+    torch.cuda.empty_cache()
+    paths.update(obs_train(torch, fa, fx, card, obs_on, obs_argv, obs_env))
+    paths.update(obs_serve(torch, fa, fx, card))
+    stall_drill(torch, card)
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -2581,15 +2948,15 @@ def main() -> int:
                "flash_attention_bwd_dqkv": ("train_seq512",
                                             "train_seq512_bf16_auto",
                                             "train_seq512_dp", *SUPERSTEP,
-                                            TUNE_PATH),
+                                            TUNE_PATH, *OBS_PATHS),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
-                                  TUNE_PATH),
+                                  TUNE_PATH, *OBS_PATHS),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
-                                  TUNE_PATH)}
+                                  TUNE_PATH, *OBS_PATHS)}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

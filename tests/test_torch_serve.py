@@ -63,9 +63,11 @@ LANES = {
                           decode_k=4), 3, 5),
 }
 SERVE_RULES = ("ttft", "itl", "tokens_per_chip", "serve_shed")
-# every rule of the port's table: the train lane's staging overlap, then
-# the serve rules, in the JAX table's order
-PORT_RULES = ("staging",) + SERVE_RULES
+# every rule of the port's table, in the JAX table's order: the train
+# lane's straggler factor, staging overlap, stall window and trace drop
+# share, the serve rules, and the HBM ledger's headroom floor
+PORT_RULES = ("straggler", "staging", "stall", "trace_drop") \
+    + SERVE_RULES + ("hbm_headroom",)
 # the latency, throughput, shed, program and grade keys of the JAX
 # summary that the port's kind=serve record carries
 SUMMARY_KEYS = {"ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s",

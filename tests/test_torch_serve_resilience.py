@@ -485,7 +485,8 @@ def _turn_on(kw, off):
 # by the JAX package only under --serve-tune, which the port refuses
 ENV_ONLY_UNDER_REFUSED = {"TPUDIST_AUTOTUNE_CACHE_DIR"}
 CARRIED_ENV = ("TPUDIST_SERVE_QUEUE_CAP", "TPUDIST_SERVE_TTFT_DEADLINE_MS",
-               "TPUDIST_SERVE_ADAPT", "TPUDIST_SERVE_VIRTUAL_CLOCK")
+               "TPUDIST_SERVE_ADAPT", "TPUDIST_SERVE_VIRTUAL_CLOCK",
+               "TPUDIST_TRACE", "TPUDIST_TRACE_DIR")
 
 
 def test_every_jax_serve_flag_is_carried_or_refused():
@@ -528,8 +529,19 @@ def test_every_jax_serve_flag_is_carried_or_refused():
     ("--live-port", ["9100"]),
 ])
 def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
-                                                    capsys):
-    item = 11 if flag in ("--trace", "--trace-dir", "--live-port") else 6
+                                                    capsys, monkeypatch):
+    """Refused flags exit 1 naming their Queue A item and write nothing;
+    ``--trace`` and ``--trace-dir``, refused until the port carried
+    them, now serve and put the trace where they say."""
+    if flag in ("--trace", "--trace-dir"):
+        monkeypatch.chdir(tmp_path)
+        assert tcli.main([flag, *words, "--device", "cpu", "--requests",
+                          "2", "--max-new-tokens", "2", "--save-dir",
+                          str(tmp_path / "run")]) == 0
+        traced = tmp_path / ("traces" if flag == "--trace-dir" else "run")
+        assert (traced / "pod_trace.json").is_file()
+        return
+    item = "11b" if flag == "--live-port" else 6
     assert tcli.main([flag, *words, "--device", "cpu", "--save-dir",
                       str(tmp_path)]) == 1
     assert re.search(f"ROADMAP Queue A item {item}'",
@@ -538,16 +550,33 @@ def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
 
 
 ENV_ON = {"TPUDIST_CHAOS": "serve_kill@0:6", "TPUDIST_SERVE_TUNE": "probe",
-          "TPUDIST_TRACE": "on", "TPUDIST_TRACE_DIR": "traces",
           "TPUDIST_LIVE": "on"}
 
 
-@pytest.mark.parametrize("name", sorted(tcli.ENV_NOT_CARRIED))
+@pytest.mark.parametrize("name", sorted(set(tcli.ENV_NOT_CARRIED)
+                                        | {"TPUDIST_TRACE",
+                                           "TPUDIST_TRACE_DIR"}))
 def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch,
                                                        tmp_path, capsys):
     """Each variable is tolerated unset and at the values that leave its
     feature off in the JAX package; set on, the CLI exits 1 naming its
-    Queue A item and writes a fail verdict."""
+    Queue A item and writes a fail verdict. ``TPUDIST_TRACE`` and
+    ``TPUDIST_TRACE_DIR``, refused until the port carried them, now
+    serve as the JAX CLI reads them: tracing off, or the trace in that
+    directory."""
+    if name in ("TPUDIST_TRACE", "TPUDIST_TRACE_DIR"):
+        value = "off" if name == "TPUDIST_TRACE" else str(tmp_path / "tr")
+        monkeypatch.setenv(name, value)
+        monkeypatch.setenv("TPUDIST_VERDICT_PATH", str(tmp_path / "v.txt"))
+        assert tcli.main(["--device", "cpu", "--requests", "2",
+                          "--max-new-tokens", "2", "--save-dir",
+                          str(tmp_path / "run")]) == 0
+        assert (tmp_path / "v.txt").read_text() == "success"
+        if name == "TPUDIST_TRACE":
+            assert not (tmp_path / "run" / "pod_trace.json").exists()
+        else:
+            assert (tmp_path / "tr" / "pod_trace.json").is_file()
+        return
     args = tcli.parse_args([])
     off, item = tcli.ENV_NOT_CARRIED[name]
     for value in off:

@@ -279,9 +279,13 @@ def _turn_on(kw, off):
 # the $TPUDIST_ twins of carried options, each read as the JAX package
 # reads it (tests/test_torch_staging.py drives the staging budget's,
 # tests/test_torch_tune.py the tuner's and the build root's)
+# the observability twins (tests/test_torch_obs.py holds their
+# resolvers to the JAX package's)
+OBS_ENV = {"TPUDIST_TRACE", "TPUDIST_TRACE_DIR", "TPUDIST_STALL_TIMEOUT_S",
+           "TPUDIST_HEARTBEAT_DIR", "TPUDIST_HBM_SAMPLE_S"}
 ENV_CARRIED = {"TPUDIST_STAGING_BUDGET_MB", "TPUDIST_AUTOTUNE",
                "TPUDIST_AUTOTUNE_CACHE_DIR", "TPUDIST_AUTOTUNE_TRIALS",
-               "TPUDIST_COMPILATION_CACHE_DIR"}
+               "TPUDIST_COMPILATION_CACHE_DIR"} | OBS_ENV
 
 
 def test_every_jax_train_flag_is_carried_or_refused():
@@ -316,18 +320,41 @@ def test_every_jax_train_flag_is_carried_or_refused():
 
 ENV_ON = {"TPUDIST_CHAOS": "kill@0:1", "TPUDIST_TEST_KILL": "0:1",
           "TPUDIST_CKPT_MODE": "sharded", "TPUDIST_LIVE": "on",
-          "TPUDIST_TRACE": "on",
           "TPUDIST_GRAD_OVERLAP": "bucketed",
           "TPUDIST_CROSS_SLICE": "hierarchical", "TPUDIST_NO_FLASH": "1"}
 
 
-@pytest.mark.parametrize("name", sorted(tconfig.ENV_NOT_CARRIED))
+# the observability twins were refused until the port carried them:
+# each is now read as the JAX package reads it
+OBS_ENV_READ = {"TPUDIST_TRACE": ("off", lambda c: tconfig.resolve_trace(c)[0],
+                                  False),
+                "TPUDIST_TRACE_DIR": ("traces",
+                                      lambda c: tconfig.resolve_trace(c)[1],
+                                      "traces"),
+                "TPUDIST_STALL_TIMEOUT_S": (
+                    "7", lambda c: tconfig.resolve_obs(c)[0], 7.0),
+                "TPUDIST_HEARTBEAT_DIR": (
+                    "beats", lambda c: tconfig.resolve_obs(c)[1], "beats"),
+                "TPUDIST_HBM_SAMPLE_S": (
+                    "0", lambda c: tconfig.resolve_obs(c)[2], 0.0)}
+
+
+@pytest.mark.parametrize("name", sorted(set(tconfig.ENV_NOT_CARRIED)
+                                        | set(OBS_ENV_READ)))
 def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch):
     """Each variable is tolerated unset and at the values that leave its
     feature off in the JAX package, and refused by ``run`` at any other,
     naming its Queue A item. ``TPUDIST_NO_FLASH`` is refused too: the
-    port's attention always takes its flash kernels."""
+    port's attention always takes its flash kernels. The observability
+    twins the port now carries pass ``check_supported`` and are read by
+    its resolvers."""
     cfg = tconfig.parse_args(["--device", "cpu"])
+    if name in OBS_ENV_READ:
+        value, read, want = OBS_ENV_READ[name]
+        monkeypatch.setenv(name, value)
+        tconfig.check_supported(cfg)
+        assert read(cfg) == want
+        return
     off, item = tconfig.ENV_NOT_CARRIED[name]
     for value in off:
         if value is not None:

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpudist_torch.metrics import _rank
+from tpudist_torch.obs import trace as trace_lib
 from tpudist_torch.parallel import distributed
 
 KEEP = 3
@@ -53,13 +54,16 @@ class Checkpointer:
         the resume position ``(epoch, step_in_epoch)``: rank 0 writes, and
         no rank returns before the write is done."""
         t0 = time.perf_counter()
-        try:
-            if _rank() == 0:
-                self._write(state, epoch, step_in_epoch)
-        finally:
-            # reached on a failed write too, so the ranks' host
-            # collectives stay paired
-            distributed.barrier()
+        # the JAX package's span name: here the whole synchronous write
+        with trace_lib.span("ckpt_enqueue", cat="ckpt",
+                            step=int(state.step)):
+            try:
+                if _rank() == 0:
+                    self._write(state, epoch, step_in_epoch)
+            finally:
+                # reached on a failed write too, so the ranks' host
+                # collectives stay paired
+                distributed.barrier()
         self.last_enqueue_ms = (time.perf_counter() - t0) * 1000
 
     def _write(self, state, epoch: int, step_in_epoch: int) -> None:

@@ -22,7 +22,9 @@ import argparse
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
+
+from tpudist_torch import rules as rules_lib
 
 
 @dataclass(frozen=True)
@@ -98,6 +100,13 @@ class TrainConfig:
     autotune: Optional[str] = None  # off | probe | cache-only
     autotune_cache_dir: Optional[str] = None  # tuning-cache directory
     autotune_trials: int = 0      # probe-trial budget; 0 = auto
+    # observability (tpudist_torch.obs), on by default: None =
+    # $TPUDIST_<NAME>, else the default (resolve_trace, resolve_obs)
+    trace: Optional[str] = None   # on | off: the span tracer
+    trace_dir: Optional[str] = None  # trace.worker<i>.json, pod_trace.json
+    stall_timeout_s: Optional[float] = None  # watchdog window; 0 = off
+    heartbeat_dir: Optional[str] = None  # heartbeat / flightrec dir
+    hbm_sample_s: Optional[float] = None  # sampler period; 0 = off
     live: Optional[str] = None
     device: Optional[str] = None  # None = cuda
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
@@ -136,17 +145,12 @@ NOT_CARRIED = (
     ("--capacity-factor", dict(type=float, default=1.25), (), None, 8),
     ("--router-aux-weight", dict(type=float, default=0.01), (), None, 8),
     ("--moe-group-size", dict(type=int, default=4096), (), None, 8),
-    ("--profile-dir", {}, (), None, 11),
+    ("--profile-dir", {}, (), None, "11b"),
     ("--profile-window", dict(type=int, default=0), (),
-     "TPUDIST_PROFILE_WINDOW", 11),
-    ("--trace", dict(choices=("on", "off")), ("off",), "TPUDIST_TRACE", 11),
-    ("--trace-dir", {}, (), "TPUDIST_TRACE_DIR", 11),
-    ("--stall-timeout-s", dict(type=float), (0,), "TPUDIST_STALL_TIMEOUT_S",
-     11),
-    ("--heartbeat-dir", {}, (), "TPUDIST_HEARTBEAT_DIR", 11),
-    ("--hbm-sample-s", dict(type=float), (0,), "TPUDIST_HBM_SAMPLE_S", 11),
-    ("--live-port", dict(type=int, default=0), (), "TPUDIST_LIVE_PORT", 11),
-    ("--live-endpoint", {}, (), "TPUDIST_LIVE_ENDPOINT", 11),
+     "TPUDIST_PROFILE_WINDOW", "11b"),
+    ("--live-port", dict(type=int, default=0), (), "TPUDIST_LIVE_PORT",
+     "11b"),
+    ("--live-endpoint", {}, (), "TPUDIST_LIVE_ENDPOINT", "11b"),
 )
 
 # The environment variables the JAX package reads for what this slice does
@@ -158,7 +162,7 @@ ENV_NOT_CARRIED = {
     **{env: ((kw.get("default"), *off), item)
        for _, kw, off, env, item in NOT_CARRIED if env},
     "TPUDIST_TEST_KILL": ((), 10),
-    "TPUDIST_LIVE": (("off",), 11),
+    "TPUDIST_LIVE": (("off",), "11b"),
     "TPUDIST_NO_FLASH": ((), None),
 }
 
@@ -218,7 +222,7 @@ def check_supported(cfg: TrainConfig) -> None:
     if cfg.live not in (None, "off"):
         raise ValueError(
             "--live on: the live telemetry bus comes with ROADMAP Queue A "
-            "item 11")
+            "item 11b")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):
@@ -395,6 +399,62 @@ def resolve_autotune_trials(cfg: TrainConfig) -> int:
     return int(env) if env and env > 0 else AUTOTUNE_DEFAULT_TRIALS
 
 
+# Span tracing (tpudist_torch.obs.trace): on by default, as in the JAX
+# package; --trace off / TPUDIST_TRACE=off is the escape hatch.
+TRACE_MODES = ("on", "off")
+
+
+def resolve_trace(cfg) -> Tuple[bool, str]:
+    """The span tracer's knobs as ``(enabled, trace_dir)``, as the JAX
+    package's ``config.resolve_trace``: flag > env > default (on,
+    ``save_dir``). ``TPUDIST_TRACE`` takes the falsy spellings
+    off/0/false/no, read by the tracer's own ``_env_enabled``. The serve
+    CLI's namespace resolves through here too."""
+    from tpudist_torch.obs.trace import _env_enabled
+    mode = cfg.trace
+    if mode is None:
+        mode = "on" if _env_enabled() else "off"
+    if mode not in TRACE_MODES:
+        raise ValueError(
+            f"--trace must be one of {TRACE_MODES}, got {mode!r}")
+    out_dir = (cfg.trace_dir or os.environ.get("TPUDIST_TRACE_DIR")
+               or cfg.save_dir)
+    return mode == "on", out_dir
+
+
+# The flight recorder's defaults: the stall window (rules.STALL_TIMEOUT_S,
+# 300 s) outlasts a cold build of the kernels and the graph captures
+# while still firing inside a launcher's outer timeout; the HBM sampler
+# reads every 2 s.
+OBS_STALL_TIMEOUT_S = rules_lib.STALL_TIMEOUT_S
+OBS_HBM_SAMPLE_S = 2.0
+
+
+def resolve_obs(cfg: TrainConfig) -> Tuple[float, str, float]:
+    """The flight recorder's knobs as ``(stall_timeout_s, out_dir,
+    hbm_sample_s)``, as the JAX package's ``config.resolve_obs``: flag >
+    env > default per knob. A malformed env value reads as unset; a
+    negative window or period is an error. The beacon and flight-record
+    directory defaults to ``save_dir``, next to ``metrics.jsonl``."""
+    stall = cfg.stall_timeout_s
+    if stall is None:
+        stall = _env_float("TPUDIST_STALL_TIMEOUT_S")
+    if stall is None:
+        stall = OBS_STALL_TIMEOUT_S
+    if stall < 0:
+        raise ValueError(f"--stall-timeout-s must be >= 0, got {stall}")
+    out_dir = (cfg.heartbeat_dir or os.environ.get("TPUDIST_HEARTBEAT_DIR")
+               or cfg.save_dir)
+    hbm_s = cfg.hbm_sample_s
+    if hbm_s is None:
+        hbm_s = _env_float("TPUDIST_HBM_SAMPLE_S")
+    if hbm_s is None:
+        hbm_s = OBS_HBM_SAMPLE_S
+    if hbm_s < 0:
+        raise ValueError(f"--hbm-sample-s must be >= 0, got {hbm_s}")
+    return stall, out_dir, hbm_s
+
+
 def flagship_model_config(max_seq_len: int = 512) -> ModelConfig:
     """BASELINE config #5: the synthetic Llama-block transformer (4
     layers, 2048 hidden, 16 heads, SwiGLU 5504)."""
@@ -484,6 +544,32 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     p.add_argument("--autotune-trials", type=int, default=0,
                    help="probe-trial budget for the autotune search "
                         "(0 = $TPUDIST_AUTOTUNE_TRIALS, else 12)")
+    p.add_argument("--trace", type=str, default=None,
+                   choices=list(TRACE_MODES),
+                   help="host-side span tracing (tpudist_torch.obs."
+                        "trace): on by default; run end writes "
+                        "trace.worker<i>.json per process and a merged "
+                        "Perfetto pod_trace.json on the coordinator "
+                        "(default: $TPUDIST_TRACE, else on)")
+    p.add_argument("--trace-dir", type=str, default=None,
+                   help="directory for trace.worker<i>.json / "
+                        "pod_trace.json (default: $TPUDIST_TRACE_DIR, "
+                        "else --save-dir)")
+    p.add_argument("--stall-timeout-s", type=float, default=None,
+                   help="flight-recorder watchdog: no step progress for "
+                        "this long dumps thread stacks + memory stats + "
+                        "last-N metrics to flightrec.worker<i> (default: "
+                        "$TPUDIST_STALL_TIMEOUT_S, else 300; 0 disables "
+                        "the watchdog, the beacon stays on)")
+    p.add_argument("--heartbeat-dir", type=str, default=None,
+                   help="directory for heartbeat.worker<i> beacons and "
+                        "flightrec.worker<i> dumps (default: "
+                        "$TPUDIST_HEARTBEAT_DIR, else --save-dir)")
+    p.add_argument("--hbm-sample-s", type=float, default=None,
+                   help="device-memory watermark sampler period in "
+                        "seconds; the high-water mark lands in the "
+                        "kind=timing record (default: "
+                        "$TPUDIST_HBM_SAMPLE_S, else 2.0; 0 disables)")
     p.add_argument("--live", type=str, default=None, choices=("on", "off"))
     p.add_argument("--device", type=str, default=None,
                    choices=("cuda", "cpu"),
@@ -521,6 +607,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         autotune=args.autotune,
         autotune_cache_dir=args.autotune_cache_dir,
         autotune_trials=args.autotune_trials,
+        trace=args.trace,
+        trace_dir=args.trace_dir,
+        stall_timeout_s=args.stall_timeout_s,
+        heartbeat_dir=args.heartbeat_dir,
+        hbm_sample_s=args.hbm_sample_s,
         live=args.live,
         device=args.device,
         data=DataConfig(n_samples=args.n_samples,

@@ -36,6 +36,7 @@ from tpudist_torch.config import TrainConfig
 from tpudist_torch.metrics import log0
 from tpudist_torch.models import get_model
 from tpudist_torch.models import transformer
+from tpudist_torch.obs import mfu
 from tpudist_torch.ops.cuda import flash_attention as _fa
 from tpudist_torch.ops.cuda import fused_xent as _fx
 
@@ -382,6 +383,19 @@ def _build_step_body(cfg: TrainConfig,
     return body, tx
 
 
+def _counted(body: Callable, cost: Dict[str, int], *args):
+    """``body(*args)``; the first call a dispatcher makes is counted
+    (``obs.mfu.FlopCount``) into ``cost``: one step's model flops, read
+    back by the dispatcher's ``cost_analysis``. The count only watches
+    the ops run, so the step computes the same bits."""
+    if cost:
+        return body(*args)
+    with mfu.FlopCount() as n:
+        out = body(*args)
+    cost["flops"] = n.total
+    return out
+
+
 def _advance(state: TrainState, n: int) -> None:
     """The host's counters after ``n`` steps ran."""
     state.opt_state.count += n
@@ -391,15 +405,18 @@ def _advance(state: TrainState, n: int) -> None:
 def make_train_step(cfg: TrainConfig,
                     device: Optional[torch.device] = None) -> Callable:
     """``(state, batch) -> (state, loss)``: one step of the step body,
-    its scalars filled from the host's count first."""
+    its scalars filled from the host's count first. ``cost_analysis()``
+    is the step's flop count from its first call (None before it)."""
     body, tx = _build_step_body(cfg, device)
     scalars = StepScalars(tx, 1, torch.device(device or "cpu"))
+    cost: Dict[str, int] = {}
 
     def step(state: TrainState, batch):
         scalars.fill(state.opt_state.count + 1)
-        loss = body(state, batch, *scalars.row(0))
+        loss = _counted(body, cost, state, batch, *scalars.row(0))
         _advance(state, 1)
         return state, loss
+    step.cost_analysis = lambda: dict(cost) or None
     return step
 
 
@@ -466,7 +483,8 @@ class Superstep:
     :class:`StepScalars`. A replay does not move the kernel wrappers'
     launch counters: a capture's increments move into this object's
     record, and :meth:`kernel_launches` multiplies them by the
-    replays."""
+    replays. :meth:`cost_analysis` is one step's flop count, taken over
+    the first step the superstep runs (an eager one)."""
 
     def __init__(self, cfg: TrainConfig, device: Optional[torch.device],
                  k: int):
@@ -485,6 +503,13 @@ class Superstep:
         self._total: Optional[torch.Tensor] = None
         self._outputs: Dict[str, torch.Tensor] = {}
         self._partial: Optional[torch.Tensor] = None
+        self._cost: Dict[str, int] = {}
+
+    def cost_analysis(self) -> Optional[Dict[str, int]]:
+        """One step's model flops (``obs.mfu``) once a step ran: a
+        k-step superstep counts one step, as the JAX package's cost
+        analysis visits a scan body once."""
+        return dict(self._cost) or None
 
     @property
     def programs(self) -> int:
@@ -533,8 +558,8 @@ class Superstep:
         # row i holds the scalars of the i - lo + 1-th step from here
         self.scalars.fill(state.opt_state.count + 1 - lo)
         for i in range(lo, hi):
-            loss = self.body(state, tuple(a[i] for a in slab),
-                             *self.scalars.row(i))
+            loss = _counted(self.body, self._cost, state,
+                            tuple(a[i] for a in slab), *self.scalars.row(i))
             total = total + loss
             losses[i] = loss
         _advance(state, hi - lo)

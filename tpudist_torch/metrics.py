@@ -2,10 +2,11 @@
 
 Counterpart of ``tpudist/metrics.py``: the same record shapes (the serve
 lane's ``kind=serve`` / ``serve_request`` / ``serve_tick``, the train
-lane's ``step`` / ``epoch`` / ``ckpt`` / ``timing`` / ``attempt``, each
-stamped with wall ``ts`` and monotonic ``mono`` clocks), so the JAX
-package's offline readers fold the port's runs unchanged, and the epoch
-staging pipeline's accounting (:class:`StagingStats`).
+lane's ``step`` / ``epoch`` / ``ckpt`` / ``timing`` / ``attempt`` /
+``hosts`` / ``memledger``, each stamped with wall ``ts`` and monotonic
+``mono`` clocks and the run's identity), so the JAX package's offline
+readers fold the port's runs unchanged, and the epoch staging
+pipeline's accounting (:class:`StagingStats`).
 """
 
 from __future__ import annotations
@@ -13,11 +14,14 @@ from __future__ import annotations
 import atexit
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import IO, Any, Dict, List, Optional
 
 import torch
+
+from tpudist_torch.obs import trace as trace_lib
 
 
 def _rank() -> int:
@@ -63,7 +67,8 @@ class StepTimer:
         if n <= 0:
             return 0.0
         if isinstance(result, torch.Tensor):
-            result.detach().cpu()
+            with trace_lib.span("fence", cat="dispatch", steps=n):
+                result.detach().cpu()
         dt = time.perf_counter() - self.t0
         self._seen += 1
         if self._seen <= self.WARMUP:
@@ -93,38 +98,53 @@ class MetricsLogger:
     Writes are BUFFERED: ``log()`` only serialises the record into
     memory, and file I/O happens at ``flush()`` and ``close()``, so it
     never lands inside a timed window. An ``atexit`` hook flushes the
-    tail on any interpreter exit."""
+    tail on any interpreter exit, and the stall watchdog flushes from
+    its thread (a lock pairs that with the main thread's ``log()``).
+
+    ``extra`` is stamped into EVERY record under the record's own keys
+    (a record naming a key itself wins): the run's ``run_id`` and
+    ``requeue_attempt``. ``history`` keeps the records, whose tail a
+    flight record carries."""
 
     path: Optional[str] = None
     _fh: Optional[IO] = None
+    history: List[Dict] = field(default_factory=list)
     _buf: List[str] = field(default_factory=list)
+    extra: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self) -> None:
+        self._lock = threading.Lock()
         atexit.register(self.flush)
 
     def log(self, **kv) -> None:
-        if _rank() != 0 or not self.path:
+        if _rank() != 0:
             return
-        rec = {"ts": time.time(), "mono": time.perf_counter(), **kv}
-        self._buf.append(json.dumps(rec))
+        rec = {"ts": time.time(), "mono": time.perf_counter(),
+               **self.extra, **kv}
+        with self._lock:
+            self.history.append(rec)
+            if self.path:
+                self._buf.append(json.dumps(rec))
 
     def flush(self) -> None:
-        if not (self.path and self._buf):
-            return
-        if self._fh is None:
-            d = os.path.dirname(self.path)
-            if d:
-                os.makedirs(d, exist_ok=True)
-            self._fh = open(self.path, "a")
-        self._fh.write("\n".join(self._buf) + "\n")
-        self._fh.flush()
-        self._buf.clear()
+        with self._lock:
+            if not (self.path and self._buf):
+                return
+            if self._fh is None:
+                d = os.path.dirname(self.path)
+                if d:
+                    os.makedirs(d, exist_ok=True)
+                self._fh = open(self.path, "a")
+            self._fh.write("\n".join(self._buf) + "\n")
+            self._fh.flush()
+            self._buf.clear()
 
     def close(self) -> None:
         self.flush()
-        if self._fh:
-            self._fh.close()
-            self._fh = None
+        with self._lock:
+            if self._fh:
+                self._fh.close()
+                self._fh = None
         atexit.unregister(self.flush)
 
 
@@ -166,7 +186,8 @@ class StagingStats:
         landed, on its copies' event; account the exposed time. Called
         with the previous slab's compute already drained."""
         t0 = time.perf_counter()
-        slab.synchronize()
+        with trace_lib.span("slab_wait", cat="staging"):
+            slab.synchronize()
         dt = time.perf_counter() - t0
         self.wait_s += dt
         return dt

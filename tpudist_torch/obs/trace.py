@@ -1,0 +1,495 @@
+"""Host-side span tracing: a merged Perfetto timeline of the pod.
+
+Copy of ``tpudist/obs/trace.py`` for the port. :class:`Tracer` keeps
+preallocated per-thread ring buffers of ``(name, cat, t0, t1, args)``
+span tuples stamped with ``time.perf_counter_ns``; recording a span is
+two clock reads and one list-slot store, and the disabled tracer reads
+no clock at all. Spans time HOST work: a span around a CUDA-graph replay
+or a kernel launch measures the enqueue, and the tracer adds no device
+fence, so a traced run and an untraced one compute the same bits. No
+span may sit inside a captured body (it would record once, at capture).
+
+Run end writes one ``trace.worker<i>.json`` per process and, on the
+coordinator, the merged ``pod_trace.json`` (one Perfetto track per
+host), with per-host clock offsets from a barrier-bracketed stamp.
+Across processes the stamps and the documents travel by
+``all_gather_object`` over the host gloo group
+(``parallel.distributed.host_group``); one process makes no collective.
+The JAX package's offline tools (``python -m tpudist.obs.report``, the
+serve flight verifier) read these documents unchanged.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch.distributed as dist
+
+from tpudist_torch.parallel import distributed
+
+TRACE_SCHEMA_VERSION = 1
+
+# Default ring capacity (spans per thread). A span tuple is ~100 B of
+# host memory, so 65536 ≈ 6.5 MB/thread bounds the recorder while
+# holding hours of fence-granular spans (the train loop records a few
+# spans per dispatch group, not per step). Env: TPUDIST_TRACE_CAPACITY.
+DEFAULT_CAPACITY = 65536
+
+# Clock indirection: tests monkeypatch this to count reads and pin the
+# "disabled tracer performs zero timed-window syscalls" contract.
+_now_ns = time.perf_counter_ns
+
+
+class _NullSpan:
+    """The disabled path: a shared no-op context manager. No clock
+    reads, no allocation — ``with span(...)`` costs one attribute call
+    and one identity return."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _ThreadBuf:
+    """One thread's preallocated span ring + open-span stack."""
+
+    __slots__ = ("ring", "capacity", "count", "tid", "thread_name", "open")
+
+    def __init__(self, capacity: int, tid: int, thread_name: str):
+        self.ring: List[Any] = [None] * capacity
+        self.capacity = capacity
+        self.count = 0          # total spans ever recorded (ring wraps)
+        self.tid = tid          # small stable int for the export
+        self.thread_name = thread_name
+        self.open: List[str] = []   # names of currently-open spans
+
+    def record(self, name: str, cat: str, t0: int, t1: int,
+               args: Optional[Dict[str, Any]]) -> None:
+        self.ring[self.count % self.capacity] = (name, cat, t0, t1, args)
+        self.count += 1
+
+    @property
+    def dropped(self) -> int:
+        return max(0, self.count - self.capacity)
+
+    def spans(self) -> List[tuple]:
+        """Chronological snapshot of the surviving (un-overwritten)
+        spans."""
+        n = min(self.count, self.capacity)
+        lo = self.count - n
+        return [self.ring[i % self.capacity] for i in range(lo, self.count)]
+
+
+class _Span:
+    """A single timed window; context-manager AND begin/end handle."""
+
+    __slots__ = ("_buf", "name", "cat", "args", "t0")
+
+    def __init__(self, buf: _ThreadBuf, name: str, cat: str,
+                 args: Optional[Dict[str, Any]]):
+        self._buf = buf
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self.t0 = 0
+
+    def __enter__(self) -> "_Span":
+        self._buf.open.append(self.name)
+        self.t0 = _now_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = _now_ns()
+        buf = self._buf
+        if buf.open and buf.open[-1] == self.name:
+            buf.open.pop()
+        buf.record(self.name, self.cat, self.t0, t1, self.args)
+        return False
+
+
+class Tracer:
+    """The per-process span recorder.
+
+    Thread-safe by construction: each thread records into its own ring
+    (created on first span from that thread), and the registry of rings
+    is the only shared state (guarded by a lock taken once per thread,
+    never per span). ``enabled=False`` makes every recording entry point
+    a constant-time no-op with no clock reads.
+    """
+
+    def __init__(self, *, enabled: bool = True,
+                 capacity: int = DEFAULT_CAPACITY):
+        if capacity < 1:
+            raise ValueError(f"trace capacity must be >= 1, got {capacity}")
+        self.enabled = enabled
+        self.capacity = capacity
+        self._tls = threading.local()
+        self._bufs: List[_ThreadBuf] = []
+        self._lock = threading.Lock()
+        self.exported = False      # run-end export happened (any form)
+        # run identity stamped into every exported document's metadata
+        # (run_id / requeue_attempt — the train CLI sets it once the
+        # coordinator has broadcast the id), so a trace scp'd off a
+        # dead pod names the attempt it came from
+        self.run_info: Dict[str, Any] = {}
+        # wall↔monotonic correspondence, sampled back-to-back: lets the
+        # offline report align metrics.jsonl (wall ts + mono) with span
+        # timestamps without trusting NTP for intervals
+        self.wall_at_start = time.time()
+        self.mono_ns_at_start = _now_ns()
+
+    # ------------------------------------------------------- recording
+    def _thread_buf(self) -> _ThreadBuf:
+        buf = getattr(self._tls, "buf", None)
+        if buf is None:
+            t = threading.current_thread()
+            with self._lock:
+                buf = _ThreadBuf(self.capacity, len(self._bufs), t.name)
+                self._bufs.append(buf)
+            self._tls.buf = buf
+        return buf
+
+    def span(self, name: str, cat: str = "misc", **args: Any):
+        """Context manager timing one window. ~1 µs/span enabled;
+        a shared no-op (zero clock reads) when disabled."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self._thread_buf(), name, cat, args or None)
+
+    def begin(self, name: str, cat: str = "misc", **args: Any):
+        """Open a span; pair with :meth:`end`. For windows that cannot
+        be a lexical ``with`` block (e.g. spanning loop iterations)."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self._thread_buf(), name, cat,
+                     args or None).__enter__()
+
+    def end(self, span) -> None:
+        if span is not _NULL_SPAN:
+            span.__exit__(None, None, None)
+
+    def instant(self, name: str, cat: str = "misc", **args: Any) -> None:
+        """Zero-duration marker (exports as a dur=0 slice)."""
+        if not self.enabled:
+            return
+        t = _now_ns()
+        self._thread_buf().record(name, cat, t, t, args or None)
+
+    # ------------------------------------------------------ inspection
+    @property
+    def span_count(self) -> int:
+        with self._lock:
+            bufs = list(self._bufs)
+        return sum(min(b.count, b.capacity) for b in bufs)
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            bufs = list(self._bufs)
+        return sum(b.dropped for b in bufs)
+
+    def tail(self, per_thread: int = 64) -> List[Dict[str, Any]]:
+        """Last ``per_thread`` spans of every thread plus its open-span
+        stack — the flight-record slice: *what phase was each thread in
+        when the run hung*. Safe to call from the watchdog thread while
+        the main thread records (a torn read costs at most one
+        garbled span, never a crash)."""
+        with self._lock:
+            bufs = list(self._bufs)
+        out = []
+        for b in bufs:
+            spans = [{"name": s[0], "cat": s[1],
+                      "ts_us": s[2] / 1e3, "dur_us": (s[3] - s[2]) / 1e3,
+                      **({"args": s[4]} if s[4] else {})}
+                     for s in b.spans()[-per_thread:] if s is not None]
+            out.append({"tid": b.tid, "thread": b.thread_name,
+                        "open": list(b.open), "spans": spans,
+                        "dropped": b.dropped})
+        return out
+
+    # ---------------------------------------------------------- export
+    def events(self, *, process_index: int = 0) -> List[Dict[str, Any]]:
+        """Surviving spans as Chrome trace-event complete ('X') events,
+        ts/dur in microseconds on this process's monotonic clock."""
+        with self._lock:
+            bufs = list(self._bufs)
+        out: List[Dict[str, Any]] = []
+        for b in bufs:
+            for s in b.spans():
+                if s is None:
+                    continue
+                name, cat, t0, t1, args = s
+                ev: Dict[str, Any] = {
+                    "name": name, "cat": cat, "ph": "X",
+                    "ts": t0 / 1e3, "dur": (t1 - t0) / 1e3,
+                    "pid": process_index, "tid": b.tid}
+                if args:
+                    ev["args"] = args
+                out.append(ev)
+        out.sort(key=lambda e: e["ts"])
+        return out
+
+    def _thread_meta(self, process_index: int) -> List[Dict[str, Any]]:
+        with self._lock:
+            bufs = list(self._bufs)
+        return [{"ph": "M", "name": "thread_name", "pid": process_index,
+                 "tid": b.tid, "args": {"name": b.thread_name}}
+                for b in bufs]
+
+    def to_doc(self, *, process_index: int = 0) -> Dict[str, Any]:
+        """One worker's full Chrome-trace JSON document."""
+        events = ([{"ph": "M", "name": "process_name",
+                    "pid": process_index,
+                    "args": {"name": f"host{process_index}"}}]
+                  + self._thread_meta(process_index)
+                  + self.events(process_index=process_index))
+        return {
+            "displayTimeUnit": "ms",
+            "traceEvents": events,
+            "metadata": {
+                "schema": TRACE_SCHEMA_VERSION,
+                "process_index": process_index,
+                "spans": self.span_count,
+                "dropped": self.dropped,
+                "clock_sync": {"wall_ts": self.wall_at_start,
+                               "mono_us": self.mono_ns_at_start / 1e3},
+                **self.run_info,
+            },
+        }
+
+    def export_local(self, path: str, *, process_index: int = 0) -> str:
+        """Write this worker's trace atomically; returns the path.
+        Perfetto/chrome://tracing load it directly."""
+        doc = self.to_doc(process_index=process_index)
+        _atomic_write_json(path, doc)
+        self.exported = True
+        return path
+
+
+# ------------------------------------------------------ module singleton
+
+_TRACER: Optional[Tracer] = None
+_TRACER_LOCK = threading.Lock()
+
+
+def _env_enabled() -> bool:
+    return os.environ.get("TPUDIST_TRACE", "on").lower() not in (
+        "off", "0", "false", "no")
+
+
+def _env_capacity() -> int:
+    try:
+        return max(1, int(os.environ.get("TPUDIST_TRACE_CAPACITY",
+                                         DEFAULT_CAPACITY)))
+    except ValueError:
+        return DEFAULT_CAPACITY
+
+
+def get() -> Tracer:
+    """The process-wide tracer (created on first use; enabled unless
+    ``TPUDIST_TRACE`` says otherwise)."""
+    global _TRACER
+    if _TRACER is None:
+        with _TRACER_LOCK:
+            if _TRACER is None:
+                _TRACER = Tracer(enabled=_env_enabled(),
+                                 capacity=_env_capacity())
+    return _TRACER
+
+
+def configure(*, enabled: Optional[bool] = None,
+              capacity: Optional[int] = None) -> Tracer:
+    """Install a FRESH process-wide tracer (the train CLI calls this at
+    run start so back-to-back runs in one process never mix spans)."""
+    global _TRACER
+    with _TRACER_LOCK:
+        _TRACER = Tracer(
+            enabled=_env_enabled() if enabled is None else enabled,
+            capacity=_env_capacity() if capacity is None else capacity)
+    return _TRACER
+
+
+def span(name: str, cat: str = "misc", **args: Any):
+    """Module-level convenience: ``with trace.span("stage_slab",
+    cat="staging"): ...`` against the process-wide tracer."""
+    return get().span(name, cat, **args)
+
+
+def instant(name: str, cat: str = "misc", **args: Any) -> None:
+    get().instant(name, cat, **args)
+
+
+def enabled() -> bool:
+    return get().enabled
+
+
+# --------------------------------------------------- pod merge + export
+
+
+def worker_trace_name(process_index: int) -> str:
+    return f"trace.worker{process_index}.json"
+
+
+POD_TRACE_NAME = "pod_trace.json"
+
+
+def estimate_clock_offsets(process_count: int,
+                           rounds: int = 2) -> List[int]:
+    """Per-host monotonic-clock offsets (ns) relative to host 0.
+
+    Barrier-bracketed probe: every host stamps ``perf_counter_ns``
+    right after the same host-group barrier releases, then the stamps
+    are gathered: at that instant true time is equal across hosts to
+    within barrier-release skew, so ``stamp_i - stamp_0`` is host i's
+    clock offset. Averaged over ``rounds`` barriers. One process:
+    ``[0]`` with no collective.
+    """
+    if process_count <= 1:
+        return [0]
+    group = distributed.host_group()
+    sums = [0] * process_count
+    for _ in range(rounds):
+        dist.barrier(group=group)
+        stamp = _now_ns()
+        stamps: List[Any] = [None] * process_count
+        dist.all_gather_object(stamps, stamp, group=group)
+        for i, s in enumerate(stamps):
+            sums[i] += int(s) - int(stamps[0])
+    return [int(round(s / rounds)) for s in sums]
+
+
+def _allgather_bytes(payload: bytes, process_count: int) -> List[bytes]:
+    """Every worker's ``payload`` on every worker, over the host group."""
+    if process_count <= 1:
+        return [payload]
+    out: List[Any] = [None] * process_count
+    dist.all_gather_object(out, payload, group=distributed.host_group())
+    return out
+
+
+def merge_traces(worker_docs: Sequence[Dict[str, Any]],
+                 offsets_ns: Sequence[int]) -> Dict[str, Any]:
+    """Fold per-worker trace docs into one Perfetto-loadable document:
+    worker ``i``'s track is pid ``i`` (named ``host<i>``), and every
+    event timestamp shifts by ``-offsets_ns[i]`` onto host 0's
+    monotonic timeline. Pure function — the deterministic-merge tests
+    feed it scripted offsets."""
+    events: List[Dict[str, Any]] = []
+    clock_sync = {}
+    spans = dropped = device_tracks = counter_events = 0
+    for i, doc in enumerate(worker_docs):
+        off_us = offsets_ns[i] / 1e3 if i < len(offsets_ns) else 0.0
+        for ev in doc.get("traceEvents", []):
+            ev = dict(ev)
+            ev["pid"] = i
+            if "ts" in ev:
+                ev["ts"] = ev["ts"] - off_us
+            events.append(ev)
+        meta = doc.get("metadata", {})
+        spans += int(meta.get("spans", 0))
+        dropped += int(meta.get("dropped", 0))
+        device_tracks += int(meta.get("device_tracks", 0))
+        counter_events += int(meta.get("counter_events", 0))
+        clock_sync[str(i)] = meta.get("clock_sync")
+    events.sort(key=lambda e: (e.get("ts", -1.0)))
+    metadata = {
+        "schema": TRACE_SCHEMA_VERSION,
+        "hosts": len(worker_docs),
+        "clock_offsets_ns": [int(o) for o in offsets_ns],
+        "clock_sync": clock_sync,
+        "spans": spans,
+        "dropped": dropped,
+        "device_tracks": device_tracks,
+        "counter_events": counter_events,
+    }
+    # run identity: every worker stamped the same broadcast id; the
+    # first doc that carries one names the merged artifact too
+    for key in ("run_id", "requeue_attempt"):
+        for doc in worker_docs:
+            v = doc.get("metadata", {}).get(key)
+            if v is not None:
+                metadata[key] = v
+                break
+    return {
+        "displayTimeUnit": "ms",
+        "traceEvents": events,
+        "metadata": metadata,
+    }
+
+
+def export_pod_trace(out_dir: str, *, process_index: int = 0,
+                     process_count: int = 1,
+                     tracer: Optional[Tracer] = None,
+                     extra_events: Optional[List[Dict[str, Any]]] = None
+                     ) -> Dict[str, Any]:
+    """Run-end export: write this worker's ``trace.worker<i>.json``,
+    probe clock offsets, gather every worker's spans, and (coordinator
+    only) write the merged ``pod_trace.json``.
+
+    ``extra_events`` are pre-built Chrome events appended to this
+    worker's document before the gather — the device-timeline tracks
+    from a ``--profile-window`` capture (obs.devtime) ride the same
+    gather/merge/clock-shift path as the host spans, so they land
+    under this host's row in ``pod_trace.json``. Their timestamps must
+    already be on this host's monotonic (``perf_counter``) timebase.
+
+    CONTAINS COLLECTIVES on multi-host runs — call it only at a point
+    every process reaches (the success path after the epoch loop; a
+    dying run falls back to the watchdog's local-only export). Returns
+    a summary dict for the ``kind=timing`` record.
+    """
+    tracer = get() if tracer is None else tracer
+    local_path = os.path.join(out_dir, worker_trace_name(process_index))
+    # ONE document snapshot serves both the local file and the gather:
+    # building it twice would walk/sort the rings twice and let spans
+    # recorded in between make the two copies disagree
+    doc = tracer.to_doc(process_index=process_index)
+    if extra_events:
+        doc["traceEvents"].extend(extra_events)
+        doc["metadata"]["device_tracks"] = sum(
+            1 for e in extra_events if e.get("ph") == "M")
+        # ph="C" counter samples (the serve lane's KV-pool occupancy
+        # track): counted in metadata so consumers can assert the
+        # track's presence without scanning the event stream
+        doc["metadata"]["counter_events"] = sum(
+            1 for e in extra_events if e.get("ph") == "C")
+    _atomic_write_json(local_path, doc)
+    tracer.exported = True
+    offsets = estimate_clock_offsets(process_count)
+    payloads = _allgather_bytes(
+        json.dumps(doc, default=str).encode(), process_count)
+    merged_path = None
+    if process_index == 0:
+        docs = [json.loads(p) for p in payloads]
+        merged = merge_traces(docs, offsets)
+        merged_path = os.path.join(out_dir, POD_TRACE_NAME)
+        _atomic_write_json(merged_path, merged)
+    return {
+        "spans": tracer.span_count,
+        "dropped": tracer.dropped,
+        "hosts": process_count,
+        "clock_offsets_ns": offsets,
+        "local_path": local_path,
+        "merged_path": merged_path,
+    }
+
+
+def _atomic_write_json(path: str, doc: Dict[str, Any]) -> None:
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, default=str)
+    os.replace(tmp, path)

@@ -21,6 +21,8 @@ Every wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no other route. ``launches`` (forward),
 ``dq_launches``, ``dkv_launches`` and ``dqkv_launches`` count the kernel
 launches, so a run can show that its main path went through the kernels.
+Inside a flop count (:mod:`tpudist_torch.obs.mfu`) :class:`_Flash`
+reports its work by :func:`attention_flops`, whichever version runs.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpudist_torch.obs import mfu
 from tpudist_torch.ops.cuda import build
 from tpudist_torch.ops.rope import apply_rope, apply_rope_t
 
@@ -121,6 +124,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                      v.float()) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return o.permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+def attention_flops(q_shape, k_shape, causal: bool,
+                    backward: bool = False) -> int:
+    """The model flops of one attention forward: the two products
+    (q kᵀ and p v) over the query-key pairs the causal mask keeps,
+    s(s+1)/2 of them, else all s x sk; the backward's four products
+    (dp, dv, ds and dk; the recompute of s is not model work) are twice
+    that. One formula whichever version runs."""
+    b, s, h, hd = q_shape
+    sk = k_shape[1]
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    return (8 if backward else 4) * b * h * hd * pairs
 
 
 def dqkv_workspace_shape(b: int, s: int, sk: int, h: int,
@@ -382,11 +398,12 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, causal):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, cos=cos, sin=sin,
-                                           causal=causal)
-        else:
-            o, lse = _launch(q, k, v, cos, sin, causal)
+        with mfu.kernel_work(attention_flops(q.shape, k.shape, causal)):
+            if q.device.type == "cpu":
+                o, lse = flash_attention_plain(q, k, v, cos=cos, sin=sin,
+                                               causal=causal)
+            else:
+                o, lse = _launch(q, k, v, cos, sin, causal)
         ctx.save_for_backward(q, k, v, o, lse, cos, sin)
         ctx.causal = causal
         return o, lse
@@ -394,14 +411,17 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse, cos, sin = ctx.saved_tensors
-        delta = _delta(o, do, dlse)
         kw = dict(cos=cos, sin=sin, causal=ctx.causal)
-        if uses_merged_backward(q.shape[1], k.shape[1]):
-            dq, dk, dv = flash_attention_bwd_dqkv(q, k, v, do, lse, delta,
-                                                  **kw)
-        else:
-            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        with mfu.kernel_work(attention_flops(q.shape, k.shape, ctx.causal,
+                                             backward=True)):
+            delta = _delta(o, do, dlse)
+            if uses_merged_backward(q.shape[1], k.shape[1]):
+                dq, dk, dv = flash_attention_bwd_dqkv(q, k, v, do, lse,
+                                                      delta, **kw)
+            else:
+                dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+                dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 **kw)
         return dq, dk, dv, None, None, None
 
 

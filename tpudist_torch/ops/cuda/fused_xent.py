@@ -17,6 +17,9 @@ Every wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no other route. ``fwd_launches`` and
 ``bwd_launches`` count the kernel launches (one per forward or backward
 call), so a run can show that its main path went through the kernels.
+Inside a flop count (:mod:`tpudist_torch.obs.mfu`) :class:`_FusedXent`
+reports its work by one formula, the head's products (2 t V d forward,
+twice that backward), whichever version runs.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from tpudist_torch.obs import mfu
 from tpudist_torch.ops.cuda import build
 
 LIBRARY = "fused_xent"
@@ -208,14 +212,19 @@ class _FusedXent(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, emb, targets):
-        loss, lse = fused_xent_fwd(h, emb, targets)
+        # the head's product h Eᵀ: 2 t V d
+        with mfu.kernel_work(2 * h.shape[0] * emb.shape[0] * h.shape[1]):
+            loss, lse = fused_xent_fwd(h, emb, targets)
         ctx.save_for_backward(h, emb, targets, lse)
         return loss
 
     @staticmethod
     def backward(ctx, ct):
         h, emb, targets, lse = ctx.saved_tensors
-        dh, de = fused_xent_bwd(h, emb, targets, lse, ct)
+        # dh = dl E and dE = dlᵀ h (the recompute of the logits is not
+        # model work)
+        with mfu.kernel_work(4 * h.shape[0] * emb.shape[0] * h.shape[1]):
+            dh, de = fused_xent_bwd(h, emb, targets, lse, ct)
         return dh, de, None
 
 

@@ -10,10 +10,14 @@ degradation when the resilience knobs are on (``--queue-cap``,
 ``--ttft-deadline-ms``, ``--adapt``; :mod:`tpudist_torch.serve.resilience`)
 and on a virtual clock under ``--virtual-clock``; pin the program count;
 grade the latency SLOs and the shed gate. Artifacts: ``metrics.jsonl``
-(``kind=serve`` / ``serve_tick`` / ``serve_request`` / ``serve_adapt``
-records) under ``--save-dir``, an optional ``BENCH_SERVE.json``
-(``--bench-out``) and the verdict file (``TPUDIST_VERDICT_PATH``). Exit
-code: 0 unless an SLO gate FAILED or the run failed.
+(``kind=serve`` / ``serve_tick`` / ``serve_request`` / ``serve_adapt`` /
+``memledger`` records, each stamped with the run's ``run_id``), the
+memory ledger ``memledger.json`` and, with the span tracer on (the
+default; ``--trace off``), ``trace.worker0.json`` and ``pod_trace.json``
+with one track per serving slot, under ``--save-dir`` (the traces under
+``--trace-dir``), an optional ``BENCH_SERVE.json`` (``--bench-out``) and
+the verdict file (``TPUDIST_VERDICT_PATH``). Exit code: 0 unless an SLO
+gate FAILED or the run failed.
 
 ``parse_args`` declares every option of the JAX serve CLI. Those this
 slice does not carry (``NOT_CARRIED``) are refused unless left off, and
@@ -58,9 +62,7 @@ NOT_CARRIED = (
     ("--serve-tune", dict(choices=("off", "probe", "cache-only"),
                           default="off"), (), "TPUDIST_SERVE_TUNE", 6),
     ("--tune-cache-dir", dict(type=str), (), None, 6),
-    ("--trace", dict(choices=("on", "off")), ("off",), "TPUDIST_TRACE", 11),
-    ("--trace-dir", dict(type=str), (), "TPUDIST_TRACE_DIR", 11),
-    ("--live-port", dict(type=int), (0,), "TPUDIST_LIVE_PORT", 11),
+    ("--live-port", dict(type=int), (0,), "TPUDIST_LIVE_PORT", "11b"),
 )
 
 # The environment variables the JAX serve CLI reads for what this slice
@@ -68,7 +70,7 @@ NOT_CARRIED = (
 ENV_NOT_CARRIED = {
     **{env: ((kw.get("default"), *off), item)
        for _, kw, off, env, item in NOT_CARRIED if env},
-    "TPUDIST_LIVE": (("off",), 11),
+    "TPUDIST_LIVE": (("off",), "11b"),
 }
 
 
@@ -172,6 +174,14 @@ def parse_args(argv: Optional[Sequence[str]] = None
                    default="float32",
                    help="activation and KV cache dtype (weights are kept "
                         "in f32 and cast at use)")
+    p.add_argument("--trace", choices=("on", "off"), default=None,
+                   help="span tracing (request flight timelines); "
+                        "default on, resolved as the train lane does: "
+                        "flag > $TPUDIST_TRACE > on")
+    p.add_argument("--trace-dir", type=str,
+                   default=os.environ.get("TPUDIST_TRACE_DIR"),
+                   help="span-trace export dir ($TPUDIST_TRACE_DIR, "
+                        "else --save-dir)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs; cuda fails when no card "
                         "is present rather than falling back to the CPU")
@@ -209,13 +219,21 @@ def device_name(device) -> str:
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     import torch
 
-    from tpudist_torch.config import ModelConfig
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.config import ModelConfig, resolve_trace
     from tpudist_torch.metrics import MetricsLogger, log0
+    from tpudist_torch.obs import live as live_lib
+    from tpudist_torch.obs import memledger as memledger_lib
+    from tpudist_torch.obs import trace as trace_lib
+    from tpudist_torch.serve import flight as flight_lib
     from tpudist_torch.serve import resilience as res_lib
     from tpudist_torch.serve import scheduler as sched
     from tpudist_torch.serve.engine import ServeEngine, init_params
 
     check_supported(args)
+    # the span tracer, on by default as in the train lane
+    trace_on, trace_dir = resolve_trace(args)
+    tracer = trace_lib.configure(enabled=trace_on)
     model_cfg = ModelConfig(
         name=args.model, vocab_size=args.vocab_size,
         n_layers=args.n_layers, d_model=args.d_model,
@@ -239,8 +257,14 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     os.makedirs(args.save_dir, exist_ok=True)
     metrics = MetricsLogger(path=os.path.join(args.save_dir,
                                               "metrics.jsonl"))
+    # the run's identity on every record and trace document; the serve
+    # lane has no requeue loop yet (ROADMAP Queue A item 6)
+    run_id = live_lib.resolve_run_id()
+    metrics.extra.update(run_id=run_id, requeue_attempt=0)
+    tracer.run_info.update(run_id=run_id, requeue_attempt=0)
     params = init_params(model_cfg, seed=args.seed, device=engine.device)
-    engine.warmup(params)
+    with trace_lib.span("serve_warmup", cat="serve"):
+        engine.warmup(params)
     requests = sched.make_requests(
         args.requests, prompt_pad=args.prompt_pad,
         vocab_size=args.vocab_size, max_new=args.max_new_tokens,
@@ -263,6 +287,34 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     metrics.log(kind="serve",
                 **{k: v for k, v in summary.items()
                    if k not in ("results", "thresholds")})
+    metrics.flush()
+
+    # the serve lane's memory ledger: params, the KV cache and the
+    # captured programs' graph pools, partitioned against the card's
+    # memory. Advisory: a failure logs a line
+    try:
+        params_bytes = sum(p.numel() * p.element_size()
+                           for p in params.parameters())
+        ledger = memledger_lib.build_ledger(
+            total_hbm_bytes=int(engine_lib._device_hbm_bytes(
+                engine.device)),
+            params_bytes=params_bytes, kv_pool_bytes=cache_bytes,
+            programs=engine.program_memory(), mode="serve", run_id=run_id)
+        metrics.log(kind="memledger",
+                    **memledger_lib.ledger_record(ledger))
+        metrics.flush()
+        memledger_lib._atomic_write(
+            os.path.join(args.save_dir, memledger_lib.LEDGER_NAME),
+            json.dumps(ledger, indent=1))
+        log0(f"tpudist: memledger {ledger['headroom_status']}: "
+             f"{100 * ledger['headroom_fraction']:.1f}% headroom of "
+             f"{ledger['total_hbm_bytes'] / 2**20:.0f} MB HBM "
+             f"(params {params_bytes / 2**20:.1f} MB, kv_pool "
+             f"{cache_bytes / 2**20:.2f} MB, temp "
+             f"{ledger['buckets']['program_temp'] / 2**20:.1f} MB, "
+             f"{'exact' if ledger['exact'] else 'INEXACT'})")
+    except Exception as e:
+        log0(f"tpudist: memledger skipped ({e!r})")
     metrics.close()
 
     log0(f"tpudist: serve {summary['status']}: "
@@ -280,6 +332,19 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     if args.bench_out:
         _write_bench(args.bench_out, summary)
         log0(f"tpudist: serve bench -> {args.bench_out}")
+    if tracer.enabled:
+        # the pod export, with one track per serving slot appended;
+        # advisory: a failed export logs and never fails the run
+        try:
+            extra = flight_lib.build_extra_events(
+                tracer.events(process_index=0), process_index=0)
+            tinfo = trace_lib.export_pod_trace(
+                trace_dir, tracer=tracer, extra_events=extra)
+            log0(f"tpudist: serve trace -> {tinfo['local_path']} "
+                 f"({tinfo['spans']} spans, {len(extra)} slot-track/"
+                 f"counter events, merged {tinfo['merged_path']})")
+        except Exception as e:
+            log0(f"tpudist: serve trace export failed ({e!r})")
     return summary
 
 

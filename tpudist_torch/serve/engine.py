@@ -412,6 +412,17 @@ class ServeEngine:
                 self._run(name, body)
         self.init_state()
 
+    def program_memory(self) -> Dict[str, Dict[str, int]]:
+        """The programs' scratch for the memory ledger (the JAX engine's
+        ``program_memory``): on the card, the graph pools the captures
+        hold (the prefill's and the decode ladder's, resident together,
+        measured as one), ``{"temp_bytes": ...}``; on the CPU, where no
+        program reports its scratch, ``{}`` for each."""
+        if self._graphs:
+            return {"graph_pools": {"temp_bytes": self.graph_pool_bytes}}
+        return {name: {} for name in self.prefill_traces
+                + self.decode_traces}
+
     def compile_counts(self) -> Tuple[int, int]:
         """(prefill programs, decode programs) built so far."""
         return len(self.prefill_traces), len(self.decode_traces)

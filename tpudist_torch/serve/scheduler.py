@@ -2,7 +2,7 @@
 admission, SLO accounting.
 
 Counterpart of the dense path of ``tpudist/serve/scheduler.py`` (no
-chaos, no paged engine, no speculation, no tracer). Requests arrive on a
+chaos, no paged engine, no speculation). Requests arrive on a
 seeded open-loop Poisson schedule, pass ADMISSION CONTROL (bounded
 queue, per-request TTFT deadlines, malformed-request rejection —
 :mod:`tpudist_torch.serve.resilience`), queue until a slot frees,
@@ -21,6 +21,14 @@ Latency accounting happens here because only the host sees the request
 clock: TTFT spans arrival → the fenced prefill that produced the first
 token (queue wait included); ITL attributes each token in a decode
 dispatch ``dispatch_wall / decode_k`` (see :mod:`tpudist_torch.serve.slo`).
+
+Every request's lifecycle also lands on the span tracer
+(:mod:`tpudist_torch.obs.trace`, ``cat=serve``, keyed by ``rid``), with
+the JAX scheduler's names and fields: an ``arrive`` instant, one instant
+per admission verdict and outcome, ``admit`` and ``prefill`` spans, a
+``decode_step`` span a dispatch and a ``decode_emit`` instant per slot;
+the JAX package's flight verifier (``tpudist.serve.flight``) folds them
+with the ``kind=serve_request`` stream.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from tpudist_torch import rules as rules_lib
+from tpudist_torch.obs import trace as trace_lib
 from tpudist_torch.serve import resilience as res_lib
 from tpudist_torch.serve import slo as slo_lib
 from tpudist_torch.serve.engine import ServeEngine
@@ -145,6 +154,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     if virtual is not None:
         clock = virtual.clock
     flush_events = res.enabled
+    tracer = trace_lib.get()
     stats = slo_lib.LatencyStats()
     led = res_lib.ShedLedger()
     controller = None
@@ -168,6 +178,9 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         return clock() - t0
 
     def event(rid: int, ev: str, **kw: Any) -> None:
+        # every outcome is also a lifecycle instant, from the same call
+        # site: the flight verifier cross-checks the two streams
+        tracer.instant(ev, cat="serve", rid=rid, **kw)
         if metrics is not None:
             metrics.log(kind="serve_request", rid=rid, event=ev,
                         t_s=round(now(), 6), **kw)
@@ -215,6 +228,10 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         while pending and pending[0].arrival_s <= t:
             req = pending.popleft()
             led.arrived += 1
+            # the flight chain's opening marker, one an arrived rid
+            tracer.instant("arrive", cat="serve", rid=req.rid,
+                           arrival_s=round(req.arrival_s, 6),
+                           prompt_len=req.prompt_len)
             why = validate_request(
                 req, prompt_pad=engine.prompt_pad,
                 vocab_size=engine.model_cfg.vocab_size) \
@@ -244,10 +261,14 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
             budget = req.max_new
             if cur_level > 0 and res.max_new_cap:
                 budget = min(budget, res.max_new_cap)
-            state, first = engine.prefill(params, state,
-                                          req.tokens[None, :],
-                                          req.prompt_len, i, budget)
-            first = int(first)           # fence: the token exists NOW
+            with tracer.span("admit", cat="serve", rid=req.rid, slot=i):
+                pass   # the admission decision itself is host-trivial
+            with tracer.span("prefill", cat="serve", rid=req.rid, slot=i,
+                             prompt_len=req.prompt_len):
+                state, first = engine.prefill(params, state,
+                                              req.tokens[None, :],
+                                              req.prompt_len, i, budget)
+                first = int(first)       # fence: the token exists NOW
             if virtual is not None:
                 virtual.clock.advance(virtual.prefill_s)
             t_first = now()
@@ -287,9 +308,11 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         # depth sampled once per DISPATCH, not per idle pass
         queue_depths.append(len(waiting))
         t_dispatch = clock()
-        state, toks, valid = engine.decode(params, state, cur_k)
-        toks = toks.cpu().numpy()          # fence: tokens on host
-        valid = valid.cpu().numpy()
+        with tracer.span("decode_step", cat="serve",
+                         active=len(occupied), decode_k=cur_k):
+            state, toks, valid = engine.decode(params, state, cur_k)
+            toks = toks.cpu().numpy()      # fence: tokens on host
+            valid = valid.cpu().numpy()
         if virtual is not None:
             dt = virtual.decode_s
             virtual.clock.advance(dt)
@@ -308,6 +331,10 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                 generated += n_new
                 stats.note_itl(per_tok, n_new)
             s = slots[i]
+            # per-slot decode attribution: the flight verifier sums these
+            # per rid against the terminal event's generated count
+            tracer.instant("decode_emit", cat="serve", rid=s.req.rid,
+                           slot=i, tokens=n_new, dispatch=dispatches)
             if s.generated >= s.budget:
                 finish(i, "done")
             elif s.req.prompt_len + s.generated > engine.max_seq:

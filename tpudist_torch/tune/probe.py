@@ -40,6 +40,7 @@ import torch
 from tpudist_torch import config as config_lib
 from tpudist_torch import data as data_lib
 from tpudist_torch import engine
+from tpudist_torch.obs import trace as trace_lib
 from tpudist_torch.parallel import staging
 
 # Probe length/repeats: long enough that per-epoch fixed costs (one
@@ -266,7 +267,10 @@ def probe_candidate(cfg, device, candidate, plan, *,
         runner = EpochRunner(pcfg, device, candidate.k, plan, n,
                              budget_bytes=budget)
         # the trial's state is not kept: its memory goes back below
-        times, compile_s = time_runner(runner, repeats=repeats)[1:]
+        with trace_lib.span("probe_trial", cat="tune", k=candidate.k,
+                            remat=candidate.remat,
+                            grad_accum=candidate.grad_accum_steps):
+            times, compile_s = time_runner(runner, repeats=repeats)[1:]
         launches = runner.launches(counts)
         peak, limit = device_memory(device)
         ms = min(times)   # one-sided noise: fastest epoch is cleanest

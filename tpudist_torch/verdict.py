@@ -4,7 +4,8 @@ Copy of the part of ``tpudist/verdict.py`` the serving and training
 lanes use: the three-valued status vocabulary, the per-worker and final
 verdict files, written atomically (a ``gs://`` path goes through
 ``gsutil``), the bounded AND-aggregation over processes, and the
-advisory staging and tuning verdicts of the ``kind=timing`` record.
+advisory staging, straggler, tuning and trace verdicts of the
+``kind=timing`` record.
 """
 
 from __future__ import annotations
@@ -39,6 +40,46 @@ def staging_status(streamed: bool, overlap_fraction,
     if not streamed or overlap_fraction is None:
         return UNGATEABLE
     return SUCCESS if overlap_fraction >= min_overlap else FAIL
+
+
+def straggler_status(step_s_means, factor: Optional[float] = None) -> str:
+    """Three-valued per-host straggler verdict (``obs.hoststats``):
+    UNGATEABLE with fewer than two hosts reporting steady-state step
+    times (a single-host run must not read as a straggler regression),
+    else FAIL when any host's mean step time exceeds the pod median by
+    the threshold factor ($TPUDIST_STRAGGLER_FACTOR, default
+    ``rules.STRAGGLER_FACTOR``)."""
+    import statistics
+    if factor is None:
+        factor = rules_lib.resolve("straggler")
+    valid = [float(s) for s in step_s_means if s and s > 0]
+    if len(valid) < 2:
+        return UNGATEABLE
+    median = statistics.median(valid)
+    if median <= 0:
+        return UNGATEABLE
+    return FAIL if max(valid) > factor * median else SUCCESS
+
+
+def trace_status(enabled: bool, spans: int, dropped: int,
+                 exported: bool, drop_max: Optional[float] = None) -> str:
+    """Three-valued span-tracing verdict (``obs.trace``) for the run log
+    and the ``kind=timing`` record: UNGATEABLE with tracing off; SUCCESS
+    when the run-end export wrote a trace and the ring buffers kept
+    (most of) the timeline; FAIL when tracing was on but the export
+    failed or overwrote more than the drop threshold
+    ($TPUDIST_TRACE_DROP_MAX). Advisory, like the staging and straggler
+    verdicts."""
+    if not enabled:
+        return UNGATEABLE
+    if drop_max is None:
+        drop_max = rules_lib.resolve("trace_drop")
+    if not exported or spans <= 0:
+        return FAIL
+    total = spans + dropped
+    if total > 0 and dropped / total > drop_max:
+        return FAIL
+    return SUCCESS
 
 
 def tuning_status(mode: str, *, source: str = "heuristic",
