@@ -152,10 +152,33 @@ Phases, each of which fails the script (non-zero exit, no result line):
    holds, its replay equals the eager body), then a stall drill: a
    ``FlightRecorder`` with a 2 s window and no progress while that
    graph replays writes ``flightrec.worker0`` with the threads' stacks
-   and the card's ``memory_stats``, the replays' output unchanged.
+   and the card's ``memory_stats``, the replays' output unchanged;
+14. the paged serving plane at phase 4's configuration on the graph
+   engine (``PagedServeEngine``, 16-token pages; its attention plain
+   PyTorch, as the JAX package's is outside any Pallas kernel): (a)
+   phase 4's 16 requests on the default pool (512 pages, the dense
+   capacity): every request's tokens equal phase 4's dense tokens and
+   the eager bodies', the pin (1 prefill, 3 decode, 0 verify graphs),
+   the pool drained to 0 pages; (b) a 256-token shared prefix and
+   ``speculate_k`` 4 against the dense engine on the same prefixed
+   stream: the tokens equal, the pin (1, 3, 1), the registry's 16 pages
+   held after the drain, the acceptance (drafted/accepted from the
+   ``decode_emit`` instants) and tokens/s/chip and ITL p50 beside 14a's
+   (printed, not gated); (c) the JAX package's fixed-memory pair
+   (``bench.py``): the dense engine (8 slots, 536,870,912 bytes of
+   cache) against 16 paged slots on 480 pages (``spec.bytes`` strictly
+   smaller), 32 requests at t=0 with the prefix: equal tokens, a higher
+   ``active_slots_peak``, at most 480 pages; (d) the serve CLI with
+   ``--kv-page-tokens 16 --shared-prefix 256 --speculate-k 4``: the
+   memory-bound line (bound by the graph pools), the ledger exact with
+   ``kv_pool`` the pool's bytes, a slot track per serving slot and the
+   ``kv_pages`` counter track, verdict ``success``. Tokens that differ
+   from the dense run's fail unless the first divergence is a near-tie:
+   the full forward's top-two logit gap there within 1e-4 of the
+   logits' largest magnitude (printed and counted).
 
-Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a and 13b are the main
-paths: each
+Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b and 14a-14d are
+the main paths: each
 runs with every launch count set to 0 just before and read just after
 (10a and 11c in each rank's process; 12b's timed run, not its probes,
 which restore the counters and report their launches apart), and each
@@ -167,7 +190,8 @@ phases also check the stdout contract, a falling loss and the
 ``success`` verdict files.
 ``--profile`` adds torch.profiler breakdowns of the serving windows (8
 prefills and one decode superstep, replayed and as eager bodies, with
-the flash kernels counted in the replayed prefills) and of two training
+the flash kernels counted in the replayed prefills; one replayed paged
+decode superstep and one verify dispatch, phase 14b's) and of two training
 steps at seq 2048 (plain and
 fused head), 512 and 512 in bf16 with the fused head (phase 9's
 configuration; device time by kernel, busy share), of one replayed
@@ -883,11 +907,11 @@ class _EagerBodies:
     def __getattr__(self, name):
         return getattr(self.engine, name)
 
-    def prefill(self, *args):
-        return self.engine.eager_prefill(*args)
+    def prefill(self, *args, **kw):
+        return self.engine.eager_prefill(*args, **kw)
 
-    def decode(self, *args):
-        return self.engine.eager_decode(*args)
+    def decode(self, *args, **kw):
+        return self.engine.eager_decode(*args, **kw)
 
 
 def _serve_counts(engine):
@@ -1909,20 +1933,26 @@ def obs_train(torch, fa, fx, card: str, on, argv, env):
 
 @contextlib.contextmanager
 def _serve_engines():
-    """Every serve engine the serve CLI builds inside the block, for the
-    launches its graphs' replays ran."""
+    """Every serve engine (dense or paged) the serve CLI builds inside the
+    block, for the launches its graphs' replays ran."""
     from tpudist_torch.serve import engine as engine_mod
 
-    made, real = [], engine_mod.ServeEngine
+    made = []
+    real = {name: getattr(engine_mod, name)
+            for name in ("ServeEngine", "PagedServeEngine")}
 
-    def make(*args, **kw):
-        made.append(real(*args, **kw))
-        return made[-1]
-    engine_mod.ServeEngine = make
+    def factory(cls):
+        def make(*args, **kw):
+            made.append(cls(*args, **kw))
+            return made[-1]
+        return make
+    for name, cls in real.items():
+        setattr(engine_mod, name, factory(cls))
     try:
         yield made
     finally:
-        engine_mod.ServeEngine = real
+        for name, cls in real.items():
+            setattr(engine_mod, name, cls)
 
 
 # phase 4's serving configuration through the serve CLI
@@ -2077,6 +2107,308 @@ def stall_drill(torch, card: str) -> None:
     shutil.rmtree(out, ignore_errors=True)
     del graph, x, w, y, ref, eager
     torch.cuda.empty_cache()
+
+
+# phase 14's paths, each a main path of the flash forward
+PAGED_PATHS = ("paged_serve", "paged_prefix_dense", "paged_serve_spec",
+               "fixed_memory_dense", "fixed_memory_paged", "paged_serve_cli")
+PREFIX = 256             # phase 14's shared system prompt, 16 full pages
+
+
+def _serve_engine(torch, cfg, paged: bool, slots: int = 8, **kw):
+    """Phase 4's engine configuration (max_seq 1024, prompt_pad 512, the
+    ladder (8, 4, 2), f32 on the card), dense or paged."""
+    from tpudist_torch.serve import resilience as res_lib
+    from tpudist_torch.serve.engine import PagedServeEngine, ServeEngine
+
+    cls = PagedServeEngine if paged else ServeEngine
+    return cls(cfg, slots=slots, max_seq=1024, prompt_pad=512, decode_k=8,
+               dtype=torch.float32, device="cuda",
+               adapt_ladder=res_lib.default_ladder(8), **kw)
+
+
+def _paged_run(torch, fa, fx, tag, engine, params, requests, prefix=None,
+               prefixes: int = 0):
+    """One main path: the launch counts set to 0, the engine warmed (its
+    captures) and ``run_serve`` over ``requests``; the flash forward must
+    have launched n_layers x (prefills + prefix registrations), the
+    warm-up's eager prefill among the prefills, counted through the
+    replays. Returns the summary and the path's launch counts."""
+    from tpudist_torch.serve import scheduler as sched
+
+    _reset_launches(fa, fx)
+    engine.reset_kernel_launches()
+    t0 = time.perf_counter()
+    engine.warmup(params)
+    warm_s = time.perf_counter() - t0
+    summary = sched.run_serve(engine, params, requests,
+                              shared_prefix=prefix)
+    torch.cuda.synchronize()
+    counts = _serve_counts(engine)
+    engine.assert_two_programs()
+    n = engine.model_cfg.n_layers
+    want = n * (summary["admitted"] + prefixes + 1)
+    got = counts["flash_attention_fwd"]
+    print(f"{tag}: {summary['completed']}/{summary['requests']} requests, "
+          f"{summary['generated_tokens']} tokens over "
+          f"{summary['dispatches']} dispatches, tokens/s/chip "
+          f"{summary['tokens_per_sec_per_chip']}, ttft p50 "
+          f"{summary['ttft_p50_s']} s, itl p50 {summary['itl_p50_s']} s "
+          f"p99 {summary['itl_p99_s']} s, active slots peak "
+          f"{summary['active_slots_peak']}, kv pages peak "
+          f"{summary['kv_pages_used_peak']}/{summary['kv_pages_total']}; "
+          f"kv cache {engine.spec.bytes} bytes; programs "
+          f"{engine.compile_counts()} + verify "
+          f"{summary['verify_compiles']}, warmup {warm_s:.3f} s (capture "
+          f"{engine.capture_s:.3f} s, graph pools "
+          f"{engine.graph_pool_bytes / MB:.1f} MB); flash launches {got} "
+          f"(want n_layers x (prefills + registrations + warm-up) = {n} x "
+          f"{summary['admitted']} + {prefixes} + 1 = {want})")
+    if summary["completed"] != len(requests) or summary["truncated"]:
+        fail(f"{tag}: completed {summary['completed']}/{len(requests)} "
+             f"({summary['truncated']} truncated)")
+    if got != want:
+        fail(f"{tag}: flash kernel launched {got} times, want {want}")
+    for rid, res in summary["results"].items():
+        toks = res["tokens"]
+        if len(toks) != 32 or not all(
+                0 <= t < engine.model_cfg.vocab_size for t in toks):
+            fail(f"{tag}: request {rid} produced {toks!r}")
+    return summary, counts
+
+
+def _near_ties(torch, params, cfg, requests, want, got, tag) -> int:
+    """The requests whose tokens differ from the dense run's ``want``:
+    each one's first divergence must be a near-tie, the full forward's
+    top-two logit gap there within f32 noise (1e-4 of the logits' largest
+    magnitude), or the phase fails. Returns how many differ."""
+    from tpudist_torch.models import transformer
+
+    by_rid = {r.rid: r for r in requests}
+    ties = 0
+    for rid in sorted(want):
+        w, g = want[rid], got.get(rid)
+        if g == w:
+            continue
+        if g is None or len(g) != len(w):
+            fail(f"{tag}: request {rid} gave {g!r}, the dense run {w!r}")
+        i = next(j for j in range(len(w)) if w[j] != g[j])
+        req = by_rid[rid]
+        seq = [int(t) for t in req.tokens[:req.prompt_len]] + w[:i]
+        with torch.no_grad():
+            logits = transformer.apply(
+                params, torch.as_tensor([seq], dtype=torch.int64,
+                                        device=params.embed.device),
+                cfg, dtype=torch.float32)[0, -1]
+        top = logits.topk(2).values
+        gap, scale = float(top[0] - top[1]), float(logits.abs().max())
+        print(f"{tag}: request {rid} diverges at token {i}: dense "
+              f"{w[i]}, this run {g[i]}; the full forward's top-two logit "
+              f"gap there {gap:.3e} (f32 noise: 1e-4 x {scale:.3e})")
+        if gap > 1e-4 * scale:
+            fail(f"{tag}: request {rid}'s tokens differ from the dense "
+                 f"run's at token {i}, not at a near-tie")
+        ties += 1
+    print(f"{tag}: tokens vs the dense run: {len(want) - ties}/"
+          f"{len(want)} requests equal, {ties} near-tie divergence(s)")
+    return ties
+
+
+def paged_serve(torch, fa, fx, base, card: str, profile: bool):
+    """Phase 14: the paged serving plane at phase 4's configuration on
+    the graph engine. (a) ``PagedServeEngine`` with 16-token pages (512
+    pages, the dense capacity) over phase 4's 16 requests: every
+    request's tokens equal phase 4's dense tokens and the eager bodies',
+    the pin (1, 3, verify 0), the pool drained to 0 pages; (b) with a
+    256-token shared prefix and ``speculate_k`` 4 against the dense
+    engine on the same prefixed stream: the tokens equal, the pin (1, 3,
+    1), the registry's 16 pages held after the drain, the acceptance
+    printed; (c) the fixed-memory pair: the dense engine (8 slots)
+    against 16 paged slots on 480 pages, strictly fewer bytes, 32
+    requests with the prefix: equal tokens, more slots at once; (d) the
+    serve CLI with the three paged flags: the memory-bound line, the
+    ledger exact with ``kv_pool`` the pool's bytes, the slot and
+    ``kv_pages`` tracks, verdict ``success``. Returns each path's
+    launches."""
+    from tpudist_torch.config import ModelConfig
+    from tpudist_torch.obs import trace as trace_lib
+    from tpudist_torch.serve import scheduler as sched
+    from tpudist_torch.serve.engine import init_params
+
+    cfg = ModelConfig(name="transformer")
+    params = init_params(cfg, seed=0, device="cuda")
+    paths, ties = {}, 0
+
+    def stream(n, seed, prefix_len=0):
+        return sched.make_requests(n, prompt_pad=512,
+                                   vocab_size=cfg.vocab_size, max_new=32,
+                                   rate=0.0, seed=seed,
+                                   prefix_len=prefix_len)
+
+    # 14a: phase 4's stream on the paged engine
+    requests = stream(16, 0)
+    engine = _serve_engine(torch, cfg, True, page_tokens=16)
+    a, paths["paged_serve"] = _paged_run(torch, fa, fx, "paged 14a",
+                                         engine, params, requests)
+    if engine.compile_counts() != (1, 3) or engine.verify_traces \
+            or engine.alloc.pages_used() != 0:
+        fail(f"paged 14a: programs {engine.compile_counts()} + verify "
+             f"{len(engine.verify_traces)}, {engine.alloc.pages_used()} "
+             f"pages still used after the drain")
+    eager = sched.run_serve(_EagerBodies(engine), params, requests)
+    same = _tokens_of(eager) == _tokens_of(a)
+    print(f"paged 14a: every request's tokens, graphs vs the eager bodies: "
+          f"equal {same}")
+    if not same:
+        fail("paged 14a: the graphs' tokens differ from the eager bodies'")
+    ties += _near_ties(torch, params, cfg, requests, _tokens_of(base),
+                       _tokens_of(a), "paged 14a")
+    print(f"paged 14a: tokens/s/chip {a['tokens_per_sec_per_chip']} "
+          f"(phase 4 dense {base['tokens_per_sec_per_chip']}), itl p50 "
+          f"{a['itl_p50_s']} s (dense {base['itl_p50_s']} s); {card}")
+    del engine, eager
+    torch.cuda.empty_cache()
+
+    # 14b: the shared prefix and speculation against the dense engine
+    prefix = sched.shared_prefix_tokens(PREFIX, cfg.vocab_size, seed=0)
+    requests = stream(16, 0, PREFIX)
+    dense = _serve_engine(torch, cfg, False)
+    d, paths["paged_prefix_dense"] = _paged_run(
+        torch, fa, fx, "paged 14b dense", dense, params, requests)
+    engine = _serve_engine(torch, cfg, True, page_tokens=16, speculate_k=4)
+    tracer = trace_lib.configure(enabled=True)
+    b, paths["paged_serve_spec"] = _paged_run(
+        torch, fa, fx, "paged 14b", engine, params, requests, prefix,
+        prefixes=1)
+    emits = [e["args"] for e in tracer.events()
+             if e["name"] == "decode_emit" and "drafted" in e["args"]]
+    trace_lib.configure(enabled=False)
+    drafted = sum(e["drafted"] for e in emits)
+    accepted = sum(e["accepted"] for e in emits)
+    held = engine.alloc.pages_used()
+    print(f"paged 14b: spec_accept_rate {b['spec_accept_rate']} (drafted "
+          f"{drafted}, accepted {accepted} over {len(emits)} slot-verifies);"
+          f" registry holds {held} pages (shared_len "
+          f"{engine.alloc.shared_len}) after the drain; tokens/s/chip "
+          f"{b['tokens_per_sec_per_chip']} (14a "
+          f"{a['tokens_per_sec_per_chip']}, dense on this stream "
+          f"{d['tokens_per_sec_per_chip']}), itl p50 "
+          f"{b['itl_p50_s']} s (14a {a['itl_p50_s']} s, dense "
+          f"{d['itl_p50_s']} s); {card}")
+    if engine.compile_counts() != (1, 3) or len(engine.verify_traces) != 1 \
+            or held != PREFIX // 16 or engine.alloc.shared_len != PREFIX \
+            or not drafted or b["spec_accept_rate"] != round(
+                accepted / drafted, 4):
+        fail(f"paged 14b: programs {engine.compile_counts()} + verify "
+             f"{len(engine.verify_traces)}, registry {held} pages, "
+             f"acceptance {accepted}/{drafted} vs "
+             f"{b['spec_accept_rate']}")
+    ties += _near_ties(torch, params, cfg, requests, _tokens_of(d),
+                       _tokens_of(b), "paged 14b")
+    if profile:
+        profile_paged(torch, engine, params, requests)
+    del engine
+    torch.cuda.empty_cache()
+
+    # 14c: the fixed-memory pair (the JAX package's bench.py pair)
+    requests = stream(32, 1, PREFIX)
+    prefix = sched.shared_prefix_tokens(PREFIX, cfg.vocab_size, seed=1)
+    dc, paths["fixed_memory_dense"] = _paged_run(
+        torch, fa, fx, "paged 14c dense", dense, params, requests)
+    dense_bytes = dense.spec.bytes
+    del dense
+    torch.cuda.empty_cache()
+    engine = _serve_engine(torch, cfg, True, slots=16, page_tokens=16,
+                           pages=480)
+    pc, paths["fixed_memory_paged"] = _paged_run(
+        torch, fa, fx, "paged 14c", engine, params, requests, prefix,
+        prefixes=1)
+    print(f"paged 14c: kv bytes paged {engine.spec.bytes} vs dense "
+          f"{dense_bytes}; active slots peak paged "
+          f"{pc['active_slots_peak']} vs dense {dc['active_slots_peak']}; "
+          f"pages peak {pc['kv_pages_used_peak']}/480; tokens/s/chip "
+          f"paged {pc['tokens_per_sec_per_chip']} vs dense "
+          f"{dc['tokens_per_sec_per_chip']}, itl p50 {pc['itl_p50_s']} s "
+          f"vs {dc['itl_p50_s']} s, e2e p99 {pc['e2e_p99_s']} s vs "
+          f"{dc['e2e_p99_s']} s; {card}")
+    if not engine.spec.bytes < dense_bytes \
+            or pc["active_slots_peak"] <= dc["active_slots_peak"] \
+            or pc["kv_pages_used_peak"] > 480:
+        fail("paged 14c: the paged pool is not smaller or sustained no "
+             "more slots than the dense cache")
+    ties += _near_ties(torch, params, cfg, requests, _tokens_of(dc),
+                       _tokens_of(pc), "paged 14c")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # 14d: the serve CLI with the paged flags
+    paths["paged_serve_cli"] = paged_cli(torch, fa, fx, card)
+    print(f"paged 14: {ties} near-tie divergence(s) over 14a-14c; {card}")
+    return paths
+
+
+def paged_cli(torch, fa, fx, card: str):
+    """Phase 14d: ``python -m tpudist_torch.serve`` (its ``main``) at phase
+    4's configuration with ``--kv-page-tokens 16 --shared-prefix 256
+    --speculate-k 4``. Returns the path's launches."""
+    from tpudist_torch.serve import cli as serve_cli
+
+    save = ROOT / "build" / "chip_smoke_serve" / "paged"
+    shutil.rmtree(save, ignore_errors=True)
+    argv = SERVE_ARGV + ["--kv-page-tokens", "16", "--shared-prefix",
+                         str(PREFIX), "--speculate-k", "4", "--save-dir",
+                         str(save)]
+    os.environ["TPUDIST_VERDICT_PATH"] = str(save / "job_status.txt")
+    tee = _Tee(sys.stdout)
+    try:
+        _reset_launches(fa, fx)
+        with _serve_engines() as made, contextlib.redirect_stdout(tee):
+            rc = serve_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["TPUDIST_VERDICT_PATH"]
+    engine = made[0]
+    engine.assert_two_programs()
+    counts = _serve_counts(engine)
+    verdict = (save / "job_status.txt").read_text() \
+        if (save / "job_status.txt").is_file() else None
+    recs = [json.loads(ln) for ln in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    serve = [r for r in recs if r["kind"] == "serve"][-1]
+    led = [r for r in recs if r["kind"] == "memledger"]
+    bound = [ln for ln in tee.buf.getvalue().splitlines()
+             if ln.startswith("tpudist: serve kv memory bound")]
+    want = engine.model_cfg.n_layers * (serve["admitted"] + 2)
+    pod = _read_json(save / "pod_trace.json", "paged 14d")
+    tracks = {e["args"]["name"] for e in pod["traceEvents"]
+              if e.get("ph") == "M" and e.get("tid", 0) >= 1000}
+    served = {f"slot{r['slot']}" for r in recs
+              if r["kind"] == "serve_request" and r["event"] == "admitted"}
+    kv_track = [e for e in pod["traceEvents"]
+                if e.get("ph") == "C" and e.get("name") == "kv_pages"]
+    print(f"paged 14d: exit {rc}, verdict {verdict!r}; "
+          f"{bound[0] if bound else 'no memory-bound line'}; "
+          f"{serve['completed']}/{serve['requests']} requests, "
+          f"tokens/s/chip {serve['tokens_per_sec_per_chip']}, spec accept "
+          f"{serve['spec_accept_rate']}, pages peak "
+          f"{serve['kv_pages_used_peak']}/{serve['kv_pages_total']}; "
+          f"ledger kv_pool {led[0]['kv_pool_bytes'] if led else None} "
+          f"(spec.bytes {engine.spec.bytes}) exact "
+          f"{led[0]['exact'] if led else None}; {len(tracks)} slot "
+          f"tracks, {len(kv_track)} kv_pages counter samples; flash "
+          f"launches {counts['flash_attention_fwd']} (want {want}); {card}")
+    if rc != 0 or verdict != "success" or not bound \
+            or "(ledger)" not in bound[0] or not led \
+            or not led[0]["exact"] \
+            or led[0]["kv_pool_bytes"] != engine.spec.bytes \
+            or serve["completed"] != 16 or serve["verify_compiles"] != 1 \
+            or not served or tracks != served or not kv_track \
+            or counts["flash_attention_fwd"] != want:
+        fail("paged 14d: the serve CLI's paged run failed a check")
+    shutil.rmtree(save, ignore_errors=True)
+    del engine, made
+    torch.cuda.empty_cache()
+    return counts
 
 
 def remat_check(torch, card: str):
@@ -2824,6 +3156,36 @@ def profile_serve(torch, engine, params, requests):
     return out
 
 
+def profile_paged(torch, engine, params, requests):
+    """--profile: device time by kernel of one replayed paged decode
+    superstep and one replayed verify dispatch over the full batch (each
+    slot prefilled into private pages), and each window's busy share;
+    phase 4's dense superstep is profiled beside it (``profile_serve``)."""
+    state = engine.init_state()
+    alloc = engine.new_allocator()
+    width = engine.decode_k + engine.speculate_k
+    for slot, req in enumerate(requests[:engine.slots]):
+        if not (alloc.admit(slot, req.prompt_len)
+                and alloc.ensure(slot, req.prompt_len + width)):
+            fail("profile: the paged pool cannot hold the window")
+        engine.prefill(params, state, req.tokens[None, :], req.prompt_len,
+                       slot, req.max_new)[1].item()
+    draft = [[0] * (engine.speculate_k - 1)] * engine.slots
+    for name, fn in (
+            (f"one paged decode superstep ({engine.decode_k} steps, "
+             f"{engine.slots} slots), graphs",
+             lambda: engine.decode(params, state)[1].cpu()),
+            (f"one verify dispatch (window {engine.speculate_k}, "
+             f"{engine.slots} slots), graphs",
+             lambda: engine.verify(params, state, draft)[1].cpu())):
+        wall, rows = _profiled(torch, fn)
+        busy = sum(r[1] for r in rows)
+        print(f"profile: {name}: {wall:.3f} ms wall, device kernel time "
+              f"{busy:.3f} ms ({100 * busy / wall:.1f}% busy)")
+        for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"profile:   {ms:9.3f} ms {count:5d}x  {key[:80]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2925,6 +3287,12 @@ def main() -> int:
     paths.update(obs_train(torch, fa, fx, card, obs_on, obs_argv, obs_env))
     paths.update(obs_serve(torch, fa, fx, card))
     stall_drill(torch, card)
+
+    # phase 14: the paged serving plane: (a) phase 4's stream paged, (b)
+    # a shared prefix and speculation, (c) the fixed-memory pair, (d) the
+    # serve CLI with the paged flags
+    torch.cuda.empty_cache()
+    paths.update(paged_serve(torch, fa, fx, base, card, args.profile))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),

@@ -13,6 +13,10 @@ unchanged.
 * ``python -m tpudist_torch.serve`` writes the serve subset (the traces
   with one track per serving slot, ``kind=memledger``,
   ``memledger.json``) and its tokens are those of a ``--trace off`` run.
+* A paged serve run (``--kv-page-tokens 8 --shared-prefix 8
+  --speculate-k 4``) adds the ``kv_pages`` counter track; the flight
+  verifier reads it EXACT, its ``decode_emit`` drafted/accepted sum to
+  the summary's acceptance rate, and the report grades that rate.
 * ``tpudist.obs.report`` exits 0 on the run directories, the
   ``tpudist.obs.goodput`` partition of a train run is exact, the
   ``tpudist.obs.memledger`` CLI reads the port's ``memledger.json``, and
@@ -161,6 +165,34 @@ def test_default_serve_run_writes_the_serve_subset(tmp_path):
     assert {k: r["tokens"] for k, r in on["results"].items()} == \
         {k: r["tokens"] for k, r in no["results"].items()}
     assert not os.path.exists(os.path.join(off, "pod_trace.json"))
+
+
+def test_paged_serve_run_folds_exactly(tmp_path, capsys):
+    d = str(tmp_path / "paged")
+    summary = tserve.run(tserve.parse_args(
+        SERVE + ["--kv-page-tokens", "8", "--shared-prefix", "8",
+                 "--speculate-k", "4", "--save-dir", d]))
+    assert summary["completed"] == 6 and summary["verify_compiles"] == 1
+    capsys.readouterr()
+    assert jflight.main(["--run-dir", d]) == 0
+    assert "flight: EXACT" in capsys.readouterr().out
+    pod = json.load(open(os.path.join(d, "pod_trace.json")))
+    assert pod["metadata"]["counter_events"] > 0      # the kv_pages track
+    emits = [e["args"] for e in pod["traceEvents"]
+             if e.get("name") == "decode_emit"
+             and not e["args"].get("track")]
+    drafted = sum(a.get("drafted", 0) for a in emits)
+    accepted = sum(a.get("accepted", 0) for a in emits)
+    assert drafted > 0
+    assert summary["spec_accept_rate"] == round(accepted / drafted, 4)
+    assert jreport.main(["--run-dir", d]) == 0
+    serving = json.load(open(os.path.join(d, "run_report.json")))[
+        "serving"]
+    assert serving["spec_accept_rate"] == summary["spec_accept_rate"]
+    assert serving["spec_accept_status"] == "success"
+    assert (serving["verify_compiles"], serving["speculate_k"],
+            serving["shared_prefix_len"]) == (1, 4, 8)
+    assert serving["kv_pages_used_peak"] == summary["kv_pages_used_peak"]
 
 
 def _free_port():

@@ -19,7 +19,7 @@ JAX package's.
 * The serve CLI declares every JAX serve flag, refuses those it does
   not carry and their environment twins set on (naming the Queue A
   item), reads the twins of those it carries as the JAX parser does, and
-  runs the resilience plane end to end on the CPU.
+  runs the resilience plane and the paged plane end to end on the CPU.
 """
 
 import argparse
@@ -484,9 +484,14 @@ def _turn_on(kw, off):
 # variables a JAX serve help string names that no port table lists: read
 # by the JAX package only under --serve-tune, which the port refuses
 ENV_ONLY_UNDER_REFUSED = {"TPUDIST_AUTOTUNE_CACHE_DIR"}
+# the paged plane's twins, refused until the port carried them
+PAGED_ENV = {"TPUDIST_SERVE_KV_PAGE_TOKENS": "4",
+             "TPUDIST_SERVE_KV_PAGES": "24",
+             "TPUDIST_SERVE_SHARED_PREFIX": "4",
+             "TPUDIST_SERVE_SPECULATE_K": "3"}
 CARRIED_ENV = ("TPUDIST_SERVE_QUEUE_CAP", "TPUDIST_SERVE_TTFT_DEADLINE_MS",
                "TPUDIST_SERVE_ADAPT", "TPUDIST_SERVE_VIRTUAL_CLOCK",
-               "TPUDIST_TRACE", "TPUDIST_TRACE_DIR")
+               "TPUDIST_TRACE", "TPUDIST_TRACE_DIR", *PAGED_ENV)
 
 
 def test_every_jax_serve_flag_is_carried_or_refused():
@@ -521,7 +526,7 @@ def test_every_jax_serve_flag_is_carried_or_refused():
 
 
 @pytest.mark.parametrize("flag,words", [
-    ("--kv-page-tokens", ["8"]), ("--kv-pages", ["4"]),
+    ("--kv-page-tokens", ["8"]), ("--kv-pages", ["40"]),
     ("--shared-prefix", ["4"]), ("--speculate-k", ["2"]),
     ("--requeue-attempt", ["0"]), ("--chaos", ["serve_kill@0:6"]),
     ("--serve-tune", ["probe"]), ("--tune-cache-dir", ["tune"]),
@@ -531,8 +536,16 @@ def test_every_jax_serve_flag_is_carried_or_refused():
 def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
                                                     capsys, monkeypatch):
     """Refused flags exit 1 naming their Queue A item and write nothing;
-    ``--trace`` and ``--trace-dir``, refused until the port carried
-    them, now serve and put the trace where they say."""
+    ``--trace`` and ``--trace-dir``, and the paged plane's four flags,
+    refused until the port carried them, now serve: the trace where they
+    say, and a paged run with its summary fields set."""
+    if flag in PAGED_FLAGS:
+        argv = [flag, *words]
+        if flag != "--kv-page-tokens":
+            argv += ["--kv-page-tokens", "4"]
+        _assert_paged_run(tmp_path, argv, {flag[2:].replace("-", "_"):
+                                           int(words[0])})
+        return
     if flag in ("--trace", "--trace-dir"):
         monkeypatch.chdir(tmp_path)
         assert tcli.main([flag, *words, "--device", "cpu", "--requests",
@@ -549,21 +562,57 @@ def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
     assert not (tmp_path / "metrics.jsonl").exists()
 
 
+PAGED_FLAGS = ("--kv-page-tokens", "--kv-pages", "--shared-prefix",
+               "--speculate-k")
+# the summary key each paged flag and twin sets
+PAGED_KEY = {"kv_page_tokens": "kv_page_tokens",
+             "kv_pages": "kv_pages_total",
+             "shared_prefix": "shared_prefix_len",
+             "speculate_k": "speculate_k"}
+
+
+def _assert_paged_run(tmp_path, argv, want):
+    """The CLI serves every request on the CPU through the paged engine
+    with ``argv``, exit 0, and its kind=serve record carries the paged
+    fields, ``want`` among them."""
+    save = tmp_path / "run"
+    assert tcli.main(argv + ["--device", "cpu", "--requests", "4",
+                             "--max-new-tokens", "4", "--save-dir",
+                             str(save)]) == 0
+    recs = [json.loads(line) for line in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    rec = [r for r in recs if r["kind"] == "serve"][0]
+    assert rec["completed"] == 4 and rec["kv_page_tokens"] > 0
+    assert rec["kv_pages_used_peak"] >= 1
+    assert rec["verify_compiles"] == (1 if rec["speculate_k"] else 0)
+    for dest, value in want.items():
+        assert rec[PAGED_KEY[dest]] == value, dest
+
+
 ENV_ON = {"TPUDIST_CHAOS": "serve_kill@0:6", "TPUDIST_SERVE_TUNE": "probe",
           "TPUDIST_LIVE": "on"}
 
 
 @pytest.mark.parametrize("name", sorted(set(tcli.ENV_NOT_CARRIED)
                                         | {"TPUDIST_TRACE",
-                                           "TPUDIST_TRACE_DIR"}))
+                                           "TPUDIST_TRACE_DIR"}
+                                        | set(PAGED_ENV)))
 def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch,
                                                        tmp_path, capsys):
     """Each variable is tolerated unset and at the values that leave its
     feature off in the JAX package; set on, the CLI exits 1 naming its
     Queue A item and writes a fail verdict. ``TPUDIST_TRACE`` and
-    ``TPUDIST_TRACE_DIR``, refused until the port carried them, now
-    serve as the JAX CLI reads them: tracing off, or the trace in that
-    directory."""
+    ``TPUDIST_TRACE_DIR``, and the paged plane's four twins, refused
+    until the port carried them, now serve as the JAX CLI reads them:
+    tracing off, the trace in that directory, or a paged run with the
+    twin's value in its summary."""
+    if name in PAGED_ENV:
+        monkeypatch.setenv(name, PAGED_ENV[name])
+        if name != "TPUDIST_SERVE_KV_PAGE_TOKENS":
+            monkeypatch.setenv("TPUDIST_SERVE_KV_PAGE_TOKENS", "8")
+        dest = name[len("TPUDIST_SERVE_"):].lower()
+        _assert_paged_run(tmp_path, [], {dest: int(PAGED_ENV[name])})
+        return
     if name in ("TPUDIST_TRACE", "TPUDIST_TRACE_DIR"):
         value = "off" if name == "TPUDIST_TRACE" else str(tmp_path / "tr")
         monkeypatch.setenv(name, value)
@@ -599,6 +648,9 @@ def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch,
     {"TPUDIST_SERVE_VIRTUAL_CLOCK": "1"},
     {"TPUDIST_SERVE_VIRTUAL_CLOCK": "True"},
     {"TPUDIST_SERVE_VIRTUAL_CLOCK": "no"},
+    {"TPUDIST_SERVE_KV_PAGE_TOKENS": "8", "TPUDIST_SERVE_KV_PAGES": "12"},
+    {"TPUDIST_SERVE_SHARED_PREFIX": "6", "TPUDIST_SERVE_SPECULATE_K": "x"},
+    {"TPUDIST_SERVE_SPECULATE_K": "4", "TPUDIST_SERVE_KV_PAGES": "0"},
 ])
 def test_carried_twins_are_read_as_jax_reads_them(env, monkeypatch):
     for name, value in env.items():
@@ -609,7 +661,9 @@ def test_carried_twins_are_read_as_jax_reads_them(env, monkeypatch):
                      "adapt_max_new_cap", "virtual_clock",
                      "virtual_prefill_ms", "virtual_decode_ms", "decode_k",
                      "slots", "max_seq", "prompt_pad", "requests",
-                     "request_rate", "max_new_tokens", "seed"):
+                     "request_rate", "max_new_tokens", "seed",
+                     "kv_page_tokens", "kv_pages", "shared_prefix",
+                     "speculate_k"):
             assert getattr(t, dest) == getattr(j, dest), (env, argv, dest)
 
 
@@ -640,3 +694,15 @@ def test_cli_runs_the_resilience_plane_on_the_cpu(tmp_path, monkeypatch,
     detail = json.loads(bench.read_text())["detail"]
     assert detail["shed_fraction"] == rec["shed_fraction"]
     assert detail["decode_compiles"] == 3
+
+
+def test_speculate_without_paging_exits_as_jax(tmp_path):
+    """``--speculate-k`` without ``--kv-page-tokens`` is the JAX CLI's
+    SystemExit naming the flag it needs, before anything is served."""
+    for cli, extra in ((tcli, ["--device", "cpu"]), (jcli, [])):
+        with pytest.raises(SystemExit, match="kv-page-tokens") as err:
+            cli.main(["--speculate-k", "4", "--requests", "1",
+                      "--save-dir", str(tmp_path)] + extra)
+        assert str(err.value) == ("tpudist: --speculate-k needs the paged "
+                                  "KV cache (--kv-page-tokens > 0)")
+    assert not (tmp_path / "metrics.jsonl").exists()

@@ -16,7 +16,10 @@ launches the Hopper kernels (forward, and the backward ones under
 autograd) for CUDA tensors and runs their plain versions for CPU
 tensors; other long causal shapes go blockwise, the rest dense. Training
 (:func:`loss_fn`) rotates q/k inside the flash kernels; the serving
-prefill rotates them up front, since the cache keeps rotated keys.
+prefill rotates them up front, since the cache keeps rotated keys. The
+paged serving forward (:func:`paged_hidden_states`) attends a window of
+tokens per slot against a paged KV pool in plain PyTorch, as the JAX
+package does outside any Pallas kernel.
 
 The training loss's LM head (:func:`head_loss`) is plain (whole logits),
 chunked over the sequence with checkpointing, or fused
@@ -318,6 +321,112 @@ def _cached_hidden_states(params: Transformer, tokens: torch.Tensor,
                                             cv[i])
             x = ffn(x, lp, cfg)
     return rmsnorm(x, params.final_norm), {"k": ck, "v": cv}
+
+
+def _paged_attention(q, k_new, v_new, pool_k, pool_v, page_table,
+                     positions, write_ok, page_tokens: int):
+    """Windowed incremental attention against a PAGED KV pool, gather-free
+    on the read path (the JAX package's ``_paged_attention``).
+
+    q: (slots, window, heads, head_dim); k_new/v_new: (slots, window, kv,
+    head_dim), already rotated at ``positions`` (slots, window) int;
+    pool_k/pool_v: (pages+1, page_tokens, kv, head_dim), one layer of the
+    pool, the last page the TRASH page; page_table: (slots, max_pages)
+    int, -1 = unmapped; write_ok: (slots, window) bool, False routes the
+    write to the trash page.
+
+    WRITE: the new k/v land in place at their pages (``index_put_``);
+    duplicate indices only ever fall on the trash page, which nothing
+    reads. READ: no gather: ownership is a one-hot compare of the page
+    table against the pool's page ids, each owned page's logical position
+    comes from the same one-hot, and attention runs over the whole
+    flattened pool masked by ``owned & (key_pos <= query_pos)``, so other
+    slots' pages, stale positions and the trash page weigh exactly 0.
+    Write-then-attend with that mask gives causality inside the window.
+    Same f32-softmax discipline as :func:`_attention`. Returns ``(o,
+    pool_k, pool_v)``, the pools written in place."""
+    s, w, h, hd = q.shape
+    n_pool, pt = pool_k.shape[0], page_tokens
+    kv = k_new.shape[2]
+    maxp = page_table.shape[1]
+    dev = pool_k.device
+    page_table = page_table.to(torch.int64)
+    positions = positions.to(torch.int64)
+
+    # ---- write: new k/v land at their pages (or the trash page) ----
+    pg = torch.gather(page_table, 1, positions // pt)        # (s, w)
+    pg = torch.where(write_ok & (pg >= 0), pg, n_pool - 1)
+    off = positions % pt
+    pool_k.index_put_((pg, off), k_new.to(pool_k.dtype))
+    pool_v.index_put_((pg, off), v_new.to(pool_v.dtype))
+
+    # ---- read: ownership + position masks from one one-hot ----
+    onehot = page_table[:, :, None] == torch.arange(n_pool, device=dev)
+    owned = onehot.any(dim=1)                                # (s, pool)
+    # the JAX package's int32 einsum "sjp,j->sp", as a sum (no integer
+    # matmul on CUDA); at most one j matches a page, so it is exact
+    logical = (onehot.to(torch.int64)
+               * torch.arange(maxp, device=dev)[None, :, None]).sum(1)
+    kpos = logical[:, :, None] * pt + torch.arange(pt, device=dev)
+    mask = owned[:, None, :, None] \
+        & (kpos[:, None, :, :] <= positions[:, :, None, None])
+    mask = mask.reshape(s, w, n_pool * pt)                   # (s, w, keys)
+
+    kf = pool_k.reshape(n_pool * pt, kv, hd).to(q.dtype)
+    vf = pool_v.reshape(n_pool * pt, kv, hd).to(q.dtype)
+    qg = q.reshape(s, w, kv, h // kv, hd)      # GQA: group per kv head
+    scores = torch.einsum("swkgd,nkd->swkgn", qg, kf) / math.sqrt(hd)
+    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    o = torch.einsum("swkgn,nkd->swkgd", probs, vf).reshape(s, w, h, hd)
+    return o, pool_k, pool_v
+
+
+def _attn_sublayer_paged(x, lp, cfg: ModelConfig, positions, write_ok,
+                         pool_k, pool_v, page_table, page_tokens: int):
+    """The paged twin of :func:`_attn_sublayer_cached`: a WINDOW of new
+    tokens per slot, q/k/v projected and rotated at each token's own
+    position, attention against the layer's paged pool. Returns ``(out,
+    pool_k, pool_v)``."""
+    b, w, d = x.shape
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    hd = d // h
+    dt = x.dtype
+    y = rmsnorm(x, lp["attn_norm"])
+    q = (y @ lp["wq"].to(dt)).reshape(b, w, h, hd)
+    k = (y @ lp["wk"].to(dt)).reshape(b, w, kv, hd)
+    v = (y @ lp["wv"].to(dt)).reshape(b, w, kv, hd)
+    q = window_rope(q, positions, cfg.rope_theta)
+    k = window_rope(k, positions, cfg.rope_theta)
+    o, pool_k, pool_v = _paged_attention(q, k, v, pool_k, pool_v,
+                                         page_table, positions, write_ok,
+                                         page_tokens)
+    o = o.reshape(b, w, h * hd)
+    return x + o @ lp["wo"].to(dt), pool_k, pool_v
+
+
+def paged_hidden_states(params: Transformer, tokens: torch.Tensor,
+                        cfg: ModelConfig, *, dtype, pool_k, pool_v,
+                        page_table, positions, write_ok,
+                        page_tokens: int, ffn=_ffn_sublayer):
+    """Windowed incremental forward against the PAGED KV pool, the paged
+    twin of :func:`_cached_hidden_states`' decode branch.
+
+    tokens/positions/write_ok: (slots, window); pool_k/pool_v:
+    (n_layers, pages+1, page_tokens, kv, head_dim), written in place;
+    page_table: (slots, max_pages) int, the dispatch's input (the host
+    allocator owns the table). Window 1 is the paged decode step; window
+    k the speculative VERIFY forward, one batched forward scoring a whole
+    draft window. Returns ``(h, pool_k, pool_v)`` with ``h``
+    final-normed."""
+    x = _embed(params, tokens, dtype)
+    for i in range(cfg.n_layers):
+        lp = params.layers.layer(i)
+        x, _, _ = _attn_sublayer_paged(x, lp, cfg, positions, write_ok,
+                                       pool_k[i], pool_v[i], page_table,
+                                       page_tokens)
+        x = ffn(x, lp, cfg)
+    return rmsnorm(x, params.final_norm), pool_k, pool_v
 
 
 def hidden_states(params: Transformer, tokens: torch.Tensor,

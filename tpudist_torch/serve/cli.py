@@ -1,14 +1,17 @@
 """``python -m tpudist_torch.serve`` — the serving acceptance lane.
 
-Counterpart of the dense path of ``tpudist/serve/cli.py``: build the
-transformer and its KV cache on the card (``--device cuda``, the
-default) or, when asked, on the CPU; warm the engine (the first call
-builds the CUDA kernel, then the prefill and each decode rung are
-captured as CUDA graphs); run the continuous-batching loop over a seeded
-request stream, with admission control, deadline shedding and graceful
-degradation when the resilience knobs are on (``--queue-cap``,
-``--ttft-deadline-ms``, ``--adapt``; :mod:`tpudist_torch.serve.resilience`)
-and on a virtual clock under ``--virtual-clock``; pin the program count;
+Counterpart of ``tpudist/serve/cli.py``: build the transformer and its
+KV cache on the card (``--device cuda``, the default) or, when asked, on
+the CPU, dense or paged (``--kv-page-tokens``, with ``--kv-pages``,
+``--shared-prefix`` and ``--speculate-k``); warm the engine (the first
+call builds the CUDA kernel, then the prefill, each decode rung and the
+speculative verify are captured as CUDA graphs); bound the paged pool's
+mappable pages by the device's memory; run the continuous-batching loop
+over a seeded request stream, with admission control, deadline shedding
+and graceful degradation when the resilience knobs are on
+(``--queue-cap``, ``--ttft-deadline-ms``, ``--adapt``;
+:mod:`tpudist_torch.serve.resilience`) and on a virtual clock under
+``--virtual-clock``; pin the program count;
 grade the latency SLOs and the shed gate. Artifacts: ``metrics.jsonl``
 (``kind=serve`` / ``serve_tick`` / ``serve_request`` / ``serve_adapt`` /
 ``memledger`` records, each stamped with the run's ``run_id``), the
@@ -49,14 +52,6 @@ DEFAULT_DECODE_K = 8
 # Queue A item that brings it. parse_args refuses any other value,
 # check_supported any other setting of the variable.
 NOT_CARRIED = (
-    ("--kv-page-tokens", dict(type=int, default=0), (),
-     "TPUDIST_SERVE_KV_PAGE_TOKENS", 6),
-    ("--kv-pages", dict(type=int, default=0), (), "TPUDIST_SERVE_KV_PAGES",
-     6),
-    ("--shared-prefix", dict(type=int, default=0), (),
-     "TPUDIST_SERVE_SHARED_PREFIX", 6),
-    ("--speculate-k", dict(type=int, default=0), (),
-     "TPUDIST_SERVE_SPECULATE_K", 6),
     ("--requeue-attempt", dict(type=int), (), None, 6),
     ("--chaos", dict(type=str), (), "TPUDIST_CHAOS", 6),
     ("--serve-tune", dict(choices=("off", "probe", "cache-only"),
@@ -126,6 +121,33 @@ def parse_args(argv: Optional[Sequence[str]] = None
     p.add_argument("--kv-layout", choices=("st", "hs"), default="st",
                    help="KV cache physical storage layout "
                         "(tpudist_torch.serve.kvcache)")
+    # ---- the paged plane (PagedServeEngine) ----
+    p.add_argument("--kv-page-tokens", type=int,
+                   default=_env_int("TPUDIST_SERVE_KV_PAGE_TOKENS")
+                   or 0,
+                   help="PAGED KV cache: fixed page length in "
+                        "positions; 0 keeps the dense per-slot arena "
+                        "($TPUDIST_SERVE_KV_PAGE_TOKENS)")
+    p.add_argument("--kv-pages", type=int,
+                   default=_env_int("TPUDIST_SERVE_KV_PAGES") or 0,
+                   help="paged pool size in pages (+1 trash page is "
+                        "added internally); 0 = full dense capacity "
+                        "slots*ceil(max_seq/page_tokens) "
+                        "($TPUDIST_SERVE_KV_PAGES)")
+    p.add_argument("--shared-prefix", type=int,
+                   default=_env_int("TPUDIST_SERVE_SHARED_PREFIX")
+                   or 0,
+                   help="every request starts with this many shared "
+                        "system-prompt tokens; the paged engine stores "
+                        "their full pages ONCE (refcounted, "
+                        "copy-on-write fork of the partial tail) "
+                        "($TPUDIST_SERVE_SHARED_PREFIX)")
+    p.add_argument("--speculate-k", type=int,
+                   default=_env_int("TPUDIST_SERVE_SPECULATE_K") or 0,
+                   help="speculative decoding verify-window width: "
+                        "last token + k-1 n-gram draft tokens scored "
+                        "in ONE batched forward; 0 = off, needs "
+                        "--kv-page-tokens ($TPUDIST_SERVE_SPECULATE_K)")
     p.add_argument("--requests", type=int, default=32,
                    help="synthetic request count")
     p.add_argument("--request-rate", type=float, default=0.0,
@@ -228,9 +250,13 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     from tpudist_torch.serve import flight as flight_lib
     from tpudist_torch.serve import resilience as res_lib
     from tpudist_torch.serve import scheduler as sched
-    from tpudist_torch.serve.engine import ServeEngine, init_params
+    from tpudist_torch.serve.engine import (PagedServeEngine, ServeEngine,
+                                            init_params)
 
     check_supported(args)
+    if args.speculate_k and not args.kv_page_tokens:
+        raise SystemExit("tpudist: --speculate-k needs the paged KV "
+                         "cache (--kv-page-tokens > 0)")
     # the span tracer, on by default as in the train lane
     trace_on, trace_dir = resolve_trace(args)
     tracer = trace_lib.configure(enabled=trace_on)
@@ -250,10 +276,20 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                       or args.adapt == "on"))
     ladder = (res_lib.default_ladder(args.decode_k)
               if resilience.adapt else None)
-    engine = ServeEngine(model_cfg, slots=args.slots, max_seq=args.max_seq,
-                         prompt_pad=args.prompt_pad, decode_k=args.decode_k,
-                         layout=args.kv_layout, dtype=dtype,
-                         device=args.device, adapt_ladder=ladder)
+    if args.kv_page_tokens > 0:
+        engine = PagedServeEngine(
+            model_cfg, slots=args.slots, max_seq=args.max_seq,
+            prompt_pad=args.prompt_pad, decode_k=args.decode_k,
+            page_tokens=args.kv_page_tokens, pages=max(args.kv_pages, 0),
+            speculate_k=max(args.speculate_k, 0), dtype=dtype,
+            device=args.device, adapt_ladder=ladder)
+    else:
+        engine = ServeEngine(model_cfg, slots=args.slots,
+                             max_seq=args.max_seq,
+                             prompt_pad=args.prompt_pad,
+                             decode_k=args.decode_k, layout=args.kv_layout,
+                             dtype=dtype, device=args.device,
+                             adapt_ladder=ladder)
     os.makedirs(args.save_dir, exist_ok=True)
     metrics = MetricsLogger(path=os.path.join(args.save_dir,
                                               "metrics.jsonl"))
@@ -265,17 +301,39 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     params = init_params(model_cfg, seed=args.seed, device=engine.device)
     with trace_lib.span("serve_warmup", cat="serve"):
         engine.warmup(params)
+
+    # the programs are built: their memory (the graph pools on the card)
+    # and the params bound how many pages the paged pool may map (the 4x
+    # params heuristic where no program reports its scratch, the CPU)
+    program_mem = engine.program_memory()
+    params_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    hbm_bytes = int(engine_lib._device_hbm_bytes(engine.device))
+    if engine.paged:
+        temp, temp_complete = memledger_lib.program_temp_bytes(program_mem)
+        cap = engine.alloc.set_memory_bound(
+            hbm_bytes=hbm_bytes, params_bytes=params_bytes,
+            program_temp_bytes=temp if temp_complete else None)
+        log0(f"tpudist: serve kv memory bound "
+             f"({engine.alloc.bound_source}): {cap}/{engine.spec.pages} "
+             f"pages mappable in {hbm_bytes / 2**20:.0f} MB HBM")
+
+    prefix_len = max(args.shared_prefix, 0)
+    shared_prefix = (sched.shared_prefix_tokens(
+        min(prefix_len, args.prompt_pad), args.vocab_size, args.seed)
+        if prefix_len else None)
     requests = sched.make_requests(
         args.requests, prompt_pad=args.prompt_pad,
         vocab_size=args.vocab_size, max_new=args.max_new_tokens,
-        rate=args.request_rate, seed=args.seed)
+        rate=args.request_rate, seed=args.seed, prefix_len=prefix_len)
     virtual = None
     if args.virtual_clock:
         virtual = res_lib.VirtualTiming(
             prefill_s=args.virtual_prefill_ms / 1e3,
             decode_s=args.virtual_decode_ms / 1e3)
     summary = sched.run_serve(engine, params, requests, metrics=metrics,
-                              resilience=resilience, virtual=virtual)
+                              resilience=resilience, virtual=virtual,
+                              shared_prefix=shared_prefix)
     engine.assert_two_programs()
     summary["model"] = args.model
     summary["dtype"] = args.dtype
@@ -289,17 +347,15 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                    if k not in ("results", "thresholds")})
     metrics.flush()
 
-    # the serve lane's memory ledger: params, the KV cache and the
+    # the serve lane's memory ledger: params, the KV cache (paged: pool
+    # pages with the trash page + the table, ``spec.bytes``) and the
     # captured programs' graph pools, partitioned against the card's
     # memory. Advisory: a failure logs a line
     try:
-        params_bytes = sum(p.numel() * p.element_size()
-                           for p in params.parameters())
         ledger = memledger_lib.build_ledger(
-            total_hbm_bytes=int(engine_lib._device_hbm_bytes(
-                engine.device)),
-            params_bytes=params_bytes, kv_pool_bytes=cache_bytes,
-            programs=engine.program_memory(), mode="serve", run_id=run_id)
+            total_hbm_bytes=hbm_bytes, params_bytes=params_bytes,
+            kv_pool_bytes=cache_bytes, programs=program_mem, mode="serve",
+            run_id=run_id)
         metrics.log(kind="memledger",
                     **memledger_lib.ledger_record(ledger))
         metrics.flush()
@@ -327,8 +383,13 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
          f"shed {summary['shed_total']}/{summary['arrived']} "
          f"[{summary['device']}, {args.dtype}, "
          f"{summary['prefill_compiles']} prefill / "
-         f"{summary['decode_compiles']} decode program(s), "
-         f"kv cache {cache_bytes / 2**20:.2f} MB]")
+         f"{summary['decode_compiles']} decode / "
+         f"{summary['verify_compiles']} verify program(s), "
+         f"kv cache {cache_bytes / 2**20:.2f} MB"
+         + (f", {summary['kv_pages_used_peak']}"
+            f"/{summary['kv_pages_total']} pages peak, "
+            f"spec accept {summary['spec_accept_rate']}"
+            if engine.paged else "") + "]")
     if args.bench_out:
         _write_bench(args.bench_out, summary)
         log0(f"tpudist: serve bench -> {args.bench_out}")
@@ -362,11 +423,13 @@ def _write_bench(path: str, summary: Dict[str, Any]) -> None:
             "queue_depth_max", "queue_depth_mean", "ttft_p50_s",
             "ttft_p99_s", "itl_p50_s", "itl_p99_s", "e2e_p50_s",
             "e2e_p99_s", "prefill_compiles", "decode_compiles",
-            "capture_s", "graph_pool_bytes", "n_chips", "arrived",
-            "admitted", "shed_at_admission", "expired_in_queue",
-            "rejected", "lost", "shed_fraction", "queue_cap",
-            "ttft_deadline_s", "adapt_level", "decode_k_ladder",
-            "active_slots_peak")},
+            "verify_compiles", "capture_s", "graph_pool_bytes", "n_chips",
+            "arrived", "admitted", "shed_at_admission",
+            "expired_in_queue", "rejected", "lost", "shed_fraction",
+            "queue_cap", "ttft_deadline_s", "adapt_level",
+            "decode_k_ladder", "kv_page_tokens", "kv_pages_total",
+            "kv_pages_used_peak", "active_slots_peak",
+            "spec_accept_rate", "speculate_k", "shared_prefix_len")},
         "slo": slo_lib.slo_block(summary),
         "device": summary["device"],
     }

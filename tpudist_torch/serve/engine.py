@@ -1,9 +1,9 @@
-"""The prefill/decode-split serving engine: one prefill program and one
-decode program per ladder rung, captured as CUDA graphs on the card.
+"""The prefill/decode-split serving engines: one prefill program and one
+decode program per ladder rung (plus, paged and speculating, one verify
+program), captured as CUDA graphs on the card.
 
-Counterpart of ``tpudist/serve/engine.py`` (dense engine), whose two
-jitted programs (prefill, and decode per ladder rung) become CUDA graphs
-here:
+Counterpart of ``tpudist/serve/engine.py``, whose jitted programs
+become CUDA graphs here. The dense :class:`ServeEngine`:
 
 * **prefill** — one request into one slot: full causal forward over the
   padded prompt into a one-slot scratch cache (every layer's attention
@@ -40,13 +40,22 @@ read and write in place: :meth:`init_state` resets them and returns
 them, and ``prefill``/``decode`` refuse another state, or params other
 than those the programs were built on. Greedy decoding is a pure
 function of (params, state).
+
+:class:`PagedServeEngine` keeps the same discipline over a paged KV pool
+(:mod:`tpudist_torch.serve.kvcache`): its prefill scatters the scratch
+into the slot's pages, its decode and verify programs attend through
+``paged_hidden_states``, and the host allocator's page table, the
+dispatch mask, the prefill's page row and the draft are copied into the
+graphs' input buffers before each replay, never rebound.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from tpudist_torch.config import ModelConfig
@@ -93,6 +102,9 @@ class ServeEngine:
     programs and never builds one.
     """
 
+    paged = False          # the scheduler branches on this, not on type
+    speculate_k = 0        # speculation is a paged-engine feature
+
     def __init__(self, model_cfg: ModelConfig, *, slots: int,
                  max_seq: int, prompt_pad: int, decode_k: int = 8,
                  layout: str = "st", dtype=torch.float32, device=None,
@@ -126,26 +138,19 @@ class ServeEngine:
         self.prompt_pad, self.decode_k = int(prompt_pad), int(decode_k)
         self.ladder = ladder
         self.layout, self.dtype = layout, dtype
-        self.spec = kvcache.CacheSpec.from_model(
-            model_cfg, slots=slots, max_seq=max_seq, dtype=dtype,
-            layout=layout)
-        dev, s = self.device, self.slots
-        cache = kvcache.init_cache(self.spec, dev)
-        self._state = ServeState(
-            cache_k=cache["k"], cache_v=cache["v"],
-            lengths=torch.zeros((s,), dtype=torch.int32, device=dev),
-            last_token=torch.zeros((s,), dtype=torch.int32, device=dev),
-            active=torch.zeros((s,), dtype=torch.bool, device=dev),
-            remaining=torch.zeros((s,), dtype=torch.int32, device=dev))
+        self.spec = self._cache_spec()
+        dev = self.device
+        self._state = self._new_state()
         # the prefill's static inputs: the padded prompt, and (prompt_len,
         # slot, max_new) as device ints; and its one-slot scratch cache
         self._tokens = torch.zeros((1, self.prompt_pad), dtype=torch.int64,
                                    device=dev)
         self._args = torch.zeros((3,), dtype=torch.int64, device=dev)
-        l, _, _, h, d = self.spec.canonical_shape
+        shape = (model_cfg.n_layers, 1, self.prompt_pad,
+                 model_cfg.n_kv_heads, model_cfg.d_model // model_cfg.n_heads)
         self._scratch = {
-            name: torch.zeros((l, 1, self.prompt_pad, h, d), dtype=dtype,
-                              device=dev) for name in ("k", "v")}
+            name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name in ("k", "v")}
         self._params: Optional[Tuple[int, ...]] = None
         self.prefill_traces: list = []   # captures (CPU: first calls)
         self.decode_traces: list = []
@@ -154,11 +159,31 @@ class ServeEngine:
         self._captured_launches: Dict[str, int] = {}
         self._replays: Dict[str, int] = {}
         self._eager_launches = 0
+        self._eager_calls = False
         self.capture_s = 0.0             # warmup's capture wall time
         self.graph_pool_bytes = 0        # device memory the captures hold
         self.last_logits: Optional[torch.Tensor] = None
 
     # ----------------------------------------------------------- state
+
+    def _cache_spec(self) -> kvcache.CacheSpec:
+        return kvcache.CacheSpec.from_model(
+            self.model_cfg, slots=self.slots, max_seq=self.max_seq,
+            dtype=self.dtype, layout=self.layout)
+
+    def _vectors(self) -> dict:
+        """The state's per-slot vectors, zeroed on the engine's device."""
+        dev, s = self.device, self.slots
+        return dict(
+            lengths=torch.zeros((s,), dtype=torch.int32, device=dev),
+            last_token=torch.zeros((s,), dtype=torch.int32, device=dev),
+            active=torch.zeros((s,), dtype=torch.bool, device=dev),
+            remaining=torch.zeros((s,), dtype=torch.int32, device=dev))
+
+    def _new_state(self) -> ServeState:
+        cache = kvcache.init_cache(self.spec, self.device)
+        return ServeState(cache_k=cache["k"], cache_v=cache["v"],
+                          **self._vectors())
 
     def init_state(self) -> ServeState:
         """Reset the engine's state in place (empty slots, zeroed cache)
@@ -201,11 +226,8 @@ class ServeEngine:
         # the padded tail's hidden states exist but are never consulted
         logits = self._tied_logits(params, h[0].index_select(0, plen - 1))
         first = logits.argmax(dim=-1).to(torch.int32)
+        self._store_prefill(plen, slot)
         st = self._state
-        for name, full in (("k", st.cache_k), ("v", st.cache_v)):
-            kvcache.to_canonical(full, self.layout)[
-                :, :, :self.prompt_pad].index_copy_(1, slot,
-                                                    self._scratch[name])
         rem = max_new - 1            # the prefill itself produced token 1
         active = (rem > 0) & (plen < self.max_seq)
         st.lengths.index_copy_(0, slot, plen.to(torch.int32))
@@ -214,6 +236,17 @@ class ServeEngine:
         st.remaining.index_copy_(
             0, slot, torch.where(active, rem, 0).to(torch.int32))
         return first, logits
+
+    def _store_prefill(self, plen: torch.Tensor,
+                       slot: torch.Tensor) -> None:
+        """The scratch's k/v into the slot's cache columns ``[0,
+        prompt_pad)`` (positions past ``plen`` hold pad-token junk, which
+        the decode mask never reads)."""
+        st = self._state
+        for name, full in (("k", st.cache_k), ("v", st.cache_v)):
+            kvcache.to_canonical(full, self.layout)[
+                :, :, :self.prompt_pad].index_copy_(1, slot,
+                                                    self._scratch[name])
 
     def _decode_body(self, params, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,11 +278,15 @@ class ServeEngine:
             lengths, rem = new_len, new_rem
         # stacked before the state is written: valid[0] IS st.active
         out = torch.stack(toks), torch.stack(valid)
+        self._write_vectors(lengths, last, act, rem)
+        return out
+
+    def _write_vectors(self, lengths, last, active, rem) -> None:
+        st = self._state
         st.lengths.copy_(lengths)
         st.last_token.copy_(last)
-        st.active.copy_(act)
+        st.active.copy_(active)
         st.remaining.copy_(rem)
-        return out
 
     def _eager(self, body: Callable[[], tuple]) -> tuple:
         n0 = fa.launches
@@ -259,7 +296,11 @@ class ServeEngine:
 
     def _run(self, name: str, body: Callable[[], tuple]) -> tuple:
         """Program ``name``: its graph replayed on the card, its body run
-        on the CPU (where each body's first call counts as its build)."""
+        on the CPU (where each body's first call counts as its build), or
+        run eagerly anywhere inside :meth:`_eagerly` (a check's
+        reference)."""
+        if self._eager_calls:
+            return body()
         if self.device.type == "cuda":
             graph = self._graphs.get(name)
             if graph is None:
@@ -269,13 +310,17 @@ class ServeEngine:
             graph.replay()
             self._replays[name] += 1
             return self._outputs[name]
-        if name not in self.prefill_traces + self.decode_traces:
+        if name not in self._traces(name):
             self._note_build(name)
         return self._eager(body)
 
+    def _traces(self, name: str) -> list:
+        """The build record program ``name`` counts in."""
+        return self.prefill_traces if name == "prefill" \
+            else self.decode_traces
+
     def _note_build(self, name: str) -> None:
-        (self.prefill_traces if name == "prefill"
-         else self.decode_traces).append(name)
+        self._traces(name).append(name)
 
     def _programs(self, params) -> Dict[str, Callable[[], tuple]]:
         progs = {"prefill": lambda: self._prefill_body(params)}
@@ -369,27 +414,26 @@ class ServeEngine:
                                 lambda: self._decode_body(params, k))
         return state, toks, valid
 
-    @torch.no_grad()
-    def eager_prefill(self, params, state: ServeState, tokens,
-                      prompt_len: int, slot: int, max_new: int
-                      ) -> Tuple[ServeState, torch.Tensor]:
+    @contextlib.contextmanager
+    def _eagerly(self):
+        self._eager_calls = True
+        try:
+            yield
+        finally:
+            self._eager_calls = False
+
+    def eager_prefill(self, *args, **kw):
         """:meth:`prefill` with its body run eagerly instead of replayed:
         the reference a check holds the captured program to
         (``chip_smoke.py``), never a serving route."""
-        self._check_call(params, state)
-        self._set_prefill_inputs(tokens, prompt_len, slot, max_new)
-        first, self.last_logits = self._prefill_body(params)
-        return state, first[0]
+        with self._eagerly():
+            return self.prefill(*args, **kw)
 
-    @torch.no_grad()
-    def eager_decode(self, params, state: ServeState,
-                     k: Optional[int] = None
-                     ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
+    def eager_decode(self, *args, **kw):
         """:meth:`decode` with its body run eagerly (see
         :meth:`eager_prefill`)."""
-        k = self._rung(k)
-        self._check_call(params, state)
-        return (state, *self._decode_body(params, k))
+        with self._eagerly():
+            return self.decode(*args, **kw)
 
     # ---------------------------------------------------------- warmup
 
@@ -404,13 +448,18 @@ class ServeEngine:
         (:meth:`assert_two_programs`)."""
         state = self.init_state()
         self._check_call(params, state)
-        self._set_prefill_inputs(torch.zeros((1, self.prompt_pad)), 1, 0, 2)
+        self._set_warmup_inputs()
         if self.device.type == "cuda" and not self._graphs:
             self._capture(params)
         else:                    # built already (or the CPU): run them
             for name, body in self._programs(params).items():
                 self._run(name, body)
         self.init_state()
+
+    def _set_warmup_inputs(self) -> None:
+        """Junk inputs for the warm-up calls: a one-token prompt into
+        slot 0 with a budget of 2."""
+        self._set_prefill_inputs(torch.zeros((1, self.prompt_pad)), 1, 0, 2)
 
     def program_memory(self) -> Dict[str, Dict[str, int]]:
         """The programs' scratch for the memory ledger (the JAX engine's
@@ -420,8 +469,10 @@ class ServeEngine:
         program reports its scratch, ``{}`` for each."""
         if self._graphs:
             return {"graph_pools": {"temp_bytes": self.graph_pool_bytes}}
-        return {name: {} for name in self.prefill_traces
-                + self.decode_traces}
+        return {name: {} for name in self._programs_built()}
+
+    def _programs_built(self) -> list:
+        return self.prefill_traces + self.decode_traces
 
     def compile_counts(self) -> Tuple[int, int]:
         """(prefill programs, decode programs) built so far."""
@@ -452,3 +503,331 @@ class ServeEngine:
         return self._eager_launches + sum(
             self._replays[name] * n
             for name, n in self._captured_launches.items())
+
+
+class PagedServeState(NamedTuple):
+    """Device-resident PAGED serving state, owned by the engine. K/V live
+    in one shared pool of fixed-size pages (+1 trash page); the
+    slot→page mapping is HOST state (``PageAllocator.table``), copied
+    into each dispatch's input buffer."""
+
+    pool_k: torch.Tensor        # (L, pages+1, page_tokens, kv, head_dim)
+    pool_v: torch.Tensor
+    lengths: torch.Tensor       # (slots,) int32: tokens in cache per slot
+    last_token: torch.Tensor    # (slots,) int32: newest token, not cached
+    active: torch.Tensor        # (slots,) bool: slot holds a live sequence
+    remaining: torch.Tensor     # (slots,) int32: generation budget left
+
+
+class PagedServeEngine(ServeEngine):
+    """The paged + shared-prefix + speculative serving engine
+    (``tpudist/serve/engine.py::PagedServeEngine``).
+
+    The dense engine's program discipline, one prefill program and one
+    decode program per ladder rung, plus one more when speculation is
+    on: the VERIFY forward, one batched forward over a
+    ``speculate_k``-token window per slot that scores a whole host draft
+    at once. On the card each is a CUDA graph; the page table, the
+    dispatch's slot mask, the prefill's page row and ``shared_len`` and
+    the draft are copied into the graphs' input buffers before a replay.
+    Admission, eviction, page exhaustion and drafting are host decisions
+    between dispatches.
+
+    ``speculate_k`` is the verify WINDOW: the slot's pending
+    ``last_token`` plus ``speculate_k - 1`` draft tokens, so
+    ``speculate_k >= 2`` turns speculation on and ``0`` leaves it off.
+    Greedy output equals non-speculative greedy decode: every emitted
+    token is the argmax after a verified token, and rejected drafts' junk
+    K/V sits past the new length, where write-then-attend overwrites it
+    before any query reaches it.
+
+    Where the JAX decode skips a step with no active slot (``lax.cond``),
+    every step runs here and the masks freeze the batch; slots outside a
+    dispatch's mask keep their ``active`` untouched.
+    """
+
+    paged = True
+
+    def __init__(self, model_cfg: ModelConfig, *, slots: int,
+                 max_seq: int, prompt_pad: int, decode_k: int = 8,
+                 page_tokens: int = 8, pages: int = 0,
+                 speculate_k: int = 0, dtype=torch.float32, device=None,
+                 adapt_ladder: Optional[Sequence[int]] = None):
+        if speculate_k == 1 or speculate_k < 0:
+            raise ValueError(
+                f"--speculate-k must be 0 (off) or >= 2 (window of "
+                f"last_token + drafts), got {speculate_k}")
+        self.speculate_k = int(speculate_k)
+        self._pool_kw = dict(page_tokens=page_tokens, pages=pages)
+        super().__init__(model_cfg, slots=slots, max_seq=max_seq,
+                         prompt_pad=prompt_pad, decode_k=decode_k,
+                         layout="st", dtype=dtype, device=device,
+                         adapt_ladder=adapt_ladder)
+        self.page_tokens = self.spec.page_tokens
+        self.alloc = kvcache.PageAllocator(self.spec)
+        self.verify_traces: list = []
+        dev, s = self.device, self.slots
+        maxp = self.spec.max_pages_per_slot
+        # the programs' per-dispatch inputs, copied in before each call
+        self._page_row = torch.full((maxp,), -1, dtype=torch.int64,
+                                    device=dev)
+        self._shared_len = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._table = torch.full((s, maxp), -1, dtype=torch.int64,
+                                 device=dev)
+        self._dispatch = torch.ones((s,), dtype=torch.bool, device=dev)
+        self._draft = torch.zeros((s, max(self.speculate_k - 1, 0)),
+                                  dtype=torch.int64, device=dev)
+
+    def _cache_spec(self) -> kvcache.PagedCacheSpec:
+        return kvcache.PagedCacheSpec.from_model(
+            self.model_cfg, slots=self.slots, max_seq=self.max_seq,
+            dtype=self.dtype, **self._pool_kw)
+
+    def _new_state(self) -> PagedServeState:
+        pool = kvcache.init_paged_cache(self.spec, self.device)
+        return PagedServeState(pool_k=pool["k"], pool_v=pool["v"],
+                               **self._vectors())
+
+    def new_allocator(self) -> kvcache.PageAllocator:
+        """Fresh page bookkeeping (drops any shared-prefix registry), one
+        allocator per serve run, like one state per run. The memory bound
+        the previous allocator was given (``set_memory_bound``) carries
+        over: it is a property of the device, not of the run."""
+        old = self.alloc
+        self.alloc = kvcache.PageAllocator(self.spec)
+        self.alloc.page_cap = old.page_cap
+        self.alloc.bound_source = old.bound_source
+        return self.alloc
+
+    # -------------------------------------------------------- programs
+
+    def _store_prefill(self, plen: torch.Tensor,
+                       slot: torch.Tensor) -> None:
+        """Scatter the scratch's true positions into the slot's pages.
+        Positions below ``shared_len`` are skipped (their pages are the
+        shared prefix, holding the same content); they and the padded
+        tail go to the trash page."""
+        pt = self.spec.page_tokens
+        t = torch.arange(self.prompt_pad, device=self.device)
+        write = (t >= self._shared_len) & (t < plen)
+        pg = self._page_row[t // pt]
+        pg = torch.where(write & (pg >= 0), pg, self.spec.pages)
+        off = t % pt
+        st = self._state
+        st.pool_k[:, pg, off] = self._scratch["k"][:, 0]
+        st.pool_v[:, pg, off] = self._scratch["v"][:, 0]
+
+    def _paged_forward(self, params, tokens, positions, write_ok
+                       ) -> torch.Tensor:
+        """Tied logits (slots, window, vocab) f32 of one windowed forward
+        against the pool, its k/v written in place."""
+        st = self._state
+        h, _, _ = self.model.paged_hidden_states(
+            params, tokens, self.model_cfg, dtype=self.dtype,
+            pool_k=st.pool_k, pool_v=st.pool_v, page_table=self._table,
+            positions=positions, write_ok=write_ok,
+            page_tokens=self.spec.page_tokens)
+        return self._tied_logits(params, h)
+
+    def _decode_body(self, params, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The paged decode program for rung ``k``: ``k`` masked window-1
+        steps over the slots in the dispatch mask; returns (tokens (k,
+        slots) int32, valid (k, slots)) and writes the state."""
+        st, da = self._state, self._dispatch
+        lengths, last, active, rem = (st.lengths, st.last_token,
+                                      st.active, st.remaining)
+        toks, valid = [], []
+        for _ in range(k):
+            act = active & da
+            pos = lengths.clamp(max=self.max_seq - 1).to(torch.int64)
+            logits = self._paged_forward(
+                params, last[:, None].to(torch.int64), pos[:, None],
+                (act & (lengths < self.max_seq))[:, None])
+            nxt = logits[:, 0].argmax(dim=-1).to(torch.int32)
+            new_len = torch.where(act, lengths + 1, lengths)
+            new_rem = torch.where(act, rem - 1, rem)
+            toks.append(torch.where(act, nxt, -1))
+            valid.append(act)
+            last = torch.where(act, nxt, last)
+            # slots OUTSIDE this dispatch (their page rows may be stale)
+            # keep their activity untouched
+            active = torch.where(
+                da, act & (new_rem > 0) & (new_len < self.max_seq), active)
+            lengths, rem = new_len, new_rem
+        out = torch.stack(toks), torch.stack(valid)
+        self._write_vectors(lengths, last, active, rem)
+        return out
+
+    def _verify_body(self, params
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The verify program: one forward over each dispatched slot's
+        window (``last_token`` + the draft); the accepted run is the
+        draft's prefix that matches the greedy choices, plus one bonus
+        token, clamped to the budget and the capacity. Returns (tokens
+        (W, slots) int32, valid (W, slots), emitted (slots,) int32) and
+        writes the state."""
+        st, da = self._state, self._dispatch
+        w, dev = self.speculate_k, self.device
+        act = st.active & da
+        lengths = st.lengths.to(torch.int64)
+        rem = st.remaining.to(torch.int64)
+        toks_in = torch.cat([st.last_token[:, None].to(torch.int64),
+                             self._draft], dim=1)                # (S, W)
+        offs = torch.arange(w, device=dev)[None, :]
+        raw_pos = lengths[:, None] + offs
+        logits = self._paged_forward(
+            params, toks_in, raw_pos.clamp(max=self.max_seq - 1),
+            act[:, None] & (raw_pos < self.max_seq))
+        g = logits.argmax(dim=-1)                                # (S, W)
+        # draft token j is accepted iff it and every earlier one matched
+        match = (self._draft == g[:, :-1]).to(torch.int64)
+        a = torch.cumprod(match, dim=1).sum(dim=1)               # (S,)
+        e = torch.minimum(a + 1, torch.minimum(rem,
+                                               self.max_seq - lengths))
+        e = torch.where(act, e, 0)
+        valid = act[:, None] & (offs < e[:, None])               # (S, W)
+        toks = torch.where(valid, g, -1).to(torch.int32)
+        new_last = torch.gather(g, 1, (e - 1).clamp(min=0)[:, None])[:, 0]
+        new_len = torch.where(act, lengths + e, lengths)
+        new_rem = torch.where(act, rem - e, rem)
+        new_active = torch.where(
+            da, act & (new_rem > 0) & (new_len < self.max_seq), st.active)
+        out = toks.T, valid.T, e.to(torch.int32)
+        self._write_vectors(
+            new_len, torch.where(act, new_last.to(torch.int32),
+                                 st.last_token), new_active, new_rem)
+        return out
+
+    def _programs(self, params) -> Dict[str, Callable[[], tuple]]:
+        progs = super()._programs(params)
+        if self.speculate_k >= 2:
+            progs["verify"] = lambda: self._verify_body(params)
+        return progs
+
+    def _traces(self, name: str) -> list:
+        if name == "verify":
+            return self.verify_traces
+        return super()._traces(name)
+
+    def _programs_built(self) -> list:
+        return super()._programs_built() + self.verify_traces
+
+    # ------------------------------------------------------ public API
+
+    def _set_page_inputs(self, page_row, shared_len: int) -> None:
+        self._page_row.copy_(torch.as_tensor(
+            np.asarray(page_row, np.int64).reshape(
+                self.spec.max_pages_per_slot)))
+        self._shared_len.fill_(int(shared_len))
+
+    def _set_dispatch_inputs(self, dispatch_active) -> None:
+        self._table.copy_(torch.as_tensor(np.asarray(self.alloc.table,
+                                                     np.int64)))
+        if dispatch_active is None:
+            self._dispatch.fill_(True)
+        else:
+            self._dispatch.copy_(torch.as_tensor(
+                np.asarray(dispatch_active, bool).reshape(self.slots)))
+
+    @torch.no_grad()
+    def prefill(self, params, state: PagedServeState, tokens,
+                prompt_len: int, slot: int, max_new: int, page_row=None,
+                shared_len: int = 0
+                ) -> Tuple[PagedServeState, torch.Tensor]:
+        """Admit one request into ``slot``: the dense contract plus the
+        slot's page-table ROW (default: the allocator's current row for
+        ``slot``) and the shared-prefix watermark ``shared_len``
+        (``alloc.admit_shared_len``), both inputs of the one program."""
+        self._check_call(params, state)
+        self._set_prefill_inputs(tokens, prompt_len, slot, max_new)
+        self._set_page_inputs(self.alloc.row(slot) if page_row is None
+                              else page_row, shared_len)
+        first, self.last_logits = self._run(
+            "prefill", lambda: self._prefill_body(params))
+        return state, first[0]
+
+    def register_prefix(self, params, state: PagedServeState,
+                        prefix_tokens, prefix_len: int
+                        ) -> PagedServeState:
+        """Cache a shared system-prompt prefix ONCE for every later
+        admission: reserve its full pages (registry-held, refcounted) and
+        fill them with the ONE prefill program (``max_new=1``, so the
+        probe slot comes back inactive and a real admission overwrites
+        its entries). Causal masking makes the stored K/V what any prompt
+        starting with the prefix computes there. The partial tail page
+        goes to the trash page; admissions recompute it into their first
+        private page (the copy-on-write fork)."""
+        pages = self.alloc.register_shared(prefix_len)
+        if not pages:
+            return state
+        row = np.full((self.spec.max_pages_per_slot,), -1, np.int64)
+        row[:len(pages)] = pages
+        padded = np.zeros((self.prompt_pad,), np.int64)
+        padded[:prefix_len] = np.asarray(prefix_tokens)[:prefix_len]
+        state, first = self.prefill(params, state, padded, prefix_len, 0,
+                                    1, page_row=row, shared_len=0)
+        int(first)                         # fence
+        return state
+
+    @torch.no_grad()
+    def decode(self, params, state: PagedServeState,
+               k: Optional[int] = None, dispatch_active=None
+               ) -> Tuple[PagedServeState, torch.Tensor, torch.Tensor]:
+        """One paged decode superstep over the slots in
+        ``dispatch_active`` (default: all), with the allocator's current
+        table. Returns ``(state, tokens (k, slots), valid (k, slots))``
+        as :meth:`ServeEngine.decode` does."""
+        k = self._rung(k)
+        self._check_call(params, state)
+        self._set_dispatch_inputs(dispatch_active)
+        toks, valid = self._run(f"decode_k{k}",
+                                lambda: self._decode_body(params, k))
+        return state, toks, valid
+
+    @torch.no_grad()
+    def verify(self, params, state: PagedServeState, draft,
+               dispatch_active=None):
+        """Score a ``(slots, speculate_k - 1)`` host draft in ONE batched
+        forward. Returns ``(state, tokens (speculate_k, slots), valid
+        (speculate_k, slots), emitted (slots,))``, the tokens and valid
+        flags oriented as :meth:`decode`'s; ``emitted`` counts each
+        slot's accepted run + bonus token."""
+        if self.speculate_k < 2:
+            raise ValueError("verify() requires speculate_k >= 2")
+        self._check_call(params, state)
+        self._draft.copy_(torch.as_tensor(np.asarray(draft, np.int64)
+                                          .reshape(self._draft.shape)))
+        self._set_dispatch_inputs(dispatch_active)
+        toks, valid, e = self._run("verify",
+                                   lambda: self._verify_body(params))
+        return state, toks, valid, e
+
+    def eager_verify(self, *args, **kw):
+        """:meth:`verify` with its body run eagerly (see
+        :meth:`ServeEngine.eager_prefill`)."""
+        with self._eagerly():
+            return self.verify(*args, **kw)
+
+    def _set_warmup_inputs(self) -> None:
+        """Junk inputs: the dense warm-up's prompt, an all -1 page row
+        and table (every write lands on the trash page), every slot in
+        the dispatch, a zero draft."""
+        super()._set_warmup_inputs()
+        self._page_row.fill_(-1)
+        self._shared_len.zero_()
+        self._table.fill_(-1)
+        self._dispatch.fill_(True)
+        self._draft.zero_()
+
+    def assert_two_programs(self) -> None:
+        """The dense pin (1 prefill + 1 decode per rung) plus exactly one
+        verify program when speculation is on."""
+        super().assert_two_programs()
+        want = 1 if self.speculate_k >= 2 else 0
+        v = len(self.verify_traces)
+        if v != want:
+            raise AssertionError(
+                f"paged serve engine built {v} verify program(s), "
+                f"expected {want} (speculate_k={self.speculate_k}); the "
+                f"program-budget pin is broken")

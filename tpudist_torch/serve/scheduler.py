@@ -1,15 +1,17 @@
 """Continuous batching: seeded arrivals, admission control, slot
 admission, SLO accounting.
 
-Counterpart of the dense path of ``tpudist/serve/scheduler.py`` (no
-chaos, no paged engine, no speculation). Requests arrive on a
-seeded open-loop Poisson schedule, pass ADMISSION CONTROL (bounded
-queue, per-request TTFT deadlines, malformed-request rejection —
-:mod:`tpudist_torch.serve.resilience`), queue until a slot frees,
-prefill into the free slot, and decode continuously: every dispatch is
-one superstep over the WHOLE slot batch, with completed slots freed and
-refilled between dispatches. Under pressure the controller walks
-``decode_k`` down the engine's ladder of captured programs.
+Counterpart of ``tpudist/serve/scheduler.py`` without its chaos hooks.
+Requests arrive on a seeded open-loop Poisson schedule, pass ADMISSION
+CONTROL (bounded queue, per-request TTFT deadlines, malformed-request
+rejection — :mod:`tpudist_torch.serve.resilience`), queue until a slot
+frees, prefill into the free slot, and decode continuously: every
+dispatch is one superstep over the WHOLE slot batch, with completed
+slots freed and refilled between dispatches. Under pressure the controller walks
+``decode_k`` down the engine's ladder of captured programs. A PAGED
+engine (:class:`~tpudist_torch.serve.engine.PagedServeEngine`) adds the
+page allocator to admission and dispatch, a shared system-prompt prefix
+registered once, and n-gram speculation verified by one batched forward.
 
 Every arrival lands in exactly one ledger bucket (``arrived == admitted
 + shed_at_admission + expired_in_queue + rejected``, checked exactly),
@@ -60,28 +62,51 @@ class Request:
     max_new: int
 
 
+def shared_prefix_tokens(prefix_len: int, vocab_size: int,
+                         seed: int) -> np.ndarray:
+    """The run's shared system-prompt prefix: ``prefix_len`` seeded
+    tokens every ``--shared-prefix`` request starts with, bitwise the JAX
+    package's. One function, used by both the request generator and the
+    engine's prefix registration, so the two agree on the bytes."""
+    rng = np.random.default_rng([int(seed), 17])
+    return rng.integers(0, vocab_size,
+                        size=(int(prefix_len),)).astype(np.int32)
+
+
 def make_requests(n: int, *, prompt_pad: int, vocab_size: int,
                   max_new: int, rate: float, seed: int,
-                  prompt_min: int = 0) -> List[Request]:
+                  prompt_min: int = 0,
+                  prefix_len: int = 0) -> List[Request]:
     """Seeded synthetic request stream, bitwise the JAX package's.
 
     Arrivals: Poisson process at ``rate`` requests/s; ``rate <= 0``
     means every request is present at t=0 (closed loop). Prompts follow
     the deterministic next-token chain ``t -> (7 t + 3) % vocab`` from a
     seeded first token, with lengths drawn from [prompt_min,
-    prompt_pad] (prompt_min defaults to prompt_pad // 2)."""
+    prompt_pad] (prompt_min defaults to prompt_pad // 2).
+    ``prefix_len > 0`` gives every request the same
+    :func:`shared_prefix_tokens` prefix (prompt lengths never undercut
+    it); ``prefix_len = 0`` is the stream without (the same draws)."""
     rng = np.random.default_rng(seed)
     if rate > 0:
         arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
     else:
         arrivals = np.zeros(n)
     prompt_min = min(max(1, prompt_min or prompt_pad // 2), prompt_pad)
+    if prefix_len > 0:
+        prefix_len = min(int(prefix_len), prompt_pad)
+        prompt_min = max(prompt_min, prefix_len)
     lens = rng.integers(prompt_min, prompt_pad + 1, size=n)
     first = rng.integers(0, vocab_size, size=(n, 1)).astype(np.int32)
     toks = np.empty((n, prompt_pad), np.int32)
     toks[:, :1] = first
     for t in range(1, prompt_pad):
         toks[:, t] = (toks[:, t - 1] * 7 + 3) % vocab_size
+    if prefix_len > 0:
+        # the head becomes the shared prefix; the tail keeps each
+        # request's own chain (seeded from its own first token)
+        toks[:, :prefix_len] = shared_prefix_tokens(
+            prefix_len, vocab_size, seed)[None, :]
     out = []
     for i in range(n):
         padded = toks[i].copy()
@@ -89,6 +114,27 @@ def make_requests(n: int, *, prompt_pad: int, vocab_size: int,
         out.append(Request(rid=i, arrival_s=float(arrivals[i]),
                            tokens=padded, prompt_len=int(lens[i]),
                            max_new=int(max_new)))
+    return out
+
+
+def ngram_draft(history, k: int) -> List[int]:
+    """The host-side draft proposer for speculative decoding: repeat what
+    followed the last occurrence of the current token in the sequence so
+    far (n-gram lookup, n=1), else the token itself. Deterministic and
+    model-free: the verify forward accepts exactly the prefix of the
+    draft that matches the greedy choices, so a bad draft costs only its
+    acceptance rate."""
+    h = [int(t) for t in history]
+    out: List[int] = []
+    for _ in range(int(k)):
+        last = h[-1]
+        nxt = last
+        for i in range(len(h) - 2, -1, -1):
+            if h[i] == last:
+                nxt = h[i + 1]
+                break
+        out.append(nxt)
+        h.append(nxt)
     return out
 
 
@@ -130,7 +176,8 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
               metrics: Any = None, tick_every: int = 8,
               clock: Callable[[], float] = time.perf_counter,
               resilience: Optional[res_lib.ResilienceConfig] = None,
-              virtual: Optional[res_lib.VirtualTiming] = None
+              virtual: Optional[res_lib.VirtualTiming] = None,
+              shared_prefix: Optional[np.ndarray] = None
               ) -> Dict[str, Any]:
     """Drive the engine over the request stream; returns the run summary
     (percentiles, throughput, per-gate SLO statuses, the exact shed
@@ -149,7 +196,21 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     clock to deterministic virtual time
     (:class:`~tpudist_torch.serve.resilience.VirtualTiming`): each
     prefill advances it ``prefill_s``, each dispatch ``decode_s``. One
-    engine drives one card, so throughput per chip is throughput."""
+    engine drives one card, so throughput per chip is throughput.
+
+    A PAGED engine (``engine.paged``) changes admission and dispatch,
+    never the accounting: admission also asks the page allocator (a pool
+    too full RIGHT NOW leaves the request waiting: backpressure, not
+    shedding; a request too big to EVER fit is ``rejected`` with reason
+    ``kv_pages_exhausted``, in the same exact partition); each dispatch
+    first grows every live slot's mapping over the positions it will
+    write (a slot that cannot grow is evicted, its pages freed);
+    finishing a slot returns its pages. ``shared_prefix`` (tokens)
+    registers a refcounted shared prefix once, served from the same
+    pages to every admission whose prompt starts with it. With
+    ``engine.speculate_k >= 2`` a dispatch at adapt level 0 is draft +
+    verify: :func:`ngram_draft` proposes, the engine's one batched
+    verify forward accepts; the tokens stay those of plain decode."""
     res = resilience or res_lib.ResilienceConfig()
     if virtual is not None:
         clock = virtual.clock
@@ -167,12 +228,34 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     waiting: deque = deque()         # accepted, not yet slotted
     slots: List[Optional[_Slot]] = [None] * engine.slots
     state = engine.init_state()
+    paged = bool(getattr(engine, "paged", False))
+    alloc = engine.new_allocator() if paged else None
+    prefix_len = 0
+    prefix_arr: Optional[np.ndarray] = None
+    if paged and shared_prefix is not None and len(shared_prefix) > 0:
+        prefix_arr = np.asarray(shared_prefix, np.int32)
+        prefix_len = int(min(len(prefix_arr), engine.prompt_pad))
+        prefix_arr = prefix_arr[:prefix_len]
+        # fills the prefix's full pages with the ONE prefill program; a
+        # pool that cannot hold the prefix is a config error, raised
+        state = engine.register_prefix(params, state, prefix_arr,
+                                       prefix_len)
+    spec_k = int(getattr(engine, "speculate_k", 0))
     results: Dict[int, Dict[str, Any]] = {}
     generated = truncated = dispatches = 0
-    active_peak = 0
+    drafted = accepted = 0          # speculative-draft acceptance
+    active_peak = pages_peak = 0
     queue_depths: List[int] = []
     recent_tok: deque = deque(maxlen=max(res.window, 1))
     t0 = clock()
+
+    def is_shared(req: Request) -> bool:
+        # a request rides the shared prefix iff its prompt starts with
+        # it: byte-checked, never assumed
+        return (prefix_arr is not None
+                and req.prompt_len >= prefix_len
+                and np.array_equal(np.asarray(req.tokens)[:prefix_len],
+                                   prefix_arr))
 
     def now() -> float:
         return clock() - t0
@@ -184,6 +267,13 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         if metrics is not None:
             metrics.log(kind="serve_request", rid=rid, event=ev,
                         t_s=round(now(), 6), **kw)
+
+    def shared_refs() -> int:
+        # refcounts held on the shared-prefix pages (the registry's own
+        # keep-cached hold included)
+        if alloc is None or not alloc.shared_pages:
+            return 0
+        return int(sum(int(alloc.refcount[p]) for p in alloc.shared_pages))
 
     def finish(i: int, why: str) -> None:
         nonlocal truncated
@@ -205,6 +295,11 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
               e2e_s=round(t_done - s.req.arrival_s, 6),
               decode_s=round(t_done - s.first_token_s, 6))
         slots[i] = None
+        if paged:
+            # pages return to the pool (shared prefix pages drop one
+            # count; the registry hold keeps them cached). The device
+            # slot is frozen or masked out of every later dispatch
+            alloc.free_slot(i)
 
     def expire(t: float) -> None:
         # the accepted queue's head is always the oldest (FIFO in
@@ -257,6 +352,32 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         for i in range(engine.slots):
             if slots[i] is not None or not waiting:
                 continue
+            shared = False
+            if paged:
+                # peek-then-pop: a denied admission leaves the request
+                # at the queue head
+                req = waiting[0]
+                shared = is_shared(req)
+                if not alloc.can_ever_admit(req.prompt_len, shared):
+                    # structurally unservable at this pool size: reject
+                    # (a partition bucket) instead of wedging the queue
+                    waiting.popleft()
+                    led.rejected += 1
+                    event(req.rid, res_lib.REJECTED,
+                          reason="kv_pages_exhausted")
+                    continue
+                need = -(-req.prompt_len // engine.spec.page_tokens)
+                reused = min(need, len(alloc.shared_pages)) \
+                    if shared else 0
+                if not alloc.admit(i, req.prompt_len, shared=shared):
+                    # pool full RIGHT NOW: backpressure, not shedding
+                    tracer.instant("kv_backpressure", cat="serve",
+                                   rid=req.rid, slot=i, pages=need)
+                    break
+                tracer.instant("kv_admit", cat="serve", rid=req.rid,
+                               slot=i, pages=need,
+                               pages_granted=need - reused,
+                               shared_pages_reused=reused)
             req = waiting.popleft()
             budget = req.max_new
             if cur_level > 0 and res.max_new_cap:
@@ -265,9 +386,12 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                 pass   # the admission decision itself is host-trivial
             with tracer.span("prefill", cat="serve", rid=req.rid, slot=i,
                              prompt_len=req.prompt_len):
+                kw = ({"shared_len": alloc.admit_shared_len(shared)}
+                      if paged else {})
                 state, first = engine.prefill(params, state,
                                               req.tokens[None, :],
-                                              req.prompt_len, i, budget)
+                                              req.prompt_len, i, budget,
+                                              **kw)
                 first = int(first)       # fence: the token exists NOW
             if virtual is not None:
                 virtual.clock.advance(virtual.prefill_s)
@@ -307,12 +431,49 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
             break
         # depth sampled once per DISPATCH, not per idle pass
         queue_depths.append(len(waiting))
+        # speculation only at full service: the ladder's rungs are plain
+        # decode programs
+        spec_on = paged and spec_k >= 2 and cur_level == 0
+        if paged:
+            # grow each live slot's mapping over every position this
+            # dispatch can write; a slot the pool cannot grow for is
+            # evicted (truncated output, its pages fund the others)
+            width = spec_k if spec_on else cur_k
+            for i in occupied:
+                s = slots[i]
+                last = min(s.req.prompt_len + s.generated + width - 2,
+                           engine.max_seq - 1)
+                if not alloc.ensure(i, last):
+                    finish(i, "evicted")
+            occupied = [i for i in range(engine.slots)
+                        if slots[i] is not None]
+            if not occupied:
+                continue
         t_dispatch = clock()
-        with tracer.span("decode_step", cat="serve",
-                         active=len(occupied), decode_k=cur_k):
-            state, toks, valid = engine.decode(params, state, cur_k)
-            toks = toks.cpu().numpy()      # fence: tokens on host
-            valid = valid.cpu().numpy()
+        if spec_on:
+            occ_mask = np.array([s is not None for s in slots])
+            draft = np.zeros((engine.slots, spec_k - 1), np.int32)
+            for i in occupied:
+                s = slots[i]
+                draft[i] = ngram_draft(
+                    list(s.req.tokens[:s.req.prompt_len]) + s.output,
+                    spec_k - 1)
+            with tracer.span("verify_step", cat="serve",
+                             active=len(occupied), window=spec_k):
+                state, toks, valid, _emitted = engine.verify(
+                    params, state, draft, dispatch_active=occ_mask)
+                toks = toks.cpu().numpy()  # fence: tokens on host
+                valid = valid.cpu().numpy()
+        else:
+            kw = ({"dispatch_active": np.array([s is not None
+                                                for s in slots])}
+                  if paged else {})
+            with tracer.span("decode_step", cat="serve",
+                             active=len(occupied), decode_k=cur_k):
+                state, toks, valid = engine.decode(params, state, cur_k,
+                                                   **kw)
+                toks = toks.cpu().numpy()  # fence: tokens on host
+                valid = valid.cpu().numpy()
         if virtual is not None:
             dt = virtual.decode_s
             virtual.clock.advance(dt)
@@ -320,8 +481,24 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
             dt = clock() - t_dispatch
         dispatches += 1
         active_peak = max(active_peak, len(occupied))
-        per_tok = dt / cur_k
-        recent_tok.append(per_tok)
+        if paged:
+            pages_peak = max(pages_peak, alloc.pages_used())
+            if tracer.enabled:
+                # KV-pool occupancy, one sample a dispatch: the ph="C"
+                # counter track of pod_trace.json
+                tracer.instant("kv_pages", cat="serve_counter",
+                               used=alloc.pages_used(),
+                               total=engine.spec.pages,
+                               shared_refs=shared_refs())
+        if spec_on:
+            # a verify dispatch emits a VARIABLE count per slot: ITL
+            # attributes the dispatch wall over each slot's accepted run
+            mean_new = int(valid.sum()) / max(len(occupied), 1)
+            recent_tok.append(dt / mean_new if mean_new > 0 else dt)
+            per_tok = None
+        else:
+            per_tok = dt / cur_k
+            recent_tok.append(per_tok)
         for i in occupied:
             col_valid = valid[:, i]
             n_new = int(col_valid.sum())
@@ -329,12 +506,18 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                 slots[i].output.extend(int(t) for t in toks[col_valid, i])
                 slots[i].generated += n_new
                 generated += n_new
-                stats.note_itl(per_tok, n_new)
+                stats.note_itl(dt / n_new if spec_on else per_tok, n_new)
+                if spec_on:
+                    accepted += n_new - 1    # minus the bonus token
+                    drafted += spec_k - 1
             s = slots[i]
             # per-slot decode attribution: the flight verifier sums these
             # per rid against the terminal event's generated count
+            spec_kw = (dict(drafted=spec_k - 1, accepted=max(n_new - 1, 0))
+                       if spec_on else {})
             tracer.instant("decode_emit", cat="serve", rid=s.req.rid,
-                           slot=i, tokens=n_new, dispatch=dispatches)
+                           slot=i, tokens=n_new, dispatch=dispatches,
+                           **spec_kw)
             if s.generated >= s.budget:
                 finish(i, "done")
             elif s.req.prompt_len + s.generated > engine.max_seq:
@@ -365,6 +548,17 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                     metrics.flush()
         if metrics is not None:
             wall = now()
+            extra: Dict[str, Any] = {}
+            if paged:
+                # the PAGED footprint: what is allocated (pool + table),
+                # not the dense slots x max_seq formula
+                extra = {"kv_pages_used": alloc.pages_used(),
+                         "kv_pages_total": engine.spec.pages,
+                         "kv_cache_bytes": engine.spec.bytes,
+                         "kv_shared_refs": shared_refs(),
+                         "spec_accept_rate": (
+                             round(accepted / drafted, 4)
+                             if drafted else None)}
             metrics.log(kind="serve_tick", t_s=round(wall, 4),
                         queue_depth=len(waiting),
                         active_slots=sum(s is not None for s in slots),
@@ -380,7 +574,8 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                             round(generated / wall / N_CHIPS, 3)
                             if wall > 0 else None),
                         ttft_hist=stats.ttft_hist(),
-                        itl_hist=stats.itl_hist())
+                        itl_hist=stats.itl_hist(),
+                        **extra)
 
     wall_s = now()
     # an empty run measured NOTHING: throughput is None (the gate grades
@@ -424,7 +619,15 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         **grade,
         "prefill_compiles": prefill_compiles,
         "decode_compiles": decode_compiles,
+        "verify_compiles": len(getattr(engine, "verify_traces", [])),
         "active_slots_peak": active_peak,
+        "kv_page_tokens": engine.spec.page_tokens if paged else 0,
+        "kv_pages_total": engine.spec.pages if paged else 0,
+        "kv_pages_used_peak": pages_peak,
+        "spec_accept_rate": (round(accepted / drafted, 4)
+                             if drafted else None),
+        "speculate_k": spec_k,
+        "shared_prefix_len": prefix_len,
         "ttft_hist": stats.ttft_hist(),
         "itl_hist": stats.itl_hist(),
         "results": results,
