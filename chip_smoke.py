@@ -175,13 +175,38 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ``kv_pages`` counter track, verdict ``success``. Tokens that differ
    from the dense run's fail unless the first divergence is a near-tie:
    the full forward's top-two logit gap there within 1e-4 of the
-   logits' largest magnitude (printed and counted).
+   logits' largest magnitude (printed and counted);
+15. the serve tuner, the chaos surface and ``alert_events`` at phase 4's
+   configuration: (a) ``python -m tpudist_torch.serve --serve-tune
+   probe`` (its ``main``) with phase 4's flags: exit 0, one
+   ``kind=serve_tune`` record from a probe (success, at most 8 trials,
+   none pruned), the committed tokens/s at least the start's, the pin,
+   the probes' launches off the counters, the tokens bitwise a
+   ``--serve-tune off`` run's at the committed point; then
+   ``cache-only``: a hit with 0 trials; (b) ``autotune_serve`` over the
+   whole knob space (16 trials) in-process, each trial printed: none
+   pruned, the reserved memory back within one trial's footprint, the
+   launch counters untouched; (c) phase 4's stream at ``layout="hs"``
+   and ``"st"``: the tokens equal or a near tie (14's rule), each run's
+   tokens/s/chip and replayed decode superstep, no alert at the default
+   gates (``--profile``: each superstep's busy share and largest
+   kernels); (d) on virtual time through the CLI: ``--chaos
+   serve_kill@0:3 --requeue-attempt 0`` in a process of its own exits
+   137 with a flushed ``kind=chaos`` record and no summary, then
+   ``--requeue-attempt 1`` classifies exactly the admitted rids with no
+   terminal event as lost (``kind=serve_resume``), every rid in one
+   terminal bucket across the attempts; ``serve_slow`` shows in the
+   ITL p99 against a clean run; ``request_garbage`` gives six named
+   rejections and the clean run's tokens; (e) phase 4b's overload with
+   ``TPUDIST_SERVE_SHED_MAX=0.05``: exit 1, verdict ``fail``, each failed
+   gate's alert fired mid-run. The phase's wall time is printed.
 
-Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b and 14a-14d are
-the main paths: each
+Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d and 15a,
+15c-15e (15d's requeued, stalled, garbage and clean runs) are the main
+paths: each
 runs with every launch count set to 0 just before and read just after
-(10a and 11c in each rank's process; 12b's timed run, not its probes,
-which restore the counters and report their launches apart), and each
+(10a and 11c in each rank's process; 12b's and 15a's timed runs, not
+their probes, which restore the counters), and each
 kernel must have launched the
 exact number of times its path calls it, counting the launches a CUDA
 graph's replays ran (the superstep's record of its captures times its
@@ -2411,6 +2436,499 @@ def paged_cli(torch, fa, fx, card: str):
     return counts
 
 
+# phase 15's paths, each a main path of the flash forward: the tuned
+# serve CLI, its point untuned and its cache hit (15a), the two KV
+# layouts (15c), the requeued attempt, the stalled, the garbage and the
+# clean run (15d), the tightened-shed overload (15e)
+SERVE_TUNE_PATHS = ("serve_tuned", "serve_tuned_point", "serve_tuned_cache",
+                    "serve_layout_hs", "serve_layout_st", "serve_requeue",
+                    "serve_slow", "serve_garbage", "serve_chaos_clean",
+                    "serve_shed_breach")
+
+
+@contextlib.contextmanager
+def _serve_summaries():
+    """The summary of every ``run_serve`` the serve CLI calls inside the
+    block, with that run's alert engine (its fired alerts)."""
+    from tpudist_torch.serve import scheduler as sched
+
+    runs = []
+    real_run, real_alerts = sched.run_serve, sched.AlertEngine
+
+    class Alerts(real_alerts):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            runs.append({"alerts": self})
+
+    def run_serve(*args, **kw):
+        out = real_run(*args, **kw)
+        runs[-1]["summary"] = out
+        return out
+    sched.run_serve, sched.AlertEngine = run_serve, Alerts
+    try:
+        yield runs
+    finally:
+        sched.run_serve, sched.AlertEngine = real_run, real_alerts
+
+
+def _serve_cli(torch, fa, fx, tag: str, argv, env=None, want_rc: int = 0):
+    """One main path: ``python -m tpudist_torch.serve`` (its ``main``)
+    on the card with ``argv`` (plus a ``--save-dir`` of its own) and
+    ``env``, the launch counts set to 0 just before and read just after.
+    Fails unless it exits ``want_rc``, its verdict file says so, the
+    served engine's pin holds and the flash forward launched exactly
+    n_layers x (prefills + the warm-up's). Returns the run: exit code,
+    stdout, records, summary, alert engine, launches, wall."""
+    from tpudist_torch.serve import cli as serve_cli
+
+    save = ROOT / "build" / "chip_smoke_serve" / tag
+    shutil.rmtree(save, ignore_errors=True)
+    env = {"TPUDIST_VERDICT_PATH": str(save / "job_status.txt"),
+           **(env or {})}
+    os.environ.update(env)
+    tee = _Tee(sys.stdout)
+    try:
+        _reset_launches(fa, fx)
+        t0 = time.perf_counter()
+        with _serve_engines() as made, _serve_summaries() as runs, \
+                contextlib.redirect_stdout(tee):
+            rc = serve_cli.main(argv + ["--save-dir", str(save)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k in env:
+            del os.environ[k]
+    verdict = (save / "job_status.txt").read_text() \
+        if (save / "job_status.txt").is_file() else None
+    if rc != want_rc or not made or not runs \
+            or verdict != ("success" if want_rc == 0 else "fail"):
+        fail(f"{tag}: exit {rc} (want {want_rc}), verdict {verdict!r}")
+    engine = made[-1]               # the served one (probes come first)
+    engine.assert_two_programs()
+    recs = [json.loads(ln) for ln in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    summary = runs[-1]["summary"]
+    counts = _serve_counts(engine)
+    want = engine.model_cfg.n_layers * (summary["admitted"] + 1)
+    run = {"rc": rc, "out": tee.buf.getvalue(), "recs": recs,
+           "summary": summary, "alerts": runs[-1]["alerts"],
+           "counts": counts, "wall": wall, "outside": fa.launches,
+           "n_layers": engine.model_cfg.n_layers,
+           "programs": (engine.compile_counts(),
+                        len(getattr(engine, "verify_traces", [])))}
+    print(f"{tag}: exit {rc}, verdict {verdict}; {summary['completed']}/"
+          f"{summary['requests']} requests (admitted "
+          f"{summary['admitted']}, rejected {summary['rejected']}, shed "
+          f"{summary['shed_total']}), tokens/s/chip "
+          f"{summary['tokens_per_sec_per_chip']}, itl p50 "
+          f"{summary['itl_p50_s']} s p99 {summary['itl_p99_s']} s, "
+          f"programs {run['programs']}, alert_events "
+          f"{summary['alert_events']}; flash launches "
+          f"{counts['flash_attention_fwd']} (want n_layers x (prefills + "
+          f"warm-up) = {want}); {wall:.3f} s")
+    if counts["flash_attention_fwd"] != want:
+        fail(f"{tag}: flash kernel launched "
+             f"{counts['flash_attention_fwd']} times, want {want}")
+    engine.release()
+    shutil.rmtree(save, ignore_errors=True)
+    del engine, made
+    torch.cuda.empty_cache()
+    return run
+
+
+def _point_argv(t) -> list:
+    """Serve CLI flags for a tuned point (a ``kind=serve_tune`` record)."""
+    argv = ["--decode-steps-per-dispatch", str(t["decode_k"]),
+            "--kv-layout", t["layout"]]
+    if t["kv_page_tokens"]:
+        argv += ["--kv-page-tokens", str(t["kv_page_tokens"]),
+                 "--speculate-k", str(t["speculate_k"])]
+    return argv
+
+
+def _tune_line(t) -> str:
+    return (f"decode_k={t['decode_k']} layout={t['layout']} "
+            f"kv_page_tokens={t['kv_page_tokens']} "
+            f"speculate_k={t['speculate_k']}")
+
+
+def serve_tuner_cli(torch, fa, fx, card: str):
+    """Phase 15a: ``--serve-tune probe`` through the serve CLI at phase
+    4's flags. Hard checks: exit 0, one ``kind=serve_tune`` record from a
+    probe (status success, at most 8 trials, none pruned), the committed
+    tokens/s at least the start's, the pin, the probes' launches kept
+    off the counters, the tokens bitwise those of a ``--serve-tune off``
+    run at the committed point; then ``cache-only`` on the same
+    directory: a hit with 0 trials. Returns each path's launches."""
+    cache = ROOT / "build" / "chip_smoke_serve" / "tune_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    paths = {}
+    tuned = _serve_cli(torch, fa, fx, "serve 15a tuned", SERVE_ARGV + [
+        "--serve-tune", "probe", "--tune-cache-dir", str(cache)])
+    paths["serve_tuned"] = tuned["counts"]
+    rec = [r for r in tuned["recs"] if r["kind"] == "serve_tune"]
+    line = [ln for ln in tuned["out"].splitlines()
+            if ln.startswith("tpudist: serve tune ")]
+    print(f"serve 15a: {line[0] if line else 'no serve tune line'}; "
+          f"flash launches outside the graphs {tuned['outside']} (the "
+          f"warm-up's {tuned['n_layers']}: the probes restored the "
+          f"counters); {card}")
+    t = rec[0] if len(rec) == 1 else None
+    if t is None or t["source"] != "probe" or t["status"] != "success" \
+            or not 0 < t["trials"] <= 8 or t["pruned"] != 0 \
+            or t["tokens_per_sec"] < t["baseline_tokens_per_sec"] \
+            or tuned["outside"] != tuned["n_layers"]:
+        fail(f"serve 15a: serve_tune records {rec}, outside launches "
+             f"{tuned['outside']}")
+    print(f"serve 15a: committed {_tune_line(t)} at "
+          f"{t['tokens_per_sec']:.1f} tokens/s probed, the start "
+          f"{t['baseline_tokens_per_sec']:.1f}, {t['trials']} trials, "
+          f"{t['pruned']} pruned; {card}")
+    plain = _serve_cli(torch, fa, fx, "serve 15a point", SERVE_ARGV
+                       + _point_argv(t))
+    paths["serve_tuned_point"] = plain["counts"]
+    hit = _serve_cli(torch, fa, fx, "serve 15a cache", SERVE_ARGV + [
+        "--serve-tune", "cache-only", "--tune-cache-dir", str(cache)])
+    paths["serve_tuned_cache"] = hit["counts"]
+    h = [r for r in hit["recs"] if r["kind"] == "serve_tune"]
+    same = _tokens_of(tuned["summary"]) == _tokens_of(plain["summary"]) \
+        == _tokens_of(hit["summary"])
+    print(f"serve 15a: tokens tuned vs --serve-tune off at the point vs "
+          f"the cache hit: equal {same}; cache-only {h[0]['source']} "
+          f"{h[0]['trials']} trials at {_tune_line(h[0])}; tokens/s/chip "
+          f"tuned {tuned['summary']['tokens_per_sec_per_chip']}, point "
+          f"{plain['summary']['tokens_per_sec_per_chip']}, cache "
+          f"{hit['summary']['tokens_per_sec_per_chip']}; {card}")
+    if not same or h[0]["source"] != "cache" or h[0]["trials"] != 0 \
+            or _tune_line(h[0]) != _tune_line(t):
+        fail("serve 15a: the tuned run's tokens differ from the point's, "
+             "or the cache rerun was no 0-trial hit at the point")
+    shutil.rmtree(cache, ignore_errors=True)
+    return paths
+
+
+def serve_tuner_space(torch, fa, fx, card: str):
+    """Phase 15b: ``autotune_serve(mode="probe", trials=16)`` in-process
+    at phase 4's shape, on a fresh cache: one line a trial (the
+    candidate, tokens/s, dispatch ms, spread, tokens, feasible or its
+    error, reserved memory after it and the trial's peak). Hard checks:
+    none pruned, the reserved memory after the search within one
+    trial's footprint of before, the launch counters untouched."""
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.config import ModelConfig
+    from tpudist_torch.serve import tune as serve_tune
+    from tpudist_torch.serve.engine import init_params
+
+    cache = ROOT / "build" / "chip_smoke_serve" / "tune_space"
+    shutil.rmtree(cache, ignore_errors=True)
+    cfg = ModelConfig(name="transformer")
+    params = init_params(cfg, seed=0, device="cuda")
+    trials = []
+    real = serve_tune.probe_candidate
+
+    def probe(*args, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        res = real(*args, **kw)
+        trials.append((args[3], res, torch.cuda.memory_reserved(),
+                       torch.cuda.max_memory_reserved() - before))
+        return res
+    counts = engine_lib.kernel_launch_counts()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    serve_tune.probe_candidate = probe
+    t0 = time.perf_counter()
+    try:
+        out = serve_tune.autotune_serve(
+            cfg, "cuda", params, slots=8, max_seq=1024, prompt_pad=512,
+            mode="probe", cache_dir=str(cache), trials=16)
+    finally:
+        serve_tune.probe_candidate = real
+    wall = time.perf_counter() - t0
+    after = torch.cuda.memory_reserved()
+    for cand, res, reserved, peak in trials:
+        print(f"serve 15b: trial decode_k={cand.decode_k} "
+              f"layout={cand.layout} kv_page_tokens={cand.kv_page_tokens} "
+              f"speculate_k={cand.speculate_k}: {res.tokens_per_sec:.1f} "
+              f"tokens/s, dispatch {res.dispatch_ms:.3f} ms, spread "
+              f"{res.spread:.4f}, tokens {res.tokens}, "
+              + ("feasible" if res.feasible else f"PRUNED ({res.error})")
+              + f"; reserved after {reserved / MB:.1f} MB, trial peak "
+              f"{peak / MB:.1f} MB over its start")
+    footprint = max((p for *_, p in trials), default=0)
+    print(f"serve 15b: {out.source} {out.status}: {out.trials} trials, "
+          f"{out.pruned} pruned in {wall:.3f} s, committed "
+          f"decode_k={out.tuned.decode_k} layout={out.tuned.layout} "
+          f"kv_page_tokens={out.tuned.kv_page_tokens} "
+          f"speculate_k={out.tuned.speculate_k} at "
+          f"{out.tokens_per_sec:.1f} tokens/s (start "
+          f"{out.baseline_tokens_per_sec:.1f}); reserved memory "
+          f"{before / MB:.1f} MB before, {after / MB:.1f} after (one "
+          f"trial's footprint up to {footprint / MB:.1f}); {card}")
+    if out.pruned or out.source != "probe" \
+            or after - before > footprint \
+            or engine_lib.kernel_launch_counts() != counts:
+        fail("serve 15b: a pruned trial, memory not back, or the probes "
+             "moved the launch counters")
+    shutil.rmtree(cache, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _superstep_ms(torch, engine, params, requests, runs: int = 7):
+    """Median wall ms of one replayed decode superstep over the full
+    slot batch (each slot prefilled from ``requests``), fenced on the
+    tokens."""
+    state = engine.init_state()
+    for slot, req in enumerate(requests[:engine.slots]):
+        engine.prefill(params, state, req.tokens[None, :], req.prompt_len,
+                       slot, 480)[1].item()
+    engine.decode(params, state)[1].cpu()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode(params, state)[1].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serve_layouts(torch, fa, fx, card: str, profile: bool):
+    """Phase 15c: phase 4's stream on phase 4's engine at ``layout="hs"``
+    and at ``"st"`` in one call: the tokens equal, or the first
+    divergence a near tie (phase 14's rule, printed and counted); each
+    run's tokens/s/chip and replayed decode superstep; ``st``'s run (phase
+    4's) carries no alert at the default gates. ``--profile`` adds each
+    superstep's busy share and largest kernels. Returns the launches."""
+    from tpudist_torch.config import ModelConfig
+    from tpudist_torch.serve import scheduler as sched
+    from tpudist_torch.serve.engine import init_params
+
+    cfg = ModelConfig(name="transformer")
+    params = init_params(cfg, seed=0, device="cuda")
+    requests = sched.make_requests(16, prompt_pad=512,
+                                   vocab_size=cfg.vocab_size, max_new=32,
+                                   rate=0.0, seed=0)
+    paths, runs, step = {}, {}, {}
+    for layout in ("hs", "st"):
+        tag = f"serve_layout_{layout}"
+        engine = _serve_engine(torch, cfg, False, layout=layout)
+        runs[layout], paths[tag] = _paged_run(
+            torch, fa, fx, f"serve 15c {layout}", engine, params, requests)
+        step[layout] = _superstep_ms(torch, engine, params, requests)
+        if profile:
+            state = engine.init_state()
+            for slot, req in enumerate(requests[:engine.slots]):
+                engine.prefill(params, state, req.tokens[None, :],
+                               req.prompt_len, slot, 480)[1].item()
+            wall, rows = _profiled(
+                torch, lambda: engine.decode(params, state)[1].cpu())
+            busy = sum(r[1] for r in rows)
+            print(f"profile: layout {layout}, one replayed decode "
+                  f"superstep: {wall:.3f} ms wall, device kernel time "
+                  f"{busy:.3f} ms ({100 * busy / wall:.1f}% busy)")
+            for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+                print(f"profile:   {ms:9.3f} ms {count:5d}x  {key[:80]}")
+        engine.release()
+        del engine
+        torch.cuda.empty_cache()
+    ties = _near_ties(torch, params, cfg, requests, _tokens_of(runs["st"]),
+                      _tokens_of(runs["hs"]), "serve 15c hs vs st")
+    st = runs["st"]
+    print(f"serve 15c: tokens/s/chip hs {runs['hs']['tokens_per_sec_per_chip']}"
+          f" vs st {st['tokens_per_sec_per_chip']}; replayed decode "
+          f"superstep hs {step['hs']:.3f} ms vs st {step['st']:.3f} ms; "
+          f"{ties} near-tie divergence(s); st's alert_events "
+          f"{st['alert_events']} (status {st['status']}); {card}")
+    if st["alert_events"] != 0 or st["status"] != "success":
+        fail(f"serve 15c: phase 4's run at the default gates has "
+             f"{st['alert_events']} alert events, status {st['status']}")
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _terminal(recs, attempt: int):
+    """(admitted rids, {rid: [terminal events]}) of one attempt."""
+    from tpudist_torch.serve import resilience as res_lib
+
+    admitted, terminal = set(), {}
+    for r in recs:
+        if r["kind"] != "serve_request" or r["requeue_attempt"] != attempt:
+            continue
+        if r["event"] == res_lib.ADMITTED:
+            admitted.add(r["rid"])
+        elif r["event"] in res_lib.TERMINAL_EVENTS:
+            terminal.setdefault(r["rid"], []).append(r["event"])
+    return admitted, terminal
+
+
+def serve_chaos(torch, fa, fx, card: str):
+    """Phase 15d: the serve chaos surface through the CLI at phase 4's
+    flags on virtual time. (i) ``--chaos serve_kill@0:3 --requeue-attempt
+    0`` in a process of its own: exit 137, a flushed ``kind=chaos``
+    record, no ``kind=serve``; (ii) the same flags without ``--chaos`` at
+    ``--requeue-attempt 1``: exit 0, ``kind=serve_resume``, the lost rids
+    exactly those attempt 0 admitted with no terminal event, every rid
+    in exactly one terminal bucket across the attempts, the pin; (iii)
+    ``serve_slow@0:2,s=0.05,steps=3``: completes, its ITL p99 above a
+    clean run's; (iv) ``request_garbage@0:0,n=6``: six rejections with a
+    named reason, the well-formed tokens the clean run's. Returns each
+    path's launches."""
+    argv = SERVE_ARGV + ["--virtual-clock"]
+    paths = {}
+    save = ROOT / "build" / "chip_smoke_serve" / "kill"
+    shutil.rmtree(save, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpudist_torch.serve", *argv, "--chaos",
+         "serve_kill@0:3", "--requeue-attempt", "0", "--save-dir",
+         str(save)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    recs = [json.loads(ln) for ln in
+            (save / "metrics.jsonl").read_text().splitlines()] \
+        if (save / "metrics.jsonl").is_file() else []
+    chaos = [r for r in recs if r["kind"] == "chaos"]
+    print(f"serve 15d kill: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.3f} s; chaos records "
+          f"{[(r['fault'], r['at_dispatch']) for r in chaos]}, "
+          f"kind=serve records "
+          f"{sum(r['kind'] == 'serve' for r in recs)}")
+    if proc.returncode != 137 or len(chaos) != 1 \
+            or any(r["kind"] == "serve" for r in recs):
+        fail(f"serve 15d kill: exit {proc.returncode}, records "
+             f"{sorted({r['kind'] for r in recs})}: "
+             f"{proc.stderr[-2000:]}")
+    # (ii) the requeued attempt, in the dead attempt's directory
+    tag = "serve 15d requeue"
+    os.environ["TPUDIST_VERDICT_PATH"] = str(save / "job_status.txt")
+    tee = _Tee(sys.stdout)
+    try:
+        from tpudist_torch.serve import cli as serve_cli
+        _reset_launches(fa, fx)
+        with _serve_engines() as made, _serve_summaries() as runs, \
+                contextlib.redirect_stdout(tee):
+            rc = serve_cli.main(argv + ["--requeue-attempt", "1",
+                                        "--save-dir", str(save)])
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["TPUDIST_VERDICT_PATH"]
+    engine = made[-1]
+    engine.assert_two_programs()
+    s = runs[-1]["summary"]
+    counts = _serve_counts(engine)
+    want_launch = engine.model_cfg.n_layers * (s["admitted"] + 1)
+    recs = [json.loads(ln) for ln in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    adm0, term0 = _terminal(recs, 0)
+    _, term1 = _terminal(recs, 1)
+    lost = sorted(rid for rid, evs in term1.items() if "lost" in evs)
+    resume = [r for r in recs if r["kind"] == "serve_resume"]
+    buckets = {}
+    for term in (term0, term1):
+        for rid, evs in term.items():
+            buckets.setdefault(rid, []).extend(evs)
+    print(f"{tag}: exit {rc}; attempt 0 admitted {sorted(adm0)}, "
+          f"terminal {sorted(term0)}; attempt 1 lost {lost}, resume "
+          f"{[{k: r[k] for k in ('completed_prior', 'lost', 'replayed')} for r in resume]}, "
+          f"summary lost {s['lost']} completed_prior "
+          f"{s['completed_prior']}, completed {s['completed']}/"
+          f"{s['requests']}; {len(buckets)} rids with "
+          f"{sum(len(v) for v in buckets.values())} terminal events; "
+          f"programs {engine.compile_counts()}; flash launches "
+          f"{counts['flash_attention_fwd']} (want {want_launch}); {card}")
+    if rc != 0 or len(resume) != 1 or not lost \
+            or lost != sorted(adm0 - set(term0)) \
+            or resume[0]["lost"] != len(lost) \
+            or resume[0]["completed_prior"] != len(term0) \
+            or s["lost"] != len(lost) \
+            or sorted(buckets) != list(range(16)) \
+            or any(len(v) != 1 for v in buckets.values()) \
+            or counts["flash_attention_fwd"] != want_launch:
+        fail(f"{tag}: the lost accounting or the buckets are not exact")
+    paths["serve_requeue"] = counts
+    engine.release()
+    shutil.rmtree(save, ignore_errors=True)
+    del engine, made
+    torch.cuda.empty_cache()
+
+    clean = _serve_cli(torch, fa, fx, "serve 15d clean", argv)
+    paths["serve_chaos_clean"] = clean["counts"]
+    slow = _serve_cli(torch, fa, fx, "serve 15d slow", argv + [
+        "--chaos", "serve_slow@0:2,s=0.05,steps=3"])
+    paths["serve_slow"] = slow["counts"]
+    c, sl = clean["summary"], slow["summary"]
+    print(f"serve 15d slow: itl p50 {sl['itl_p50_s']} s p99 "
+          f"{sl['itl_p99_s']} s against the clean run's {c['itl_p50_s']} "
+          f"s / {c['itl_p99_s']} s (virtual); completed {sl['completed']}"
+          f"; {card}")
+    if sl["completed"] != 16 or not sl["itl_p99_s"] > c["itl_p99_s"] \
+            or _tokens_of(sl) != _tokens_of(c):
+        fail("serve 15d slow: the stall does not show in the ITL p99, or "
+             "the run did not complete with the clean tokens")
+    garbage = _serve_cli(torch, fa, fx, "serve 15d garbage", argv + [
+        "--chaos", "request_garbage@0:0,n=6"])
+    paths["serve_garbage"] = garbage["counts"]
+    g = garbage["summary"]
+    reasons = [r["reason"] for r in garbage["recs"]
+               if r["kind"] == "serve_request" and r["event"] == "rejected"]
+    same = _tokens_of(g) == _tokens_of(c)
+    print(f"serve 15d garbage: rejected {g['rejected']} of {g['arrived']} "
+          f"arrivals, reasons {sorted(reasons)}; the well-formed tokens vs "
+          f"the clean run's: equal {same}; {card}")
+    if g["rejected"] != 6 or len(reasons) != 6 or not all(reasons) \
+            or g["completed"] != 16 or not same:
+        fail("serve 15d garbage: not six named rejections, or the "
+             "well-formed requests' tokens changed")
+    return paths
+
+
+def serve_alerts(torch, fa, fx, base, card: str):
+    """Phase 15e: phase 4b's overload (64 Poisson requests at twice phase
+    4's rate, queue cap 8, TTFT deadline 4 x its p50) through the serve
+    CLI with ``TPUDIST_SERVE_SHED_MAX`` tightened to 0.05: exit 1, a fail
+    verdict, and for every failed gate (``rules.SERVE_STATUS_RULES``) an
+    alert of its rule fired by the scheduler's engine mid-run. Returns
+    the launches."""
+    from tpudist_torch import rules
+
+    rate = 2 * base["completed"] / base["wall_s"]
+    deadline_ms = 4e3 * base["ttft_p50_s"]
+    run = _serve_cli(torch, fa, fx, "serve 15e shed breach", SERVE_ARGV + [
+        "--requests", "64", "--request-rate", f"{rate:.6f}",
+        "--queue-cap", "8", "--ttft-deadline-ms", f"{deadline_ms:.6f}",
+        "--seed", "1"], env={"TPUDIST_SERVE_SHED_MAX": "0.05"}, want_rc=1)
+    s, alerts = run["summary"], run["alerts"]
+    failed = [(field, rule) for field, rule in rules.SERVE_STATUS_RULES
+              if s[field] == "fail"]
+    fired = {a["alert"] for a in alerts.history}
+    print(f"serve 15e: shed fraction {s['shed_fraction']} (max 0.05), "
+          f"status {s['status']}; failed gates {failed}; alert_events "
+          f"{s['alert_events']}, alerts "
+          f"{[(a['alert'], a['state'], a['value']) for a in alerts.history]}"
+          f"; {card}")
+    if s["status"] != "fail" or ("serve_shed_status", "serve_shed") \
+            not in failed or any(rule not in fired for _, rule in failed) \
+            or s["alert_events"] < len(failed):
+        fail("serve 15e: a failed gate without its mid-run alert")
+    return {"serve_shed_breach": run["counts"]}
+
+
+def serve_tune_chaos(torch, fa, fx, base, card: str, profile: bool):
+    """Phase 15: the serve tuner (15a through the CLI, 15b the whole knob
+    space), the two KV layouts (15c), the chaos surface with requeue
+    replay (15d) and ``alert_events`` (15e), at phase 4's
+    configuration. Returns each path's launches."""
+    t0 = time.perf_counter()
+    paths = serve_tuner_cli(torch, fa, fx, card)
+    serve_tuner_space(torch, fa, fx, card)
+    paths.update(serve_layouts(torch, fa, fx, card, profile))
+    paths.update(serve_chaos(torch, fa, fx, card))
+    paths.update(serve_alerts(torch, fa, fx, base, card))
+    print(f"serve 15: phase wall {time.perf_counter() - t0:.3f} s; {card}")
+    return paths
+
+
 def remat_check(torch, card: str):
     """Phase 12b: one full-width training step (BASELINE config #5, seq
     512, f32, the fused head) with ``--remat`` (each layer checkpointed,
@@ -3293,6 +3811,12 @@ def main() -> int:
     # serve CLI with the paged flags
     torch.cuda.empty_cache()
     paths.update(paged_serve(torch, fa, fx, base, card, args.profile))
+
+    # phase 15: the serve tuner through the CLI and over the whole knob
+    # space, the two KV layouts, the chaos surface with requeue replay,
+    # and alert_events
+    torch.cuda.empty_cache()
+    paths.update(serve_tune_chaos(torch, fa, fx, base, card, args.profile))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),

@@ -9,8 +9,10 @@ inputs.
   over-committed, incomplete, inexact), ``build_extra_events`` on scripted
   serve events, the ``HbmSampler.split`` and ``PodObserver.hbm_fields``
   key sets, the per-host ``kind=hosts`` record, the flight record's
-  keys, ``resolve_run_id``, and ``resolve_trace`` / ``resolve_obs``
-  (flag > env > default, the falsy spellings of ``TPUDIST_TRACE``).
+  keys, ``resolve_run_id``, ``resolve_trace`` / ``resolve_obs``
+  (flag > env > default, the falsy spellings of ``TPUDIST_TRACE``), and
+  the ``AlertEngine`` (fire, update, resolve, per-host keys, threshold
+  override, a crashing observer) on scripted observation streams.
 * The watchdog dumps a flight record after a short stall window.
 * The step's flop count on a tiny transformer equals a closed form,
   per-step and superstep, whichever LM head the step takes: the kernel
@@ -30,6 +32,7 @@ import torch
 from tpudist import config as jconfig
 from tpudist import verdict as jverdict
 from tpudist.obs import PodObserver as JPodObserver
+from tpudist.obs import alerts as jalerts
 from tpudist.obs import flightrec as jflightrec
 from tpudist.obs import hbm as jhbm
 from tpudist.obs import heartbeat as jheartbeat
@@ -45,6 +48,7 @@ from tpudist_torch import engine as tengine
 from tpudist_torch import verdict as tverdict
 from tpudist_torch.metrics import MetricsLogger
 from tpudist_torch.obs import PodObserver as TPodObserver
+from tpudist_torch.obs import alerts as talerts
 from tpudist_torch.obs import flightrec as tflightrec
 from tpudist_torch.obs import hbm as thbm
 from tpudist_torch.obs import heartbeat as theartbeat
@@ -561,3 +565,71 @@ def test_hbm_sampler_reads_no_card_here():
         s.close()
     assert s.split()["hbm_source"] == "rss" and s.limit_bytes is None
     assert np.isfinite(s.peak_in_use)
+
+
+# ------------------------------------------------------ the alert engine
+
+
+class _Clock:
+    def __init__(self, t=100.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+
+# (rule, value, kwargs, clock time) streams over rules both tables hold
+ALERT_STREAMS = {
+    "fire_update_resolve": [("ttft", 3.0, dict(step=3), 100.0),
+                            ("ttft", 4.0, dict(step=5), 110.0),
+                            ("ttft", 0.5, dict(step=7), 120.0)],
+    "none_never_fires_or_resolves": [("itl", None, {}, 1.0),
+                                     ("itl", 2.0, {}, 2.0),
+                                     ("itl", None, {}, 3.0)],
+    "per_host_keys": [("stall", 400.0, dict(host=0), 1.0),
+                      ("stall", 400.0, dict(host=1), 2.0),
+                      ("stall", 0.0, dict(host=0), 3.0)],
+    "threshold_override": [("stall", 10.0, dict(threshold=5.0), 1.0),
+                           ("stall", 10.0, {}, 2.0)],
+    "min_rules_and_ts": [("tokens_per_chip", 0.5, {}, 1.0),
+                         ("serve_shed", 0.9, dict(ts=7.5), 2.0),
+                         ("tokens_per_chip", 5.0, {}, 4.0),
+                         ("serve_shed", 0.1, dict(detail="ok"), 5.0),
+                         ("straggler", 9.0, {}, 6.0)],
+}
+
+
+def _alert_run(lib, stream):
+    clk = _Clock()
+    seen = []
+    eng = lib.AlertEngine(clock=clk, on_event=seen.append)
+    out = []
+    for rule, value, kw, t in stream:
+        clk.t = t
+        out.append(eng.observe(rule, value, **kw))
+    return out, seen, eng.snapshot(), eng.firing(), eng.events
+
+
+@pytest.mark.parametrize("stream", sorted(ALERT_STREAMS))
+def test_alert_engine_copy_equals_jax(stream):
+    """Every transition record, the observer's feed, the snapshot and
+    the firing set equal the JAX engine's on the same stream."""
+    got = _alert_run(talerts, ALERT_STREAMS[stream])
+    assert got == _alert_run(jalerts, ALERT_STREAMS[stream])
+    if stream == "fire_update_resolve":
+        (fired, none, resolved), _, snap, firing, events = got
+        assert fired["state"] == talerts.FIRING and none is None
+        assert resolved["state"] == talerts.RESOLVED
+        assert resolved["duration_s"] == 20.0 and events == 2
+        assert firing == [] and snap["history"][0]["state"] == "resolved"
+
+
+def test_alert_engine_swallows_a_crashing_observer():
+    def boom(rec):
+        raise RuntimeError("observer crashed")
+    for lib in (talerts, jalerts):
+        eng = lib.AlertEngine(on_event=boom, clock=_Clock())
+        assert eng.observe("ttft", 9.0)["state"] == lib.FIRING
+    assert (talerts.SUCCESS, talerts.FAIL, talerts.FIRING,
+            talerts.RESOLVED) == (jalerts.SUCCESS, jalerts.FAIL,
+                                  jalerts.FIRING, jalerts.RESOLVED)

@@ -9,8 +9,9 @@ package's.
 * the CLI runs end to end on the CPU when asked, and refuses to run
   without a card otherwise;
 * the copies the port keeps of the JAX package's standard-library
-  modules (serve thresholds with the shed gate, SLO grading and
-  histograms, verdict file) equal their sources.
+  modules (serve thresholds with the shed gate and the status-to-alert
+  table, SLO grading and histograms, verdict file, the chaos plan)
+  equal their sources.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from tpudist import rules as jrules
+from tpudist.chaos import plan as jplan
 from tpudist import verdict as jverdict
 from tpudist.config import ModelConfig, ParallelConfig
 from tpudist.parallel import build_mesh
@@ -35,6 +37,7 @@ from tpudist.serve.engine import init_params
 from tpudist_torch import convert
 from tpudist_torch import rules as trules
 from tpudist_torch import verdict as tverdict
+from tpudist_torch.chaos import plan as tplan
 from tpudist_torch.config import ModelConfig as TModelConfig
 from tpudist_torch.models import transformer as ttf
 from tpudist_torch.ops.cuda import flash_attention as tfa
@@ -225,6 +228,32 @@ def test_serve_thresholds_equal_jax(monkeypatch):
         monkeypatch.delenv(env)
         for v in (None, 0.0, 0.5, 1.0, 2.0, 3.0):
             assert trules.breached(name, v) == jrules.breached(name, v)
+
+
+def test_serve_status_rules_equal_jax():
+    """The summary's gate fields and the alert rule grading each: the
+    table an SLO fail's matching mid-run alert is checked against."""
+    assert trules.SERVE_STATUS_RULES == jrules.SERVE_STATUS_RULES
+    assert {rule for _, rule in trules.SERVE_STATUS_RULES} == \
+        set(SERVE_RULES)
+
+
+@pytest.mark.parametrize("spec", [
+    "serve_kill@0:3; serve_slow@0:2,s=0.05,steps=3; "
+    "request_garbage@0:0,n=6",
+    "kill@0:5; corrupt_shard@0:6,mode=flip; fs_error@0:3,n=2"])
+def test_chaos_plan_copy_equals_jax(spec):
+    """The port's copy of ``tpudist/chaos/plan.py``: the same events,
+    surfaces and seeded byte stream (``tests/test_torch_serve_chaos.py``
+    holds the whole grammar and its errors)."""
+    for seed in (0, 3):
+        t = tplan.ChaosPlan.parse(spec, seed=seed)
+        j = jplan.ChaosPlan.parse(spec, seed=seed)
+        assert [dataclasses.asdict(e) for e in t.events] == \
+            [dataclasses.asdict(e) for e in j.events]
+        assert t.describe() == j.describe()
+        assert [tplan.garbage_bytes(t, e, 40) for e in t.events] == \
+            [jplan.garbage_bytes(j, e, 40) for e in j.events]
 
 
 def test_slo_grading_equals_jax(monkeypatch):

@@ -19,7 +19,8 @@ JAX package's.
 * The serve CLI declares every JAX serve flag, refuses those it does
   not carry and their environment twins set on (naming the Queue A
   item), reads the twins of those it carries as the JAX parser does, and
-  runs the resilience plane and the paged plane end to end on the CPU.
+  runs the resilience plane, the paged plane, the serve tuner and the
+  chaos surface end to end on the CPU.
 """
 
 import argparse
@@ -481,17 +482,20 @@ def _turn_on(kw, off):
     return [str((default or 0) + step)] if step else ["x"]
 
 
-# variables a JAX serve help string names that no port table lists: read
-# by the JAX package only under --serve-tune, which the port refuses
-ENV_ONLY_UNDER_REFUSED = {"TPUDIST_AUTOTUNE_CACHE_DIR"}
 # the paged plane's twins, refused until the port carried them
 PAGED_ENV = {"TPUDIST_SERVE_KV_PAGE_TOKENS": "4",
              "TPUDIST_SERVE_KV_PAGES": "24",
              "TPUDIST_SERVE_SHARED_PREFIX": "4",
              "TPUDIST_SERVE_SPECULATE_K": "3"}
+# the chaos plane's and the serve tuner's, refused until the port
+# carried them (the cache directory's is read under --serve-tune only)
+TUNE_CHAOS_ENV = {"TPUDIST_CHAOS": "request_garbage@0:0,n=2",
+                  "TPUDIST_SERVE_TUNE": "probe",
+                  "TPUDIST_AUTOTUNE_CACHE_DIR": "cache"}
 CARRIED_ENV = ("TPUDIST_SERVE_QUEUE_CAP", "TPUDIST_SERVE_TTFT_DEADLINE_MS",
                "TPUDIST_SERVE_ADAPT", "TPUDIST_SERVE_VIRTUAL_CLOCK",
-               "TPUDIST_TRACE", "TPUDIST_TRACE_DIR", *PAGED_ENV)
+               "TPUDIST_TRACE", "TPUDIST_TRACE_DIR", *PAGED_ENV,
+               *TUNE_CHAOS_ENV)
 
 
 def test_every_jax_serve_flag_is_carried_or_refused():
@@ -508,8 +512,8 @@ def test_every_jax_serve_flag_is_carried_or_refused():
         assert opt in port_opts, opt
         assert port_opts[opt].get("default") == kw.get("default"), opt
         named = re.findall(r"\$(TPUDIST_\w+)", kw.get("help", ""))
-        assert set(named) <= set(tcli.ENV_NOT_CARRIED) | set(CARRIED_ENV) \
-            | ENV_ONLY_UNDER_REFUSED, (opt, named)
+        assert set(named) <= set(tcli.ENV_NOT_CARRIED) | set(CARRIED_ENV), \
+            (opt, named)
         if opt not in rows:
             continue
         _, off, env, item = rows[opt]
@@ -528,7 +532,7 @@ def test_every_jax_serve_flag_is_carried_or_refused():
 @pytest.mark.parametrize("flag,words", [
     ("--kv-page-tokens", ["8"]), ("--kv-pages", ["40"]),
     ("--shared-prefix", ["4"]), ("--speculate-k", ["2"]),
-    ("--requeue-attempt", ["0"]), ("--chaos", ["serve_kill@0:6"]),
+    ("--requeue-attempt", ["0"]), ("--chaos", ["request_garbage@0:0,n=2"]),
     ("--serve-tune", ["probe"]), ("--tune-cache-dir", ["tune"]),
     ("--model", ["moe"]), ("--trace", ["on"]), ("--trace-dir", ["traces"]),
     ("--live-port", ["9100"]),
@@ -536,9 +540,15 @@ def test_every_jax_serve_flag_is_carried_or_refused():
 def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
                                                     capsys, monkeypatch):
     """Refused flags exit 1 naming their Queue A item and write nothing;
-    ``--trace`` and ``--trace-dir``, and the paged plane's four flags,
-    refused until the port carried them, now serve: the trace where they
-    say, and a paged run with its summary fields set."""
+    ``--trace`` and ``--trace-dir``, the paged plane's four flags, and
+    ``--requeue-attempt``, ``--chaos``, ``--serve-tune`` and
+    ``--tune-cache-dir``, refused until the port carried them, now
+    serve: the trace where they say, a paged run with its summary fields
+    set, and a run with the JAX meaning of each (:func:`_assert_carried_run`)."""
+    if flag in TUNE_CHAOS_FLAGS:
+        monkeypatch.chdir(tmp_path)
+        _assert_carried_run(tmp_path, [flag, *words], flag)
+        return
     if flag in PAGED_FLAGS:
         argv = [flag, *words]
         if flag != "--kv-page-tokens":
@@ -564,6 +574,51 @@ def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
 
 PAGED_FLAGS = ("--kv-page-tokens", "--kv-pages", "--shared-prefix",
                "--speculate-k")
+TUNE_CHAOS_FLAGS = ("--requeue-attempt", "--chaos", "--serve-tune",
+                    "--tune-cache-dir")
+
+
+def _assert_carried_run(tmp_path, argv, what):
+    """The CLI serves on the CPU with ``argv`` (exit 0, a success
+    verdict) with the JAX meaning of ``what``: ``--requeue-attempt``
+    stamps its attempt on every record; ``--chaos`` request_garbage
+    rejects its requests with named reasons, after a flushed kind=chaos
+    record; ``--serve-tune`` (or its twin) tunes by probe into
+    ``<save-dir>/tune`` (or ``$TPUDIST_AUTOTUNE_CACHE_DIR``) and serves
+    at the committed point; ``--tune-cache-dir`` alone tunes nothing."""
+    save = tmp_path / "run"
+    verdict = tmp_path / "v.txt"
+    with mock.patch.dict("os.environ",
+                         {"TPUDIST_VERDICT_PATH": str(verdict)}):
+        assert tcli.main(argv + ["--device", "cpu", "--requests", "4",
+                                 "--max-new-tokens", "4", "--save-dir",
+                                 str(save)]) == 0
+    assert verdict.read_text() == "success"
+    recs = [json.loads(line) for line in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    rec = [r for r in recs if r["kind"] == "serve"][0]
+    tune = [r for r in recs if r["kind"] == "serve_tune"]
+    chaos = [r for r in recs if r["kind"] == "chaos"]
+    assert rec["completed"] == 4 and rec["requeue_attempt"] == 0
+    assert all(r["requeue_attempt"] == 0 for r in recs)
+    if what in ("--chaos", "TPUDIST_CHAOS"):
+        assert [c["fault"] for c in chaos] == ["request_garbage"]
+        assert rec["rejected"] == 2 and rec["arrived"] == 6
+        assert all(r["reason"] for r in recs if r["kind"] ==
+                   "serve_request" and r["event"] == "rejected")
+    else:
+        assert not chaos and rec["rejected"] == 0
+    if what in ("--serve-tune", "TPUDIST_SERVE_TUNE",
+                "TPUDIST_AUTOTUNE_CACHE_DIR"):
+        cache = tmp_path / "cache" if what == "TPUDIST_AUTOTUNE_CACHE_DIR" \
+            else save / "tune"
+        assert len(tune) == 1 and tune[0]["source"] == "probe"
+        assert tune[0]["status"] == "success" and tune[0]["pruned"] == 0
+        assert rec["decode_k"] == tune[0]["decode_k"]
+        assert len(list(cache.glob("serve-*.json"))) == 1
+    else:
+        assert not tune and not (save / "tune").exists()
+        assert not (tmp_path / "tune").exists()
 # the summary key each paged flag and twin sets
 PAGED_KEY = {"kv_page_tokens": "kv_page_tokens",
              "kv_pages": "kv_pages_total",
@@ -589,23 +644,32 @@ def _assert_paged_run(tmp_path, argv, want):
         assert rec[PAGED_KEY[dest]] == value, dest
 
 
-ENV_ON = {"TPUDIST_CHAOS": "serve_kill@0:6", "TPUDIST_SERVE_TUNE": "probe",
-          "TPUDIST_LIVE": "on"}
+ENV_ON = {"TPUDIST_LIVE": "on"}
 
 
 @pytest.mark.parametrize("name", sorted(set(tcli.ENV_NOT_CARRIED)
                                         | {"TPUDIST_TRACE",
                                            "TPUDIST_TRACE_DIR"}
-                                        | set(PAGED_ENV)))
+                                        | set(PAGED_ENV)
+                                        | set(TUNE_CHAOS_ENV)))
 def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch,
                                                        tmp_path, capsys):
     """Each variable is tolerated unset and at the values that leave its
     feature off in the JAX package; set on, the CLI exits 1 naming its
     Queue A item and writes a fail verdict. ``TPUDIST_TRACE`` and
-    ``TPUDIST_TRACE_DIR``, and the paged plane's four twins, refused
-    until the port carried them, now serve as the JAX CLI reads them:
-    tracing off, the trace in that directory, or a paged run with the
-    twin's value in its summary."""
+    ``TPUDIST_TRACE_DIR``, the paged plane's four twins, and
+    ``TPUDIST_CHAOS`` and ``TPUDIST_SERVE_TUNE`` (with
+    ``TPUDIST_AUTOTUNE_CACHE_DIR``), refused until the port carried them,
+    now serve as the JAX CLI reads them: tracing off, the trace in that
+    directory, a paged run with the twin's value in its summary, a
+    chaos run or a tuned run."""
+    if name in TUNE_CHAOS_ENV:
+        monkeypatch.chdir(tmp_path)
+        monkeypatch.setenv(name, TUNE_CHAOS_ENV[name])
+        if name == "TPUDIST_AUTOTUNE_CACHE_DIR":
+            monkeypatch.setenv("TPUDIST_SERVE_TUNE", "probe")
+        _assert_carried_run(tmp_path, [], name)
+        return
     if name in PAGED_ENV:
         monkeypatch.setenv(name, PAGED_ENV[name])
         if name != "TPUDIST_SERVE_KV_PAGE_TOKENS":
@@ -651,11 +715,15 @@ def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch,
     {"TPUDIST_SERVE_KV_PAGE_TOKENS": "8", "TPUDIST_SERVE_KV_PAGES": "12"},
     {"TPUDIST_SERVE_SHARED_PREFIX": "6", "TPUDIST_SERVE_SPECULATE_K": "x"},
     {"TPUDIST_SERVE_SPECULATE_K": "4", "TPUDIST_SERVE_KV_PAGES": "0"},
+    {"TPUDIST_CHAOS": "serve_kill@0:6", "TPUDIST_SERVE_TUNE": "probe"},
+    {"TPUDIST_SERVE_TUNE": "cache-only",
+     "TPUDIST_AUTOTUNE_CACHE_DIR": "d"},
 ])
 def test_carried_twins_are_read_as_jax_reads_them(env, monkeypatch):
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    for argv in ([], ["--queue-cap", "2", "--adapt", "off"]):
+    for argv in ([], ["--queue-cap", "2", "--adapt", "off"],
+                 ["--requeue-attempt", "1", "--tune-cache-dir", "c"]):
         t, j = tcli.parse_args(argv), jcli.parse_args(argv)
         for dest in ("queue_cap", "ttft_deadline_ms", "adapt",
                      "adapt_max_new_cap", "virtual_clock",
@@ -663,7 +731,8 @@ def test_carried_twins_are_read_as_jax_reads_them(env, monkeypatch):
                      "slots", "max_seq", "prompt_pad", "requests",
                      "request_rate", "max_new_tokens", "seed",
                      "kv_page_tokens", "kv_pages", "shared_prefix",
-                     "speculate_k"):
+                     "speculate_k", "chaos", "serve_tune",
+                     "tune_cache_dir", "requeue_attempt"):
             assert getattr(t, dest) == getattr(j, dest), (env, argv, dest)
 
 

@@ -131,6 +131,17 @@ THRESHOLDS: Tuple[Threshold, ...] = (
                     "capacity-planning choice"),
 )
 
+# The ``kind=serve`` summary's per-gate status fields and the alert rule
+# that grades the same observable mid-run (the scheduler's
+# obs.alerts.AlertEngine): an SLO fail verdict must have its mid-run
+# alert.
+SERVE_STATUS_RULES: Tuple[Tuple[str, str], ...] = (
+    ("ttft_status", "ttft"),
+    ("itl_status", "itl"),
+    ("tokens_per_chip_status", "tokens_per_chip"),
+    ("serve_shed_status", "serve_shed"),
+)
+
 _BY_NAME = {t.name: t for t in THRESHOLDS}
 
 

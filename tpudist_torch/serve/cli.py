@@ -1,8 +1,11 @@
 """``python -m tpudist_torch.serve`` — the serving acceptance lane.
 
-Counterpart of ``tpudist/serve/cli.py``: build the transformer and its
-KV cache on the card (``--device cuda``, the default) or, when asked, on
-the CPU, dense or paged (``--kv-page-tokens``, with ``--kv-pages``,
+Counterpart of ``tpudist/serve/cli.py``: build the transformer's params
+on the card (``--device cuda``, the default) or, when asked, on the CPU;
+optionally let the serve tuner pick ``decode_k``, the KV layout and the
+paged knobs by measured probe (``--serve-tune``,
+:mod:`tpudist_torch.serve.tune`); build the KV cache and engine at that
+point, dense or paged (``--kv-page-tokens``, with ``--kv-pages``,
 ``--shared-prefix`` and ``--speculate-k``); warm the engine (the first
 call builds the CUDA kernel, then the prefill, each decode rung and the
 speculative verify are captured as CUDA graphs); bound the paged pool's
@@ -10,17 +13,23 @@ mappable pages by the device's memory; run the continuous-batching loop
 over a seeded request stream, with admission control, deadline shedding
 and graceful degradation when the resilience knobs are on
 (``--queue-cap``, ``--ttft-deadline-ms``, ``--adapt``;
-:mod:`tpudist_torch.serve.resilience`) and on a virtual clock under
-``--virtual-clock``; pin the program count;
-grade the latency SLOs and the shed gate. Artifacts: ``metrics.jsonl``
-(``kind=serve`` / ``serve_tick`` / ``serve_request`` / ``serve_adapt`` /
-``memledger`` records, each stamped with the run's ``run_id``), the
-memory ledger ``memledger.json`` and, with the span tracer on (the
-default; ``--trace off``), ``trace.worker0.json`` and ``pod_trace.json``
-with one track per serving slot, under ``--save-dir`` (the traces under
-``--trace-dir``), an optional ``BENCH_SERVE.json`` (``--bench-out``) and
-the verdict file (``TPUDIST_VERDICT_PATH``). Exit code: 0 unless an SLO
-gate FAILED or the run failed.
+:mod:`tpudist_torch.serve.resilience`), on a virtual clock under
+``--virtual-clock``, and under a scripted serve fault plan under
+``--chaos`` (:mod:`tpudist_torch.chaos`); pin the program count; grade
+the latency SLOs and the shed gate. Under a launcher's requeue loop
+(``--requeue-attempt``), a restarted attempt replays the still-live
+requests of the seeded schedule and classifies the dead attempt's
+in-flight slots as lost. Artifacts: ``metrics.jsonl`` (``kind=serve`` /
+``serve_tick`` / ``serve_request`` / ``serve_adapt`` / ``serve_tune`` /
+``serve_resume`` / ``chaos`` / ``memledger`` records, each stamped with
+the run's ``run_id`` and ``requeue_attempt``), the memory ledger
+``memledger.json`` and, with the span tracer on (the default; ``--trace
+off``), ``trace.worker0.json`` and ``pod_trace.json`` with one track per
+serving slot, under ``--save-dir`` (the traces under ``--trace-dir``),
+the serve tuner's cache (``--tune-cache-dir``), an optional
+``BENCH_SERVE.json`` (``--bench-out``) and the verdict file
+(``TPUDIST_VERDICT_PATH``). Exit code: 0 unless an SLO gate FAILED or
+the run failed.
 
 ``parse_args`` declares every option of the JAX serve CLI. Those this
 slice does not carry (``NOT_CARRIED``) are refused unless left off, and
@@ -32,6 +41,7 @@ the ROADMAP Queue A item that brings it, as the train CLI does
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -52,11 +62,6 @@ DEFAULT_DECODE_K = 8
 # Queue A item that brings it. parse_args refuses any other value,
 # check_supported any other setting of the variable.
 NOT_CARRIED = (
-    ("--requeue-attempt", dict(type=int), (), None, 6),
-    ("--chaos", dict(type=str), (), "TPUDIST_CHAOS", 6),
-    ("--serve-tune", dict(choices=("off", "probe", "cache-only"),
-                          default="off"), (), "TPUDIST_SERVE_TUNE", 6),
-    ("--tune-cache-dir", dict(type=str), (), None, 6),
     ("--live-port", dict(type=int), (0,), "TPUDIST_LIVE_PORT", "11b"),
 )
 
@@ -188,6 +193,30 @@ def parse_args(argv: Optional[Sequence[str]] = None
                         "($TPUDIST_SERVE_VIRTUAL_CLOCK)")
     p.add_argument("--virtual-prefill-ms", type=float, default=2.0)
     p.add_argument("--virtual-decode-ms", type=float, default=4.0)
+    # ---- supervision, chaos and the serve tuner ----
+    p.add_argument("--requeue-attempt", type=int, default=None,
+                   help="requeue loop attempt index: its PRESENCE arms "
+                        "supervision (per-request outcome events get "
+                        "boundary flushes so a preemption cannot eat "
+                        "them), and attempt > 0 replays the seeded "
+                        "stream MINUS the requests a prior attempt "
+                        "finished, classifying its in-flight slots as "
+                        "lost")
+    p.add_argument("--chaos", type=str,
+                   default=os.environ.get("TPUDIST_CHAOS"),
+                   help="scripted serve-surface fault plan "
+                        "(tpudist_torch.chaos: serve_kill@0:<dispatch>, "
+                        "serve_slow, request_garbage; $TPUDIST_CHAOS)")
+    p.add_argument("--serve-tune", choices=("off", "probe", "cache-only"),
+                   default=os.environ.get("TPUDIST_SERVE_TUNE", "off"),
+                   help="autotune decode_k, the KV layout and the paged "
+                        "knobs by measured probe "
+                        "(tpudist_torch.serve.tune; $TPUDIST_SERVE_TUNE)")
+    p.add_argument("--tune-cache-dir", type=str, default=None,
+                   help="serve tuner cache dir (default "
+                        "$TPUDIST_AUTOTUNE_CACHE_DIR, else "
+                        "<save-dir>/tune; shared with the train tuner, "
+                        "a distinct file prefix)")
     p.add_argument("--save-dir", type=str, default="ckpt",
                    help="metrics.jsonl destination")
     p.add_argument("--bench-out", type=str, default=None,
@@ -231,6 +260,35 @@ def check_supported(args: argparse.Namespace) -> None:
             raise _refusal(f"{name}={value}", item)
 
 
+def _prior_outcomes(path: str):
+    """Replay a dead attempt's flushed ``kind=serve_request`` events:
+    returns ``(accounted_rids, lost_rids)`` — rids with a terminal
+    outcome in ANY prior attempt, and rids admitted to a slot with none
+    (the in-flight slots the kill took, which THIS attempt classifies
+    as lost rather than re-serving half-generated work)."""
+    from tpudist_torch.serve import resilience as res_lib
+    admitted, terminal = set(), set()
+    try:
+        with open(path) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue          # a torn tail line is not evidence
+                if rec.get("kind") != "serve_request":
+                    continue
+                rid, ev = rec.get("rid"), rec.get("event")
+                if rid is None:
+                    continue
+                if ev == res_lib.ADMITTED:
+                    admitted.add(int(rid))
+                elif ev in res_lib.TERMINAL_EVENTS:
+                    terminal.add(int(rid))
+    except OSError:
+        return set(), set()
+    return terminal, admitted - terminal
+
+
 def device_name(device) -> str:
     import torch
     if device.type == "cuda":
@@ -250,8 +308,10 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     from tpudist_torch.serve import flight as flight_lib
     from tpudist_torch.serve import resilience as res_lib
     from tpudist_torch.serve import scheduler as sched
+    from tpudist_torch.serve import tune as serve_tune
     from tpudist_torch.serve.engine import (PagedServeEngine, ServeEngine,
                                             init_params)
+    from tpudist_torch.utils.platform import resolve_device
 
     check_supported(args)
     if args.speculate_k and not args.kv_page_tokens:
@@ -266,39 +326,88 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
         d_ff=args.d_ff, max_seq_len=args.max_seq)
     dtype = getattr(torch, args.dtype)
+    device = resolve_device(args.device)
+
+    # --requeue-attempt's PRESENCE (any value, 0 included) means a
+    # launcher's supervision loop owns this run: outcome events must
+    # reach disk at boundaries, because a preemption may kill it and the
+    # NEXT attempt classifies from what survived
+    supervised = args.requeue_attempt is not None
+    attempt = args.requeue_attempt or 0
+    os.makedirs(args.save_dir, exist_ok=True)
+    metrics_path = os.path.join(args.save_dir, "metrics.jsonl")
+    # a resumed attempt reads the DEAD attempt's flushed outcome events
+    # before this attempt appends its own
+    prior_done, prior_lost = (set(), set())
+    if attempt > 0:
+        prior_done, prior_lost = _prior_outcomes(metrics_path)
+    metrics = MetricsLogger(path=metrics_path)
+    # the run's identity on every record and trace document
+    run_id = live_lib.resolve_run_id()
+    metrics.extra.update(run_id=run_id, requeue_attempt=attempt)
+    tracer.run_info.update(run_id=run_id, requeue_attempt=attempt)
+
+    # the chaos plane's serve surface (--chaos / $TPUDIST_CHAOS):
+    # serve_kill / serve_slow fire at decode-dispatch boundaries through
+    # the scheduler's hook; request_garbage folds seeded malformed
+    # requests into the arrival stream below. Off constructs nothing
+    chaos_rt = None
+    if args.chaos:
+        from tpudist_torch import chaos as chaos_lib
+        chaos_rt = chaos_lib.ChaosRuntime(
+            chaos_lib.ChaosPlan.parse(args.chaos), metrics=metrics)
+        log0(f"tpudist: chaos on: {chaos_rt.plan.describe()}")
+
     resilience = res_lib.ResilienceConfig(
         queue_cap=max(args.queue_cap, 0),
         ttft_deadline_s=max(args.ttft_deadline_ms, 0.0) / 1e3,
         adapt=args.adapt == "on",
         max_new_cap=max(args.adapt_max_new_cap, 0),
-        # malformed-request rejection is on whenever a resilience knob is
-        validate=bool(args.queue_cap or args.ttft_deadline_ms
+        # malformed-request rejection is on whenever a resilience or
+        # chaos knob is: the garbage family's contract is an admission
+        # rejection, never an engine crash
+        validate=bool(args.chaos or args.queue_cap or args.ttft_deadline_ms
                       or args.adapt == "on"))
-    ladder = (res_lib.default_ladder(args.decode_k)
+    params = init_params(model_cfg, seed=args.seed, device=device)
+
+    cand = serve_tune.ServeCandidate(
+        decode_k=args.decode_k, layout=args.kv_layout,
+        kv_page_tokens=max(args.kv_page_tokens, 0),
+        speculate_k=max(args.speculate_k, 0))
+    if args.serve_tune != "off":
+        cache_dir = (args.tune_cache_dir
+                     or os.environ.get("TPUDIST_AUTOTUNE_CACHE_DIR")
+                     or os.path.join(args.save_dir, "tune"))
+        with trace_lib.span("serve_tune", cat="tune",
+                            mode=args.serve_tune):
+            out = serve_tune.autotune_serve(
+                model_cfg, device, params, slots=args.slots,
+                max_seq=args.max_seq, prompt_pad=args.prompt_pad,
+                mode=args.serve_tune, cache_dir=cache_dir, start=cand,
+                dtype=dtype, metrics=metrics)
+        cand = out.tuned
+        log0(f"tpudist: serve tune {out.status} ({out.source}): "
+             f"decode_k={cand.decode_k} layout={cand.layout} "
+             f"kv_page_tokens={cand.kv_page_tokens} "
+             f"speculate_k={cand.speculate_k} "
+             f"[{out.trials} trial(s)]")
+
+    ladder = (res_lib.default_ladder(cand.decode_k)
               if resilience.adapt else None)
-    if args.kv_page_tokens > 0:
+    if cand.kv_page_tokens > 0:
         engine = PagedServeEngine(
             model_cfg, slots=args.slots, max_seq=args.max_seq,
-            prompt_pad=args.prompt_pad, decode_k=args.decode_k,
-            page_tokens=args.kv_page_tokens, pages=max(args.kv_pages, 0),
-            speculate_k=max(args.speculate_k, 0), dtype=dtype,
-            device=args.device, adapt_ladder=ladder)
+            prompt_pad=args.prompt_pad, decode_k=cand.decode_k,
+            page_tokens=cand.kv_page_tokens, pages=max(args.kv_pages, 0),
+            speculate_k=max(cand.speculate_k, 0), dtype=dtype,
+            device=device, adapt_ladder=ladder)
     else:
         engine = ServeEngine(model_cfg, slots=args.slots,
                              max_seq=args.max_seq,
                              prompt_pad=args.prompt_pad,
-                             decode_k=args.decode_k, layout=args.kv_layout,
-                             dtype=dtype, device=args.device,
+                             decode_k=cand.decode_k, layout=cand.layout,
+                             dtype=dtype, device=device,
                              adapt_ladder=ladder)
-    os.makedirs(args.save_dir, exist_ok=True)
-    metrics = MetricsLogger(path=os.path.join(args.save_dir,
-                                              "metrics.jsonl"))
-    # the run's identity on every record and trace document; the serve
-    # lane has no requeue loop yet (ROADMAP Queue A item 6)
-    run_id = live_lib.resolve_run_id()
-    metrics.extra.update(run_id=run_id, requeue_attempt=0)
-    tracer.run_info.update(run_id=run_id, requeue_attempt=0)
-    params = init_params(model_cfg, seed=args.seed, device=engine.device)
     with trace_lib.span("serve_warmup", cat="serve"):
         engine.warmup(params)
 
@@ -326,16 +435,66 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         args.requests, prompt_pad=args.prompt_pad,
         vocab_size=args.vocab_size, max_new=args.max_new_tokens,
         rate=args.request_rate, seed=args.seed, prefix_len=prefix_len)
+    if chaos_rt is not None:
+        # request_garbage: the fault IS the malformed requests, folded
+        # into the (deterministic) schedule; admission rejects them
+        span = max((r.arrival_s for r in requests), default=0.0)
+        rid_base = len(requests)
+        for ev in chaos_rt.consume_request_garbage():
+            garbage = sched.make_garbage_requests(
+                chaos_rt.plan, ev, rid_base=rid_base,
+                prompt_pad=args.prompt_pad, vocab_size=args.vocab_size,
+                span_s=span)
+            requests.extend(garbage)
+            rid_base += len(garbage)
+
+    n_lost = 0
+    if attempt > 0:
+        # honest supervision accounting: a prior attempt's in-flight
+        # slots are LOST (their KV state died with the engine; a
+        # half-generated answer is not resumable), its queued and
+        # unserved requests are replayed from the deterministic schedule
+        for rid in sorted(prior_lost):
+            metrics.log(kind="serve_request", rid=rid,
+                        event=res_lib.LOST)
+            tracer.instant(res_lib.LOST, cat="serve", rid=rid)
+            n_lost += 1
+        remaining = [r for r in requests
+                     if r.rid not in prior_done
+                     and r.rid not in prior_lost]
+        shift = min((r.arrival_s for r in remaining), default=0.0)
+        requests = [dataclasses.replace(r, arrival_s=r.arrival_s - shift)
+                    for r in remaining]
+        metrics.log(kind="serve_resume",
+                    completed_prior=len(prior_done), lost=n_lost,
+                    replayed=len(requests))
+        metrics.flush()
+        log0(f"tpudist: serve resume (attempt {attempt}): "
+             f"{len(prior_done)} done in prior attempt(s), {n_lost} "
+             f"in-flight lost, replaying {len(requests)}")
+
     virtual = None
     if args.virtual_clock:
         virtual = res_lib.VirtualTiming(
             prefill_s=args.virtual_prefill_ms / 1e3,
             decode_s=args.virtual_decode_ms / 1e3)
     summary = sched.run_serve(engine, params, requests, metrics=metrics,
-                              resilience=resilience, virtual=virtual,
+                              resilience=resilience, chaos=chaos_rt,
+                              virtual=virtual,
+                              flush_events=True if supervised else None,
                               shared_prefix=shared_prefix)
     engine.assert_two_programs()
+    summary["run_id"] = run_id
     summary["model"] = args.model
+    summary["requeue_attempt"] = attempt
+    if attempt > 0:
+        # the summary's ``lost`` is what THIS attempt knows was lost: a
+        # kill that takes slots never writes a summary, so the resumed
+        # attempt's classification of the dead attempt's in-flight slots
+        # IS the number (the ``partition`` block stays the attempt-local
+        # checked ledger, where lost is 0 by construction)
+        summary["lost"] = n_lost
+        summary["completed_prior"] = len(prior_done)
     summary["dtype"] = args.dtype
     summary["device"] = device_name(engine.device)
     cache_bytes = engine.spec.bytes
@@ -344,7 +503,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     summary["graph_pool_bytes"] = engine.graph_pool_bytes
     metrics.log(kind="serve",
                 **{k: v for k, v in summary.items()
-                   if k not in ("results", "thresholds")})
+                   if k not in ("results", "alert_events", "thresholds")})
     metrics.flush()
 
     # the serve lane's memory ledger: params, the KV cache (paged: pool
@@ -417,17 +576,19 @@ def _write_bench(path: str, summary: Dict[str, Any]) -> None:
         "value": summary["tokens_per_sec_per_chip"],
         "unit": "tokens/s/chip",
         "detail": {k: summary.get(k) for k in (
-            "model", "dtype", "requests", "completed", "generated_tokens",
-            "truncated", "wall_s", "dispatches", "slots", "decode_k",
+            "run_id", "model", "dtype", "requests", "completed",
+            "generated_tokens", "truncated", "wall_s", "dispatches",
+            "slots", "decode_k",
             "kv_layout", "kv_cache_bytes", "tokens_per_sec",
             "queue_depth_max", "queue_depth_mean", "ttft_p50_s",
             "ttft_p99_s", "itl_p50_s", "itl_p99_s", "e2e_p50_s",
             "e2e_p99_s", "prefill_compiles", "decode_compiles",
             "verify_compiles", "capture_s", "graph_pool_bytes", "n_chips",
             "arrived", "admitted", "shed_at_admission",
-            "expired_in_queue", "rejected", "lost", "shed_fraction",
-            "queue_cap", "ttft_deadline_s", "adapt_level",
-            "decode_k_ladder", "kv_page_tokens", "kv_pages_total",
+            "expired_in_queue", "rejected", "lost", "completed_prior",
+            "shed_fraction", "queue_cap", "ttft_deadline_s", "adapt_level",
+            "decode_k_ladder", "requeue_attempt", "kv_page_tokens",
+            "kv_pages_total",
             "kv_pages_used_peak", "active_slots_peak",
             "spec_accept_rate", "speculate_k", "shared_prefix_len")},
         "slo": slo_lib.slo_block(summary),

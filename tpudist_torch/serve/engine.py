@@ -188,11 +188,15 @@ class ServeEngine:
     def init_state(self) -> ServeState:
         """Reset the engine's state in place (empty slots, zeroed cache)
         and return it."""
+        if self._state is None:
+            raise RuntimeError("this serve engine was released")
         for t in self._state:
             t.zero_()
         return self._state
 
     def _check_call(self, params, state: ServeState) -> None:
+        if self._state is None:
+            raise RuntimeError("this serve engine was released")
         if state is not self._state:
             raise ValueError(
                 "state is not this engine's: the engine owns its KV cache "
@@ -488,6 +492,20 @@ class ServeEngine:
                 f"serve engine built {p} prefill / {d} decode "
                 f"program(s), expected {want[0]}/{want[1]} for ladder "
                 f"{self.ladder}; the two-program contract is broken")
+
+    def release(self) -> None:
+        """Drop the graphs (their pools with them), their outputs, the
+        state (the KV cache) and the prefill's scratch, so the caching
+        allocator holds them no more (``torch.cuda.empty_cache`` hands
+        them back to the card; the serve tuner does so between trials).
+        The graphs go first, before the memory they replay into. The
+        record of captures and replays stays (:meth:`kernel_launches`);
+        the engine serves no more."""
+        self._graphs.clear()
+        self._outputs.clear()
+        self._state = None
+        self._scratch = {}
+        self.last_logits = None
 
     def reset_kernel_launches(self) -> None:
         """Set :meth:`kernel_launches` to 0; the captures' records of

@@ -1,8 +1,7 @@
 """Continuous batching: seeded arrivals, admission control, slot
 admission, SLO accounting.
 
-Counterpart of ``tpudist/serve/scheduler.py`` without its chaos hooks.
-Requests arrive on a seeded open-loop Poisson schedule, pass ADMISSION
+Counterpart of ``tpudist/serve/scheduler.py``. Requests arrive on a seeded open-loop Poisson schedule, pass ADMISSION
 CONTROL (bounded queue, per-request TTFT deadlines, malformed-request
 rejection — :mod:`tpudist_torch.serve.resilience`), queue until a slot
 frees, prefill into the free slot, and decode continuously: every
@@ -31,6 +30,11 @@ per admission verdict and outcome, ``admit`` and ``prefill`` spans, a
 ``decode_step`` span a dispatch and a ``decode_emit`` instant per slot;
 the JAX package's flight verifier (``tpudist.serve.flight``) folds them
 with the ``kind=serve_request`` stream.
+
+The loop feeds every SLO observation to an
+:class:`~tpudist_torch.obs.alerts.AlertEngine` over the shared rules
+table, so a breach fires as an alert mid-run, and a chaos plan's serve
+surface (:mod:`tpudist_torch.chaos`) at every decode-dispatch boundary.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import numpy as np
 
 from tpudist_torch import rules as rules_lib
 from tpudist_torch.obs import trace as trace_lib
+from tpudist_torch.obs.alerts import AlertEngine
 from tpudist_torch.serve import resilience as res_lib
 from tpudist_torch.serve import slo as slo_lib
 from tpudist_torch.serve.engine import ServeEngine
@@ -163,6 +168,46 @@ def validate_request(req: Request, *, prompt_pad: int,
     return None
 
 
+def make_garbage_requests(plan, event, *, rid_base: int, prompt_pad: int,
+                          vocab_size: int, span_s: float
+                          ) -> List[Request]:
+    """The ``request_garbage`` chaos family's payload, bitwise the JAX
+    package's: ``n`` seeded malformed requests spread over the arrival
+    window, each broken a deterministically chosen way (out-of-range
+    token, zero or oversized prompt_len, dead budget, wrong shape, float
+    tokens), drawn from the plan's keyed byte stream, so the same spec
+    injects the same garbage every run."""
+    from tpudist_torch.chaos import plan as plan_mod
+    n = int(event.args.get("n", 4))
+    raw = plan_mod.garbage_bytes(plan, event, n=8 * max(n, 1))
+    modes = ("bad_token", "zero_len", "over_len", "bad_max_new",
+             "bad_shape", "bad_dtype")
+    out: List[Request] = []
+    for i in range(n):
+        chunk = raw[8 * i:8 * i + 8]
+        arrival = (int.from_bytes(chunk[:4], "big") / 0xFFFFFFFF) \
+            * max(span_s, 0.0)
+        mode = modes[chunk[4] % len(modes)]
+        tokens = np.zeros((prompt_pad,), np.int32)
+        prompt_len, max_new = max(1, prompt_pad // 2), 4
+        if mode == "bad_token":
+            tokens[0] = vocab_size + 1 + chunk[5]
+        elif mode == "zero_len":
+            prompt_len = 0
+        elif mode == "over_len":
+            prompt_len = prompt_pad + 1 + chunk[5] % 8
+        elif mode == "bad_max_new":
+            max_new = -int(chunk[5])
+        elif mode == "bad_shape":
+            tokens = np.zeros((prompt_pad + 3,), np.int32)
+        elif mode == "bad_dtype":
+            tokens = np.zeros((prompt_pad,), np.float64) + 0.5
+        out.append(Request(rid=rid_base + i, arrival_s=float(arrival),
+                           tokens=tokens, prompt_len=prompt_len,
+                           max_new=max_new))
+    return out
+
+
 @dataclasses.dataclass
 class _Slot:
     req: Request
@@ -176,12 +221,14 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
               metrics: Any = None, tick_every: int = 8,
               clock: Callable[[], float] = time.perf_counter,
               resilience: Optional[res_lib.ResilienceConfig] = None,
+              chaos: Any = None,
               virtual: Optional[res_lib.VirtualTiming] = None,
+              flush_events: Optional[bool] = None,
               shared_prefix: Optional[np.ndarray] = None
               ) -> Dict[str, Any]:
     """Drive the engine over the request stream; returns the run summary
     (percentiles, throughput, per-gate SLO statuses, the exact shed
-    partition, program counts, per-request results).
+    partition, program counts, alert transitions, per-request results).
 
     Warm the engine first (:meth:`ServeEngine.warmup`) so the request
     clock never pays a kernel build or a capture. ``metrics`` (a
@@ -192,11 +239,19 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
 
     ``resilience`` turns on admission control and degradation
     (:class:`~tpudist_torch.serve.resilience.ResilienceConfig`; None
-    keeps the open-loop behaviour). ``virtual`` switches the request
-    clock to deterministic virtual time
+    keeps the open-loop behaviour). ``chaos`` is a
+    :class:`~tpudist_torch.chaos.inject.ChaosRuntime` whose serve surface
+    (``on_serve_dispatch``) fires before every decode dispatch; a stall
+    it injects is added to that dispatch's time on either clock.
+    ``virtual`` switches the request clock to deterministic virtual time
     (:class:`~tpudist_torch.serve.resilience.VirtualTiming`): each
-    prefill advances it ``prefill_s``, each dispatch ``decode_s``. One
-    engine drives one card, so throughput per chip is throughput.
+    prefill advances it ``prefill_s``, each dispatch ``decode_s``.
+    ``flush_events`` arms BOUNDARY flushes of the buffered per-request
+    outcome events, before every chaos hook and on the tick cadence, so
+    a kill cannot eat the evidence a resumed attempt classifies from
+    (default: on when chaos or resilience is armed; the CLI also arms it
+    under requeue supervision). One engine drives one card, so
+    throughput per chip is throughput.
 
     A PAGED engine (``engine.paged``) changes admission and dispatch,
     never the accounting: admission also asks the page allocator (a pool
@@ -214,10 +269,12 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     res = resilience or res_lib.ResilienceConfig()
     if virtual is not None:
         clock = virtual.clock
-    flush_events = res.enabled
+    if flush_events is None:
+        flush_events = chaos is not None or res.enabled
     tracer = trace_lib.get()
     stats = slo_lib.LatencyStats()
     led = res_lib.ShedLedger()
+    alerts = AlertEngine()
     controller = None
     if res.adapt and len(engine.ladder) > 1:
         controller = res_lib.PressureController(
@@ -410,6 +467,14 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
             t = now()
             pump(t)        # arrivals that landed during the prefill
 
+    def observe_slos(summ: Dict[str, Any]) -> None:
+        alerts.observe("ttft", summ["ttft_p99_s"])
+        alerts.observe("itl", summ["itl_p99_s"])
+        alerts.observe("serve_shed", led.shed_fraction())
+        wall = now()
+        if wall > 0 and generated:
+            alerts.observe("tokens_per_chip", generated / wall / N_CHIPS)
+
     while len(results) + led.shed_total() < len(requests):
         admit()
         occupied = [i for i in range(engine.slots) if slots[i] is not None]
@@ -449,6 +514,16 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                         if slots[i] is not None]
             if not occupied:
                 continue
+        # the chaos serve surface: serve_kill dies HERE, at a dispatch
+        # boundary (a captured program is never torn mid-replay);
+        # serve_slow returns the stall it injected. The buffered outcome
+        # events are flushed FIRST: a kill here must not eat the
+        # evidence the resumed attempt's lost classification replays
+        stall_s = 0.0
+        if chaos is not None:
+            if flush_events and metrics is not None:
+                metrics.flush()
+            stall_s = float(chaos.on_serve_dispatch(dispatches) or 0.0)
         t_dispatch = clock()
         if spec_on:
             occ_mask = np.array([s is not None for s in slots])
@@ -475,10 +550,10 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                 toks = toks.cpu().numpy()  # fence: tokens on host
                 valid = valid.cpu().numpy()
         if virtual is not None:
-            dt = virtual.decode_s
+            dt = virtual.decode_s + stall_s
             virtual.clock.advance(dt)
         else:
-            dt = clock() - t_dispatch
+            dt = (clock() - t_dispatch) + stall_s
         dispatches += 1
         active_peak = max(active_peak, len(occupied))
         if paged:
@@ -531,6 +606,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         if flush_events and metrics is not None:
             metrics.flush()
         summ = stats.summary()
+        observe_slos(summ)
         if controller is not None:
             recent_itl = (sum(recent_tok) / len(recent_tok)
                           if recent_tok else None)
@@ -583,6 +659,8 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     tps = (generated / wall_s) if generated and wall_s > 0 else None
     tps_chip = tps / N_CHIPS if tps is not None else None
     summ = stats.summary()
+    if requests:
+        observe_slos(summ)   # runs shorter than a tick still fire
     grade = slo_lib.grade(summ["ttft_p99_s"], summ["itl_p99_s"], tps_chip,
                           shed_fraction=led.shed_fraction())
     prefill_compiles, decode_compiles = engine.compile_counts()
@@ -617,6 +695,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         **{k: (round(v, 6) if v is not None else None)
            for k, v in summ.items()},
         **grade,
+        "alert_events": alerts.events,
         "prefill_compiles": prefill_compiles,
         "decode_compiles": decode_compiles,
         "verify_compiles": len(getattr(engine, "verify_traces", [])),

@@ -75,8 +75,8 @@ def fingerprint(cfg, device: torch.device, *, world: Optional[int] = None,
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
-def cache_path(cache_dir: str, fp: str) -> str:
-    return os.path.join(cache_dir, f"tune-{fp}.json")
+def cache_path(cache_dir: str, fp: str, prefix: str = "tune") -> str:
+    return os.path.join(cache_dir, f"{prefix}-{fp}.json")
 
 
 def _validate_train_tuned(tuned: Dict[str, Any]) -> bool:
@@ -99,29 +99,35 @@ def _validate_train_tuned(tuned: Dict[str, Any]) -> bool:
             and tuned.get("cross_slice") in (None, "flat"))
 
 
-def load(cache_dir: str, fp: str) -> Optional[Dict[str, Any]]:
+def load(cache_dir: str, fp: str, *, prefix: str = "tune",
+         validate=_validate_train_tuned) -> Optional[Dict[str, Any]]:
     """The cached record for ``fp``, or None on miss — a corrupt,
     partial, wrong-schema or insane file reads as a miss (re-probe),
-    never as an error (a stale cache must not fail a run)."""
+    never as an error (a stale cache must not fail a run).
+    ``prefix``/``validate`` let another tuner (the serve engine's,
+    :mod:`tpudist_torch.serve.tune`) share the one cache mechanism with
+    its own file prefix and knob schema; a ``validate`` that raises or
+    returns False is a miss."""
     try:
-        with open(cache_path(cache_dir, fp)) as f:
+        with open(cache_path(cache_dir, fp, prefix)) as f:
             rec = json.load(f)
         if rec.get("schema") != SCHEMA or rec.get("fingerprint") != fp:
             return None
-        if not _validate_train_tuned(rec["tuned"]):
+        if not validate(rec["tuned"]):
             return None
         return rec
     except (OSError, ValueError, KeyError, TypeError):
         return None
 
 
-def store(cache_dir: str, fp: str, record: Dict[str, Any]) -> bool:
+def store(cache_dir: str, fp: str, record: Dict[str, Any], *,
+          prefix: str = "tune") -> bool:
     """Atomically persist ``record`` (coordinator only — callers gate).
     Best-effort: a read-only cache dir degrades to un-cached runs, not a
     failed one."""
     try:
         os.makedirs(cache_dir, exist_ok=True)
-        path = cache_path(cache_dir, fp)
+        path = cache_path(cache_dir, fp, prefix)
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump({**record, "schema": SCHEMA, "fingerprint": fp,
