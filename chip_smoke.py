@@ -212,11 +212,31 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ``kind=serve_warmup`` naming the card with a graph pool; (b) the
    overload scenario's attempt in-process through the serve CLI: the
    flash launches exact and its canonical summary (``ts``/``mono`` left
-   out) equal to (a)'s ``overload0``. The phase's wall time is printed.
+   out) equal to (a)'s ``overload0``. The phase's wall time is printed;
+17. the train side's elastic and chaos plane at BASELINE config #5's
+   width and depth in phase 9's training configuration (bf16, bf16 nu,
+   the fused head, seq 512) under the chaos drill's ``BASE_FLAGS`` (8
+   steps, sharded saves at steps 3, 6 and 8): the free disk printed
+   first against four saves' bytes; (a) ``tpudist_torch.chaos.drill``'s
+   baseline and its five carried families (kill, slow, corrupt_shard,
+   torn_manifest, fs_error) with ``TPUDIST_PLATFORM=cuda``, every attempt
+   a ``python -m tpudist_torch.train`` process on the card, a family at a
+   time through ``run_family`` and ``verify_family``: each ``ok``, its
+   pinned facts (rcs, fired faults, policy, resume step, steps lost,
+   fallback, final step, the write counters) the CPU drill's, and its
+   final committed crc signature the baseline's, the bitwise-resume pin;
+   each verified directory's shard files are deleted before the next
+   family (the verifier reads only json); (b) the baseline's flags
+   in-process through the train CLI: the kernel launches exact, the
+   final crc signature equal to (a)'s baseline; (c) enqueue and drain
+   ms, the bytes a save writes and the writer's GB/s for synchronous and
+   asynchronous sharded saves every 2 steps, per-step, and the steps/s
+   of each against a run with no mid-epoch save. The phase's wall time
+   is printed.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
-15c-15e (15d's requeued, stalled, garbage and clean runs) and 16b are
-the main paths: each
+15c-15e (15d's requeued, stalled, garbage and clean runs), 16b and 17b
+are the main paths: each
 runs with every launch count set to 0 just before and read just after
 (10a and 11c in each rank's process; 12b's and 15a's timed runs, not
 their probes, which restore the counters), and each
@@ -3058,6 +3078,234 @@ def serve_drill(torch, fa, fx, card: str):
     return {DRILL_PATH: run["counts"]}
 
 
+# phase 17: train-side elastic and chaos at BASELINE config #5's width
+# and depth in phase 9's training configuration (bf16, bf16 nu, the
+# fused head, seq 512), so every drill attempt launches the flash
+# forward, the merged flash backward and both fused-head kernels. The
+# flags follow the drill's BASE_FLAGS (a later flag wins): at the drill's
+# --lr 1e-2 this transformer diverges (step losses 10.85 -> 25.92 over 8
+# steps, PERF.md, PR 17), so it trains at phase 9's 1e-3
+TRAIN_DRILL_MODEL = ("--model", "transformer", "--seq-len", "512",
+                     "--dtype", "bfloat16", "--adam-nu-dtype", "bfloat16",
+                     "--lm-head", "fused", "--lr", "1e-3")
+TRAIN_DRILL_PATH = "train_drill_sharded"
+# each carried family's facts that the seeded schedule fixes, as the CPU
+# drill reports them (tests/test_torch_chaos_drill*.py)
+CHAOS_FACTS = {
+    "kill": {"rcs": [113, 0], "fired": ["kill"], "policy": "preemption",
+             "final_step": 8, "resume": (3, 2, None), "lost": 2},
+    "slow": {"rcs": [0], "fired": ["slow"], "final_step": 8, "lost": 0},
+    "corrupt_shard": {"rcs": [113, 0], "fired": ["corrupt_shard", "kill"],
+                      "policy": "preemption", "final_step": 8,
+                      "resume": (3, 4, 6), "lost": 4},
+    "torn_manifest": {"rcs": [113, 0], "fired": ["torn_manifest"],
+                      "policy": "preemption", "final_step": 8,
+                      "resume": (3, 3, None), "lost": 3},
+    "fs_error": {"rcs": [0], "fired": ["fs_error"], "final_step": 8,
+                 "lost": 0, "ckpt": {"write_retries": 5, "write_errors": 1,
+                                     "write_skips": 1}},
+}
+
+
+def _save_bytes(cfg) -> int:
+    """The shard bytes of one sharded save of ``cfg``'s train state: the
+    f32 params, mu at the compute dtype, nu at its storage dtype."""
+    m = cfg.model
+    hd = m.d_model // m.n_heads
+    per_layer = (2 * m.d_model * m.d_model + 2 * m.d_model * m.n_kv_heads
+                 * hd + 3 * m.d_model * m.d_ff + 2 * m.d_model)
+    n = m.vocab_size * m.d_model + m.n_layers * per_layer + m.d_model
+    return n * (4 + (2 if cfg.dtype == "bfloat16" else 4)
+                + (2 if cfg.adam_nu_dtype == "bfloat16" else 4))
+
+
+def _drop_shards(d: Path) -> None:
+    """Delete a verified directory's ``worker*.npz`` (the verifier reads
+    only the json)."""
+    for p in d.glob("elastic/steps/*/worker*.npz"):
+        p.unlink()
+
+
+def _fact_diff(facts, want):
+    """The keys where a family's verifier facts leave the CPU drill's."""
+    got = {"rcs": facts.get("rcs"), "fired": facts.get("fired"),
+           "policy": facts.get("policy"),
+           "final_step": facts.get("final_step"),
+           "lost": (facts.get("goodput") or {}).get("lost_steps")}
+    if "resume" in want:
+        r = facts.get("resume") or {}
+        got["resume"] = (r.get("resumed_from_step"), r.get("steps_lost"),
+                         r.get("fallback_from"))
+    if "ckpt" in want:
+        got["ckpt"] = facts.get("ckpt")
+    return sorted(k for k in want if got.get(k) != want[k])
+
+
+def train_chaos(torch, fa, fx, card: str):
+    """Phase 17: (a) the port's chaos drill (``run_baseline``, then
+    ``run_family`` and ``verify_family`` one family at a time) with
+    ``TPUDIST_PLATFORM=cuda`` at config #5's width in phase 9's training
+    configuration under the drill's ``BASE_FLAGS`` (8 steps, sharded
+    saves at steps 3, 6 and 8): every attempt a ``python -m
+    tpudist_torch.train`` process on the card; each carried family
+    ``ok`` from the port's verifier, its pinned facts the CPU drill's,
+    its final committed crc signature the baseline's (the bitwise-resume
+    pin: the verifier fails a family whose signature differs). The
+    verifier reads only json (indexes, manifests, records), so each
+    verified directory's ``worker*.npz`` is deleted before the next
+    family runs: the disk holds one family's saves at a time (~6.5 GB).
+    (b) the baseline's flags in-process through the train CLI: the
+    kernel launches exact and the final crc signature equal to (a)'s
+    baseline, bytes that do not depend on the process. (c) what the
+    asynchronous writer buys at this width: enqueue, drain, bytes and
+    the writer's GB/s, sync against async, and the steps/s with saves
+    every 2 steps against none mid-epoch. Returns (b)'s launches."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch.chaos import drill, verify
+    from tpudist_torch.obs import goodput
+
+    name = torch.cuda.get_device_name(0)
+    cfg = config_lib.parse_args(list(drill.BASE_FLAGS)
+                                + list(TRAIN_DRILL_MODEL))
+    per_save = _save_bytes(cfg)
+    run_dir = ROOT / "build" / "chip_smoke_chaos"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    disk = shutil.disk_usage(run_dir)
+    need = 4 * per_save + 2 * 2**30
+    print(f"train 17: a save {per_save / 1e9:.3f} GB; disk "
+          f"{disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB, "
+          f"need {need / 1e9:.1f}")
+    if disk.free < need:
+        fail(f"train 17: {disk.free / 1e9:.1f} GB free under {run_dir}, "
+             f"the drill needs {need / 1e9:.1f} GB (4 saves + 2 GB)")
+
+    def on_card(d: Path):
+        logs = sorted(d.glob("*.log"))
+        for log in logs:
+            if f"1 {name} device(s)" not in log.read_text():
+                fail(f"train 17a: {log.relative_to(run_dir)} did not run "
+                     f"on the card ({name})")
+        return len(logs)
+
+    def walls(d: Path):
+        return [round(a["end_ts"] - a["start_ts"], 3) for a in
+                goodput.load_jsonl(str(d / goodput.ATTEMPTS_NAME))]
+
+    t0 = time.perf_counter()
+    env = {"TPUDIST_PLATFORM": "cuda", "PYTHONPATH": str(ROOT)}
+    with _drill_env(env):
+        base = drill.run_baseline(str(run_dir), model=TRAIN_DRILL_MODEL)
+    on_card(run_dir / drill.BASELINE_DIR)
+    recs = goodput.load_jsonl(str(run_dir / drill.BASELINE_DIR /
+                                  "metrics.jsonl"))
+    losses = [r["loss"] for r in recs if r["kind"] == "step"]
+    sig = verify.crc_signature(str(run_dir / drill.BASELINE_DIR))
+    print(f"train 17a baseline: {base['wall_s']} s, step losses {losses}, "
+          f"final step {sig and sig['step']}, "
+          f"{len((sig or {}).get('leaves', {}))} leaves; {card}")
+    if sig is None or sig["step"] != 8 or not (
+            losses and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail("train 17a: the baseline left no step-8 commit, or its "
+             "losses are not finite and falling")
+    _drop_shards(run_dir / drill.BASELINE_DIR)
+    results = {"schema": 1, "baseline": base, "families": {},
+               "not_drilled": dict(drill.NOT_CARRIED)}
+    bad = []
+    for family in drill.CARRIED:
+        t1 = time.perf_counter()
+        with _drill_env(env):
+            res = drill.run_family(str(run_dir), family,
+                                   model=TRAIN_DRILL_MODEL)
+        results["families"][family] = res
+        rep = verify.verify_family(str(run_dir), res)
+        n_logs = on_card(run_dir / family)
+        diff = _fact_diff(rep["facts"], CHAOS_FACTS[family])
+        facts = {k: v for k, v in rep["facts"].items()
+                 if k != "resume"}
+        resume = rep["facts"].get("resume") or {}
+        picked = {k: resume.get(k) for k in (
+            "source", "resumed_from_step", "steps_lost", "fallback_from")}
+        print(f"train 17a {family}: ok {rep['ok']}, facts equal to the "
+              f"CPU drill's {not diff}{f' (differ: {diff})' if diff else ''}"
+              f"; {n_logs} attempt(s) on the card, walls "
+              f"{walls(run_dir / family)} s, family "
+              f"{time.perf_counter() - t1:.3f} s; facts "
+              f"{json.dumps(facts, sort_keys=True)}; resume "
+              f"{json.dumps(picked)}; {card}")
+        if resume.get("corrupt_shard"):
+            print(f"train 17a {family}: corrupt_shard "
+                  f"{resume['corrupt_shard'][:160]}")
+        for problem in rep["problems"]:
+            print(f"train 17a {family}: problem: {problem}")
+        if not rep["ok"] or diff:
+            bad.append(family)
+        _drop_shards(run_dir / family)
+    drill.write_results(str(run_dir), results)
+    report = verify.verify_matrix(str(run_dir), results)
+    matrix_s = time.perf_counter() - t0
+    print(f"train 17a: matrix {'ok' if report['ok'] else 'NOT ok'} over "
+          f"{len(results['families'])} families + the baseline in "
+          f"{matrix_s:.3f} s; not drilled {sorted(drill.NOT_CARRIED)} "
+          f"(ROADMAP Queue A item {drill.LIVE_BUS_ITEM}); {card}")
+    if bad or not report["ok"]:
+        fail(f"train 17a: families {bad} failed the verifier or left the "
+             f"CPU drill's facts")
+
+    # (b) the baseline's flags in this process
+    argv = list(drill.BASE_FLAGS) + list(TRAIN_DRILL_MODEL)
+    torch.cuda.empty_cache()
+    run = _cli_run(torch, fa, fx, "17b sharded", argv, keep=True)
+    got = verify.crc_signature(str(run["dir"]))
+    shutil.rmtree(run["dir"], ignore_errors=True)
+    want = want_launches(fa, cfg.model, 512, 8, 1, True)
+    losses = [r["loss"] for r in run["recs"] if r["kind"] == "step"]
+    print(f"train 17b: crc signature equal to 17a's baseline {got == sig}; "
+          f"step losses {losses}; kernel launches {run['counts']} (want "
+          f"{want}); " + _step_line(run, cfg.batch_size * 512))
+    if got != sig:
+        fail("train 17b: the in-process run's committed bytes differ "
+             "from the drill's baseline")
+    if run["counts"] != want:
+        fail(f"train 17b: kernel launches {run['counts']}, want {want}")
+
+    # (c) what the asynchronous writer buys
+    rows = {}
+    for mode, extra in (("sync", ["--ckpt-every-steps", "2",
+                                  "--ckpt-sync"]),
+                        ("async", ["--ckpt-every-steps", "2"]),
+                        ("none", ["--ckpt-every-steps", "0"])):
+        torch.cuda.empty_cache()
+        r = _cli_run(torch, fa, fx, f"17c {mode}",
+                     [a for a in argv if a != "--ckpt-sync"] + extra
+                     + ["--steps-per-dispatch", "1"])
+        t = r["timing"]
+        enq = [x["enqueue_ms"] for x in r["recs"] if x["kind"] == "ckpt"]
+        (drain,) = [x for x in r["recs"] if x["kind"] == "ckpt_drain"]
+        rows[mode] = {"sps": t["steps"] / t["run_s"], "wall": r["wall"],
+                      "enqueue": enq, "drain": drain}
+        gbps = (drain["bytes_written"] / drain["write_s"] / 1e9
+                if drain["write_s"] else 0.0)
+        print(f"train 17c {mode}: {drain['saves']} saves, enqueue ms "
+              f"{enq} (sum {sum(enq):.1f}), drain ms {drain['drain_ms']}, "
+              f"{drain['bytes_written'] / max(drain['saves'], 1) / 1e9:.4f} "
+              f"GB a save, writer {drain['write_s']:.3f} s = {gbps:.3f} GB/s "
+              f"(crc32 + npz + index); timed {t['steps']} steps "
+              f"{rows[mode]['sps']:.4f} steps/s, run {t['run_s']:.3f} s, "
+              f"CLI wall {r['wall']:.3f} s; {card}")
+    s, a, n = rows["sync"], rows["async"], rows["none"]
+    print(f"train 17c: steps/s with saves every 2 steps: sync "
+          f"{s['sps']:.4f}, async {a['sps']:.4f}, none mid-epoch "
+          f"{n['sps']:.4f}; the step path held by saves: sync "
+          f"{sum(s['enqueue']) / 1e3:.3f} s, async "
+          f"{sum(a['enqueue']) / 1e3:.3f} s + drain "
+          f"{a['drain']['drain_ms'] / 1e3:.3f} s; {card}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(f"train 17: phase wall {time.perf_counter() - t0:.3f} s; {card}")
+    return {TRAIN_DRILL_PATH: run["counts"]}
+
+
 def remat_check(torch, card: str):
     """Phase 12b: one full-width training step (BASELINE config #5, seq
     512, f32, the fused head) with ``--remat`` (each layer checkpointed,
@@ -3951,6 +4199,12 @@ def main() -> int:
     # model, then its overload in-process
     torch.cuda.empty_cache()
     paths.update(serve_drill(torch, fa, fx, card))
+
+    # phase 17: the train side's chaos drill on the card at config #5's
+    # width, its baseline in-process, and what the asynchronous
+    # checkpoint writer buys
+    torch.cuda.empty_cache()
+    paths.update(train_chaos(torch, fa, fx, card))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -3974,15 +4228,16 @@ def main() -> int:
                "flash_attention_bwd_dqkv": ("train_seq512",
                                             "train_seq512_bf16_auto",
                                             "train_seq512_dp", *SUPERSTEP,
-                                            TUNE_PATH, *OBS_PATHS),
+                                            TUNE_PATH, *OBS_PATHS,
+                                            TRAIN_DRILL_PATH),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
-                                  TUNE_PATH, *OBS_PATHS),
+                                  TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
-                                  TUNE_PATH, *OBS_PATHS)}
+                                  TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH)}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

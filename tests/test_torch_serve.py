@@ -233,8 +233,10 @@ def test_serve_thresholds_equal_jax(monkeypatch):
 
 def test_serve_status_rules_equal_jax():
     """The summary's gate fields and the alert rule grading each: the
-    table an SLO fail's matching mid-run alert is checked against."""
+    table an SLO fail's matching mid-run alert is checked against; and
+    the train side's ``STATUS_RULES``, which the chaos verifier reads."""
     assert trules.SERVE_STATUS_RULES == jrules.SERVE_STATUS_RULES
+    assert trules.STATUS_RULES == jrules.STATUS_RULES
     assert {rule for _, rule in trules.SERVE_STATUS_RULES} == \
         set(SERVE_RULES)
 

@@ -283,9 +283,13 @@ def _turn_on(kw, off):
 # resolvers to the JAX package's)
 OBS_ENV = {"TPUDIST_TRACE", "TPUDIST_TRACE_DIR", "TPUDIST_STALL_TIMEOUT_S",
            "TPUDIST_HEARTBEAT_DIR", "TPUDIST_HBM_SAMPLE_S"}
+# the elastic and chaos twins (tests/test_torch_train_resume.py drives
+# them through the CLI)
+ELASTIC_ENV = {"TPUDIST_CKPT_MODE", "TPUDIST_REQUEUE_ATTEMPT",
+               "TPUDIST_CHAOS"}
 ENV_CARRIED = {"TPUDIST_STAGING_BUDGET_MB", "TPUDIST_AUTOTUNE",
                "TPUDIST_AUTOTUNE_CACHE_DIR", "TPUDIST_AUTOTUNE_TRIALS",
-               "TPUDIST_COMPILATION_CACHE_DIR"} | OBS_ENV
+               "TPUDIST_COMPILATION_CACHE_DIR"} | OBS_ENV | ELASTIC_ENV
 
 
 def test_every_jax_train_flag_is_carried_or_refused():
@@ -318,8 +322,7 @@ def test_every_jax_train_flag_is_carried_or_refused():
             tconfig.parse_args([opt, *_turn_on(kw, off)])
 
 
-ENV_ON = {"TPUDIST_CHAOS": "kill@0:1", "TPUDIST_TEST_KILL": "0:1",
-          "TPUDIST_CKPT_MODE": "sharded", "TPUDIST_LIVE": "on",
+ENV_ON = {"TPUDIST_LIVE": "on",
           "TPUDIST_GRAD_OVERLAP": "bucketed",
           "TPUDIST_CROSS_SLICE": "hierarchical", "TPUDIST_NO_FLASH": "1"}
 
@@ -343,7 +346,21 @@ OBS_ENV_READ = {"TPUDIST_TRACE": ("off", lambda c: tconfig.resolve_trace(c)[0],
 # (tests/test_torch_platform.py drives both CLIs with it)
 ENV_READ = {**OBS_ENV_READ,
             "TPUDIST_PLATFORM": ("gpu", lambda c: tconfig.parse_args(
-                []).device, "cuda")}
+                []).device, "cuda"),
+            # the elastic and chaos twins, refused until the port carried
+            # them (ROADMAP Queue A item 10)
+            "TPUDIST_CKPT_MODE": ("sharded", tconfig.resolve_ckpt_mode,
+                                  "sharded"),
+            "TPUDIST_REQUEUE_ATTEMPT": ("2", tconfig.resolve_requeue_attempt,
+                                        2),
+            "TPUDIST_CHAOS": ("kill@0:1", tconfig.resolve_chaos, "kill@0:1"),
+            "TPUDIST_TEST_KILL": ("0:5:1", lambda c: _kill_spec(), (0, 5, 1))}
+
+
+def _kill_spec():
+    """The train CLI's parse of TPUDIST_TEST_KILL, fresh (it caches)."""
+    with mock.patch.object(ttrain, "_KILL_SPEC", None):
+        return ttrain._test_kill_spec()
 
 
 @pytest.mark.parametrize("name", sorted(set(tconfig.ENV_NOT_CARRIED)

@@ -1,12 +1,22 @@
-"""tpudist_torch.chaos — scripted fault injection, the serving surface.
+"""tpudist_torch.chaos — deterministic fault injection, the drill and its
+checker.
 
-Counterpart of ``tpudist/chaos``: :mod:`plan` is a copy of the JAX
-package's seeded fault schedule (the whole ``--chaos`` /
-``TPUDIST_CHAOS`` grammar, train families included), and :mod:`inject`
-is :class:`~tpudist_torch.chaos.inject.ChaosRuntime` with its serve
-surface (``serve_kill``, ``serve_slow``, ``request_garbage``), which the
-serve CLI and scheduler fire. The train surfaces, the drill and
-the verifier come with ROADMAP Queue A item 10.
+Counterpart of ``tpudist/chaos``, in four pieces:
+
+  * :mod:`plan`   — a copy of the JAX package's seeded fault schedule
+    (the whole ``--chaos`` / ``TPUDIST_CHAOS`` grammar);
+  * :mod:`inject` — :class:`~tpudist_torch.chaos.inject.ChaosRuntime`:
+    the train loop's step surface (kill, hang, slow, telemetry garbage),
+    the sharded checkpoint writer's fault hook (shard corruption, torn
+    manifest, transient filesystem errors) and the serve surface
+    (serve_kill, serve_slow, request_garbage);
+  * :mod:`drill`  — the matrix driver: the port's train CLI in
+    subprocesses under each family, the launcher's kill → policy →
+    requeue → resume loop replayed, ``attempts.jsonl`` written;
+  * :mod:`verify` — a copy of the JAX package's invariant checker,
+    replaying a drill's artifacts.
+
+``python -m tpudist_torch.chaos drill|verify`` is the CLI.
 """
 
 from tpudist_torch.chaos.inject import ChaosRuntime

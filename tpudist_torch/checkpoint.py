@@ -1,24 +1,36 @@
-"""Checkpoint and resume of the train state.
+"""Checkpoint and resume of the train state: the ``orbax`` layout.
 
-Counterpart of ``tpudist/checkpoint.py``'s layout and resume semantics,
-not of its orbax format: one directory per save under ``save_dir``, named
-by the GLOBAL STEP as the JAX package's ``Checkpointer`` names them (so an
-epoch-end save sits beside any ``--ckpt-every-steps`` mid-epoch save),
-holding ``state.pt`` (``torch.save`` of the params, the optimizer state
-and the step) with the RESUME POSITION ``(epoch, step_in_epoch)``: the
-epoch and batch index training continues from, ``(finished + 1, 0)``
-after an epoch. The newest ``KEEP`` saves are kept, as the JAX package's
-checkpoint manager keeps them. Writes are synchronous and atomic (a
-temporary directory renamed into place), so a killed run never leaves a
-half-written newest checkpoint. Under data parallelism the state is
-replicated, so rank 0 alone writes, and every rank waits at a barrier
-until the save is on disk; every rank restores, onto its own device.
+``--ckpt-mode orbax`` keeps the JAX package's word for its default
+layout, but the format is the port's own: the JAX package writes orbax
+step directories, the port ``torch.save`` files. What is kept is the
+layout and the resume semantics of ``tpudist/checkpoint.py``: one
+directory per save under ``save_dir``, named by the GLOBAL STEP as the
+JAX package's ``Checkpointer`` names them (so an epoch-end save sits
+beside any ``--ckpt-every-steps`` mid-epoch save), holding ``state.pt``
+(the params, the optimizer state and the step) with the RESUME POSITION
+``(epoch, step_in_epoch)``: the epoch and batch index training continues
+from, ``(finished + 1, 0)`` after an epoch. The newest ``KEEP`` saves are
+kept. Each write is atomic (a temporary directory renamed into place), so
+a killed run never leaves a half-written newest checkpoint.
+
+Saves are asynchronous by default, as the JAX manager's are: ``save``
+copies the state to host memory and returns; a writer thread does the
+write. ``wait`` and ``close`` drain it (their blocked time is
+``drain_ms``) and raise a write that failed, as the JAX manager does;
+``use_async=False`` (``--ckpt-sync``) writes inside ``save``. Under data
+parallelism the state is replicated, so rank 0 alone writes, and the
+ranks meet at a barrier where the JAX manager waits: at ``wait`` and
+``close``, and before the next save, by which point rank 0 has drained
+the previous one. Every rank restores, onto its own device.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import shutil
+import sys
+import threading
 import time
 from typing import Optional, Tuple
 
@@ -40,47 +52,119 @@ def _steps(save_dir: str):
                       os.path.join(save_dir, n, STATE_FILE)))
 
 
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to host memory: a snapshot the next step's in-place
+    updates cannot reach (a CPU tensor is cloned)."""
+    t = t.detach()
+    return t.clone() if t.device.type == "cpu" else t.to("cpu")
+
+
 class Checkpointer:
     """Step-keyed saves for the train loop. ``last_enqueue_ms`` is the
-    time of the last save (the whole write and the barrier after it:
-    saves are synchronous)."""
+    time ``save`` held the caller (the host snapshot and the hand-off, or
+    the whole write under ``use_async=False``); ``drain_ms`` sums the
+    time blocked on the writer at ``wait``, ``close`` and before a save
+    whose predecessor was still being written."""
 
-    def __init__(self, save_dir: str):
+    def __init__(self, save_dir: str, *, use_async: bool = True):
         self.save_dir = os.path.abspath(os.path.expanduser(save_dir))
+        self.use_async = use_async
         self.last_enqueue_ms = 0.0
+        self.last_drain_ms = 0.0
+        self.drain_ms = 0.0
+        self.saves = 0
+        self.write_errors = 0
+        self._error: Optional[BaseException] = None
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        if use_async and _rank() == 0:
+            self._thread = threading.Thread(
+                target=self._worker, name="tpudist-ckpt", daemon=True)
+            self._thread.start()
+
+    @property
+    def last_save_ms(self) -> float:
+        return self.last_enqueue_ms
 
     def save(self, state, *, epoch: int, step_in_epoch: int = 0) -> None:
         """Save ``state`` (a ``TrainState``) keyed by its global step, with
-        the resume position ``(epoch, step_in_epoch)``: rank 0 writes, and
-        no rank returns before the write is done."""
+        the resume position ``(epoch, step_in_epoch)``. Every rank calls
+        it; rank 0 snapshots and writes."""
+        if self.saves:
+            # the previous save is on disk before the next one starts
+            self._drain(barrier=True)
         t0 = time.perf_counter()
-        # the JAX package's span name: here the whole synchronous write
         with trace_lib.span("ckpt_enqueue", cat="ckpt",
                             step=int(state.step)):
-            try:
-                if _rank() == 0:
-                    self._write(state, epoch, step_in_epoch)
-            finally:
-                # reached on a failed write too, so the ranks' host
-                # collectives stay paired
-                distributed.barrier()
+            if _rank() == 0:
+                opt = state.opt_state
+                doc = {"step": int(state.step), "epoch": int(epoch),
+                       "step_in_epoch": int(step_in_epoch),
+                       "params": {k: host_copy(v) for k, v in
+                                  state.params.state_dict().items()},
+                       "opt_count": int(opt.count),
+                       "mu": [host_copy(t) for t in opt.mu],
+                       "nu": [host_copy(t) for t in opt.nu]}
+                if self._thread is not None:
+                    self._q.put(doc)
+                else:
+                    self._write(doc)
         self.last_enqueue_ms = (time.perf_counter() - t0) * 1000
+        self.saves += 1
 
-    def _write(self, state, epoch: int, step_in_epoch: int) -> None:
-        final = os.path.join(self.save_dir, str(int(state.step)))
+    def _worker(self) -> None:
+        while True:
+            doc = self._q.get()
+            try:
+                if doc is None:
+                    return
+                self._write(doc)
+            except Exception as e:
+                # the previous checkpoint stays the newest; the error is
+                # logged now and raised at the next drain
+                self.write_errors += 1
+                self._error = self._error or e
+                print(f"tpudist: ckpt write of step {doc['step']} failed: "
+                      f"{e!r}", file=sys.stderr, flush=True)
+            finally:
+                self._q.task_done()
+
+    def _write(self, doc) -> None:
+        final = os.path.join(self.save_dir, str(doc["step"]))
         tmp = f"{final}.tmp.{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
-        opt = state.opt_state
-        torch.save({"step": int(state.step), "epoch": int(epoch),
-                    "step_in_epoch": int(step_in_epoch),
-                    "params": state.params.state_dict(),
-                    "opt_count": int(opt.count), "mu": opt.mu,
-                    "nu": opt.nu}, os.path.join(tmp, STATE_FILE))
+        torch.save(doc, os.path.join(tmp, STATE_FILE))
         if os.path.isdir(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
         for old in _steps(self.save_dir)[:-KEEP]:
             shutil.rmtree(os.path.join(self.save_dir, str(old)))
+
+    def _drain(self, *, barrier: bool, stop: bool = False) -> None:
+        t0 = time.perf_counter()
+        with trace_lib.span("ckpt_drain", cat="ckpt", close=stop):
+            if self._thread is not None:
+                self._q.join()
+                if stop:
+                    self._q.put(None)
+                    self._thread.join(timeout=10.0)
+                    self._thread = None
+            if barrier:
+                distributed.barrier()
+        self.last_drain_ms = (time.perf_counter() - t0) * 1000
+        self.drain_ms += self.last_drain_ms
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"checkpoint write failed: {err!r}") from err
+
+    def wait(self) -> None:
+        """Block until every save so far is on disk, on every rank."""
+        self._drain(barrier=True)
+
+    def close(self, *, barrier: bool = True) -> None:
+        """Drain and stop the writer. ``barrier=False`` skips the ranks'
+        barrier (a failing run, whose peers may not reach it)."""
+        self._drain(barrier=barrier, stop=True)
 
 
 def latest_step(save_dir: str) -> Optional[int]:

@@ -109,6 +109,11 @@ class TrainConfig:
     heartbeat_dir: Optional[str] = None  # heartbeat / flightrec dir
     hbm_sample_s: Optional[float] = None  # sampler period; 0 = off
     live: Optional[str] = None
+    # the checkpoint layout (resolve_ckpt_mode) and its write mode
+    ckpt_mode: Optional[str] = None  # orbax | sharded; None = env, orbax
+    ckpt_sync: bool = False       # synchronous writes (async by default)
+    requeue_attempt: int = 0      # which requeued rerun this is
+    chaos: Optional[str] = None   # fault plan (tpudist_torch.chaos)
     device: Optional[str] = None  # None = cuda
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -125,12 +130,6 @@ RESUME_MODES = ("latest", "auto")
 # the ROADMAP Queue A item that brings it. parse_args refuses any other
 # value, check_supported any other setting of the variable.
 NOT_CARRIED = (
-    ("--ckpt-sync", dict(action="store_true"), (), None, 10),
-    ("--ckpt-mode", dict(choices=("orbax", "sharded")), ("orbax",),
-     "TPUDIST_CKPT_MODE", 10),
-    ("--requeue-attempt", dict(type=int, default=0), (),
-     "TPUDIST_REQUEUE_ATTEMPT", 10),
-    ("--chaos", {}, (), "TPUDIST_CHAOS", 10),
     ("--pp-microbatches", dict(type=int, default=0), (), None, 8),
     ("--pipeline-interleave", dict(type=int, default=0), (1,),
      "TPUDIST_PIPELINE_INTERLEAVE", 8),
@@ -162,7 +161,6 @@ NOT_CARRIED = (
 ENV_NOT_CARRIED = {
     **{env: ((kw.get("default"), *off), item)
        for _, kw, off, env, item in NOT_CARRIED if env},
-    "TPUDIST_TEST_KILL": ((), 10),
     "TPUDIST_LIVE": (("off",), "11b"),
     "TPUDIST_NO_FLASH": ((), None),
 }
@@ -202,6 +200,48 @@ def resolve_resume(cfg: TrainConfig) -> Optional[str]:
         raise ValueError(
             f"--resume must be one of {RESUME_MODES}, got {r!r}")
     return r
+
+
+# The checkpoint layouts: ``orbax``, the default and the JAX package's
+# word for its step-keyed manager, is the port's own step-directory
+# format (tpudist_torch.checkpoint: one torch.save file a step);
+# ``sharded`` is tpudist_torch.elastic.ckpt's per-worker shard files and
+# atomically committed manifest, the JAX package's layout key for key.
+CKPT_MODES = ("orbax", "sharded")
+
+
+def resolve_ckpt_mode(cfg: TrainConfig) -> str:
+    """``--ckpt-mode`` / ``TPUDIST_CKPT_MODE`` as the concrete layout, as
+    the JAX package's ``config.resolve_ckpt_mode``: ``orbax`` (the port's
+    step directories) or ``sharded`` (shard files + manifest, the layout
+    an elastic resume reads). ``--ckpt-sync`` composes with either."""
+    mode = cfg.ckpt_mode
+    if mode is None:
+        mode = os.environ.get("TPUDIST_CKPT_MODE") or "orbax"
+    if mode not in CKPT_MODES:
+        raise ValueError(
+            f"--ckpt-mode must be one of {CKPT_MODES}, got {mode!r}")
+    if mode == "sharded" and "://" in cfg.save_dir:
+        raise ValueError(
+            f"--ckpt-mode sharded writes plain files on a pod-shared "
+            f"filesystem and cannot target {cfg.save_dir!r}; keep "
+            f"--ckpt-mode orbax for remote URIs (or mount the bucket)")
+    return mode
+
+
+def resolve_chaos(cfg: TrainConfig) -> Optional[str]:
+    """``--chaos`` / ``TPUDIST_CHAOS`` as the raw fault-plan spec, or None
+    (no chaos plane). ``ChaosPlan.parse`` validates it at run start."""
+    return cfg.chaos or os.environ.get("TPUDIST_CHAOS") or None
+
+
+def resolve_requeue_attempt(cfg: TrainConfig) -> int:
+    """Which requeued rerun this is: the flag, else
+    ``TPUDIST_REQUEUE_ATTEMPT``, else 0."""
+    if cfg.requeue_attempt:
+        return int(cfg.requeue_attempt)
+    env = _env_float("TPUDIST_REQUEUE_ATTEMPT")
+    return int(env) if env and env > 0 else 0
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -486,6 +526,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                         "start")
     p.add_argument("--ckpt-every-steps", type=int, default=0,
                    help="also checkpoint mid-epoch every N steps")
+    p.add_argument("--ckpt-sync", action="store_true",
+                   help="synchronous checkpoint writes (a writer thread "
+                        "overlaps them with the next steps by default)")
+    p.add_argument("--ckpt-mode", type=str, default=None,
+                   choices=list(CKPT_MODES),
+                   help="checkpoint layout: orbax, the port's step "
+                        "directories (default), or sharded: per-worker "
+                        "shard files + an atomically committed "
+                        "manifest.json (tpudist_torch.elastic) (default: "
+                        "$TPUDIST_CKPT_MODE, else orbax)")
+    p.add_argument("--requeue-attempt", type=int, default=0,
+                   help="which auto-requeue rerun this is (the launcher "
+                        "passes it; lands in the kind=resume record and "
+                        "the tpudist: resume line; default: "
+                        "$TPUDIST_REQUEUE_ATTEMPT, else 0)")
+    p.add_argument("--chaos", type=str, default=None,
+                   help="scripted fault-injection plan (tpudist_torch."
+                        "chaos): ';'-separated <fault>@<epoch>:<step>"
+                        "[:<rank>][,k=v...] events, e.g. "
+                        "'corrupt_shard@0:6,mode=flip;kill@0:7' "
+                        "(default: $TPUDIST_CHAOS, else off)")
     p.add_argument("--model", type=str, default="mlp",
                    choices=["mlp", "transformer", "moe"])
     p.add_argument("--dtype", type=str, default="float32",
@@ -615,6 +676,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         heartbeat_dir=args.heartbeat_dir,
         hbm_sample_s=args.hbm_sample_s,
         live=args.live,
+        ckpt_mode=args.ckpt_mode,
+        ckpt_sync=args.ckpt_sync,
+        requeue_attempt=args.requeue_attempt,
+        chaos=args.chaos,
         device=platform_device(args.device),
         data=DataConfig(n_samples=args.n_samples,
                         n_features=args.n_features, seed=args.seed),

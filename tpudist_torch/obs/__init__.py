@@ -15,8 +15,10 @@ on (ROADMAP Queue A item 11a):
   * :mod:`live` — the run's correlation id, and the live aggregator's
     file half (``alerts.jsonl``, ``live_status.json``), which the serve
     CLI runs under ``TPUDIST_LIVE=on``;
-  * :mod:`goodput` — the requeue loop's attempts ledger
-    (``attempts.jsonl``), which the serve drill writes.
+  * :mod:`goodput` — the goodput ledger: the requeue loop's
+    ``attempts.jsonl``, which the drills write, the attempt-local
+    ``kind=goodput`` record and the cross-attempt partition the chaos
+    verifier reads.
 
 The JAX package's jax-free offline tools (``tpudist.obs.report``,
 ``goodput``, the ``memledger`` CLI, ``tpudist.serve.flight``) read a
@@ -80,15 +82,21 @@ class PodObserver:
     def from_config(cls, cfg, *, metrics=None, process_index: int = 0,
                     process_count: int = 1,
                     devices: Sequence[int] = ()) -> "PodObserver":
-        from tpudist_torch.config import resolve_obs
+        from tpudist_torch.config import resolve_obs, resolve_requeue_attempt
         stall_s, out_dir, hbm_s = resolve_obs(cfg)
         return cls(out_dir=out_dir, stall_timeout_s=stall_s,
                    hbm_sample_s=hbm_s, metrics=metrics,
                    process_index=process_index,
-                   process_count=process_count, devices=devices)
+                   process_count=process_count, devices=devices,
+                   requeue_attempt=resolve_requeue_attempt(cfg))
 
     def note_progress(self, **kv: Any) -> None:
         self.recorder.note_progress(**kv)
+
+    def beacon_now(self) -> None:
+        """One beacon written now, off the watchdog's cadence: a scripted
+        kill stamps it before ``os._exit``."""
+        self.recorder.beacon_now()
 
     def epoch_end(self, epoch: int, timer, metrics) -> str:
         """Per-host step-stat aggregation (a collective with more than

@@ -113,21 +113,42 @@ _ACTIVE: Optional["FlopCount"] = None
 class FlopCount:
     """``with FlopCount() as n: ...`` counts the floating-point
     operations of the block: FlopCounterMode's GEMMs plus the work the
-    kernel wrappers report (:func:`kernel_work`). ``n.total`` after."""
+    kernel wrappers report (:func:`kernel_work`). ``n.total`` after.
+
+    The block's ops run as they would outside it: FlopCounterMode's own
+    dispatch mode decomposes every op its registry lacks (``silu``'s
+    backward among them) into ops that round differently, so a counted
+    step would not compute the bits an uncounted one does, and a resumed
+    run (which counts its first step, a later one) would leave the
+    uninterrupted run's trajectory. The mode here runs each op as it is
+    and counts it from FlopCounterMode's registry."""
 
     def __init__(self):
         from torch.utils.flop_counter import FlopCounterMode
-        self._mode = FlopCounterMode(display=False)
+        self._counter = FlopCounterMode(display=False)
+        self._mode = None
         self.kernel_flops = 0
 
     @property
     def total(self) -> int:
-        return int(self._mode.get_total_flops()) + self.kernel_flops
+        return int(self._counter.get_total_flops()) + self.kernel_flops
 
     def __enter__(self) -> "FlopCount":
         global _ACTIVE
         if _ACTIVE is not None:
             raise RuntimeError("flop counts do not nest")
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counter = self._counter
+
+        class _Watch(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(),
+                                   kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                return counter._count_flops(func._overloadpacket, out,
+                                            args, kwargs)
+        counter.flop_counts.clear()
+        self._mode = _Watch()
         self._mode.__enter__()
         _ACTIVE = self
         return self
@@ -136,6 +157,7 @@ class FlopCount:
         global _ACTIVE
         _ACTIVE = None
         self._mode.__exit__(*exc)
+        self._mode = None
         return False
 
 

@@ -173,6 +173,17 @@ THRESHOLDS: Tuple[Threshold, ...] = (
                     "capacity-planning choice"),
 )
 
+# The at-exit verdict fields of ``kind=timing`` and the alert rule that
+# grades the same observable: the table the chaos verifier's "every fail
+# verdict had its matching mid-run alert" check reads
+# (tpudist_torch.chaos.verify). Fields whose rule is not alertable
+# (trace_status) stay off it.
+STATUS_RULES: Tuple[Tuple[str, str], ...] = (
+    ("staging_status", "staging"),
+    ("straggler_status", "straggler"),
+    ("comm_status", "comm"),
+)
+
 # The ``kind=serve`` summary's per-gate status fields and the alert rule
 # that grades the same observable mid-run (the scheduler's
 # obs.alerts.AlertEngine): an SLO fail verdict must have its mid-run

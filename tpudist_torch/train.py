@@ -17,10 +17,13 @@ before the timed run, or from the tuning cache
 (``tpudist_torch.tune``); the epoch
 loop with the stdout contract (``Epoch N
 finished. Avg loss: X``, ``Epoch N eval loss: X``, ``Training
-completed.``), a checkpoint per epoch (and every ``--ckpt-every-steps``),
-``--resume``, ``--fail-at`` fault injection, the ``metrics.jsonl``
-records (``kind=attempt`` / ``step`` / ``epoch`` / ``ckpt`` / ``timing``)
-and the verdict files at ``TPUDIST_VERDICT_PATH`` (one a process, and
+completed.``), a checkpoint per epoch (and every ``--ckpt-every-steps``;
+asynchronous unless ``--ckpt-sync``, in the port's step directories or
+``--ckpt-mode sharded``'s manifest layout), ``--resume`` (the elastic
+resume, ``tpudist_torch.elastic``), ``--fail-at`` and the chaos plane
+(``--chaos``, ``TPUDIST_TEST_KILL``), the ``metrics.jsonl`` records
+(``kind=attempt`` / ``step`` / ``epoch`` / ``ckpt`` / ``resume`` /
+``ckpt_drain`` / ``timing`` / ``goodput``) and the verdict files at ``TPUDIST_VERDICT_PATH`` (one a process, and
 the coordinator's AND over all of them, with a bounded wait for a peer
 that is dead or late). Exit code 0 on success, 1 on any failure of any
 process. It runs on the card (``--device cuda``, the default) unless
@@ -47,10 +50,13 @@ from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch import config as config_lib
 from tpudist_torch import data as data_lib
 from tpudist_torch import engine as engine_lib
+from tpudist_torch import rules as rules_lib
 from tpudist_torch import verdict as verdict_lib
 from tpudist_torch.config import TrainConfig, parse_args
-from tpudist_torch.metrics import MetricsLogger, StagingStats, StepTimer, log0
+from tpudist_torch.metrics import (MetricsLogger, StagingStats, StepTimer,
+                                   _rank, log0)
 from tpudist_torch.obs import PodObserver
+from tpudist_torch.obs import goodput as goodput_lib
 from tpudist_torch.obs import live as live_lib
 from tpudist_torch.obs import memledger as memledger_lib
 from tpudist_torch.obs import trace as trace_lib
@@ -58,6 +64,47 @@ from tpudist_torch.ops.cuda import build as build_lib
 from tpudist_torch.parallel import distributed
 from tpudist_torch.parallel import staging as staging_lib
 from tpudist_torch.utils.platform import resolve_device
+
+
+_KILL_SPEC: Optional[tuple] = None
+
+
+def _test_kill_spec() -> tuple:
+    """``TPUDIST_TEST_KILL="<epoch>:<step>[:<rank>]"`` as ``(epoch, step,
+    rank)`` (rank -1: every rank), or ``()`` when unset; parsed once a
+    process."""
+    global _KILL_SPEC
+    if _KILL_SPEC is None:
+        raw = os.environ.get("TPUDIST_TEST_KILL", "")
+        if raw:
+            parts = raw.split(":")
+            _KILL_SPEC = (int(parts[0]), int(parts[1]),
+                          int(parts[2]) if len(parts) > 2 else -1)
+        else:
+            _KILL_SPEC = ()
+    return _KILL_SPEC
+
+
+def _maybe_test_kill(epoch: int, step: int, observer=None) -> None:
+    """The scripted preemption of the JAX package's
+    ``train._maybe_test_kill``: once the epoch reaches the step of
+    ``TPUDIST_TEST_KILL``, the matching rank stamps one beacon (an atomic
+    file write: the goodput ledger's lost-step count reads it) and dies
+    by ``os._exit(113)``: no ``finally``, no verdict, no drain, the death
+    a preemption reaper delivers."""
+    spec = _test_kill_spec()
+    if not spec:
+        return
+    ke, ks, kr = spec
+    if epoch == ke and step >= ks and (kr < 0 or kr == _rank()):
+        print(f"tpudist: TEST KILL (preemption drill) at epoch {epoch} "
+              f"step {step}", flush=True)
+        if observer is not None:
+            try:
+                observer.beacon_now()
+            except Exception:
+                pass
+        os._exit(113)
 
 
 def device_kind(device: torch.device) -> str:
@@ -70,6 +117,7 @@ def run(cfg: TrainConfig) -> float:
     """Train per config; returns the last epoch's average loss. Raises on
     failure: :func:`main` turns exceptions into the fail verdict and
     exit 1."""
+    run_wall_t0 = time.time()   # the attempt-local goodput denominator
     config_lib.check_supported(cfg)
     build_lib.set_build_root(cfg.compilation_cache_dir)
     # span tracing is on by default (host clock reads only: traced and
@@ -117,11 +165,13 @@ def run(cfg: TrainConfig) -> float:
          f"{engine_lib.state_bytes_per_device(state) / 1e9:.3f} GB "
          f"(params + Adam moments)")
     metrics = MetricsLogger(path=os.path.join(cfg.save_dir, "metrics.jsonl"))
-    # the run's identity stamps every record and trace document; the
-    # port's launcher contract has no requeue loop yet (ROADMAP item 10)
+    # the run's identity and the launcher's requeue attempt stamp every
+    # record, trace document, beacon and checkpoint index
+    requeue_attempt = config_lib.resolve_requeue_attempt(cfg)
     run_id = live_lib.resolve_run_id(world)
-    metrics.extra = {"run_id": run_id, "requeue_attempt": 0}
-    tracer.run_info = {"run_id": run_id, "requeue_attempt": 0}
+    metrics.extra = {"run_id": run_id, "requeue_attempt": requeue_attempt}
+    tracer.run_info = {"run_id": run_id,
+                       "requeue_attempt": requeue_attempt}
     metrics.log(kind="attempt", phase="start", process_count=world)
     metrics.flush()
 
@@ -180,33 +230,78 @@ def run(cfg: TrainConfig) -> float:
         eval_batch = data_lib.to_device(eval_src, device)
         eval_fn = engine_lib.make_eval_fn(cfg, device)
 
+    # elastic resume (tpudist_torch.elastic.resume): the newest of the
+    # committed sharded manifest and the orbax step directories; --resume
+    # auto (what the launcher's requeue loop passes) degrades a failed
+    # restore to a flagged fresh start. The restored (epoch,
+    # step_in_epoch) feeds the superstep realignment
     start_epoch, start_step_in_epoch = 0, 0
     resume_mode = config_lib.resolve_resume(cfg)
     resume_verdict = verdict_lib.UNGATEABLE
+    # a corrupt-checkpoint fallback's fallback_from / corrupt_shard
+    resume_details: dict = {}
     if resume_mode:
-        restored, err = None, None
+        from tpudist_torch.elastic import resume as elastic_resume
+        restored, resume_src, resume_err = None, None, None
         with trace_lib.span("resume_restore", cat="ckpt",
                             mode=resume_mode):
             try:
-                restored = ckpt_lib.restore_latest_full(cfg.save_dir,
-                                                        state)
+                restored = elastic_resume.restore_for_resume(
+                    cfg.save_dir, state,
+                    run_meta={"seed": cfg.seed,
+                              "batch_size": cfg.batch_size,
+                              "model": cfg.model.name},
+                    details=resume_details)
             except Exception as e:
                 if resume_mode != "auto":
                     raise
-                err = e
+                resume_err = e
         if restored is not None:
-            state, start_epoch, start_step_in_epoch = restored
-            resume_verdict = verdict_lib.SUCCESS
+            state, start_epoch, start_step_in_epoch, resume_src = restored
+        resume_verdict = verdict_lib.resume_status(
+            True, restored is not None, error=resume_err is not None)
+        # steps lost to the preemption: the dead attempt's heartbeat
+        # beacon (atomic, it survives any kill) recorded how far training
+        # had got past the committed checkpoint
+        steps_lost = None
+        if restored is not None:
+            beacon = os.path.join(
+                config_lib.resolve_obs(cfg)[1],
+                f"heartbeat.worker{ctx.process_index}")
+            try:
+                with open(beacon) as f:
+                    b = json.load(f)
+                if (b.get("epoch") == start_epoch
+                        and isinstance(b.get("step"), int)):
+                    steps_lost = max(0, b["step"] - start_step_in_epoch)
+            except Exception:
+                pass
+        metrics.log(kind="resume", status=resume_verdict,
+                    source=resume_src,
+                    epoch=start_epoch, step_in_epoch=start_step_in_epoch,
+                    resumed_from_step=int(state.step),
+                    steps_lost=steps_lost,
+                    requeue_attempt=requeue_attempt,
+                    fallback_from=resume_details.get("fallback_from"),
+                    corrupt_shard=resume_details.get("corrupt_shard"),
+                    error=repr(resume_err) if resume_err else None)
+        if restored is not None:
             log0(f"Resumed at epoch {start_epoch}, step "
                  f"{start_step_in_epoch} (global step {state.step}).")
-        elif err is not None:
-            resume_verdict = verdict_lib.FAIL
+            log0(f"tpudist: resume {resume_verdict} ({resume_src}): "
+                 f"from step {state.step}"
+                 + (f", ~{steps_lost} step(s) lost"
+                    if steps_lost is not None else "")
+                 + (f", requeue attempt {requeue_attempt}"
+                    if requeue_attempt else ""))
+            if resume_details.get("fallback_from") is not None:
+                log0(f"tpudist: resume fallback: step "
+                     f"{resume_details['fallback_from']} checkpoint is "
+                     f"corrupt ({resume_details.get('corrupt_shard')}); "
+                     f"restored the previous committed step instead")
+        elif resume_err is not None:
             log0(f"tpudist: resume {resume_verdict}: restore failed, "
-                 f"starting fresh ({err!r})")
-        metrics.log(kind="resume", status=resume_verdict,
-                    epoch=start_epoch, step_in_epoch=start_step_in_epoch,
-                    resumed_from_step=state.step,
-                    error=repr(err) if err else None)
+                 f"starting fresh ({resume_err!r})")
 
     timer = StepTimer(chips=world)
     # the flight recorder: heartbeat beacon, stall watchdog, the device
@@ -217,9 +312,41 @@ def run(cfg: TrainConfig) -> float:
         cfg, metrics=metrics, process_index=ctx.process_index,
         process_count=world,
         devices=[device.index or 0] if device.type == "cuda" else [])
-    observer.note_progress(run_id=run_id, requeue_attempt=0)
-    with trace_lib.span("ckpt_open", cat="ckpt"):
-        ckpt = ckpt_lib.Checkpointer(cfg.save_dir)
+    observer.note_progress(run_id=run_id, requeue_attempt=requeue_attempt)
+
+    # the chaos plane (tpudist_torch.chaos, --chaos/TPUDIST_CHAOS): a
+    # seeded fault schedule fired at step boundaries and inside the
+    # sharded checkpoint's write path, whose hook is installed BEFORE the
+    # checkpointer opens. Off (the default) constructs nothing
+    chaos_rt = None
+    chaos_spec = config_lib.resolve_chaos(cfg)
+    if chaos_spec:
+        from tpudist_torch import chaos as chaos_lib
+        chaos_rt = chaos_lib.ChaosRuntime(
+            chaos_lib.ChaosPlan.parse(chaos_spec),
+            process_index=ctx.process_index, observer=observer,
+            metrics=metrics)
+        chaos_rt.install()
+        log0(f"tpudist: chaos on: {chaos_rt.plan.describe()}")
+
+    # one checkpointer for the whole run; --ckpt-mode sharded swaps in
+    # the elastic per-worker-shard layout behind the same surface
+    ckpt_mode = config_lib.resolve_ckpt_mode(cfg)
+    with trace_lib.span("ckpt_open", cat="ckpt", mode=ckpt_mode):
+        if ckpt_mode == "sharded":
+            from tpudist_torch.elastic import ckpt as elastic_ckpt
+            ckpt = elastic_ckpt.ShardedCheckpointer(
+                cfg.save_dir, process_index=ctx.process_index,
+                process_count=world, use_async=not cfg.ckpt_sync,
+                run_meta={"seed": cfg.seed, "batch_size": cfg.batch_size,
+                          "model": cfg.model.name,
+                          # correlation keys only: resume validates the
+                          # data cursor above, any attempt restores
+                          "run_id": run_id,
+                          "requeue_attempt": requeue_attempt})
+        else:
+            ckpt = ckpt_lib.Checkpointer(cfg.save_dir,
+                                         use_async=not cfg.ckpt_sync)
     # the programs' scratch for the memory ledger: the per-step path
     # measures its first step, the superstep reports its graph pool
     programs = {}
@@ -229,10 +356,29 @@ def run(cfg: TrainConfig) -> float:
                                start_epoch, start_step_in_epoch, metrics,
                                timer, eval_fn, eval_batch, ckpt,
                                superstep, k, budget_bytes, staging,
-                               observer, programs)
+                               observer, programs, chaos_rt)
         run_ok = True
     finally:
+        if chaos_rt is not None:
+            chaos_rt.uninstall()   # the module-level hook must not
+            # outlive the run (in-process runs come back to back)
         observer.note_progress(phase="shutdown")
+        try:
+            # drain the writer before the process can exit: a daemon
+            # thread still writing at interpreter teardown would lose
+            # the save
+            ckpt.close(barrier=run_ok)
+        finally:
+            # the blocked time the per-save enqueue_ms cannot see, and
+            # the sharded layout's transient-fs-error counters
+            metrics.log(kind="ckpt_drain",
+                        drain_ms=round(ckpt.drain_ms, 1), saves=ckpt.saves,
+                        write_errors=ckpt.write_errors,
+                        write_retries=getattr(ckpt, "write_retries", 0),
+                        write_skips=getattr(ckpt, "write_skips", 0),
+                        bytes_written=getattr(ckpt, "bytes_written", None),
+                        write_s=getattr(ckpt, "write_s", None),
+                        mode=ckpt_mode)
         if superstep is not None:
             if superstep.programs:
                 programs["superstep"] = {
@@ -335,6 +481,19 @@ def run(cfg: TrainConfig) -> float:
                 **graphs, **obs_fields)
     _log_ledger(cfg, ctx, device, state, programs, staging, superstep,
                 obs_fields, metrics, run_id)
+    # the attempt-local goodput estimate: the cross-attempt ledger's
+    # bucket math over this attempt's own records and wall, refined
+    # offline once the launcher's attempts.jsonl adds what only it sees
+    gp = goodput_lib.attempt_record(
+        metrics.history, wall_s=time.time() - run_wall_t0,
+        requeue_attempt=requeue_attempt)
+    if gp is not None:
+        metrics.log(kind="goodput", **gp)
+        log0(f"tpudist: goodput {gp['status']}: "
+             f"{100 * gp['fraction']:.1f}% of this attempt's "
+             f"{gp['wall_s']:.2f}s wall was productive step time "
+             f"(floor {rules_lib.resolve('goodput'):.0%}; "
+             f"cross-attempt ledger: python -m tpudist.obs.goodput)")
     log0("Training completed.")
     metrics.close()
     return last_avg
@@ -390,7 +549,7 @@ def _log_ledger(cfg, ctx, device, state, programs, staging, superstep,
 
 def _superstep_epoch(cfg, k, device, state, superstep, plan, first,
                      n_steps, epoch, metrics, timer, ckpt, budget_bytes,
-                     staging, observer):
+                     staging, observer, chaos):
     """One epoch under superstep dispatch with bounded-memory staging,
     the JAX package's ``train._superstep_epoch``.
 
@@ -477,6 +636,9 @@ def _superstep_epoch(cfg, k, device, state, superstep, plan, first,
             pending += hi - lo
             # the watchdog's liveness signal: attribute writes only
             observer.note_progress(phase="train", epoch=epoch, step=end)
+            _maybe_test_kill(epoch, end, observer)
+            if chaos is not None:
+                chaos.on_step(epoch, end)
             if not dispatched:
                 dispatched = True
                 if timer.warming:
@@ -523,7 +685,7 @@ def _superstep_epoch(cfg, k, device, state, superstep, plan, first,
 def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
                 start_step_in_epoch, metrics, timer, eval_fn, eval_batch,
                 ckpt, superstep, k, budget_bytes, staging, observer,
-                programs):
+                programs, chaos=None):
     last_avg = float("nan")
     tracer = trace_lib.get()
     for epoch in range(start_epoch, cfg.epochs):
@@ -544,7 +706,7 @@ def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
             state, total, counted, pending = _superstep_epoch(
                 cfg, k, device, state, superstep, plan, first, n_steps,
                 epoch, metrics, timer, ckpt, budget_bytes, staging,
-                observer)
+                observer, chaos)
             last_avg = _epoch_end(cfg, state, total, counted, pending,
                                   n_steps, epoch, metrics, timer, eval_fn,
                                   eval_batch, ckpt, observer)
@@ -572,6 +734,9 @@ def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
             counted += 1
             pending += 1
             observer.note_progress(phase="train", epoch=epoch, step=i + 1)
+            _maybe_test_kill(epoch, i + 1, observer)
+            if chaos is not None:
+                chaos.on_step(epoch, i + 1)
             if i == first and timer.warming:
                 # the first step alone is the warmup: kernel builds and
                 # the allocator's first growth stay out of steps/s

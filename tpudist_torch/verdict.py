@@ -82,6 +82,21 @@ def trace_status(enabled: bool, spans: int, dropped: int,
     return SUCCESS
 
 
+def resume_status(requested: bool, restored: bool,
+                  error: bool = False) -> str:
+    """Three-valued elastic-resume verdict (the JAX package's
+    ``verdict.resume_status``): UNGATEABLE when no resume was requested
+    or nothing existed to restore (a launcher's first attempt runs
+    ``--resume auto`` against an empty save dir); SUCCESS when a
+    committed checkpoint was restored; FAIL when a restore was attempted
+    and errored (under ``--resume auto`` the run then starts fresh)."""
+    if not requested:
+        return UNGATEABLE
+    if error:
+        return FAIL
+    return SUCCESS if restored else UNGATEABLE
+
+
 def tuning_status(mode: str, *, source: str = "heuristic",
                   tuned_steps_per_sec: Optional[float] = None,
                   baseline_steps_per_sec: Optional[float] = None) -> str:
