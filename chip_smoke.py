@@ -232,11 +232,33 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ms, the bytes a save writes and the writer's GB/s for synchronous and
    asynchronous sharded saves every 2 steps, per-step, and the steps/s
    of each against a run with no mid-epoch save. The phase's wall time
-   is printed.
+   is printed;
+18. the MoE model at ``bench.py``'s MoE row (V 32000, L 4, d 2048, h 16,
+   kv 16, d_ff 2752 an expert, 8 experts, top 2, capacity factor 1.25,
+   routing groups of 256; 673.8 M params), seq 512: (a) the train CLI
+   with ``--model moe`` in bf16 with the bf16 nu, ``--lm-head fused`` and
+   ``--lr 1e-3``, batch 8, 32 samples, 2 epochs, per-step and as the
+   superstep (auto k = 4: one eager window, one replay): the contract,
+   falling losses, verdict ``success``, exact launches, the flop count
+   equal to its closed form (the capacity rows and the dispatch/combine
+   products) and ``0 < mfu <= 1.05``, each epoch's Avg and eval loss
+   bitwise equal between the two, steps/s, tokens/s and peak memory;
+   (b) one f32 step, plain and fused head: the loss and every param
+   grad (the router's and every expert's) through the kernels against
+   the plain versions within f32 1e-4, and how many token-layer
+   routings the two runs made differently; (c) phase 4's stream on
+   ``ServeEngine`` over the MoE in f32 on CUDA graphs: the pin, exact
+   flash launches, tokens equal to the eager bodies', a replayed
+   prefill's logits within 1e-3 of the plain forward's; then on
+   ``PagedServeEngine`` (16-token pages): tokens equal to the dense
+   engine's or a first divergence at a near-tie (14's rule); (d)
+   ``python -m tpudist_torch.serve --model moe`` at phase 4's flags:
+   exit 0, the verdict and the SLO status ``success``, the pin. The
+   phase's wall time is printed.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
-15c-15e (15d's requeued, stalled, garbage and clean runs), 16b and 17b
-are the main paths: each
+15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
+18a (both runs), 18c (both engines) and 18d are the main paths: each
 runs with every launch count set to 0 just before and read just after
 (10a and 11c in each rank's process; 12b's and 15a's timed runs, not
 their probes, which restore the counters), and each
@@ -252,7 +274,10 @@ the flash kernels counted in the replayed prefills; one replayed paged
 decode superstep and one verify dispatch, phase 14b's) and of two training
 steps at seq 2048 (plain and
 fused head), 512 and 512 in bf16 with the fused head (phase 9's
-configuration; device time by kernel, busy share), of one replayed
+configuration; device time by kernel, busy share), of two MoE steps in
+phase 18a's configuration (the expert GEMMs' and the dispatch/combine
+products' device time read from ``aten::bmm``'s input shapes), of one
+replayed
 superstep against as many per-step steps (phase 11's MLP at k = 25 and
 seq 512 bf16 at k = 4; wall, kernel time, busy share), and the rates
 mma.sync reaches (``tpudist_torch/csrc/mma_peak.cu``).
@@ -2238,13 +2263,25 @@ def _paged_run(torch, fa, fx, tag, engine, params, requests, prefix=None,
     return summary, counts
 
 
+def _full_logits(torch, params, cfg, tokens, **kw):
+    """The non-cached forward's tied logits (batch, seq, vocab) in f32, of
+    the transformer or the MoE (``kw``: ``attn_impl``)."""
+    from tpudist_torch.models import get_model
+
+    h = get_model(cfg.name).hidden_states(params, tokens, cfg,
+                                          dtype=torch.float32, **kw)
+    if cfg.name == "moe":
+        h = h[0]                     # (h, aux)
+    return (h @ params.embed.to(torch.float32).T).to(torch.float32)
+
+
 def _near_ties(torch, params, cfg, requests, want, got, tag) -> int:
     """The requests whose tokens differ from the dense run's ``want``:
     each one's first divergence must be a near-tie, the full forward's
     top-two logit gap there within f32 noise (1e-4 of the logits' largest
-    magnitude), or the phase fails. Returns how many differ."""
-    from tpudist_torch.models import transformer
-
+    magnitude), or the phase fails. Returns how many differ. (The MoE's
+    full forward routes the sequence in groups of its own, where decode
+    routed each step's slot batch: the gap is that forward's.)"""
     by_rid = {r.rid: r for r in requests}
     ties = 0
     for rid in sorted(want):
@@ -2257,10 +2294,9 @@ def _near_ties(torch, params, cfg, requests, want, got, tag) -> int:
         req = by_rid[rid]
         seq = [int(t) for t in req.tokens[:req.prompt_len]] + w[:i]
         with torch.no_grad():
-            logits = transformer.apply(
-                params, torch.as_tensor([seq], dtype=torch.int64,
-                                        device=params.embed.device),
-                cfg, dtype=torch.float32)[0, -1]
+            logits = _full_logits(torch, params, cfg, torch.as_tensor(
+                [seq], dtype=torch.int64,
+                device=params.embed.device))[0, -1]
         top = logits.topk(2).values
         gap, scale = float(top[0] - top[1]), float(logits.abs().max())
         print(f"{tag}: request {rid} diverges at token {i}: dense "
@@ -3306,6 +3342,386 @@ def train_chaos(torch, fa, fx, card: str):
     return {TRAIN_DRILL_PATH: run["counts"]}
 
 
+# phase 18: the MoE model at bench.py's MoE row (bench.py:165-168), the
+# JAX package's own MoE configuration at full width: V 32000, L 4, d
+# 2048, h 16, kv 16, d_ff 2752 an expert, 8 experts, top 2, capacity
+# factor 1.25, routing groups of 256 tokens; only the batch (8) and the
+# samples are cut. Its attention and LM head are the transformer's, so
+# its paths launch rows 1, 2, 5 and 6; its routing, dispatch and expert
+# GEMMs are plain PyTorch, as they are plain XLA in the JAX package
+MOE_MODEL = ("--model", "moe", "--vocab-size", "32000", "--n-layers", "4",
+             "--d-model", "2048", "--n-heads", "16", "--n-kv-heads", "16",
+             "--d-ff", "2752", "--n-experts", "8", "--expert-top-k", "2",
+             "--moe-group-size", "256")
+MOE_TRAIN_PATHS = ("train_moe_per_step", "train_moe_superstep")
+MOE_SERVE_PATHS = ("serve_moe", "paged_serve_moe", "serve_moe_cli")
+
+
+def moe_model_config(seq: int):
+    """Phase 18's model (``MOE_MODEL``) as a ``ModelConfig`` at ``seq``."""
+    from tpudist_torch import config as config_lib
+
+    return config_lib.parse_args([*MOE_MODEL, "--seq-len", str(seq)]).model
+
+
+def moe_step_flops(m, b: int, s: int) -> int:
+    """One MoE training step's model flops at batch ``b``, seq ``s``, the
+    count's closed form (``tests/test_torch_moe.py``): the dense closed
+    form without the FFN (:func:`step_flops`), plus each layer's router
+    GEMM, the experts' three GEMMs over the capacity rows (groups x E x
+    capacity), the dispatch product (forward and the activations' grad),
+    the combine product (forward and both grads) and routing's own two
+    products over the k picks."""
+    from tpudist_torch.models import moe
+
+    t = b * s
+    g = moe.group_size(m, t)
+    cap = moe.capacity(m, g)
+    E, k, d = m.n_experts, m.expert_top_k, m.d_model
+    rows = (t // g) * E * cap
+    routed = (6 * t * d * E + 18 * rows * d * m.d_ff
+              + 10 * t * E * cap * d + 6 * t * E * k * cap)
+    return (step_flops(dataclasses.replace(m, d_ff=0), b, s)
+            + m.n_layers * routed)
+
+
+def moe_train(torch, fa, fx, card: str):
+    """Phase 18a, the paths ``train_moe_per_step`` and
+    ``train_moe_superstep``: ``python -m tpudist_torch.train --model
+    moe`` (its ``main``) at ``MOE_MODEL``'s width, seq 512, bf16, bf16
+    Adam nu, ``--lm-head fused``, ``--lr 1e-3`` (phases 9 and 17's),
+    global batch 8, 32 samples (4 steps an epoch), 2 epochs, ``--log-every
+    4``: per-step (``--steps-per-dispatch 1``) and as the superstep (auto
+    -> k = 4: the first epoch's window the eager warm-up, the second a
+    replay). Each run: the stdout contract, falling losses, verdict
+    ``success``, exact launches (flash forward 4 x (steps + eval
+    batches), merged backward 4 x steps, fused forward steps + evals,
+    fused backward steps), ``kind=timing``'s flop count equal to its
+    closed form and ``0 < mfu <= 1.05``; each epoch's Avg and eval loss
+    bitwise equal between the two; the superstep's 2 programs and 1
+    replay. Returns each path's launches."""
+    from tpudist_torch import config as config_lib
+
+    seq, epochs, n_samples = 512, 2, 32
+    argv = [*MOE_MODEL, "--seq-len", str(seq), "--train-batch-size", "8",
+            "--n-samples", str(n_samples), "--epochs", str(epochs),
+            "--seed", "42", "--log-every", "4", "--dtype", "bfloat16",
+            "--adam-nu-dtype", "bfloat16", "--lm-head", "fused", "--lr",
+            "1e-3"]
+    cfg = config_lib.parse_args(argv)
+    m = cfg.model
+    steps = epochs * (n_samples // cfg.batch_size)
+    want = want_launches(fa, m, seq, steps, epochs, fused=True)
+    flops = moe_step_flops(m, cfg.batch_size, seq)
+    hd = m.d_model // m.n_heads
+    n_params = m.vocab_size * m.d_model + m.n_layers * (
+        2 * m.d_model * m.n_heads * hd + 2 * m.d_model * m.n_kv_heads * hd
+        + m.d_model * m.n_experts + 3 * m.n_experts * m.d_model * m.d_ff)
+    print(f"moe 18a: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} E{m.n_experts} "
+          f"top{m.expert_top_k} cf{m.capacity_factor} group "
+          f"{m.moe_group_size}; {n_params / 1e6:.1f} M params; "
+          f"{cfg.dtype}, adam nu {cfg.adam_nu_dtype}, --lm-head fused, "
+          f"batch {cfg.batch_size}, seq {seq}, {n_samples} samples, "
+          f"{epochs} epochs; closed-form flops a step {flops:.4e}; {card}")
+    runs, paths = {}, {}
+    for how, k in (("per_step", "1"), ("superstep", "0")):
+        tag = f"train_moe_{how}"
+        run = runs[how] = _cli_run(torch, fa, fx, tag, argv + [
+            "--steps-per-dispatch", k])
+        t = run["timing"]
+        losses = [r["loss"] for r in run["recs"] if r["kind"] == "step"]
+        check_contract(tag, run["out"], epochs, losses)
+        print(f"moe 18a {how}: k={t['steps_per_dispatch']}, step losses "
+              f"{losses}; " + _step_line(run, cfg.batch_size * seq))
+        print(f"moe 18a {how}: mfu {t['mfu']} "
+              f"({t['achieved_tflops_per_chip']} of {t['peak_tflops']} "
+              f"TFLOP/s, {t['model_flops_per_step']} flops a step); "
+              f"kernel launches {run['counts']} (want {want}); {card}")
+        if run["counts"] != want:
+            fail(f"moe 18a {how}: kernel launches {run['counts']}, want "
+                 f"{want}")
+        if t["model_flops_per_step"] != flops or not (
+                t["mfu"] and 0 < t["mfu"] <= 1.05):
+            fail(f"moe 18a {how}: {t['model_flops_per_step']} flops a "
+                 f"step (closed form {flops}), mfu {t['mfu']}")
+        paths[tag] = run["counts"]
+    sup = runs["superstep"]
+    graphs = sup["supersteps"][0] if sup["supersteps"] else None
+    print(f"moe 18a superstep: {_graphs_line(sup) if graphs else 'none'}")
+    if sup["timing"]["steps_per_dispatch"] != 4 or graphs is None or (
+            graphs.programs, graphs.replays) != (2, {"superstep": 1,
+                                                     "step": 0}):
+        fail("moe 18a: the superstep did not run k = 4 as 2 programs and "
+             "1 replay")
+    a, b = _epochs_of(runs["per_step"]), _epochs_of(sup)
+    print(f"moe 18a: epochs (Avg, eval) per-step {a}, superstep {b}")
+    if a != b or len(a) != epochs:
+        fail(f"moe 18a: the epochs' losses differ: per-step {a}, "
+             f"superstep {b}")
+    return paths
+
+
+def moe_step_check(torch, fa, fx, fused: bool):
+    """Phase 18b: one MoE training step at ``MOE_MODEL``'s width, seq
+    512, batch 8, f32: the loss (xent + the weighted router aux) and
+    every param grad, the router's and every expert's included, through
+    the kernels and through the plain versions on the card, within f32
+    1e-4 (max |d| / max |plain| per tensor), with the plain head or the
+    fused one (its kernels against their plain versions). Also printed:
+    whether the two runs routed every token alike (a router near-tie
+    that f32 rounding tips sends a token elsewhere)."""
+    from tpudist_torch import data as data_lib
+    from tpudist_torch.models import moe, transformer
+
+    seq = 512
+    cfg = moe_model_config(seq)
+    model = moe.init(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(42))
+    tokens = torch.as_tensor(data_lib.make_synthetic_tokens(
+        8, seq + 1, cfg.vocab_size, 42), device="cuda").long()
+    routes, real_route = [], moe._route
+
+    def route(*args):
+        out = real_route(*args)
+        routes.append(out[0].detach())
+        return out
+
+    def loss_and_grads(attn_impl, head):
+        h, aux = moe.hidden_states(model, tokens[:, :-1], cfg,
+                                   dtype=torch.float32, attn_impl=attn_impl)
+        loss = head(model.embed, h, tokens[:, 1:]) \
+            + cfg.router_aux_weight * aux
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.detach(), grads
+
+    def kernel_head(emb, h, targets):
+        return transformer.head_loss(emb, h, targets, fused_xent=fused)
+
+    moe._route = route
+    try:
+        before = _launch_counts(fa, fx)
+        loss_k, grads_k = loss_and_grads(transformer._attention,
+                                         kernel_head)
+        ran = {k: v - before[k] for k, v in _launch_counts(fa, fx).items()}
+        loss_p, grads_p = loss_and_grads(
+            plain_attention(torch, fa),
+            plain_head(torch, fx) if fused else kernel_head)
+    finally:
+        moe._route = real_route
+    torch.cuda.synchronize()
+    n = len(routes) // 2
+    moved = sum(int((a != b).any(dim=(-2, -1)).sum())
+                for a, b in zip(routes[:n], routes[n:]))
+    errs = {"loss": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())}
+    for (name, _), gk, gp in zip(model.named_parameters(), grads_k,
+                                 grads_p):
+        errs[name] = ((gk - gp).abs().max()
+                      / gp.abs().max().clamp_min(1e-30)).item()
+    worst = max(errs, key=errs.get)
+    tag = f"moe 18b{' fused head' if fused else ''}"
+    print(f"{tag}: loss {loss_k.item():.6f} (kernels) vs "
+          f"{loss_p.item():.6f} (plain); worst relative error "
+          f"{errs[worst]:.3e} ({worst}) over the loss and "
+          f"{len(errs) - 1} grads (tol 1e-4); router "
+          f"{errs['layers.w_router']:.3e}, experts w_gate "
+          f"{errs['layers.w_gate']:.3e} w_up {errs['layers.w_up']:.3e} "
+          f"w_down {errs['layers.w_down']:.3e}; token-layer routings "
+          f"that differ {moved} of {n * 8 * seq}; kernel launches {ran}")
+    del model, grads_k, grads_p, routes
+    torch.cuda.empty_cache()
+    if errs[worst] > 1e-4 or not math.isfinite(errs[worst]):
+        fail(f"{tag}: {worst} off by {errs[worst]:.3e}")
+    if ran["flash_attention_bwd_dqkv"] != cfg.n_layers:
+        fail(f"{tag}: the merged backward kernel ran "
+             f"{ran['flash_attention_bwd_dqkv']} times, want "
+             f"{cfg.n_layers}")
+    if fused and (ran["fused_xent_fwd"], ran["fused_xent_bwd"]) != (1, 1):
+        fail(f"{tag}: the fused head kernels did not run once")
+
+
+def moe_serve(torch, fa, fx, card: str):
+    """Phase 18c, the paths ``serve_moe`` and ``paged_serve_moe``: phase
+    4's stream (16 requests at t=0, 32 new tokens each) through
+    ``ServeEngine`` over the MoE at ``MOE_MODEL``'s width in f32 on CUDA
+    graphs (slots 8, max_seq 1024, prompt_pad 512, decode_k 8, the ladder
+    (8, 4, 2)): every request completed, the pin, the flash launches
+    exact, the replayed tokens equal to the eager bodies', one replayed
+    prefill's logits within f32 1e-3 of the plain forward's; then the
+    same stream on ``PagedServeEngine`` (16-token pages): every request's
+    tokens equal to the dense engine's, or a first divergence at a
+    near-tie under phase 14's rule, printed and counted. Returns each
+    path's launches."""
+    from tpudist_torch.models import moe
+    from tpudist_torch.serve import scheduler as sched
+    from tpudist_torch.serve.engine import init_params
+
+    cfg = moe_model_config(1024)
+    params = init_params(cfg, seed=0, device="cuda")
+    requests = sched.make_requests(16, prompt_pad=512,
+                                   vocab_size=cfg.vocab_size, max_new=32,
+                                   rate=0.0, seed=0)
+    paths = {}
+    engine = _serve_engine(torch, cfg, False)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"moe 18c: params {n_params * 4 / 1e9:.3f} GB f32, kv cache "
+          f"{engine.spec.bytes / 1e9:.3f} GB; prefill "
+          f"groups of {moe.group_size(cfg, 512)} tokens, capacity "
+          f"{moe.capacity(cfg, moe.group_size(cfg, 512))}; decode one "
+          f"group of {engine.slots}, capacity "
+          f"{moe.capacity(cfg, engine.slots)}; {card}")
+    dense, paths["serve_moe"] = _paged_run(torch, fa, fx, "moe 18c dense",
+                                           engine, params, requests)
+    eager = sched.run_serve(_EagerBodies(engine), params, requests)
+    same = _tokens_of(eager) == _tokens_of(dense)
+    print(f"moe 18c dense: every request's tokens, graphs vs the eager "
+          f"bodies: equal {same}")
+    if not same:
+        fail("moe 18c: the graph engine's tokens differ from its eager "
+             "bodies'")
+
+    def plain(q, k, v, *, cos=None, sin=None, causal=True):
+        return fa.flash_attention_plain(q, k, v, cos=cos, sin=sin,
+                                        causal=causal)[0]
+    plain.accepts_rope = True
+    req = requests[0]
+    _, first = engine.prefill(params, engine.init_state(),
+                              req.tokens[None, :], req.prompt_len, 0,
+                              req.max_new)
+    got = engine.last_logits[0].clone()
+    with torch.no_grad():
+        ref = _full_logits(torch, params, cfg, torch.as_tensor(
+            req.tokens[None, :], dtype=torch.int64, device="cuda"),
+            attn_impl=plain)[0, req.prompt_len - 1]
+    err = (got - ref).abs().max().item()
+    print(f"moe 18c dense: replayed prefill (rid {req.rid}, prompt_len "
+          f"{req.prompt_len}): first token {int(first)}; logits vs the "
+          f"plain forward max |d| {err:.3e} (atol 1e-3), argmax equal "
+          f"{int(got.argmax()) == int(ref.argmax())}")
+    if not bool(torch.isfinite(got).all()) or err > 1e-3:
+        fail(f"moe 18c: prefill logits differ from the plain forward by "
+             f"{err:.3e}")
+    engine.release()
+    del engine, eager
+    torch.cuda.empty_cache()
+
+    engine = _serve_engine(torch, cfg, True, page_tokens=16)
+    paged, paths["paged_serve_moe"] = _paged_run(
+        torch, fa, fx, "moe 18c paged", engine, params, requests)
+    ties = _near_ties(torch, params, cfg, requests, _tokens_of(dense),
+                      _tokens_of(paged), "moe 18c paged")
+    print(f"moe 18c: tokens/s/chip dense {dense['tokens_per_sec_per_chip']}"
+          f", paged {paged['tokens_per_sec_per_chip']}; itl p50 dense "
+          f"{dense['itl_p50_s']} s, paged {paged['itl_p50_s']} s; ttft p50 "
+          f"dense {dense['ttft_p50_s']} s; near-tie divergences {ties}; "
+          f"{card}")
+    engine.release()
+    del engine, params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def moe_serve_cli(torch, fa, fx, card: str):
+    """Phase 18d, the path ``serve_moe_cli``: ``python -m
+    tpudist_torch.serve --model moe`` (its ``main``) at phase 4's serving
+    flags and ``MOE_MODEL``'s width (the serve CLI takes the capacity
+    factor and the routing group from ``ModelConfig``'s defaults, as the
+    JAX serve CLI does): exit 0, the verdict and the SLO status
+    ``success`` (every serve gate passed), the program pin, the flash
+    launches exact. Returns its launches."""
+    argv = list(SERVE_ARGV)
+    argv[argv.index("--d-ff") + 1] = "2752"
+    argv += ["--model", "moe", "--n-experts", "8", "--expert-top-k", "2"]
+    run = _serve_cli(torch, fa, fx, "moe 18d serve CLI", argv)
+    if run["summary"]["status"] != "success" or run["summary"].get(
+            "model") != "moe":
+        fail(f"moe 18d: SLO status {run['summary']['status']}, model "
+             f"{run['summary'].get('model')}")
+    print(f"moe 18d: model {run['summary']['model']}, SLO "
+          f"{run['summary']['status']}; {card}")
+    return {"serve_moe_cli": run["counts"]}
+
+
+def moe_phase(torch, fa, fx, card: str, profile: bool):
+    """Phase 18: the MoE trained (18a), one full-width step's grads
+    kernels vs plain (18b, plain and fused head), served on the dense
+    and the paged engine (18c) and through the serve CLI (18d). Returns
+    each main path's launches."""
+    t0 = time.perf_counter()
+    paths = moe_train(torch, fa, fx, card)
+    torch.cuda.empty_cache()
+    for fused in (False, True):
+        moe_step_check(torch, fa, fx, fused)
+    paths.update(moe_serve(torch, fa, fx, card))
+    paths.update(moe_serve_cli(torch, fa, fx, card))
+    if profile:
+        profile_moe(torch, card)
+    print(f"moe 18: phase wall {time.perf_counter() - t0:.3f} s; {card}")
+    return paths
+
+
+def profile_moe(torch, card: str):
+    """--profile: two steady MoE training steps in phase 18a's
+    configuration (bf16, bf16 nu, the fused head, per-step): wall,
+    device kernel time and busy share, and the device time of the GEMMs
+    by what they compute, read from the ``aten::bmm`` calls' input
+    shapes: the experts' (a dimension of d_ff, batched over the
+    experts), the other batched products (dispatch, combine and
+    routing's), and the rest of the step."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+
+    cfg = config_lib.parse_args(
+        [*MOE_MODEL, "--seq-len", "512", "--train-batch-size", "8",
+         "--lm-head", "fused", "--dtype", "bfloat16", "--adam-nu-dtype",
+         "bfloat16"])
+    m, dev = cfg.model, torch.device("cuda")
+    state = engine_lib.init_state(cfg, dev)
+    step = engine_lib.make_train_step(cfg, dev)
+    batch = (torch.as_tensor(data_lib.make_synthetic_tokens(
+        8, 513, m.vocab_size), device=dev).long(),)
+    state, loss = step(state, batch)
+    loss.item()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, loss = step(state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    busy = sum(r[1] for r in kernels)
+    experts = products = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key != "aten::bmm" or e.device_type.name != "CPU":
+            continue
+        dims = {d for shape in e.input_shapes for d in shape}
+        if m.d_ff in dims:
+            experts += e.device_time_total / 1e3
+        else:
+            products += e.device_time_total / 1e3
+    print(f"profile: moe 2 train steps (bf16, bf16 nu, fused head): "
+          f"{wall:.3f} ms wall, device kernel time {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}% busy); expert GEMMs {experts:.3f} ms "
+          f"({100 * experts / busy:.1f}% of the kernel time), the other "
+          f"batched products (dispatch, combine, routing) {products:.3f} ms "
+          f"({100 * products / busy:.1f}%); {card}")
+    for key, ms, count in sorted(kernels, key=lambda r: -r[1])[:12]:
+        print(f"profile:   {ms:9.3f} ms {100 * ms / busy:5.1f}% {count:5d}x"
+              f"  {key[:80]}")
+    del state, step
+    torch.cuda.empty_cache()
+
+
 def remat_check(torch, card: str):
     """Phase 12b: one full-width training step (BASELINE config #5, seq
     512, f32, the fused head) with ``--remat`` (each layer checkpointed,
@@ -4205,6 +4621,12 @@ def main() -> int:
     # checkpoint writer buys
     torch.cuda.empty_cache()
     paths.update(train_chaos(torch, fa, fx, card))
+
+    # phase 18: the MoE at bench.py's width: (a) the train CLI per-step
+    # and as the superstep, (b) one step's grads kernels vs plain, (c)
+    # the dense and paged engines, (d) the serve CLI
+    torch.cuda.empty_cache()
+    paths.update(moe_phase(torch, fa, fx, card, args.profile))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -4229,15 +4651,18 @@ def main() -> int:
                                             "train_seq512_bf16_auto",
                                             "train_seq512_dp", *SUPERSTEP,
                                             TUNE_PATH, *OBS_PATHS,
-                                            TRAIN_DRILL_PATH),
+                                            TRAIN_DRILL_PATH,
+                                            *MOE_TRAIN_PATHS),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
-                                  TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH),
+                                  TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
+                                  *MOE_TRAIN_PATHS),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
-                                  TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH)}
+                                  TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
+                                  *MOE_TRAIN_PATHS)}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

@@ -525,8 +525,8 @@ def test_every_jax_serve_flag_is_carried_or_refused():
             tcli.parse_args([opt, *_turn_on(kw, off)])
     args = tcli.parse_args([])
     tcli.check_supported(args)
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 6$"):
-        tcli.check_supported(tcli.parse_args(["--model", "moe"]))
+    # the MoE, refused until the port carried it, passes
+    tcli.check_supported(tcli.parse_args(["--model", "moe"]))
 
 
 @pytest.mark.parametrize("flag,words", [
@@ -540,12 +540,13 @@ def test_every_jax_serve_flag_is_carried_or_refused():
 def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
                                                     capsys, monkeypatch):
     """Refused flags exit 1 naming their Queue A item and write nothing;
-    ``--trace`` and ``--trace-dir``, the paged plane's four flags, and
+    ``--trace`` and ``--trace-dir``, the paged plane's four flags,
     ``--requeue-attempt``, ``--chaos``, ``--serve-tune`` and
-    ``--tune-cache-dir``, refused until the port carried them, now
-    serve: the trace where they say, a paged run with its summary fields
-    set, and a run with the JAX meaning of each (:func:`_assert_carried_run`)."""
-    if flag in TUNE_CHAOS_FLAGS:
+    ``--tune-cache-dir``, and ``--model moe``, refused until the port
+    carried them, now serve: the trace where they say, a paged run with
+    its summary fields set, and a run with the JAX meaning of each
+    (:func:`_assert_carried_run`; the MoE's run serves the MoE)."""
+    if flag in TUNE_CHAOS_FLAGS or flag == "--model":
         monkeypatch.chdir(tmp_path)
         _assert_carried_run(tmp_path, [flag, *words], flag)
         return
@@ -597,6 +598,7 @@ def _assert_carried_run(tmp_path, argv, what):
     recs = [json.loads(line) for line in
             (save / "metrics.jsonl").read_text().splitlines()]
     rec = [r for r in recs if r["kind"] == "serve"][0]
+    assert rec["model"] == (argv[1] if what == "--model" else "transformer")
     tune = [r for r in recs if r["kind"] == "serve_tune"]
     chaos = [r for r in recs if r["kind"] == "chaos"]
     assert rec["completed"] == 4 and rec["requeue_attempt"] == 0

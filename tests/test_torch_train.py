@@ -211,7 +211,9 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
 
 @pytest.mark.parametrize("flag", [
     ["--fsdp", "2"], ["--tensor", "2"], ["--context", "2"], ["--pipe", "2"],
-    ["--expert", "2"], ["--model", "moe"], ["--tensor", "4"],
+    # the MoE trains since the port carried it; its expert axis does not
+    ["--expert", "2"], ["--model", "moe", "--expert", "2"],
+    ["--tensor", "4"],
     ["--live", "on"], ["--pipe", "4", "--context", "2"],
 ])
 def test_flags_this_slice_does_not_carry_are_refused(flag):

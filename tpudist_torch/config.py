@@ -40,7 +40,8 @@ class DataConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Model selection and shape. ``mlp`` is the parity model,
-    ``transformer`` the Llama-style block stack."""
+    ``transformer`` the Llama-style block stack, ``moe`` the same blocks
+    with a mixture-of-experts FFN."""
 
     name: str = "mlp"
     n_features: int = 20
@@ -54,6 +55,13 @@ class ModelConfig:
     d_ff: int = 5504
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
+    # moe-only fields (``moe``: transformer blocks whose FFN half is a
+    # top-k routed mixture of experts)
+    n_experts: int = 8
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_group_size: int = 4096    # routing group (bounds dispatch memory)
 
 
 @dataclass(frozen=True)
@@ -140,11 +148,6 @@ NOT_CARRIED = (
     ("--grad-bucket-mb", dict(type=float), (), "TPUDIST_GRAD_BUCKET_MB", 8),
     ("--cross-slice", dict(choices=("flat", "hierarchical")), ("flat",),
      "TPUDIST_CROSS_SLICE", 8),
-    ("--n-experts", dict(type=int, default=8), (), None, 8),
-    ("--expert-top-k", dict(type=int, default=2), (), None, 8),
-    ("--capacity-factor", dict(type=float, default=1.25), (), None, 8),
-    ("--router-aux-weight", dict(type=float, default=0.01), (), None, 8),
-    ("--moe-group-size", dict(type=int, default=4096), (), None, 8),
     ("--profile-dir", {}, (), None, "11b"),
     ("--profile-window", dict(type=int, default=0), (),
      "TPUDIST_PROFILE_WINDOW", "11b"),
@@ -256,10 +259,6 @@ def check_supported(cfg: TrainConfig) -> None:
             f"mesh axes {wide}: the port trains data-parallel only; "
             f"sharded layouts and multi-axis parallelism come with ROADMAP "
             f"Queue A item 8")
-    if cfg.model.name not in ("mlp", "transformer"):
-        raise ValueError(
-            f"--model {cfg.model.name}: the port trains mlp and "
-            f"transformer; the MoE model comes with ROADMAP Queue A item 8")
     if cfg.live not in (None, "off"):
         raise ValueError(
             "--live on: the live telemetry bus comes with ROADMAP Queue A "
@@ -571,6 +570,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     p.add_argument("--n-kv-heads", type=int, default=None)
     p.add_argument("--d-ff", type=int, default=5504)
     p.add_argument("--seq-len", type=int, default=2048)
+    # moe shape
+    p.add_argument("--n-experts", type=int, default=8)
+    p.add_argument("--expert-top-k", type=int, default=2)
+    p.add_argument("--capacity-factor", type=float, default=1.25)
+    p.add_argument("--router-aux-weight", type=float, default=0.01)
+    p.add_argument("--moe-group-size", type=int, default=4096,
+                   help="tokens per routing group (bounds dispatch-tensor "
+                        "memory; must divide batch*seq or routing falls "
+                        "back to one global group)")
     for axis in ("fsdp", "tensor", "context", "pipe", "expert"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help=f"{axis} mesh axis size (1 in this slice)")
@@ -690,7 +698,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                           n_kv_heads=(args.n_kv_heads
                                       if args.n_kv_heads is not None
                                       else args.n_heads),
-                          d_ff=args.d_ff, max_seq_len=args.seq_len),
+                          d_ff=args.d_ff, max_seq_len=args.seq_len,
+                          n_experts=args.n_experts,
+                          expert_top_k=args.expert_top_k,
+                          capacity_factor=args.capacity_factor,
+                          router_aux_weight=args.router_aux_weight,
+                          moe_group_size=args.moe_group_size),
         parallel=ParallelConfig(pipe=args.pipe, fsdp=args.fsdp,
                                 expert=args.expert, tensor=args.tensor,
                                 context=args.context),

@@ -268,13 +268,17 @@ def _auto_lm_head(cfg: TrainConfig,
     """The auto policy's pick, logged once per choice: per-device head
     tokens and an analytic train-state estimate (f32 master + mu and nu
     at their storage dtypes: 12 B/param in f32 down to 8 B with bf16 mu
-    and nu) against the device's memory."""
+    and nu; the MoE's FFN params times its experts) against the device's
+    memory: the JAX package's closed form with every mesh axis at 1."""
     m = cfg.model
     n_tok = max(cfg.batch_size, 1) * max(m.max_seq_len, 1)
     hd = m.d_model // m.n_heads
     attn = 2 * m.d_model * m.d_model + 2 * m.d_model * m.n_kv_heads * hd
     ffn = 3 * m.d_model * m.d_ff
-    n_params = m.vocab_size * m.d_model + m.n_layers * (attn + ffn)
+    # the MoE holds n_experts FFNs a layer
+    expert_mult = m.n_experts if m.name == "moe" else 1
+    n_params = (m.vocab_size * m.d_model + m.n_layers * attn
+                + m.n_layers * ffn * expert_mult)
     state_bytes_per_param = (4 + (2 if cfg.dtype == "bfloat16" else 4)
                              + (2 if cfg.adam_nu_dtype == "bfloat16" else 4))
     dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
@@ -296,7 +300,7 @@ def make_loss_fn(cfg: TrainConfig,
                  device: Optional[torch.device] = None) -> Callable:
     """(params, batch) -> scalar loss, for the configured model; batch is
     a tuple of device tensors ((x, y) for the MLP, (tokens,) for the
-    transformer)."""
+    sequence models: the transformer and the MoE)."""
     model = get_model(cfg.model.name)
     dt = _compute_dtype(cfg)
     if cfg.model.name == "mlp":

@@ -1,8 +1,9 @@
-"""Model zoo of the port: the MLP parity model and the transformer."""
+"""Model zoo of the port: the MLP parity model, the transformer and the
+mixture-of-experts transformer."""
 
-from tpudist_torch.models import mlp, transformer
+from tpudist_torch.models import mlp, moe, transformer
 
-_REGISTRY = {"mlp": mlp, "transformer": transformer}
+_REGISTRY = {"mlp": mlp, "transformer": transformer, "moe": moe}
 
 
 def get_model(name: str):

@@ -1,0 +1,255 @@
+"""Mixture-of-experts transformer: forward, serving and training loss.
+
+Counterpart of ``tpudist/models/moe.py``: the dense transformer's blocks
+with the FFN half replaced by top-k token-choice routed SwiGLU experts,
+plus the Switch load-balancing auxiliary loss (aux = E·Σ_e f_e·P_e, added
+to the objective with ``router_aux_weight``). The model is an
+``nn.Module`` whose parameters keep the JAX package's names and stacked
+layouts (``embed`` (V, d); ``layers.{attn_norm, wq, wk, wv, wo,
+ffn_norm}`` as the transformer's; ``layers.w_router`` (L, d, E);
+``layers.w_gate`` / ``w_up`` (L, E, d, d_ff); ``layers.w_down`` (L, E,
+d_ff, d); ``final_norm``), so weights carry across name for name
+(:func:`tpudist_torch.convert.params_from_jax`).
+
+Routing is the GShard dense dispatch: a (tokens, experts, capacity)
+one-hot dispatch tensor contracted against the token activations with
+einsums. Everything is statically shaped (capacity bounds each expert's
+rows; overflow pairs fall through the residual), and nothing reads a
+value back to the host: no ``.item()``, ``nonzero`` or mask indexing, the
+one-hots are iota compares, so a train step or a serving program with the
+experts in it captures into a CUDA graph. Routing, dispatch and the
+expert products are plain PyTorch, as they are plain XLA in the JAX
+package: no Pallas kernel computes them. The attention half, the norms,
+RoPE and the LM head are the transformer's
+(:mod:`tpudist_torch.models.transformer`), with its flash kernels and its
+fused head.
+
+Routing semantics: routing, capacity and the aux loss are computed over
+the batch the loss sees, in groups of ``group_size`` tokens. Under the
+port's data parallelism every process computes its loss on its own
+batch, so routing is group-local, as on the JAX package's shard_map DP
+path (``tpudist/models/moe.py:34-41``): capacity-constrained routing is
+not invariant to how the batch is split, so N processes do not equal one
+process on the global batch, by design.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
+from torch import nn
+
+from tpudist_torch.config import ModelConfig
+from tpudist_torch.models import transformer as T
+
+
+def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The transformer's attention half and norms, then the router and
+    the stacked experts."""
+    L, d, E, dff = cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.d_ff
+    shapes = {name: shape for name, shape in T._layer_shapes(cfg).items()
+              if name not in ("w_gate", "w_up", "w_down")}
+    shapes.update(w_router=(L, d, E), w_gate=(L, E, d, dff),
+                  w_up=(L, E, d, dff), w_down=(L, E, dff, d))
+    return shapes
+
+
+class MoE(nn.Module):
+    """Parameters of the mixture-of-experts transformer."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(
+            (cfg.vocab_size, cfg.d_model), device=device))
+        self.layers = T.Layers(_layer_shapes(cfg), device=device)
+        self.final_norm = nn.Parameter(torch.empty((cfg.d_model,),
+                                                   device=device))
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, *, generator: torch.Generator) -> MoE:
+    """Seeded parameters on ``generator``'s device: the JAX package's
+    fan-in recipe (``tpudist/models/moe.py:91-106``; the two frameworks
+    draw different numbers from one seed)."""
+    d, h = cfg.d_model, cfg.n_heads
+    return T.fill_params(MoE(cfg, device=generator.device),
+                         {"wq": d, "wk": d, "wv": d, "wo": h * (d // h),
+                          "w_router": d, "w_gate": d, "w_up": d,
+                          "w_down": cfg.d_ff}, generator)
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Static per-expert token budget of a routing group of
+    ``n_tokens``: ceil(cf · routed pairs / E) over the exact product,
+    floored at one row."""
+    pairs = n_tokens * cfg.expert_top_k
+    return max(1, math.ceil(pairs * cfg.capacity_factor / cfg.n_experts))
+
+
+def group_size(cfg: ModelConfig, n_tokens: int) -> int:
+    """Tokens per routing group: ``moe_group_size``, or the largest
+    divisor of ``n_tokens`` at or below it, unless that divisor is under
+    half the configured size (near-prime token counts), where one global
+    group keeps the capacity and aux semantics; <= 0 disables grouping.
+    Groups keep the dispatch tensors linear in the token count."""
+    g = cfg.moe_group_size
+    if g <= 0 or g >= n_tokens:
+        return n_tokens
+    d = g
+    while n_tokens % d:
+        d -= 1
+    return d if 2 * d >= g else n_tokens
+
+
+def _route(probs: torch.Tensor, k: int, cap: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k token-choice routing with capacity, for each routing group.
+
+    probs: (..., t, E) f32 router softmax. Returns (dispatch, combine,
+    assigned): dispatch (..., t, E, cap) is the 0/1 token→slot
+    assignment, combine is dispatch scaled by the token's renormalised
+    gate, and assigned (..., E) counts the assignments BEFORE the
+    capacity drop (the aux loss uses these). Slots go in (token, k-slot)
+    priority order; pairs past an expert's capacity are dropped.
+
+    The experts are picked by a stable descending sort, so equal
+    probabilities pick the lower expert first, as ``lax.top_k`` does (a
+    ``topk`` promises no order on ties)."""
+    *lead, t, E = probs.shape
+    dev = probs.device
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = top.values[..., :k], top.indices[..., :k]     # (..., t, k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    # (..., t, k, E)
+    onehot = (idx[..., None] == torch.arange(E, device=dev)).to(
+        torch.float32)
+    flat = onehot.reshape(*lead, t * k, E)                     # priority order
+    # slot within the expert: an exclusive cumsum, exact in f32 (< 2**24)
+    pos = torch.cumsum(flat, dim=-2) - flat
+    pos = (pos * flat).sum(-1).reshape(*lead, t, k).to(torch.int64)
+    kept = onehot * (pos < cap)[..., None].to(torch.float32)
+    # (..., t, k, cap)
+    slot = (pos[..., None] == torch.arange(cap, device=dev)).to(
+        torch.float32)
+    dispatch = torch.einsum("...tke,...tkc->...tec", kept, slot)
+    # one k-slot a (token, expert) is nonzero: the product is the gate
+    combine = torch.einsum("...tke,...tkc->...tec", kept * gates[..., None],
+                           slot)
+    return dispatch, combine, onehot.sum(dim=(-3, -2))
+
+
+def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routed SwiGLU experts. y: (b, s, d) normed activations. Returns
+    (ffn_out (b, s, d), aux scalar f32). Groups split the token-major
+    order. The router product runs in the model dtype and the softmax in
+    f32; dispatch and combine are cast to the model dtype before their
+    einsums, so bf16 rounds the gates as the JAX package does."""
+    b, s, d = y.shape
+    dt = y.dtype
+    t = b * s
+    g = group_size(cfg, t)
+    cap = capacity(cfg, g)
+    yg = y.reshape(t // g, g, d)                               # (G, g, d)
+
+    logits = torch.einsum("gtd,de->gte", yg,
+                          lp["w_router"].to(dt)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                      # (G, g, E)
+    dispatch, combine, assigned = _route(probs, cfg.expert_top_k, cap)
+
+    xe = torch.einsum("gtd,gtec->gecd", yg, dispatch.to(dt))
+    gate = F.silu(torch.einsum("gecd,edf->gecf", xe, lp["w_gate"].to(dt)))
+    up = torch.einsum("gecd,edf->gecf", xe, lp["w_up"].to(dt))
+    ye = torch.einsum("gecf,efd->gecd", gate * up, lp["w_down"].to(dt))
+    out = torch.einsum("gecd,gtec->gtd", ye, combine.to(dt))
+
+    # Switch aux: the fraction of routed pairs per expert (pre-drop
+    # counts) times the mean router probability, scaled by E
+    f_e = assigned.sum(0) / (t * cfg.expert_top_k)
+    p_e = probs.mean(dim=(0, 1))
+    aux = cfg.n_experts * torch.sum(f_e * p_e)
+    return out.reshape(b, s, d), aux
+
+
+def _moe_layer(x, lp, cfg: ModelConfig, cos, sin, attn_impl):
+    """One decoder layer: the transformer's attention half, then the
+    experts. Returns ``(x, aux)``."""
+    x = T._attn_sublayer(x, lp, cfg, cos, sin, attn_impl)
+    ffn, aux = _moe_ffn(T.rmsnorm(x, lp["ffn_norm"]), lp, cfg)
+    return x + ffn, aux
+
+
+def _moe_ffn_sublayer(x, lp, cfg: ModelConfig):
+    """Pre-norm expert FFN + residual, in the shape the transformer's
+    serving forwards take as ``ffn``. The aux loss is dropped: serving
+    has no objective. Every slot of a decode batch routes, empty ones
+    too, and takes capacity, as in the JAX package."""
+    ffn, _aux = _moe_ffn(T.rmsnorm(x, lp["ffn_norm"]), lp, cfg)
+    return x + ffn
+
+
+def _cached_hidden_states(params: MoE, tokens: torch.Tensor,
+                          cfg: ModelConfig, *, dtype, kv_cache, cur_index):
+    """Serving path: the transformer's cache contract
+    (:func:`transformer._cached_hidden_states`) with the experts as the
+    FFN half."""
+    return T._cached_hidden_states(params, tokens, cfg, dtype=dtype,
+                                   kv_cache=kv_cache, cur_index=cur_index,
+                                   ffn=_moe_ffn_sublayer)
+
+
+def paged_hidden_states(params: MoE, tokens: torch.Tensor,
+                        cfg: ModelConfig, *, dtype, pool_k, pool_v,
+                        page_table, positions, write_ok, page_tokens: int):
+    """Paged serving path: :func:`transformer.paged_hidden_states` with
+    the experts as the FFN half."""
+    return T.paged_hidden_states(params, tokens, cfg, dtype=dtype,
+                                 pool_k=pool_k, pool_v=pool_v,
+                                 page_table=page_table, positions=positions,
+                                 write_ok=write_ok, page_tokens=page_tokens,
+                                 ffn=_moe_ffn_sublayer)
+
+
+def hidden_states(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  dtype=torch.bfloat16, attn_impl=T._attention,
+                  remat: bool = False, kv_cache=None, cur_index=None):
+    """Backbone forward: tokens (batch, seq) -> (final-norm hidden states
+    (batch, seq, d_model) in ``dtype``, the mean aux loss over layers).
+    ``remat`` checkpoints each layer. ``kv_cache``/``cur_index`` select
+    the serving path and the return becomes ``(h, kv_cache)``."""
+    if kv_cache is not None:
+        return _cached_hidden_states(params, tokens, cfg, dtype=dtype,
+                                     kv_cache=kv_cache, cur_index=cur_index)
+    s = tokens.shape[1]
+    hd = cfg.d_model // cfg.n_heads
+    cos, sin = T.precompute_rope(s, hd, cfg.rope_theta, device=tokens.device)
+    x = T._embed(params, tokens, dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = params.layers.layer(i)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _moe_layer, x, lp, cfg, cos, sin, attn_impl,
+                use_reentrant=False)
+        else:
+            x, a = _moe_layer(x, lp, cfg, cos, sin, attn_impl)
+        aux = aux + a
+    return T.rmsnorm(x, params.final_norm), aux / cfg.n_layers
+
+
+def loss_fn(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,
+            dtype=torch.bfloat16, remat: bool = False, xent_chunks: int = 0,
+            fused_xent: bool = False) -> torch.Tensor:
+    """Causal next-token cross-entropy through the transformer's LM head
+    (:func:`transformer.head_loss`: plain, chunked or fused) plus the
+    router aux loss weighted by ``router_aux_weight``."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    h, aux = hidden_states(params, inputs, cfg, dtype=dtype, remat=remat)
+    xent = T.head_loss(params.embed.to(dtype), h, targets,
+                       xent_chunks=xent_chunks, fused_xent=fused_xent)
+    return xent + cfg.router_aux_weight * aux

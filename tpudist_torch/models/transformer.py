@@ -63,11 +63,12 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 class Layers(nn.Module):
-    """Every layer's weights, stacked on a leading n_layers dim."""
+    """Every layer's weights, stacked on a leading n_layers dim: one
+    parameter a name of ``shapes``."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
+    def __init__(self, shapes: Dict[str, tuple], *, device):
         super().__init__()
-        for name, shape in _layer_shapes(cfg).items():
+        for name, shape in shapes.items():
             self.register_parameter(
                 name, nn.Parameter(torch.empty(shape, device=device)))
 
@@ -84,7 +85,7 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
             (cfg.vocab_size, cfg.d_model), device=device))
-        self.layers = Layers(cfg, device=device)
+        self.layers = Layers(_layer_shapes(cfg), device=device)
         self.final_norm = nn.Parameter(torch.empty((cfg.d_model,),
                                                    device=device))
 
@@ -97,11 +98,21 @@ def init(cfg: ModelConfig, *, generator: torch.Generator) -> Transformer:
     """Seeded parameters on ``generator``'s device: weights normal with
     std 1/sqrt(fan_in), norms ones (the JAX package's recipe; the two
     frameworks draw different numbers from one seed)."""
-    model = Transformer(cfg, device=generator.device)
     d, h = cfg.d_model, cfg.n_heads
-    fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * (d // h),
-              "w_gate": d, "w_up": d, "w_down": cfg.d_ff}
-    model.embed.normal_(0.0, 1.0 / math.sqrt(d), generator=generator)
+    return fill_params(Transformer(cfg, device=generator.device),
+                       {"wq": d, "wk": d, "wv": d, "wo": h * (d // h),
+                        "w_gate": d, "w_up": d, "w_down": cfg.d_ff},
+                       generator)
+
+
+def fill_params(model: nn.Module, fan_in: Dict[str, int],
+                generator: torch.Generator) -> nn.Module:
+    """The JAX package's recipe on a model with ``embed``, ``layers`` and
+    ``final_norm``: the embedding and each layer weight named in
+    ``fan_in`` normal with std 1/sqrt(fan_in) (the embedding's fan-in is
+    d_model), the norms ones."""
+    model.embed.normal_(0.0, 1.0 / math.sqrt(model.embed.shape[1]),
+                        generator=generator)
     for name, p in model.layers.named_parameters():
         if name in fan_in:
             p.normal_(0.0, 1.0 / math.sqrt(fan_in[name]),

@@ -1,8 +1,9 @@
 """``python -m tpudist_torch.serve`` — the serving acceptance lane.
 
-Counterpart of ``tpudist/serve/cli.py``: build the transformer's params
-on the card (``--device cuda``, the default) or, when asked, on the CPU;
-optionally let the serve tuner pick ``decode_k``, the KV layout and the
+Counterpart of ``tpudist/serve/cli.py``: build the model's params (the
+transformer, or the MoE with ``--model moe``) on the card (``--device
+cuda``, the default) or, when asked, on the CPU; optionally let the
+serve tuner pick ``decode_k``, the KV layout and the
 paged knobs by measured probe (``--serve-tune``,
 :mod:`tpudist_torch.serve.tune`); build the KV cache and engine at that
 point, dense or paged (``--kv-page-tokens``, with ``--kv-pages``,
@@ -111,7 +112,8 @@ def parse_args(argv: Optional[Sequence[str]] = None
     p.add_argument("--n-kv-heads", type=int, default=2,
                    help="GQA: compact kv heads stored in the cache")
     p.add_argument("--d-ff", type=int, default=128)
-    # the MoE model's shape: read by --model moe only, which is refused
+    # the MoE model's shape, read by --model moe only (the rest of it
+    # takes ModelConfig's defaults, as in the JAX serve CLI)
     p.add_argument("--n-experts", type=int, default=4)
     p.add_argument("--expert-top-k", type=int, default=2)
     p.add_argument("--slots", type=int, default=DEFAULT_SLOTS,
@@ -254,10 +256,6 @@ def parse_args(argv: Optional[Sequence[str]] = None
 def check_supported(args: argparse.Namespace) -> None:
     """Refuse what this slice of the port does not carry, naming the
     ROADMAP item (Queue A) that brings it."""
-    if args.model != "transformer":
-        raise ValueError(
-            f"--model {args.model}: the port serves the transformer; the "
-            f"MoE serving path comes with ROADMAP Queue A item 6")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):
@@ -343,7 +341,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         name=args.model, vocab_size=args.vocab_size,
         n_layers=args.n_layers, d_model=args.d_model,
         n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
-        d_ff=args.d_ff, max_seq_len=args.max_seq)
+        d_ff=args.d_ff, max_seq_len=args.max_seq,
+        n_experts=args.n_experts, expert_top_k=args.expert_top_k)
     dtype = getattr(torch, args.dtype)
     device = resolve_device(args.device)
 

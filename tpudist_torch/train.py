@@ -153,6 +153,10 @@ def run(cfg: TrainConfig) -> float:
                 cfg.data.n_samples, cfg.model.max_seq_len + 1,
                 cfg.model.vocab_size, cfg.data.seed),)
 
+    # each process computes the loss on its own rows of the batch and the
+    # step means the grads: for the MoE that is group-local routing, the
+    # JAX package's shard_map DP semantics (tpudist/models/moe.py:34-41),
+    # not one process on the global batch
     def epoch_plan(epoch):
         return data_lib.plan_epoch(sources, batch_size=cfg.batch_size,
                                    seed=cfg.seed, epoch=epoch,
