@@ -218,8 +218,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the fused head, seq 512) under the chaos drill's ``BASE_FLAGS`` (8
    steps, sharded saves at steps 3, 6 and 8): the free disk printed
    first against four saves' bytes; (a) ``tpudist_torch.chaos.drill``'s
-   baseline and its five carried families (kill, slow, corrupt_shard,
-   torn_manifest, fs_error) with ``TPUDIST_PLATFORM=cuda``, every attempt
+   baseline and its seven families (kill, hang, slow, corrupt_shard,
+   torn_manifest, fs_error, telemetry_garbage; hang and
+   telemetry_garbage with the live bus on: the mid-run ``stall`` alert,
+   ``bad_frames`` >= 1 and a final ``status: ok``) with
+   ``TPUDIST_PLATFORM=cuda``, every attempt
    a ``python -m tpudist_torch.train`` process on the card, a family at a
    time through ``run_family`` and ``verify_family``: each ``ok``, its
    pinned facts (rcs, fired faults, policy, resume step, steps lost,
@@ -254,11 +257,32 @@ Phases, each of which fails the script (non-zero exit, no result line):
    engine's or a first divergence at a near-tie (14's rule); (d)
    ``python -m tpudist_torch.serve --model moe`` at phase 4's flags:
    exit 0, the verdict and the SLO status ``success``, the pin. The
-   phase's wall time is printed.
+   phase's wall time is printed;
+19. the rest of observability: (a) phase 11a's superstep run with ``--live
+   on --live-port P --profile-window 2`` (P a free port): exit 0 and
+   ``success``; ``/healthz`` and ``/metrics`` scraped by a thread while
+   it runs, an answer with the pod steps/s gauge; ``live_status.json``
+   ending ``ok`` with 0 bad frames; the ``kind=devtime`` record
+   (``comm_status`` success, window and compute > 0, 2 dispatches, one
+   device track named for the card); the capture's device ops naming
+   rows 1, 2, 5 and 6's kernels (the profiler sees inside replayed CUDA
+   graphs); ``pod_trace.json``'s devtime rows inside the
+   ``profile_window`` span; each epoch's Avg and eval bitwise 11a's;
+   exact launches; the window's device busy share and its top five
+   device ops; (b) one epoch of 11a's configuration with ``--profile-dir``
+   (per-step, the tuner off though asked for), its Kineto trace read by
+   ``analyze_capture``, exact launches; then ``python -m
+   tpudist_torch.bench.profile`` at that configuration, ``--steps 5``:
+   exit 0, its ops naming rows 1 and 5's kernels, ``total_us_per_step``
+   beside the StepTimer's step; (c) ``python -m tpudist_torch.serve
+   --live-port P`` at phase 4's configuration: a scrape with the serve
+   gauges while it serves, exit 0, the pin, exact launches, the tokens
+   of a run without the port. The phase's wall time is printed.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
-18a (both runs), 18c (both engines) and 18d are the main paths: each
+18a (both runs), 18c (both engines), 18d and 19a-19c (19c's run with the
+port) are the main paths: each
 runs with every launch count set to 0 just before and read just after
 (10a and 11c in each rank's process; 12b's and 15a's timed runs, not
 their probes, which restore the counters), and each
@@ -3125,9 +3149,13 @@ TRAIN_DRILL_MODEL = ("--model", "transformer", "--seq-len", "512",
                      "--dtype", "bfloat16", "--adam-nu-dtype", "bfloat16",
                      "--lm-head", "fused", "--lr", "1e-3")
 TRAIN_DRILL_PATH = "train_drill_sharded"
-# each carried family's facts that the seeded schedule fixes, as the CPU
-# drill reports them (tests/test_torch_chaos_drill*.py)
+# each family's facts that the seeded schedule fixes, as the CPU drill
+# reports them (tests/test_torch_chaos_drill*.py)
 CHAOS_FACTS = {
+    "hang": {"rcs": [137, 0], "fired": ["hang"], "policy": "stall",
+             "final_step": 8, "resume": (3, 2, None), "lost": 2},
+    "telemetry_garbage": {"rcs": [0], "fired": ["telemetry_garbage"],
+                          "final_step": 8, "lost": 0},
     "kill": {"rcs": [113, 0], "fired": ["kill"], "policy": "preemption",
              "final_step": 8, "resume": (3, 2, None), "lost": 2},
     "slow": {"rcs": [0], "fired": ["slow"], "final_step": 8, "lost": 0},
@@ -3183,8 +3211,11 @@ def train_chaos(torch, fa, fx, card: str):
     ``TPUDIST_PLATFORM=cuda`` at config #5's width in phase 9's training
     configuration under the drill's ``BASE_FLAGS`` (8 steps, sharded
     saves at steps 3, 6 and 8): every attempt a ``python -m
-    tpudist_torch.train`` process on the card; each carried family
-    ``ok`` from the port's verifier, its pinned facts the CPU drill's,
+    tpudist_torch.train`` process on the card; each of the seven
+    families ``ok`` from the port's verifier, its pinned facts the CPU
+    drill's (``hang`` with its mid-run ``stall`` alert in
+    ``alerts.jsonl``, ``telemetry_garbage`` with ``bad_frames`` >= 1 and
+    ``live_status.json`` ending ``ok``),
     its final committed crc signature the baseline's (the bitwise-resume
     pin: the verifier fails a family whose signature differs). The
     verifier reads only json (indexes, manifests, records), so each
@@ -3246,10 +3277,9 @@ def train_chaos(torch, fa, fx, card: str):
         fail("train 17a: the baseline left no step-8 commit, or its "
              "losses are not finite and falling")
     _drop_shards(run_dir / drill.BASELINE_DIR)
-    results = {"schema": 1, "baseline": base, "families": {},
-               "not_drilled": dict(drill.NOT_CARRIED)}
+    results = {"schema": 1, "baseline": base, "families": {}}
     bad = []
-    for family in drill.CARRIED:
+    for family in drill.FAMILIES:
         t1 = time.perf_counter()
         with _drill_env(env):
             res = drill.run_family(str(run_dir), family,
@@ -3273,6 +3303,22 @@ def train_chaos(torch, fa, fx, card: str):
         if resume.get("corrupt_shard"):
             print(f"train 17a {family}: corrupt_shard "
                   f"{resume['corrupt_shard'][:160]}")
+        if drill.FAMILIES[family].get("live"):
+            # the live bus's own evidence: the mid-run stall alert, the
+            # decoder's resynchronisation
+            status = _read_json(run_dir / family / "live_status.json",
+                                "17a")
+            print(f"train 17a {family}: live_status "
+                  f"{status.get('status')}, counters "
+                  f"{status.get('counters')}, alert rules fired "
+                  f"{rep['facts'].get('alert_rules')}; {card}")
+            if family == "hang" and "stall" not in rep["facts"].get(
+                    "alert_rules", []):
+                bad.append(family)
+            if family == "telemetry_garbage" and not (
+                    (rep["facts"].get("bad_frames") or 0) >= 1
+                    and status.get("status") == "ok"):
+                bad.append(family)
         for problem in rep["problems"]:
             print(f"train 17a {family}: problem: {problem}")
         if not rep["ok"] or diff:
@@ -3283,8 +3329,7 @@ def train_chaos(torch, fa, fx, card: str):
     matrix_s = time.perf_counter() - t0
     print(f"train 17a: matrix {'ok' if report['ok'] else 'NOT ok'} over "
           f"{len(results['families'])} families + the baseline in "
-          f"{matrix_s:.3f} s; not drilled {sorted(drill.NOT_CARRIED)} "
-          f"(ROADMAP Queue A item {drill.LIVE_BUS_ITEM}); {card}")
+          f"{matrix_s:.3f} s; {card}")
     if bad or not report["ok"]:
         fail(f"train 17a: families {bad} failed the verifier or left the "
              f"CPU drill's facts")
@@ -3720,6 +3765,317 @@ def profile_moe(torch, card: str):
               f"  {key[:80]}")
     del state, step
     torch.cuda.empty_cache()
+
+
+# phase 19: the rest of observability on the card. Each kernel row's
+# device-side names, as Kineto reports them (the merged flash backward is
+# its dk/dv kernel plus the dq reduce; the fused head's backward is three
+# kernels)
+ROW_KERNELS = {"row 1": ("flash_fwd_kernel",),
+               "row 2": ("flash_bwd_dkv_kernel", "flash_bwd_dq_reduce_kernel"),
+               "row 5": ("xent_fwd_kernel",),
+               "row 6": ("xent_dl_kernel", "xent_dh_kernel",
+                         "xent_de_kernel")}
+OBS_LIVE_PATHS = ("train_live_window", "train_profile_dir", "serve_live")
+
+
+@contextlib.contextmanager
+def _scraper(port: int, paths, period_s: float = 0.25):
+    """A thread that GETs ``paths`` from ``127.0.0.1:port`` every
+    ``period_s`` while the block runs: yields ``{path: [bodies of the
+    answers]}`` (refused connections, before the exporter is up or after
+    it closes, are skipped)."""
+    import threading
+    import urllib.request
+
+    got = {p: [] for p in paths}
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(period_s):
+            for p in paths:
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}{p}", timeout=2) as r:
+                        got[p].append(r.read().decode())
+                except OSError:
+                    pass
+    t = threading.Thread(target=loop, name="chip-smoke-scrape", daemon=True)
+    t.start()
+    try:
+        yield got
+    finally:
+        stop.set()
+        t.join(timeout=5)
+
+
+def _top_ops(tracks, n: int):
+    """The ``n`` device ops with the most time over all tracks: (name, ms,
+    count)."""
+    by = {}
+    for ops in tracks.values():
+        for t0, t1, name in ops:
+            ms, c = by.get(name, (0.0, 0))
+            by[name] = (ms + (t1 - t0) / 1e3, c + 1)
+    return sorted(((k, ms, c) for k, (ms, c) in by.items()),
+                  key=lambda r: -r[1])[:n]
+
+
+def _names(op: str, kernel: str) -> bool:
+    """Does the device op ``op`` (Kineto's name: the kernel's signature,
+    ``void flash_fwd_kernel<...>(...)``) name ``kernel``?"""
+    i = op.find(kernel)
+    while i >= 0:
+        end = i + len(kernel)
+        if (i == 0 or not (op[i - 1].isalnum() or op[i - 1] == "_")) and (
+                end == len(op) or not (op[end].isalnum() or op[end] == "_")):
+            return True
+        i = op.find(kernel, i + 1)
+    return False
+
+
+def _rows_seen(names):
+    """Each kernel row of ROW_KERNELS with the kernels of it that the
+    device ops ``names`` name."""
+    return {row: [k for k in ks if any(_names(n, k) for n in names)]
+            for row, ks in ROW_KERNELS.items()}
+
+
+def live_window(torch, fa, fx, sup, argv, env, card: str):
+    """Phase 19a, the path ``train_live_window``: phase 11a's superstep
+    run (its ``argv`` and streaming ``env``) with ``--live on --live-port
+    P --profile-window 2``, P a free port: exit 0 and verdict success;
+    ``/healthz`` and ``/metrics`` scraped while it runs, one answer at
+    least with the pod steps/s gauge; ``live_status.json`` ending ``ok``
+    with 0 bad frames; the ``kind=devtime`` record (``comm_status``
+    success on one card, window and compute > 0, 2 dispatches, one device
+    track named for the card) and the capture's device ops naming rows 1,
+    2, 5 and 6's kernels: the profiler sees the kernels inside replayed
+    CUDA graphs; the ``devtime`` rows of ``pod_trace.json`` inside the
+    ``profile_window`` span; each epoch's Avg and eval loss bitwise 11a's
+    (``sup``, the same run without the bus and the window); the launches
+    exact. ``TPUDIST_GOODPUT_MIN`` is set near 0, as the drills set it:
+    a 20-step run is start-up dominated, and the live status grades the
+    bus, not this run's goodput."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch.obs import devtime
+
+    port = _free_port()
+    argv = argv + ["--live", "on", "--live-port", str(port),
+                   "--profile-window", "2"]
+    env = {**env, "TPUDIST_GOODPUT_MIN": "0.00001"}
+    cfg = config_lib.parse_args(argv)
+    want = want_launches(fa, cfg.model, 512, 20, 2, True)
+    t0 = time.perf_counter()
+    with _scraper(port, ("/healthz", "/metrics")) as got:
+        run = _cli_run(torch, fa, fx, "train_live_window", argv, env,
+                       keep=True)
+    d, problems = run["dir"], []
+    scrapes = got["/metrics"]
+    with_sps = [b for b in scrapes if "\ntpudist_steps_per_sec " in b]
+    status = _read_json(d / "live_status.json", "19a")
+    dev = [r for r in run["recs"] if r["kind"] == "devtime"]
+    rec = dev[0] if len(dev) == 1 else {}
+    analysis = devtime.analyze_capture(str(d / "profile" / "worker0"))
+    tracks = analysis["tracks"]
+    names = {op for ops in tracks.values() for _, _, op in ops}
+    rows = _rows_seen(names)
+    pod = _read_json(d / "pod_trace.json", "19a")
+    span = [e for e in pod["traceEvents"]
+            if e.get("name") == "profile_window" and e.get("ph") == "X"]
+    evs = [e for e in pod["traceEvents"]
+           if e.get("cat") == devtime.DEVTIME_CAT]
+    lo = min((e["ts"] for e in evs), default=None)
+    hi = max((e["ts"] + e["dur"] for e in evs), default=None)
+    t = run["timing"]
+    busy = rec.get("compute_s", 0) / rec["window_s"] if rec.get(
+        "window_s") else None
+    print(f"obs 19a: exit 0, verdict success; scrapes /healthz "
+          f"{len(got['/healthz'])}, /metrics {len(scrapes)} "
+          f"({len(with_sps)} with tpudist_steps_per_sec); live_status "
+          f"{status.get('status')}, counters {status.get('counters')}, "
+          f"hosts {sorted(status.get('hosts', {}))}, alerts "
+          f"{[a['alert'] for a in status.get('alerts', {}).get('firing', [])]}"
+          f"; {card}")
+    print(f"obs 19a: devtime {json.dumps({k: v for k, v in rec.items() if k not in ('per_device', 'ts', 'mono')}, sort_keys=True)}")
+    print(f"obs 19a: device tracks {sorted(tracks)}; "
+          f"{sum(len(v) for v in tracks.values())} device ops, "
+          f"{len(names)} names; window {rec.get('window_s')} s, device "
+          f"busy share {busy}; rows by name {json.dumps(rows)}")
+    for name, ms, c in _top_ops(tracks, 5):
+        print(f"obs 19a: top device op {ms:.3f} ms x{c} {name[:110]}")
+    if span and evs:
+        s0, s1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+        print(f"obs 19a: pod_trace profile_window [{s0:.1f}, {s1:.1f}] "
+              f"us, {len(evs)} devtime events in [{lo:.1f}, {hi:.1f}]: "
+              f"margins {lo - s0:.1f} us after its start, {s1 - hi:.1f} "
+              f"us before its end")
+    print(f"obs 19a: the window's profiler stop "
+          f"{rec.get('capture_stop_s')} s (in the loop), its trace export "
+          f"{rec.get('capture_export_s')} s (at run end)")
+    a, b = _epochs_of(sup), _epochs_of(run)
+    print(f"obs 19a: epochs (Avg, eval) {b}, 11a's {a}; kernel launches "
+          f"{run['counts']} (want {want}); k={t['steps_per_dispatch']}, "
+          + _step_line(run, cfg.batch_size * 512) + f"; phase "
+          f"{time.perf_counter() - t0:.3f} s; {card}")
+    if not with_sps or not got["/healthz"]:
+        problems.append("no scrape answered with the steps/s gauge")
+    if status.get("status") != "ok" \
+            or (status.get("counters") or {}).get("bad_frames") != 0 \
+            or not (status.get("counters") or {}).get("records"):
+        problems.append(f"live_status {status.get('status')}, counters "
+                        f"{status.get('counters')}")
+    if (rec.get("comm_status"), rec.get("dispatches"),
+            len(rec.get("per_device") or [])) != ("success", 2, 1) \
+            or not rec.get("window_s") or not rec.get("compute_s"):
+        problems.append(f"the devtime record {len(dev)}: {rec}")
+    if len(tracks) != 1 or torch.cuda.get_device_name(0) \
+            not in next(iter(tracks), ""):
+        problems.append(f"device tracks {sorted(tracks)}")
+    missing = [r for r, ks in rows.items() if not ks]
+    if missing:
+        problems.append(f"no kernel of {missing} on the device track")
+    if not span or not evs or lo < span[0]["ts"] \
+            or hi > span[0]["ts"] + span[0]["dur"]:
+        problems.append("devtime events outside the profile_window span")
+    if a != b or len(a) != 2:
+        problems.append(f"epochs {b} differ from 11a's {a}")
+    if run["counts"] != want or t["steps_per_dispatch"] != 4:
+        problems.append(f"launches {run['counts']}, k "
+                        f"{t['steps_per_dispatch']}")
+    shutil.rmtree(d, ignore_errors=True)
+    if problems:
+        fail("obs 19a: " + "; ".join(problems))
+    return run["counts"]
+
+
+def profile_dir_run(torch, fa, fx, sup, argv, card: str):
+    """Phase 19b, the path ``train_profile_dir``: one epoch of phase 11a's
+    configuration with ``--profile-dir``: per-step dispatch with the
+    autotuner off, as in the JAX package, a Kineto trace in
+    ``<dir>/worker0`` that ``analyze_capture`` reads, the launches exact;
+    then ``python -m tpudist_torch.bench.profile`` at the same
+    configuration, ``--steps 5``: exit 0, its ops naming rows 1 and 5's
+    kernels, ``total_us_per_step`` printed beside the StepTimer's step
+    (11a's superstep run, ``sup``)."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch.obs import devtime
+
+    t0 = time.perf_counter()
+    prof = ROOT / "build" / "chip_smoke_profile"
+    shutil.rmtree(prof, ignore_errors=True)
+    argv = list(argv)
+    argv[argv.index("--epochs") + 1] = "1"
+    argv += ["--autotune", "probe", "--profile-dir", str(prof / "full")]
+    cfg = config_lib.parse_args(argv)
+    want = want_launches(fa, cfg.model, 512, 10, 1, True)
+    run = _cli_run(torch, fa, fx, "train_profile_dir", argv)
+    t = run["timing"]
+    analysis = devtime.analyze_capture(str(prof / "full" / "worker0"))
+    names = {op for ops in analysis["tracks"].values() for _, _, op in ops}
+    print(f"obs 19b: --profile-dir: k={t['steps_per_dispatch']}, tuning "
+          f"{t['tuning_status']}; capture {analysis['capture_files']}, "
+          f"tracks {sorted(analysis['tracks'])}, window "
+          f"{analysis['pod']['window_s']:.3f} s, compute "
+          f"{analysis['pod']['compute_s']:.3f} s; rows by name "
+          f"{json.dumps(_rows_seen(names))}; kernel launches "
+          f"{run['counts']} (want {want}); "
+          + _step_line(run, cfg.batch_size * 512))
+    problems = []
+    if (t["steps_per_dispatch"], t["tuning_status"]) != (1, "ungateable"):
+        problems.append(f"k={t['steps_per_dispatch']}, tuning "
+                        f"{t['tuning_status']}")
+    if len(analysis["tracks"]) != 1 or not analysis["pod"]["compute_s"]:
+        problems.append(f"tracks {sorted(analysis['tracks'])}")
+    if run["counts"] != want:
+        problems.append(f"launches {run['counts']}, want {want}")
+    out = prof / "bench.json"
+    cmd = [sys.executable, "-m", "tpudist_torch.bench.profile", "--steps",
+           "5", "--top", "60", "--trace-dir", str(prof / "bench"),
+           "--out", str(out), "--model", "transformer", "--seq-len", "512",
+           "--train-batch-size", "8", "--dtype", "bfloat16",
+           "--adam-nu-dtype", "bfloat16", "--lm-head", "fused"]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t1
+    summ = json.loads(out.read_text()) if proc.returncode == 0 else {}
+    tops = [o["name"] for o in summ.get("top_ops", [])]
+    rank = {row: [i for i, n in enumerate(tops)
+                  if any(_names(n, k) for k in ks)]
+            for row, ks in ROW_KERNELS.items() if row in ("row 1", "row 5")}
+    p = sup["timing"]
+    print(f"obs 19b: bench.profile exit {proc.returncode} in {wall:.3f} s; "
+          f"total_us_per_step {summ.get('total_us_per_step')} (device "
+          f"kernels, copies, memsets) beside the StepTimer's step "
+          f"{1e3 * p['run_s'] / p['steps']:.3f} ms (11a superstep) and "
+          f"{1e3 * t['run_s'] / t['steps']:.3f} ms (19b, under the "
+          f"full-run profiler); by category {summ.get('by_category_us')}; "
+          f"ranks of rows 1 and 5 in its top ops {rank}; {card}")
+    for o in summ.get("top_ops", [])[:5]:
+        print(f"obs 19b: bench.profile top op {o['us_per_step']} us/step "
+              f"{o['category']} {o['name'][:110]}")
+    if proc.returncode != 0:
+        problems.append(f"bench.profile exit {proc.returncode}: "
+                        f"{(proc.stdout + proc.stderr)[-2000:]}")
+    elif not all(rank.values()):
+        problems.append(f"bench.profile's ops lack {rank}")
+    shutil.rmtree(prof, ignore_errors=True)
+    print(f"obs 19b: phase {time.perf_counter() - t0:.3f} s; {card}")
+    if problems:
+        fail("obs 19b: " + "; ".join(problems))
+    return run["counts"]
+
+
+def serve_live(torch, fa, fx, card: str):
+    """Phase 19c, the path ``serve_live``: ``python -m tpudist_torch.serve
+    --live-port P`` at phase 4's configuration (``SERVE_ARGV``) with 128
+    new tokens a request: a scrape of ``/metrics`` while it serves with
+    the serve gauges, exit 0, the pin and the launches (``_serve_cli``),
+    the tokens equal to a run without the port."""
+    t0 = time.perf_counter()
+    port = _free_port()
+    # phase 4's stream with 128 new tokens a request: the loop ticks its
+    # SLO record every 8 decode dispatches, so the run is long enough for
+    # scrapes between ticks
+    argv = list(SERVE_ARGV)
+    argv[argv.index("--max-new-tokens") + 1] = "128"
+    with _scraper(port, ("/metrics",), period_s=0.05) as got:
+        live = _serve_cli(torch, fa, fx, "serve_live",
+                          argv + ["--live-port", str(port)])
+    plain = _serve_cli(torch, fa, fx, "serve_live_off", argv)
+    gauges = sorted({ln.split()[0].split("{")[0] for b in got["/metrics"]
+                     for ln in b.splitlines()
+                     if ln.startswith("tpudist_serve_")})
+    same = _tokens_of(live["summary"]) == _tokens_of(plain["summary"])
+    print(f"obs 19c: {len(got['/metrics'])} scrapes of /metrics while "
+          f"serving, serve gauges {gauges}; exporter line "
+          f"{'serve live exporter on' in live['out']}; tokens equal to "
+          f"the run without the port {same}; tokens/s/chip "
+          f"{live['summary']['tokens_per_sec_per_chip']} vs "
+          f"{plain['summary']['tokens_per_sec_per_chip']}; phase "
+          f"{time.perf_counter() - t0:.3f} s; {card}")
+    if not gauges or not same:
+        fail("obs 19c: no scrape with the serve gauges, or the tokens "
+             "differ")
+    return live["counts"]
+
+
+def obs_live(torch, fa, fx, sup, argv, env, card: str):
+    """Phase 19: (a) the live bus and the device-time window over phase
+    11a's superstep, (b) ``--profile-dir`` and ``python -m
+    tpudist_torch.bench.profile``, (c) the serve CLI's exporter. Returns
+    each path's launches."""
+    t0 = time.perf_counter()
+    paths = {"train_live_window": live_window(torch, fa, fx, sup, argv,
+                                              env, card)}
+    torch.cuda.empty_cache()
+    paths["train_profile_dir"] = profile_dir_run(torch, fa, fx, sup, argv,
+                                                 card)
+    torch.cuda.empty_cache()
+    paths["serve_live"] = serve_live(torch, fa, fx, card)
+    print(f"obs 19: phase wall {time.perf_counter() - t0:.3f} s; {card}")
+    return paths
 
 
 def remat_check(torch, card: str):
@@ -4627,6 +4983,12 @@ def main() -> int:
     # the dense and paged engines, (d) the serve CLI
     torch.cuda.empty_cache()
     paths.update(moe_phase(torch, fa, fx, card, args.profile))
+
+    # phase 19: the rest of observability: (a) the live bus and the
+    # device-time window over phase 11a's superstep, (b) --profile-dir and
+    # python -m tpudist_torch.bench.profile, (c) the serve CLI's exporter
+    torch.cuda.empty_cache()
+    paths.update(obs_live(torch, fa, fx, obs_on, obs_argv, obs_env, card))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -4652,17 +5014,18 @@ def main() -> int:
                                             "train_seq512_dp", *SUPERSTEP,
                                             TUNE_PATH, *OBS_PATHS,
                                             TRAIN_DRILL_PATH,
-                                            *MOE_TRAIN_PATHS),
+                                            *MOE_TRAIN_PATHS,
+                                            *OBS_LIVE_PATHS[:2]),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
                                   TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
-                                  *MOE_TRAIN_PATHS),
+                                  *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2]),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
                                   TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
-                                  *MOE_TRAIN_PATHS)}
+                                  *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2])}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

@@ -27,6 +27,8 @@ import argparse
 import dataclasses
 import json
 import re
+import socket
+import urllib.request
 from unittest import mock
 
 import jax
@@ -44,6 +46,7 @@ from tpudist.serve.engine import init_params
 from tpudist_torch import convert
 from tpudist_torch.config import ModelConfig as TModelConfig
 from tpudist_torch.models import transformer as ttf
+from tpudist_torch.obs import live as tlive
 from tpudist_torch.serve import cli as tcli
 from tpudist_torch.serve import resilience as tres
 from tpudist_torch.serve import scheduler as tsched
@@ -471,17 +474,6 @@ def _options(parse_args):
     return seen
 
 
-def _turn_on(kw, off):
-    """Command-line words that give an option a value other than its
-    default and its ``off`` values."""
-    default = kw.get("default")
-    if kw.get("choices"):
-        return [next(c for c in kw["choices"]
-                     if c != default and c not in off)]
-    step = {int: 3, float: 1.5}.get(kw.get("type"))
-    return [str((default or 0) + step)] if step else ["x"]
-
-
 # the paged plane's twins, refused until the port carried them
 PAGED_ENV = {"TPUDIST_SERVE_KV_PAGE_TOKENS": "4",
              "TPUDIST_SERVE_KV_PAGES": "24",
@@ -495,38 +487,24 @@ TUNE_CHAOS_ENV = {"TPUDIST_CHAOS": "request_garbage@0:0,n=2",
 CARRIED_ENV = ("TPUDIST_SERVE_QUEUE_CAP", "TPUDIST_SERVE_TTFT_DEADLINE_MS",
                "TPUDIST_SERVE_ADAPT", "TPUDIST_SERVE_VIRTUAL_CLOCK",
                "TPUDIST_TRACE", "TPUDIST_TRACE_DIR", *PAGED_ENV,
-               *TUNE_CHAOS_ENV)
+               *TUNE_CHAOS_ENV, "TPUDIST_LIVE_PORT")
 
 
 def test_every_jax_serve_flag_is_carried_or_refused():
     """Each option string of the JAX serve parser is declared by the
-    port's with the JAX default. Those the port does not carry parse at
-    their JAX "off" values and are refused at any other naming their
-    Queue A item; every ``$TPUDIST_`` variable a JAX help string names
-    is a carried twin or refused when set (``ENV_NOT_CARRIED``)."""
+    port's with the JAX default, and every ``$TPUDIST_`` variable a JAX
+    help string names is a twin the port reads (``CARRIED_ENV``). Since
+    the port carried ``--live-port`` (ROADMAP Queue A item 11b) the
+    serve CLI refuses no option, the MoE's included."""
     jax_opts = _options(jcli.parse_args)
     port_opts = _options(tcli.parse_args)
-    rows = {flag: row for flag, *row in tcli.NOT_CARRIED}
-    assert set(rows) <= set(jax_opts)
     for opt, kw in jax_opts.items():
         assert opt in port_opts, opt
         assert port_opts[opt].get("default") == kw.get("default"), opt
         named = re.findall(r"\$(TPUDIST_\w+)", kw.get("help", ""))
-        assert set(named) <= set(tcli.ENV_NOT_CARRIED) | set(CARRIED_ENV), \
-            (opt, named)
-        if opt not in rows:
-            continue
-        _, off, env, item = rows[opt]
-        assert env is None or env in named or env == "TPUDIST_TRACE", opt
-        for value in off:
-            tcli.parse_args([opt, str(value)])
-        with pytest.raises(ValueError,
-                           match=f"ROADMAP Queue A item {item}$"):
-            tcli.parse_args([opt, *_turn_on(kw, off)])
-    args = tcli.parse_args([])
-    tcli.check_supported(args)
-    # the MoE, refused until the port carried it, passes
-    tcli.check_supported(tcli.parse_args(["--model", "moe"]))
+        assert set(named) <= set(CARRIED_ENV), (opt, named)
+    assert not hasattr(tcli, "NOT_CARRIED")
+    assert tcli.parse_args(["--model", "moe"]).model == "moe"
 
 
 @pytest.mark.parametrize("flag,words", [
@@ -535,17 +513,19 @@ def test_every_jax_serve_flag_is_carried_or_refused():
     ("--requeue-attempt", ["0"]), ("--chaos", ["request_garbage@0:0,n=2"]),
     ("--serve-tune", ["probe"]), ("--tune-cache-dir", ["tune"]),
     ("--model", ["moe"]), ("--trace", ["on"]), ("--trace-dir", ["traces"]),
-    ("--live-port", ["9100"]),
+    ("--live-port", []),
 ])
 def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
                                                     capsys, monkeypatch):
-    """Refused flags exit 1 naming their Queue A item and write nothing;
+    """The flags refused until the port carried them serve:
     ``--trace`` and ``--trace-dir``, the paged plane's four flags,
     ``--requeue-attempt``, ``--chaos``, ``--serve-tune`` and
     ``--tune-cache-dir``, and ``--model moe``, refused until the port
-    carried them, now serve: the trace where they say, a paged run with
+    carried them: the trace where they say, a paged run with
     its summary fields set, and a run with the JAX meaning of each
-    (:func:`_assert_carried_run`; the MoE's run serves the MoE)."""
+    (:func:`_assert_carried_run`; the MoE's run serves the MoE), and so
+    does ``--live-port``, which serves the aggregator on a port picked
+    free (:func:`_assert_live_port_run`)."""
     if flag in TUNE_CHAOS_FLAGS or flag == "--model":
         monkeypatch.chdir(tmp_path)
         _assert_carried_run(tmp_path, [flag, *words], flag)
@@ -565,12 +545,63 @@ def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
         traced = tmp_path / ("traces" if flag == "--trace-dir" else "run")
         assert (traced / "pod_trace.json").is_file()
         return
-    item = "11b" if flag == "--live-port" else 6
-    assert tcli.main([flag, *words, "--device", "cpu", "--save-dir",
-                      str(tmp_path)]) == 1
-    assert re.search(f"ROADMAP Queue A item {item}'",
-                     capsys.readouterr().err)
-    assert not (tmp_path / "metrics.jsonl").exists()
+    assert flag == "--live-port"
+    _assert_live_port_run(tmp_path, monkeypatch, env=False)
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _assert_live_port_run(tmp_path, monkeypatch, env: bool):
+    """``--live-port P`` (or ``TPUDIST_LIVE_PORT=P`` when ``env``) serves
+    the live aggregator while the run lives, as the JAX CLI does: the
+    exporter's line, ``/metrics`` with the serve gauges, ``/healthz`` and
+    ``/status.json`` answered (scraped before the exporter closes), the
+    aggregator's ``live_status.json`` counting every record, and the
+    run's tokens those of a run without the exporter."""
+    port = _free_port()
+    scraped = {}
+    real_close = tlive.LiveHttpServer.close
+
+    def close(self):
+        for path in ("/metrics", "/healthz", "/status.json"):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.port}{path}", timeout=5) as r:
+                scraped[path] = r.read().decode()
+        real_close(self)
+    summaries = []
+    real_run = tcli.run
+
+    def run(args):
+        summaries.append(real_run(args))
+        return summaries[-1]
+    argv = ["--device", "cpu", "--requests", "4", "--max-new-tokens", "4"]
+    if env:
+        monkeypatch.setenv("TPUDIST_LIVE_PORT", str(port))
+    with mock.patch.object(tcli, "run", run), \
+            mock.patch.object(tlive.LiveHttpServer, "close", close):
+        assert tcli.main(argv + ([] if env else ["--live-port", str(port)])
+                         + ["--save-dir", str(tmp_path / "live")]) == 0
+        monkeypatch.delenv("TPUDIST_LIVE_PORT", raising=False)
+        assert tcli.main(argv + ["--save-dir", str(tmp_path / "plain")]) == 0
+    assert "tpudist_serve_completed_total 4" in scraped["/metrics"]
+    assert "tpudist_serve_generated_tokens_total" in scraped["/metrics"]
+    assert json.loads(scraped["/healthz"]) == {"ok": True}
+    assert json.loads(scraped["/status.json"])["pod"]["serve"][
+        "completed"] == 4
+    recs = [json.loads(line) for line in (
+        tmp_path / "live" / "metrics.jsonl").read_text().splitlines()]
+    status = json.loads((tmp_path / "live" / "live_status.json").read_text())
+    assert status["counters"]["records"] == len(recs)
+    assert not (tmp_path / "plain" / "live_status.json").exists()
+    live, plain = ({rid: r["tokens"] for rid, r in sm["results"].items()}
+                   for sm in summaries)
+    assert live == plain and len(live) == 4
 
 
 PAGED_FLAGS = ("--kv-page-tokens", "--kv-pages", "--shared-prefix",
@@ -646,9 +677,6 @@ def _assert_paged_run(tmp_path, argv, want):
         assert rec[PAGED_KEY[dest]] == value, dest
 
 
-ENV_ON = {}
-
-
 def _assert_live_run(tmp_path, monkeypatch):
     """``TPUDIST_LIVE`` on (``on``, ``1``, ``true``) runs the live
     aggregator over every record the CLI logs, under a tightened shed
@@ -683,31 +711,32 @@ def _assert_live_run(tmp_path, monkeypatch):
 
 
 # the twins refused until the port carried them, run as the JAX CLI
-# reads them: the live aggregator's files, the platform's device
-LIVE_PLATFORM_ENV = ("TPUDIST_LIVE", "TPUDIST_PLATFORM")
+# reads them: the live aggregator's files and its exporter, the
+# platform's device
+LIVE_PLATFORM_ENV = ("TPUDIST_LIVE", "TPUDIST_LIVE_PORT", "TPUDIST_PLATFORM")
 
 
-@pytest.mark.parametrize("name", sorted(set(tcli.ENV_NOT_CARRIED)
-                                        | {"TPUDIST_TRACE",
-                                           "TPUDIST_TRACE_DIR"}
+@pytest.mark.parametrize("name", sorted({"TPUDIST_TRACE",
+                                         "TPUDIST_TRACE_DIR"}
                                         | set(PAGED_ENV)
                                         | set(TUNE_CHAOS_ENV)
                                         | set(LIVE_PLATFORM_ENV)))
 def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch,
                                                        tmp_path, capsys):
-    """Each variable is tolerated unset and at the values that leave its
-    feature off in the JAX package; set on, the CLI exits 1 naming its
-    Queue A item and writes a fail verdict. ``TPUDIST_TRACE`` and
+    """Each twin the JAX serve CLI reads, refused by the port until it
+    carried it, serves as the JAX CLI reads it. ``TPUDIST_TRACE`` and
     ``TPUDIST_TRACE_DIR``, the paged plane's four twins,
     ``TPUDIST_CHAOS`` and ``TPUDIST_SERVE_TUNE`` (with
-    ``TPUDIST_AUTOTUNE_CACHE_DIR``) and ``TPUDIST_LIVE``, refused until
-    the port carried them, now serve as the JAX CLI reads them: tracing
-    off, the trace in that directory, a paged run with the twin's value
-    in its summary, a chaos run, a tuned run, or the live aggregator's
-    files. ``TPUDIST_PLATFORM`` picks the device ``--device`` leaves
+    ``TPUDIST_AUTOTUNE_CACHE_DIR``), ``TPUDIST_LIVE`` and
+    ``TPUDIST_LIVE_PORT``: tracing off, the trace in that directory, a
+    paged run with the twin's value in its summary, a chaos run, a tuned
+    run, the live aggregator's files, or its exporter. ``TPUDIST_PLATFORM`` picks the device ``--device`` leaves
     unset, and any word but cpu, cuda or gpu exits 1 naming it."""
     if name == "TPUDIST_LIVE":
         _assert_live_run(tmp_path, monkeypatch)
+        return
+    if name == "TPUDIST_LIVE_PORT":
+        _assert_live_port_run(tmp_path, monkeypatch, env=True)
         return
     if name == "TPUDIST_PLATFORM":
         monkeypatch.setenv(name, "cpu")
@@ -734,31 +763,18 @@ def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch,
         dest = name[len("TPUDIST_SERVE_"):].lower()
         _assert_paged_run(tmp_path, [], {dest: int(PAGED_ENV[name])})
         return
-    if name in ("TPUDIST_TRACE", "TPUDIST_TRACE_DIR"):
-        value = "off" if name == "TPUDIST_TRACE" else str(tmp_path / "tr")
-        monkeypatch.setenv(name, value)
-        monkeypatch.setenv("TPUDIST_VERDICT_PATH", str(tmp_path / "v.txt"))
-        assert tcli.main(["--device", "cpu", "--requests", "2",
-                          "--max-new-tokens", "2", "--save-dir",
-                          str(tmp_path / "run")]) == 0
-        assert (tmp_path / "v.txt").read_text() == "success"
-        if name == "TPUDIST_TRACE":
-            assert not (tmp_path / "run" / "pod_trace.json").exists()
-        else:
-            assert (tmp_path / "tr" / "pod_trace.json").is_file()
-        return
-    args = tcli.parse_args([])
-    off, item = tcli.ENV_NOT_CARRIED[name]
-    for value in off:
-        if value is not None:
-            monkeypatch.setenv(name, str(value).upper())
-            tcli.check_supported(args)
-    monkeypatch.setenv(name, ENV_ON.get(name, "3"))
+    assert name in ("TPUDIST_TRACE", "TPUDIST_TRACE_DIR")
+    value = "off" if name == "TPUDIST_TRACE" else str(tmp_path / "tr")
+    monkeypatch.setenv(name, value)
     monkeypatch.setenv("TPUDIST_VERDICT_PATH", str(tmp_path / "v.txt"))
-    assert tcli.main(["--device", "cpu", "--save-dir",
-                      str(tmp_path)]) == 1
-    assert re.search(f"ROADMAP Queue A item {item}'", capsys.readouterr().err)
-    assert (tmp_path / "v.txt").read_text() == "fail"
+    assert tcli.main(["--device", "cpu", "--requests", "2",
+                      "--max-new-tokens", "2", "--save-dir",
+                      str(tmp_path / "run")]) == 0
+    assert (tmp_path / "v.txt").read_text() == "success"
+    if name == "TPUDIST_TRACE":
+        assert not (tmp_path / "run" / "pod_trace.json").exists()
+    else:
+        assert (tmp_path / "tr" / "pod_trace.json").is_file()
 
 
 @pytest.mark.parametrize("env", [

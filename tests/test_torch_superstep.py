@@ -79,12 +79,25 @@ def test_resolve_steps_per_dispatch_equals_jax(fields, want):
 
 
 def test_profiling_forces_per_step_in_jax_and_is_refused_by_the_port():
-    """The JAX resolver's third per-step case, profiling, cannot arise in
-    the port: its parser refuses ``--profile-dir``."""
-    assert jconfig.resolve_steps_per_dispatch(
-        jconfig.TrainConfig(profile_dir="/tmp/prof")) == 1
-    with pytest.raises(ValueError, match="item 11"):
-        tconfig.parse_args(["--profile-dir", "/tmp/prof"])
+    """The JAX resolver's third per-step case, full-run profiling, which
+    the port refused until it carried ``--profile-dir``: in both
+    packages it resolves to per-step dispatch with autotuning off, while
+    the windowed capture keeps the superstep and the tuner."""
+    for argv in (["--profile-dir", "/tmp/prof"],
+                 ["--profile-dir", "/tmp/prof", "--log-every", "4",
+                  "--autotune", "probe"]):
+        t, j = tconfig.parse_args(argv), jconfig.parse_args(argv)
+        assert tconfig.resolve_steps_per_dispatch(t) == \
+            jconfig.resolve_steps_per_dispatch(j) == 1
+        assert tconfig.resolve_autotune(t) == jconfig.resolve_autotune(j) \
+            == "off"
+    argv = ["--profile-window", "2", "--log-every", "4", "--autotune",
+            "probe"]
+    t, j = tconfig.parse_args(argv), jconfig.parse_args(argv)
+    assert tconfig.resolve_steps_per_dispatch(t) == \
+        jconfig.resolve_steps_per_dispatch(j) == 4
+    assert tconfig.resolve_autotune(t) == jconfig.resolve_autotune(j) \
+        == "probe"
 
 
 @pytest.mark.parametrize("flag,env,state,hbm,temp", [

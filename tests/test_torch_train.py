@@ -214,7 +214,9 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
     # the MoE trains since the port carried it; its expert axis does not
     ["--expert", "2"], ["--model", "moe", "--expert", "2"],
     ["--tensor", "4"],
-    ["--live", "on"], ["--pipe", "4", "--context", "2"],
+    # the live bus trains since the port carried it; a mesh axis under
+    # it is still refused
+    ["--live", "on", "--fsdp", "2"], ["--pipe", "4", "--context", "2"],
 ])
 def test_flags_this_slice_does_not_carry_are_refused(flag):
     cfg = tconfig.parse_args(flag + ["--device", "cpu"])
@@ -289,9 +291,15 @@ OBS_ENV = {"TPUDIST_TRACE", "TPUDIST_TRACE_DIR", "TPUDIST_STALL_TIMEOUT_S",
 # them through the CLI)
 ELASTIC_ENV = {"TPUDIST_CKPT_MODE", "TPUDIST_REQUEUE_ATTEMPT",
                "TPUDIST_CHAOS"}
+# the live bus's and the device-time window's twins
+# (tests/test_torch_live_train.py and tests/test_torch_devtime.py drive
+# them)
+LIVE_ENV = {"TPUDIST_LIVE", "TPUDIST_LIVE_PORT", "TPUDIST_LIVE_ENDPOINT",
+            "TPUDIST_PROFILE_WINDOW"}
 ENV_CARRIED = {"TPUDIST_STAGING_BUDGET_MB", "TPUDIST_AUTOTUNE",
                "TPUDIST_AUTOTUNE_CACHE_DIR", "TPUDIST_AUTOTUNE_TRIALS",
-               "TPUDIST_COMPILATION_CACHE_DIR"} | OBS_ENV | ELASTIC_ENV
+               "TPUDIST_COMPILATION_CACHE_DIR"} | OBS_ENV | ELASTIC_ENV \
+    | LIVE_ENV
 
 
 def test_every_jax_train_flag_is_carried_or_refused():
@@ -324,8 +332,7 @@ def test_every_jax_train_flag_is_carried_or_refused():
             tconfig.parse_args([opt, *_turn_on(kw, off)])
 
 
-ENV_ON = {"TPUDIST_LIVE": "on",
-          "TPUDIST_GRAD_OVERLAP": "bucketed",
+ENV_ON = {"TPUDIST_GRAD_OVERLAP": "bucketed",
           "TPUDIST_CROSS_SLICE": "hierarchical", "TPUDIST_NO_FLASH": "1"}
 
 
@@ -356,7 +363,18 @@ ENV_READ = {**OBS_ENV_READ,
             "TPUDIST_REQUEUE_ATTEMPT": ("2", tconfig.resolve_requeue_attempt,
                                         2),
             "TPUDIST_CHAOS": ("kill@0:1", tconfig.resolve_chaos, "kill@0:1"),
-            "TPUDIST_TEST_KILL": ("0:5:1", lambda c: _kill_spec(), (0, 5, 1))}
+            "TPUDIST_TEST_KILL": ("0:5:1", lambda c: _kill_spec(), (0, 5, 1)),
+            # the live bus's and the device-time window's twins, refused
+            # until the port carried them (ROADMAP Queue A item 11b)
+            "TPUDIST_LIVE": ("on", lambda c: tconfig.resolve_live(c)[0],
+                             True),
+            "TPUDIST_LIVE_PORT": ("9109",
+                                  lambda c: tconfig.resolve_live(c)[1], 9109),
+            "TPUDIST_LIVE_ENDPOINT": (
+                "udp://10.0.0.1:9100", lambda c: tconfig.resolve_live(c)[2],
+                "udp://10.0.0.1:9100"),
+            "TPUDIST_PROFILE_WINDOW": ("3", tconfig.resolve_profile_window,
+                                       3)}
 
 
 def _kill_spec():
@@ -371,9 +389,10 @@ def test_env_twins_of_features_not_carried_are_refused(name, monkeypatch):
     """Each variable is tolerated unset and at the values that leave its
     feature off in the JAX package, and refused by ``run`` at any other,
     naming its Queue A item. ``TPUDIST_NO_FLASH`` is refused too: the
-    port's attention always takes its flash kernels. The observability
-    twins and ``TPUDIST_PLATFORM``, which the port carries, pass
-    ``check_supported`` and are read by its resolvers."""
+    port's attention always takes its flash kernels. The twins the port
+    carries (observability, elastic and chaos, the live bus and the
+    device-time window, ``TPUDIST_PLATFORM``) pass ``check_supported``
+    and are read by its resolvers."""
     cfg = tconfig.parse_args(["--device", "cpu"])
     if name in ENV_READ:
         value, read, want = ENV_READ[name]

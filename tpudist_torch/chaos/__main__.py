@@ -6,15 +6,12 @@
                                          [--bench-out BENCH_CHAOS.json]
     python -m tpudist_torch.chaos verify --run-dir DIR
 
-``drill`` runs the seeded fault matrix (baseline + the five families the
-port carries) through the port's train CLI, then replays the artifacts
-through the invariant checker and exits nonzero if any family broke its
-contract; a family that needs the live bus (``hang``,
-``telemetry_garbage``) exits 2 naming ROADMAP Queue A item 11b.
+``drill`` runs the seeded fault matrix (baseline + the seven families)
+through the port's train CLI, then replays the artifacts through the
+invariant checker and exits nonzero if any family broke its contract.
 ``verify`` re-checks an existing drill directory. ``chaos_report.json``
-lands in the run dir either way, with the families not drilled under
-``not_drilled``. The exit codes and summary lines are the JAX CLI's
-(``tpudist/chaos/__main__.py``).
+lands in the run dir either way. The exit codes and summary lines are
+the JAX CLI's (``tpudist/chaos/__main__.py``).
 """
 
 from __future__ import annotations
@@ -40,22 +37,6 @@ def _summarise(report) -> None:
           f"({len(report.get('families', {}))} families)")
 
 
-def _not_drilled(report) -> None:
-    """Name the families the drill left out in the report (and its
-    ``chaos_report.json``), from ``chaos_results.json``."""
-    run_dir = report.get("run_dir")
-    results = verify_mod._load_json(os.path.join(
-        run_dir, drill_mod.RESULTS_NAME)) if run_dir else None
-    report["not_drilled"] = (results or {}).get("not_drilled", {})
-    path = os.path.join(run_dir, verify_mod.REPORT_NAME)
-    tmp = f"{path}.tmp"
-    with open(tmp, "w") as f:
-        json.dump(report, f, indent=1)
-    os.replace(tmp, path)
-    for name, why in sorted(report["not_drilled"].items()):
-        print(f"tpudist: chaos {name}: not drilled — {why}")
-
-
 def main(argv: Optional[Sequence[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m tpudist_torch.chaos",
@@ -67,9 +48,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     d.add_argument("--family", action="append", default=None,
                    choices=sorted(drill_mod.FAMILIES),
                    help="drill only these families (repeatable; "
-                        "default: the five the port carries; hang and "
-                        "telemetry_garbage are refused, naming ROADMAP "
-                        "Queue A item 11b)")
+                        "default: all seven)")
     d.add_argument("--bench-out", type=str, default=None,
                    help="also write BENCH_CHAOS.json (BENCH_* harness "
                         "shape, headline = green family count)")
@@ -78,12 +57,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = p.parse_args(argv)
 
     if args.cmd == "drill":
-        try:
-            report = verify_mod.run_and_verify(args.run_dir,
-                                               families=args.family)
-        except ValueError as e:
-            print(f"tpudist_torch.chaos: {e}", file=sys.stderr)
-            return 2
+        report = verify_mod.run_and_verify(args.run_dir,
+                                           families=args.family)
         if args.bench_out:
             tmp = f"{args.bench_out}.tmp"
             os.makedirs(os.path.dirname(args.bench_out) or ".",
@@ -97,8 +72,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         except FileNotFoundError as e:
             print(f"tpudist_torch.chaos: {e}", file=sys.stderr)
             return 2
-        report["run_dir"] = args.run_dir
-    _not_drilled(report)
     _summarise(report)
     return 0 if report.get("ok") else 1
 

@@ -16,14 +16,11 @@ replays the artifacts against them. Where the JAX drill gives its
 attempts a 4-device CPU mesh, the port's attempts run one process on
 ``TPUDIST_PLATFORM`` (``cpu`` unless the caller names the card), and
 ``model`` appends flags after :data:`BASE_FLAGS` (a later flag wins), so
-the same matrix runs a full-width model on the card.
-
-Two families need the train CLI's live telemetry bus, which the port
-refuses until ROADMAP Queue A item 11b: ``hang`` (its stall alert) and
-``telemetry_garbage`` (garbage frames on the socket). :func:`run_family`
-refuses them by name, and the default matrix drills the baseline and the
-other five (:data:`CARRIED`), listing the two under ``not_drilled`` in
-``chaos_results.json``.
+the same matrix runs a full-width model on the card. Two families run
+with the train CLI's live telemetry bus on: ``hang`` (the watchdog's
+stall dump must reach the aggregator as a mid-run ``stall`` alert) and
+``telemetry_garbage`` (garbage on the socket: the decoder must
+resynchronise, ``bad_frames`` > 0, and the run end ``status: ok``).
 
 The module imports neither torch nor numpy; only the subprocesses do.
 """
@@ -110,15 +107,6 @@ FAMILIES: Dict[str, Dict[str, Any]] = {
 
 
 
-# the families that need the train CLI's live telemetry bus
-LIVE_BUS_ITEM = "11b"
-NOT_CARRIED = {
-    name: (f"needs the train CLI's live telemetry bus (--live on), which "
-           f"the port carries with ROADMAP Queue A item {LIVE_BUS_ITEM}")
-    for name, cfg in FAMILIES.items() if cfg.get("live")}
-CARRIED = tuple(name for name in FAMILIES if name not in NOT_CARRIED)
-
-
 class ChaosDrillError(RuntimeError):
     """A drill attempt did not follow its script (distinct from an
     INVARIANT violation, which verify reports rather than raises)."""
@@ -197,9 +185,7 @@ def run_family(run_dir: str, family: str, *,
     """One family's scripted drill: fault run, policy classification,
     and (for fatal families) the backoff + ``--resume auto`` rerun —
     the launcher's loop, replayed with the real standard-library
-    policy. A family of :data:`NOT_CARRIED` raises ``ValueError``."""
-    if family in NOT_CARRIED:
-        raise ValueError(f"chaos family {family!r}: {NOT_CARRIED[family]}")
+    policy."""
     cfg = FAMILIES[family]
     python = python or sys.executable
     d = os.path.join(run_dir, family)
@@ -276,23 +262,16 @@ def write_results(run_dir: str, results: Dict[str, Any]) -> None:
 def run_matrix(run_dir: str, *, python: Optional[str] = None,
                families: Optional[Sequence[str]] = None,
                model: Sequence[str] = ()) -> Dict[str, Any]:
-    """The matrix: baseline + each family (default :data:`CARRIED`),
-    results persisted as ``chaos_results.json`` with the families not
-    drilled named under ``not_drilled``."""
-    families = list(families or CARRIED)
-    for family in families:
-        if family in NOT_CARRIED:
-            raise ValueError(
-                f"chaos family {family!r}: {NOT_CARRIED[family]}")
+    """The matrix: baseline + each family (default: all seven), results
+    persisted as ``chaos_results.json`` so verify can replay them
+    offline."""
     os.makedirs(run_dir, exist_ok=True)
     python = python or sys.executable
     results: Dict[str, Any] = {
         "schema": 1,
         "baseline": run_baseline(run_dir, python=python, model=model),
-        "families": {},
-        "not_drilled": {f: NOT_CARRIED.get(f, "not requested")
-                        for f in FAMILIES if f not in families}}
-    for family in families:
+        "families": {}}
+    for family in (families or FAMILIES):
         results["families"][family] = run_family(
             run_dir, family, python=python, model=model)
         print(f"tpudist: chaos drill {family}: scripted outcome held "

@@ -4,9 +4,9 @@ A port of ``tpudist/chaos/inject.py``, with its three injection surfaces:
 
   * the **step boundary** (``on_step``) — the train loop calls it where
     it checks ``TPUDIST_TEST_KILL``; ``kill``, ``hang``, ``slow`` and
-    ``telemetry_garbage`` fire here (the train CLI has no live bus yet,
-    ROADMAP Queue A item 11b, so ``telemetry_garbage`` records its event
-    and has no emitter to feed);
+    ``telemetry_garbage`` fire here (the garbage goes onto the live
+    bus's emitter, ``--live on``; without one the event is recorded and
+    has nothing to feed);
   * the **checkpoint write path** (``ckpt_fault``) — installed as
     :mod:`tpudist_torch.elastic.ckpt`'s module-level fault hook;
     ``corrupt_shard``, ``torn_manifest`` and ``fs_error`` fire inside

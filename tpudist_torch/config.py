@@ -116,7 +116,20 @@ class TrainConfig:
     stall_timeout_s: Optional[float] = None  # watchdog window; 0 = off
     heartbeat_dir: Optional[str] = None  # heartbeat / flightrec dir
     hbm_sample_s: Optional[float] = None  # sampler period; 0 = off
+    # the live telemetry bus (tpudist_torch.obs.live, resolve_live): on |
+    # off (None = $TPUDIST_LIVE, else off), the coordinator's exporter
+    # port (0 = $TPUDIST_LIVE_PORT, else ephemeral) and the ingest
+    # endpoint workers ship to (None = $TPUDIST_LIVE_ENDPOINT, else the
+    # coordinator loops back over an ephemeral port)
     live: Optional[str] = None
+    live_port: int = 0
+    live_endpoint: Optional[str] = None
+    # device-time capture (tpudist_torch.obs.devtime): a full-run
+    # torch.profiler trace into <profile_dir>/worker<i>, or N mid-run
+    # dispatches (resolve_profile_window; 0 = $TPUDIST_PROFILE_WINDOW,
+    # else off) ingested into kind=devtime at run end
+    profile_dir: Optional[str] = None
+    profile_window: int = 0
     # the checkpoint layout (resolve_ckpt_mode) and its write mode
     ckpt_mode: Optional[str] = None  # orbax | sharded; None = env, orbax
     ckpt_sync: bool = False       # synchronous writes (async by default)
@@ -148,23 +161,16 @@ NOT_CARRIED = (
     ("--grad-bucket-mb", dict(type=float), (), "TPUDIST_GRAD_BUCKET_MB", 8),
     ("--cross-slice", dict(choices=("flat", "hierarchical")), ("flat",),
      "TPUDIST_CROSS_SLICE", 8),
-    ("--profile-dir", {}, (), None, "11b"),
-    ("--profile-window", dict(type=int, default=0), (),
-     "TPUDIST_PROFILE_WINDOW", "11b"),
-    ("--live-port", dict(type=int, default=0), (), "TPUDIST_LIVE_PORT",
-     "11b"),
-    ("--live-endpoint", {}, (), "TPUDIST_LIVE_ENDPOINT", "11b"),
 )
 
 # The environment variables the JAX package reads for what this slice does
-# not carry (the twins of NOT_CARRIED and of --live, and two
-# switches of its own): the values that leave each off there, and the
-# Queue A item that brings it (None: no item does; the port's attention
-# always takes its flash kernels).
+# not carry (the twins of NOT_CARRIED, and a switch of its own): the
+# values that leave each off there, and the Queue A item that brings it
+# (None: no item does; the port's attention always takes its flash
+# kernels).
 ENV_NOT_CARRIED = {
     **{env: ((kw.get("default"), *off), item)
        for _, kw, off, env, item in NOT_CARRIED if env},
-    "TPUDIST_LIVE": (("off",), "11b"),
     "TPUDIST_NO_FLASH": ((), None),
 }
 
@@ -259,10 +265,6 @@ def check_supported(cfg: TrainConfig) -> None:
             f"mesh axes {wide}: the port trains data-parallel only; "
             f"sharded layouts and multi-axis parallelism come with ROADMAP "
             f"Queue A item 8")
-    if cfg.live not in (None, "off"):
-        raise ValueError(
-            "--live on: the live telemetry bus comes with ROADMAP Queue A "
-            "item 11b")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):
@@ -288,10 +290,10 @@ def resolve_steps_per_dispatch(cfg: TrainConfig) -> int:
     combined with ``--fail-at`` (fault-injection timing is defined in
     per-step terms).
 
-    Auto (``0``) picks 1 under ``--log-every 1`` or fault injection (each
-    wants true per-step dispatch; the JAX package's third case,
-    profiling, is refused by the port's ``parse_args``), else the largest
-    divisor of the log/ckpt intervals <= :data:`SUPERSTEP_CAP`. The
+    Auto (``0``) picks 1 under ``--log-every 1``, full-run profiling
+    (``--profile-dir``) or fault injection (each wants true per-step
+    dispatch), else the largest divisor of the log/ckpt intervals <=
+    :data:`SUPERSTEP_CAP`. The
     epoch's trailing partial superstep is not a config concern: its
     steps past the epoch are masked (``engine.make_superstep``).
     """
@@ -300,7 +302,7 @@ def resolve_steps_per_dispatch(cfg: TrainConfig) -> int:
         raise ValueError(
             f"--steps-per-dispatch must be >= 1 (or 0 = auto), got {k}")
     if k == 0:
-        if cfg.fail_at is not None or cfg.log_every == 1:
+        if cfg.profile_dir or cfg.fail_at is not None or cfg.log_every == 1:
             return 1
         cap = SUPERSTEP_CAP if cfg.log_every <= 0 else min(cfg.log_every,
                                                            SUPERSTEP_CAP)
@@ -404,10 +406,11 @@ def resolve_autotune(cfg: TrainConfig) -> str:
     the JAX package's ``config.resolve_autotune`` does.
 
     ``probe`` measures on a cache miss; ``cache-only`` reuses a prior
-    measurement but never probes. Fault injection forces ``off``: it is
-    defined in per-step-dispatch terms, so every knob the tuner searches
-    is already pinned (the JAX package's other forcing case, full-run
-    profiling, cannot arise: the port refuses ``--profile-dir``).
+    measurement but never probes. Fault injection and full-run profiling
+    (``--profile-dir``) force ``off``: both are defined in
+    per-step-dispatch terms, so every knob the tuner searches is already
+    pinned. The windowed capture (``--profile-window``) does not: it
+    profiles whatever operating point the run uses, tuned or not.
     """
     mode = cfg.autotune
     if mode is None:
@@ -415,9 +418,30 @@ def resolve_autotune(cfg: TrainConfig) -> str:
     if mode not in AUTOTUNE_MODES:
         raise ValueError(
             f"--autotune must be one of {AUTOTUNE_MODES}, got {mode!r}")
-    if mode != "off" and cfg.fail_at is not None:
+    if mode != "off" and (cfg.fail_at is not None or cfg.profile_dir):
         return "off"
     return mode
+
+
+def resolve_profile_window(cfg: TrainConfig) -> int:
+    """Resolve ``--profile-window`` / ``TPUDIST_PROFILE_WINDOW`` to the
+    number of mid-run dispatches to capture (0 = off), as the JAX
+    package's ``config.resolve_profile_window``.
+
+    Precedence: explicit flag > env > 0. Full-run ``--profile-dir``
+    wins over the window (profiler sessions cannot nest — the whole
+    run is already inside one), so the window resolves to 0 there.
+    """
+    n = cfg.profile_window
+    if n < 0:
+        raise ValueError(
+            f"--profile-window must be >= 0, got {n}")
+    if n == 0:
+        env = _env_float("TPUDIST_PROFILE_WINDOW")
+        n = int(env) if env and env > 0 else 0
+    if cfg.profile_dir:
+        return 0
+    return n
 
 
 def resolve_autotune_cache_dir(cfg: TrainConfig) -> str:
@@ -493,6 +517,42 @@ def resolve_obs(cfg: TrainConfig) -> Tuple[float, str, float]:
     if hbm_s < 0:
         raise ValueError(f"--hbm-sample-s must be >= 0, got {hbm_s}")
     return stall, out_dir, hbm_s
+
+
+# Live telemetry (tpudist_torch.obs.live): off by default — unlike the
+# span tracer it opens sockets and threads, which a bare acceptance run
+# should not do unless an operator (or the launcher) asked for the view.
+LIVE_MODES = ("on", "off")
+
+
+def resolve_live(cfg: TrainConfig) -> Tuple[bool, int, Optional[str]]:
+    """Resolve the live-telemetry knobs to ``(enabled, exporter_port,
+    ingest_endpoint)``, as the JAX package's ``config.resolve_live``.
+
+    Precedence per knob: explicit flag > env var > default (off, 0 =
+    ephemeral exporter port, no endpoint). ``TPUDIST_LIVE`` accepts the
+    usual truthy/falsy spellings so launchers can switch the bus
+    pod-wide without touching per-worker argv; ``TPUDIST_LIVE_ENDPOINT``
+    is how the launcher tells every worker where the coordinator's
+    aggregator listens (``[tcp://|udp://]host:port``) — without it a
+    single-host run loops back over an ephemeral loopback port, which
+    exercises the same socket path a pod does."""
+    mode = cfg.live
+    if mode is None:
+        raw = (os.environ.get("TPUDIST_LIVE") or "off").lower()
+        mode = "off" if raw in ("", "off", "0", "false", "no") else "on"
+    if mode not in LIVE_MODES:
+        raise ValueError(
+            f"--live must be one of {LIVE_MODES}, got {mode!r}")
+    port = cfg.live_port
+    if port < 0:
+        raise ValueError(f"--live-port must be >= 0, got {port}")
+    if port == 0:
+        env = _env_float("TPUDIST_LIVE_PORT")
+        port = int(env) if env and env > 0 else 0
+    endpoint = (cfg.live_endpoint
+                or os.environ.get("TPUDIST_LIVE_ENDPOINT") or None)
+    return mode == "on", port, endpoint
 
 
 def flagship_model_config(max_seq_len: int = 512) -> ModelConfig:
@@ -640,7 +700,37 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                         "seconds; the high-water mark lands in the "
                         "kind=timing record (default: "
                         "$TPUDIST_HBM_SAMPLE_S, else 2.0; 0 disables)")
-    p.add_argument("--live", type=str, default=None, choices=("on", "off"))
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a full-run torch.profiler trace (Kineto "
+                        "Chrome trace) on EVERY process, into "
+                        "profile-dir/worker<i>; forces per-step dispatch "
+                        "and turns autotuning off")
+    p.add_argument("--profile-window", type=int, default=0,
+                   help="capture N mid-run dispatches with torch.profiler "
+                        "on every process (profile/worker<i> under "
+                        "--trace-dir) and ingest the device timeline at "
+                        "run end: kind=devtime record, device tracks in "
+                        "pod_trace.json, comm_status verdict (default: "
+                        "$TPUDIST_PROFILE_WINDOW, else 0 = off; "
+                        "--profile-dir wins when both are set)")
+    p.add_argument("--live", type=str, default=None,
+                   choices=list(LIVE_MODES),
+                   help="live telemetry bus (tpudist_torch.obs.live): "
+                        "non-blocking per-process emitters stream records "
+                        "+ heartbeats to a coordinator aggregator that "
+                        "runs the on-line alert engine over the same "
+                        "thresholds as the exit verdict, rewrites "
+                        "live_status.json, and serves Prometheus /metrics "
+                        "(default: $TPUDIST_LIVE, else off)")
+    p.add_argument("--live-port", type=int, default=0,
+                   help="Prometheus exporter port on the coordinator "
+                        "(/metrics, /status.json, /healthz; default: "
+                        "$TPUDIST_LIVE_PORT, else an ephemeral port)")
+    p.add_argument("--live-endpoint", type=str, default=None,
+                   help="ingest endpoint workers ship records to "
+                        "([tcp://|udp://]host:port; default: "
+                        "$TPUDIST_LIVE_ENDPOINT, else the coordinator "
+                        "binds loopback on an ephemeral port)")
     p.add_argument("--device", type=str, default=None,
                    choices=("cuda", "cpu"),
                    help="where the model trains ($TPUDIST_PLATFORM: cpu, "
@@ -684,6 +774,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         heartbeat_dir=args.heartbeat_dir,
         hbm_sample_s=args.hbm_sample_s,
         live=args.live,
+        live_port=args.live_port,
+        live_endpoint=args.live_endpoint,
+        profile_dir=args.profile_dir,
+        profile_window=args.profile_window,
         ckpt_mode=args.ckpt_mode,
         ckpt_sync=args.ckpt_sync,
         requeue_attempt=args.requeue_attempt,

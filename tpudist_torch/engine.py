@@ -366,10 +366,15 @@ def _build_step_body(cfg: TrainConfig,
     processes when a process group is up, then the Adam update in place
     from the step's device scalars. It reads and writes no host counter,
     so a CUDA graph can capture it; the caller advances ``state.step``
-    and ``state.opt_state.count``."""
+    and ``state.opt_state.count``. ``body.reduced`` lists the ``(dtype,
+    bytes)`` of each all-reduce its gradient mean issued, in order (the
+    grads, then the loss): a host-side note, written at every eager call
+    and at a graph's capture, that ``obs.devtime.collective_bytes``
+    turns into the run's collective volume."""
     loss_fn = make_loss_fn(cfg, device)
     tx = make_optimizer(cfg)
     data_parallel = dist.is_initialized()
+    reduced: List[Tuple[torch.dtype, int]] = []
 
     def body(state: TrainState, batch, count, c1, c2):
         loss, grads = _microbatch(loss_fn, state.params, batch,
@@ -381,9 +386,12 @@ def _build_step_body(cfg: TrainConfig,
             # loss's mean as lax.pmean(loss, "data") gives it
             grads = pmean(grads)
             loss, = pmean([loss])
+            reduced[:] = [(t.dtype, t.numel() * t.element_size())
+                          for t in (*grads, loss)]
         tx.apply(grads, state.opt_state, list(state.params.parameters()),
                  count, c1, c2)
         return loss
+    body.reduced = reduced
     return body, tx
 
 
@@ -410,7 +418,8 @@ def make_train_step(cfg: TrainConfig,
                     device: Optional[torch.device] = None) -> Callable:
     """``(state, batch) -> (state, loss)``: one step of the step body,
     its scalars filled from the host's count first. ``cost_analysis()``
-    is the step's flop count from its first call (None before it)."""
+    is the step's flop count from its first call (None before it);
+    ``reduced_operands()`` the step's all-reduces (``body.reduced``)."""
     body, tx = _build_step_body(cfg, device)
     scalars = StepScalars(tx, 1, torch.device(device or "cpu"))
     cost: Dict[str, int] = {}
@@ -421,6 +430,7 @@ def make_train_step(cfg: TrainConfig,
         _advance(state, 1)
         return state, loss
     step.cost_analysis = lambda: dict(cost) or None
+    step.reduced_operands = lambda: list(body.reduced)
     return step
 
 
@@ -514,6 +524,11 @@ class Superstep:
         k-step superstep counts one step, as the JAX package's cost
         analysis visits a scan body once."""
         return dict(self._cost) or None
+
+    def reduced_operands(self) -> List[Tuple[torch.dtype, int]]:
+        """One step's all-reduces, ``(dtype, bytes)`` each, as the step
+        body noted them (empty without a process group)."""
+        return list(self.body.reduced)
 
     @property
     def programs(self) -> int:

@@ -12,9 +12,13 @@ on (ROADMAP Queue A item 11a):
     straggler verdict (``kind=hosts``);
   * :mod:`mfu` — the step's flop count and the MFU fields;
   * :mod:`memledger` — the exact per-card memory ledger;
-  * :mod:`live` — the run's correlation id, and the live aggregator's
-    file half (``alerts.jsonl``, ``live_status.json``), which the serve
-    CLI runs under ``TPUDIST_LIVE=on``;
+  * :mod:`live` — the run's correlation id and the live telemetry bus:
+    the emitter, the aggregator (``alerts.jsonl``, ``live_status.json``)
+    and its Prometheus exporter, under ``--live on`` (the serve CLI's
+    ``TPUDIST_LIVE=on`` / ``--live-port``);
+  * :mod:`devtime` — device-time attribution over a
+    ``--profile-window`` capture of ``torch.profiler`` (compute,
+    exposed communication, idle; ``kind=devtime``, ``comm_status``);
   * :mod:`goodput` — the goodput ledger: the requeue loop's
     ``attempts.jsonl``, which the drills write, the attempt-local
     ``kind=goodput`` record and the cross-attempt partition the chaos
@@ -39,7 +43,11 @@ from tpudist_torch.obs.heartbeat import FlightRecorder
 class PodObserver:
     """The train loop's one observability handle: the flight recorder
     (beacon and watchdog), the HBM watermark sampler and the per-host
-    straggler tracking, started together and closed together.
+    straggler tracking, started together and closed together. With a
+    live run (``live``, an ``obs.live.LiveRun``) every beacon also goes
+    to the bus with the ``live_fields`` slice of counters, and the
+    coordinator's flight record carries the aggregator's last snapshot;
+    ``stall_hook`` runs before a stall's dump.
 
     A stall window of 0 or a sample period of 0 turns that piece's
     thread off (the beacon still beats; the sampler then reads only when
@@ -49,7 +57,9 @@ class PodObserver:
     def __init__(self, *, out_dir: str, stall_timeout_s: float = 300.0,
                  hbm_sample_s: float = 2.0, metrics: Any = None,
                  process_index: int = 0, process_count: int = 1,
-                 devices: Sequence[int] = (), requeue_attempt: int = 0):
+                 devices: Sequence[int] = (), stall_hook: Any = None,
+                 live: Any = None, live_fields: Any = None,
+                 requeue_attempt: int = 0):
         from tpudist_torch.obs.hoststats import HostStepStats
         self.hbm = (HbmSampler(period_s=hbm_sample_s, devices=devices)
                     if hbm_sample_s > 0 else None)
@@ -60,34 +70,52 @@ class PodObserver:
         self.last_memledger: Optional[Dict[str, Any]] = None
 
         def _extra_state() -> Dict[str, Any]:
+            # on the coordinator of a live run the aggregator's last
+            # snapshot rides along (a lock-free read): a pre-kill dump
+            # says what the pod looked like, not just this process
             out = dict(self.hbm.split()) if self.hbm is not None else {}
             if self.last_memledger is not None:
                 out["memledger"] = self.last_memledger
+            if live is not None:
+                snap = live.snapshot_fields()
+                if snap is not None:
+                    out["live_status"] = snap
             return out
 
         def _beacon_extra() -> Dict[str, Any]:
-            # a counter read only: no fence, no device call
-            if self.hbm is None:
-                return {}
-            return {"hbm_peak_bytes": self.hbm.peak_in_use or None}
+            # counter reads only: no fence, no device call
+            out: Dict[str, Any] = {}
+            if self.hbm is not None:
+                out["hbm_peak_bytes"] = self.hbm.peak_in_use or None
+            if live_fields is not None:
+                try:
+                    out.update(live_fields())
+                except Exception:
+                    pass
+            return out
 
         self.recorder = FlightRecorder(
             out_dir, stall_timeout_s=stall_timeout_s,
             process_index=process_index, metrics=metrics,
             extra_state=_extra_state, tracer=trace.get(),
+            stall_hook=stall_hook,
+            emitter=(live.emitter if live is not None else None),
             beacon_extra=_beacon_extra, requeue_attempt=requeue_attempt)
         self._closed = False
 
     @classmethod
     def from_config(cls, cfg, *, metrics=None, process_index: int = 0,
-                    process_count: int = 1,
-                    devices: Sequence[int] = ()) -> "PodObserver":
+                    process_count: int = 1, devices: Sequence[int] = (),
+                    stall_hook: Any = None, live: Any = None,
+                    live_fields: Any = None) -> "PodObserver":
         from tpudist_torch.config import resolve_obs, resolve_requeue_attempt
         stall_s, out_dir, hbm_s = resolve_obs(cfg)
         return cls(out_dir=out_dir, stall_timeout_s=stall_s,
                    hbm_sample_s=hbm_s, metrics=metrics,
                    process_index=process_index,
                    process_count=process_count, devices=devices,
+                   stall_hook=stall_hook, live=live,
+                   live_fields=live_fields,
                    requeue_attempt=resolve_requeue_attempt(cfg))
 
     def note_progress(self, **kv: Any) -> None:

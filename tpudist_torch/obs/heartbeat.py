@@ -1,14 +1,13 @@
 """Per-process heartbeat beacon and stall watchdog.
 
-Copy of ``tpudist/obs/heartbeat.py`` for the port (without the live
-bus's emitter and the device profiler's stall hook: ROADMAP Queue A
-item 11b). The train loop calls :meth:`FlightRecorder.note_progress` at
-step boundaries (two attribute assignments, nothing fenced); a daemon
-thread writes a small JSON beacon (``heartbeat.worker<i>``: step, epoch,
-phase, ts) every few seconds and, when no progress was noted for
-``stall_timeout_s``, dumps a flight record
-(:mod:`tpudist_torch.obs.flightrec`) and flushes the buffered metrics
-before the launcher kills the job. The thread touches the card only
+Copy of ``tpudist/obs/heartbeat.py`` for the port. The train loop calls
+:meth:`FlightRecorder.note_progress` at step boundaries (two attribute
+assignments, nothing fenced); a daemon thread writes a small JSON beacon
+(``heartbeat.worker<i>``: step, epoch, phase, ts) every few seconds,
+ships it on the live bus when there is one, and, when no progress was
+noted for ``stall_timeout_s``, runs the stall hook, dumps a flight
+record (:mod:`tpudist_torch.obs.flightrec`) and flushes the buffered
+metrics before the launcher kills the job. The thread touches the card only
 through the caching allocator's counters, so it cannot disturb a CUDA
 graph being captured or replayed on the main thread.
 """
@@ -52,8 +51,25 @@ class FlightRecorder:
         the run hung) and exports the worker's local Chrome trace next
         to the flight record — a hung run leaves its TIMELINE, not
         just its stacks.
+      * ``stall_hook`` — optional callable fired at dump time, BEFORE
+        the record is written; a path it returns is recorded as
+        ``profile_capture`` in the flight record, a dict is folded into
+        the record's extras. The windowed device profiler
+        (``obs.devtime.WindowProfiler.emergency_stop``) hangs off this:
+        ``torch.profiler`` cannot be stopped from the watchdog's thread,
+        so an open window reports its capture lost and why
+        (``profile_capture_lost``) instead of a path.
+      * ``emitter`` — a live-telemetry emitter (obs.live
+        ``TelemetryEmitter``): every beacon ALSO ships as a
+        ``kind=heartbeat`` record to the coordinator's aggregator (the
+        per-host liveness signal the on-line stall alert keys off),
+        and the stall dump ships a ``kind=stall_dump`` record FIRST —
+        before the slow stack/memory collection below — so the firing
+        alert reaches the Prometheus exporter while the launcher's
+        outer timeout is still minutes away. ``emit`` is a lock-free
+        bounded put: a wedged run cannot wedge its own telemetry.
       * ``beacon_extra`` — optional callable whose dict folds into
-        every beacon (the HBM peak rides along; failures
+        every beacon (live staging/HBM counters ride along; failures
         are swallowed — the beacon is best-effort by contract).
     """
 
@@ -62,6 +78,8 @@ class FlightRecorder:
                  extra_state: Optional[Callable[[], Dict]] = None,
                  tracer: Any = None, last_n_metrics: int = 50,
                  last_n_spans: int = 64,
+                 stall_hook: Optional[Callable[[], Any]] = None,
+                 emitter: Any = None,
                  beacon_extra: Optional[Callable[[], Dict]] = None,
                  requeue_attempt: int = 0):
         if stall_timeout_s < 0:
@@ -73,6 +91,8 @@ class FlightRecorder:
         self.metrics = metrics
         self.extra_state = extra_state
         self.tracer = tracer
+        self.stall_hook = stall_hook
+        self.emitter = emitter
         self.beacon_extra = beacon_extra
         self.last_n_metrics = last_n_metrics
         self.last_n_spans = last_n_spans
@@ -176,7 +196,8 @@ class FlightRecorder:
         # progress_n is the note_progress call counter — the SAME
         # signal this watchdog's own stall detection keys off (any
         # progress re-arms it: phase flips during long eval/ckpt
-        # included, not just step advances)
+        # included, not just step advances), shipped so the live
+        # aggregator's stall-age accounting agrees with the watchdog
         payload = {**self._progress, "beacon_ts": time.time(),
                    "progress_n": self._count}
         if self.beacon_extra is not None:
@@ -195,6 +216,12 @@ class FlightRecorder:
             # the beacon is best-effort; a full disk must not kill the
             # watchdog (the flight record is the part that matters)
             pass
+        if self.emitter is not None:
+            # the live bus's per-host liveness signal: the aggregator's
+            # progress-age accounting (and so the on-line stall alert)
+            # keys off these, so they flow even when the FILE write
+            # above failed — a full disk must not blind the exporter
+            self.emitter.emit({"kind": "heartbeat", **payload})
 
     # ----------------------------------------------------------- dump
     def dump(self, reason: str = "manual",
@@ -202,6 +229,13 @@ class FlightRecorder:
         """Write the flight record now (the watchdog calls this on
         stall; the launcher-facing contract is the artifact's existence,
         so it is also callable directly for drills/tests)."""
+        if self.emitter is not None:
+            # FIRST, before the slow stack/memory collection below: the
+            # measured stall rides to the aggregator so the stall alert
+            # is firing — on disk in live_status.json and scrapeable at
+            # /metrics — before the launcher's kill, not after
+            self.emitter.emit({"kind": "stall_dump", "reason": reason,
+                               "stall_s": stall_s, **self._progress})
         history = []
         if self.metrics is not None:
             # the stall dump also lands in the metrics stream itself:
@@ -225,6 +259,17 @@ class FlightRecorder:
                 extra = self.extra_state()
             except Exception:
                 extra = None
+        if self.stall_hook is not None:
+            # e.g. close an open device-profiler window: fired before
+            # the write so the record can say what became of it
+            try:
+                capture = self.stall_hook()
+            except Exception:
+                capture = None
+            if isinstance(capture, dict):
+                extra = {**(extra or {}), **capture}
+            elif capture:
+                extra = {**(extra or {}), "profile_capture": capture}
         spans = None
         if self.tracer is not None and getattr(self.tracer, "enabled",
                                                False):

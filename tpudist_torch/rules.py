@@ -195,6 +195,11 @@ SERVE_STATUS_RULES: Tuple[Tuple[str, str], ...] = (
     ("serve_shed_status", "serve_shed"),
 )
 
+# the rules the live alert engine fires on (one series each in the
+# exporter's tpudist_alert_firing family)
+ALERT_RULES: Tuple[Threshold, ...] = tuple(
+    t for t in THRESHOLDS if t.alert)
+
 _BY_NAME = {t.name: t for t in THRESHOLDS}
 
 

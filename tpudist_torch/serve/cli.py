@@ -24,9 +24,11 @@ in-flight slots as lost. Artifacts: ``metrics.jsonl`` (``kind=serve`` /
 ``serve_tick`` / ``serve_request`` / ``serve_adapt`` / ``serve_tune`` /
 ``serve_resume`` / ``serve_warmup`` / ``chaos`` / ``memledger`` records,
 each stamped with the run's ``run_id`` and ``requeue_attempt``), the
-memory ledger ``memledger.json``, with ``TPUDIST_LIVE=on`` the live
-aggregator's ``alerts.jsonl`` and ``live_status.json``
-(:class:`~tpudist_torch.obs.live.LiveAggregator`, fed every record) and,
+memory ledger ``memledger.json``, with ``TPUDIST_LIVE=on`` or
+``--live-port`` the live aggregator's ``alerts.jsonl`` and
+``live_status.json`` (:class:`~tpudist_torch.obs.live.LiveAggregator`,
+fed every record; a port also serves it as Prometheus ``/metrics``,
+``/status.json`` and ``/healthz`` while the run lives) and,
 with the span tracer on (the default; ``--trace off``),
 ``trace.worker0.json`` and ``pod_trace.json`` with one track per serving
 slot, under ``--save-dir`` (the traces under ``--trace-dir``),
@@ -35,11 +37,8 @@ the serve tuner's cache (``--tune-cache-dir``), an optional
 (``TPUDIST_VERDICT_PATH``). Exit code: 0 unless an SLO gate FAILED or
 the run failed.
 
-``parse_args`` declares every option of the JAX serve CLI. Those this
-slice does not carry (``NOT_CARRIED``) are refused unless left off, and
-their environment twins (``ENV_NOT_CARRIED``) when set on, each naming
-the ROADMAP Queue A item that brings it, as the train CLI does
-(:mod:`tpudist_torch.config`).
+``parse_args`` declares every option of the JAX serve CLI, with its
+default.
 """
 
 from __future__ import annotations
@@ -51,7 +50,6 @@ import os
 import sys
 from typing import Any, Dict, Optional, Sequence
 
-from tpudist_torch.config import _is_off, _refusal
 from tpudist_torch.serve import slo as slo_lib
 from tpudist_torch.utils.platform import platform_device
 
@@ -59,23 +57,6 @@ DEFAULT_SLOTS = 4
 DEFAULT_MAX_SEQ = 64
 DEFAULT_PROMPT_PAD = 16
 DEFAULT_DECODE_K = 8
-
-# The JAX serve CLI's options this slice does not carry: option string;
-# its argparse keywords (type, choices, the JAX default when its
-# environment variable is unset); the values besides the default that
-# leave the feature off in the JAX package; that variable; the ROADMAP
-# Queue A item that brings it. parse_args refuses any other value,
-# check_supported any other setting of the variable.
-NOT_CARRIED = (
-    ("--live-port", dict(type=int), (0,), "TPUDIST_LIVE_PORT", "11b"),
-)
-
-# The environment variables the JAX serve CLI reads for what this slice
-# does not carry: the values that leave each off there, and its item.
-ENV_NOT_CARRIED = {
-    env: ((kw.get("default"), *off), item)
-    for _, kw, off, env, item in NOT_CARRIED if env}
-
 
 def _env_int(name: str) -> Optional[int]:
     raw = os.environ.get(name)
@@ -96,9 +77,8 @@ def _env_float(name: str) -> Optional[float]:
 def parse_args(argv: Optional[Sequence[str]] = None
                ) -> argparse.Namespace:
     """CLI -> Namespace, the JAX serve CLI's options and defaults (the
-    resilience knobs read their environment twins as it does). An option
-    of ``NOT_CARRIED`` is refused with a ``ValueError`` unless its value
-    leaves the feature off."""
+    resilience knobs and the exporter's port read their environment
+    twins as it does)."""
     p = argparse.ArgumentParser(
         prog="python -m tpudist_torch.serve",
         description="tpudist serving acceptance lane on PyTorch/CUDA: "
@@ -241,25 +221,13 @@ def parse_args(argv: Optional[Sequence[str]] = None
                    help="where the model runs ($TPUDIST_PLATFORM: cpu, or "
                         "cuda/gpu); cuda (the default) fails when no card "
                         "is present rather than falling back to the CPU")
-    for flag, kw, _, _, _ in NOT_CARRIED:
-        p.add_argument(flag, **kw)
+    p.add_argument("--live-port", type=int, default=_env_int(
+        "TPUDIST_LIVE_PORT"),
+        help="serve Prometheus /metrics + /status.json on this port "
+             "while the run lives ($TPUDIST_LIVE_PORT)")
     args = p.parse_args(argv)
-    for flag, _, off, _, item in NOT_CARRIED:
-        dest = flag[2:].replace("-", "_")
-        value = getattr(args, dest)
-        if value != p.get_default(dest) and not _is_off(value, off):
-            raise _refusal(f"{flag} {value}", item)
     args.device = platform_device(args.device)
     return args
-
-
-def check_supported(args: argparse.Namespace) -> None:
-    """Refuse what this slice of the port does not carry, naming the
-    ROADMAP item (Queue A) that brings it."""
-    for name, (off, item) in ENV_NOT_CARRIED.items():
-        value = os.environ.get(name, "")
-        if value and not _is_off(value, off):
-            raise _refusal(f"{name}={value}", item)
 
 
 def _prior_outcomes(path: str):
@@ -330,7 +298,6 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                                             init_params)
     from tpudist_torch.utils.platform import resolve_device
 
-    check_supported(args)
     if args.speculate_k and not args.kv_page_tokens:
         raise SystemExit("tpudist: --speculate-k needs the paged KV "
                          "cache (--kv-page-tokens > 0)")
@@ -366,12 +333,18 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     tracer.run_info.update(run_id=run_id, requeue_attempt=attempt)
 
     # the live aggregator (its alert engine, alerts.jsonl and
-    # live_status.json), fed every record, under $TPUDIST_LIVE=on; the
-    # exporter (--live-port) is item 11b
-    agg = None
-    if os.environ.get("TPUDIST_LIVE", "").lower() in ("on", "1", "true"):
+    # live_status.json), fed every record, whenever live is on:
+    # $TPUDIST_LIVE=on without a port keeps it exporter-less (the drills'
+    # mode); a port also serves Prometheus /metrics
+    agg = server = None
+    if args.live_port or os.environ.get(
+            "TPUDIST_LIVE", "").lower() in ("on", "1", "true"):
         agg = live_lib.LiveAggregator(out_dir=args.save_dir, run_id=run_id,
                                       metrics=None, stall_timeout_s=0)
+        if args.live_port:
+            server = live_lib.LiveHttpServer(agg, port=args.live_port)
+            log0(f"tpudist: serve live exporter on "
+                 f":{server.port}/metrics")
         metrics.emitter = _LoopbackEmitter(agg)
 
     # the chaos plane's serve surface (--chaos / $TPUDIST_CHAOS):
@@ -563,6 +536,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
              f"{'exact' if ledger['exact'] else 'INEXACT'})")
     except Exception as e:
         log0(f"tpudist: memledger skipped ({e!r})")
+    if server is not None:
+        server.close()
     if agg is not None:
         agg.close()
     metrics.close()

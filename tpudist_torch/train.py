@@ -21,13 +21,19 @@ completed.``), a checkpoint per epoch (and every ``--ckpt-every-steps``;
 asynchronous unless ``--ckpt-sync``, in the port's step directories or
 ``--ckpt-mode sharded``'s manifest layout), ``--resume`` (the elastic
 resume, ``tpudist_torch.elastic``), ``--fail-at`` and the chaos plane
-(``--chaos``, ``TPUDIST_TEST_KILL``), the ``metrics.jsonl`` records
-(``kind=attempt`` / ``step`` / ``epoch`` / ``ckpt`` / ``resume`` /
-``ckpt_drain`` / ``timing`` / ``goodput``) and the verdict files at ``TPUDIST_VERDICT_PATH`` (one a process, and
-the coordinator's AND over all of them, with a bounded wait for a peer
-that is dead or late). Exit code 0 on success, 1 on any failure of any
-process. It runs on the card (``--device cuda``, the default) unless
-asked for the CPU.
+(``--chaos``, ``TPUDIST_TEST_KILL``), the live telemetry bus
+(``--live on``: every process's emitter, the coordinator's aggregator
+and Prometheus exporter, ``tpudist_torch.obs.live``), device-time
+capture (``--profile-window N`` mid-run dispatches ingested into
+``kind=devtime`` and device tracks in ``pod_trace.json``;
+``--profile-dir``'s full-run trace; ``tpudist_torch.obs.devtime``), the
+``metrics.jsonl`` records (``kind=attempt`` / ``step`` / ``epoch`` /
+``ckpt`` / ``resume`` / ``ckpt_drain`` / ``devtime`` / ``timing`` /
+``goodput``) and the verdict files at ``TPUDIST_VERDICT_PATH`` (one a
+process, and the coordinator's AND over all of them, with a bounded wait
+for a peer that is dead or late). Exit code 0 on success, 1 on any
+failure of any process. It runs on the card (``--device cuda``, the
+default) unless asked for the CPU.
 
 Run:  python -m tpudist_torch.train --epochs 5 --train-batch-size 64
 Two processes on the CPU: the same with ``--device cpu`` in each of
@@ -37,6 +43,7 @@ Two processes on the CPU: the same with ``--device cpu`` in each of
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -56,6 +63,7 @@ from tpudist_torch.config import TrainConfig, parse_args
 from tpudist_torch.metrics import (MetricsLogger, StagingStats, StepTimer,
                                    _rank, log0)
 from tpudist_torch.obs import PodObserver
+from tpudist_torch.obs import devtime as devtime_lib
 from tpudist_torch.obs import goodput as goodput_lib
 from tpudist_torch.obs import live as live_lib
 from tpudist_torch.obs import memledger as memledger_lib
@@ -178,6 +186,28 @@ def run(cfg: TrainConfig) -> float:
                        "requeue_attempt": requeue_attempt}
     metrics.log(kind="attempt", phase="start", process_count=world)
     metrics.flush()
+
+    # the live telemetry bus (--live on): the coordinator runs the
+    # aggregator, its alert engine and the Prometheus exporter; every
+    # process (the coordinator too: one host loops back over an ephemeral
+    # port, the socket path a pod takes) gets a non-blocking emitter that
+    # the metrics stream and the heartbeat beacon feed. Off constructs
+    # nothing
+    live_enabled, live_port, live_endpoint = config_lib.resolve_live(cfg)
+    live = None
+    if live_enabled:
+        stall_s, obs_dir, _ = config_lib.resolve_obs(cfg)
+        live = live_lib.LiveRun.start(
+            is_coordinator=ctx.is_coordinator,
+            process_index=ctx.process_index, out_dir=obs_dir,
+            run_id=run_id, requeue_attempt=requeue_attempt,
+            port=live_port, endpoint=live_endpoint,
+            stall_timeout_s=stall_s, metrics=metrics)
+        metrics.emitter = live.emitter
+        if live.exporter is not None:
+            log0(f"tpudist: live on: ingest {live.endpoint}, Prometheus "
+                 f"/metrics on :{live.exporter.port}, live_status.json "
+                 f"in {obs_dir}")
 
     # measured-probe autotune (tpudist_torch.tune): replace the static
     # resolve_* guesses below with short trials of the real superstep on
@@ -308,14 +338,28 @@ def run(cfg: TrainConfig) -> float:
                  f"starting fresh ({resume_err!r})")
 
     timer = StepTimer(chips=world)
+    # the windowed device capture (--profile-window): N mid-run dispatches
+    # of torch.profiler timeline a process, ingested at run end into the
+    # compute / exposed-comm split. None when off
+    win = devtime_lib.WindowProfiler.from_config(
+        cfg, out_dir=trace_dir, process_index=ctx.process_index,
+        device=device)
     # the flight recorder: heartbeat beacon, stall watchdog, the device
     # memory watermark and the per-host straggler verdict. Its threads
     # read host-side counters only (no device call, no fence), so they
-    # cannot disturb the CUDA graphs the main thread captures
+    # cannot disturb the CUDA graphs the main thread captures. The stall
+    # hook tells the flight record what became of an open capture
+    # window; with the bus on, every beacon carries the live slice of
+    # counters the aggregator grades
     observer = PodObserver.from_config(
         cfg, metrics=metrics, process_index=ctx.process_index,
         process_count=world,
-        devices=[device.index or 0] if device.type == "cuda" else [])
+        devices=[device.index or 0] if device.type == "cuda" else [],
+        stall_hook=win.emergency_stop if win is not None else None,
+        live=live,
+        live_fields=lambda: {"run_s": timer.elapsed,
+                             "staging_streamed": staging.streamed,
+                             "staging_wait_s": staging.wait_s})
     observer.note_progress(run_id=run_id, requeue_attempt=requeue_attempt)
 
     # the chaos plane (tpudist_torch.chaos, --chaos/TPUDIST_CHAOS): a
@@ -329,6 +373,7 @@ def run(cfg: TrainConfig) -> float:
         chaos_rt = chaos_lib.ChaosRuntime(
             chaos_lib.ChaosPlan.parse(chaos_spec),
             process_index=ctx.process_index, observer=observer,
+            emitter=live.emitter if live is not None else None,
             metrics=metrics)
         chaos_rt.install()
         log0(f"tpudist: chaos on: {chaos_rt.plan.describe()}")
@@ -356,16 +401,20 @@ def run(cfg: TrainConfig) -> float:
     programs = {}
     run_ok = False
     try:
-        last_avg = _epoch_loop(cfg, device, state, train_step, epoch_plan,
-                               start_epoch, start_step_in_epoch, metrics,
-                               timer, eval_fn, eval_batch, ckpt,
-                               superstep, k, budget_bytes, staging,
-                               observer, programs, chaos_rt)
+        with _full_run_capture(cfg, ctx.process_index, device):
+            last_avg = _epoch_loop(cfg, device, state, train_step,
+                                   epoch_plan, start_epoch,
+                                   start_step_in_epoch, metrics, timer,
+                                   eval_fn, eval_batch, ckpt, superstep, k,
+                                   budget_bytes, staging, observer,
+                                   programs, chaos_rt, win)
         run_ok = True
     finally:
         if chaos_rt is not None:
             chaos_rt.uninstall()   # the module-level hook must not
             # outlive the run (in-process runs come back to back)
+        if win is not None:
+            win.close()   # a window wider than the run still stops
         observer.note_progress(phase="shutdown")
         try:
             # drain the writer before the process can exit: a daemon
@@ -400,6 +449,12 @@ def run(cfg: TrainConfig) -> float:
             except Exception:
                 pass
         metrics.close()
+        if live is not None and not run_ok:
+            # a dying run still publishes: a bounded drain of the
+            # emitter, the final live_status.json, every socket and
+            # thread down (the success path closes at the very end, so
+            # the run-end records reach the bus)
+            live.close()
 
     sps = timer.steps_per_sec()
     lm = cfg.model.name != "mlp"
@@ -445,6 +500,18 @@ def run(cfg: TrainConfig) -> float:
              f" MB ({obs_fields['hbm_source']})"
              + (f", {100 * obs_fields['hbm_peak_fraction']:.1f}% of device"
                 if obs_fields.get("hbm_peak_fraction") else ""))
+    coll = None
+    operands = (superstep if superstep is not None
+                else train_step).reduced_operands()
+    if operands:
+        # the gradient mean's collective volume a step, from the
+        # operands engine.pmean reduced
+        coll = devtime_lib.collective_bytes(operands)
+        log0(f"tpudist: collectives {coll['n_collectives']} op(s)/step: "
+             f"{coll['dcn_bytes_total']} B dcn, "
+             f"{coll['ici_bytes_total']} B ici (from engine.pmean's "
+             f"operands)")
+    devtime_status, dev_events = _ingest_devtime(win, ctx, metrics, coll)
     # the run-end pod export: every process writes trace.worker<i>.json,
     # the coordinator the merged pod_trace.json (a collective: the
     # success path, which every process reaches). Advisory: a failed
@@ -454,7 +521,8 @@ def run(cfg: TrainConfig) -> float:
         try:
             trace_summary = trace_lib.export_pod_trace(
                 trace_dir, process_index=ctx.process_index,
-                process_count=world, tracer=tracer)
+                process_count=world, tracer=tracer,
+                extra_events=dev_events)
         except Exception as e:
             trace_err = e
     trace_verdict = verdict_lib.trace_status(
@@ -479,7 +547,7 @@ def run(cfg: TrainConfig) -> float:
                 tuning_status=tuning_status,
                 samples_per_step=cfg.batch_size, tokens_per_step=tokens,
                 resume_status=resume_verdict, device=device_kind(device),
-                trace_status=trace_verdict,
+                comm_status=devtime_status, trace_status=trace_verdict,
                 trace_spans=(trace_summary or {}).get("spans"),
                 trace_dropped=(trace_summary or {}).get("dropped"),
                 **graphs, **obs_fields)
@@ -498,9 +566,96 @@ def run(cfg: TrainConfig) -> float:
              f"{gp['wall_s']:.2f}s wall was productive step time "
              f"(floor {rules_lib.resolve('goodput'):.0%}; "
              f"cross-attempt ledger: python -m tpudist.obs.goodput)")
+    if live is not None:
+        # after the run-end records, so they reach the bus: a bounded
+        # drain, then the final live_status.json
+        live.close()
+        if live.aggregator is not None:
+            snap = live.aggregator.snapshot()
+            n_alerts = (snap.get("alerts") or {}).get("events", 0)
+            log0(f"tpudist: live {snap.get('status', 'ok')}: "
+                 f"{live.aggregator.records} record(s), {n_alerts} alert "
+                 f"event(s) -> {live.aggregator.status_path}")
     log0("Training completed.")
     metrics.close()
     return last_avg
+
+
+@contextlib.contextmanager
+def _full_run_capture(cfg, process_index: int, device):
+    """``--profile-dir``: the whole epoch loop under ``torch.profiler``,
+    its Kineto trace written to ``<profile-dir>/worker<i>`` on every
+    process (a failing run's partial trace too)."""
+    if not cfg.profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    out = os.path.join(cfg.profile_dir, f"worker{process_index}")
+    os.makedirs(out, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        try:
+            prof.export_chrome_trace(os.path.join(
+                out, f"worker{process_index}.pt.trace.json"))
+        except Exception as e:
+            log0(f"tpudist: --profile-dir trace not written ({e!r})")
+        log0(f"tpudist: profile -> {out}")
+
+
+def _ingest_devtime(win, ctx, metrics, coll):
+    """The ``--profile-window`` capture's compute / exposed-comm split:
+    the ``kind=devtime`` record, the ``devtime ...`` line, and the device
+    tracks for the pod trace on the tracer's clock. Returns
+    ``(comm_status, device events or None)``. Advisory: a malformed
+    capture logs a line and grades FAIL, never fails the run."""
+    if win is None or not win.captured:
+        if win is not None and win.lost:
+            log0(f"tpudist: devtime {verdict_lib.UNGATEABLE}: the capture "
+                 f"was lost ({win.lost})")
+        return verdict_lib.UNGATEABLE, None
+    try:
+        with trace_lib.span("devtime_ingest", cat="profile"):
+            analysis = devtime_lib.analyze_capture(win.capture_dir)
+        pod = analysis["pod"]
+        # the gradient all-reduce rides the data axis, within one slice:
+        # ICI, as the JAX package labels it
+        fabric = "ici"
+        fabrics = {"data": fabric} if ctx.process_count > 1 else {}
+        status = verdict_lib.comm_status(pod["exposed_comm_frac"],
+                                         fabric=fabric)
+        events = devtime_lib.device_events(
+            analysis, process_index=ctx.process_index,
+            anchor_us=win.offset_us(analysis))
+        byte_fields = {}
+        if coll is not None:
+            byte_fields = dict(dcn_bytes_total=coll["dcn_bytes_total"],
+                               ici_bytes_total=coll["ici_bytes_total"],
+                               collectives=coll["ops"])
+        metrics.log(kind="devtime", comm_status=status, fabric=fabric,
+                    axis_fabric=fabrics, capture=win.capture_dir,
+                    dispatches=win.seen, process_index=ctx.process_index,
+                    capture_stop_s=win.stop_s,
+                    capture_export_s=win.export_s,
+                    **pod, **byte_fields,
+                    per_device=[{"device": name, **d}
+                                for name, d in analysis["devices"].items()])
+        log0(f"tpudist: devtime {status}: compute {pod['compute_s']:.3f}s, "
+             f"comm {pod['comm_s']:.3f}s ({pod['exposed_comm_s']:.3f}s "
+             f"exposed, {100 * (pod['exposed_comm_frac'] or 0):.1f}% of "
+             f"the {pod['window_s']:.3f}s window, {fabric}-graded) over "
+             f"{pod['devices']} device track(s)")
+        return status, events
+    except Exception as e:
+        log0(f"tpudist: devtime {verdict_lib.FAIL}: capture ingest failed "
+             f"({e!r})")
+        return verdict_lib.FAIL, None
 
 
 def _log_ledger(cfg, ctx, device, state, programs, staging, superstep,
@@ -553,7 +708,7 @@ def _log_ledger(cfg, ctx, device, state, programs, staging, superstep,
 
 def _superstep_epoch(cfg, k, device, state, superstep, plan, first,
                      n_steps, epoch, metrics, timer, ckpt, budget_bytes,
-                     staging, observer, chaos):
+                     staging, observer, chaos, profiler_win=None):
     """One epoch under superstep dispatch with bounded-memory staging,
     the JAX package's ``train._superstep_epoch``.
 
@@ -635,6 +790,10 @@ def _superstep_epoch(cfg, k, device, state, superstep, plan, first,
             with trace_lib.span("dispatch", cat="dispatch"):
                 state, total, losses = superstep(state, total, window, lo,
                                                  hi)
+            if profiler_win is not None:
+                # a dispatch is one superstep; the window fences and
+                # stops itself after its N-th
+                profiler_win.note_dispatch(losses)
             end = gstart + hi       # true steps of the epoch completed
             counted += hi - lo
             pending += hi - lo
@@ -689,13 +848,17 @@ def _superstep_epoch(cfg, k, device, state, superstep, plan, first,
 def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
                 start_step_in_epoch, metrics, timer, eval_fn, eval_batch,
                 ckpt, superstep, k, budget_bytes, staging, observer,
-                programs, chaos=None):
+                programs, chaos=None, profiler_win=None):
     last_avg = float("nan")
     tracer = trace_lib.get()
     for epoch in range(start_epoch, cfg.epochs):
         # one top-level span an epoch: the staging, dispatch, fence,
         # eval and checkpoint spans nest inside it
         epoch_span = tracer.begin("epoch", cat="train", epoch=epoch)
+        if profiler_win is not None:
+            # the capture window opens at its trigger epoch's first
+            # dispatch: mid-run steady state, not the build epoch
+            profiler_win.maybe_start(epoch)
         plan = epoch_plan(epoch)
         n_steps = plan.n_steps
         # mid-epoch resume: the epoch's batch order is stateless by
@@ -710,7 +873,7 @@ def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
             state, total, counted, pending = _superstep_epoch(
                 cfg, k, device, state, superstep, plan, first, n_steps,
                 epoch, metrics, timer, ckpt, budget_bytes, staging,
-                observer, chaos)
+                observer, chaos, profiler_win)
             last_avg = _epoch_end(cfg, state, total, counted, pending,
                                   n_steps, epoch, metrics, timer, eval_fn,
                                   eval_batch, ckpt, observer)
@@ -731,6 +894,8 @@ def _epoch_loop(cfg, device, state, train_step, epoch_plan, start_epoch,
                 resident = torch.cuda.memory_allocated(device)
             with trace_lib.span("dispatch", cat="dispatch"):
                 state, loss = train_step(state, batch)
+            if profiler_win is not None:
+                profiler_win.note_dispatch(loss)
             if measure:
                 programs["train_step"] = {"temp_bytes": int(
                     torch.cuda.max_memory_allocated(device) - resident)}

@@ -97,6 +97,21 @@ def resume_status(requested: bool, restored: bool,
     return SUCCESS if restored else UNGATEABLE
 
 
+def comm_status(exposed_frac, max_frac: Optional[float] = None,
+                fabric: Optional[str] = None) -> str:
+    """Three-valued exposed-communication verdict over a
+    ``--profile-window`` capture (the JAX package's
+    ``verdict.comm_status``): UNGATEABLE with no device window measured,
+    else SUCCESS/FAIL by whether the exposed-comm fraction stays under
+    the fabric's ceiling (``TPUDIST_COMM_EXPOSED_MAX``, or
+    ``TPUDIST_COMM_EXPOSED_MAX_DCN`` for a ``dcn`` row). It lives in
+    ``obs.devtime`` beside the interval math that produces the
+    fraction; the train loop's verdicts stay in one place (a lazy
+    import: devtime imports this module for the status words)."""
+    from tpudist_torch.obs.devtime import comm_status as _impl
+    return _impl(exposed_frac, max_frac, fabric=fabric)
+
+
 def tuning_status(mode: str, *, source: str = "heuristic",
                   tuned_steps_per_sec: Optional[float] = None,
                   baseline_steps_per_sec: Optional[float] = None) -> str:
