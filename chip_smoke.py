@@ -278,13 +278,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
    --live-port P`` at phase 4's configuration: a scrape with the serve
    gauges while it serves, exit 0, the pin, exact launches, the tokens
    of a run without the port. The phase's wall time is printed.
+20. FSDP at phase 9's configuration (config #5, seq 512, bf16, bf16 nu,
+   fused head, batch 8): (a) in a spawned process, a one-rank NCCL
+   group and its mesh; the replicated step body 4 steps, the sharded
+   body (its all-gathers and reduce-scatters issued over the one-rank
+   fsdp group) 8 steps and an eval, bitwise the replicated one after 4
+   (losses, params, mu, nu), then as a k = 4 superstep over the same 8
+   steps (the first window eager with the captures, the second
+   replayed) and the eval, bitwise its per-step run with 2 programs and
+   one replay; exact launches for both runs; the step's collective rows
+   (``reduced_operands``), the step times and the peak memory; (b) with
+   two cards or more, the train CLI at one NCCL process a card,
+   replicated and with ``--fsdp <cards>``: every verdict ``success``,
+   exact launches on every rank, the step losses within rtol 2e-3 /
+   atol 2e-4 of each other, each rank's params and optimizer-state
+   bytes side by side.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
-18a (both runs), 18c (both engines), 18d and 19a-19c (19c's run with the
-port) are the main paths: each
+18a (both runs), 18c (both engines), 18d, 19a-19c (19c's run with the
+port), 20a (both sharded runs) and 20b (both runs) are the main paths:
+each
 runs with every launch count set to 0 just before and read just after
-(10a and 11c in each rank's process; 12b's and 15a's timed runs, not
+(10a, 11c, 20a and 20b in each rank's process; 12b's and 15a's timed
+runs, not
 their probes, which restore the counters), and each
 kernel must have launched the
 exact number of times its path calls it, counting the launches a CUDA
@@ -4196,25 +4213,41 @@ def _dp_train_rank(rank, world, port, argv, verdict, queue):
     from tpudist_torch.ops.cuda import flash_attention as fa
     from tpudist_torch.ops.cuda import fused_xent as fx
 
+    from tpudist_torch import engine as engine_lib
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the run's train state, for this rank's params and moments bytes
+    states, real_init = [], engine_lib.init_state
+
+    def init_state(*args, **kw):
+        states.append(real_init(*args, **kw))
+        return states[-1]
+    engine_lib.init_state = init_state
     tee = _Tee(sys.stdout)
     _reset_launches(fa, fx)
     t0 = time.perf_counter()
     with _supersteps() as made, contextlib.redirect_stdout(tee):
         rc = train_lib.main(argv)
     torch.cuda.synchronize()
+    state = states[0] if states else None
+    params_b = None if state is None else sum(
+        p.numel() * p.element_size() for p in state.params.parameters())
     queue.put({"rank": rank, "rc": rc,
                "counts": _path_launches(fa, fx, made),
                "graphs": [(sup.programs, sup.replays) for sup in made],
                "out": tee.buf.getvalue(),
                "wall": time.perf_counter() - t0,
-               "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "params_bytes": params_b,
+               "opt_bytes": None if state is None
+               else engine_lib.state_bytes_per_device(state) - params_b})
 
 
 def dp_train_slice(torch, fa, card: str, tag: str = "train_seq512_dp",
                    n_samples: int = 32, dispatch=("--log-every", "1"),
-                   want_graphs=None):
+                   want_graphs=None, extra=("--lm-head", "fused"),
+                   details=None):
     """Phase 10a, the path ``train_seq512_dp``: ``python -m
     tpudist_torch.train`` as one process per visible card under the
     ``TPUDIST_COORDINATOR`` / ``TPUDIST_NUM_PROCESSES`` /
@@ -4226,7 +4259,10 @@ def dp_train_slice(torch, fa, card: str, tag: str = "train_seq512_dp",
     launches summed over the ranks. Phase 11c runs it as the path ``tag``
     with other ``n_samples`` and ``dispatch`` flags (the superstep, its
     NCCL all-reduce captured), where each rank's ``(programs,
-    replays)`` must be ``want_graphs``."""
+    replays)`` must be ``want_graphs``; phase 20b with ``extra`` flags
+    in place of ``--lm-head fused`` (the head must still be fused), and
+    a ``details`` dict that gets the step losses, the timing record and
+    each rank's record."""
     from tpudist_torch import config as config_lib
 
     seq, epochs = 512, 1
@@ -4236,14 +4272,14 @@ def dp_train_slice(torch, fa, card: str, tag: str = "train_seq512_dp",
     argv = ["--model", "transformer", "--seq-len", str(seq),
             "--train-batch-size", "8", "--n-samples", str(n_samples),
             "--epochs", str(epochs), "--seed", "42", *dispatch,
-            "--lm-head", "fused", "--save-dir", str(save)]
+            *extra, "--save-dir", str(save)]
     cfg = config_lib.parse_args(argv)
     m = cfg.model
     print(f"train {tag}: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
           f"h{m.n_heads} kv{m.n_kv_heads} d_ff{m.d_ff} {cfg.dtype}, global "
           f"batch {cfg.batch_size} over {world} process(es) (local "
           f"{cfg.batch_size // world}), {n_samples} samples, {epochs} "
-          f"epoch(s), --lm-head fused; {card}")
+          f"epoch(s), {' '.join(extra)}; {card}")
     verdict = save / "job_status.txt"
     port = _free_port()
     ranks = _spawn(_dp_train_rank,
@@ -4296,6 +4332,8 @@ def dp_train_slice(torch, fa, card: str, tag: str = "train_seq512_dp",
                      f"{r['graphs']}, want {[want_graphs]}")
         for k, v in r["counts"].items():
             total[k] += v
+    if details is not None:
+        details.update(losses=losses, timing=t, ranks=ranks)
     return total
 
 
@@ -4494,6 +4532,225 @@ def dp_reduce_check(torch, card: str):
              f"process), {grad_err:.3e} (gradients at the same params), "
              f"{param_err:.3e} ({param_worst} after 2 steps, where the "
              f"first |g| >= {G_FLOOR:g} of its largest)")
+
+
+# ------------------------------------------------------- phase 20: FSDP
+
+# phase 9's configuration: config #5, s512, bf16, bf16 nu, fused head
+FSDP_ARGV = ["--model", "transformer", "--seq-len", "512",
+             "--train-batch-size", "8", "--dtype", "bfloat16",
+             "--adam-nu-dtype", "bfloat16", "--lm-head", "fused",
+             "--seed", "42"]
+FSDP_PATHS = ("train_fsdp_body", "train_fsdp_superstep")
+FSDP_CLI_PATHS = ("train_seq512_bf16_dp_all", "train_seq512_bf16_fsdp")
+# tests/test_fsdp.py:51
+FSDP_RTOL, FSDP_ATOL = 2e-3, 2e-4
+
+
+def _fsdp_body_rank(port, queue):
+    """Phase 20a in a process of its own: a one-rank NCCL group and its
+    mesh (every axis 1). The replicated step body takes 4 steps; the
+    sharded body (its all-gathers and reduce-scatters issued over the
+    one-rank fsdp group) 8 steps and an eval, its state held bitwise
+    against the replicated one's after 4; then the sharded body as a
+    k = 4 superstep over the same 8 steps (the first window eager with
+    the two captures, the second replayed) and the eval, bitwise its
+    per-step run. The launch counts are set to 0 just before each
+    sharded run and read just after."""
+    import torch
+
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.obs import devtime as devtime_lib
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+    from tpudist_torch.parallel import distributed
+    from tpudist_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    dev = ctx.device
+    cfg = config_lib.parse_args(FSDP_ARGV)
+    mesh = mesh_lib.build_mesh(cfg.parallel, device_type="cuda")
+    tokens = data_lib.make_synthetic_tokens(
+        64, cfg.model.max_seq_len + 1, cfg.model.vocab_size, cfg.seed)
+    slab, = data_lib.plan_epoch((tokens,), batch_size=cfg.batch_size,
+                                seed=cfg.seed, epoch=0).slab(0, 8)
+    slab = torch.as_tensor(slab, device=dev).long()       # (8, 8, 513)
+
+    def leaves(state):
+        return [t.detach().clone() for t in (
+            *state.params.parameters(), *state.opt_state.mu,
+            *state.opt_state.nu)]
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    def steps(step, state, lo, hi):
+        """Steps ``[lo, hi)`` of the slab."""
+        losses, ms = [], []
+        for i in range(lo, hi):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, (slab[i],))
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, ms
+
+    out = {"rank": 0, "world": ctx.process_count,
+           "mesh": mesh_lib.mesh_shape(mesh)}
+    state, out["dp_losses"], out["dp_ms"] = steps(
+        engine_lib.make_train_step(cfg, dev),
+        engine_lib.init_state(cfg, dev), 0, 4)
+    dp4 = leaves(state)
+    del state
+    torch.cuda.empty_cache()
+
+    state = engine_lib.init_state(cfg, dev, mesh)
+    out["sharded_dims"] = sum(d is not None for d in state.layout.dims)
+    step = engine_lib.make_train_step(cfg, dev, mesh)
+    ev = engine_lib.make_eval_fn(cfg, dev, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches(fa, fx)
+    state, losses4, ms4 = steps(step, state, 0, 4)
+    out["same4"] = same(leaves(state), dp4) and losses4 == out["dp_losses"]
+    state, losses8, ms8 = steps(step, state, 4, 8)
+    out["eval"] = ev(state, (slab[0],)).item()
+    torch.cuda.synchronize()
+    out["counts"] = _launch_counts(fa, fx)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["losses"], out["ms"] = losses4 + losses8, ms4 + ms8
+    out["ops"] = devtime_lib.collective_bytes(step.reduced_operands())
+    per_step = leaves(state)
+    del state, dp4
+    torch.cuda.empty_cache()
+
+    state = engine_lib.init_state(cfg, dev, mesh)
+    sup = engine_lib.make_superstep(cfg, dev, 4, mesh)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches(fa, fx)
+    sup_losses = []
+    for w in range(2):
+        t0 = time.perf_counter()
+        state, total, losses = sup(state, total, (slab[4 * w:4 * w + 4],),
+                                   0, 4)
+        sup_losses += losses.tolist()
+        out[f"window{w}_s"] = time.perf_counter() - t0
+    sup_eval = ev(state, (slab[0],)).item()
+    torch.cuda.synchronize()
+    out["sup_counts"] = _path_launches(fa, fx, [sup])
+    out["sup_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["graphs"] = (sup.programs, dict(sup.replays))
+    out["pool_mb"] = sup.graph_pool_bytes / 2**20
+    out["sup_same"] = (same(leaves(state), per_step)
+                       and sup_losses == out["losses"]
+                       and sup_eval == out["eval"])
+    out["sup_losses"] = sup_losses
+    sup.release()
+    del state, per_step
+    distributed.shutdown()
+    queue.put(out)
+
+
+def fsdp_body(torch, fa, card: str):
+    """Phase 20a (one card): :func:`_fsdp_body_rank` in a spawned
+    process. Fails unless the sharded body is bitwise the replicated one
+    after 4 steps, its k = 4 superstep bitwise its per-step run (2
+    programs, one replay), and both runs' launches exact. Prints the
+    step's collective rows, the peak memory and the step times. Returns
+    the two paths' launches."""
+    from tpudist_torch import config as config_lib
+
+    t0 = time.perf_counter()
+    cfg = config_lib.parse_args(FSDP_ARGV)
+    m = cfg.model
+    (r,) = _spawn(_fsdp_body_rank, [(_free_port(),)], 600,
+                  "train fsdp body")
+    want = want_launches(fa, m, 512, 8, 1, fused=True)
+    print(f"train fsdp body: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"{cfg.dtype}, adam nu {cfg.adam_nu_dtype}, fused head, batch 8, "
+          f"mesh {r['mesh']} ({r['world']} NCCL rank), "
+          f"{r['sharded_dims']} params gathered and reduce-scattered; "
+          f"{card}")
+    print(f"train fsdp body: replicated losses {r['dp_losses']}; sharded "
+          f"{r['losses']}; bitwise after 4 steps (losses, params, mu, "
+          f"nu): {r['same4']}")
+    dp_ms, ms = statistics.median(r["dp_ms"][1:]), statistics.median(
+        r["ms"][1:])
+    print(f"train fsdp body: step {ms:.3f} ms sharded against "
+          f"{dp_ms:.3f} replicated (medians after the first, host clock "
+          f"fenced a step); peak device memory {r['peak_gb']:.3f} GB, "
+          f"superstep {r['sup_peak_gb']:.3f} GB (graph pool "
+          f"{r['pool_mb']:.1f} MB)")
+    for row in r["ops"]["ops"]:
+        print(f"train fsdp body: collective {row['op']} {row['dtype']} "
+              f"{row['bytes']} B x {row['count']} a step")
+    print(f"train fsdp body: superstep k=4 losses {r['sup_losses']}, "
+          f"eval {r['eval']}, bitwise its per-step run: {r['sup_same']}; "
+          f"(programs, replays) {r['graphs']}; windows "
+          f"{r['window0_s']:.3f} s (eager + captures), "
+          f"{r['window1_s']:.3f} s (replayed)")
+    print(f"train fsdp body: kernel launches {r['counts']}, superstep "
+          f"{r['sup_counts']} (want {want})")
+    if not r["same4"]:
+        fail("train fsdp body: the sharded body is not bitwise the "
+             "replicated one after 4 steps")
+    if not r["sup_same"]:
+        fail("train fsdp body: the sharded superstep is not bitwise its "
+             "per-step run")
+    if r["graphs"] != (2, {"superstep": 1, "step": 0}):
+        fail(f"train fsdp body: (programs, replays) {r['graphs']}")
+    kinds = {row["op"] for row in r["ops"]["ops"]}
+    if not {"all_gather", "reduce_scatter", "all_reduce"} <= kinds:
+        fail(f"train fsdp body: collectives {sorted(kinds)}")
+    for tag, counts in zip(FSDP_PATHS, (r["counts"], r["sup_counts"])):
+        if counts != want:
+            fail(f"train fsdp body: {tag} kernel launches {counts}, want "
+                 f"{want}")
+    print(f"train fsdp body: phase 20a {time.perf_counter() - t0:.1f} s")
+    return dict(zip(FSDP_PATHS, (r["counts"], r["sup_counts"])))
+
+
+def fsdp_cli(torch, fa, card: str):
+    """Phase 20b (two cards or more): the train CLI at 20a's
+    configuration, one NCCL process a card, replicated and with ``--fsdp
+    <cards>``; every verdict ``success`` and exact launches
+    (``dp_train_slice``), the step losses of the two within rtol 2e-3 /
+    atol 2e-4, each rank's params and optimizer-state bytes side by
+    side."""
+    world = torch.cuda.device_count()
+    flags = FSDP_ARGV[FSDP_ARGV.index("--dtype"):FSDP_ARGV.index("--seed")]
+    runs = {}
+    paths = {}
+    for tag, extra in zip(FSDP_CLI_PATHS,
+                          (flags, flags + ["--fsdp", str(world)])):
+        runs[tag] = {}
+        paths[tag] = dp_train_slice(torch, fa, card, tag=tag, extra=extra,
+                                    details=runs[tag])
+    dp, fsdp = (runs[t] for t in FSDP_CLI_PATHS)
+    for a, b in zip(dp["ranks"], fsdp["ranks"]):
+        print(f"train fsdp cli: rank {a['rank']} params "
+              f"{b['params_bytes'] / 2**20:.1f} MB sharded against "
+              f"{a['params_bytes'] / 2**20:.1f} replicated, optimizer "
+              f"state {b['opt_bytes'] / 2**20:.1f} MB against "
+              f"{a['opt_bytes'] / 2**20:.1f}; peak {b['peak_gb']:.3f} GB "
+              f"against {a['peak_gb']:.3f}")
+    err = max(abs(x - y) - FSDP_RTOL * abs(y)
+              for x, y in zip(fsdp["losses"], dp["losses"]))
+    print(f"train fsdp cli: {world} cards, losses --fsdp {world} "
+          f"{fsdp['losses']} against replicated {dp['losses']}")
+    if len(fsdp["losses"]) != len(dp["losses"]) or err > FSDP_ATOL:
+        fail(f"train fsdp cli: the --fsdp {world} losses are not within "
+             f"rtol {FSDP_RTOL} / atol {FSDP_ATOL} of the replicated run's")
+    if not all(b["params_bytes"] < a["params_bytes"]
+               for a, b in zip(dp["ranks"], fsdp["ranks"])):
+        fail("train fsdp cli: a rank's params are not sharded")
+    return paths
 
 
 def plain_attention(torch, fa):
@@ -4989,6 +5246,15 @@ def main() -> int:
     # python -m tpudist_torch.bench.profile, (c) the serve CLI's exporter
     torch.cuda.empty_cache()
     paths.update(obs_live(torch, fa, fx, obs_on, obs_argv, obs_env, card))
+
+    # phase 20: FSDP: (a) the sharded step body and its superstep on a
+    # one-rank NCCL mesh against the replicated body, (b) with two cards
+    # or more, the train CLI with --fsdp <cards> against its replicated
+    # run
+    torch.cuda.empty_cache()
+    paths.update(fsdp_body(torch, fa, card))
+    if torch.cuda.device_count() >= 2:
+        paths.update(fsdp_cli(torch, fa, card))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -5015,17 +5281,20 @@ def main() -> int:
                                             TUNE_PATH, *OBS_PATHS,
                                             TRAIN_DRILL_PATH,
                                             *MOE_TRAIN_PATHS,
-                                            *OBS_LIVE_PATHS[:2]),
+                                            *OBS_LIVE_PATHS[:2],
+                                            *FSDP_PATHS),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
                                   TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
-                                  *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2]),
+                                  *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2],
+                                  *FSDP_PATHS),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
                                   TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
-                                  *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2])}
+                                  *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2],
+                                  *FSDP_PATHS)}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

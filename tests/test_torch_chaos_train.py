@@ -278,11 +278,13 @@ ARGV = ["--epochs", "1", "--train-batch-size", "8", "--n-samples", "64",
 def killed_run(tmp_path_factory):
     """A port run killed at step 5, then requeued with ``--resume auto``,
     ``attempts.jsonl`` written around both attempts as a launcher
-    does."""
+    does. The killed attempt saves synchronously, so its step-3 commit
+    has landed before the kill: an asynchronous writer starved of the
+    CPU could still be writing it when the process dies."""
     d = str(tmp_path_factory.mktemp("run"))
     env = dict(os.environ, OMP_NUM_THREADS="1", TPUDIST_RUN_ID="gp")
     for attempt, (extra, e) in enumerate((
-            ([], {"TPUDIST_TEST_KILL": "0:5"}),
+            (["--ckpt-sync"], {"TPUDIST_TEST_KILL": "0:5"}),
             (["--resume", "auto", "--requeue-attempt", "1"], {}))):
         t0 = time.time()
         rc = subprocess.run(

@@ -341,12 +341,13 @@ def test_epoch_shards_match_jax(process_count, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fsdp", "2"], ["--tensor", "2"], ["--context", "2"], ["--pipe", "2"],
+    ["--tensor", "2"], ["--context", "2"], ["--pipe", "2"],
     ["--expert", "2"],
 ])
 def test_other_mesh_axes_stay_refused(flag):
     with pytest.raises(ValueError,
-                       match="data-parallel only.*ROADMAP Queue A item 8$"):
+                       match="data x fsdp mesh only.*ROADMAP Queue A "
+                             "item 8b$"):
         tconfig.check_supported(tconfig.parse_args(flag))
 
 
@@ -359,7 +360,7 @@ def test_overlapped_and_hierarchical_reduces_stay_refused(argv, env,
                                                           monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 8$"):
+    with pytest.raises(ValueError, match="ROADMAP Queue A item 8b$"):
         tconfig.check_supported(tconfig.parse_args(argv))
 
 

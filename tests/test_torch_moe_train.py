@@ -14,7 +14,7 @@ tpudist_torch.train``) against itself and the JAX package.
   train state holds n_experts FFNs a layer, at bench.py's MoE row and a
   few batches and device memories.
 * Without a card and without ``--device cpu`` the CLI fails; nothing
-  falls back to the CPU. ``--expert`` stays refused, naming item 8.
+  falls back to the CPU. ``--expert`` stays refused, naming item 8b.
 """
 
 import dataclasses
@@ -257,5 +257,5 @@ def test_without_a_card_the_moe_does_not_fall_back(tmp_path, monkeypatch,
 def test_expert_axis_stays_refused():
     cfg = tconfig.parse_args(["--model", "moe", "--expert", "2",
                               "--device", "cpu"])
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 8$"):
+    with pytest.raises(ValueError, match="ROADMAP Queue A item 8b$"):
         ttrain.run(cfg)

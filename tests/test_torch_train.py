@@ -210,13 +210,16 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fsdp", "2"], ["--tensor", "2"], ["--context", "2"], ["--pipe", "2"],
+    # fsdp trains since the port carried it; an axis beside it does not
+    ["--fsdp", "2", "--tensor", "2"], ["--tensor", "2"], ["--context", "2"],
+    ["--pipe", "2"],
     # the MoE trains since the port carried it; its expert axis does not
     ["--expert", "2"], ["--model", "moe", "--expert", "2"],
     ["--tensor", "4"],
     # the live bus trains since the port carried it; a mesh axis under
     # it is still refused
-    ["--live", "on", "--fsdp", "2"], ["--pipe", "4", "--context", "2"],
+    ["--live", "on", "--fsdp", "2", "--context", "2"],
+    ["--pipe", "4", "--context", "2"],
 ])
 def test_flags_this_slice_does_not_carry_are_refused(flag):
     cfg = tconfig.parse_args(flag + ["--device", "cpu"])

@@ -279,8 +279,9 @@ def _scripted(package, table, calls):
     """``probe_candidate`` for ``package`` (``"jax"`` or ``"port"``)
     answering from ``table(candidate, calls) -> (steps/s, feasible,
     spread)``, with the real effective-program key; ``calls`` records
-    each probed candidate, this one last."""
-    def fake(cfg, where, cand, plan, *, n_steps, repeats):
+    each probed candidate, this one last. The port's passes its mesh
+    (None when replicated), which the script does not read."""
+    def fake(cfg, where, cand, plan, *, n_steps, repeats, mesh=None):
         calls.append(cand.as_dict())
         sps, feasible, spread = table(cand, calls)
         if package == "jax":
@@ -857,7 +858,7 @@ port, rank, cache = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 ctx = distributed.initialize(f"localhost:{port}", 2, rank, device="cpu")
 table = ({1: 100.0, 2: 400.0, 4: 200.0}, {1: 100.0, 2: 200.0, 4: 400.0})[rank]
 
-def fake(cfg, device, cand, plan, *, n_steps, repeats):
+def fake(cfg, device, cand, plan, *, n_steps, repeats, mesh=None):
     sps = table[cand.k] / cand.grad_accum_steps
     return probe.ProbeResult(sps, 1000.0 / sps, n_steps, repeats,
                              key=probe.candidate_key(cfg, cand, plan,

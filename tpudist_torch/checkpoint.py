@@ -22,10 +22,22 @@ parallelism the state is replicated, so rank 0 alone writes, and the
 ranks meet at a barrier where the JAX manager waits: at ``wait`` and
 ``close``, and before the next save, by which point rank 0 has drained
 the previous one. Every rank restores, onto its own device.
+
+Under FSDP (a state with an ``engine.ShardLayout``) no rank gathers the
+whole state: each writes the shards it owns (the lowest rank holding a
+region writes it, ``engine.param_regions``) into ``worker<i>.pt`` of
+the step directory, and rank 0 writes ``state.pt`` (the counters and the
+worker count) once every rank's shards are on disk: after the barrier
+of the next drain (``wait``, ``close``, the next ``save``; inside
+``save`` under ``use_async=False``). ``state.pt`` marks the step
+complete, so a save whose commit never came is not restored. The
+restore assembles each rank's region from the saved spans, so a
+checkpoint restores onto any layout, replicated or sharded.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import queue
 import shutil
@@ -35,6 +47,7 @@ import time
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tpudist_torch.metrics import _rank
 from tpudist_torch.obs import trace as trace_lib
@@ -50,6 +63,10 @@ def _steps(save_dir: str):
     return sorted(int(n) for n in os.listdir(save_dir)
                   if n.isdigit() and os.path.isfile(
                       os.path.join(save_dir, n, STATE_FILE)))
+
+
+def worker_file(rank: int) -> str:
+    return f"worker{rank}.pt"
 
 
 def host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -75,9 +92,11 @@ class Checkpointer:
         self.saves = 0
         self.write_errors = 0
         self._error: Optional[BaseException] = None
+        # sharded saves whose shards are written but not yet committed
+        self._pending: list = []
         self._q: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
-        if use_async and _rank() == 0:
+        if use_async:
             self._thread = threading.Thread(
                 target=self._worker, name="tpudist-ckpt", daemon=True)
             self._thread.start()
@@ -96,7 +115,9 @@ class Checkpointer:
         t0 = time.perf_counter()
         with trace_lib.span("ckpt_enqueue", cat="ckpt",
                             step=int(state.step)):
-            if _rank() == 0:
+            if state.layout is not None:
+                self._save_shards(state, epoch, step_in_epoch)
+            elif _rank() == 0:
                 opt = state.opt_state
                 doc = {"step": int(state.step), "epoch": int(epoch),
                        "step_in_epoch": int(step_in_epoch),
@@ -112,13 +133,62 @@ class Checkpointer:
         self.last_enqueue_ms = (time.perf_counter() - t0) * 1000
         self.saves += 1
 
+    def _save_shards(self, state, epoch: int, step_in_epoch: int) -> None:
+        """This rank's owned shards of ``state`` to its ``worker<i>.pt``
+        (enqueued, or written now), and the step's commit document kept
+        for the drain that commits it."""
+        from tpudist_torch.engine import param_regions
+        rank = _rank()
+        opt = state.opt_state
+        names = [n for n, _ in state.params.named_parameters()]
+        regions = param_regions(state)
+        shards = {}
+        for kind, tensors in (("params", list(state.params.parameters())),
+                              ("mu", opt.mu), ("nu", opt.nu)):
+            for name, t, (_, span, owner) in zip(names, tensors, regions):
+                if owner == rank:
+                    shards[f"{kind}.{name}"] = (span, host_copy(t))
+        step = int(state.step)
+        self._pending.append({
+            "step": step, "epoch": int(epoch),
+            "step_in_epoch": int(step_in_epoch),
+            "opt_count": int(opt.count),
+            "workers": dist.get_world_size() if dist.is_initialized()
+            else 1})
+        part = {"step": step, "rank": rank, "shards": shards}
+        if self._thread is not None:
+            self._q.put(part)
+        else:
+            self._write_part(part)
+            self._drain(barrier=True)
+
+    def _write_part(self, part) -> None:
+        d = os.path.join(self.save_dir, str(part["step"]))
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, worker_file(part["rank"]))
+        torch.save(part, f"{path}.tmp")
+        os.replace(f"{path}.tmp", path)
+
+    def _commit(self, doc) -> None:
+        """Rank 0, once every rank's shards of ``doc``'s step are on
+        disk: ``state.pt`` marks the step complete, then the oldest steps
+        past ``KEEP`` go."""
+        path = os.path.join(self.save_dir, str(doc["step"]), STATE_FILE)
+        torch.save(doc, f"{path}.tmp")
+        os.replace(f"{path}.tmp", path)
+        for old in _steps(self.save_dir)[:-KEEP]:
+            shutil.rmtree(os.path.join(self.save_dir, str(old)))
+
     def _worker(self) -> None:
         while True:
             doc = self._q.get()
             try:
                 if doc is None:
                     return
-                self._write(doc)
+                if "shards" in doc:
+                    self._write_part(doc)
+                else:
+                    self._write(doc)
             except Exception as e:
                 # the previous checkpoint stays the newest; the error is
                 # logged now and raised at the next drain
@@ -151,6 +221,13 @@ class Checkpointer:
                     self._thread = None
             if barrier:
                 distributed.barrier()
+            if self._pending and (barrier or not dist.is_initialized()
+                                  or dist.get_world_size() == 1):
+                # every rank's shards of these steps are on disk
+                pending, self._pending = self._pending, []
+                if _rank() == 0 and self._error is None:
+                    for doc in pending:
+                        self._commit(doc)
         self.last_drain_ms = (time.perf_counter() - t0) * 1000
         self.drain_ms += self.last_drain_ms
         if self._error is not None:
@@ -183,15 +260,55 @@ def restore_latest_full(save_dir: str, template
     step = latest_step(save_dir)
     if step is None:
         return None
-    device = next(template.params.parameters()).device
-    doc = torch.load(os.path.join(os.path.abspath(
-        os.path.expanduser(save_dir)), str(step), STATE_FILE),
-        map_location=device, weights_only=True)
-    template.params.load_state_dict(doc["params"])
+    from tpudist_torch.engine import param_regions
+    d = os.path.join(os.path.abspath(os.path.expanduser(save_dir)),
+                     str(step))
+    doc = torch.load(os.path.join(d, STATE_FILE), map_location="cpu",
+                     weights_only=True)
+    names = [n for n, _ in template.params.named_parameters()]
+    if "workers" in doc:
+        shards: dict = {}
+        for rank in range(doc["workers"]):
+            part = torch.load(os.path.join(d, worker_file(rank)),
+                              map_location="cpu", weights_only=True)
+            for key, (span, t) in part["shards"].items():
+                shards.setdefault(key, []).append((span, t))
+    else:
+        whole = {"params": [doc["params"][n] for n in names],
+                 "mu": doc["mu"], "nu": doc["nu"]}
+        shards = {f"{kind}.{n}": [(tuple((0, k) for k in t.shape), t)]
+                  for kind, tensors in whole.items()
+                  for n, t in zip(names, tensors)}
     opt = template.opt_state
     with torch.no_grad():
-        for dst, src in zip(opt.mu + opt.nu, doc["mu"] + doc["nu"]):
-            dst.copy_(src)
+        for kind, tensors in (("params", list(template.params.parameters())),
+                              ("mu", opt.mu), ("nu", opt.nu)):
+            for name, dst, (_, span, _) in zip(names, tensors,
+                                               param_regions(template)):
+                dst.copy_(_region(shards[f"{kind}.{name}"], span))
     opt.count = doc["opt_count"]
     template.step = doc["step"]
     return template, doc["epoch"], doc["step_in_epoch"]
+
+
+def _region(shards, span) -> torch.Tensor:
+    """The ``span`` region of a leaf (per dim ``(start, stop)``) from
+    the saved ``(span, tensor)`` shards that cover it."""
+    shape = [hi - lo for lo, hi in span]
+    out = None
+    filled = 0
+    for sspan, t in shards:
+        lo = [max(a, b) for (a, _), (b, _) in zip(sspan, span)]
+        hi = [min(a, b) for (_, a), (_, b) in zip(sspan, span)]
+        if any(x >= y for x, y in zip(lo, hi)):
+            continue
+        if out is None:
+            out = t.new_empty(shape)
+        out[tuple(slice(x - r, y - r) for x, y, (r, _) in
+                  zip(lo, hi, span))] = t[tuple(
+                      slice(x - s, y - s) for x, y, (s, _) in
+                      zip(lo, hi, sspan))]
+        filled += math.prod(y - x for x, y in zip(lo, hi))
+    if out is None or filled != out.numel():
+        raise ValueError(f"the saved shards do not cover region {span}")
+    return out

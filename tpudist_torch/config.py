@@ -67,8 +67,8 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh axis sizes. ``data`` is -1, "all remaining devices": the
-    world size, one device a process; the port runs every other axis at
-    1."""
+    world size over fsdp, one device a process; the port runs every
+    other axis at 1."""
 
     data: int = -1
     pipe: int = 1
@@ -151,16 +151,17 @@ RESUME_MODES = ("latest", "auto")
 # the ROADMAP Queue A item that brings it. parse_args refuses any other
 # value, check_supported any other setting of the variable.
 NOT_CARRIED = (
-    ("--pp-microbatches", dict(type=int, default=0), (), None, 8),
+    ("--pp-microbatches", dict(type=int, default=0), (), None, "8b"),
     ("--pipeline-interleave", dict(type=int, default=0), (1,),
-     "TPUDIST_PIPELINE_INTERLEAVE", 8),
+     "TPUDIST_PIPELINE_INTERLEAVE", "8b"),
     ("--cp-impl", dict(choices=("ring", "ulysses"), default="ring"), (),
-     None, 8),
+     None, "8b"),
     ("--grad-overlap", dict(choices=("off", "bucketed")), ("off",),
-     "TPUDIST_GRAD_OVERLAP", 8),
-    ("--grad-bucket-mb", dict(type=float), (), "TPUDIST_GRAD_BUCKET_MB", 8),
+     "TPUDIST_GRAD_OVERLAP", "8b"),
+    ("--grad-bucket-mb", dict(type=float), (), "TPUDIST_GRAD_BUCKET_MB",
+     "8b"),
     ("--cross-slice", dict(choices=("flat", "hierarchical")), ("flat",),
-     "TPUDIST_CROSS_SLICE", 8),
+     "TPUDIST_CROSS_SLICE", "8b"),
 )
 
 # The environment variables the JAX package reads for what this slice does
@@ -257,14 +258,13 @@ def check_supported(cfg: TrainConfig) -> None:
     """Refuse what this slice of the port does not carry, naming the
     ROADMAP item (Queue A) that brings it."""
     p = cfg.parallel
-    axes = {"pipe": p.pipe, "fsdp": p.fsdp, "expert": p.expert,
-            "tensor": p.tensor, "context": p.context}
+    axes = {"pipe": p.pipe, "expert": p.expert, "tensor": p.tensor,
+            "context": p.context}
     wide = {k: v for k, v in axes.items() if v != 1}
     if wide:
         raise ValueError(
-            f"mesh axes {wide}: the port trains data-parallel only; "
-            f"sharded layouts and multi-axis parallelism come with ROADMAP "
-            f"Queue A item 8")
+            f"mesh axes {wide}: the port trains on the data x fsdp mesh "
+            f"only; the other axes come with ROADMAP Queue A item 8b")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):

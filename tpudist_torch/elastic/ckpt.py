@@ -8,12 +8,13 @@ layout and its manifest and index documents key for key:
     (``worker<i>.json``: per leaf its global shape, dtype, and each
     shard's start, shape and the crc32 of its raw bytes). Ownership
     follows the JAX package's ``owned_shard_spans``: a shard held by
-    several processes is written once, by the lowest-ranked owner. The
-    port's train state is replicated, so every leaf is one full-span
-    shard that rank 0 writes, and the other ranks' indexes list the
-    leaves with no shards. The spans stay in the index all the same, for
-    the sharded layouts to come (ROADMAP Queue A item 8b), and
-    :mod:`tpudist_torch.elastic.resume` assembles any region from them.
+    several processes is written once, by the lowest-ranked owner. A
+    replicated train state is one full-span shard a leaf, which rank 0
+    writes, the other ranks' indexes listing the leaves with no shards;
+    under FSDP (``engine.ShardLayout``) each fsdp shard of a param, and
+    of its ``mu`` and ``nu``, is written by the lowest rank holding it,
+    with its span. :mod:`tpudist_torch.elastic.resume` assembles any
+    region from the spans, so a save restores onto another layout.
   * **Atomic two-phase commit.** The index json is written last
     (write-temp + ``os.replace``), so its presence marks "this worker's
     shards landed". The coordinator commits ``manifest.json`` (also
@@ -183,6 +184,17 @@ def state_leaves(state: Any) -> List[Tuple[str, torch.Tensor]]:
             + [(f"opt.nu.{n}", t) for n, t in zip(names, opt.nu)])
 
 
+def leaf_regions(state: Any) -> List[Tuple[Tuple[int, ...], tuple, int]]:
+    """Each leaf of :func:`state_leaves` as ``(whole shape, span,
+    owner)``: its global shape, this process's region of it and the rank
+    that writes that region (``engine.param_regions`` for the params and
+    moments; the 0-dim counters are rank 0's)."""
+    from tpudist_torch.engine import param_regions
+    counter = ((), (), 0)
+    regions = param_regions(state)
+    return [counter] + regions + [counter] + regions + regions
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """The index's dtype word: numpy's name (``float32``, ``bfloat16``)."""
     return str(dtype).replace("torch.", "")
@@ -212,16 +224,20 @@ def crc32(arr: np.ndarray) -> int:
     return zlib.crc32(flat.view(np.uint8)) & 0xFFFFFFFF
 
 
-def owned_shard_spans(leaf: torch.Tensor, process_index: int):
-    """The shards of ``leaf`` that process ``process_index`` writes, as
-    ``[(span, host array), ...]`` (span: per-dim ``(start, stop)``): the
-    JAX package's ``owned_shard_spans`` for a leaf replicated on every
-    process, one full-span shard owned by the lowest rank."""
-    if process_index != 0:
+def owned_shard_spans(leaf: torch.Tensor, process_index: int,
+                      span: Optional[tuple] = None, owner: int = 0):
+    """The shards of ``leaf`` (this process's tensor of it) that process
+    ``process_index`` writes, as ``[(span, host array), ...]`` (span:
+    per-dim ``(start, stop)`` in the whole leaf, the full leaf by
+    default): the JAX package's ``owned_shard_spans``, where a region
+    held by several processes is written by its lowest-ranked holder,
+    ``owner``."""
+    if process_index != owner:
         return []
     from tpudist_torch.checkpoint import host_copy
-    return [(tuple((0, d) for d in leaf.shape),
-             to_words(host_copy(leaf)))]
+    if span is None:
+        span = tuple((0, d) for d in leaf.shape)
+    return [(tuple(span), to_words(host_copy(leaf)))]
 
 
 def cleanup_stale(save_dir: str, *, process_index: int = 0) -> List[str]:
@@ -344,9 +360,11 @@ class ShardedCheckpointer:
         step = int(state.step)
         with trace_lib.span("ckpt_enqueue", cat="ckpt", step=step,
                             mode="sharded"):
-            leaves = [(name, list(leaf.shape), dtype_name(leaf.dtype),
-                       owned_shard_spans(leaf, self.process_index))
-                      for name, leaf in state_leaves(state)]
+            leaves = [(name, list(shape), dtype_name(leaf.dtype),
+                       owned_shard_spans(leaf, self.process_index, span,
+                                         owner))
+                      for (name, leaf), (shape, span, owner)
+                      in zip(state_leaves(state), leaf_regions(state))]
             job = (step, int(epoch), int(step_in_epoch), leaves)
             if self.use_async:
                 self._q.put(("write", job))

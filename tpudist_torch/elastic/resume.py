@@ -2,10 +2,10 @@
 
 A port of ``tpudist/elastic/resume.py``. :func:`restore` reads the newest
 committed manifest, validates its data cursor against the resuming run's
-config, and assembles every leaf from whichever saved shards cover it
-(:func:`_assemble`, the N→M primitive: trivial while the port's state is
-replicated, one full-span shard a leaf, and the same code when the
-shards are slices). Every shard read is checked against the crc32 its
+config, and assembles this process's region of every leaf (the whole
+leaf when the template is replicated, its shard under FSDP) from
+whichever saved shards cover it (:func:`_assemble`, the N→M primitive),
+so a save at one fsdp size restores at another. Every shard read is checked against the crc32 its
 writer recorded; a checkpoint whose bytes are bad is skipped for the
 previous committed one. The leaves land on the template's device, in
 place: the caller's ``TrainState`` is the template and the result.
@@ -213,7 +213,9 @@ def _restore_manifest(save_dir: str, manifest: Dict[str, Any],
     table, handles = _shard_table(save_dir, manifest)
     try:
         values = []
-        for name, leaf in ckpt_mod.state_leaves(template):
+        for (name, leaf), (shape, span, _) in zip(
+                ckpt_mod.state_leaves(template),
+                ckpt_mod.leaf_regions(template)):
             saved_meta = (manifest.get("leaves") or {}).get(name)
             shards = table.get(name)
             if not shards:
@@ -221,7 +223,7 @@ def _restore_manifest(save_dir: str, manifest: Dict[str, Any],
                     f"manifest has no shards for leaf {name} — the "
                     f"model/optimizer structure changed since the "
                     f"checkpoint was written")
-            shape = tuple(leaf.shape)
+            shape = tuple(shape)
             dtype = ckpt_mod.dtype_name(leaf.dtype)
             if saved_meta is not None:
                 if tuple(saved_meta["shape"]) != shape:
@@ -234,8 +236,10 @@ def _restore_manifest(save_dir: str, manifest: Dict[str, Any],
                     raise ResumeError(
                         f"leaf {name}: saved dtype {saved_meta['dtype']}"
                         f" != current {dtype}")
-            full = tuple((0, d) for d in shape)
-            arr = _assemble(full, shards)
+            # this process's region of the leaf (all of it when the
+            # template is replicated), from whichever saved spans cover
+            # it: the N -> M reshard
+            arr = _assemble(tuple(tuple(r) for r in span), shards)
             values.append(ckpt_mod.from_words(arr, leaf.dtype))
     finally:
         for h in handles:

@@ -1,15 +1,25 @@
 """Training engine: state, optimizer, loss, the train step, the
 superstep, eval.
 
-Counterpart of ``tpudist/engine.py``'s replicated data-parallel path
-(``--grad-overlap off``). The JAX package's state is a pytree and its
-step a compiled pure function; here the params are an ``nn.Module``, the
-step runs eagerly, and the optimizer updates the params and its moments
-in place (one copy of the train state on the device instead of two).
-Every process holds the whole state, made alike from one seed; when a
-process group is up (``tpudist_torch.parallel.distributed``), the step
-means the gradients and the loss over the processes with an explicit
-all-reduce after the whole backward: the collective under test.
+Counterpart of ``tpudist/engine.py``: its replicated data-parallel path
+(``--grad-overlap off``) and its sharded path on a ``data x fsdp`` mesh.
+The JAX package's state is a pytree and its step a compiled pure
+function; here the params are an ``nn.Module``, the step runs eagerly,
+and the optimizer updates the params and its moments in place (one copy
+of the train state on the device instead of two).
+
+Without a mesh every process holds the whole state, made alike from one
+seed; when a process group is up (``tpudist_torch.parallel.distributed``),
+the step means the gradients and the loss over the processes with an
+explicit all-reduce after the whole backward: the collective under test.
+
+With a mesh (:func:`init_state`'s ``mesh``; the train CLI passes one when
+``--fsdp`` > 1) each process keeps 1/fsdp of every param whose spec
+divides (the models' ``param_specs``), and Adam's moments in the same
+layout (:class:`ShardLayout`, ZeRO-style as ``tpudist/engine.py:355-395``
+lays them out). The step gathers each shard over the fsdp group before
+the forward and reduce-scatters its gradient after the backward
+(:class:`_GatherShard`), as XLA's partitioner does for the JAX package.
 
 One step body serves per-step dispatch (:func:`make_train_step`) and the
 k-step superstep (:func:`make_superstep`). It reads Adam's per-step
@@ -21,9 +31,11 @@ them; on the CPU the superstep runs the body in a loop.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -39,6 +51,8 @@ from tpudist_torch.models import transformer
 from tpudist_torch.obs import mfu
 from tpudist_torch.ops.cuda import flash_attention as _fa
 from tpudist_torch.ops.cuda import fused_xent as _fx
+from tpudist_torch.parallel import mesh as mesh_lib
+from tpudist_torch.parallel import sharding as shd
 
 
 @dataclass
@@ -49,6 +63,11 @@ class AdamState:
     # each param's leaf index in the JAX package's params pytree (sorted
     # dict keys): the salt of the bf16 second moment's rounding dither
     salts: List[int] = field(default_factory=list)
+    # each moment's (whole leaf's shape, span) when it is a shard of its
+    # leaf: the rounding dither hashes the WHOLE leaf's flat indices;
+    # empty when every moment is whole
+    regions: List[Tuple[Tuple[int, ...], tuple]] = field(
+        default_factory=list)
 
 
 @dataclass
@@ -56,6 +75,8 @@ class TrainState:
     step: int                  # global step counter
     params: nn.Module
     opt_state: AdamState
+    # how params, mu and nu lie on the mesh; None: whole on every process
+    layout: Optional["ShardLayout"] = None
 
 
 def jax_leaf_order(names: Sequence[str]) -> List[int]:
@@ -69,8 +90,24 @@ def jax_leaf_order(names: Sequence[str]) -> List[int]:
     return rank
 
 
-def _stochastic_round_bf16(x: torch.Tensor, count,
-                           salt: int) -> torch.Tensor:
+def flat_index(shape: Sequence[int], span, device=None) -> torch.Tensor:
+    """The flat (C-order) indices, within a leaf of ``shape``, of the
+    elements of its region ``span`` (per dim ``(start, stop)``), as an
+    int64 tensor of the region's shape: ``arange(numel).reshape(shape)``
+    for the whole leaf."""
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        lo, hi = span[d]
+        ax = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        idx = (ax * stride).reshape(-1, *([1] * (len(shape) - 1 - d))) \
+            + idx
+        stride *= int(shape[d])
+    return idx
+
+
+def _stochastic_round_bf16(x: torch.Tensor, count, salt: int,
+                           region=None) -> torch.Tensor:
     """f32 -> bf16 with stochastic rounding, bitwise the JAX package's
     ``_stochastic_round_bf16``: add a uniform dither in [0, ulp) to the
     low 16 bits of the f32 pattern, then truncate. Unbiased, which is what
@@ -79,12 +116,19 @@ def _stochastic_round_bf16(x: torch.Tensor, count,
     step count, salt) on uint32, computed here in int64 with every
     product and sum masked to its low 32 bits (exact under int64
     wraparound). ``count`` is an int or a 0-dim int64 tensor (the
-    device-side step count a captured step reads)."""
+    device-side step count a captured step reads). ``region`` is
+    ``(shape, span)`` when ``x`` is a shard of a leaf of ``shape``: it
+    hashes the leaf's flat indices (:func:`flat_index`), as every JAX
+    shard of a partitioned iota does, so a shard rounds as the same
+    slice of its whole leaf would."""
     m32 = 0xFFFFFFFF
     bits = x.to(torch.float32).contiguous().view(torch.int32).to(
         torch.int64) & m32
-    idx = torch.arange(x.numel(), dtype=torch.int64,
-                       device=x.device).reshape(x.shape)
+    if region is None:
+        idx = torch.arange(x.numel(), dtype=torch.int64,
+                           device=x.device).reshape(x.shape)
+    else:
+        idx = flat_index(*region, device=x.device)
     h = (idx * 0x9E3779B1) & m32
     h = (h + ((count & m32) * 0x85EBCA6B & m32)
          + (salt * 0xC2B2AE35 & m32)) & m32
@@ -150,7 +194,9 @@ class Adam:
                 v = b2 * nu.to(torch.float32) + (1 - b2) * g * g
                 p.add_((-self.lr * (m / c1)) / (torch.sqrt(v / c2)
                                                 + self.eps))
-                nu.copy_(_stochastic_round_bf16(v, count, state.salts[i]))
+                nu.copy_(_stochastic_round_bf16(
+                    v, count, state.salts[i],
+                    state.regions[i] if state.regions else None))
                 mu.copy_(m)
                 continue
             # optax's b1 * mu takes b1 in mu's dtype (JAX weak typing:
@@ -235,8 +281,8 @@ def _device_hbm_bytes(device: Optional[torch.device] = None) -> float:
 
 
 def _resolve_lm_head(cfg: TrainConfig,
-                     device: Optional[torch.device] = None
-                     ) -> Tuple[bool, int]:
+                     device: Optional[torch.device] = None,
+                     mesh=None) -> Tuple[bool, int]:
     """cfg.lm_head -> concrete (fused_xent, xent_chunks), the JAX
     package's rules: a forced mode with a contradictory explicit flag is
     an error; ``plain`` is (False, 0), ``fused`` (True, 0), ``chunked``
@@ -260,18 +306,24 @@ def _resolve_lm_head(cfg: TrainConfig,
         raise ValueError(f"unknown --lm-head {cfg.lm_head!r}")
     if cfg.fused_xent or cfg.xent_chunks:
         return cfg.fused_xent, cfg.xent_chunks
-    return _auto_lm_head(cfg, device)
+    return _auto_lm_head(cfg, device, mesh)
 
 
-def _auto_lm_head(cfg: TrainConfig,
-                  device: Optional[torch.device] = None) -> Tuple[bool, int]:
+def _auto_lm_head(cfg: TrainConfig, device: Optional[torch.device] = None,
+                  mesh=None) -> Tuple[bool, int]:
     """The auto policy's pick, logged once per choice: per-device head
     tokens and an analytic train-state estimate (f32 master + mu and nu
     at their storage dtypes: 12 B/param in f32 down to 8 B with bf16 mu
     and nu; the MoE's FFN params times its experts) against the device's
-    memory: the JAX package's closed form with every mesh axis at 1."""
+    memory: the JAX package's closed form. Without a mesh every axis is
+    1 and the tokens are the whole batch's; with one, the batch splits
+    over data x fsdp and the state over fsdp x tensor."""
     m = cfg.model
-    n_tok = max(cfg.batch_size, 1) * max(m.max_seq_len, 1)
+    sizes = mesh_lib.mesh_shape(mesh) if mesh is not None else {}
+    batch_shards = sizes.get("data", 1) * sizes.get("fsdp", 1)
+    wshards = sizes.get("fsdp", 1) * sizes.get("tensor", 1)
+    n_tok = (max(cfg.batch_size // batch_shards, 1)
+             * max(m.max_seq_len, 1))
     hd = m.d_model // m.n_heads
     attn = 2 * m.d_model * m.d_model + 2 * m.d_model * m.n_kv_heads * hd
     ffn = 3 * m.d_model * m.d_ff
@@ -284,7 +336,8 @@ def _auto_lm_head(cfg: TrainConfig,
     dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
     fused_xent, xent_chunks = transformer.pick_lm_head(
         n_tok, m.vocab_size, m.d_model, m.n_layers, dtype_bytes,
-        n_params * state_bytes_per_param, _device_hbm_bytes(device))
+        n_params / wshards * state_bytes_per_param,
+        _device_hbm_bytes(device))
     choice = ("fused" if fused_xent
               else f"chunked({xent_chunks})" if xent_chunks else "plain")
     if choice not in _AUTO_HEAD_LOGGED:
@@ -296,8 +349,8 @@ def _auto_lm_head(cfg: TrainConfig,
 _AUTO_HEAD_LOGGED: set = set()
 
 
-def make_loss_fn(cfg: TrainConfig,
-                 device: Optional[torch.device] = None) -> Callable:
+def make_loss_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
+                 mesh=None) -> Callable:
     """(params, batch) -> scalar loss, for the configured model; batch is
     a tuple of device tensors ((x, y) for the MLP, (tokens,) for the
     sequence models: the transformer and the MoE)."""
@@ -305,7 +358,7 @@ def make_loss_fn(cfg: TrainConfig,
     dt = _compute_dtype(cfg)
     if cfg.model.name == "mlp":
         return functools.partial(model.loss_fn, dtype=dt)
-    fused_xent, xent_chunks = _resolve_lm_head(cfg, device)
+    fused_xent, xent_chunks = _resolve_lm_head(cfg, device, mesh)
 
     def loss(params, batch):
         return model.loss_fn(params, batch[0], cfg.model, dtype=dt,
@@ -314,22 +367,233 @@ def make_loss_fn(cfg: TrainConfig,
     return loss
 
 
-def init_state(cfg: TrainConfig, device: torch.device) -> TrainState:
+# --------------------------------------------------------- the layout
+
+
+def _collective(fn, *args, **kw):
+    """A ``torch.distributed`` call by a name both torch versions the
+    port meets have (newer ones deprecate ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` with a warning a call)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return fn(*args, **kw)
+
+
+def gather_dim(shard: torch.Tensor, dim: int, ways: int,
+               group) -> torch.Tensor:
+    """The whole tensor from each of ``group``'s ``ways`` shards along
+    ``dim``: NCCL gathers contiguous chunks, which stack on a new leading
+    axis; moving that axis in front of ``dim`` and merging the two puts
+    shard ``w`` at ``[w * n, (w + 1) * n)`` of the dim."""
+    shape = tuple(shard.shape)
+    # the chunks concatenated along dim 0, the shape gloo asks for
+    buf = shard.new_empty((ways * shape[0], *shape[1:]))
+    _collective(dist.all_gather_into_tensor, buf, shard.contiguous(),
+                group=group)
+    full = list(shape)
+    full[dim] *= ways
+    return buf.view(ways, *shape).movedim(0, dim).reshape(full)
+
+
+def scatter_dim(full: torch.Tensor, dim: int, ways: int,
+                group) -> torch.Tensor:
+    """:func:`gather_dim`'s mirror image: ``full`` summed over ``group``
+    and this rank's ``1/ways`` of it along ``dim`` kept (a
+    reduce-scatter of ``full`` cut into ``ways`` chunks of the dim, each
+    moved to a leading axis first)."""
+    n = full.shape[dim] // ways
+    chunks = full.reshape(*full.shape[:dim], ways, n,
+                          *full.shape[dim + 1:]).movedim(dim, 0)
+    out = full.new_empty(chunks.shape[1:])
+    _collective(dist.reduce_scatter_tensor, out,
+                chunks.contiguous().view(-1, *out.shape[1:]),
+                op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+@dataclass
+class ShardLayout:
+    """How the params lie on a ``data x fsdp`` mesh, Adam's ``mu`` and
+    ``nu`` alike: param ``i`` (``names[i]``, whole shape ``shapes[i]``)
+    is split ``fsdp`` ways along ``dims[i]``, this process keeping shard
+    ``fsdp_index``, or is whole on every process (``dims[i]`` None).
+    ``owners[i]`` is the lowest rank that holds this process's shard of
+    param ``i``: the one that writes it to a checkpoint. ``reduced``
+    collects the ``(op, dtype, bytes)`` of each collective the step
+    issues."""
+
+    names: List[str]
+    shapes: List[Tuple[int, ...]]
+    dims: List[Optional[int]]
+    fsdp: int
+    fsdp_index: int
+    data: int
+    owners: List[int]
+    fsdp_group: object = None
+    data_group: object = None
+    reduced: List[tuple] = field(default_factory=list)
+
+    def span(self, i: int) -> Tuple[Tuple[int, int], ...]:
+        """This process's region of param ``i``: per dim ``(start,
+        stop)``."""
+        out = [(0, n) for n in self.shapes[i]]
+        d = self.dims[i]
+        if d is not None:
+            n = self.shapes[i][d] // self.fsdp
+            out[d] = (self.fsdp_index * n, (self.fsdp_index + 1) * n)
+        return tuple(out)
+
+    def shard(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This process's shard of param ``i``'s whole value."""
+        return whole[tuple(slice(lo, hi) for lo, hi in self.span(i))]
+
+    def note(self, op: str, t: torch.Tensor) -> None:
+        self.reduced.append((op, t.dtype, t.numel() * t.element_size()))
+
+
+def make_layout(cfg: TrainConfig, mesh,
+                shapes: Dict[str, Tuple[int, ...]]) -> ShardLayout:
+    """The model's ``param_specs``, sanitized on ``mesh`` for the params'
+    whole ``shapes`` (by ``state_dict`` name, in ``named_parameters``
+    order), as this process's :class:`ShardLayout`. Only the data and
+    fsdp axes may be wider than 1."""
+    sizes = mesh_lib.mesh_shape(mesh)
+    wide = {a: n for a, n in sizes.items()
+            if n > 1 and a not in ("data", "fsdp")}
+    if wide:
+        raise ValueError(f"mesh axes {wide}: the sharded step body runs "
+                         f"on the data x fsdp mesh only")
+    model = get_model(cfg.model.name)
+    specs = shd.sanitize_specs(shapes, model.param_specs(cfg.model), mesh)
+    names = list(shapes)
+    dims = [shd.sharded_dim(specs[n]) for n in names]
+    devs = mesh_lib.mesh_devices(mesh)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    coord = [int(c[0]) for c in np.nonzero(devs == rank)]
+    fsdp_axis = list(mesh.mesh_dim_names).index("fsdp")
+    # the lowest rank of each fsdp position: the writer of that shard
+    holders = int(np.take(devs, coord[fsdp_axis], axis=fsdp_axis).min())
+    group = getattr(mesh, "get_group", None)
+    return ShardLayout(
+        names=names, shapes=[shapes[n] for n in names],
+        dims=dims, fsdp=sizes["fsdp"], fsdp_index=coord[fsdp_axis],
+        data=sizes["data"],
+        owners=[holders if d is not None else int(devs.min())
+                for d in dims],
+        fsdp_group=group("fsdp") if group else None,
+        data_group=group("data") if group else None)
+
+
+def param_regions(state: TrainState) -> List[tuple]:
+    """Each param's ``(whole shape, span, owner)`` in ``named_parameters``
+    order: the leaf's global shape, this process's region of it (per dim
+    ``(start, stop)``), and the lowest rank that holds that region, its
+    writer. Adam's ``mu`` and ``nu`` lie the same way. A replicated state
+    holds every leaf whole, written by rank 0."""
+    lay = state.layout
+    if lay is None:
+        return [(tuple(p.shape), tuple((0, n) for n in p.shape), 0)
+                for p in state.params.parameters()]
+    return [(lay.shapes[i], lay.span(i), lay.owners[i])
+            for i in range(len(lay.names))]
+
+
+def init_state(cfg: TrainConfig, device: torch.device,
+               mesh=None) -> TrainState:
     """Seeded params (``cfg.seed``) and a fresh optimizer state on
-    ``device``."""
+    ``device``. With a ``mesh`` the state is sharded
+    (:func:`make_layout`): the whole seeded params are drawn, then each
+    process keeps its shards, so every layout starts from the same
+    params (the JAX package's "Init is seeded -> deterministic across
+    process counts"); ``mu`` and ``nu`` are made in the params'
+    layout."""
     model = get_model(cfg.model.name)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     params = model.init(cfg.model, generator=gen)
+    layout = None
+    if mesh is not None:
+        layout = make_layout(cfg, mesh, {
+            n: tuple(p.shape) for n, p in params.named_parameters()})
+        for i, (owner, leaf) in enumerate(_param_slots(params)):
+            whole = owner._parameters[leaf]
+            owner._parameters[leaf] = nn.Parameter(
+                layout.shard(i, whole.detach()).clone(
+                    memory_format=torch.contiguous_format))
     names, plist = zip(*params.named_parameters())
-    return TrainState(step=0, params=params,
-                      opt_state=make_optimizer(cfg).init(plist, names))
+    opt = make_optimizer(cfg).init(plist, names)
+    if layout is not None:
+        opt.regions = [(layout.shapes[i], layout.span(i))
+                       for i in range(len(plist))]
+    return TrainState(step=0, params=params, opt_state=opt, layout=layout)
 
 
-def _microbatch(loss_fn, params: nn.Module, batch, n_accum: int):
+def _param_slots(params: nn.Module) -> List[Tuple[nn.Module, str]]:
+    """``(module, name)`` of each parameter in ``named_parameters``
+    order: where a step swaps in the gathered tensors."""
+    out = []
+    for name, _ in params.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        out.append((params.get_submodule(owner), leaf))
+    return out
+
+
+@contextlib.contextmanager
+def _swapped(params: nn.Module, tensors: Sequence[torch.Tensor]):
+    """``params`` computing with ``tensors`` in place of its parameters
+    (``named_parameters`` order) inside the block: the models read their
+    weights by attribute, so the loss sees the gathered tensors."""
+    slots = _param_slots(params)
+    saved = [m._parameters[k] for m, k in slots]
+    for (m, k), t in zip(slots, tensors):
+        m._parameters[k] = t
+    try:
+        yield params
+    finally:
+        for (m, k), p in zip(slots, saved):
+            m._parameters[k] = p
+
+
+class _GatherShard(torch.autograd.Function):
+    """Forward: a param's whole value gathered from its fsdp shards
+    (:func:`gather_dim`). Backward: the whole gradient reduce-scattered
+    (summed) over the fsdp group, summed over the data group, divided by
+    data x fsdp: the mean over every batch shard, landing on the
+    shard."""
+
+    @staticmethod
+    def forward(ctx, shard, dim: int, layout: ShardLayout):
+        ctx.dim, ctx.layout = dim, layout
+        full = gather_dim(shard, dim, layout.fsdp, layout.fsdp_group)
+        layout.note("all_gather", full)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        lay = ctx.layout
+        lay.note("reduce_scatter", g)
+        out = scatter_dim(g, ctx.dim, lay.fsdp, lay.fsdp_group)
+        if lay.data > 1:
+            lay.note("all_reduce", out)
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=lay.data_group)
+        out.div_(lay.data * lay.fsdp)
+        return out, None, None
+
+
+def gather_params(state: TrainState) -> List[torch.Tensor]:
+    """Every param whole: the sharded ones gathered (differentiably, into
+    their shards), the replicated ones as they are."""
+    lay = state.layout
+    return [p if d is None else _GatherShard.apply(p, d, lay)
+            for p, d in zip(state.params.parameters(), lay.dims)]
+
+
+def _microbatch(loss_fn, params: nn.Module, batch, n_accum: int,
+                wrt: Optional[Sequence[torch.Tensor]] = None):
     """(loss, grads) over ``n_accum`` microbatches of ``batch``: the
     losses and grads summed in microbatch order, then scaled by
-    1/n_accum, as the JAX package's scan does."""
-    plist = list(params.parameters())
+    1/n_accum, as the JAX package's scan does. The grads are with
+    respect to ``wrt`` (the params by default)."""
+    plist = list(params.parameters()) if wrt is None else list(wrt)
     if n_accum == 1:
         loss = loss_fn(params, batch)
         return loss.detach(), list(torch.autograd.grad(loss, plist))
@@ -358,8 +622,8 @@ def pmean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def _build_step_body(cfg: TrainConfig,
-                     device: Optional[torch.device] = None
-                     ) -> Tuple[Callable, Adam]:
+                     device: Optional[torch.device] = None,
+                     mesh=None) -> Tuple[Callable, Adam]:
     """``(body, tx)``: ``body(state, batch, count, c1, c2) -> loss``, one
     step on device tensors: loss and grads over this process's batch
     (with ``--grad-accum-steps`` microbatching), their mean over the
@@ -370,9 +634,14 @@ def _build_step_body(cfg: TrainConfig,
     bytes)`` of each all-reduce its gradient mean issued, in order (the
     grads, then the loss): a host-side note, written at every eager call
     and at a graph's capture, that ``obs.devtime.collective_bytes``
-    turns into the run's collective volume."""
-    loss_fn = make_loss_fn(cfg, device)
+    turns into the run's collective volume.
+
+    With a ``mesh`` the body is the sharded one
+    (:func:`_sharded_step_body`), for a state made on that mesh."""
+    loss_fn = make_loss_fn(cfg, device, mesh)
     tx = make_optimizer(cfg)
+    if mesh is not None:
+        return _sharded_step_body(cfg, loss_fn, tx), tx
     data_parallel = dist.is_initialized()
     reduced: List[Tuple[torch.dtype, int]] = []
 
@@ -395,6 +664,48 @@ def _build_step_body(cfg: TrainConfig,
     return body, tx
 
 
+def _sharded_step_body(cfg: TrainConfig, loss_fn: Callable,
+                       tx: Adam) -> Callable:
+    """The step body on a sharded state (``state.layout``), the JAX
+    package's jit+shardings body on a ``data x fsdp`` mesh: every shard
+    gathered over its fsdp group (:func:`gather_params`), the loss and
+    the grads of the whole params over this process's batch shard (its
+    ``--grad-accum-steps`` microbatches summed first), then ONE backward
+    through the gathers: each grad reduce-scattered onto its shard,
+    summed over data and divided by data x fsdp; the replicated params'
+    grads and the loss all-reduced over the processes and divided by
+    their count (``lax.pmean`` over data x fsdp). Adam updates the shards
+    and their moments in place. ``body.reduced`` is the layout's list
+    of the step's collectives, ``(op, dtype, bytes)`` each."""
+    reduced: List[tuple] = []
+
+    def body(state: TrainState, batch, count, c1, c2):
+        lay = state.layout
+        lay.reduced = reduced
+        reduced.clear()
+        shards = list(state.params.parameters())
+        full = gather_params(state)
+        with _swapped(state.params, full):
+            loss, grads = _microbatch(loss_fn, state.params, batch,
+                                      cfg.grad_accum_steps, wrt=full)
+        cut = [i for i, d in enumerate(lay.dims) if d is not None]
+        if cut:
+            scattered = torch.autograd.grad([full[i] for i in cut],
+                                            [shards[i] for i in cut],
+                                            [grads[i] for i in cut])
+            for i, g in zip(cut, scattered):
+                grads[i] = g
+        world = dist.get_world_size()
+        for t in [g for g, d in zip(grads, lay.dims) if d is None] + [loss]:
+            lay.note("all_reduce", t)
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+            t.div_(world)
+        tx.apply(grads, state.opt_state, shards, count, c1, c2)
+        return loss
+    body.reduced = reduced
+    return body
+
+
 def _counted(body: Callable, cost: Dict[str, int], *args):
     """``body(*args)``; the first call a dispatcher makes is counted
     (``obs.mfu.FlopCount``) into ``cost``: one step's model flops, read
@@ -415,12 +726,14 @@ def _advance(state: TrainState, n: int) -> None:
 
 
 def make_train_step(cfg: TrainConfig,
-                    device: Optional[torch.device] = None) -> Callable:
-    """``(state, batch) -> (state, loss)``: one step of the step body,
-    its scalars filled from the host's count first. ``cost_analysis()``
-    is the step's flop count from its first call (None before it);
-    ``reduced_operands()`` the step's all-reduces (``body.reduced``)."""
-    body, tx = _build_step_body(cfg, device)
+                    device: Optional[torch.device] = None,
+                    mesh=None) -> Callable:
+    """``(state, batch) -> (state, loss)``: one step of the step body
+    (the sharded one with a ``mesh``), its scalars filled from the
+    host's count first. ``cost_analysis()`` is the step's flop count from
+    its first call (None before it); ``reduced_operands()`` the step's
+    collectives (``body.reduced``)."""
+    body, tx = _build_step_body(cfg, device, mesh)
     scalars = StepScalars(tx, 1, torch.device(device or "cpu"))
     cost: Dict[str, int] = {}
 
@@ -501,12 +814,12 @@ class Superstep:
     the first step the superstep runs (an eager one)."""
 
     def __init__(self, cfg: TrainConfig, device: Optional[torch.device],
-                 k: int):
+                 k: int, mesh=None):
         if k < 1:
             raise ValueError(f"superstep length must be >= 1, got {k}")
         self.k = k
         self.device = torch.device(device or "cpu")
-        self.body, tx = _build_step_body(cfg, device)
+        self.body, tx = _build_step_body(cfg, device, mesh)
         self.scalars = StepScalars(tx, k, self.device)
         self.graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
         self.captured_launches: Dict[str, Dict[str, int]] = {}
@@ -525,9 +838,10 @@ class Superstep:
         analysis visits a scan body once."""
         return dict(self._cost) or None
 
-    def reduced_operands(self) -> List[Tuple[torch.dtype, int]]:
-        """One step's all-reduces, ``(dtype, bytes)`` each, as the step
-        body noted them (empty without a process group)."""
+    def reduced_operands(self) -> List[tuple]:
+        """One step's collectives as the step body noted them (empty
+        without a process group): ``(dtype, bytes)`` an all-reduce, or
+        ``(op, dtype, bytes)`` from the sharded body."""
         return list(self.body.reduced)
 
     @property
@@ -667,36 +981,48 @@ class Superstep:
 
 
 def make_superstep(cfg: TrainConfig, device: Optional[torch.device],
-                   k: int) -> Superstep:
+                   k: int, mesh=None) -> Superstep:
     """The k-step superstep dispatch (:class:`Superstep`)."""
-    return Superstep(cfg, device, k)
+    return Superstep(cfg, device, k, mesh)
 
 
-def make_eval_fn(cfg: TrainConfig,
-                 device: Optional[torch.device] = None) -> Callable:
+def make_eval_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
+                 mesh=None) -> Callable:
     """``(state, batch) -> loss``, a forward with no update and no graph,
     over the GLOBAL ``batch``: with a process group up, each process
     evaluates its contiguous slice of it (as the JAX package shards the
-    eval batch over the data axis) and the mean comes back from an
-    all-reduce, the same on every process."""
-    loss_fn = make_loss_fn(cfg, device)
+    eval batch over the data and fsdp axes; a process's place among them
+    is its rank) and the mean comes back from an all-reduce, the same on
+    every process. A sharded state is gathered for it first."""
+    loss_fn = make_loss_fn(cfg, device, mesh)
     data_parallel = dist.is_initialized()
 
     @torch.no_grad()
     def ev(state: TrainState, batch):
+        if state.layout is not None:
+            # the gathers here are not the step's collectives
+            state.layout.reduced = []
+            with _swapped(state.params, gather_params(state)):
+                return _eval_local(loss_fn, state.params, batch)
         if not data_parallel:
             return loss_fn(state.params, batch)
-        rank, world = dist.get_rank(), dist.get_world_size()
-        local = tuple(x.reshape(world, x.shape[0] // world,
-                                *x.shape[1:])[rank] for x in batch)
-        loss, = pmean([loss_fn(state.params, local)])
-        return loss
+        return _eval_local(loss_fn, state.params, batch)
     return ev
 
 
+def _eval_local(loss_fn: Callable, params: nn.Module, batch):
+    """The mean over the processes of the loss on each one's contiguous
+    slice of ``batch``."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    local = tuple(x.reshape(world, x.shape[0] // world,
+                            *x.shape[1:])[rank] for x in batch)
+    loss, = pmean([loss_fn(params, local)])
+    return loss
+
+
 def state_bytes_per_device(state: TrainState) -> int:
-    """Bytes of the params and optimizer moments (every device holds them
-    all: they are replicated)."""
+    """Bytes of the params and optimizer moments this device holds (all
+    of them when replicated, its shards under FSDP)."""
     tensors = list(state.params.parameters()) + state.opt_state.mu \
         + state.opt_state.nu
     return sum(t.numel() * t.element_size() for t in tensors)

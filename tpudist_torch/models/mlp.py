@@ -4,7 +4,8 @@ Counterpart of ``tpudist/models/mlp.py`` (Linear(20, 64) -> ReLU ->
 Linear(64, 1)). The module keeps the JAX package's names and layouts
 (``fc1.w`` (n_features, hidden), ``fc1.b`` (hidden,), ``fc2.w`` (hidden,
 1), ``fc2.b`` (1,)), so weights carry across name for name
-(:func:`tpudist_torch.convert.params_from_jax`).
+(:func:`tpudist_torch.convert.params_from_jax`), and so do the FSDP
+specs (:func:`param_specs`).
 """
 
 from __future__ import annotations
@@ -44,6 +45,16 @@ def init(cfg: ModelConfig, *, generator: torch.Generator) -> MLP:
         for p in (lin.w, lin.b):
             p.uniform_(-bound, bound, generator=generator)
     return model
+
+
+def param_specs(cfg: ModelConfig, *, fsdp_axis: str = "fsdp",
+                tensor_axis: str = "tensor"):
+    """Sharding specs by ``state_dict`` name, the JAX package's: FSDP
+    shards the hidden dim of fc1/fc2; the tensor axis is unused here."""
+    del cfg, tensor_axis
+    f = fsdp_axis
+    return {"fc1.w": (None, f), "fc1.b": (f,),
+            "fc2.w": (f, None), "fc2.b": (None,)}
 
 
 def apply(params: MLP, x: torch.Tensor) -> torch.Tensor:

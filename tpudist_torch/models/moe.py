@@ -83,6 +83,23 @@ def init(cfg: ModelConfig, *, generator: torch.Generator) -> MoE:
                           "w_down": cfg.d_ff}, generator)
 
 
+def param_specs(cfg: ModelConfig, *, fsdp_axis: str = "fsdp",
+                tensor_axis: str = "tensor", pipe_axis: str = "pipe",
+                expert_axis: str = "expert"):
+    """Sharding specs by ``state_dict`` name, the JAX package's: the
+    transformer's for the shared half (but the embedding's vocab over
+    fsdp alone), the router's d_model over fsdp, and the expert FFN
+    weights' experts dim over ``expert``, then d_model over fsdp and the
+    expert-hidden dim over tensor."""
+    f, t, pp, e = fsdp_axis, tensor_axis, pipe_axis, expert_axis
+    specs = T.param_specs(cfg, fsdp_axis=f, tensor_axis=t, pipe_axis=pp)
+    specs.update({"embed": (f, None), "layers.w_router": (pp, f, None),
+                  "layers.w_gate": (pp, e, f, t),
+                  "layers.w_up": (pp, e, f, t),
+                  "layers.w_down": (pp, e, t, f)})
+    return specs
+
+
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     """Static per-expert token budget of a routing group of
     ``n_tokens``: ceil(cf · routed pairs / E) over the exact product,

@@ -105,6 +105,26 @@ def init(cfg: ModelConfig, *, generator: torch.Generator) -> Transformer:
                        generator)
 
 
+def param_specs(cfg: ModelConfig, *, fsdp_axis: str = "fsdp",
+                tensor_axis: str = "tensor", pipe_axis: str = "pipe"):
+    """Sharding specs by ``state_dict`` name, the JAX package's: Megatron
+    column-parallel (output dim on tensor) wq/wk/wv/w_gate/w_up and
+    row-parallel (input dim on tensor) wo/w_down, FSDP on the other dim;
+    the embedding's VOCAB dim over fsdp x tensor; the stacked layer dim
+    over pipe. :func:`tpudist_torch.parallel.sharding.sanitize_specs`
+    drops what a mesh does not divide."""
+    del cfg
+    f, t, pp = fsdp_axis, tensor_axis, pipe_axis
+    col, row = (pp, f, t), (pp, t, f)
+    return {"embed": ((f, t), None),
+            **{f"layers.{n}": (pp, None) for n in ("attn_norm",
+                                                   "ffn_norm")},
+            **{f"layers.{n}": col for n in ("wq", "wk", "wv", "w_gate",
+                                            "w_up")},
+            **{f"layers.{n}": row for n in ("wo", "w_down")},
+            "final_norm": (None,)}
+
+
 def fill_params(model: nn.Module, fan_in: Dict[str, int],
                 generator: torch.Generator) -> nn.Module:
     """The JAX package's recipe on a model with ``embed``, ``layers`` and

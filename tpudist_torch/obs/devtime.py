@@ -78,27 +78,29 @@ _DTYPE_NAMES = {torch.float64: "f64", torch.float32: "f32",
                 torch.uint8: "ui8", torch.bool: "i1"}
 
 
-def collective_bytes(operands: Iterable[Tuple[torch.dtype, int]]
-                     ) -> Dict[str, Any]:
-    """The per-step collective accounting of the data-parallel gradient
-    mean, in the JAX ``collective_bytes`` schema: ``{"ops": [row...],
-    "dcn_bytes_total", "ici_bytes_total", "n_collectives"}``, each row
-    ``op``, ``dtype`` (MLIR spelling), ``bytes`` (payload of one
-    instance), ``count``, ``fabric``, ``dcn_bytes``.
+def collective_bytes(operands: Iterable[tuple]) -> Dict[str, Any]:
+    """The per-step collective accounting of the train step, in the JAX
+    ``collective_bytes`` schema: ``{"ops": [row...], "dcn_bytes_total",
+    "ici_bytes_total", "n_collectives"}``, each row ``op``, ``dtype``
+    (MLIR spelling), ``bytes`` (payload of one instance: the larger of
+    operand and result, the whole tensor a reduce-scatter consumes or an
+    all-gather produces), ``count``, ``fabric``, ``dcn_bytes``.
 
-    ``operands`` are the ``(dtype, bytes)`` of each all-reduce
-    ``engine.pmean`` issues in one step (the step's
-    ``reduced_operands()``: the grads in param order, then the loss). The JAX function reads them off the
-    lowered StableHLO text, which the port does not have. Every row is
-    labelled with the data axis's fabric as ``tpudist/parallel/mesh.py``
-    labels a data axis within one slice (``ici``), so ``dcn_bytes`` is
-    0; labelling across slices waits for the multi-axis mesh (ROADMAP
-    Queue A item 8b)."""
+    ``operands`` are what the step body noted in one step (its
+    ``reduced_operands()``): ``(dtype, bytes)`` for each all-reduce
+    ``engine.pmean`` issues (the grads in param order, then the loss),
+    or ``(op, dtype, bytes)`` from the sharded body (``all_gather``,
+    ``reduce_scatter``, ``all_reduce``). The JAX function reads them off
+    the lowered StableHLO text, which the port does not have. Every row
+    is labelled ``ici``, as ``tpudist/parallel/mesh.py`` labels an axis
+    within one slice, so ``dcn_bytes`` is 0."""
     agg: Dict[tuple, Dict[str, Any]] = {}
-    for dtype, nbytes in operands:
+    for operand in operands:
+        op, dtype, nbytes = (operand if len(operand) == 3
+                             else ("all_reduce", *operand))
         name = _DTYPE_NAMES.get(dtype, str(dtype).replace("torch.", ""))
-        row = agg.setdefault((name, int(nbytes)), {
-            "op": "all_reduce", "dtype": name, "bytes": int(nbytes),
+        row = agg.setdefault((op, name, int(nbytes)), {
+            "op": op, "dtype": name, "bytes": int(nbytes),
             "count": 0, "fabric": "ici", "dcn_bytes": 0})
         row["count"] += 1
     ops = sorted(agg.values(),

@@ -1,12 +1,14 @@
 """``python -m tpudist_torch.train`` — the training acceptance lane.
 
-Counterpart of the data-parallel path of ``tpudist/train.py``:
+Counterpart of ``tpudist/train.py`` on its ``data x fsdp`` mesh:
 N processes under the JAX package's env contract (``TPUDIST_COORDINATOR``
 / ``TPUDIST_NUM_PROCESSES`` / ``TPUDIST_PROCESS_ID``; one process when
 unset), one device each, NCCL on the card and gloo on the CPU. Seeded
 synthetic data and a per-epoch permutation, each process training on its
 shard of every global batch; the train step (loss, grads, their
-all-reduced mean, Adam), dispatched k steps at a time
+all-reduced mean, Adam; with ``--fsdp N`` the state sharded N ways, each
+shard gathered for the step and its gradient reduce-scattered),
+dispatched k steps at a time
 (``--steps-per-dispatch``, auto as the JAX CLI resolves it: k = 25 at
 the defaults) through the superstep, whose batches are staged a slab at
 a time (the whole epoch, or double-buffered slabs under
@@ -70,6 +72,7 @@ from tpudist_torch.obs import memledger as memledger_lib
 from tpudist_torch.obs import trace as trace_lib
 from tpudist_torch.ops.cuda import build as build_lib
 from tpudist_torch.parallel import distributed
+from tpudist_torch.parallel import mesh as mesh_lib
 from tpudist_torch.parallel import staging as staging_lib
 from tpudist_torch.utils.platform import resolve_device
 
@@ -136,19 +139,31 @@ def run(cfg: TrainConfig) -> float:
     with trace_lib.span("distributed_init", cat="init"):
         ctx = distributed.initialize(device=resolve_device(cfg.device))
     device, world = ctx.device, ctx.process_count
-    if cfg.batch_size % world:
+    # the mesh: one card a process, ranks in C order over the six axes;
+    # --fsdp > 1 shards the state over it (the JAX package's jit +
+    # shardings path), else the state is replicated and the step
+    # all-reduces (its pure-DP path, which needs no DeviceMesh)
+    sizes = dict(zip(mesh_lib.AXIS_NAMES,
+                     mesh_lib.resolve_axis_sizes(cfg.parallel, world)))
+    mesh = None
+    if sizes["fsdp"] > 1:
+        mesh = mesh_lib.build_mesh(cfg.parallel, device_type=device.type)
+    # a process's batch shard is its position in (data, fsdp)
+    batch_ways = sizes["data"] * sizes["fsdp"]
+    if cfg.batch_size % batch_ways:
         raise ValueError(
             f"--train-batch-size {cfg.batch_size} must be divisible by "
-            f"the process count {world}")
-    if cfg.batch_size % (world * cfg.grad_accum_steps):
+            f"data*fsdp mesh size = {batch_ways}")
+    if cfg.batch_size % (batch_ways * cfg.grad_accum_steps):
         raise ValueError(
             f"--train-batch-size {cfg.batch_size} must be divisible by "
-            f"processes * --grad-accum-steps = "
-            f"{world * cfg.grad_accum_steps}")
+            f"data*fsdp*grad_accum = {batch_ways * cfg.grad_accum_steps}")
     backend = f" ({ctx.backend})" if ctx.backend else ""
     log0(f"tpudist: {world} {device_kind(device)} "
          f"device(s), {world} process(es){backend}, model "
-         f"{cfg.model.name}, {cfg.dtype}")
+         f"{cfg.model.name}, {cfg.dtype}"
+         + (f", mesh data {sizes['data']} x fsdp {sizes['fsdp']}"
+            if mesh is not None else ""))
 
     with trace_lib.span("data_materialize", cat="data"):
         if cfg.model.name == "mlp":
@@ -164,7 +179,8 @@ def run(cfg: TrainConfig) -> float:
     # each process computes the loss on its own rows of the batch and the
     # step means the grads: for the MoE that is group-local routing, the
     # JAX package's shard_map DP semantics (tpudist/models/moe.py:34-41),
-    # not one process on the global batch
+    # not one process on the global batch. A process's batch shard is its
+    # position in ("data", "fsdp"), which under C order is its rank
     def epoch_plan(epoch):
         return data_lib.plan_epoch(sources, batch_size=cfg.batch_size,
                                    seed=cfg.seed, epoch=epoch,
@@ -172,10 +188,13 @@ def run(cfg: TrainConfig) -> float:
                                    process_count=world)
 
     with trace_lib.span("model_init", cat="init"):
-        state = engine_lib.init_state(cfg, device)
+        state = (engine_lib.init_state(cfg, device) if mesh is None
+                 else engine_lib.init_state(cfg, device, mesh))
     log0(f"tpudist: train state "
          f"{engine_lib.state_bytes_per_device(state) / 1e9:.3f} GB "
-         f"(params + Adam moments)")
+         f"(params + Adam moments"
+         + (f", this device's 1/{sizes['fsdp']} shards)" if mesh is not None
+            else ")"))
     metrics = MetricsLogger(path=os.path.join(cfg.save_dir, "metrics.jsonl"))
     # the run's identity and the launcher's requeue attempt stamp every
     # record, trace document, beacon and checkpoint index
@@ -223,7 +242,7 @@ def run(cfg: TrainConfig) -> float:
                 cfg, device, epoch_plan(0), mode=autotune_mode,
                 metrics=metrics, is_coordinator=ctx.is_coordinator,
                 state_bytes=engine_lib.state_bytes_per_device(state),
-                hbm_bytes=engine_lib._device_hbm_bytes(device))
+                hbm_bytes=engine_lib._device_hbm_bytes(device), mesh=mesh)
         cfg = outcome.cfg
         tuning_status = outcome.status
         t = outcome.tuned
@@ -235,7 +254,7 @@ def run(cfg: TrainConfig) -> float:
     budget_bytes = None
     superstep = train_step = None
     if k > 1:
-        superstep = engine_lib.make_superstep(cfg, device, k)
+        superstep = engine_lib.make_superstep(cfg, device, k, mesh)
         log0(f"tpudist: superstep dispatch k={k}"
              f"{' (auto)' if not cfg.steps_per_dispatch else ''}")
         # epochs over the budget stream in double-buffered slabs; the
@@ -251,7 +270,7 @@ def run(cfg: TrainConfig) -> float:
                  f"{budget_bytes / 2**20:.0f} MB (heuristic 4x-state "
                  f"margin)")
     else:
-        train_step = engine_lib.make_train_step(cfg, device)
+        train_step = engine_lib.make_train_step(cfg, device, mesh)
     staging = StagingStats()
     with trace_lib.span("setup", cat="init"):
         if cfg.model.name == "mlp":
@@ -262,7 +281,7 @@ def run(cfg: TrainConfig) -> float:
                 cfg.batch_size, cfg.model.max_seq_len + 1,
                 cfg.model.vocab_size, cfg.data.seed + 1),)
         eval_batch = data_lib.to_device(eval_src, device)
-        eval_fn = engine_lib.make_eval_fn(cfg, device)
+        eval_fn = engine_lib.make_eval_fn(cfg, device, mesh)
 
     # elastic resume (tpudist_torch.elastic.resume): the newest of the
     # committed sharded manifest and the orbax step directories; --resume
@@ -504,14 +523,18 @@ def run(cfg: TrainConfig) -> float:
     operands = (superstep if superstep is not None
                 else train_step).reduced_operands()
     if operands:
-        # the gradient mean's collective volume a step, from the
-        # operands engine.pmean reduced
+        # the step's collective volume, from the operands the step body
+        # noted: engine.pmean's all-reduces, and under FSDP the gathers
+        # and reduce-scatters too
         coll = devtime_lib.collective_bytes(operands)
         log0(f"tpudist: collectives {coll['n_collectives']} op(s)/step: "
              f"{coll['dcn_bytes_total']} B dcn, "
-             f"{coll['ici_bytes_total']} B ici (from engine.pmean's "
+             f"{coll['ici_bytes_total']} B ici (from the step body's "
              f"operands)")
-    devtime_status, dev_events = _ingest_devtime(win, ctx, metrics, coll)
+    devtime_status, dev_events = _ingest_devtime(
+        win, ctx, metrics, coll,
+        mesh if mesh is not None else mesh_lib.rank_grid(cfg.parallel,
+                                                         world))
     # the run-end pod export: every process writes trace.worker<i>.json,
     # the coordinator the merged pod_trace.json (a collective: the
     # success path, which every process reaches). Advisory: a failed
@@ -609,12 +632,13 @@ def _full_run_capture(cfg, process_index: int, device):
         log0(f"tpudist: profile -> {out}")
 
 
-def _ingest_devtime(win, ctx, metrics, coll):
+def _ingest_devtime(win, ctx, metrics, coll, mesh):
     """The ``--profile-window`` capture's compute / exposed-comm split:
-    the ``kind=devtime`` record, the ``devtime ...`` line, and the device
-    tracks for the pod trace on the tracer's clock. Returns
-    ``(comm_status, device events or None)``. Advisory: a malformed
-    capture logs a line and grades FAIL, never fails the run."""
+    the ``kind=devtime`` record (``axis_fabric``: the ``mesh``'s
+    ``mesh_fabrics``), the ``devtime ...`` line, and the device tracks
+    for the pod trace on the tracer's clock. Returns ``(comm_status,
+    device events or None)``. Advisory: a malformed capture logs a line
+    and grades FAIL, never fails the run."""
     if win is None or not win.captured:
         if win is not None and win.lost:
             log0(f"tpudist: devtime {verdict_lib.UNGATEABLE}: the capture "
@@ -624,10 +648,10 @@ def _ingest_devtime(win, ctx, metrics, coll):
         with trace_lib.span("devtime_ingest", cat="profile"):
             analysis = devtime_lib.analyze_capture(win.capture_dir)
         pod = analysis["pod"]
-        # the gradient all-reduce rides the data axis, within one slice:
-        # ICI, as the JAX package labels it
-        fabric = "ici"
-        fabrics = {"data": fabric} if ctx.process_count > 1 else {}
+        # fabric-graded: the gradient all-reduce rides the data axis,
+        # whose label the mesh gives (TPUDIST_SLICE_MAP scripts slices)
+        fabric = mesh_lib.data_fabric(mesh)
+        fabrics = mesh_lib.mesh_fabrics(mesh)
         status = verdict_lib.comm_status(pod["exposed_comm_frac"],
                                          fabric=fabric)
         events = devtime_lib.device_events(

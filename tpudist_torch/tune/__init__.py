@@ -36,6 +36,7 @@ from tpudist_torch import config as config_lib
 from tpudist_torch import verdict as verdict_lib
 from tpudist_torch.metrics import log0
 from tpudist_torch.parallel import distributed
+from tpudist_torch.parallel.mesh import AXIS_NAMES, resolve_axis_sizes
 from tpudist_torch.tune import cache as cache_mod
 from tpudist_torch.tune import probe as probe_mod
 from tpudist_torch.tune import search as search_mod
@@ -143,13 +144,15 @@ def autotune(cfg, device, plan, *, mode: str, metrics: Any = None,
              is_coordinator: bool = True, state_bytes: int = 0,
              hbm_bytes: Optional[float] = None,
              n_steps: Optional[int] = None,
-             repeats: int = probe_mod.DEFAULT_PROBE_REPEATS) -> TuneOutcome:
+             repeats: int = probe_mod.DEFAULT_PROBE_REPEATS,
+             mesh=None) -> TuneOutcome:
     """Resolve this run's operating point per ``mode`` (``probe`` |
     ``cache-only``): cache hit → committed with zero trials; miss under
     ``probe`` → measured search; miss under ``cache-only`` (or a probing
     failure) → the heuristics, honestly labeled. ``plan`` is epoch 0's
     :class:`~tpudist_torch.data.EpochPlan` — probes consume the run's own
-    first batches, so trial shapes are the real shapes."""
+    first batches, so trial shapes are the real shapes. ``mesh`` is the
+    run's sharded mesh (None: replicated), on which every trial runs."""
     start = _heuristic_candidate(cfg, state_bytes=state_bytes,
                                  hbm_bytes=hbm_bytes)
     cache_dir = config_lib.resolve_autotune_cache_dir(cfg)
@@ -203,7 +206,8 @@ def autotune(cfg, device, plan, *, mode: str, metrics: Any = None,
     try:
         outcome = _probe_search(cfg, device, plan, start,
                                 trials_budget=trials_budget,
-                                n_steps=probe_steps, repeats=repeats)
+                                n_steps=probe_steps, repeats=repeats,
+                                mesh=mesh)
     except Exception as e:
         # probing must never kill a run the heuristics could serve
         log0(f"tpudist: autotune probing failed ({e!r}); "
@@ -240,20 +244,24 @@ def autotune(cfg, device, plan, *, mode: str, metrics: Any = None,
 
 
 def _probe_search(cfg, device, plan, start: Candidate, *,
-                  trials_budget: int, n_steps: int,
-                  repeats: int) -> search_mod.SearchOutcome:
+                  trials_budget: int, n_steps: int, repeats: int,
+                  mesh=None) -> search_mod.SearchOutcome:
     """Wire the real probe into the coordinate search, memoised on the
     EFFECTIVE program key — budget candidates the probe epoch cannot
     tell apart (all full-epoch fast path at probe scale) share one
     trial instead of re-measuring the identical program."""
+    # the batch splits over data x fsdp: one process a position
     world = dist.get_world_size() if dist.is_initialized() else 1
+    sizes = dict(zip(AXIS_NAMES, resolve_axis_sizes(cfg.parallel, world)))
     axes = search_mod.build_space(
-        cfg, batch_ways=world, heuristic_budget_mb=start.staging_budget_mb)
+        cfg, batch_ways=sizes["data"] * sizes["fsdp"],
+        heuristic_budget_mb=start.staging_budget_mb)
     by_key: Dict[tuple, probe_mod.ProbeResult] = {}
 
     def raw_probe(cand: Candidate) -> probe_mod.ProbeResult:
         return _sync_result(probe_mod.probe_candidate(
-            cfg, device, cand, plan, n_steps=n_steps, repeats=repeats))
+            cfg, device, cand, plan, n_steps=n_steps, repeats=repeats,
+            mesh=mesh))
 
     def measure(cand: Candidate) -> probe_mod.ProbeResult:
         try:
@@ -276,7 +284,7 @@ def _probe_search(cfg, device, plan, start: Candidate, *,
     # the cold trial on the start candidate and discard it; uncounted
     # against the budget by design.
     probe_mod.probe_candidate(cfg, device, start, plan, n_steps=n_steps,
-                              repeats=1)
+                              repeats=1, mesh=mesh)
     out = search_mod.coordinate_search(start, axes, measure,
                                        trial_budget=trials_budget)
     if out.best != out.baseline:

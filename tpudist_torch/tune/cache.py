@@ -4,8 +4,8 @@ package's ``tpudist/tune/cache.py`` with the port's fingerprint.
 A tuned operating point is only valid for the exact situation it was
 measured in, so cache entries are keyed by a FINGERPRINT of everything
 that moves the curve: the model config, global batch, dtypes, the
-log/ckpt intervals (they bound the legal k space), the world size, the
-device's name, the torch and CUDA versions, the port's version and the
+log/ckpt intervals (they bound the legal k space), the world size and
+the mesh shape, the device's name, the torch and CUDA versions, the port's version and the
 source hash of its CUDA kernels (a changed kernel is a changed curve).
 Any of those changing is a different workload — the lookup MUST miss
 and re-probe.
@@ -65,6 +65,9 @@ def fingerprint(cfg, device: torch.device, *, world: Optional[int] = None,
         "log_every": cfg.log_every,
         "ckpt_every_steps": cfg.ckpt_every_steps,
         "world": int(world),
+        # the mesh's axis sizes as configured (data -1: the rest of the
+        # world), as the JAX cache key carries the mesh
+        "mesh": dataclasses.asdict(cfg.parallel),
         "device_kind": device_kind,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,

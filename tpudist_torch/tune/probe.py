@@ -91,8 +91,9 @@ class EpochRunner:
     releases the superstep's graphs."""
 
     def __init__(self, cfg, device, k: int, plan, n_steps: int, *,
-                 budget_bytes: Optional[int] = None):
+                 budget_bytes: Optional[int] = None, mesh=None):
         self.cfg, self.device, self.k = cfg, torch.device(device), int(k)
+        self.mesh = mesh
         self.n_steps = min(int(n_steps), plan.n_steps)
         if self.n_steps < 1:
             raise ValueError(f"probe needs >= 1 step, got {self.n_steps}")
@@ -102,14 +103,16 @@ class EpochRunner:
             # one host-side gather up front; the host-to-device copy
             # stays per-step
             self._host = plan.slab(0, self.n_steps)
-            self.dispatch_fn = engine.make_train_step(cfg, self.device)
+            self.dispatch_fn = engine.make_train_step(cfg, self.device,
+                                                      mesh)
             self.splan = None
         else:
             self.splan = staging.plan_slabs(
                 self.n_steps, self.k,
                 staging.step_bytes(plan.arrays, plan.local_batch),
                 budget_bytes)
-            self.superstep = engine.make_superstep(cfg, self.device, self.k)
+            self.superstep = engine.make_superstep(cfg, self.device, self.k,
+                                                   mesh)
             self.dispatch_fn = self.superstep
             self._stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
@@ -117,7 +120,7 @@ class EpochRunner:
     def init_state(self):
         """A fresh TrainState from the seed (the run's own state and
         generators are never touched)."""
-        return engine.init_state(self.cfg, self.device)
+        return engine.init_state(self.cfg, self.device, self.mesh)
 
     def run_epoch(self, state) -> Tuple[Any, Any]:
         """Dispatch one epoch; returns ``(state, last_loss)`` with the
@@ -246,7 +249,8 @@ def release_memory(device) -> None:
 
 def probe_candidate(cfg, device, candidate, plan, *,
                     n_steps: int = DEFAULT_PROBE_STEPS,
-                    repeats: int = DEFAULT_PROBE_REPEATS) -> ProbeResult:
+                    repeats: int = DEFAULT_PROBE_REPEATS,
+                    mesh=None) -> ProbeResult:
     """Run one candidate's measured trial; never raises — any failure
     (OOM, a failed capture, an infeasible slab plan, a build error)
     comes back as a pruned ``feasible=False`` result carrying the error
@@ -265,7 +269,7 @@ def probe_candidate(cfg, device, candidate, plan, *,
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         runner = EpochRunner(pcfg, device, candidate.k, plan, n,
-                             budget_bytes=budget)
+                             budget_bytes=budget, mesh=mesh)
         # the trial's state is not kept: its memory goes back below
         with trace_lib.span("probe_trial", cat="tune", k=candidate.k,
                             remat=candidate.remat,

@@ -2,9 +2,9 @@
 knob space: a copy of ``tpudist/tune/search.py`` (pure Python), with the
 port's ``SUPERSTEP_CAP`` and ``TrainConfig``.
 
-The port trains data-parallel with one all-reduce after the backward,
-and refuses the overlap plane's flags (``--grad-overlap``,
-``--cross-slice``, ``--pipeline-interleave``: ROADMAP Queue A item 8),
+The port trains on the data x fsdp mesh, its gradient reduced after the
+backward, and refuses the overlap plane's flags (``--grad-overlap``,
+``--cross-slice``, ``--pipeline-interleave``: ROADMAP Queue A item 8b),
 so :func:`build_space` leaves their three axes empty and
 :meth:`Candidate.apply` folds only the four knobs the port carries.
 :class:`Candidate` keeps every field, so cache records have the JAX
@@ -157,7 +157,7 @@ def build_space(cfg: TrainConfig, *, batch_ways: int = 1,
       estimate exists at all.
     * ``grad_bucket_mb``, ``cross_slice``, ``pipeline_interleave``:
       empty (the JAX package opens them on a bucketed, multi-slice or
-      pipeline mesh; the port refuses those, ROADMAP Queue A item 8).
+      pipeline mesh; the port refuses those, ROADMAP Queue A item 8b).
     * ``remat``: both settings for layered models; the mlp has no layers
       to checkpoint.
     * ``grad_accum_steps``: {1, 2, 4} filtered to divide the per-shard
