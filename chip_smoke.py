@@ -455,7 +455,9 @@ def check_flash(torch, fa, F):
     for dt in ("bfloat16", "float32"):
         shapes += [(8, 512, 16, 16, 128, dt, True, True),
                    (8, 512, 16, 4, 128, dt, False, dt == "bfloat16"),
-                   (8, 512, 16, 8, 256, dt, True, True)]
+                   (8, 512, 16, 8, 256, dt, True, True),
+                   # phase 21: config #5's heads on one of 4 tensor ranks
+                   (8, 512, 4, 4, 128, dt, True, True)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     bad = []
@@ -506,15 +508,16 @@ def check_flash(torch, fa, F):
 
     # the main paths' shapes: serving prefill (b1 s512, no RoPE), the
     # drill's prefill (phase 16: b1 s128, no RoPE), the training slice
-    # (b8 s2048, RoPE in the kernel) and phase 9 (b8 s512 bf16, RoPE in
-    # the kernel)
+    # (b8 s2048, RoPE in the kernel), phase 9 (b8 s512 bf16, RoPE in
+    # the kernel) and phase 21's tensor rank of 4 (b8 s512 h4 f32)
     rows = []
     few = dict(warmup=1, runs=5, inner=2)
     for (b, s, h, kv, hd, dt, rope) in (
             (1, 512, 16, 16, 128, "float32", False),
             (1, 128, 16, 16, 128, "float32", False),
             (8, 2048, 16, 16, 128, "float32", True),
-            (8, 512, 16, 16, 128, "bfloat16", True)):
+            (8, 512, 16, 16, 128, "bfloat16", True),
+            (8, 512, 4, 4, 128, "float32", True)):
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, s, n, hd, device="cuda",
                                generator=gen).to(dtype)
@@ -642,6 +645,9 @@ def check_flash_bwd(torch, fa):
         shapes += [(4, 128, 128, 8, 2, 128, dt, True, True),
                    (4, 256, 256, 8, 8, 128, dt, True, True),
                    (4, 512, 256, 8, 4, 128, dt, False, False)]
+    for dt in ("float32", "bfloat16"):       # phase 21: 1 of 4 tensor ranks
+        shapes += [(8, 512, 512, 4, 4, 128, dt, True, True),
+                   (8, 2048, 2048, 4, 4, 128, dt, True, True)]
     shapes.append((8, 2048, 2048, 16, 16, 128, "float32", True,
                    True))                                    # slice
     for dt in ("float32", "bfloat16"):                      # phases 6, 9
@@ -687,7 +693,8 @@ def check_flash_bwd(torch, fa):
               f"{'' if ok else '  FAIL'}")
         if not ok:
             bad.append(name)
-        if b == 8:   # the slice's shapes: each kernel's own outputs
+        # the slice's shapes: each kernel's own outputs
+        if b == 8 and h == 16:
             outputs = {"dq": (0,), "dkv": (1, 2), "dqkv": (0, 1, 2)}
             for kname in ran:
                 slice_err[kname, dt] = max(abs_errs[i]
@@ -1442,7 +1449,8 @@ def _step_line(run, per_step: int, unit: str = "tokens") -> str:
 
 
 def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
-                n_samples: int, extra=(), hbm_bytes=None, want_head=None):
+                n_samples: int, extra=(), hbm_bytes=None, want_head=None,
+                details=None):
     """Phases 5, 6, 8 and 9, the path ``tag``: ``python -m
     tpudist_torch.train`` (its ``main``) on the card at full width:
     BASELINE config #5, global batch 8, seed 42, f32 and ``--lm-head
@@ -1450,7 +1458,8 @@ def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
     (``TPUDIST_HBM_BYTES``), and the resolved head must be ``want_head``
     when given. The launch counts are set to 0 just before and read just
     after; the stdout contract, a falling loss, the verdict file and the
-    exact launch counts are checked. Returns the counts."""
+    exact launch counts are checked. Returns the counts; ``details``
+    gets the step losses (phase 21b's reference)."""
     from tpudist_torch import config as config_lib
     from tpudist_torch import engine as engine_lib
 
@@ -1492,6 +1501,8 @@ def train_slice(torch, fa, fx, tag: str, seq: int, epochs: int,
     print(f"train {tag}: kernel launches {counts} (want {want})")
     if counts != want:
         fail(f"train {tag}: kernel launches {counts}, want {want}")
+    if details is not None:
+        details["losses"] = losses
     return counts
 
 
@@ -4753,6 +4764,377 @@ def fsdp_cli(torch, fa, card: str):
     return paths
 
 
+# ------------------------------------------ phase 21: tensor parallelism
+
+# phase 6's configuration: config #5, s512, f32; its auto head resolves
+# to the plain one on the card, which splits over tensor (vocab-parallel)
+TP_ARGV = ["--model", "transformer", "--seq-len", "512",
+           "--train-batch-size", "8", "--lm-head", "plain", "--seed", "42"]
+TP_PATHS = ("train_tp_body", "train_tp_superstep")
+# phase 6's CLI flags (train_slice's at seq 512, 32 samples, 1 epoch)
+PHASE6_ARGV = ["--model", "transformer", "--seq-len", "512",
+               "--train-batch-size", "8", "--n-samples", "32", "--epochs",
+               "1", "--seed", "42", "--log-every", "1"]
+TP_MOE_ARGV = [*MOE_MODEL, "--seq-len", "512", "--train-batch-size", "8",
+               "--n-samples", "32", "--epochs", "1", "--seed", "42",
+               "--log-every", "1", "--lm-head", "plain", "--lr", "1e-3"]
+TP_CLI_PATHS = ("train_seq512_tp", "train_seq512_fsdp2_tp2",
+                "train_moe_f32_one", "train_moe_tp")
+
+
+def _tp_body_rank(port, queue):
+    """Phase 21a in a process of its own: a one-rank NCCL group and its
+    mesh, with the mesh's one-rank tensor group handed to the layout, so
+    the step runs the tensor-parallel path (the Megatron operators'
+    all-reduces, the vocab-parallel lookup and head with their
+    cross-rank lse) with every collective issued. The replicated body 4
+    steps; the tensor-parallel body 8 steps and an eval, bitwise the
+    replicated one after 4; then as a k = 4 superstep over the same 8
+    steps, bitwise its per-step run. Launch counts set to 0 just before
+    each tensor-parallel run and read just after."""
+    import torch
+
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.obs import devtime as devtime_lib
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+    from tpudist_torch.parallel import distributed
+    from tpudist_torch.parallel import mesh as mesh_lib
+    from tpudist_torch.parallel import tensor as tensor_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    dev = ctx.device
+    cfg = config_lib.parse_args(TP_ARGV)
+    mesh = mesh_lib.build_mesh(cfg.parallel, device_type="cuda")
+    tokens = data_lib.make_synthetic_tokens(
+        64, cfg.model.max_seq_len + 1, cfg.model.vocab_size, cfg.seed)
+    slab, = data_lib.plan_epoch((tokens,), batch_size=cfg.batch_size,
+                                seed=cfg.seed, epoch=0).slab(0, 8)
+    slab = torch.as_tensor(slab, device=dev).long()       # (8, 8, 513)
+    # the vocab-parallel head's calls: its logits' shape
+    heads, xent = [], tensor_lib._VocabParallelXent.apply
+
+    def spy(logits, *rest):
+        heads.append(tuple(logits.shape))
+        return xent(logits, *rest)
+    tensor_lib._VocabParallelXent.apply = spy
+
+    def leaves(state):
+        return [t.detach().clone() for t in (
+            *state.params.parameters(), *state.opt_state.mu,
+            *state.opt_state.nu)]
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    def steps(step, state, lo, hi):
+        losses, ms = [], []
+        for i in range(lo, hi):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, (slab[i],))
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, ms
+
+    def tp_state():
+        state = engine_lib.init_state(cfg, dev, mesh)
+        state.layout.tensor_group = mesh.get_group("tensor")
+        return state
+
+    out = {"rank": 0, "world": ctx.process_count,
+           "mesh": mesh_lib.mesh_shape(mesh)}
+    state, out["dp_losses"], out["dp_ms"] = steps(
+        engine_lib.make_train_step(cfg, dev),
+        engine_lib.init_state(cfg, dev), 0, 4)
+    dp4 = leaves(state)
+    del state
+    torch.cuda.empty_cache()
+
+    state = tp_state()
+    step = engine_lib.make_train_step(cfg, dev, mesh)
+    ev = engine_lib.make_eval_fn(cfg, dev, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches(fa, fx)
+    heads.clear()
+    state, losses4, ms4 = steps(step, state, 0, 4)
+    out["same4"] = same(leaves(state), dp4) and losses4 == out["dp_losses"]
+    state, losses8, ms8 = steps(step, state, 4, 8)
+    out["eval"] = ev(state, (slab[0],)).item()
+    torch.cuda.synchronize()
+    out["counts"] = _launch_counts(fa, fx)
+    out["heads"] = sorted(set(heads))
+    out["n_heads"] = len(heads)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["losses"], out["ms"] = losses4 + losses8, ms4 + ms8
+    out["ops"] = devtime_lib.collective_bytes(step.reduced_operands())
+    out["n_all_reduce"] = sum(op == "all_reduce"
+                              for op, _, _ in step.reduced_operands())
+    per_step = leaves(state)
+    del state, dp4
+    torch.cuda.empty_cache()
+
+    state = tp_state()
+    sup = engine_lib.make_superstep(cfg, dev, 4, mesh)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches(fa, fx)
+    sup_losses = []
+    for w in range(2):
+        t0 = time.perf_counter()
+        state, total, losses = sup(state, total, (slab[4 * w:4 * w + 4],),
+                                   0, 4)
+        sup_losses += losses.tolist()
+        out[f"window{w}_s"] = time.perf_counter() - t0
+    sup_eval = ev(state, (slab[0],)).item()
+    torch.cuda.synchronize()
+    out["sup_counts"] = _path_launches(fa, fx, [sup])
+    out["sup_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["graphs"] = (sup.programs, dict(sup.replays))
+    out["pool_mb"] = sup.graph_pool_bytes / 2**20
+    out["sup_same"] = (same(leaves(state), per_step)
+                       and sup_losses == out["losses"]
+                       and sup_eval == out["eval"])
+    out["sup_losses"] = sup_losses
+    sup.release()
+    del state, per_step
+    distributed.shutdown()
+    queue.put(out)
+
+
+def tp_body(torch, fa, card: str):
+    """Phase 21a (one card): :func:`_tp_body_rank` in a spawned process.
+    Fails unless the tensor-parallel body is bitwise the replicated one
+    after 4 steps, its k = 4 superstep bitwise its per-step run (2
+    programs, one replay: the operators' collectives captured), both
+    runs' launches exact, the head vocab-parallel on every loss, and the
+    step's all-reduces those of the tensor path (per layer two operator
+    exits forward and two entries backward; the lookup's exit, the head's
+    entry and its lse max, exp sum and gold logit; the three norms' and
+    the loss's means). Prints the collective rows, the peak memory and
+    the step times. Returns the two paths' launches."""
+    from tpudist_torch import config as config_lib
+
+    t0 = time.perf_counter()
+    cfg = config_lib.parse_args(TP_ARGV)
+    m = cfg.model
+    (r,) = _spawn(_tp_body_rank, [(_free_port(),)], 600, "train tp body")
+    want = want_launches(fa, m, 512, 8, 1, fused=False)
+    print(f"train tp body: V{m.vocab_size} L{m.n_layers} d{m.d_model} "
+          f"h{m.n_heads} {cfg.dtype}, plain head (vocab-parallel), batch "
+          f"8, mesh {r['mesh']} ({r['world']} NCCL rank) with its tensor "
+          f"group; {card}")
+    print(f"train tp body: replicated losses {r['dp_losses']}; tensor "
+          f"path {r['losses']}; bitwise after 4 steps (losses, params, "
+          f"mu, nu): {r['same4']}")
+    dp_ms, ms = statistics.median(r["dp_ms"][1:]), statistics.median(
+        r["ms"][1:])
+    print(f"train tp body: step {ms:.3f} ms on the tensor path against "
+          f"{dp_ms:.3f} replicated (medians after the first, host clock "
+          f"fenced a step); peak device memory {r['peak_gb']:.3f} GB, "
+          f"superstep {r['sup_peak_gb']:.3f} GB (graph pool "
+          f"{r['pool_mb']:.1f} MB)")
+    for row in r["ops"]["ops"]:
+        print(f"train tp body: collective {row['op']} {row['dtype']} "
+              f"{row['bytes']} B x {row['count']} a step")
+    print(f"train tp body: superstep k=4 losses {r['sup_losses']}, eval "
+          f"{r['eval']}, bitwise its per-step run: {r['sup_same']}; "
+          f"(programs, replays) {r['graphs']}; windows "
+          f"{r['window0_s']:.3f} s (eager + captures), "
+          f"{r['window1_s']:.3f} s (replayed)")
+    print(f"train tp body: vocab-parallel head logits {r['heads']} on "
+          f"{r['n_heads']} losses; kernel launches {r['counts']}, "
+          f"superstep {r['sup_counts']} (want {want})")
+    if not r["same4"]:
+        fail("train tp body: the tensor path is not bitwise the "
+             "replicated body after 4 steps")
+    if not r["sup_same"]:
+        fail("train tp body: the tensor path's superstep is not bitwise "
+             "its per-step run")
+    if r["graphs"] != (2, {"superstep": 1, "step": 0}):
+        fail(f"train tp body: (programs, replays) {r['graphs']}")
+    if r["heads"] != [(8, 512, m.vocab_size)] or r["n_heads"] != 9:
+        fail(f"train tp body: the vocab-parallel head ran {r['n_heads']} "
+             f"times at {r['heads']}")
+    want_ar = 4 * m.n_layers + 9
+    if r["n_all_reduce"] != want_ar:
+        fail(f"train tp body: {r['n_all_reduce']} all-reduces a step, "
+             f"the tensor path issues {want_ar}")
+    for tag, counts in zip(TP_PATHS, (r["counts"], r["sup_counts"])):
+        if counts != want:
+            fail(f"train tp body: {tag} kernel launches {counts}, want "
+                 f"{want}")
+    print(f"train tp body: phase 21a {time.perf_counter() - t0:.1f} s")
+    return dict(zip(TP_PATHS, (r["counts"], r["sup_counts"])))
+
+
+def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int):
+    """The train CLI at ``argv`` as one NCCL process a visible card
+    (``_dp_train_rank``): every verdict ``success``, the contract on rank
+    0 alone, and each rank's launches exactly one process's (the tensor
+    ranks run every layer on their heads). Returns the step losses, the
+    timing record, each rank's record and the launches summed."""
+    from tpudist_torch import config as config_lib
+
+    world = torch.cuda.device_count()
+    save = ROOT / "build" / "chip_smoke_train" / tag
+    shutil.rmtree(save, ignore_errors=True)
+    argv = argv + ["--save-dir", str(save)]
+    cfg = config_lib.parse_args(argv)
+    verdict = save / "job_status.txt"
+    port = _free_port()
+    ranks = _spawn(_dp_train_rank,
+                   [(r, world, port, argv, str(verdict))
+                    for r in range(world)], 420, f"train {tag}")
+    recs = [json.loads(ln) for ln in
+            (save / "metrics.jsonl").read_text().splitlines()]
+    timing = [r for r in recs if r["kind"] == "timing"]
+    losses = [r["loss"] for r in recs if r["kind"] == "step"]
+    statuses = [verdict.read_text() if verdict.is_file() else None] + [
+        (save / f"job_status.txt.worker{r}").read_text()
+        if (save / f"job_status.txt.worker{r}").is_file() else None
+        for r in range(world)]
+    shutil.rmtree(save, ignore_errors=True)
+    if [r["rc"] for r in ranks] != [0] * world or not timing \
+            or statuses != ["success"] * (world + 1):
+        fail(f"train {tag}: exit codes {[r['rc'] for r in ranks]}, final "
+             f"and worker verdicts {statuses}")
+    out = ranks[0]["out"]
+    check_contract(tag, out, cfg.epochs, losses)
+    for r in ranks[1:]:
+        if "Epoch" in r["out"] or "Training completed." in r["out"]:
+            fail(f"train {tag}: rank {r['rank']} printed the contract")
+    want = want_launches(fa, cfg.model, seq, cfg.epochs * (
+        cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=False)
+    total = dict.fromkeys(want, 0)
+    for r in ranks:
+        if r["counts"] != want:
+            fail(f"train {tag}: rank {r['rank']} kernel launches "
+                 f"{r['counts']}, want {want}")
+        for k, v in r["counts"].items():
+            total[k] += v
+    t = timing[-1]
+    print(f"train {tag}: {world} NCCL processes, step losses {losses}; "
+          f"verdicts {statuses}; step {1e3 * t['run_s'] / t['steps']:.2f} "
+          f"ms (over {t['steps']} steps after the first); "
+          f"{t['model_flops_per_step']} flops a step a rank; rank walls "
+          f"{[round(r['wall'], 2) for r in ranks]} s; peak device memory "
+          f"by rank {[round(r['peak_gb'], 3) for r in ranks]} GB; each "
+          f"rank's launches {want}; {card}")
+    for line in out.splitlines():
+        if line.startswith("tpudist: collectives"):
+            print(f"train {tag}: rank 0's {line[len('tpudist: '):]}")
+    return {"losses": losses, "timing": t, "ranks": ranks, "counts": total,
+            "cfg": cfg}
+
+
+def _tp_bytes(tag: str, run, whole: int) -> None:
+    """Each rank's params and optimizer-state bytes against the whole
+    (replicated) state's; fails unless a rank's params are below half
+    the whole."""
+    for r in run["ranks"]:
+        print(f"train {tag}: rank {r['rank']} params "
+              f"{r['params_bytes'] / 2**20:.1f} MiB against "
+              f"{whole / 2**20:.1f} replicated, optimizer state "
+              f"{r['opt_bytes'] / 2**20:.1f} MiB against "
+              f"{2 * whole / 2**20:.1f}")
+        if not r["params_bytes"] < whole / 2:
+            fail(f"train {tag}: rank {r['rank']}'s params are not split")
+
+
+def _tp_close(tag: str, got, want) -> None:
+    err = max((abs(x - y) - FSDP_RTOL * abs(y) for x, y in zip(got, want)),
+              default=math.inf)
+    print(f"train {tag}: losses {got} against {want}")
+    if len(got) != len(want) or err > FSDP_ATOL:
+        fail(f"train {tag}: the losses are not within rtol {FSDP_RTOL} / "
+             f"atol {FSDP_ATOL} of the reference's")
+
+
+def _whole_bytes(argv) -> int:
+    """The f32 params' bytes of ``argv``'s model, whole."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch.models import get_model
+
+    m = config_lib.parse_args(argv).model
+    shapes = get_model(m.name)._layer_shapes(m).values()
+    return 4 * (m.vocab_size * m.d_model + m.d_model
+                + sum(math.prod(sh) for sh in shapes))
+
+
+def tp_cli(torch, fa, fx, card: str, phase6_losses):
+    """Phase 21b (two cards or more): the train CLI at one NCCL process a
+    card. ``--tensor <cards>`` (data 1) at phase 6's flags, held to phase
+    6's one-card step losses (this run's) at rtol 2e-3 / atol 2e-4; with
+    four cards or a multiple, ``--fsdp 2 --tensor 2`` held to the same;
+    then bench.py's MoE row in f32 (``TP_MOE_ARGV``) on one card and at
+    ``--tensor <cards>``, held to it. Every verdict ``success``, exact
+    launches on every rank, each rank's flop count the closed form's
+    tensor part (the MoE's router, dispatch and combine whole on every
+    rank), each rank's params and optimizer bytes against replicated.
+    Returns the paths' launches."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch.models import moe as moe_lib
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    paths = {}
+    whole = _whole_bytes(PHASE6_ARGV)
+    m = config_lib.parse_args(PHASE6_ARGV).model
+    runs = [("train_seq512_tp", ["--tensor", str(world)], world)]
+    if world % 4 == 0:
+        runs.append(("train_seq512_fsdp2_tp2", ["--fsdp", "2", "--tensor",
+                                                "2"], 2))
+    for tag, extra, tensor in runs:
+        run = _mesh_cli(torch, fa, card, tag, PHASE6_ARGV + extra, 512)
+        if "--lm-head auto -> plain" not in run["ranks"][0]["out"]:
+            fail(f"train {tag}: the auto head did not resolve to plain")
+        _tp_close(tag, run["losses"], phase6_losses)
+        batch = 8 // (world // tensor)
+        want = step_flops(m, batch, 512) // tensor
+        if run["timing"]["model_flops_per_step"] != want:
+            fail(f"train {tag}: {run['timing']['model_flops_per_step']} "
+                 f"flops a step a rank, the closed form's 1/{tensor} of "
+                 f"batch {batch}'s is {want}")
+        _tp_bytes(tag, run, whole)
+        paths[tag] = run["counts"]
+
+    one = _cli_run(torch, fa, fx, TP_CLI_PATHS[2], TP_MOE_ARGV)
+    one_losses = [r["loss"] for r in one["recs"] if r["kind"] == "step"]
+    check_contract(TP_CLI_PATHS[2], one["out"], 1, one_losses)
+    print(f"train {TP_CLI_PATHS[2]}: one card, step losses {one_losses}; "
+          + _step_line(one, 8 * 512))
+    paths[TP_CLI_PATHS[2]] = one["counts"]
+    run = _mesh_cli(torch, fa, card, TP_CLI_PATHS[3],
+                    TP_MOE_ARGV + ["--tensor", str(world)], 512)
+    _tp_close(TP_CLI_PATHS[3], run["losses"], one_losses)
+    mm = run["cfg"].model
+    t = 8 * 512
+    g = moe_lib.group_size(mm, t)
+    cap = moe_lib.capacity(mm, g)
+    E, k, d = mm.n_experts, mm.expert_top_k, mm.d_model
+    rows = (t // g) * E * cap
+    want = (step_flops(dataclasses.replace(mm, d_ff=0), 8, 512) // world
+            + mm.n_layers * (6 * t * d * E + 18 * rows * d * mm.d_ff // world
+                             + 10 * t * E * cap * d + 6 * t * E * k * cap))
+    print(f"train {TP_CLI_PATHS[3]}: {run['timing']['model_flops_per_step']}"
+          f" flops a step a rank (closed form {want}; the whole step's "
+          f"{moe_step_flops(mm, 8, 512)})")
+    if run["timing"]["model_flops_per_step"] != want:
+        fail(f"train {TP_CLI_PATHS[3]}: flops a step a rank "
+             f"{run['timing']['model_flops_per_step']}, want {want}")
+    _tp_bytes(TP_CLI_PATHS[3], run, _whole_bytes(TP_MOE_ARGV))
+    paths[TP_CLI_PATHS[3]] = run["counts"]
+    print(f"train tp cli: phase 21b {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def plain_attention(torch, fa):
     """Attention through the plain versions on the card, forward and
     backward: the reference the step-level check holds the kernels
@@ -5115,6 +5497,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of the serve "
                          "slice")
+    ap.add_argument("--only-tp", action="store_true",
+                    help="phases 1-2, phase 6 (21b's reference) and "
+                         "phase 21 alone: tensor parallelism on the "
+                         "visible cards")
     args = ap.parse_args()
 
     import torch
@@ -5140,6 +5526,8 @@ def main() -> int:
 
     # phase 2: build every kernel of the paths from the checkout
     build_all(build, fa, fx)
+    if args.only_tp:
+        return only_tp(torch, fa, fx, card)
 
     # phase 3: kernels vs plain versions, timings
     fwd = check_flash(torch, fa, F)
@@ -5148,7 +5536,7 @@ def main() -> int:
 
     # phases 4-6 and 8-9: the serving paths and the training paths at
     # full width, each with the launch counts set to 0 just before
-    paths = {}
+    paths, phase6 = {}, {}
     engine, params, base, paths["serve"] = serve_slice(torch, fa, fx,
                                                        args.profile)
     # phase 4b: overload on the same graph engine
@@ -5157,7 +5545,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for tag, seq, epochs, kw in (
             ("train_seq2048", 2048, 2, {}),
-            ("train_seq512", 512, 1, {}),
+            ("train_seq512", 512, 1, {"details": phase6}),
             # phase 8: the fused head at the slice's shape
             ("train_seq2048_fused", 2048, 1,
              dict(extra=("--lm-head", "fused"), want_head="fused")),
@@ -5255,6 +5643,16 @@ def main() -> int:
     paths.update(fsdp_body(torch, fa, card))
     if torch.cuda.device_count() >= 2:
         paths.update(fsdp_cli(torch, fa, card))
+
+    # phase 21: tensor parallelism: (a) the tensor path's step body and
+    # its superstep on a one-rank NCCL mesh against the replicated body,
+    # (b) with two cards or more, the train CLI with --tensor <cards>
+    # (and --fsdp 2 --tensor 2) held to phase 6's losses, and the MoE at
+    # --tensor <cards> held to its one-card run
+    torch.cuda.empty_cache()
+    paths.update(tp_body(torch, fa, card))
+    if torch.cuda.device_count() >= 2:
+        paths.update(tp_cli(torch, fa, fx, card, phase6["losses"]))
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -5282,7 +5680,9 @@ def main() -> int:
                                             TRAIN_DRILL_PATH,
                                             *MOE_TRAIN_PATHS,
                                             *OBS_LIVE_PATHS[:2],
-                                            *FSDP_PATHS),
+                                            *FSDP_PATHS, *TP_PATHS,
+                                            *(p for p in TP_CLI_PATHS
+                                              if p in paths)),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
@@ -5306,6 +5706,35 @@ def main() -> int:
 
     print(card)
     print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_tp(torch, fa, fx, card: str) -> int:
+    """``--only-tp``: phase 3's kernel checks, phase 6's run (phase 21b's
+    reference), then phase 21 on the visible cards, then the result
+    line."""
+    import torch.nn.functional as F
+
+    # phase 3's checks, rows 1-4 at a tensor rank's heads among them
+    check_flash(torch, fa, F)
+    check_flash_bwd(torch, fa)
+    phase6 = {}
+    paths = {"train_seq512": train_slice(torch, fa, fx, "train_seq512", 512,
+                                         epochs=1, n_samples=32,
+                                         details=phase6)}
+    torch.cuda.empty_cache()
+    paths.update(tp_body(torch, fa, card))
+    if torch.cuda.device_count() >= 2:
+        paths.update(tp_cli(torch, fa, fx, card, phase6["losses"]))
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dqkv"):
+        missing = [p for p in paths if paths[p].get(name, 0) < 1]
+        if missing:
+            fail(f"{name} launched no time on {missing}")
+    print(json.dumps({"launches": paths}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

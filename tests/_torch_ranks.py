@@ -1,14 +1,18 @@
 """Run a Python snippet as the ranks of one gloo job under the env
 contract (``TPUDIST_COORDINATOR`` / ``TPUDIST_NUM_PROCESSES`` /
-``TPUDIST_PROCESS_ID``): a helper of the port's FSDP tests, which holds
-no test itself.
+``TPUDIST_PROCESS_ID``), or the train CLI as the processes of one: a
+helper of the port's FSDP and tensor-parallel tests, which holds no test
+itself.
 
 Each rank runs ``PRELUDE`` (JAX made unimportable, one CPU thread, the
 process group joined through ``tpudist_torch.parallel.distributed``;
 ``RANK``, ``WORLD`` and ``ARGS`` defined), then the snippet, then leaves
-the group.
+the group. A CLI process runs ``CHILD`` on the JAX package's
+permutations, init and (for the MLP) data, which
+:func:`jax_cli_reference` writes.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -69,3 +73,109 @@ def start_ranks(code: str, world: int, *args):
         assert [p.returncode for p in procs] == [0] * world, outs
         return outs
     return wait
+
+
+# one process of the train CLI: argv[1] an .npz of the JAX package's
+# permutations, init and (for the MLP) data, the rest its flags; the token
+# data is numpy on both sides
+CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "optax", "orbax", "tpudist"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tpudist_torch import data, train
+from tpudist_torch.models import mlp, moe, transformer
+
+ref, argv = sys.argv[1], sys.argv[2:]
+a = dict(np.load(ref))
+if "x" in a:
+    data.reference_data = lambda n, f, seed: (
+        (a["x"], a["y"]) if n == len(a["x"]) else (a["ex"], a["ey"]))
+data.reference_permutation = lambda seed, epoch, n: a[f"perm{epoch}"]
+
+
+def carried(init):
+    def carried_init(cfg, *, generator):
+        model = init(cfg, generator=generator)
+        model.load_state_dict({k[6:]: torch.from_numpy(v) for k, v in
+                               a.items() if k.startswith("param.")})
+        return model
+    return carried_init
+for module in (mlp, transformer, moe):
+    module.init = carried(module.init)
+sys.exit(train.main(argv))
+"""
+
+
+def launch_cli(tmp, argv, nprocs, ref):
+    """``nprocs`` processes of the train CLI (:data:`CHILD` on ``ref``)
+    with ``argv``, saving under ``tmp/ck``; returns their ``wait(timeout=
+    150) -> (exit codes, outputs)``."""
+    os.makedirs(tmp, exist_ok=True)
+    port = free_port()
+    procs = []
+    for rank in range(nprocs):
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   TPUDIST_VERDICT_PATH=os.path.join(tmp, "job_status.txt"))
+        if nprocs > 1:
+            env.update(TPUDIST_COORDINATOR=f"localhost:{port}",
+                       TPUDIST_NUM_PROCESSES=str(nprocs),
+                       TPUDIST_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", CHILD, ref, *argv, "--device", "cpu",
+             "--save-dir", os.path.join(tmp, "ck")], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def wait(timeout=150):
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        return [p.returncode for p in procs], outs
+    return wait
+
+
+def records(tmp, kind):
+    """The ``kind`` records of a CLI run's ``metrics.jsonl``."""
+    return [r for r in (json.loads(line) for line in open(
+        os.path.join(tmp, "ck", "metrics.jsonl"))) if r["kind"] == kind]
+
+
+def verdicts(tmp, nprocs):
+    """A CLI run's aggregated verdict and each worker's."""
+    read = lambda name: open(os.path.join(tmp, name)).read()  # noqa: E731
+    return read("job_status.txt"), [read(f"job_status.txt.worker{r}")
+                                    for r in range(nprocs)]
+
+
+def jax_cli_reference(path, argv):
+    """The JAX package's permutations and init for ``argv``, and its
+    data for the MLP, in an .npz (JAX imported here: the ranks and CLI
+    processes never import it)."""
+    import jax
+    import numpy as np
+    from tpudist import config as jconfig
+    from tpudist import data as jdata
+    from tpudist.models import mlp as jmlp
+    from tpudist.models import moe as jmoe
+    from tpudist.models import transformer as jtf
+    from tpudist_torch import convert
+    cfg = jconfig.parse_args(argv)
+    n, f, seed = cfg.data.n_samples, cfg.data.n_features, cfg.data.seed
+    arrays = {}
+    if cfg.model.name == "mlp":
+        x, y = jdata.make_synthetic_data(n, f, seed)
+        ex, ey = jdata.make_synthetic_data(cfg.batch_size, f, seed + 1)
+        arrays.update(x=x, y=y, ex=ex, ey=ey)
+    for e in range(cfg.epochs):
+        arrays[f"perm{e}"] = jdata.epoch_permutation(cfg.seed, e, n)
+    model = {"mlp": jmlp, "transformer": jtf, "moe": jmoe}[cfg.model.name]
+    params = model.init(jax.random.PRNGKey(cfg.seed), cfg.model)
+    for k, v in convert.params_from_jax(jax.device_get(params)).items():
+        arrays[f"param.{k}"] = v.numpy()
+    np.savez(path, **{k: np.asarray(v) for k, v in arrays.items()})

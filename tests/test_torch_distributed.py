@@ -341,13 +341,15 @@ def test_epoch_shards_match_jax(process_count, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tensor", "2"], ["--context", "2"], ["--pipe", "2"],
-    ["--expert", "2"],
+    ["--tensor", "2", "--context", "2"], ["--context", "2"],
+    ["--pipe", "2"], ["--expert", "2"],
 ])
 def test_other_mesh_axes_stay_refused(flag):
+    # --tensor is carried (the first case is refused for its context)
+    tconfig.check_supported(tconfig.parse_args(["--tensor", "2"]))
     with pytest.raises(ValueError,
-                       match="data x fsdp mesh only.*ROADMAP Queue A "
-                             "item 8b$"):
+                       match="data x fsdp x tensor mesh only.*ROADMAP "
+                             "Queue A item 8b$"):
         tconfig.check_supported(tconfig.parse_args(flag))
 
 

@@ -4,17 +4,20 @@ tpudist_torch.train --fsdp``.
 
 * The step body on four gloo ranks, at fsdp 4 and at data 2 x fsdp 2
   (``--grad-accum-steps 2``), for the MLP and a tiny transformer, and at
-  fsdp 4 for a tiny MoE (routing groups of a rank's tokens), from
-  the JAX package's initial params on its global batches: each step's
-  loss and the final params within rtol 2e-3 / atol 2e-4
-  (``tests/test_fsdp.py:51``) of the replicated body at four ranks and
-  of the JAX package's step at the same mesh on four virtual CPU
-  devices.
+  fsdp 4 for a tiny MoE (routing over the global batch, its aux loss's
+  sums all-reduced over the ranks), from the JAX package's initial
+  params on its global batches: each step's loss and the final params
+  within rtol 2e-3 / atol 2e-4 (``tests/test_fsdp.py:51``) of the JAX
+  package's step at the same mesh on four virtual CPU devices, and of
+  the replicated body at four ranks (the MoE's losses only: that body
+  routes each rank's rows). A MoE routing group that would cross ranks
+  (``--moe-group-size 128`` at fsdp 4, 64 tokens a rank) is refused
+  before a step.
 * The CLI at two gloo processes with ``--fsdp 2`` (template
   ``tests/test_multiprocess.py:87-95``), on the JAX package's
   permutations and init (and its data for the MLP; the token data is
   numpy on both sides), through ``tpudist_torch/data.py``'s hooks: the
-  MLP, the transformer and the MoE (routing groups of a rank's tokens)
+  MLP, the transformer and the MoE (routing over the global batch)
   within the tolerance of one process's epochs and of the JAX CLI's at
   ``--fsdp 2``; the contract on rank 0, every verdict ``success``, the
   mesh and the shards in the log, the collectives in ``kind=devtime``'s
@@ -23,24 +26,22 @@ tpudist_torch.train --fsdp``.
 """
 
 import json
-import os
 import re
-import subprocess
-import sys
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from _torch_ranks import REPO, free_port, start_ranks
+from _torch_ranks import jax_cli_reference as _jax_reference
+from _torch_ranks import launch_cli as _launch
+from _torch_ranks import records as _records
+from _torch_ranks import start_ranks
+from _torch_ranks import verdicts as _verdicts
 from tpudist import config as jconfig
 from tpudist import data as jdata
 from tpudist import engine as jengine
 from tpudist import train as jtrain
-from tpudist.models import mlp as jmlp
-from tpudist.models import moe as jmoe
-from tpudist.models import transformer as jtf
 from tpudist.parallel import build_mesh
 from tpudist_torch import convert
 
@@ -68,8 +69,7 @@ BODY_RUNS = {
     "tf_f4": TF + ["--lr", "1e-2", "--fsdp", "4"],
     "tf_d2f2": TF + ["--lr", "1e-2", "--fsdp", "2",
                      "--grad-accum-steps", "2"],
-    # routing groups of a rank's 64 tokens: the JAX package's groups of
-    # the global batch are then the ranks' shards
+    # routing groups of 64 tokens, a rank's share of the global batch
     "moe_dp": MOE + ["--lr", "1e-2"],
     "moe_f4": MOE + ["--lr", "1e-2", "--fsdp", "4"],
 }
@@ -181,20 +181,48 @@ def test_sharded_body_matches_dp_and_jax_on_four_ranks(body_runs, tag):
                                rtol=RTOL, atol=ATOL)
     assert set(mine["params"]) == set(want[tag]["params"])
     for name, t in mine["params"].items():
-        np.testing.assert_allclose(t.numpy(), dp["params"][name].numpy(),
-                                   rtol=RTOL, atol=ATOL, err_msg=name)
-        if tag.startswith("moe"):
-            # the JAX package's jit+shardings step takes the router's aux
-            # loss over the global batch, the port (as the JAX DP path)
-            # over each rank's: the losses agree (above), and Adam's
-            # normalised step turns the aux grads' small difference into
-            # up to lr where a grad is near 0, so the params are held to
-            # the replicated body's only
-            continue
+        if not tag.startswith("moe"):
+            # the replicated MoE body routes and takes its aux loss over
+            # each rank's rows (the JAX package's DP path); the sharded
+            # one over the global batch, as the JAX step at the same mesh
+            np.testing.assert_allclose(
+                t.numpy(), dp["params"][name].numpy(), rtol=RTOL,
+                atol=ATOL, err_msg=name)
         np.testing.assert_allclose(t.numpy(), want[tag]["params"][name],
                                    rtol=RTOL, atol=ATOL, err_msg=name)
     # the params moved
     assert mine["losses"][-1] < mine["losses"][0]
+
+
+def test_moe_group_across_ranks_is_refused_before_a_step():
+    """The JAX package routes the global batch of 256 tokens in groups of
+    128; at fsdp 4 a rank holds 64 of them, so a group would cross two
+    ranks. The port refuses the shape before a step (the train step,
+    the superstep and the eval alike), naming the global group, the
+    rank's tokens and ``--moe-group-size``."""
+    from tpudist_torch import config as tconfig
+    from tpudist_torch import engine as tengine
+    from tpudist_torch.parallel import mesh as tmesh
+    argv = MOE + ["--fsdp", "4", "--train-batch-size", str(BATCH),
+                  "--device", "cpu"]
+    argv[argv.index("--moe-group-size") + 1] = "128"
+    cfg = tconfig.parse_args(argv)
+    grid = tmesh.rank_grid(cfg.parallel, 4)
+    cpu = torch.device("cpu")
+    for make in (lambda: tengine.make_train_step(cfg, cpu, grid),
+                 lambda: tengine.make_superstep(cfg, cpu, 2, grid),
+                 lambda: tengine.make_eval_fn(cfg, cpu, grid)):
+        with pytest.raises(ValueError) as e:
+            make()
+        msg = str(e.value)
+        assert "global batch of 256 tokens in groups of 128" in msg
+        assert "--moe-group-size 128" in msg
+        assert "a rank's 64 tokens" in msg
+    # the JAX package's groups at the same mesh are 128 tokens: the
+    # shape the port refuses is one the reference routes differently
+    from tpudist.models import moe as jmoe_
+    jm = jconfig.parse_args(argv[:-2]).model
+    assert jmoe_.group_size(jm, BATCH * 16) == 128
 
 
 # ---------------------------------------------------- the CLI, 2 ranks
@@ -207,98 +235,6 @@ TF_CLI = TF[:-2] + ["--epochs", "1", "--n-samples", "32",
 MOE_CLI = MOE + ["--epochs", "1", "--n-samples", "32",
                  "--train-batch-size", "8", "--log-every", "2",
                  "--steps-per-dispatch", "1", "--seed", "3"]
-
-# one process of the train CLI: argv[1] an .npz of the JAX package's
-# permutations, init and (for the MLP) data, the rest its flags; the token
-# data is numpy on both sides
-CHILD = r"""
-import sys
-for name in ("jax", "jaxlib", "optax", "orbax", "tpudist"):
-    sys.modules[name] = None
-import numpy as np
-import torch
-torch.set_num_threads(1)
-from tpudist_torch import data, train
-from tpudist_torch.models import mlp, moe, transformer
-
-ref, argv = sys.argv[1], sys.argv[2:]
-a = dict(np.load(ref))
-if "x" in a:
-    data.reference_data = lambda n, f, seed: (
-        (a["x"], a["y"]) if n == len(a["x"]) else (a["ex"], a["ey"]))
-data.reference_permutation = lambda seed, epoch, n: a[f"perm{epoch}"]
-
-
-def carried(init):
-    def carried_init(cfg, *, generator):
-        model = init(cfg, generator=generator)
-        model.load_state_dict({k[6:]: torch.from_numpy(v) for k, v in
-                               a.items() if k.startswith("param.")})
-        return model
-    return carried_init
-for module in (mlp, transformer, moe):
-    module.init = carried(module.init)
-sys.exit(train.main(argv))
-"""
-
-
-def _launch(tmp, argv, nprocs, ref):
-    os.makedirs(tmp, exist_ok=True)
-    port = free_port()
-    procs = []
-    for rank in range(nprocs):
-        env = dict(os.environ, OMP_NUM_THREADS="1",
-                   TPUDIST_VERDICT_PATH=os.path.join(tmp, "job_status.txt"))
-        if nprocs > 1:
-            env.update(TPUDIST_COORDINATOR=f"localhost:{port}",
-                       TPUDIST_NUM_PROCESSES=str(nprocs),
-                       TPUDIST_PROCESS_ID=str(rank))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", CHILD, ref, *argv, "--device", "cpu",
-             "--save-dir", os.path.join(tmp, "ck")], cwd=REPO, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-
-    def wait(timeout=150):
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=timeout)[0])
-        finally:
-            for p in procs:
-                p.kill()
-        return [p.returncode for p in procs], outs
-    return wait
-
-
-def _records(tmp, kind):
-    return [r for r in (json.loads(line) for line in open(
-        os.path.join(tmp, "ck", "metrics.jsonl"))) if r["kind"] == kind]
-
-
-def _verdicts(tmp, nprocs):
-    read = lambda name: open(os.path.join(tmp, name)).read()  # noqa: E731
-    return read("job_status.txt"), [read(f"job_status.txt.worker{r}")
-                                    for r in range(nprocs)]
-
-
-def _jax_reference(path, argv):
-    """The JAX package's permutations and init for ``argv``, and its
-    data for the MLP, in an .npz."""
-    cfg = jconfig.parse_args(argv)
-    n, f, seed = cfg.data.n_samples, cfg.data.n_features, cfg.data.seed
-    arrays = {}
-    if cfg.model.name == "mlp":
-        x, y = jdata.make_synthetic_data(n, f, seed)
-        ex, ey = jdata.make_synthetic_data(cfg.batch_size, f, seed + 1)
-        arrays.update(x=x, y=y, ex=ex, ey=ey)
-    for e in range(cfg.epochs):
-        arrays[f"perm{e}"] = jdata.epoch_permutation(cfg.seed, e, n)
-    model = {"mlp": jmlp, "transformer": jtf, "moe": jmoe}[cfg.model.name]
-    params = model.init(jax.random.PRNGKey(cfg.seed), cfg.model)
-    for k, v in convert.params_from_jax(jax.device_get(params)).items():
-        arrays[f"param.{k}"] = v.numpy()
-    np.savez(path, **{k: np.asarray(v) for k, v in arrays.items()})
-
 
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
@@ -393,8 +329,8 @@ def test_transformer_fsdp2_superstep_is_bitwise_its_per_step_run(cli_runs):
 def test_moe_fsdp2_matches_one_process_and_jax(cli_runs):
     """Routing groups of 64 tokens: a rank's shard of a step (4 x 16
     tokens) at fsdp 2, half of one process's batch and of the JAX
-    package's global one, so all three route the same groups (the JAX
-    step's aux loss over the global batch is within the tolerance)."""
+    package's global one, so all three route the same groups and take
+    the aux loss over the global batch."""
     root, done = cli_runs
     f2, dp = (_records(str(root / d), "step") for d in ("moe_f2", "moe1"))
     assert len(f2) == len(dp) == 2

@@ -210,12 +210,13 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
 
 
 @pytest.mark.parametrize("flag", [
-    # fsdp trains since the port carried it; an axis beside it does not
-    ["--fsdp", "2", "--tensor", "2"], ["--tensor", "2"], ["--context", "2"],
-    ["--pipe", "2"],
+    # fsdp and tensor train since the port carried them; an axis beside
+    # them does not
+    ["--fsdp", "2", "--tensor", "2", "--context", "2"],
+    ["--tensor", "2", "--pipe", "2"], ["--context", "2"], ["--pipe", "2"],
     # the MoE trains since the port carried it; its expert axis does not
     ["--expert", "2"], ["--model", "moe", "--expert", "2"],
-    ["--tensor", "4"],
+    ["--tensor", "4", "--expert", "2"],
     # the live bus trains since the port carried it; a mesh axis under
     # it is still refused
     ["--live", "on", "--fsdp", "2", "--context", "2"],

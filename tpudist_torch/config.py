@@ -258,13 +258,13 @@ def check_supported(cfg: TrainConfig) -> None:
     """Refuse what this slice of the port does not carry, naming the
     ROADMAP item (Queue A) that brings it."""
     p = cfg.parallel
-    axes = {"pipe": p.pipe, "expert": p.expert, "tensor": p.tensor,
-            "context": p.context}
+    axes = {"pipe": p.pipe, "expert": p.expert, "context": p.context}
     wide = {k: v for k, v in axes.items() if v != 1}
     if wide:
         raise ValueError(
-            f"mesh axes {wide}: the port trains on the data x fsdp mesh "
-            f"only; the other axes come with ROADMAP Queue A item 8b")
+            f"mesh axes {wide}: the port trains on the data x fsdp x "
+            f"tensor mesh only; the other axes come with ROADMAP Queue A "
+            f"item 8b")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):

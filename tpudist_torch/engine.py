@@ -2,7 +2,8 @@
 superstep, eval.
 
 Counterpart of ``tpudist/engine.py``: its replicated data-parallel path
-(``--grad-overlap off``) and its sharded path on a ``data x fsdp`` mesh.
+(``--grad-overlap off``) and its sharded path on a ``data x fsdp x
+tensor`` mesh.
 The JAX package's state is a pytree and its step a compiled pure
 function; here the params are an ``nn.Module``, the step runs eagerly,
 and the optimizer updates the params and its moments in place (one copy
@@ -14,12 +15,16 @@ the step means the gradients and the loss over the processes with an
 explicit all-reduce after the whole backward: the collective under test.
 
 With a mesh (:func:`init_state`'s ``mesh``; the train CLI passes one when
-``--fsdp`` > 1) each process keeps 1/fsdp of every param whose spec
-divides (the models' ``param_specs``), and Adam's moments in the same
+``--fsdp`` or ``--tensor`` > 1) each process keeps its shard of every
+param whose spec divides (the models' ``param_specs``: 1/fsdp, and
+1/tensor of the Megatron-split weights), and Adam's moments in the same
 layout (:class:`ShardLayout`, ZeRO-style as ``tpudist/engine.py:355-395``
 lays them out). The step gathers each shard over the fsdp group before
 the forward and reduce-scatters its gradient after the backward
-(:class:`_GatherShard`), as XLA's partitioner does for the JAX package.
+(:class:`_GatherShard`), as XLA's partitioner does for the JAX package;
+a tensor shard stays resident, and the models compute their tensor
+parts with the operators GSPMD would insert
+(:mod:`tpudist_torch.parallel.tensor`).
 
 One step body serves per-step dispatch (:func:`make_train_step`) and the
 k-step superstep (:func:`make_superstep`). It reads Adam's per-step
@@ -53,6 +58,7 @@ from tpudist_torch.ops.cuda import flash_attention as _fa
 from tpudist_torch.ops.cuda import fused_xent as _fx
 from tpudist_torch.parallel import mesh as mesh_lib
 from tpudist_torch.parallel import sharding as shd
+from tpudist_torch.parallel import tensor as tensor_lib
 
 
 @dataclass
@@ -351,20 +357,55 @@ _AUTO_HEAD_LOGGED: set = set()
 
 def make_loss_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
                  mesh=None) -> Callable:
-    """(params, batch) -> scalar loss, for the configured model; batch is
-    a tuple of device tensors ((x, y) for the MLP, (tokens,) for the
-    sequence models: the transformer and the MoE)."""
+    """(params, batch, groups=None) -> scalar loss, for the configured
+    model; batch is a tuple of device tensors ((x, y) for the MLP,
+    (tokens,) for the sequence models: the transformer and the MoE).
+    ``groups`` (:class:`tensor_lib.StepGroups`) is the sharded step's:
+    the MoE then routes over the global batch, and under tensor
+    parallelism the models compute their tensor parts. ``plain_head``
+    says whether the LM head is the plain whole-logits one (the one the
+    vocab splits over ``tensor``)."""
     model = get_model(cfg.model.name)
     dt = _compute_dtype(cfg)
     if cfg.model.name == "mlp":
-        return functools.partial(model.loss_fn, dtype=dt)
+        def mlp_loss(params, batch, groups=None):
+            # no tensor dim (tpudist/models/mlp.py:48-57): replicated over
+            # tensor, whole on every rank
+            return model.loss_fn(params, batch, dtype=dt)
+        mlp_loss.plain_head = False
+        return mlp_loss
     fused_xent, xent_chunks = _resolve_lm_head(cfg, device, mesh)
 
-    def loss(params, batch):
+    def loss(params, batch, groups=None):
         return model.loss_fn(params, batch[0], cfg.model, dtype=dt,
                              remat=cfg.remat, xent_chunks=xent_chunks,
-                             fused_xent=fused_xent)
+                             fused_xent=fused_xent, groups=groups)
+    loss.plain_head = not (fused_xent or xent_chunks)
     return loss
+
+
+def check_moe_routing(cfg: TrainConfig, mesh, rows: int,
+                       n_accum: int = 1) -> None:
+    """Refuse, before a step, a batch of ``rows`` (in ``n_accum``
+    microbatches) that the MoE could not route over the global batch on
+    ``mesh``, as the JAX package's jit+shardings step does: a routing
+    group must lie inside one rank's tokens
+    (:func:`tpudist_torch.models.moe.global_group_size`), and the
+    microbatches of a batch split over several ranks are not the JAX
+    package's global ones."""
+    if cfg.model.name != "moe":
+        return
+    sizes = mesh_lib.mesh_shape(mesh)
+    ways = sizes.get("data", 1) * sizes.get("fsdp", 1)
+    if ways > 1 and n_accum > 1:
+        raise ValueError(
+            f"--grad-accum-steps {n_accum} with the MoE on a mesh that "
+            f"splits the batch {ways} ways: each rank's microbatches are "
+            f"not slices of the global microbatches the MoE routes over")
+    seq = cfg.model.max_seq_len
+    micro = rows // n_accum
+    get_model("moe").global_group_size(cfg.model, micro * seq,
+                                       micro // ways * seq)
 
 
 # --------------------------------------------------------- the layout
@@ -413,14 +454,20 @@ def scatter_dim(full: torch.Tensor, dim: int, ways: int,
 
 @dataclass
 class ShardLayout:
-    """How the params lie on a ``data x fsdp`` mesh, Adam's ``mu`` and
-    ``nu`` alike: param ``i`` (``names[i]``, whole shape ``shapes[i]``)
-    is split ``fsdp`` ways along ``dims[i]``, this process keeping shard
-    ``fsdp_index``, or is whole on every process (``dims[i]`` None).
-    ``owners[i]`` is the lowest rank that holds this process's shard of
-    param ``i``: the one that writes it to a checkpoint. ``reduced``
-    collects the ``(op, dtype, bytes)`` of each collective the step
-    issues."""
+    """How the params lie on a ``data x fsdp x tensor`` mesh, Adam's
+    ``mu`` and ``nu`` alike: param ``i`` (``names[i]``, whole shape
+    ``shapes[i]``) is split as its sanitized spec ``specs[i]`` says,
+    ``fsdp`` ways along ``dims[i]`` and ``tensor`` ways along
+    ``tdims[i]`` (None: not split over that axis), this process keeping
+    the shard at its mesh coordinates; a dim split over a tuple of axes
+    takes them in the spec's order, the last varying fastest (the
+    embedding's ``(fsdp, tensor)``: chunk ``fsdp_index * tensor +
+    tensor_index``, as JAX places it). ``owners[i]`` is the lowest rank
+    that holds this process's shard of param ``i``: the one that writes
+    it to a checkpoint. ``tensor_group`` is None unless tensor
+    parallelism is on; ``batch_group`` is the ``data x fsdp`` ranks'
+    group (None: the world). ``reduced`` collects the ``(op, dtype,
+    bytes)`` of each collective the step issues."""
 
     names: List[str]
     shapes: List[Tuple[int, ...]]
@@ -432,15 +479,26 @@ class ShardLayout:
     fsdp_group: object = None
     data_group: object = None
     reduced: List[tuple] = field(default_factory=list)
+    specs: List[tuple] = field(default_factory=list)
+    tdims: List[Optional[int]] = field(default_factory=list)
+    tensor: int = 1
+    tensor_index: int = 0
+    tensor_group: object = None
+    batch_group: object = None
+    # each mesh axis's (size, this process's index)
+    coords: Dict[str, Tuple[int, int]] = field(default_factory=dict)
 
     def span(self, i: int) -> Tuple[Tuple[int, int], ...]:
         """This process's region of param ``i``: per dim ``(start,
         stop)``."""
         out = [(0, n) for n in self.shapes[i]]
-        d = self.dims[i]
-        if d is not None:
-            n = self.shapes[i][d] // self.fsdp
-            out[d] = (self.fsdp_index * n, (self.fsdp_index + 1) * n)
+        for d, entry in enumerate(self.specs[i]):
+            ways, index = 1, 0
+            for a in shd.spec_axes(entry):
+                size, at = self.coords[a]
+                ways, index = ways * size, index * size + at
+            n = self.shapes[i][d] // ways
+            out[d] = (index * n, (index + 1) * n)
         return tuple(out)
 
     def shard(self, i: int, whole: torch.Tensor) -> torch.Tensor:
@@ -450,38 +508,78 @@ class ShardLayout:
     def note(self, op: str, t: torch.Tensor) -> None:
         self.reduced.append((op, t.dtype, t.numel() * t.element_size()))
 
+    @property
+    def batch(self) -> int:
+        """The ranks a batch splits over: data x fsdp."""
+        return self.data * self.fsdp
 
-def make_layout(cfg: TrainConfig, mesh,
-                shapes: Dict[str, Tuple[int, ...]]) -> ShardLayout:
+    def step_groups(self, vocab_parallel: bool = False
+                    ) -> tensor_lib.StepGroups:
+        """What the step's loss reads of the mesh
+        (:class:`tensor_lib.StepGroups`), noting into ``reduced``."""
+        return tensor_lib.StepGroups(
+            tensor=self.tensor, tensor_index=self.tensor_index,
+            tensor_group=self.tensor_group, batch=self.batch,
+            batch_group=self.batch_group,
+            vocab_parallel=vocab_parallel and self.tensor_group is not None,
+            reduced=self.reduced)
+
+
+def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
+                rank: Optional[int] = None) -> ShardLayout:
     """The model's ``param_specs``, sanitized on ``mesh`` for the params'
     whole ``shapes`` (by ``state_dict`` name, in ``named_parameters``
-    order), as this process's :class:`ShardLayout`. Only the data and
-    fsdp axes may be wider than 1."""
+    order), as the :class:`ShardLayout` of ``rank`` (this process's by
+    default). Only the data, fsdp and tensor axes may be wider than
+    1."""
     sizes = mesh_lib.mesh_shape(mesh)
     wide = {a: n for a, n in sizes.items()
-            if n > 1 and a not in ("data", "fsdp")}
+            if n > 1 and a not in ("data", "fsdp", "tensor")}
     if wide:
         raise ValueError(f"mesh axes {wide}: the sharded step body runs "
-                         f"on the data x fsdp mesh only")
+                         f"on the data x fsdp x tensor mesh only")
+    if sizes["tensor"] > 1 and cfg.model.name != "mlp" \
+            and cfg.model.n_heads < sizes["tensor"]:
+        raise ValueError(f"--tensor {sizes['tensor']} over "
+                         f"{cfg.model.n_heads} heads: every tensor rank "
+                         f"computes at least one head")
     model = get_model(cfg.model.name)
     specs = shd.sanitize_specs(shapes, model.param_specs(cfg.model), mesh)
     names = list(shapes)
-    dims = [shd.sharded_dim(specs[n]) for n in names]
     devs = mesh_lib.mesh_devices(mesh)
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    coord = [int(c[0]) for c in np.nonzero(devs == rank)]
-    fsdp_axis = list(mesh.mesh_dim_names).index("fsdp")
-    # the lowest rank of each fsdp position: the writer of that shard
-    holders = int(np.take(devs, coord[fsdp_axis], axis=fsdp_axis).min())
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    at = [int(c[0]) for c in np.nonzero(devs == rank)]
+    axes = list(mesh.mesh_dim_names)
+    coords = {a: (devs.shape[k], at[k]) for k, a in enumerate(axes)}
+
+    def owner(spec) -> int:
+        # the lowest rank at this process's place along the spec's axes:
+        # the writer of that shard
+        mine = np.ones(devs.shape, dtype=bool)
+        for a in {a for e in spec for a in shd.spec_axes(e)}:
+            k = axes.index(a)
+            idx = np.arange(devs.shape[k]).reshape(
+                [-1 if j == k else 1 for j in range(devs.ndim)])
+            mine &= idx == at[k]
+        return int(devs[mine].min())
+
     group = getattr(mesh, "get_group", None)
+    tp = sizes["tensor"] > 1 and group is not None
     return ShardLayout(
         names=names, shapes=[shapes[n] for n in names],
-        dims=dims, fsdp=sizes["fsdp"], fsdp_index=coord[fsdp_axis],
-        data=sizes["data"],
-        owners=[holders if d is not None else int(devs.min())
-                for d in dims],
+        dims=[shd.sharded_dim(specs[n]) for n in names],
+        fsdp=sizes["fsdp"], fsdp_index=coords["fsdp"][1],
+        data=sizes["data"], owners=[owner(specs[n]) for n in names],
         fsdp_group=group("fsdp") if group else None,
-        data_group=group("data") if group else None)
+        data_group=group("data") if group else None,
+        specs=[specs[n] for n in names],
+        tdims=[shd.sharded_dim(specs[n], "tensor") for n in names],
+        tensor=sizes["tensor"], tensor_index=coords["tensor"][1],
+        tensor_group=group("tensor") if tp else None,
+        batch_group=(mesh_lib.axes_group(mesh, ("data", "fsdp")) if tp
+                     else None),
+        coords=coords)
 
 
 def param_regions(state: TrainState) -> List[tuple]:
@@ -554,37 +652,102 @@ def _swapped(params: nn.Module, tensors: Sequence[torch.Tensor]):
 
 
 class _GatherShard(torch.autograd.Function):
-    """Forward: a param's whole value gathered from its fsdp shards
-    (:func:`gather_dim`). Backward: the whole gradient reduce-scattered
-    (summed) over the fsdp group, summed over the data group, divided by
-    data x fsdp: the mean over every batch shard, landing on the
-    shard."""
+    """Forward: a param's value gathered from its shards along each of
+    its ``steps`` in turn (``(dim, ways, group, grad, index)``, the
+    innermost axis of a dim first: :func:`gather_dim`). Backward: the
+    mirror image, each step's part of the gradient reduce-scattered
+    (summed: ``grad`` "sum", :func:`scatter_dim`) onto the shard, or cut
+    to it (``grad`` "slice": every rank of that group computed the same
+    whole gradient, which counts once)."""
 
     @staticmethod
-    def forward(ctx, shard, dim: int, layout: ShardLayout):
-        ctx.dim, ctx.layout = dim, layout
-        full = gather_dim(shard, dim, layout.fsdp, layout.fsdp_group)
-        layout.note("all_gather", full)
+    def forward(ctx, shard, steps, layout: ShardLayout):
+        ctx.steps, ctx.layout = steps, layout
+        full = shard
+        for dim, ways, group, _, _ in steps:
+            full = gather_dim(full, dim, ways, group)
+            layout.note("all_gather", full)
         return full
 
     @staticmethod
     def backward(ctx, g):
-        lay = ctx.layout
-        lay.note("reduce_scatter", g)
-        out = scatter_dim(g, ctx.dim, lay.fsdp, lay.fsdp_group)
-        if lay.data > 1:
-            lay.note("all_reduce", out)
-            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=lay.data_group)
-        out.div_(lay.data * lay.fsdp)
-        return out, None, None
+        for dim, ways, group, grad, index in reversed(ctx.steps):
+            if grad == "sum":
+                ctx.layout.note("reduce_scatter", g)
+                g = scatter_dim(g, dim, ways, group)
+            else:
+                n = g.shape[dim] // ways
+                g = g.narrow(dim, index * n, n).clone(
+                    memory_format=torch.contiguous_format)
+        return g, None, None
+
+
+def _gather_steps(lay: ShardLayout, i: int, role: str = "partial"):
+    """Param ``i``'s gathers (:class:`_GatherShard`'s ``steps``): over
+    fsdp wherever its spec splits it; over tensor too unless its
+    ``role`` (:func:`tensor_lib.roles`) keeps the tensor shard resident
+    or tensor parallelism is off; the grad of a ``replicated`` param cut
+    to its tensor shard, not summed."""
+    out = []
+    for d, entry in enumerate(lay.specs[i]):
+        for a in reversed(shd.spec_axes(entry)):
+            if a == "fsdp":
+                out.append((d, lay.fsdp, lay.fsdp_group, "sum",
+                            lay.fsdp_index))
+            elif (a == "tensor" and lay.tensor_group is not None
+                  and role != "resident"):
+                out.append((d, lay.tensor, lay.tensor_group,
+                            "sum" if role == "partial" else "slice",
+                            lay.tensor_index))
+    return out
+
+
+def _gathered(state: TrainState, roles: Sequence[str]
+              ) -> List[torch.Tensor]:
+    """Every param as the step computes with it: gathered (differentiably,
+    into its shard) as :func:`_gather_steps` says for its role."""
+    lay = state.layout
+    out = []
+    for i, p in enumerate(state.params.parameters()):
+        steps = _gather_steps(lay, i, roles[i])
+        out.append(_GatherShard.apply(p, steps, lay) if steps else p)
+    return out
 
 
 def gather_params(state: TrainState) -> List[torch.Tensor]:
-    """Every param whole: the sharded ones gathered (differentiably, into
-    their shards), the replicated ones as they are."""
-    lay = state.layout
-    return [p if d is None else _GatherShard.apply(p, d, lay)
-            for p, d in zip(state.params.parameters(), lay.dims)]
+    """Every param whole: the sharded ones gathered over every axis that
+    splits them (differentiably, into their shards), the replicated ones
+    as they are."""
+    return _gathered(state, ["partial"] * len(state.layout.names))
+
+
+def _step_roles(cfg: TrainConfig, loss_fn, lay: ShardLayout):
+    """The sharded step's :class:`tensor_lib.StepGroups` and each
+    param's role in it: the plain head (and with it the lookup) is
+    vocab-parallel where tensor divides the vocab, as the JAX package
+    pins the head's logits to ``P(("data", "fsdp"), None, "tensor")``
+    (``tpudist/engine.py:318-328``)."""
+    groups = lay.step_groups(loss_fn.plain_head
+                             and cfg.model.vocab_size % lay.tensor == 0)
+    roles = tensor_lib.roles(lay.names, [d is not None for d in lay.tdims],
+                             cfg.model, lay.tensor, groups.vocab_parallel)
+    return groups, roles
+
+
+def _batch_rows(lay: ShardLayout, batch):
+    """This process's rows of a global ``batch``: its place among the
+    data x fsdp ranks (the tensor ranks of one place share them)."""
+    place = lay.coords["data"][1] * lay.fsdp + lay.fsdp_index
+    return tuple(x.reshape(lay.batch, x.shape[0] // lay.batch,
+                           *x.shape[1:])[place] for x in batch)
+
+
+def _batch_mean(lay: ShardLayout, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the data x fsdp ranks and divided by their
+    count, in place (``lax.pmean`` over the batch axes)."""
+    lay.note("all_reduce", t)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=lay.batch_group)
+    return t.div_(lay.batch)
 
 
 def _microbatch(loss_fn, params: nn.Module, batch, n_accum: int,
@@ -641,6 +804,7 @@ def _build_step_body(cfg: TrainConfig,
     loss_fn = make_loss_fn(cfg, device, mesh)
     tx = make_optimizer(cfg)
     if mesh is not None:
+        check_moe_routing(cfg, mesh, cfg.batch_size, cfg.grad_accum_steps)
         return _sharded_step_body(cfg, loss_fn, tx), tx
     data_parallel = dist.is_initialized()
     reduced: List[Tuple[torch.dtype, int]] = []
@@ -667,39 +831,55 @@ def _build_step_body(cfg: TrainConfig,
 def _sharded_step_body(cfg: TrainConfig, loss_fn: Callable,
                        tx: Adam) -> Callable:
     """The step body on a sharded state (``state.layout``), the JAX
-    package's jit+shardings body on a ``data x fsdp`` mesh: every shard
-    gathered over its fsdp group (:func:`gather_params`), the loss and
-    the grads of the whole params over this process's batch shard (its
-    ``--grad-accum-steps`` microbatches summed first), then ONE backward
-    through the gathers: each grad reduce-scattered onto its shard,
-    summed over data and divided by data x fsdp; the replicated params'
-    grads and the loss all-reduced over the processes and divided by
-    their count (``lax.pmean`` over data x fsdp). Adam updates the shards
-    and their moments in place. ``body.reduced`` is the layout's list
-    of the step's collectives, ``(op, dtype, bytes)`` each."""
+    package's jit+shardings body on a ``data x fsdp x tensor`` mesh:
+    every shard gathered over its fsdp group, and over its tensor group
+    unless the rank computes with its tensor shard (:func:`_step_roles`,
+    :func:`_gathered`); the loss and the grads over this process's batch
+    shard (its ``--grad-accum-steps`` microbatches summed first), the
+    models computing their tensor parts with the Megatron operators of
+    :mod:`tpudist_torch.parallel.tensor` and the MoE routing over the
+    global batch; then ONE backward through the gathers, each grad
+    reduce-scattered onto its shard. A grad that is a partial over
+    tensor and whose param is whole over it is all-reduced over tensor.
+    Then each grad is summed over the rest of data x fsdp (over data for
+    an fsdp-split param, over data x fsdp for the others) and divided by
+    data x fsdp, the loss likewise (``lax.pmean`` over the batch axes):
+    never summed over tensor. Adam updates the shards and their moments
+    in place. ``body.reduced`` is the layout's list of the step's
+    collectives, ``(op, dtype, bytes)`` each."""
     reduced: List[tuple] = []
 
     def body(state: TrainState, batch, count, c1, c2):
         lay = state.layout
         lay.reduced = reduced
         reduced.clear()
+        groups, roles = _step_roles(cfg, loss_fn, lay)
         shards = list(state.params.parameters())
-        full = gather_params(state)
+        full = _gathered(state, roles)
         with _swapped(state.params, full):
-            loss, grads = _microbatch(loss_fn, state.params, batch,
-                                      cfg.grad_accum_steps, wrt=full)
-        cut = [i for i, d in enumerate(lay.dims) if d is not None]
+            loss, grads = _microbatch(
+                functools.partial(loss_fn, groups=groups), state.params,
+                batch, cfg.grad_accum_steps, wrt=full)
+        cut = [i for i, (f, s) in enumerate(zip(full, shards)) if f is not s]
         if cut:
             scattered = torch.autograd.grad([full[i] for i in cut],
                                             [shards[i] for i in cut],
                                             [grads[i] for i in cut])
             for i, g in zip(cut, scattered):
                 grads[i] = g
-        world = dist.get_world_size()
-        for t in [g for g, d in zip(grads, lay.dims) if d is None] + [loss]:
-            lay.note("all_reduce", t)
-            dist.all_reduce(t, op=dist.ReduceOp.SUM)
-            t.div_(world)
+        for i, g in enumerate(grads):
+            if (roles[i] == "partial" and lay.tdims[i] is None
+                    and groups.tp):
+                groups.tensor_sum(g)
+            if lay.dims[i] is None:
+                _batch_mean(lay, g)
+                continue
+            if lay.data > 1:
+                lay.note("all_reduce", g)
+                dist.all_reduce(g, op=dist.ReduceOp.SUM,
+                                group=lay.data_group)
+            g.div_(lay.data * lay.fsdp)
+        _batch_mean(lay, loss)
         tx.apply(grads, state.opt_state, shards, count, c1, c2)
         return loss
     body.reduced = reduced
@@ -992,32 +1172,34 @@ def make_eval_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
     over the GLOBAL ``batch``: with a process group up, each process
     evaluates its contiguous slice of it (as the JAX package shards the
     eval batch over the data and fsdp axes; a process's place among them
-    is its rank) and the mean comes back from an all-reduce, the same on
-    every process. A sharded state is gathered for it first."""
+    is its rank, or its data x fsdp place on a mesh, whose tensor ranks
+    share a slice) and the mean comes back from an all-reduce, the same
+    on every process. A sharded state is gathered for it as the step
+    gathers it, and the loss computed as the step computes it."""
     loss_fn = make_loss_fn(cfg, device, mesh)
+    if mesh is not None:
+        check_moe_routing(cfg, mesh, cfg.batch_size)
     data_parallel = dist.is_initialized()
 
     @torch.no_grad()
     def ev(state: TrainState, batch):
-        if state.layout is not None:
+        lay = state.layout
+        if lay is not None:
             # the gathers here are not the step's collectives
-            state.layout.reduced = []
-            with _swapped(state.params, gather_params(state)):
-                return _eval_local(loss_fn, state.params, batch)
+            lay.reduced = []
+            groups, roles = _step_roles(cfg, loss_fn, lay)
+            with _swapped(state.params, _gathered(state, roles)):
+                loss = loss_fn(state.params, _batch_rows(lay, batch),
+                               groups)
+            return _batch_mean(lay, loss)
         if not data_parallel:
             return loss_fn(state.params, batch)
-        return _eval_local(loss_fn, state.params, batch)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        local = tuple(x.reshape(world, x.shape[0] // world,
+                                *x.shape[1:])[rank] for x in batch)
+        loss, = pmean([loss_fn(state.params, local)])
+        return loss
     return ev
-
-
-def _eval_local(loss_fn: Callable, params: nn.Module, batch):
-    """The mean over the processes of the loss on each one's contiguous
-    slice of ``batch``."""
-    rank, world = dist.get_rank(), dist.get_world_size()
-    local = tuple(x.reshape(world, x.shape[0] // world,
-                            *x.shape[1:])[rank] for x in batch)
-    loss, = pmean([loss_fn(params, local)])
-    return loss
 
 
 def state_bytes_per_device(state: TrainState) -> int:

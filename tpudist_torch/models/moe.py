@@ -25,12 +25,21 @@ RoPE and the LM head are the transformer's
 fused head.
 
 Routing semantics: routing, capacity and the aux loss are computed over
-the batch the loss sees, in groups of ``group_size`` tokens. Under the
-port's data parallelism every process computes its loss on its own
-batch, so routing is group-local, as on the JAX package's shard_map DP
-path (``tpudist/models/moe.py:34-41``): capacity-constrained routing is
-not invariant to how the batch is split, so N processes do not equal one
-process on the global batch, by design.
+the batch the loss sees, in groups of ``group_size`` tokens
+(``tpudist/models/moe.py:34-41``). Under the port's replicated data
+parallelism every process computes its loss on its own batch, so routing
+is group-local, as on the JAX package's shard_map DP path:
+capacity-constrained routing is not invariant to how the batch is split,
+so N processes do not equal one process on the global batch, by design.
+On a mesh that is not pure data (``--fsdp`` or ``--tensor`` > 1, the
+JAX package's jit+shardings path) the sharded step passes its
+``groups``, and routing is over the GLOBAL batch: the group size comes
+from the global token count (:func:`global_group_size`, which refuses a
+group that would cross ranks), and the aux loss's per-expert sums are
+all-reduced over the data x fsdp ranks before their product, inside
+autograd. Under tensor parallelism the experts' hidden dim is split over
+``tensor`` (``w_gate``/``w_up`` column-parallel, ``w_down``
+row-parallel); the router runs whole on every tensor rank.
 """
 
 from __future__ import annotations
@@ -123,6 +132,24 @@ def group_size(cfg: ModelConfig, n_tokens: int) -> int:
     return d if 2 * d >= g else n_tokens
 
 
+def global_group_size(cfg: ModelConfig, n_tokens: int, local: int) -> int:
+    """The routing group of a global batch of ``n_tokens`` split into
+    ranks of ``local`` tokens: :func:`group_size` of the global count, as
+    the JAX package's jit+shardings step takes it. A group that does not
+    lie inside one rank's tokens (it does not divide them, or the
+    near-prime fallback takes one global group) is refused: the port
+    routes a rank's own tokens, and never differently from the JAX
+    package in silence."""
+    g = group_size(cfg, n_tokens)
+    if local % g:
+        raise ValueError(
+            f"the MoE routes the global batch of {n_tokens} tokens in "
+            f"groups of {g} (--moe-group-size {cfg.moe_group_size}), "
+            f"which do not divide a rank's {local} tokens: choose a "
+            f"--moe-group-size whose group divides {local}")
+    return g
+
+
 def _route(probs: torch.Tensor, k: int, cap: int
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k token-choice routing with capacity, for each routing group.
@@ -160,17 +187,23 @@ def _route(probs: torch.Tensor, k: int, cap: int
     return dispatch, combine, onehot.sum(dim=(-3, -2))
 
 
-def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig
+def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig, groups=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed SwiGLU experts. y: (b, s, d) normed activations. Returns
     (ffn_out (b, s, d), aux scalar f32). Groups split the token-major
     order. The router product runs in the model dtype and the softmax in
     f32; dispatch and combine are cast to the model dtype before their
-    einsums, so bf16 rounds the gates as the JAX package does."""
+    einsums, so bf16 rounds the gates as the JAX package does. With a
+    sharded step's ``groups`` the routing is over the global batch and,
+    under tensor parallelism, the experts' hidden dim is this rank's
+    part (module docstring)."""
     b, s, d = y.shape
     dt = y.dtype
     t = b * s
-    g = group_size(cfg, t)
+    spread = groups is not None and groups.batch > 1
+    total = t * groups.batch if groups is not None else t
+    g = (group_size(cfg, t) if groups is None
+         else global_group_size(cfg, total, t))
     cap = capacity(cfg, g)
     yg = y.reshape(t // g, g, d)                               # (G, g, d)
 
@@ -179,25 +212,44 @@ def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig
     probs = torch.softmax(logits, dim=-1)                      # (G, g, E)
     dispatch, combine, assigned = _route(probs, cfg.expert_top_k, cap)
 
+    (wg, wu), wd = (lp["w_gate"], lp["w_up"]), lp["w_down"]
+    tp = groups is not None and groups.tp
+    if tp:
+        # the experts are column- then row-parallel; the router reads
+        # the replicated activations, and the gates' grads, partials of
+        # this rank's hidden columns, are summed over tensor
+        yg = groups.enter(yg)
+        combine = groups.enter(combine)
+        (wg, wu), wd = groups.ffn_weights((wg, wu), wd, cfg.d_ff)
     xe = torch.einsum("gtd,gtec->gecd", yg, dispatch.to(dt))
-    gate = F.silu(torch.einsum("gecd,edf->gecf", xe, lp["w_gate"].to(dt)))
-    up = torch.einsum("gecd,edf->gecf", xe, lp["w_up"].to(dt))
-    ye = torch.einsum("gecf,efd->gecd", gate * up, lp["w_down"].to(dt))
+    gate = F.silu(torch.einsum("gecd,edf->gecf", xe, wg.to(dt)))
+    up = torch.einsum("gecd,edf->gecf", xe, wu.to(dt))
+    ye = torch.einsum("gecf,efd->gecd", gate * up, wd.to(dt))
     out = torch.einsum("gecd,gtec->gtd", ye, combine.to(dt))
+    if tp:
+        # the partial sums, all-reduced after combine: (t, d) rather
+        # than (G, E, cap, d), and both products are linear
+        out = groups.exit(out)
 
     # Switch aux: the fraction of routed pairs per expert (pre-drop
-    # counts) times the mean router probability, scaled by E
-    f_e = assigned.sum(0) / (t * cfg.expert_top_k)
-    p_e = probs.mean(dim=(0, 1))
+    # counts) times the mean router probability, scaled by E; on a
+    # split batch the per-expert sums are summed over its ranks first
+    if spread:
+        f_e = groups.batch_sum(assigned.sum(0)) / (total
+                                                   * cfg.expert_top_k)
+        p_e = groups.batch_sum(probs.sum(dim=(0, 1))) / total
+    else:
+        f_e = assigned.sum(0) / (t * cfg.expert_top_k)
+        p_e = probs.mean(dim=(0, 1))
     aux = cfg.n_experts * torch.sum(f_e * p_e)
     return out.reshape(b, s, d), aux
 
 
-def _moe_layer(x, lp, cfg: ModelConfig, cos, sin, attn_impl):
+def _moe_layer(x, lp, cfg: ModelConfig, cos, sin, attn_impl, groups=None):
     """One decoder layer: the transformer's attention half, then the
     experts. Returns ``(x, aux)``."""
-    x = T._attn_sublayer(x, lp, cfg, cos, sin, attn_impl)
-    ffn, aux = _moe_ffn(T.rmsnorm(x, lp["ffn_norm"]), lp, cfg)
+    x = T._attn_sublayer(x, lp, cfg, cos, sin, attn_impl, groups=groups)
+    ffn, aux = _moe_ffn(T.rmsnorm(x, lp["ffn_norm"]), lp, cfg, groups)
     return x + ffn, aux
 
 
@@ -234,39 +286,43 @@ def paged_hidden_states(params: MoE, tokens: torch.Tensor,
 
 def hidden_states(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,
                   dtype=torch.bfloat16, attn_impl=T._attention,
-                  remat: bool = False, kv_cache=None, cur_index=None):
+                  remat: bool = False, kv_cache=None, cur_index=None,
+                  groups=None):
     """Backbone forward: tokens (batch, seq) -> (final-norm hidden states
     (batch, seq, d_model) in ``dtype``, the mean aux loss over layers).
     ``remat`` checkpoints each layer. ``kv_cache``/``cur_index`` select
-    the serving path and the return becomes ``(h, kv_cache)``."""
+    the serving path and the return becomes ``(h, kv_cache)``.
+    ``groups``: a sharded step's."""
     if kv_cache is not None:
         return _cached_hidden_states(params, tokens, cfg, dtype=dtype,
                                      kv_cache=kv_cache, cur_index=cur_index)
     s = tokens.shape[1]
     hd = cfg.d_model // cfg.n_heads
     cos, sin = T.precompute_rope(s, hd, cfg.rope_theta, device=tokens.device)
-    x = T._embed(params, tokens, dtype)
+    x = T._embed(params, tokens, dtype, groups)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
         lp = params.layers.layer(i)
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _moe_layer, x, lp, cfg, cos, sin, attn_impl,
+                _moe_layer, x, lp, cfg, cos, sin, attn_impl, groups,
                 use_reentrant=False)
         else:
-            x, a = _moe_layer(x, lp, cfg, cos, sin, attn_impl)
+            x, a = _moe_layer(x, lp, cfg, cos, sin, attn_impl, groups)
         aux = aux + a
     return T.rmsnorm(x, params.final_norm), aux / cfg.n_layers
 
 
 def loss_fn(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,
             dtype=torch.bfloat16, remat: bool = False, xent_chunks: int = 0,
-            fused_xent: bool = False) -> torch.Tensor:
+            fused_xent: bool = False, groups=None) -> torch.Tensor:
     """Causal next-token cross-entropy through the transformer's LM head
     (:func:`transformer.head_loss`: plain, chunked or fused) plus the
     router aux loss weighted by ``router_aux_weight``."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    h, aux = hidden_states(params, inputs, cfg, dtype=dtype, remat=remat)
+    h, aux = hidden_states(params, inputs, cfg, dtype=dtype, remat=remat,
+                           groups=groups)
     xent = T.head_loss(params.embed.to(dtype), h, targets,
-                       xent_chunks=xent_chunks, fused_xent=fused_xent)
+                       xent_chunks=xent_chunks, fused_xent=fused_xent,
+                       groups=groups)
     return xent + cfg.router_aux_weight * aux

@@ -25,6 +25,11 @@ The training loss's LM head (:func:`head_loss`) is plain (whole logits),
 chunked over the sequence with checkpointing, or fused
 (:func:`tpudist_torch.ops.cuda.fused_xent.fused_lm_head_xent`: the Hopper
 kernels for CUDA tensors, their plain versions for CPU tensors).
+
+Under a sharded step's tensor parallelism (``groups``, a
+:class:`tpudist_torch.parallel.tensor.StepGroups`) each rank computes
+its heads and FFN columns (Megatron's column- then row-parallel blocks)
+and, with the plain head, its vocab columns of the head and the lookup.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from tpudist_torch.ops.cuda import flash_attention as fa
 from tpudist_torch.ops.cuda import fused_xent as fx
 from tpudist_torch.ops.gqa import expand_gqa
 from tpudist_torch.ops.rope import apply_rope, rotate
+from tpudist_torch.parallel import tensor as tensor_lib
 
 
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -211,43 +217,68 @@ _attention.accepts_rope = True
 
 
 def _attn_sublayer(x, lp, cfg: ModelConfig, cos, sin, attn_impl,
-                   return_kv: bool = False):
+                   return_kv: bool = False, groups=None):
     """Pre-norm attention + residual. ``return_kv=True`` is the serving
     PREFILL mode: q/k are rotated here, up front, and the rotated compact
-    k/v come back with the output to seed the KV cache."""
+    k/v come back with the output to seed the KV cache.
+
+    Under tensor parallelism (``groups.tp``) the block is Megatron's: the
+    normed input enters column-parallel ``wq``/``wk``/``wv`` for this
+    rank's heads (:meth:`StepGroups.attention_weights`), the flash
+    kernels run on those heads, and the row-parallel ``wo``'s partial
+    products are summed over ``tensor`` on the way out."""
     b, s, d = x.shape
     h, kv = cfg.n_heads, cfg.n_kv_heads
     hd = d // h
     dt = x.dtype
 
     y = rmsnorm(x, lp["attn_norm"])
-    q = (y @ lp["wq"].to(dt)).reshape(b, s, h, hd)
-    k = (y @ lp["wk"].to(dt)).reshape(b, s, kv, hd)
-    v = (y @ lp["wv"].to(dt)).reshape(b, s, kv, hd)
+    wq, wk, wv, wo, reads = lp["wq"], lp["wk"], lp["wv"], lp["wo"], None
+    tp = groups is not None and groups.tp
+    if tp:
+        y = groups.enter(y)
+        wq, wk, wv, wo, reads = groups.attention_weights(lp, h, kv, hd)
+        h, kv = wq.shape[-1] // hd, wk.shape[-1] // hd
+    q = (y @ wq.to(dt)).reshape(b, s, h, hd)
+    k = (y @ wk.to(dt)).reshape(b, s, kv, hd)
+    v = (y @ wv.to(dt)).reshape(b, s, kv, hd)
+    if reads is not None:
+        # the rank's q heads do not share its kv heads evenly: one kv
+        # head a q head
+        pick = torch.tensor(reads, device=k.device)
+        k, v = k.index_select(2, pick), v.index_select(2, pick)
     if getattr(attn_impl, "accepts_rope", False) and not return_kv:
         o = attn_impl(q, k, v, cos=cos, sin=sin)
     else:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         o = attn_impl(q, k, v)
-    o = o.reshape(b, s, h * hd)
-    out = x + o @ lp["wo"].to(dt)
+    o = o.reshape(b, s, h * hd) @ wo.to(dt)
+    out = x + (groups.exit(o) if tp else o)
     return (out, k, v) if return_kv else out
 
 
-def _ffn_sublayer(x, lp, cfg: ModelConfig):
-    """Pre-norm SwiGLU FFN + residual."""
+def _ffn_sublayer(x, lp, cfg: ModelConfig, groups=None):
+    """Pre-norm SwiGLU FFN + residual; under tensor parallelism this
+    rank's hidden columns (:meth:`StepGroups.ffn_weights`), column- then
+    row-parallel."""
     dt = x.dtype
     y = rmsnorm(x, lp["ffn_norm"])
-    gate = F.silu(y @ lp["w_gate"].to(dt))
-    up = y @ lp["w_up"].to(dt)
-    return x + (gate * up) @ lp["w_down"].to(dt)
+    (wg, wu), wd = (lp["w_gate"], lp["w_up"]), lp["w_down"]
+    tp = groups is not None and groups.tp
+    if tp:
+        y = groups.enter(y)
+        (wg, wu), wd = groups.ffn_weights((wg, wu), wd, cfg.d_ff)
+    gate = F.silu(y @ wg.to(dt))
+    up = y @ wu.to(dt)
+    o = (gate * up) @ wd.to(dt)
+    return x + (groups.exit(o) if tp else o)
 
 
-def _layer(x, lp, cfg: ModelConfig, cos, sin, attn_impl):
+def _layer(x, lp, cfg: ModelConfig, cos, sin, attn_impl, groups=None):
     """One decoder layer. x: (batch, seq, d_model)."""
-    x = _attn_sublayer(x, lp, cfg, cos, sin, attn_impl)
-    return _ffn_sublayer(x, lp, cfg)
+    x = _attn_sublayer(x, lp, cfg, cos, sin, attn_impl, groups=groups)
+    return _ffn_sublayer(x, lp, cfg, groups)
 
 
 def window_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -312,7 +343,11 @@ def _attn_sublayer_cached(x, lp, cfg: ModelConfig, pos, cache_k, cache_v):
     return x + o @ lp["wo"].to(dt), cache_k, cache_v
 
 
-def _embed(params: Transformer, tokens: torch.Tensor, dtype):
+def _embed(params: Transformer, tokens: torch.Tensor, dtype, groups=None):
+    """The token embeddings in ``dtype``; vocab-parallel with the head
+    (:meth:`StepGroups.embed`)."""
+    if groups is not None and groups.vocab_parallel:
+        return groups.embed(params.embed, tokens, dtype)
     # gather, then cast: the same values as casting the whole table first
     return params.embed[tokens].to(dtype)
 
@@ -463,27 +498,28 @@ def paged_hidden_states(params: Transformer, tokens: torch.Tensor,
 def hidden_states(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, *, dtype=torch.bfloat16,
                   attn_impl=_attention, remat: bool = False, kv_cache=None,
-                  cur_index=None):
+                  cur_index=None, groups=None):
     """Backbone forward: tokens (batch, seq) -> final-norm hidden states
     (batch, seq, d_model) in ``dtype``. ``remat`` checkpoints each layer
     (activations recomputed in backward). ``kv_cache``/``cur_index``
     select the serving path (:func:`_cached_hidden_states`) and the
-    return becomes ``(h, kv_cache)``."""
+    return becomes ``(h, kv_cache)``. ``groups``: a sharded step's
+    (:class:`tpudist_torch.parallel.tensor.StepGroups`)."""
     if kv_cache is not None:
         return _cached_hidden_states(params, tokens, cfg, dtype=dtype,
                                      kv_cache=kv_cache, cur_index=cur_index)
     s = tokens.shape[1]
     hd = cfg.d_model // cfg.n_heads
     cos, sin = precompute_rope(s, hd, cfg.rope_theta, device=tokens.device)
-    x = _embed(params, tokens, dtype)
+    x = _embed(params, tokens, dtype, groups)
     for i in range(cfg.n_layers):
         lp = params.layers.layer(i)
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _layer, x, lp, cfg, cos, sin, attn_impl,
+                _layer, x, lp, cfg, cos, sin, attn_impl, groups,
                 use_reentrant=False)
         else:
-            x = _layer(x, lp, cfg, cos, sin, attn_impl)
+            x = _layer(x, lp, cfg, cos, sin, attn_impl, groups)
     return rmsnorm(x, params.final_norm)
 
 
@@ -580,13 +616,16 @@ def _fused_head_xent(embed: torch.Tensor, h: torch.Tensor,
 
 
 def head_loss(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
-              *, xent_chunks: int = 0,
-              fused_xent: bool = False) -> torch.Tensor:
+              *, xent_chunks: int = 0, fused_xent: bool = False,
+              groups=None) -> torch.Tensor:
     """Tied LM head + mean cross-entropy, the one head-strategy dispatch.
     ``fused_xent`` routes through the fused kernels (no logits in device
     memory); ``xent_chunks`` > 0 streams the head over that many sequence
     chunks with checkpointing; neither keeps the plain whole-logits path,
-    logits in the model dtype."""
+    logits in the model dtype, split over the vocab under
+    ``groups.vocab_parallel`` (:func:`tensor.vocab_parallel_xent`). The
+    fused and chunked heads take the whole table on every tensor rank,
+    as the JAX package's fused kernel has no partitioning rule."""
     if fused_xent and xent_chunks:
         raise ValueError("--fused-xent and --xent-chunks are mutually "
                          "exclusive LM-head strategies")
@@ -600,15 +639,19 @@ def head_loss(emb: torch.Tensor, h: torch.Tensor, targets: torch.Tensor,
                 f"sequence length {targets.shape[1]} not divisible by "
                 f"xent_chunks={xent_chunks}")
         return _chunked_head_xent(emb, h, targets, xent_chunks)
+    if groups is not None and groups.vocab_parallel:
+        return tensor_lib.vocab_parallel_xent(emb, h, targets, groups)
     return _xent(h @ emb.T, targets)
 
 
 def loss_fn(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             dtype=torch.bfloat16, remat: bool = False, xent_chunks: int = 0,
-            fused_xent: bool = False) -> torch.Tensor:
+            fused_xent: bool = False, groups=None) -> torch.Tensor:
     """Causal next-token cross-entropy: tokens (batch, seq + 1) -> the
     mean over the batch's seq positions."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    h = hidden_states(params, inputs, cfg, dtype=dtype, remat=remat)
+    h = hidden_states(params, inputs, cfg, dtype=dtype, remat=remat,
+                      groups=groups)
     return head_loss(params.embed.to(dtype), h, targets,
-                     xent_chunks=xent_chunks, fused_xent=fused_xent)
+                     xent_chunks=xent_chunks, fused_xent=fused_xent,
+                     groups=groups)

@@ -111,6 +111,29 @@ def axis_size(mesh, axis: str) -> int:
     return mesh_shape(mesh).get(axis, 1)
 
 
+def axes_group(mesh, axes: Tuple[str, ...]):
+    """The process group of the ranks that differ from this one only
+    along ``axes`` (``("data", "fsdp")``: the ranks a batch splits
+    over), for a ``DeviceMesh`` with a process group up. Every process
+    makes every such group, in one order, as ``new_group`` asks; the
+    mesh keeps them, so a mesh makes them once."""
+    import torch.distributed as dist
+
+    made = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes not in made:
+        devs = mesh_devices(mesh)
+        names = list(mesh.mesh_dim_names)
+        inner = [names.index(a) for a in axes]
+        outer = [i for i in range(devs.ndim) if i not in inner]
+        ways = int(np.prod([devs.shape[i] for i in inner]))
+        rank = dist.get_rank()
+        for ranks in np.transpose(devs, outer + inner).reshape(-1, ways):
+            group = dist.new_group([int(r) for r in ranks])
+            if rank in ranks:
+                made[axes] = group
+    return made[axes]
+
+
 # ------------------------------------------------- slice / fabric layout
 #
 # A pod of several slices (NVLink domains, hosts) puts an axis on the

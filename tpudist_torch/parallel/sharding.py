@@ -22,7 +22,8 @@ from tpudist_torch.parallel.mesh import mesh_shape
 Spec = Tuple[object, ...]
 
 
-def _axes(entry) -> Tuple[str, ...]:
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry, outermost first."""
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
@@ -38,7 +39,7 @@ def sanitize_spec(shape: Sequence[int], spec: Spec, sizes: Dict[str, int]
     out = []
     for size, entry in zip(shape, dims):
         kept, ways = [], 1
-        for a in _axes(entry):
+        for a in spec_axes(entry):
             if size % (ways * sizes.get(a, 1)):
                 break
             kept.append(a)
@@ -77,7 +78,7 @@ def batch_spec(ndim: int) -> Spec:
 def sharded_dim(spec: Spec, axis: str = "fsdp") -> Optional[int]:
     """The dim a (sanitized) spec splits over ``axis``, or None."""
     for dim, entry in enumerate(spec):
-        if axis in _axes(entry):
+        if axis in spec_axes(entry):
             return dim
     return None
 
@@ -89,7 +90,7 @@ def placements(spec: Spec, mesh) -> list:
 
     out = {a: Replicate() for a in mesh.mesh_dim_names}
     for dim, entry in enumerate(spec):
-        for a in _axes(entry):
+        for a in spec_axes(entry):
             out[a] = Shard(dim)
     return [out[a] for a in mesh.mesh_dim_names]
 

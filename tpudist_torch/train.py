@@ -1,13 +1,17 @@
 """``python -m tpudist_torch.train`` — the training acceptance lane.
 
-Counterpart of ``tpudist/train.py`` on its ``data x fsdp`` mesh:
+Counterpart of ``tpudist/train.py`` on its ``data x fsdp x tensor`` mesh:
 N processes under the JAX package's env contract (``TPUDIST_COORDINATOR``
 / ``TPUDIST_NUM_PROCESSES`` / ``TPUDIST_PROCESS_ID``; one process when
 unset), one device each, NCCL on the card and gloo on the CPU. Seeded
 synthetic data and a per-epoch permutation, each process training on its
 shard of every global batch; the train step (loss, grads, their
 all-reduced mean, Adam; with ``--fsdp N`` the state sharded N ways, each
-shard gathered for the step and its gradient reduce-scattered),
+shard gathered for the step and its gradient reduce-scattered; with
+``--tensor N`` each rank keeps its Megatron shard and computes its
+heads, FFN columns and vocab columns, the N tensor ranks of a batch
+shard seeing the same rows; on either mesh the MoE routes the global
+batch),
 dispatched k steps at a time
 (``--steps-per-dispatch``, auto as the JAX CLI resolves it: k = 25 at
 the defaults) through the superstep, whose batches are staged a slab at
@@ -140,15 +144,16 @@ def run(cfg: TrainConfig) -> float:
         ctx = distributed.initialize(device=resolve_device(cfg.device))
     device, world = ctx.device, ctx.process_count
     # the mesh: one card a process, ranks in C order over the six axes;
-    # --fsdp > 1 shards the state over it (the JAX package's jit +
-    # shardings path), else the state is replicated and the step
+    # --fsdp or --tensor > 1 shards the state over it (the JAX package's
+    # jit + shardings path), else the state is replicated and the step
     # all-reduces (its pure-DP path, which needs no DeviceMesh)
     sizes = dict(zip(mesh_lib.AXIS_NAMES,
                      mesh_lib.resolve_axis_sizes(cfg.parallel, world)))
     mesh = None
-    if sizes["fsdp"] > 1:
+    if sizes["fsdp"] > 1 or sizes["tensor"] > 1:
         mesh = mesh_lib.build_mesh(cfg.parallel, device_type=device.type)
-    # a process's batch shard is its position in (data, fsdp)
+    # a process's batch shard is its position in (data, fsdp); the
+    # tensor ranks of one position share it
     batch_ways = sizes["data"] * sizes["fsdp"]
     if cfg.batch_size % batch_ways:
         raise ValueError(
@@ -163,7 +168,19 @@ def run(cfg: TrainConfig) -> float:
          f"device(s), {world} process(es){backend}, model "
          f"{cfg.model.name}, {cfg.dtype}"
          + (f", mesh data {sizes['data']} x fsdp {sizes['fsdp']}"
-            if mesh is not None else ""))
+            + (f" x tensor {sizes['tensor']}" if sizes["tensor"] > 1
+               else "") if mesh is not None else ""))
+    if cfg.model.name == "moe":
+        if mesh is None:
+            log0("tpudist: MoE routing and aux loss over each process's "
+                 "rows (group-local, the JAX package's data-parallel "
+                 "path)")
+        else:
+            # refused here, before a step, if a group would cross ranks
+            engine_lib.check_moe_routing(cfg, mesh, cfg.batch_size,
+                                         cfg.grad_accum_steps)
+            log0("tpudist: MoE routing over the global batch, its aux "
+                 "loss's sums all-reduced over data x fsdp")
 
     with trace_lib.span("data_materialize", cat="data"):
         if cfg.model.name == "mlp":
@@ -177,15 +194,15 @@ def run(cfg: TrainConfig) -> float:
                 cfg.model.vocab_size, cfg.data.seed),)
 
     # each process computes the loss on its own rows of the batch and the
-    # step means the grads: for the MoE that is group-local routing, the
-    # JAX package's shard_map DP semantics (tpudist/models/moe.py:34-41),
-    # not one process on the global batch. A process's batch shard is its
-    # position in ("data", "fsdp"), which under C order is its rank
+    # step means the grads. A process's batch shard is its position in
+    # ("data", "fsdp"): under C order over the six axes its rank over the
+    # tensor ways (the tensor ranks of a position see the same rows)
     def epoch_plan(epoch):
         return data_lib.plan_epoch(sources, batch_size=cfg.batch_size,
                                    seed=cfg.seed, epoch=epoch,
-                                   process_index=ctx.process_index,
-                                   process_count=world)
+                                   process_index=(ctx.process_index
+                                                  // sizes["tensor"]),
+                                   process_count=batch_ways)
 
     with trace_lib.span("model_init", cat="init"):
         state = (engine_lib.init_state(cfg, device) if mesh is None
@@ -193,8 +210,10 @@ def run(cfg: TrainConfig) -> float:
     log0(f"tpudist: train state "
          f"{engine_lib.state_bytes_per_device(state) / 1e9:.3f} GB "
          f"(params + Adam moments"
-         + (f", this device's 1/{sizes['fsdp']} shards)" if mesh is not None
-            else ")"))
+         + ((f", this device's 1/{sizes['fsdp']} shards)"
+             if sizes["tensor"] == 1 else
+             f", this device's shards over fsdp {sizes['fsdp']} x tensor "
+             f"{sizes['tensor']})") if mesh is not None else ")"))
     metrics = MetricsLogger(path=os.path.join(cfg.save_dir, "metrics.jsonl"))
     # the run's identity and the launcher's requeue attempt stamp every
     # record, trace document, beacon and checkpoint index
