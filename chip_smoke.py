@@ -5,6 +5,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py              # the acceptance run
     python3 chip_smoke.py --profile    # plus a torch.profiler breakdown
+    python3 chip_smoke.py --only-tp    # phases 1-3 (flash), 6 and 21
+    python3 chip_smoke.py --only-serve-mesh   # phases 1-3 (forward), 4, 22
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -217,19 +219,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
    width and depth in phase 9's training configuration (bf16, bf16 nu,
    the fused head, seq 512) under the chaos drill's ``BASE_FLAGS`` (8
    steps, sharded saves at steps 3, 6 and 8): the free disk printed
-   first against four saves' bytes; (a) ``tpudist_torch.chaos.drill``'s
+   first against the saves three families hold at once; (a)
+   ``tpudist_torch.chaos.drill``'s
    baseline and its seven families (kill, hang, slow, corrupt_shard,
    torn_manifest, fs_error, telemetry_garbage; hang and
    telemetry_garbage with the live bus on: the mid-run ``stall`` alert,
    ``bad_frames`` >= 1 and a final ``status: ok``) with
    ``TPUDIST_PLATFORM=cuda``, every attempt
-   a ``python -m tpudist_torch.train`` process on the card, a family at a
-   time through ``run_family`` and ``verify_family``: each ``ok``, its
+   a ``python -m tpudist_torch.train`` process on the card, three
+   families at a time through ``run_family``, each through
+   ``verify_family`` as it ends: each ``ok``, its
    pinned facts (rcs, fired faults, policy, resume step, steps lost,
    fallback, final step, the write counters) the CPU drill's, and its
    final committed crc signature the baseline's, the bitwise-resume pin;
-   each verified directory's shard files are deleted before the next
-   family (the verifier reads only json); (b) the baseline's flags
+   each verified directory's shard files are deleted as soon as it is
+   verified (the verifier reads only json); (b) the baseline's flags
    in-process through the train CLI: the kernel launches exact, the
    final crc signature equal to (a)'s baseline; (c) enqueue and drain
    ms, the bytes a save writes and the writer's GB/s for synchronous and
@@ -293,14 +297,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
    exact launches on every rank, the step losses within rtol 2e-3 /
    atol 2e-4 of each other, each rank's params and optimizer-state
    bytes side by side.
+21. tensor parallelism at phase 6's configuration: (a) in a spawned
+   process, the tensor path on a one-rank NCCL mesh's tensor group,
+   bitwise the replicated body per step and replayed; (b) with two
+   cards or more, the train CLI at ``--tensor <cards>`` and ``--fsdp 2
+   --tensor 2`` against phase 6's losses, the MoE at ``--tensor
+   <cards>`` against its one-card run.
+22. serving on several cards: (a) in a spawned process, a one-rank NCCL
+   serve mesh; phase 4's engine on it over phase 4's stream and phase
+   18c's dense MoE engine (its decode graphs capturing the all-gather of
+   the router probabilities over the slot group): every request's
+   tokens bitwise phase 4's and 18c's, the pin, exact launches, every
+   prefill on the rank, ``n_chips`` 1; (b) with two cards or more, the
+   serve CLI at one NCCL process a card at phase 4's flags (8 slots),
+   phase 18d's MoE flags and 8 slots a card over 16 requests a card:
+   exit 0 and ``success`` on every rank, ``n_chips`` the cards, each
+   rank's pin and launches (n_layers x (its prefills + the warm-up's)),
+   the prefills over the ranks the requests, every request's tokens
+   those of one card (the serve CLI there; phase 4's engine for the
+   third) or a near-tie under phase 14's rule; tokens/s/chip, TTFT and
+   ITL beside one card's. ``--only-serve-mesh`` runs phase 3's forward
+   checks, phase 4 and phase 22 (22a without the MoE) alone.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
 18a (both runs), 18c (both engines), 18d, 19a-19c (19c's run with the
-port), 20a (both sharded runs) and 20b (both runs) are the main paths:
+port), 20a (both sharded runs), 20b (both runs), 21a-b, 22a (both
+engines) and 22b (its three runs) are the main paths:
 each
 runs with every launch count set to 0 just before and read just after
-(10a, 11c, 20a and 20b in each rank's process; 12b's and 15a's timed
+(10a, 11c, 20a-22b in each rank's process; 12b's and 15a's timed
 runs, not
 their probes, which restore the counters), and each
 kernel must have launched the
@@ -329,6 +355,7 @@ The last two lines are the kernels' JSON record and the result line
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -3177,6 +3204,10 @@ TRAIN_DRILL_MODEL = ("--model", "transformer", "--seq-len", "512",
                      "--dtype", "bfloat16", "--adam-nu-dtype", "bfloat16",
                      "--lm-head", "fused", "--lr", "1e-3")
 TRAIN_DRILL_PATH = "train_drill_sharded"
+# the drill's families run this many at a time on the card (each a few
+# CLI processes, start-up bound; the script's time limit), so a family's
+# walls are taken beside two others'
+DRILL_LANES = 3
 # each family's facts that the seeded schedule fixes, as the CPU drill
 # reports them (tests/test_torch_chaos_drill*.py)
 CHAOS_FACTS = {
@@ -3235,7 +3266,8 @@ def _fact_diff(facts, want):
 
 def train_chaos(torch, fa, fx, card: str):
     """Phase 17: (a) the port's chaos drill (``run_baseline``, then
-    ``run_family`` and ``verify_family`` one family at a time) with
+    ``run_family`` for ``DRILL_LANES`` families at a time and
+    ``verify_family`` for each as it ends) with
     ``TPUDIST_PLATFORM=cuda`` at config #5's width in phase 9's training
     configuration under the drill's ``BASE_FLAGS`` (8 steps, sharded
     saves at steps 3, 6 and 8): every attempt a ``python -m
@@ -3247,8 +3279,8 @@ def train_chaos(torch, fa, fx, card: str):
     its final committed crc signature the baseline's (the bitwise-resume
     pin: the verifier fails a family whose signature differs). The
     verifier reads only json (indexes, manifests, records), so each
-    verified directory's ``worker*.npz`` is deleted before the next
-    family runs: the disk holds one family's saves at a time (~6.5 GB).
+    verified directory's ``worker*.npz`` is deleted as soon as it is
+    verified: the disk holds the saves of ``DRILL_LANES`` families.
     (b) the baseline's flags in-process through the train CLI: the
     kernel launches exact and the final crc signature equal to (a)'s
     baseline, bytes that do not depend on the process. (c) what the
@@ -3267,13 +3299,16 @@ def train_chaos(torch, fa, fx, card: str):
     shutil.rmtree(run_dir, ignore_errors=True)
     run_dir.mkdir(parents=True)
     disk = shutil.disk_usage(run_dir)
-    need = 4 * per_save + 2 * 2**30
+    # a family holds at most four saves (two attempts) until it is
+    # verified; DRILL_LANES families run at once
+    need = (1 + 4 * DRILL_LANES) * per_save + 2 * 2**30
     print(f"train 17: a save {per_save / 1e9:.3f} GB; disk "
           f"{disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB, "
           f"need {need / 1e9:.1f}")
     if disk.free < need:
         fail(f"train 17: {disk.free / 1e9:.1f} GB free under {run_dir}, "
-             f"the drill needs {need / 1e9:.1f} GB (4 saves + 2 GB)")
+             f"the drill needs {need / 1e9:.1f} GB ({1 + 4 * DRILL_LANES} "
+             f"saves + 2 GB)")
 
     def on_card(d: Path):
         logs = sorted(d.glob("*.log"))
@@ -3307,11 +3342,13 @@ def train_chaos(torch, fa, fx, card: str):
     _drop_shards(run_dir / drill.BASELINE_DIR)
     results = {"schema": 1, "baseline": base, "families": {}}
     bad = []
-    for family in drill.FAMILIES:
+
+    def run_family(family):
         t1 = time.perf_counter()
-        with _drill_env(env):
-            res = drill.run_family(str(run_dir), family,
-                                   model=TRAIN_DRILL_MODEL)
+        res = drill.run_family(str(run_dir), family, model=TRAIN_DRILL_MODEL)
+        return res, time.perf_counter() - t1
+
+    def check(family, res, family_s):
         results["families"][family] = res
         rep = verify.verify_family(str(run_dir), res)
         n_logs = on_card(run_dir / family)
@@ -3325,7 +3362,7 @@ def train_chaos(torch, fa, fx, card: str):
               f"CPU drill's {not diff}{f' (differ: {diff})' if diff else ''}"
               f"; {n_logs} attempt(s) on the card, walls "
               f"{walls(run_dir / family)} s, family "
-              f"{time.perf_counter() - t1:.3f} s; facts "
+              f"{family_s:.3f} s; facts "
               f"{json.dumps(facts, sort_keys=True)}; resume "
               f"{json.dumps(picked)}; {card}")
         if resume.get("corrupt_shard"):
@@ -3352,6 +3389,17 @@ def train_chaos(torch, fa, fx, card: str):
         if not rep["ok"] or diff:
             bad.append(family)
         _drop_shards(run_dir / family)
+
+    # the families' attempts are CLI processes in directories of their
+    # own (ephemeral live-bus ports): DRILL_LANES run side by side, each
+    # verified, and its saves dropped, as it ends
+    with _drill_env(env), concurrent.futures.ThreadPoolExecutor(
+            DRILL_LANES) as pool:
+        running = {pool.submit(run_family, f): f for f in drill.FAMILIES}
+        for fut in concurrent.futures.as_completed(running):
+            check(running[fut], *fut.result())
+    results["families"] = {f: results["families"][f]
+                           for f in drill.FAMILIES}
     drill.write_results(str(run_dir), results)
     report = verify.verify_matrix(str(run_dir), results)
     matrix_s = time.perf_counter() - t0
@@ -3613,7 +3661,7 @@ def moe_step_check(torch, fa, fx, fused: bool):
         fail(f"{tag}: the fused head kernels did not run once")
 
 
-def moe_serve(torch, fa, fx, card: str):
+def moe_serve(torch, fa, fx, card: str, tokens=None):
     """Phase 18c, the paths ``serve_moe`` and ``paged_serve_moe``: phase
     4's stream (16 requests at t=0, 32 new tokens each) through
     ``ServeEngine`` over the MoE at ``MOE_MODEL``'s width in f32 on CUDA
@@ -3624,7 +3672,8 @@ def moe_serve(torch, fa, fx, card: str):
     same stream on ``PagedServeEngine`` (16-token pages): every request's
     tokens equal to the dense engine's, or a first divergence at a
     near-tie under phase 14's rule, printed and counted. Returns each
-    path's launches."""
+    path's launches; ``tokens`` (a dict) receives the dense engine's
+    tokens under ``serve_moe``."""
     from tpudist_torch.models import moe
     from tpudist_torch.serve import scheduler as sched
     from tpudist_torch.serve.engine import init_params
@@ -3645,6 +3694,8 @@ def moe_serve(torch, fa, fx, card: str):
           f"{moe.capacity(cfg, engine.slots)}; {card}")
     dense, paths["serve_moe"] = _paged_run(torch, fa, fx, "moe 18c dense",
                                            engine, params, requests)
+    if tokens is not None:
+        tokens["serve_moe"] = _tokens_of(dense)
     eager = sched.run_serve(_EagerBodies(engine), params, requests)
     same = _tokens_of(eager) == _tokens_of(dense)
     print(f"moe 18c dense: every request's tokens, graphs vs the eager "
@@ -3715,17 +3766,17 @@ def moe_serve_cli(torch, fa, fx, card: str):
     return {"serve_moe_cli": run["counts"]}
 
 
-def moe_phase(torch, fa, fx, card: str, profile: bool):
+def moe_phase(torch, fa, fx, card: str, profile: bool, tokens=None):
     """Phase 18: the MoE trained (18a), one full-width step's grads
     kernels vs plain (18b, plain and fused head), served on the dense
     and the paged engine (18c) and through the serve CLI (18d). Returns
-    each main path's launches."""
+    each main path's launches (``tokens``: as :func:`moe_serve`)."""
     t0 = time.perf_counter()
     paths = moe_train(torch, fa, fx, card)
     torch.cuda.empty_cache()
     for fused in (False, True):
         moe_step_check(torch, fa, fx, fused)
-    paths.update(moe_serve(torch, fa, fx, card))
+    paths.update(moe_serve(torch, fa, fx, card, tokens))
     paths.update(moe_serve_cli(torch, fa, fx, card))
     if profile:
         profile_moe(torch, card)
@@ -5135,6 +5186,288 @@ def tp_cli(torch, fa, fx, card: str, phase6_losses):
     return paths
 
 
+SERVE_MESH_PATHS = ("serve_mesh", "serve_moe_mesh")
+SERVE_MESH_CLI_PATHS = ("serve_mesh_cli", "serve_moe_mesh_cli",
+                        "serve_mesh_cli_wide")
+# phase 18d's MoE flags through the serve CLI
+MOE_SERVE_ARGV = [*SERVE_ARGV[:SERVE_ARGV.index("--d-ff") + 1], "2752",
+                  *SERVE_ARGV[SERVE_ARGV.index("--d-ff") + 2:], "--model",
+                  "moe", "--n-experts", "8", "--expert-top-k", "2"]
+
+
+def _serve_mesh_rank(port, moe: bool, queue):
+    """Phase 22a in a process of its own: a one-rank NCCL group and its
+    serve mesh (``ParallelConfig()``: data 1), phase 4's engine on it over
+    phase 4's stream, then (``moe``) phase 18c's dense MoE engine, whose
+    decode graphs capture the all-gather of the router probabilities
+    over the one-rank slot group. The launch counts set to 0 just before
+    each run and read just after."""
+    import torch
+
+    from tpudist_torch.config import ModelConfig, ParallelConfig
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+    from tpudist_torch.parallel import distributed
+    from tpudist_torch.parallel import mesh as mesh_lib
+    from tpudist_torch.serve import scheduler as sched
+    from tpudist_torch.serve.engine import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    mesh = mesh_lib.build_mesh(ParallelConfig(), device_type="cuda")
+    out = {"rank": 0, "world": ctx.process_count, "backend": ctx.backend}
+    requests = sched.make_requests(16, prompt_pad=512, vocab_size=32000,
+                                   max_new=32, rate=0.0, seed=0)
+    runs = [("serve_mesh", ModelConfig(name="transformer"))]
+    if moe:
+        runs.append(("serve_moe_mesh", moe_model_config(1024)))
+    for tag, cfg in runs:
+        params = init_params(cfg, seed=0, device="cuda")
+        engine = _serve_engine(torch, cfg, False, mesh=mesh)
+        _reset_launches(fa, fx)
+        t0 = time.perf_counter()
+        engine.warmup(params)
+        warm_s = time.perf_counter() - t0
+        summary = sched.run_serve(engine, params, requests)
+        engine.stop_followers()
+        torch.cuda.synchronize()
+        engine.assert_two_programs()
+        out[tag] = {
+            "tokens": _tokens_of(summary), "admitted": summary["admitted"],
+            "completed": summary["completed"],
+            "launches": engine.kernel_launches(), "outside": fa.launches,
+            "prefills": engine.local_prefills,
+            "programs": engine.compile_counts(), "split": engine.split,
+            "ways": (engine._slot_kw["slot_group"].ways if engine.split
+                     else None),
+            "n_chips": summary["n_chips"], "warm_s": warm_s,
+            "capture_s": engine.capture_s,
+            "pool_mb": engine.graph_pool_bytes / MB,
+            **{k: summary[k] for k in SERVE_LATENCY}}
+        engine.release()
+        del engine, params
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    queue.put(out)
+
+
+SERVE_LATENCY = ("tokens_per_sec_per_chip", "ttft_p50_s", "ttft_p99_s",
+                 "itl_p50_s", "itl_p99_s")
+
+
+def _latency_line(summary) -> str:
+    return (f"tokens/s/chip {summary['tokens_per_sec_per_chip']}, ttft p50 "
+            f"{summary['ttft_p50_s']} s p99 {summary['ttft_p99_s']} s, itl "
+            f"p50 {summary['itl_p50_s']} s p99 {summary['itl_p99_s']} s")
+
+
+def serve_mesh_one(torch, fa, card: str, refs):
+    """Phase 22a (one card): :func:`_serve_mesh_rank` in a spawned
+    process. ``refs`` holds phase 4's tokens under ``serve`` and, where
+    phase 18c ran, its dense engine's under ``serve_moe`` (the MoE runs
+    only then). Fails unless every request's tokens are bitwise theirs,
+    the program pin holds, the flash forward launched n_layers x
+    (prefills + the warm-up's) with every prefill on the one rank, and
+    ``n_chips`` is 1. Returns the paths' launches."""
+    t0 = time.perf_counter()
+    (r,) = _spawn(_serve_mesh_rank, [(_free_port(), "serve_moe" in refs)],
+                  300, "serve mesh one rank")
+    paths = {}
+    for tag, ref, name in (("serve_mesh", "serve", "phase 4's"),
+                           ("serve_moe_mesh", "serve_moe",
+                            "phase 18c's dense engine's")):
+        if tag not in r:
+            continue
+        run = r[tag]
+        want = 4 * (run["admitted"] + 1)
+        same = run["tokens"] == refs[ref]
+        print(f"serve mesh 22a {tag}: {r['world']} {r['backend']} rank, "
+              f"slots split {run['split']} (slot group of {run['ways']}); "
+              f"{run['completed']}/16 requests, tokens bitwise {name}: "
+              f"{same}; programs {run['programs']}, prefills "
+              f"{run['prefills']}, flash launches {run['launches']} (want "
+              f"n_layers x (prefills + warm-up) = {want}), n_chips "
+              f"{run['n_chips']}; warm-up {run['warm_s']:.3f} s (capture "
+              f"{run['capture_s']:.3f} s, graph pools {run['pool_mb']:.1f} "
+              f"MB); " + _latency_line(run) + f"; {card}")
+        if not same:
+            fail(f"serve mesh 22a {tag}: the tokens differ from {name}")
+        if run["programs"] != (1, 3) or run["launches"] != want \
+                or run["prefills"] != run["admitted"] \
+                or run["outside"] != 4 or run["n_chips"] != 1 \
+                or not run["split"]:
+            fail(f"serve mesh 22a {tag}: programs {run['programs']}, "
+                 f"launches {run['launches']} (want {want}), prefills "
+                 f"{run['prefills']}, outside a graph {run['outside']}, "
+                 f"n_chips {run['n_chips']}, split {run['split']}")
+        paths[tag] = {"flash_attention_fwd": run["launches"]}
+    print(f"serve mesh 22a: phase wall {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def phase4_engine(torch):
+    """Phase 4's engine and params anew, warmed (phase 22b's one-card
+    reference in the full run, where phase 4's are gone)."""
+    from tpudist_torch.config import ModelConfig
+    from tpudist_torch.serve.engine import init_params
+
+    cfg = ModelConfig(name="transformer")
+    engine = _serve_engine(torch, cfg, False)
+    params = init_params(cfg, seed=0, device="cuda")
+    engine.warmup(params)
+    return engine, params
+
+
+def _serve_rank(rank, world, port, argv, verdict, queue):
+    """Phase 22b, one rank in a process of its own: the serve CLI's
+    ``main`` under the env contract, its launch counts set to 0 just
+    before and read just after; rank 0's summary."""
+    os.environ.update(TPUDIST_COORDINATOR=f"localhost:{port}",
+                      TPUDIST_NUM_PROCESSES=str(world),
+                      TPUDIST_PROCESS_ID=str(rank),
+                      TPUDIST_VERDICT_PATH=verdict)
+    import torch
+
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+    from tpudist_torch.serve import cli as serve_cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tee = _Tee(sys.stdout)
+    _reset_launches(fa, fx)
+    t0 = time.perf_counter()
+    with _serve_engines() as made, _serve_summaries() as runs, \
+            contextlib.redirect_stdout(tee):
+        rc = serve_cli.main(argv)
+    torch.cuda.synchronize()
+    engine = made[-1]
+    summary = runs[-1]["summary"] if runs else None
+    queue.put({"rank": rank, "rc": rc, "out": tee.buf.getvalue(),
+               "wall": time.perf_counter() - t0,
+               "launches": engine.kernel_launches(),
+               "outside": fa.launches, "prefills": engine.local_prefills,
+               "programs": engine.compile_counts(),
+               "span": engine.span,
+               "summary": None if summary is None else {
+                   "tokens": _tokens_of(summary),
+                   **{k: summary[k] for k in (
+                       *SERVE_LATENCY, "status", "n_chips", "admitted",
+                       "completed", "requests", "wall_s")}}})
+
+
+def _cli_params(torch, argv):
+    """The serve CLI's model at ``argv`` and its seeded params on the
+    card (the near-tie rule's full forward)."""
+    from tpudist_torch.config import ModelConfig
+    from tpudist_torch.serve import cli as serve_cli
+    from tpudist_torch.serve.engine import init_params
+
+    a = serve_cli.parse_args(argv)
+    cfg = ModelConfig(name=a.model, vocab_size=a.vocab_size,
+                      n_layers=a.n_layers, d_model=a.d_model,
+                      n_heads=a.n_heads, n_kv_heads=a.n_kv_heads,
+                      d_ff=a.d_ff, max_seq_len=a.max_seq,
+                      n_experts=a.n_experts, expert_top_k=a.expert_top_k)
+    return cfg, init_params(cfg, seed=a.seed, device="cuda")
+
+
+def serve_mesh_cli(torch, fa, fx, card: str, engine, params):
+    """Phase 22b (two cards or more): the serve CLI as one NCCL process a
+    card at phase 4's flags (8 slots: a share a card), at phase 18d's MoE
+    flags, and at 8 slots a card with 16 requests a card. Each against one
+    card: the first two against the serve CLI on one card, the third
+    against phase 4's engine over its stream. Fails unless every rank
+    exits 0, every verdict is ``success``, ``n_chips`` is the cards, each
+    rank's pin holds and its flash launches are n_layers x (its prefills
+    + the warm-up's), the prefills over the ranks are the requests, and
+    every request's tokens equal the one-card run's or first diverge at
+    a near-tie (phase 14's rule, counted). Prints tokens/s/chip, TTFT and
+    ITL beside the one-card run's. Returns the paths' launches (summed
+    over the ranks)."""
+    from tpudist_torch.serve import scheduler as sched
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    wide = [*SERVE_ARGV, "--slots", str(8 * world), "--requests",
+            str(16 * world)]
+    requests = sched.make_requests(16 * world, prompt_pad=512,
+                                   vocab_size=32000, max_new=32, rate=0.0,
+                                   seed=0)
+    engine.reset_kernel_launches()
+    one_wide = sched.run_serve(engine, params, requests)
+    print(f"serve mesh 22b: phase 4's engine over {16 * world} requests "
+          f"on one card: " + _latency_line(one_wide))
+    refs = {}
+    for tag, argv in ((SERVE_MESH_CLI_PATHS[0], SERVE_ARGV),
+                      (SERVE_MESH_CLI_PATHS[1], MOE_SERVE_ARGV)):
+        one = _serve_cli(torch, fa, fx, f"{tag} one card", argv)
+        refs[tag] = one["summary"]
+    refs[SERVE_MESH_CLI_PATHS[2]] = one_wide
+    streams = {SERVE_MESH_CLI_PATHS[2]: requests}
+    paths = {}
+    for tag, argv in zip(SERVE_MESH_CLI_PATHS,
+                         (SERVE_ARGV, MOE_SERVE_ARGV, wide)):
+        save = ROOT / "build" / "chip_smoke_serve" / tag
+        shutil.rmtree(save, ignore_errors=True)
+        verdict = save / "job_status.txt"
+        port = _free_port()
+        ranks = _spawn(_serve_rank,
+                       [(r, world, port, argv + ["--save-dir", str(save)],
+                         str(verdict)) for r in range(world)], 300,
+                       f"serve {tag}")
+        statuses = [verdict.read_text() if verdict.is_file() else None] + [
+            (save / f"job_status.txt.worker{r}").read_text()
+            if (save / f"job_status.txt.worker{r}").is_file() else None
+            for r in range(world)]
+        shutil.rmtree(save, ignore_errors=True)
+        got = ranks[0]["summary"]
+        if [r["rc"] for r in ranks] != [0] * world \
+                or statuses != ["success"] * (world + 1) or got is None \
+                or got["status"] != "success" or got["n_chips"] != world:
+            fail(f"serve {tag}: exit codes {[r['rc'] for r in ranks]}, "
+                 f"final and worker verdicts {statuses}, summary "
+                 f"{None if got is None else (got['status'], got['n_chips'])}")
+        for r in ranks:
+            want = 4 * (r["prefills"] + 1)
+            print(f"serve {tag}: rank {r['rank']} slots {r['span']}, "
+                  f"programs {r['programs']}, prefills {r['prefills']}, "
+                  f"flash launches {r['launches']} (want n_layers x "
+                  f"(prefills + warm-up) = {want}), wall {r['wall']:.2f} s")
+            if r["programs"] != (1, 3) or r["launches"] != want \
+                    or r["outside"] != 4:
+                fail(f"serve {tag}: rank {r['rank']} programs "
+                     f"{r['programs']}, launches {r['launches']} (want "
+                     f"{want}), outside a graph {r['outside']}")
+        n_pre = sum(r["prefills"] for r in ranks)
+        if got["completed"] != got["requests"] \
+                or not n_pre == got["admitted"] == got["requests"]:
+            fail(f"serve {tag}: {got['completed']}/{got['requests']} "
+                 f"completed, prefills over the ranks {n_pre}, admitted "
+                 f"{got['admitted']}")
+        ref = refs[tag]
+        cfg, ref_params = engine.model_cfg, params
+        if tag != SERVE_MESH_CLI_PATHS[2] \
+                and got["tokens"] != _tokens_of(ref):
+            cfg, ref_params = _cli_params(torch, argv)
+        stream = streams.get(tag) or sched.make_requests(
+            16, prompt_pad=512, vocab_size=32000, max_new=32, rate=0.0,
+            seed=0)
+        ties = _near_ties(torch, ref_params, cfg, stream, _tokens_of(ref),
+                          got["tokens"], f"serve {tag}")
+        del ref_params
+        torch.cuda.empty_cache()
+        print(f"serve {tag}: {world} NCCL processes, status "
+              f"{got['status']}, n_chips {got['n_chips']}, near-ties "
+              f"{ties}; {world} cards " + _latency_line(got)
+              + "; one card " + _latency_line(ref) + f"; {card}")
+        paths[tag] = {"flash_attention_fwd": sum(r["launches"]
+                                                 for r in ranks)}
+    print(f"serve mesh 22b: phase wall {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def plain_attention(torch, fa):
     """Attention through the plain versions on the card, forward and
     backward: the reference the step-level check holds the kernels
@@ -5501,6 +5834,10 @@ def main() -> int:
                     help="phases 1-2, phase 6 (21b's reference) and "
                          "phase 21 alone: tensor parallelism on the "
                          "visible cards")
+    ap.add_argument("--only-serve-mesh", action="store_true",
+                    help="phases 1-2, phase 3's flash forward checks, "
+                         "phase 4 and phase 22 alone: serving on the "
+                         "visible cards")
     args = ap.parse_args()
 
     import torch
@@ -5515,6 +5852,7 @@ def main() -> int:
     from tpudist_torch.ops.cuda import fused_xent as fx
 
     # phase 1: device
+    walls = PhaseWalls()
     card = card_line()
     print(card)
     print(f"device: {torch.cuda.get_device_name(0)}, "
@@ -5526,21 +5864,28 @@ def main() -> int:
 
     # phase 2: build every kernel of the paths from the checkout
     build_all(build, fa, fx)
+    walls.lap("1-2")
     if args.only_tp:
         return only_tp(torch, fa, fx, card)
+    if args.only_serve_mesh:
+        return only_serve_mesh(torch, fa, fx, card)
 
     # phase 3: kernels vs plain versions, timings
     fwd = check_flash(torch, fa, F)
     bwd = time_flash_bwd(torch, fa, F, check_flash_bwd(torch, fa))
     xent = time_fused_xent(torch, fx, F, check_fused_xent(torch, fx))
+    walls.lap("3")
 
     # phases 4-6 and 8-9: the serving paths and the training paths at
     # full width, each with the launch counts set to 0 just before
     paths, phase6 = {}, {}
     engine, params, base, paths["serve"] = serve_slice(torch, fa, fx,
                                                        args.profile)
+    # phase 22a's references: phase 4's tokens and phase 18c's
+    serve_tokens = {"serve": _tokens_of(base)}
     # phase 4b: overload on the same graph engine
     paths["serve_overload"] = serve_overload(torch, engine, params, base)
+    walls.lap("4")
     del engine, params
     torch.cuda.empty_cache()
     for tag, seq, epochs, kw in (
@@ -5558,16 +5903,19 @@ def main() -> int:
                   hbm_bytes=3e9, want_head="fused"))):
         paths[tag] = train_slice(torch, fa, fx, tag, seq, epochs=epochs,
                                  n_samples=32, **kw)
+    walls.lap("5-6, 8-9")
 
     # phase 7: one full-width training step, kernels vs plain versions
     for seq, fused in ((512, False), (2048, False), (2048, True)):
         step_check(torch, fa, fx, seq, fused)
+    walls.lap("7")
 
     # phase 10: data parallelism, the CLI at one process a card (NCCL),
     # then the reduce across two ranks on one card (gloo)
     torch.cuda.empty_cache()
     paths["train_seq512_dp"] = dp_train_slice(torch, fa, card)
     dp_reduce_check(torch, card)
+    walls.lap("10")
 
     # phase 11: the superstep on CUDA graphs: (a) phase 9's configuration
     # per-step and as the superstep under a streaming staging budget,
@@ -5582,6 +5930,7 @@ def main() -> int:
         torch, fa, card, tag="train_seq512_dp_superstep", n_samples=80,
         dispatch=("--log-every", "4", "--steps-per-dispatch", "4"),
         want_graphs=(2, {"superstep": 1, "step": 2}))
+    walls.lap("11")
 
     # phase 12: the autotuner on the card: (a) the MLP default and the
     # capture OOM drill, (b) remat against no remat replayed, then the
@@ -5590,6 +5939,7 @@ def main() -> int:
     tuner_mlp(torch, fa, fx, card)
     remat_check(torch, card)
     paths[TUNE_PATH] = tuner_full_width(torch, fa, fx, card)
+    walls.lap("12")
 
     # phase 13: the observability every default run writes: (a) phase
     # 11a's default run's artifacts, then its configuration off and on
@@ -5599,41 +5949,49 @@ def main() -> int:
     paths.update(obs_train(torch, fa, fx, card, obs_on, obs_argv, obs_env))
     paths.update(obs_serve(torch, fa, fx, card))
     stall_drill(torch, card)
+    walls.lap("13")
 
     # phase 14: the paged serving plane: (a) phase 4's stream paged, (b)
     # a shared prefix and speculation, (c) the fixed-memory pair, (d) the
     # serve CLI with the paged flags
     torch.cuda.empty_cache()
     paths.update(paged_serve(torch, fa, fx, base, card, args.profile))
+    walls.lap("14")
 
     # phase 15: the serve tuner through the CLI and over the whole knob
     # space, the two KV layouts, the chaos surface with requeue replay,
     # and alert_events
     torch.cuda.empty_cache()
     paths.update(serve_tune_chaos(torch, fa, fx, base, card, args.profile))
+    walls.lap("15")
 
     # phase 16: the serve drill's matrix on the card at config #5's
     # model, then its overload in-process
     torch.cuda.empty_cache()
     paths.update(serve_drill(torch, fa, fx, card))
+    walls.lap("16")
 
     # phase 17: the train side's chaos drill on the card at config #5's
     # width, its baseline in-process, and what the asynchronous
     # checkpoint writer buys
     torch.cuda.empty_cache()
     paths.update(train_chaos(torch, fa, fx, card))
+    walls.lap("17")
 
     # phase 18: the MoE at bench.py's width: (a) the train CLI per-step
     # and as the superstep, (b) one step's grads kernels vs plain, (c)
     # the dense and paged engines, (d) the serve CLI
     torch.cuda.empty_cache()
-    paths.update(moe_phase(torch, fa, fx, card, args.profile))
+    paths.update(moe_phase(torch, fa, fx, card, args.profile,
+                           serve_tokens))
+    walls.lap("18")
 
     # phase 19: the rest of observability: (a) the live bus and the
     # device-time window over phase 11a's superstep, (b) --profile-dir and
     # python -m tpudist_torch.bench.profile, (c) the serve CLI's exporter
     torch.cuda.empty_cache()
     paths.update(obs_live(torch, fa, fx, obs_on, obs_argv, obs_env, card))
+    walls.lap("19")
 
     # phase 20: FSDP: (a) the sharded step body and its superstep on a
     # one-rank NCCL mesh against the replicated body, (b) with two cards
@@ -5643,6 +6001,7 @@ def main() -> int:
     paths.update(fsdp_body(torch, fa, card))
     if torch.cuda.device_count() >= 2:
         paths.update(fsdp_cli(torch, fa, card))
+    walls.lap("20")
 
     # phase 21: tensor parallelism: (a) the tensor path's step body and
     # its superstep on a one-rank NCCL mesh against the replicated body,
@@ -5653,6 +6012,18 @@ def main() -> int:
     paths.update(tp_body(torch, fa, card))
     if torch.cuda.device_count() >= 2:
         paths.update(tp_cli(torch, fa, fx, card, phase6["losses"]))
+    walls.lap("21")
+
+    # phase 22: serving on several cards: (a) phase 4's engine and phase
+    # 18c's dense MoE engine on a one-rank NCCL serve mesh, bitwise their
+    # tokens, (b) with two cards or more, the serve CLI as one NCCL
+    # process a card against one card's run
+    torch.cuda.empty_cache()
+    paths.update(serve_mesh_one(torch, fa, card, serve_tokens))
+    if torch.cuda.device_count() >= 2:
+        paths.update(serve_mesh_cli(torch, fa, fx, card,
+                                    *phase4_engine(torch)))
+    walls.lap("22")
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -5704,12 +6075,32 @@ def main() -> int:
         if missing:
             fail(f"{rec['name']} launched no time on {missing}")
 
+    print(walls.line())
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+class PhaseWalls:
+    """Each phase's wall time in the full run, printed as one line at its
+    end: what the script's time limit is spent on."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.rows = []
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.rows.append((phase, now - self.last))
+        self.last = now
+
+    def line(self) -> str:
+        return ("chip_smoke: phase walls " + ", ".join(
+            f"{p} {s:.1f} s" for p, s in self.rows)
+            + f"; total {time.perf_counter() - self.t0:.1f} s")
 
 
 def only_tp(torch, fa, fx, card: str) -> int:
@@ -5733,6 +6124,32 @@ def only_tp(torch, fa, fx, card: str) -> int:
         missing = [p for p in paths if paths[p].get(name, 0) < 1]
         if missing:
             fail(f"{name} launched no time on {missing}")
+    print(json.dumps({"launches": paths}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_serve_mesh(torch, fa, fx, card: str) -> int:
+    """``--only-serve-mesh``: phase 3's flash forward checks, phase 4,
+    then phase 22 on the visible cards (22a without the MoE, whose
+    reference, phase 18c, does not run here), then the result line."""
+    import torch.nn.functional as F
+
+    check_flash(torch, fa, F)
+    engine, params, base, counts = serve_slice(torch, fa, fx, False)
+    paths = {"serve": counts}
+    torch.cuda.empty_cache()
+    paths.update(serve_mesh_one(torch, fa, card,
+                                {"serve": _tokens_of(base)}))
+    if torch.cuda.device_count() >= 2:
+        paths.update(serve_mesh_cli(torch, fa, fx, card, engine, params))
+    missing = [p for p in paths
+               if paths[p].get("flash_attention_fwd", 0) < 1]
+    if missing:
+        fail(f"flash_attention_fwd launched no time on {missing}")
     print(json.dumps({"launches": paths}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -39,11 +39,15 @@ group that would cross ranks), and the aux loss's per-expert sums are
 all-reduced over the data x fsdp ranks before their product, inside
 autograd. Under tensor parallelism the experts' hidden dim is split over
 ``tensor`` (``w_gate``/``w_up`` column-parallel, ``w_down``
-row-parallel); the router runs whole on every tensor rank.
+row-parallel); the router runs whole on every tensor rank. Serving on a
+mesh that splits the decode's slot batch, the router probabilities are
+all-gathered and routed as one global group (:func:`_moe_ffn`), as
+the JAX engine's one program routes them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -187,8 +191,8 @@ def _route(probs: torch.Tensor, k: int, cap: int
     return dispatch, combine, onehot.sum(dim=(-3, -2))
 
 
-def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig, groups=None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig, groups=None,
+             slot_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed SwiGLU experts. y: (b, s, d) normed activations. Returns
     (ffn_out (b, s, d), aux scalar f32). Groups split the token-major
     order. The router product runs in the model dtype and the softmax in
@@ -196,21 +200,43 @@ def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig, groups=None
     einsums, so bf16 rounds the gates as the JAX package does. With a
     sharded step's ``groups`` the routing is over the global batch and,
     under tensor parallelism, the experts' hidden dim is this rank's
-    part (module docstring)."""
+    part (module docstring).
+
+    A serve mesh's ``slot_group`` splits a decode's slot batch over its
+    ranks (rank ``i`` holds tokens ``[i t, (i + 1) t)``): the router
+    probabilities are all-gathered in global slot order and routed as
+    the global batch's groups, with the global capacity, and this rank
+    keeps its tokens' rows of dispatch and combine. A capacity row holds
+    one token, so the experts run on any split of this rank's tokens
+    into pieces that each lie inside one routing group."""
     b, s, d = y.shape
     dt = y.dtype
     t = b * s
     spread = groups is not None and groups.batch > 1
-    total = t * groups.batch if groups is not None else t
-    g = (group_size(cfg, t) if groups is None
-         else global_group_size(cfg, total, t))
+    if groups is not None:
+        total = t * groups.batch
+        g = global_group_size(cfg, total, t)
+    else:
+        total = t * (slot_group.ways if slot_group is not None else 1)
+        g = group_size(cfg, total)
     cap = capacity(cfg, g)
-    yg = y.reshape(t // g, g, d)                               # (G, g, d)
+    # g, unless a serving group spans ranks: then pieces of it
+    p = math.gcd(g, t)
+    yg = y.reshape(t // p, p, d)                               # (G, p, d)
 
     logits = torch.einsum("gtd,de->gte", yg,
                           lp["w_router"].to(dt)).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)                      # (G, g, E)
-    dispatch, combine, assigned = _route(probs, cfg.expert_top_k, cap)
+    probs = torch.softmax(logits, dim=-1)                      # (G, p, E)
+    if slot_group is not None:
+        probs = slot_group.gather(probs.reshape(t, -1)).reshape(
+            total // g, g, -1)                                 # (G, g, E)
+        dispatch, combine, assigned = _route(probs, cfg.expert_top_k, cap)
+        off = slot_group.index * t
+        dispatch, combine = (x.reshape(total, *x.shape[-2:])[off:off + t]
+                             .reshape(t // p, p, *x.shape[-2:])
+                             for x in (dispatch, combine))
+    else:
+        dispatch, combine, assigned = _route(probs, cfg.expert_top_k, cap)
 
     (wg, wu), wd = (lp["w_gate"], lp["w_up"]), lp["w_down"]
     tp = groups is not None and groups.tp
@@ -239,7 +265,7 @@ def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig, groups=None
                                                    * cfg.expert_top_k)
         p_e = groups.batch_sum(probs.sum(dim=(0, 1))) / total
     else:
-        f_e = assigned.sum(0) / (t * cfg.expert_top_k)
+        f_e = assigned.sum(0) / (total * cfg.expert_top_k)
         p_e = probs.mean(dim=(0, 1))
     aux = cfg.n_experts * torch.sum(f_e * p_e)
     return out.reshape(b, s, d), aux
@@ -253,23 +279,29 @@ def _moe_layer(x, lp, cfg: ModelConfig, cos, sin, attn_impl, groups=None):
     return x + ffn, aux
 
 
-def _moe_ffn_sublayer(x, lp, cfg: ModelConfig):
+def _moe_ffn_sublayer(x, lp, cfg: ModelConfig, slot_group=None):
     """Pre-norm expert FFN + residual, in the shape the transformer's
     serving forwards take as ``ffn``. The aux loss is dropped: serving
     has no objective. Every slot of a decode batch routes, empty ones
-    too, and takes capacity, as in the JAX package."""
-    ffn, _aux = _moe_ffn(T.rmsnorm(x, lp["ffn_norm"]), lp, cfg)
+    too, and takes capacity, as in the JAX package; a serve mesh's
+    ``slot_group`` routes the global slot batch (:func:`_moe_ffn`)."""
+    ffn, _aux = _moe_ffn(T.rmsnorm(x, lp["ffn_norm"]), lp, cfg,
+                         slot_group=slot_group)
     return x + ffn
 
 
 def _cached_hidden_states(params: MoE, tokens: torch.Tensor,
-                          cfg: ModelConfig, *, dtype, kv_cache, cur_index):
+                          cfg: ModelConfig, *, dtype, kv_cache, cur_index,
+                          slot_group=None):
     """Serving path: the transformer's cache contract
     (:func:`transformer._cached_hidden_states`) with the experts as the
-    FFN half."""
+    FFN half, routed over ``slot_group``'s global slot batch when a
+    serve mesh splits the slots."""
+    ffn = (_moe_ffn_sublayer if slot_group is None
+           else functools.partial(_moe_ffn_sublayer, slot_group=slot_group))
     return T._cached_hidden_states(params, tokens, cfg, dtype=dtype,
                                    kv_cache=kv_cache, cur_index=cur_index,
-                                   ffn=_moe_ffn_sublayer)
+                                   ffn=ffn)
 
 
 def paged_hidden_states(params: MoE, tokens: torch.Tensor,
@@ -287,15 +319,17 @@ def paged_hidden_states(params: MoE, tokens: torch.Tensor,
 def hidden_states(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,
                   dtype=torch.bfloat16, attn_impl=T._attention,
                   remat: bool = False, kv_cache=None, cur_index=None,
-                  groups=None):
+                  groups=None, slot_group=None):
     """Backbone forward: tokens (batch, seq) -> (final-norm hidden states
     (batch, seq, d_model) in ``dtype``, the mean aux loss over layers).
     ``remat`` checkpoints each layer. ``kv_cache``/``cur_index`` select
-    the serving path and the return becomes ``(h, kv_cache)``.
+    the serving path and the return becomes ``(h, kv_cache)``, its decode
+    routed over ``slot_group``'s ranks when given.
     ``groups``: a sharded step's."""
     if kv_cache is not None:
         return _cached_hidden_states(params, tokens, cfg, dtype=dtype,
-                                     kv_cache=kv_cache, cur_index=cur_index)
+                                     kv_cache=kv_cache, cur_index=cur_index,
+                                     slot_group=slot_group)
     s = tokens.shape[1]
     hd = cfg.d_model // cfg.n_heads
     cos, sin = T.precompute_rope(s, hd, cfg.rope_theta, device=tokens.device)

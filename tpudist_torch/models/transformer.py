@@ -498,13 +498,15 @@ def paged_hidden_states(params: Transformer, tokens: torch.Tensor,
 def hidden_states(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, *, dtype=torch.bfloat16,
                   attn_impl=_attention, remat: bool = False, kv_cache=None,
-                  cur_index=None, groups=None):
+                  cur_index=None, groups=None, slot_group=None):
     """Backbone forward: tokens (batch, seq) -> final-norm hidden states
     (batch, seq, d_model) in ``dtype``. ``remat`` checkpoints each layer
     (activations recomputed in backward). ``kv_cache``/``cur_index``
     select the serving path (:func:`_cached_hidden_states`) and the
     return becomes ``(h, kv_cache)``. ``groups``: a sharded step's
-    (:class:`tpudist_torch.parallel.tensor.StepGroups`)."""
+    (:class:`tpudist_torch.parallel.tensor.StepGroups`). ``slot_group``:
+    a serve mesh's, which the dense model does not read (no slot's
+    tokens depend on another's)."""
     if kv_cache is not None:
         return _cached_hidden_states(params, tokens, cfg, dtype=dtype,
                                      kv_cache=kv_cache, cur_index=cur_index)

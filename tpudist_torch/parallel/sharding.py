@@ -1,4 +1,5 @@
-"""Sharding layouts: the specs of params, batches and optimizer state.
+"""Sharding layouts: the specs of params, batches, optimizer state and
+the serving KV cache.
 
 Counterpart of the layout half of ``tpudist/parallel/sharding.py`` (the
 staging half is :mod:`tpudist_torch.parallel.staging`). FSDP is data,
@@ -73,6 +74,33 @@ def batch_spec(ndim: int) -> Spec:
     """Batch arrays shard their leading (batch) dim over data AND fsdp:
     fsdp replicas are extra data-parallel workers for activations."""
     return (("data", "fsdp"), *([None] * (ndim - 1)))
+
+
+KV_CACHE_LAYOUTS = ("st", "hs")
+
+
+def kv_cache_specs(layout: str = "st") -> Spec:
+    """The serving KV cache's spec, one for the K and the V arrays.
+    ``"st"`` stores ``(layers, slots, seq, kv_heads, head_dim)``,
+    ``"hs"`` ``(layers, slots, kv_heads, seq, head_dim)``: the slot dim
+    rides the batch axes as every activation does (:func:`batch_spec`),
+    the kv heads ride ``tensor``, the rest stay whole. Sanitise it
+    (:func:`sanitize_spec`), so a slot count the batch axes don't divide
+    falls back to replicated."""
+    if layout == "st":
+        return (None, ("data", "fsdp"), None, "tensor", None)
+    if layout == "hs":
+        return (None, ("data", "fsdp"), "tensor", None, None)
+    raise ValueError(f"unknown kv-cache layout {layout!r}: "
+                     f"{' | '.join(KV_CACHE_LAYOUTS)}")
+
+
+def paged_kv_cache_specs() -> Spec:
+    """The PAGED KV pool's spec, ``(layers, pages + 1, page_tokens,
+    kv_heads, head_dim)``: pages ride the batch axes, kv heads
+    ``tensor``. The trash page makes the pool's size odd as a rule, so
+    it sanitises to replicated as a rule."""
+    return (None, ("data", "fsdp"), None, "tensor", None)
 
 
 def sharded_dim(spec: Spec, axis: str = "fsdp") -> Optional[int]:

@@ -37,6 +37,17 @@ the serve tuner's cache (``--tune-cache-dir``), an optional
 (``TPUDIST_VERDICT_PATH``). Exit code: 0 unless an SLO gate FAILED or
 the run failed.
 
+Under the env contract (``TPUDIST_COORDINATOR`` /
+``TPUDIST_NUM_PROCESSES`` / ``TPUDIST_PROCESS_ID``, one process a card,
+as the train CLI) the run serves on a serve mesh
+(:class:`~tpudist_torch.serve.engine.ServeEngine`, ``mesh=``): rank 0
+runs the scheduler and writes every artifact, ``n_chips`` the processes;
+the other ranks follow its engine calls. The paged plane, speculation,
+the shared prefix, the serve tuner, chaos and the requeue attempt serve
+on one process only (:func:`check_mesh_flags`). Every rank writes its
+worker verdict; a rank that fails leaves at once, so the run fails in
+bounded time.
+
 ``parse_args`` declares every option of the JAX serve CLI, with its
 default.
 """
@@ -230,6 +241,30 @@ def parse_args(argv: Optional[Sequence[str]] = None
     return args
 
 
+def check_mesh_flags(args: argparse.Namespace, world: int) -> None:
+    """On a serve mesh (``world`` > 1 processes) refuse what serves on
+    one process only, each with a ``ValueError`` naming ROADMAP Queue A
+    item 8c part 2: the paged plane (``--kv-page-tokens``), speculation
+    and the shared prefix that ride on it, the serve tuner, chaos and
+    the requeue attempt it drives. Their ``$TPUDIST_`` twins set the same
+    flags. One process refuses nothing."""
+    if world <= 1:
+        return
+    refused = (("--kv-page-tokens", args.kv_page_tokens > 0),
+               ("--speculate-k", args.speculate_k > 0),
+               ("--shared-prefix", args.shared_prefix > 0),
+               ("--serve-tune", args.serve_tune != "off"),
+               ("--chaos", bool(args.chaos)),
+               ("--requeue-attempt", args.requeue_attempt is not None))
+    for flag, on in refused:
+        if on:
+            raise ValueError(
+                f"{flag} on a serve mesh of {world} processes: the paged "
+                f"plane, speculation, the serve tuner and serve chaos on "
+                f"several cards are ROADMAP Queue A item 8c part 2; serve "
+                f"with one process")
+
+
 def _prior_outcomes(path: str):
     """Replay a dead attempt's flushed ``kind=serve_request`` events:
     returns ``(accounted_rids, lost_rids)`` — rids with a terminal
@@ -285,11 +320,13 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     import torch
 
     from tpudist_torch import engine as engine_lib
-    from tpudist_torch.config import ModelConfig, resolve_trace
+    from tpudist_torch.config import ModelConfig, ParallelConfig, resolve_trace
     from tpudist_torch.metrics import MetricsLogger, log0
     from tpudist_torch.obs import live as live_lib
     from tpudist_torch.obs import memledger as memledger_lib
     from tpudist_torch.obs import trace as trace_lib
+    from tpudist_torch.parallel import distributed
+    from tpudist_torch.parallel import mesh as mesh_lib
     from tpudist_torch.serve import flight as flight_lib
     from tpudist_torch.serve import resilience as res_lib
     from tpudist_torch.serve import scheduler as sched
@@ -311,7 +348,14 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         d_ff=args.d_ff, max_seq_len=args.max_seq,
         n_experts=args.n_experts, expert_top_k=args.expert_top_k)
     dtype = getattr(torch, args.dtype)
-    device = resolve_device(args.device)
+    # under the env contract one process a card: the serve mesh's slots
+    # split over the ranks, rank 0 the scheduler, the others following
+    # its engine calls (ServeEngine.follow)
+    ctx = distributed.initialize(device=resolve_device(args.device))
+    device, world = ctx.device, ctx.process_count
+    check_mesh_flags(args, world)
+    mesh = (mesh_lib.build_mesh(ParallelConfig(), device_type=device.type)
+            if world > 1 else None)
 
     # --requeue-attempt's PRESENCE (any value, 0 included) means a
     # launcher's supervision loop owns this run: outcome events must
@@ -337,8 +381,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     # $TPUDIST_LIVE=on without a port keeps it exporter-less (the drills'
     # mode); a port also serves Prometheus /metrics
     agg = server = None
-    if args.live_port or os.environ.get(
-            "TPUDIST_LIVE", "").lower() in ("on", "1", "true"):
+    if ctx.is_coordinator and (args.live_port or os.environ.get(
+            "TPUDIST_LIVE", "").lower() in ("on", "1", "true")):
         agg = live_lib.LiveAggregator(out_dir=args.save_dir, run_id=run_id,
                                       metrics=None, stall_timeout_s=0)
         if args.live_port:
@@ -369,6 +413,10 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         validate=bool(args.chaos or args.queue_cap or args.ttft_deadline_ms
                       or args.adapt == "on"))
     params = init_params(model_cfg, seed=args.seed, device=device)
+    if mesh is not None:
+        # replicated params: rank 0's, whatever each card drew
+        for p in params.parameters():
+            torch.distributed.broadcast(p.data, src=0)
 
     cand = serve_tune.ServeCandidate(
         decode_k=args.decode_k, layout=args.kv_layout,
@@ -407,7 +455,20 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                              prompt_pad=args.prompt_pad,
                              decode_k=cand.decode_k, layout=cand.layout,
                              dtype=dtype, device=device,
-                             adapt_ladder=ladder)
+                             adapt_ladder=ladder, mesh=mesh)
+    if mesh is not None:
+        log0(f"tpudist: serve mesh of {world} processes ({ctx.backend}): "
+             + (f"slots {args.slots} split {engine.span[1] - engine.span[0]}"
+                f" a rank" if engine.split else
+                f"slots {args.slots} replicated (data {world} does not "
+                f"divide them)")
+             + ("; MoE decode routed over the global slot batch"
+                if args.model == "moe" and engine.split else ""))
+        if not ctx.is_coordinator:
+            engine.follow(params)
+            # NCCL destroys no communicator a live graph captured work on
+            engine.release()
+            return None
     with trace_lib.span("serve_warmup", cat="serve"):
         engine.warmup(params)
     # the warm-up's wall and memory: facts of the card and the run, kept
@@ -488,6 +549,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                               virtual=virtual,
                               flush_events=True if supervised else None,
                               shared_prefix=shared_prefix)
+    engine.stop_followers()
     engine.assert_two_programs()
     summary["run_id"] = run_id
     summary["model"] = args.model
@@ -513,14 +575,18 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     metrics.flush()
 
     # the serve lane's memory ledger: params, the KV cache (paged: pool
-    # pages with the trash page + the table, ``spec.bytes``) and the
-    # captured programs' graph pools, partitioned against the card's
-    # memory. Advisory: a failure logs a line
+    # pages with the trash page + the table, ``spec.bytes``; on a serve
+    # mesh this rank's span of the slots, while ``kv_cache_bytes`` above
+    # stays the whole cache, as in the JAX summary) and the captured
+    # programs' graph pools, partitioned against the card's memory.
+    # Advisory: a failure logs a line
+    lo, hi = engine.span
+    card_cache_bytes = cache_bytes * (hi - lo) // engine.slots
     try:
         ledger = memledger_lib.build_ledger(
             total_hbm_bytes=hbm_bytes, params_bytes=params_bytes,
-            kv_pool_bytes=cache_bytes, programs=program_mem, mode="serve",
-            run_id=run_id)
+            kv_pool_bytes=card_cache_bytes, programs=program_mem,
+            mode="serve", run_id=run_id)
         metrics.log(kind="memledger",
                     **memledger_lib.ledger_record(ledger))
         metrics.flush()
@@ -531,7 +597,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
              f"{100 * ledger['headroom_fraction']:.1f}% headroom of "
              f"{ledger['total_hbm_bytes'] / 2**20:.0f} MB HBM "
              f"(params {params_bytes / 2**20:.1f} MB, kv_pool "
-             f"{cache_bytes / 2**20:.2f} MB, temp "
+             f"{card_cache_bytes / 2**20:.2f} MB, temp "
              f"{ledger['buckets']['program_temp'] / 2**20:.1f} MB, "
              f"{'exact' if ledger['exact'] else 'INEXACT'})")
     except Exception as e:
@@ -575,6 +641,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                  f"counter events, merged {tinfo['merged_path']})")
         except Exception as e:
             log0(f"tpudist: serve trace export failed ({e!r})")
+    if mesh is not None:
+        engine.release()     # before the process group goes (follow())
     return summary
 
 
@@ -615,12 +683,17 @@ def _write_bench(path: str, summary: Dict[str, Any]) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     verdict_path = os.environ.get("TPUDIST_VERDICT_PATH")
-    status = slo_lib.FAIL
+    status, ok = slo_lib.FAIL, False
     try:
         summary = run(parse_args(argv))
-        status = summary["status"]
+        # a serve mesh's follower serves; rank 0's summary grades
+        status = slo_lib.SUCCESS if summary is None else summary["status"]
+        ok = True
     except Exception as e:
         print(f"tpudist: serve failed: {e!r}", file=sys.stderr, flush=True)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return _end_mesh_run(verdict_path, ok, status)
     if verdict_path:
         import subprocess
 
@@ -632,6 +705,47 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   file=sys.stderr, flush=True)
     # an UNGATEABLE run (nothing measured) is not a latency regression
     return 1 if status == slo_lib.FAIL else 0
+
+
+def _end_mesh_run(verdict_path: Optional[str], ok: bool, status: str
+                  ) -> int:
+    """A serve mesh's end, on every rank. A rank that failed writes its
+    verdicts (rank 0 the final ``fail``) and leaves at once, joining no
+    further collective: its peers' next collective with it then fails on
+    the closed connection instead of waiting, so a failed follower fails
+    the run in bounded time. Otherwise the verdicts are ANDed over the
+    ranks (bounded, as in training), rank 0 writes the final one, and the
+    ranks meet at a bounded end barrier before leaving the group."""
+    from tpudist_torch import verdict as verdict_lib
+    from tpudist_torch.parallel import distributed
+
+    def write(ok: bool, status: str) -> None:
+        if not verdict_path:
+            return
+        try:
+            verdict_lib.write_worker_verdict(verdict_path, ok)
+            verdict_lib.write_final_status(verdict_path, status)
+        except OSError as e:
+            print(f"tpudist: verdict plumbing failed: {e!r}",
+                  file=sys.stderr, flush=True)
+
+    if not ok:
+        write(False, slo_lib.FAIL)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    all_ok, timed_out = verdict_lib.aggregate_status(True)
+    if not all_ok:
+        status = slo_lib.FAIL
+    write(True, status)
+    if not timed_out and not distributed.barrier_bounded("tpudist_serve_end"):
+        distributed.shutdown()
+    code = 1 if status == slo_lib.FAIL else 0
+    if timed_out:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    return code
 
 
 if __name__ == "__main__":

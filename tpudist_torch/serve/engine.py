@@ -41,6 +41,24 @@ them, and ``prefill``/``decode`` refuse another state, or params other
 than those the programs were built on. Greedy decoding is a pure
 function of (params, state).
 
+On a **serve mesh** (``mesh=``: ``ParallelConfig()``'s, data = the
+processes, one card each, under ``tpudist_torch.parallel.distributed``'s
+env contract) each rank holds the params whole and its span of the slots
+(:func:`~tpudist_torch.serve.kvcache.slot_span`: ``[r S/N, (r+1) S/N)``,
+or every slot where ``N`` does not divide them, as the JAX engine's
+sanitised cache spec places them). Rank 0 drives the engine through the
+same calls, with global slot ids; each call is broadcast over the host
+gloo group as a small fixed-size command (warm-up, state reset, prefill
+with its prompt, decode with its rung), which the other ranks run in
+:meth:`ServeEngine.follow` on their own slots, so every rank captures and
+replays the same programs in the same order. A prefill runs on the
+slot's owner (every rank where the slots are replicated); a decode on
+every rank; the first token and the ``(k, slots)`` tokens come back to
+rank 0's host by a gather over the host group. The MoE's decode routes
+the global slot batch: its router probabilities are all-gathered over
+the slot group (NCCL on the card, inside the decode graph). The pin and
+the launch counts hold per rank.
+
 :class:`PagedServeEngine` keeps the same discipline over a paged KV pool
 (:mod:`tpudist_torch.serve.kvcache`): its prefill scatters the scratch
 into the slot's pages, its decode and verify programs attend through
@@ -57,12 +75,35 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpudist_torch.config import ModelConfig
+from tpudist_torch.engine import gather_dim
 from tpudist_torch.models import get_model
 from tpudist_torch.ops.cuda import flash_attention as fa
 from tpudist_torch.serve import kvcache
 from tpudist_torch.utils.platform import resolve_device
+
+
+# the commands rank 0 broadcasts to a serve mesh's followers: a header of
+# (op, eager, three ints), then a prompt's tokens
+_WARMUP, _INIT, _PREFILL, _DECODE, _STOP = range(1, 6)
+_HEAD = 5
+
+
+class SlotGroup(NamedTuple):
+    """The ranks a serve mesh splits the slot batch over, in global slot
+    order: rank ``index`` of ``ways`` holds the ``index``-th equal
+    chunk."""
+
+    group: object
+    ways: int
+    index: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked along dim 0 in slot order (an
+        all-gather over the group, NCCL on the card)."""
+        return gather_dim(x, 0, self.ways, self.group)
 
 
 class ServeState(NamedTuple):
@@ -99,7 +140,8 @@ class ServeEngine:
     ``adapt_ladder`` is the graceful-degradation rung set
     (:func:`tpudist_torch.serve.resilience.default_ladder`): one decode
     program per rung, all built at warmup, so a downshift switches
-    programs and never builds one.
+    programs and never builds one. ``mesh``: a serve mesh (module
+    docstring); ``n_chips`` is its card count, 1 without one.
     """
 
     paged = False          # the scheduler branches on this, not on type
@@ -108,7 +150,7 @@ class ServeEngine:
     def __init__(self, model_cfg: ModelConfig, *, slots: int,
                  max_seq: int, prompt_pad: int, decode_k: int = 8,
                  layout: str = "st", dtype=torch.float32, device=None,
-                 adapt_ladder: Optional[Sequence[int]] = None):
+                 adapt_ladder: Optional[Sequence[int]] = None, mesh=None):
         if slots < 1:
             raise ValueError(f"--slots must be >= 1, got {slots}")
         if decode_k < 1:
@@ -139,6 +181,7 @@ class ServeEngine:
         self.ladder = ladder
         self.layout, self.dtype = layout, dtype
         self.spec = self._cache_spec()
+        self._join_mesh(mesh)
         dev = self.device
         self._state = self._new_state()
         # the prefill's static inputs: the padded prompt, and (prompt_len,
@@ -163,6 +206,7 @@ class ServeEngine:
         self.capture_s = 0.0             # warmup's capture wall time
         self.graph_pool_bytes = 0        # device memory the captures hold
         self.last_logits: Optional[torch.Tensor] = None
+        self.local_prefills = 0          # admissions this rank prefilled
 
     # ----------------------------------------------------------- state
 
@@ -173,7 +217,7 @@ class ServeEngine:
 
     def _vectors(self) -> dict:
         """The state's per-slot vectors, zeroed on the engine's device."""
-        dev, s = self.device, self.slots
+        dev, s = self.device, self._hi - self._lo
         return dict(
             lengths=torch.zeros((s,), dtype=torch.int32, device=dev),
             last_token=torch.zeros((s,), dtype=torch.int32, device=dev),
@@ -181,7 +225,8 @@ class ServeEngine:
             remaining=torch.zeros((s,), dtype=torch.int32, device=dev))
 
     def _new_state(self) -> ServeState:
-        cache = kvcache.init_cache(self.spec, self.device)
+        cache = kvcache.init_cache(self.spec, self.device, self.mesh,
+                                   self._rank)
         return ServeState(cache_k=cache["k"], cache_v=cache["v"],
                           **self._vectors())
 
@@ -190,6 +235,10 @@ class ServeEngine:
         and return it."""
         if self._state is None:
             raise RuntimeError("this serve engine was released")
+        self._lead(_INIT)
+        return self._zero_state()
+
+    def _zero_state(self) -> ServeState:
         for t in self._state:
             t.zero_()
         return self._state
@@ -215,6 +264,190 @@ class ServeEngine:
 
     def _tied_logits(self, params, h: torch.Tensor) -> torch.Tensor:
         return (h @ params.embed.to(self.dtype).T).to(torch.float32)
+
+    # ------------------------------------------------------ serve mesh
+
+    def _join_mesh(self, mesh) -> None:
+        """This rank's part of a serve mesh's slots (every slot without a
+        mesh): its span ``[_lo, _hi)`` of the global slot ids, every
+        rank's span, and, where the cache's spec splits the slots, the
+        group the MoE routes the global slot batch over."""
+        self.mesh, self._slot_kw = mesh, {}
+        self._rank, self._lo, self._hi = 0, 0, self.slots
+        self.n_chips = 1
+        if mesh is None:
+            return
+        from tpudist_torch.parallel import distributed
+        from tpudist_torch.parallel.mesh import (axes_group, mesh_devices,
+                                                 mesh_shape)
+        from tpudist_torch.parallel.sharding import spec_axes
+        other = {a: n for a, n in mesh_shape(mesh).items()
+                 if a not in ("data", "fsdp") and n > 1}
+        if other:
+            raise ValueError(
+                f"a serve mesh splits the slots over data and fsdp; "
+                f"axes {other} would need a sharded serving forward")
+        self._host = distributed.host_group()
+        if self._host is None:
+            raise ValueError(
+                "a serve mesh needs the process group that "
+                "tpudist_torch.parallel.distributed.initialize joins")
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(self.device)
+        self._rank = dist.get_rank()
+        self._world = dist.get_world_size()
+        self.n_chips = mesh_devices(mesh).size
+        self._spans = [kvcache.slot_span(self.spec, mesh, r)
+                       for r in range(self._world)]
+        self._lo, self._hi = self._spans[self._rank]
+        axes = spec_axes(kvcache.cache_spec_on(self.spec, mesh)[1])
+        if axes:
+            group = axes_group(mesh, ("data", "fsdp"))
+            ways = self.slots // (self._hi - self._lo)
+            index = dist.get_rank(group)
+            if index * (self._hi - self._lo) != self._lo:
+                raise ValueError(
+                    f"rank {self._rank} holds slots [{self._lo}, "
+                    f"{self._hi}) but is rank {index} of its batch group")
+            self._slot_kw = {"slot_group": SlotGroup(group, ways, index)}
+
+    @property
+    def split(self) -> bool:
+        """True when a serve mesh splits the slots over its ranks."""
+        return bool(self._slot_kw)
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """The global slot ids ``[lo, hi)`` this rank holds."""
+        return self._lo, self._hi
+
+    def _lead(self, op: int, *ints: int, tokens=None) -> None:
+        """Rank 0's side of a command on a serve mesh: ``op`` and its
+        ints (and a prompt) broadcast over the host group, every rank
+        then running it on its own slots. A no-op without a mesh."""
+        if self.mesh is None:
+            return
+        if self._rank != 0:
+            raise RuntimeError(
+                f"rank {self._rank} serves rank 0's commands (follow())")
+        cmd = torch.zeros((_HEAD + self.prompt_pad,), dtype=torch.int64)
+        cmd[:2 + len(ints)] = torch.tensor(
+            [op, int(self._eager_calls), *ints], dtype=torch.int64)
+        if tokens is not None:
+            cmd[_HEAD:] = tokens
+        dist.broadcast(cmd, src=0, group=self._host)
+
+    def _report(self, first: Optional[torch.Tensor] = None,
+                toks: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None):
+        """Every rank's answer to a command, gathered on rank 0's host:
+        a prefill's first token from the ranks that ran it, a decode's
+        ``(k, local slots)`` tokens and valid flags. Returns the rows on
+        rank 0 (None elsewhere, and without a mesh)."""
+        if self.mesh is None:
+            return None
+        n = self.ladder[0] * (self._hi - self._lo)
+        buf = torch.full((1 + 2 * n,), -1, dtype=torch.int64)
+        if self._rank != 0:          # rank 0 reads its own from the card
+            if first is not None:
+                buf[0] = int(first)
+            if toks is not None:
+                m = toks.numel()
+                buf[1:1 + m] = toks.reshape(-1).cpu()
+                buf[1 + n:1 + n + m] = valid.reshape(-1).cpu()
+        rows = ([torch.empty_like(buf) for _ in range(self._world)]
+                if self._rank == 0 else None)
+        dist.gather(buf, rows, dst=0, group=self._host)
+        return rows
+
+    def _owns(self, slot: int) -> bool:
+        return self._lo <= slot < self._hi
+
+    def _do_prefill(self, params, tokens, prompt_len: int, slot: int,
+                    max_new: int) -> Optional[torch.Tensor]:
+        """A prefill, on every rank of a serve mesh: the slot's owner
+        (every rank, replicated) runs the program; rank 0 returns the
+        first token, its own or the owner's."""
+        first = None
+        self.last_logits = None
+        if self._owns(slot):
+            self._set_prefill_inputs(tokens, prompt_len, slot, max_new)
+            first, self.last_logits = self._run(
+                "prefill", lambda: self._prefill_body(params))
+            self.local_prefills += 1
+        rows = self._report(first=first)
+        if self._rank != 0:
+            return None
+        if first is not None:
+            return first[0]
+        owner = next(r for r, (lo, hi) in enumerate(self._spans)
+                     if lo <= slot < hi)
+        return rows[owner][0]
+
+    def _do_decode(self, params, k: int):
+        """A decode superstep, on every rank of a serve mesh: its program
+        for rung ``k`` over its own slots; rank 0 returns the ``(k,
+        slots)`` tokens and valid flags in global slot order (its own
+        where no mesh splits the slots)."""
+        toks, valid = self._run(f"decode_k{k}",
+                                lambda: self._decode_body(params, k))
+        rows = self._report(toks=toks, valid=valid)
+        if self._rank != 0:
+            return None
+        if not self.split:
+            return toks, valid
+        n = self.ladder[0] * (self._hi - self._lo)
+        out_t = torch.empty((k, self.slots), dtype=torch.int32)
+        out_v = torch.empty((k, self.slots), dtype=torch.bool)
+        out_t[:, self._lo:self._hi] = toks.cpu()
+        out_v[:, self._lo:self._hi] = valid.cpu()
+        for r, (lo, hi) in enumerate(self._spans):
+            if r != 0:
+                m = k * (hi - lo)
+                out_t[:, lo:hi] = rows[r][1:1 + m].view(k, hi - lo)
+                out_v[:, lo:hi] = rows[r][1 + n:1 + n + m].view(
+                    k, hi - lo).bool()
+        return out_t, out_v
+
+    @torch.no_grad()
+    def follow(self, params) -> None:
+        """A rank other than 0 on a serve mesh: run rank 0's commands on
+        this rank's slots (warm-up, state resets, prefills, decodes; the
+        eager bodies where rank 0 asks for them) until its stop, then hold
+        this rank's program pin. Raises on a command that fails: the
+        caller leaves at once, so rank 0's next collective with it fails
+        rather than waits."""
+        if self.mesh is None or self._rank == 0:
+            raise RuntimeError("follow() is a serve mesh follower's loop")
+        cmd = torch.zeros((_HEAD + self.prompt_pad,), dtype=torch.int64)
+        while True:
+            dist.broadcast(cmd, src=0, group=self._host)
+            op, eager, a, b, c = (int(v) for v in cmd[:_HEAD])
+            if op == _STOP:
+                break
+            self._eager_calls = bool(eager)
+            try:
+                if op == _WARMUP:
+                    self._check_call(params, self._state)
+                    self._warmup(params)
+                    self._report()
+                elif op == _INIT:
+                    self._zero_state()
+                elif op == _PREFILL:
+                    self._do_prefill(params, cmd[_HEAD:].clone(), a, b, c)
+                elif op == _DECODE:
+                    self._do_decode(params, a)
+                else:
+                    raise ValueError(f"unknown serve command {op}")
+            finally:
+                self._eager_calls = False
+        self.assert_two_programs()
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' :meth:`follow` loops (a no-op
+        without a mesh)."""
+        self._lead(_STOP)
 
     # -------------------------------------------------------- programs
 
@@ -268,7 +501,8 @@ class ServeEngine:
             pos = lengths.clamp(max=self.max_seq - 1).to(torch.int64)
             h, _ = self.model.hidden_states(
                 params, last[:, None].to(torch.int64), self.model_cfg,
-                dtype=self.dtype, kv_cache=cache, cur_index=pos)
+                dtype=self.dtype, kv_cache=cache, cur_index=pos,
+                **self._slot_kw)
             nxt = self._tied_logits(params, h[:, 0]).argmax(dim=-1).to(
                 torch.int32)
             new_len = torch.where(act, lengths + 1, lengths)
@@ -371,29 +605,37 @@ class ServeEngine:
 
     def _set_prefill_inputs(self, tokens, prompt_len: int, slot: int,
                             max_new: int) -> None:
+        self._check_prefill(prompt_len, slot)
+        self._tokens.copy_(torch.as_tensor(tokens, dtype=torch.int64)
+                           .reshape(1, self.prompt_pad))
+        self._args.copy_(torch.tensor([prompt_len, slot - self._lo,
+                                       max_new], dtype=torch.int64))
+
+    def _check_prefill(self, prompt_len: int, slot: int) -> None:
         if not 0 < prompt_len <= self.prompt_pad:
             raise ValueError(f"prompt_len {prompt_len} must be in (0, "
                              f"prompt_pad {self.prompt_pad}]")
         if not 0 <= slot < self.slots:
             raise ValueError(f"slot {slot} out of range [0, {self.slots})")
-        self._tokens.copy_(torch.as_tensor(tokens, dtype=torch.int64)
-                           .reshape(1, self.prompt_pad))
-        self._args.copy_(torch.tensor([prompt_len, slot, max_new],
-                                      dtype=torch.int64))
 
     @torch.no_grad()
     def prefill(self, params, state: ServeState, tokens, prompt_len: int,
                 slot: int, max_new: int) -> Tuple[ServeState, torch.Tensor]:
-        """Admit one request into ``slot``. ``tokens`` is the padded
-        (1, prompt_pad) prompt. Returns the state and the request's FIRST
-        generated token as a device scalar (``int()`` it to fence; on the
-        card it is the graph's output, overwritten by the next prefill).
-        ``last_logits`` holds that prefill's (1, vocab) f32 logits."""
+        """Admit one request into ``slot`` (a global slot id). ``tokens``
+        is the padded (1, prompt_pad) prompt. Returns the state and the
+        request's FIRST generated token as a scalar tensor (``int()`` it
+        to fence; on the card it is the graph's output, overwritten by
+        the next prefill). ``last_logits`` holds that prefill's (1, vocab)
+        f32 logits when this rank ran it. On a serve mesh the slot's owner
+        runs it (every rank where the slots are replicated) and the token
+        comes back to rank 0 over the host group."""
         self._check_call(params, state)
-        self._set_prefill_inputs(tokens, prompt_len, slot, max_new)
-        first, self.last_logits = self._run(
-            "prefill", lambda: self._prefill_body(params))
-        return state, first[0]
+        self._check_prefill(prompt_len, slot)
+        tokens = torch.as_tensor(tokens, dtype=torch.int64).reshape(
+            self.prompt_pad)
+        self._lead(_PREFILL, prompt_len, slot, max_new, tokens=tokens)
+        return state, self._do_prefill(params, tokens, prompt_len, slot,
+                                       max_new)
 
     def _rung(self, k: Optional[int]) -> int:
         k = self.decode_k if k is None else int(k)
@@ -414,9 +656,8 @@ class ServeEngine:
         overwritten by the next decode)."""
         k = self._rung(k)
         self._check_call(params, state)
-        toks, valid = self._run(f"decode_k{k}",
-                                lambda: self._decode_body(params, k))
-        return state, toks, valid
+        self._lead(_DECODE, k)
+        return (state, *self._do_decode(params, k))
 
     @contextlib.contextmanager
     def _eagerly(self):
@@ -450,20 +691,28 @@ class ServeEngine:
         programs built by the first. Leaves the state reset. After this
         a whole serve run, ladder moves included, builds nothing
         (:meth:`assert_two_programs`)."""
-        state = self.init_state()
-        self._check_call(params, state)
+        if self._state is None:
+            raise RuntimeError("this serve engine was released")
+        self._check_call(params, self._state)
+        self._lead(_WARMUP)
+        self._warmup(params)
+        self._report()
+
+    def _warmup(self, params) -> None:
+        self._zero_state()
         self._set_warmup_inputs()
         if self.device.type == "cuda" and not self._graphs:
             self._capture(params)
         else:                    # built already (or the CPU): run them
             for name, body in self._programs(params).items():
                 self._run(name, body)
-        self.init_state()
+        self._zero_state()
 
     def _set_warmup_inputs(self) -> None:
         """Junk inputs for the warm-up calls: a one-token prompt into
-        slot 0 with a budget of 2."""
-        self._set_prefill_inputs(torch.zeros((1, self.prompt_pad)), 1, 0, 2)
+        this rank's first slot with a budget of 2."""
+        self._set_prefill_inputs(torch.zeros((1, self.prompt_pad)), 1,
+                                 self._lo, 2)
 
     def program_memory(self) -> Dict[str, Dict[str, int]]:
         """The programs' scratch for the memory ledger (the JAX engine's

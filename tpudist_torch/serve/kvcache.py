@@ -29,6 +29,11 @@ program's input buffer, so admission, eviction and page exhaustion are
 host decisions between dispatches and the programs stay the ones the
 engine pinned (:mod:`tpudist_torch.serve.engine`).
 
+On a serve mesh a rank holds its slots of the dense arena
+(:func:`slot_span`), as the JAX package's ``cache_shardings`` places
+them: the spec is :func:`tpudist_torch.parallel.sharding.kv_cache_specs`,
+sanitised, so a slot count the batch axes don't divide is replicated.
+
 Either way the cache stores the COMPACT kv heads (the layout
 ``wk``/``wv`` produce); expansion to the query heads happens inside the
 attention math.
@@ -43,8 +48,9 @@ import numpy as np
 import torch
 
 from tpudist_torch.config import STAGING_STATE_HEADROOM
-
-KV_CACHE_LAYOUTS = ("st", "hs")
+from tpudist_torch.parallel import sharding
+from tpudist_torch.parallel.mesh import mesh_devices, mesh_shape
+from tpudist_torch.parallel.sharding import KV_CACHE_LAYOUTS
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -107,18 +113,54 @@ def from_canonical(arr: torch.Tensor, layout: str) -> torch.Tensor:
     return to_canonical(arr, layout)
 
 
-def init_cache(spec: CacheSpec, device) -> Dict[str, torch.Tensor]:
+def cache_spec_on(spec: CacheSpec, mesh) -> sharding.Spec:
+    """The K/V arrays' spec on ``mesh`` (the JAX ``cache_shardings``),
+    sanitised as model params are: a slot count the batch axes don't
+    divide falls back to replicated instead of erroring."""
+    return sharding.sanitize_spec(spec.storage_shape,
+                                  sharding.kv_cache_specs(spec.layout),
+                                  mesh_shape(mesh))
+
+
+def slot_span(spec: CacheSpec, mesh, rank: int) -> Tuple[int, int]:
+    """The slots ``[lo, hi)`` that ``rank`` (a device id of ``mesh``)
+    holds, as ``NamedSharding`` places them: the slot dim cut into equal
+    contiguous chunks over its axes, outermost first, chunk ``i`` on the
+    devices at position ``i`` of those axes; every slot where the spec
+    replicates them."""
+    axes = sharding.spec_axes(cache_spec_on(spec, mesh)[1])
+    devs = mesh_devices(mesh)
+    names = list(mesh.mesh_dim_names)
+    pos = np.argwhere(devs == rank)
+    if not len(pos):
+        raise ValueError(f"rank {rank} is not a device of the mesh")
+    idx, ways = 0, 1
+    for a in axes:
+        n = devs.shape[names.index(a)]
+        idx, ways = idx * n + int(pos[0][names.index(a)]), ways * n
+    per = spec.slots // ways
+    return idx * per, (idx + 1) * per
+
+
+def init_cache(spec: CacheSpec, device, mesh=None,
+               rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Zero-initialised ``{"k", "v"}`` cache in the storage layout on
-    ``device``. Zeros are never read (the length mask guards every
-    slot), but a deterministic initial value keeps a serve run a pure
-    function of (params, seed)."""
+    ``device``; on a ``mesh``, ``rank``'s slots of it
+    (:func:`slot_span`; ``rank`` defaults to this process's). Zeros are
+    never read (the length mask guards every slot), but a deterministic
+    initial value keeps a serve run a pure function of (params, seed)."""
     if spec.layout not in KV_CACHE_LAYOUTS:
         raise ValueError(f"unknown kv-cache layout {spec.layout!r}: "
                          f"{' | '.join(KV_CACHE_LAYOUTS)}")
-    return {"k": torch.zeros(spec.storage_shape, dtype=spec.dtype,
-                             device=device),
-            "v": torch.zeros(spec.storage_shape, dtype=spec.dtype,
-                             device=device)}
+    shape = list(spec.storage_shape)
+    if mesh is not None:
+        if rank is None:
+            import torch.distributed as dist
+            rank = dist.get_rank()
+        lo, hi = slot_span(spec, mesh, rank)
+        shape[1] = hi - lo
+    return {"k": torch.zeros(shape, dtype=spec.dtype, device=device),
+            "v": torch.zeros(shape, dtype=spec.dtype, device=device)}
 
 
 # ------------------------------------------------------------------ #

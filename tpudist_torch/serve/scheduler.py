@@ -53,8 +53,6 @@ from tpudist_torch.serve import resilience as res_lib
 from tpudist_torch.serve import slo as slo_lib
 from tpudist_torch.serve.engine import ServeEngine
 
-N_CHIPS = 1              # one engine drives one card
-
 
 @dataclasses.dataclass(frozen=True)
 class Request:
@@ -250,8 +248,8 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     outcome events, before every chaos hook and on the tick cadence, so
     a kill cannot eat the evidence a resumed attempt classifies from
     (default: on when chaos or resilience is armed; the CLI also arms it
-    under requeue supervision). One engine drives one card, so
-    throughput per chip is throughput.
+    under requeue supervision). Throughput per chip divides by the
+    engine's cards (``engine.n_chips``: a serve mesh's, else 1).
 
     A PAGED engine (``engine.paged``) changes admission and dispatch,
     never the accounting: admission also asks the page allocator (a pool
@@ -267,6 +265,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     verify: :func:`ngram_draft` proposes, the engine's one batched
     verify forward accepts; the tokens stay those of plain decode."""
     res = resilience or res_lib.ResilienceConfig()
+    n_chips = getattr(engine, "n_chips", 1)
     if virtual is not None:
         clock = virtual.clock
     if flush_events is None:
@@ -473,7 +472,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         alerts.observe("serve_shed", led.shed_fraction())
         wall = now()
         if wall > 0 and generated:
-            alerts.observe("tokens_per_chip", generated / wall / N_CHIPS)
+            alerts.observe("tokens_per_chip", generated / wall / n_chips)
 
     while len(results) + led.shed_total() < len(requests):
         admit()
@@ -647,7 +646,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
                         ttft_p99_s=summ["ttft_p99_s"],
                         itl_p99_s=summ["itl_p99_s"],
                         tokens_per_sec_per_chip=(
-                            round(generated / wall / N_CHIPS, 3)
+                            round(generated / wall / n_chips, 3)
                             if wall > 0 else None),
                         ttft_hist=stats.ttft_hist(),
                         itl_hist=stats.itl_hist(),
@@ -657,7 +656,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
     # an empty run measured NOTHING: throughput is None (the gate grades
     # UNGATEABLE), not a 0.0 that would read as an SLO fail
     tps = (generated / wall_s) if generated and wall_s > 0 else None
-    tps_chip = tps / N_CHIPS if tps is not None else None
+    tps_chip = tps / n_chips if tps is not None else None
     summ = stats.summary()
     if requests:
         observe_slos(summ)   # runs shorter than a tick still fire
@@ -673,7 +672,7 @@ def run_serve(engine: ServeEngine, params, requests: List[Request], *,
         "tokens_per_sec": round(tps, 3) if tps is not None else None,
         "tokens_per_sec_per_chip": (round(tps_chip, 3)
                                     if tps_chip is not None else None),
-        "n_chips": N_CHIPS,
+        "n_chips": n_chips,
         "queue_depth_max": max(queue_depths, default=0),
         "queue_depth_mean": (round(float(np.mean(queue_depths)), 3)
                              if queue_depths else 0.0),
