@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py              # the acceptance run
     python3 chip_smoke.py --profile    # plus a torch.profiler breakdown
     python3 chip_smoke.py --only-tp    # phases 1-3 (flash), 6 and 21
-    python3 chip_smoke.py --only-serve-mesh   # phases 1-3 (forward), 4, 22
+    python3 chip_smoke.py --only-serve-mesh   # phases 1-3 (forward), 4, 22-23
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -317,16 +317,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
    those of one card (the serve CLI there; phase 4's engine for the
    third) or a near-tie under phase 14's rule; tokens/s/chip, TTFT and
    ITL beside one card's. ``--only-serve-mesh`` runs phase 3's forward
-   checks, phase 4 and phase 22 (22a without the MoE) alone.
+   checks, phase 4, phase 22 (22a without the MoE) and phase 23 alone.
+23. the paged plane on a serve mesh: (a) in a spawned process, a
+   one-rank NCCL serve mesh; ``PagedServeEngine(mesh=...)`` over phase
+   14a's paged stream, 14b's shared prefix with speculation and 18c's
+   paged MoE: every request's tokens bitwise those phases', the pins (1,
+   3, 0) and (1, 3, 1), exact launches (n_layers x (prefills +
+   registrations + the warm-up's)), every prefill on the rank; (b) with
+   two cards or more, the serve CLI at one NCCL process a card with
+   ``--kv-page-tokens 16`` (the pool replicated), ``--kv-pages 479``
+   (its 480 rows split over the cards: each card's pool bytes printed),
+   ``--speculate-k 4 --shared-prefix 256``, the MoE paged and
+   ``--serve-tune probe``, each against one card's run (tokens equal or
+   a near-tie, every rank's pin, prefills and launches, tokens/s/chip,
+   TTFT and ITL beside one card's); then ``serve_kill`` at dispatch 3
+   and the requeued attempt (rank 0 exits 137, every other rank
+   non-zero in bounded time, the lost bucket exact, every rid in one
+   terminal bucket) and the serve drill's matrix with each attempt on
+   one process a card. In
+   ``--only-serve-mesh`` 23a's references are 14a's and 14b's engines
+   run on one card there, and 23a runs without the MoE.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
 18a (both runs), 18c (both engines), 18d, 19a-19c (19c's run with the
 port), 20a (both sharded runs), 20b (both runs), 21a-b, 22a (both
-engines) and 22b (its three runs) are the main paths:
+engines), 22b (its three runs), 23a (its three engines) and 23b (its
+five CLI runs) are the main paths:
 each
 runs with every launch count set to 0 just before and read just after
-(10a, 11c, 20a-22b in each rank's process; 12b's and 15a's timed
+(10a, 11c, 20a-23b in each rank's process; 12b's and 15a's timed
 runs, not
 their probes, which restore the counters), and each
 kernel must have launched the
@@ -2390,7 +2410,13 @@ def _near_ties(torch, params, cfg, requests, want, got, tag) -> int:
     return ties
 
 
-def paged_serve(torch, fa, fx, base, card: str, profile: bool):
+def _ref(summary):
+    """A one-card run's tokens and latencies, phase 23's reference."""
+    return {"tokens": _tokens_of(summary),
+            **{k: summary[k] for k in SERVE_LATENCY}}
+
+
+def paged_serve(torch, fa, fx, base, card: str, profile: bool, refs=None):
     """Phase 14: the paged serving plane at phase 4's configuration on
     the graph engine. (a) ``PagedServeEngine`` with 16-token pages (512
     pages, the dense capacity) over phase 4's 16 requests: every
@@ -2405,7 +2431,8 @@ def paged_serve(torch, fa, fx, base, card: str, profile: bool):
     serve CLI with the three paged flags: the memory-bound line, the
     ledger exact with ``kv_pool`` the pool's bytes, the slot and
     ``kv_pages`` tracks, verdict ``success``. Returns each path's
-    launches."""
+    launches; ``refs`` (a dict) receives 14a's and 14b's runs
+    (:func:`_ref`) under ``paged_serve`` and ``paged_serve_spec``."""
     from tpudist_torch.config import ModelConfig
     from tpudist_torch.obs import trace as trace_lib
     from tpudist_torch.serve import scheduler as sched
@@ -2426,6 +2453,8 @@ def paged_serve(torch, fa, fx, base, card: str, profile: bool):
     engine = _serve_engine(torch, cfg, True, page_tokens=16)
     a, paths["paged_serve"] = _paged_run(torch, fa, fx, "paged 14a",
                                          engine, params, requests)
+    if refs is not None:
+        refs["paged_serve"] = _ref(a)
     if engine.compile_counts() != (1, 3) or engine.verify_traces \
             or engine.alloc.pages_used() != 0:
         fail(f"paged 14a: programs {engine.compile_counts()} + verify "
@@ -2456,6 +2485,8 @@ def paged_serve(torch, fa, fx, base, card: str, profile: bool):
     b, paths["paged_serve_spec"] = _paged_run(
         torch, fa, fx, "paged 14b", engine, params, requests, prefix,
         prefixes=1)
+    if refs is not None:
+        refs["paged_serve_spec"] = _ref(b)
     emits = [e["args"] for e in tracer.events()
              if e["name"] == "decode_emit" and "drafted" in e["args"]]
     trace_lib.configure(enabled=False)
@@ -2622,13 +2653,15 @@ def _serve_summaries():
         sched.run_serve, sched.AlertEngine = real_run, real_alerts
 
 
-def _serve_cli(torch, fa, fx, tag: str, argv, env=None, want_rc: int = 0):
+def _serve_cli(torch, fa, fx, tag: str, argv, env=None, want_rc: int = 0,
+               prefixes: int = 0):
     """One main path: ``python -m tpudist_torch.serve`` (its ``main``)
     on the card with ``argv`` (plus a ``--save-dir`` of its own) and
     ``env``, the launch counts set to 0 just before and read just after.
     Fails unless it exits ``want_rc``, its verdict file says so, the
     served engine's pin holds and the flash forward launched exactly
-    n_layers x (prefills + the warm-up's). Returns the run: exit code,
+    n_layers x (prefills + ``prefixes`` registrations + the warm-up's).
+    Returns the run: exit code,
     stdout, records, summary, alert engine, launches, wall."""
     from tpudist_torch.serve import cli as serve_cli
 
@@ -2660,7 +2693,7 @@ def _serve_cli(torch, fa, fx, tag: str, argv, env=None, want_rc: int = 0):
             (save / "metrics.jsonl").read_text().splitlines()]
     summary = runs[-1]["summary"]
     counts = _serve_counts(engine)
-    want = engine.model_cfg.n_layers * (summary["admitted"] + 1)
+    want = engine.model_cfg.n_layers * (summary["admitted"] + prefixes + 1)
     run = {"rc": rc, "out": tee.buf.getvalue(), "recs": recs,
            "summary": summary, "alerts": runs[-1]["alerts"],
            "counts": counts, "wall": wall, "outside": fa.launches,
@@ -3673,7 +3706,8 @@ def moe_serve(torch, fa, fx, card: str, tokens=None):
     tokens equal to the dense engine's, or a first divergence at a
     near-tie under phase 14's rule, printed and counted. Returns each
     path's launches; ``tokens`` (a dict) receives the dense engine's
-    tokens under ``serve_moe``."""
+    tokens under ``serve_moe`` and the paged engine's run (:func:`_ref`)
+    under ``paged_serve_moe``."""
     from tpudist_torch.models import moe
     from tpudist_torch.serve import scheduler as sched
     from tpudist_torch.serve.engine import init_params
@@ -3732,6 +3766,8 @@ def moe_serve(torch, fa, fx, card: str, tokens=None):
     engine = _serve_engine(torch, cfg, True, page_tokens=16)
     paged, paths["paged_serve_moe"] = _paged_run(
         torch, fa, fx, "moe 18c paged", engine, params, requests)
+    if tokens is not None:
+        tokens["paged_serve_moe"] = _ref(paged)
     ties = _near_ties(torch, params, cfg, requests, _tokens_of(dense),
                       _tokens_of(paged), "moe 18c paged")
     print(f"moe 18c: tokens/s/chip dense {dense['tokens_per_sec_per_chip']}"
@@ -5349,12 +5385,19 @@ def _serve_rank(rank, world, port, argv, verdict, queue):
                "launches": engine.kernel_launches(),
                "outside": fa.launches, "prefills": engine.local_prefills,
                "programs": engine.compile_counts(),
-               "span": engine.span,
+               "verify": len(getattr(engine, "verify_traces", [])),
+               "span": engine.span, "kv_bytes": engine.card_kv_bytes(),
+               "pool": (None if getattr(engine, "pool_group", None) is None
+                        else engine.pool_group[1:]),
+               "point": (engine.decode_k, engine.layout,
+                         engine.spec.page_tokens if engine.paged else 0,
+                         engine.speculate_k),
+               "rungs": len(engine.ladder),
                "summary": None if summary is None else {
                    "tokens": _tokens_of(summary),
                    **{k: summary[k] for k in (
                        *SERVE_LATENCY, "status", "n_chips", "admitted",
-                       "completed", "requests", "wall_s")}}})
+                       "completed", "requests", "wall_s", "slots")}}})
 
 
 def _cli_params(torch, argv):
@@ -5465,6 +5508,403 @@ def serve_mesh_cli(torch, fa, fx, card: str, engine, params):
         paths[tag] = {"flash_attention_fwd": sum(r["launches"]
                                                  for r in ranks)}
     print(f"serve mesh 22b: phase wall {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# phase 23a's runs: (model, engine options, shared-prefix tokens, the
+# one-card reference's key)
+PAGED_MESH_PATHS = ("paged_mesh", "paged_mesh_spec", "paged_moe_mesh")
+PAGED_MESH_REFS = {"paged_mesh": "paged_serve",
+                   "paged_mesh_spec": "paged_serve_spec",
+                   "paged_moe_mesh": "paged_serve_moe"}
+
+
+def _paged_runs(moe: bool):
+    from tpudist_torch.config import ModelConfig
+
+    tf = ModelConfig(name="transformer")
+    runs = {"paged_mesh": (tf, {}, 0),
+            "paged_mesh_spec": (tf, {"speculate_k": 4}, PREFIX)}
+    if moe:
+        runs["paged_moe_mesh"] = (moe_model_config(1024), {}, 0)
+    return runs
+
+
+def _paged_stream(cfg, prefix_len: int):
+    from tpudist_torch.serve import scheduler as sched
+
+    requests = sched.make_requests(16, prompt_pad=512,
+                                   vocab_size=cfg.vocab_size, max_new=32,
+                                   rate=0.0, seed=0, prefix_len=prefix_len)
+    prefix = (sched.shared_prefix_tokens(prefix_len, cfg.vocab_size, seed=0)
+              if prefix_len else None)
+    return requests, prefix
+
+
+def _paged_mesh_rank(port, moe: bool, queue):
+    """Phase 23a in a process of its own: a one-rank NCCL group and its
+    serve mesh, ``PagedServeEngine(mesh=...)`` (16-token pages) over
+    phase 14a's stream, 14b's prefixed stream with speculation and
+    (``moe``) 18c's paged MoE. The launch counts set to 0 just before
+    each run and read just after."""
+    import torch
+
+    from tpudist_torch.config import ParallelConfig
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+    from tpudist_torch.parallel import distributed
+    from tpudist_torch.parallel import mesh as mesh_lib
+    from tpudist_torch.serve import scheduler as sched
+    from tpudist_torch.serve.engine import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    mesh = mesh_lib.build_mesh(ParallelConfig(), device_type="cuda")
+    out = {"rank": 0, "world": ctx.process_count, "backend": ctx.backend}
+    params = {}
+    for tag, (cfg, kw, prefix_len) in _paged_runs(moe).items():
+        if cfg.name not in params:
+            params.clear()
+            torch.cuda.empty_cache()
+            params[cfg.name] = init_params(cfg, seed=0, device="cuda")
+        requests, prefix = _paged_stream(cfg, prefix_len)
+        engine = _serve_engine(torch, cfg, True, page_tokens=16, mesh=mesh,
+                               **kw)
+        _reset_launches(fa, fx)
+        t0 = time.perf_counter()
+        engine.warmup(params[cfg.name])
+        warm_s = time.perf_counter() - t0
+        summary = sched.run_serve(engine, params[cfg.name], requests,
+                                  shared_prefix=prefix)
+        engine.stop_followers()
+        torch.cuda.synchronize()
+        engine.assert_two_programs()
+        out[tag] = {
+            "tokens": _tokens_of(summary), "admitted": summary["admitted"],
+            "completed": summary["completed"], "prefixes": int(bool(prefix_len)),
+            "n_layers": cfg.n_layers,
+            "launches": engine.kernel_launches(), "outside": fa.launches,
+            "prefills": engine.local_prefills,
+            "programs": (*engine.compile_counts(), len(engine.verify_traces)),
+            "pool": engine.pool_group is not None,
+            "n_chips": summary["n_chips"],
+            "warm_s": warm_s, "capture_s": engine.capture_s,
+            "pool_mb": engine.graph_pool_bytes / MB,
+            **{k: summary[k] for k in SERVE_LATENCY}}
+        engine.release()
+        del engine
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    queue.put(out)
+
+
+def paged_refs(torch):
+    """``--only-serve-mesh``'s references for 23a: phase 14a's and 14b's
+    paged engines on one card over their streams (:func:`_ref`)."""
+    from tpudist_torch.serve import scheduler as sched
+    from tpudist_torch.serve.engine import init_params
+
+    refs, params = {}, None
+    for tag, (cfg, kw, prefix_len) in _paged_runs(False).items():
+        params = params or init_params(cfg, seed=0, device="cuda")
+        requests, prefix = _paged_stream(cfg, prefix_len)
+        engine = _serve_engine(torch, cfg, True, page_tokens=16, **kw)
+        engine.warmup(params)
+        refs[PAGED_MESH_REFS[tag]] = _ref(sched.run_serve(
+            engine, params, requests, shared_prefix=prefix))
+        engine.release()
+        del engine
+        torch.cuda.empty_cache()
+    return refs
+
+
+def paged_mesh_one(torch, fa, card: str, refs):
+    """Phase 23a (one card): :func:`_paged_mesh_rank` in a spawned
+    process. ``refs`` holds the one-card runs under ``paged_serve`` and
+    ``paged_serve_spec`` (phase 14a's and 14b's) and, where phase 18c ran,
+    ``paged_serve_moe`` (the MoE runs only then). Fails unless every
+    request's tokens are bitwise theirs, the pins are (1, 3, 0) and (1,
+    3, 1), the flash forward launched n_layers x (prefills +
+    registrations + the warm-up's) with every prefill on the one rank,
+    the pool is whole and ``n_chips`` is 1. Returns the paths' launches."""
+    t0 = time.perf_counter()
+    (r,) = _spawn(_paged_mesh_rank,
+                  [(_free_port(), "paged_serve_moe" in refs)], 300,
+                  "paged serve mesh one rank")
+    paths = {}
+    for tag in PAGED_MESH_PATHS:
+        if tag not in r:
+            continue
+        run, ref = r[tag], refs[PAGED_MESH_REFS[tag]]
+        verify = int(tag == "paged_mesh_spec")
+        prefills = run["admitted"] + run["prefixes"]
+        want = run["n_layers"] * (prefills + 1)
+        same = run["tokens"] == ref["tokens"]
+        print(f"paged mesh 23a {tag}: {r['world']} {r['backend']} rank, "
+              f"pool split {run['pool']}; {run['completed']}/16 "
+              f"requests, tokens bitwise {PAGED_MESH_REFS[tag]}'s: {same}; "
+              f"programs {run['programs']}, prefills {run['prefills']}, "
+              f"flash launches {run['launches']} (want n_layers x "
+              f"(prefills + registrations + warm-up) = {want}), n_chips "
+              f"{run['n_chips']}; warm-up {run['warm_s']:.3f} s (capture "
+              f"{run['capture_s']:.3f} s, graph pools {run['pool_mb']:.1f} "
+              f"MB); " + _latency_line(run) + "; one card "
+              + _latency_line(ref) + f"; {card}")
+        if not same:
+            fail(f"paged mesh 23a {tag}: the tokens differ from "
+                 f"{PAGED_MESH_REFS[tag]}'s")
+        if run["programs"] != (1, 3, verify) or run["launches"] != want \
+                or run["prefills"] != prefills \
+                or run["outside"] != run["n_layers"] \
+                or run["n_chips"] != 1 or run["pool"]:
+            fail(f"paged mesh 23a {tag}: programs {run['programs']}, "
+                 f"launches {run['launches']} (want {want}), prefills "
+                 f"{run['prefills']}, outside a graph {run['outside']}, "
+                 f"n_chips {run['n_chips']}, pool {run['pool']}")
+        paths[tag] = {"flash_attention_fwd": run["launches"]}
+    print(f"paged mesh 23a: phase wall {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# phase 23b's serve CLI runs on one NCCL process a card, each with the
+# one-card run it is held to
+PAGED_MESH_CLI = (
+    ("paged_mesh_cli", [*SERVE_ARGV, "--kv-page-tokens", "16"]),
+    ("paged_mesh_cli_split", [*SERVE_ARGV, "--kv-page-tokens", "16",
+                              "--kv-pages", "479"]),
+    ("paged_mesh_cli_spec", [*SERVE_ARGV, "--kv-page-tokens", "16",
+                             "--speculate-k", "4", "--shared-prefix",
+                             str(PREFIX)]),
+    ("paged_moe_mesh_cli", [*MOE_SERVE_ARGV, "--kv-page-tokens", "16"]),
+    ("serve_tune_mesh_cli", [*SERVE_ARGV, "--serve-tune", "probe"]))
+KILL_BOUND_S = 120
+
+
+def _cli_procs(world: int, argv, save: Path, env=None):
+    """``python -m tpudist_torch.serve`` as ``world`` processes under the
+    env contract on the cards (one a card), saving under ``save``;
+    returns (exit codes, outputs, wall)."""
+    port = _free_port()
+    base = {**os.environ, "TPUDIST_PLATFORM": "cuda",
+            "PYTHONPATH": str(ROOT),
+            "TPUDIST_VERDICT_PATH": str(save / "job_status.txt"),
+            **(env or {})}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpudist_torch.serve", *argv, "--save-dir",
+         str(save)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**base, "TPUDIST_COORDINATOR": f"localhost:{port}",
+             "TPUDIST_NUM_PROCESSES": str(world),
+             "TPUDIST_PROCESS_ID": str(r)}) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
+
+
+def _records(save: Path, kind: str):
+    return [r for r in (json.loads(ln) for ln in
+                        (save / "metrics.jsonl").read_text().splitlines())
+            if r["kind"] == kind]
+
+
+def serve_kill_mesh(torch, card: str, world: int):
+    """Phase 23b's kill: phase 4's flags paged at one process a card with
+    ``serve_kill@0:3`` under ``--requeue-attempt 0``, then attempt 1 in
+    the same save directory. Fails unless rank 0 exits 137 with its
+    flushed ``kind=chaos`` record and no summary, every other rank leaves
+    non-zero naming its lost leader within ``KILL_BOUND_S``, attempt 1
+    exits 0 on every rank with one summary, its lost rids are exactly
+    attempt 0's admitted rids with no terminal event, and every rid lands
+    in one terminal bucket across the attempts."""
+    from tpudist_torch.serve import resilience as res_lib
+
+    argv = [*SERVE_ARGV, "--kv-page-tokens", "16"]
+    save = ROOT / "build" / "chip_smoke_serve" / "serve_kill_mesh"
+    shutil.rmtree(save, ignore_errors=True)
+    save.mkdir(parents=True)
+    rcs, outs, wall = _cli_procs(world, argv + [
+        "--chaos", "serve_kill@0:3", "--requeue-attempt", "0"], save)
+    before = _records(save, "serve_request")
+    print(f"serve kill 23b attempt 0: exit codes {rcs}, wall {wall:.2f} s "
+          f"(bound {KILL_BOUND_S} s); rank 1: "
+          + next((ln for ln in outs[1].splitlines()
+                  if "lost its leader" in ln), "no lost-leader line")[:160])
+    if rcs[0] != 137 or 0 in rcs[1:] or wall > KILL_BOUND_S \
+            or _records(save, "serve") \
+            or [r["fault"] for r in _records(save, "chaos")] \
+            != ["serve_kill"] \
+            or not all("lost its leader (rank 0)" in o for o in outs[1:]):
+        fail(f"serve kill 23b: attempt 0 exit codes {rcs} in {wall:.2f} s"
+             f", or a summary, or no chaos record, or no lost-leader exit")
+    rcs, outs, wall = _cli_procs(world, argv + ["--requeue-attempt", "1"],
+                                 save)
+    events = _records(save, "serve_request")
+    admitted = {r["rid"] for r in before if r["event"] == res_lib.ADMITTED}
+    done = {r["rid"] for r in before if r["event"] in res_lib.TERMINAL_EVENTS}
+    lost = {r["rid"] for r in events[len(before):]
+            if r["event"] == res_lib.LOST}
+    terminal = {}
+    for r in events:
+        if r["event"] in res_lib.TERMINAL_EVENTS:
+            terminal.setdefault(r["rid"], []).append(r["event"])
+    serve = _records(save, "serve")
+    print(f"serve kill 23b attempt 1: exit codes {rcs}, wall {wall:.2f} s; "
+          f"attempt 0 done {len(done)}, lost {sorted(lost)} (admitted "
+          f"without an outcome {sorted(admitted - done)}); {len(terminal)} "
+          f"rids terminal, once each "
+          f"{all(len(v) == 1 for v in terminal.values())}; {card}")
+    if rcs != [0] * world or not lost or lost != admitted - done \
+            or sorted(terminal) != list(range(16)) \
+            or any(len(v) != 1 for v in terminal.values()) \
+            or len(serve) != 1 or serve[0]["n_chips"] != world:
+        fail("serve kill 23b: the requeued attempt failed its checks")
+    shutil.rmtree(save, ignore_errors=True)
+
+
+def paged_mesh_cli(torch, fa, fx, card: str):
+    """Phase 23b (two cards or more): :data:`PAGED_MESH_CLI` through the
+    serve CLI as one NCCL process a card (:func:`_serve_rank`), each
+    against its flags' run on one card (the tuner's against phase 4's
+    dense flags: every candidate's greedy tokens are the dense ones), then
+    :func:`serve_kill_mesh` and the serve drill's matrix at ``world`` the
+    cards. Fails unless every rank exits 0 with ``success``, ``n_chips``
+    is the cards, each rank's pin is (1, its ladder's rungs, verify), it
+    ran every prefill (the admissions and a prefix's registration; at a
+    dense point that splits the slots, the owners' prefills sum to the
+    admissions) and its flash launches
+    are n_layers x (its prefills + the warm-up's), the tuned point is
+    one on every rank, the split pool holds 480 / cards rows a card plus
+    its discard row, and every request's tokens equal the one-card run's
+    or first diverge at a near-tie. Prints each card's pool bytes and
+    tokens/s/chip, TTFT and ITL beside one card's. Returns the paths'
+    launches (summed over the ranks)."""
+    from tpudist_torch.obs import goodput
+    from tpudist_torch.serve import drill
+    from tpudist_torch.serve import scheduler as sched
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    refs = {"dense": _serve_cli(torch, fa, fx, "paged mesh 23b dense one "
+                                "card", SERVE_ARGV)["summary"]}
+    for tag, argv in PAGED_MESH_CLI[:4]:
+        refs[tag] = _serve_cli(torch, fa, fx, f"{tag} one card", argv,
+                               prefixes=int("--shared-prefix" in argv)
+                               )["summary"]
+    refs["serve_tune_mesh_cli"] = refs["dense"]
+    paths, ties = {}, 0
+    for tag, argv in PAGED_MESH_CLI:
+        save = ROOT / "build" / "chip_smoke_serve" / tag
+        shutil.rmtree(save, ignore_errors=True)
+        verdict = save / "job_status.txt"
+        port = _free_port()
+        ranks = _spawn(_serve_rank,
+                       [(r, world, port, argv + ["--save-dir", str(save)],
+                         str(verdict)) for r in range(world)],
+                       600, f"serve {tag}")
+        statuses = [verdict.read_text() if verdict.is_file() else None] + [
+            (save / f"job_status.txt.worker{r}").read_text()
+            if (save / f"job_status.txt.worker{r}").is_file() else None
+            for r in range(world)]
+        tune = [json.loads(ln) for ln in (save / "metrics.jsonl")
+                .read_text().splitlines()] if tag.startswith("serve_tune") \
+            else []
+        shutil.rmtree(save, ignore_errors=True)
+        got = ranks[0]["summary"]
+        if [r["rc"] for r in ranks] != [0] * world \
+                or statuses != ["success"] * (world + 1) or got is None \
+                or got["status"] != "success" or got["n_chips"] != world \
+                or got["completed"] != got["requests"]:
+            fail(f"serve {tag}: exit codes {[r['rc'] for r in ranks]}, "
+                 f"final and worker verdicts {statuses}, summary "
+                 f"{None if got is None else (got['status'], got['n_chips'], got['completed'])}")
+        points = {r["point"] for r in ranks}
+        verify = int(ranks[0]["point"][3] >= 2)
+        prefills = got["admitted"] + int("--shared-prefix" in argv)
+        # a dense point (the tuner's may be one) splits the slots: a
+        # prefill runs on its slot's owner, 22b's rule
+        owners = ranks[0]["point"][2] == 0 and ranks[0]["span"][1] \
+            - ranks[0]["span"][0] < got["slots"]
+        rows = None if "--kv-pages" not in argv else (480 // world, 480)
+        for r in ranks:
+            want = 4 * (r["prefills"] + 1)
+            print(f"serve {tag}: rank {r['rank']} point {r['point']}, "
+                  f"programs {r['programs']} + verify {r['verify']}, "
+                  f"prefills {r['prefills']}, pool (ways, index, lo, rows, "
+                  f"n_rows) {r['pool']}, card kv bytes {r['kv_bytes']}, flash "
+                  f"launches {r['launches']} (want n_layers x (prefills + "
+                  f"warm-up) = {want}), wall {r['wall']:.2f} s")
+            if r["programs"] != (1, r["rungs"]) or r["verify"] != verify \
+                    or r["launches"] != want or r["outside"] != 4 \
+                    or not owners and r["prefills"] != prefills \
+                    or (r["pool"] and tuple(r["pool"][3:5])) != rows:
+                fail(f"serve {tag}: rank {r['rank']} programs "
+                     f"{r['programs']} + {r['verify']}, launches "
+                     f"{r['launches']} (want {want}), outside a graph "
+                     f"{r['outside']}, prefills {r['prefills']} (want "
+                     f"{prefills}), pool {r['pool']}")
+        if len(points) != 1 or owners and sum(
+                r["prefills"] for r in ranks) != prefills:
+            fail(f"serve {tag}: the ranks served other points {points}, or "
+                 f"the owners' prefills do not sum to {prefills}")
+        if tune:
+            rec = [t for t in tune if t["kind"] == "serve_tune"]
+            print(f"serve {tag}: {len(rec)} serve_tune record(s); "
+                  + (_tune_line(rec[0]) if rec else ""))
+            if len(rec) != 1 or rec[0]["status"] != "success" \
+                    or rec[0]["pruned"]:
+                fail(f"serve {tag}: serve_tune records {rec}")
+        ref = refs[tag]
+        if got["tokens"] != _tokens_of(ref):
+            cfg, ref_params = _cli_params(torch, argv)
+            stream = sched.make_requests(
+                16, prompt_pad=512, vocab_size=cfg.vocab_size, max_new=32,
+                rate=0.0, seed=0,
+                prefix_len=PREFIX if "--shared-prefix" in argv else 0)
+            ties += _near_ties(torch, ref_params, cfg, stream,
+                               _tokens_of(ref), got["tokens"],
+                               f"serve {tag}")
+            del ref_params
+            torch.cuda.empty_cache()
+        print(f"serve {tag}: {world} NCCL processes, status "
+              f"{got['status']}, n_chips {got['n_chips']}, tokens equal one "
+              f"card's {got['tokens'] == _tokens_of(ref)}; {world} cards "
+              + _latency_line(got) + "; one card " + _latency_line(ref)
+              + f"; {card}")
+        paths[tag] = {"flash_attention_fwd": sum(r["launches"]
+                                                 for r in ranks)}
+    serve_kill_mesh(torch, card, world)
+
+    run_dir = ROOT / "build" / "chip_smoke_drill_mesh"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t1 = time.perf_counter()
+    with _drill_env({"TPUDIST_PLATFORM": "cuda", "PYTHONPATH": str(ROOT)}):
+        results = drill.run_matrix(str(run_dir), model=DRILL_MODEL,
+                                   world=world)
+    report = drill.verify_matrix(str(run_dir), results)
+    for sc, res in results["scenarios"].items():
+        attempts = []
+        for d in res["dirs"]:
+            attempts += goodput.load_jsonl(str(run_dir / d /
+                                               goodput.ATTEMPTS_NAME))
+        print(f"serve drill 23b {sc}: ok {report['scenarios'][sc]['ok']}, "
+              f"rcs {res['rcs']}, followers {res['follower_rcs']}, "
+              f"{len(attempts)} attempt(s) "
+              f"{sum(a['end_ts'] - a['start_ts'] for a in attempts):.3f} s; "
+              f"problems {report['scenarios'][sc]['problems']}")
+    print(f"serve drill 23b: matrix {'ok' if report['ok'] else 'NOT ok'} "
+          f"at world {world} in {time.perf_counter() - t1:.1f} s; {card}")
+    if not report["ok"]:
+        fail("serve drill 23b: a scenario failed its verifier")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(f"paged mesh 23b: {ties} near-tie divergence(s); phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -5836,8 +6276,8 @@ def main() -> int:
                          "visible cards")
     ap.add_argument("--only-serve-mesh", action="store_true",
                     help="phases 1-2, phase 3's flash forward checks, "
-                         "phase 4 and phase 22 alone: serving on the "
-                         "visible cards")
+                         "phase 4, phase 22 and phase 23 alone: serving "
+                         "on the visible cards")
     args = ap.parse_args()
 
     import torch
@@ -5881,7 +6321,8 @@ def main() -> int:
     paths, phase6 = {}, {}
     engine, params, base, paths["serve"] = serve_slice(torch, fa, fx,
                                                        args.profile)
-    # phase 22a's references: phase 4's tokens and phase 18c's
+    # phase 22a's references: phase 4's tokens and phase 18c's; phase
+    # 23a's: phase 14a's, 14b's and 18c's paged runs
     serve_tokens = {"serve": _tokens_of(base)}
     # phase 4b: overload on the same graph engine
     paths["serve_overload"] = serve_overload(torch, engine, params, base)
@@ -5955,7 +6396,8 @@ def main() -> int:
     # a shared prefix and speculation, (c) the fixed-memory pair, (d) the
     # serve CLI with the paged flags
     torch.cuda.empty_cache()
-    paths.update(paged_serve(torch, fa, fx, base, card, args.profile))
+    paths.update(paged_serve(torch, fa, fx, base, card, args.profile,
+                             serve_tokens))
     walls.lap("14")
 
     # phase 15: the serve tuner through the CLI and over the whole knob
@@ -6024,6 +6466,18 @@ def main() -> int:
         paths.update(serve_mesh_cli(torch, fa, fx, card,
                                     *phase4_engine(torch)))
     walls.lap("22")
+
+    # phase 23: the paged plane on a serve mesh: (a) phase 14a's, 14b's
+    # and 18c's paged engines on a one-rank NCCL serve mesh, bitwise their
+    # tokens, (b) with two cards or more, the serve CLI's paged runs
+    # (replicated and split pools, speculation with a shared prefix, the
+    # MoE, the tuner) at one NCCL process a card against one card's,
+    # serve_kill with its requeued attempt, and the drill at the cards
+    torch.cuda.empty_cache()
+    paths.update(paged_mesh_one(torch, fa, card, serve_tokens))
+    if torch.cuda.device_count() >= 2:
+        paths.update(paged_mesh_cli(torch, fa, fx, card))
+    walls.lap("23")
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -6134,8 +6588,10 @@ def only_tp(torch, fa, fx, card: str) -> int:
 
 def only_serve_mesh(torch, fa, fx, card: str) -> int:
     """``--only-serve-mesh``: phase 3's flash forward checks, phase 4,
-    then phase 22 on the visible cards (22a without the MoE, whose
-    reference, phase 18c, does not run here), then the result line."""
+    then phases 22 and 23 on the visible cards (22a and 23a without the
+    MoE, whose reference, phase 18c, does not run here; 23a against
+    14a's and 14b's engines run here on one card), then the result
+    line."""
     import torch.nn.functional as F
 
     check_flash(torch, fa, F)
@@ -6146,6 +6602,12 @@ def only_serve_mesh(torch, fa, fx, card: str) -> int:
                                 {"serve": _tokens_of(base)}))
     if torch.cuda.device_count() >= 2:
         paths.update(serve_mesh_cli(torch, fa, fx, card, engine, params))
+    engine.release()
+    del engine, params
+    torch.cuda.empty_cache()
+    paths.update(paged_mesh_one(torch, fa, card, paged_refs(torch)))
+    if torch.cuda.device_count() >= 2:
+        paths.update(paged_mesh_cli(torch, fa, fx, card))
     missing = [p for p in paths
                if paths[p].get("flash_attention_fwd", 0) < 1]
     if missing:

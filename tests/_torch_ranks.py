@@ -1,7 +1,7 @@
 """Run a Python snippet as the ranks of one gloo job under the env
 contract (``TPUDIST_COORDINATOR`` / ``TPUDIST_NUM_PROCESSES`` /
-``TPUDIST_PROCESS_ID``), or the train CLI as the processes of one: a
-helper of the port's FSDP and tensor-parallel tests, which holds no test
+``TPUDIST_PROCESS_ID``), or the train CLI or the serve CLI as the
+processes of one: a helper of the port's mesh tests, which holds no test
 itself.
 
 Each rank runs ``PRELUDE`` (JAX made unimportable, one CPU thread, the
@@ -179,3 +179,82 @@ def jax_cli_reference(path, argv):
     for k, v in convert.params_from_jax(jax.device_get(params)).items():
         arrays[f"param.{k}"] = v.numpy()
     np.savez(path, **{k: np.asarray(v) for k, v in arrays.items()})
+
+
+# one serve CLI process: argv[1] a directory for what it reports (rank 0's
+# tokens by request in tokens.json, each rank's serve tuner outcome in
+# tune.rank<r>.json), the rest its flags
+SERVE_CHILD = r"""
+import json
+import os
+import sys
+for name in ("jax", "jaxlib", "optax", "orbax", "tpudist"):
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from tpudist_torch.serve import cli, scheduler, tune
+
+out, argv = sys.argv[1], sys.argv[2:]
+rank = os.environ.get("TPUDIST_PROCESS_ID", "0")
+serve, autotune = scheduler.run_serve, tune.autotune_serve
+
+
+def run_serve(*args, **kw):
+    summary = serve(*args, **kw)
+    with open(os.path.join(out, "tokens.json"), "w") as f:
+        json.dump({rid: r["tokens"] for rid, r in
+                   summary["results"].items()}, f)
+    return summary
+
+
+def autotune_serve(*args, **kw):
+    o = autotune(*args, **kw)
+    with open(os.path.join(out, f"tune.rank{rank}.json"), "w") as f:
+        json.dump({"tuned": o.tuned.as_dict(), "source": o.source,
+                   "trials": o.trials, "fingerprint": o.fingerprint}, f)
+    return o
+scheduler.run_serve, tune.autotune_serve = run_serve, autotune_serve
+sys.exit(cli.main(argv))
+"""
+# latency gates loose enough for a loaded CPU
+SERVE_GATES = {"TPUDIST_TTFT_P99_MAX": "120", "TPUDIST_ITL_P99_MAX": "60",
+               "TPUDIST_TOKENS_PER_CHIP_MIN": "0.001"}
+
+
+def serve_cli(save, world: int, argv, timeout: float = 180):
+    """``world`` processes of the serve CLI (:data:`SERVE_CHILD`; one
+    without the env contract) on the CPU with ``argv``, saving and
+    reporting under ``save``, the verdict at ``save/verdict.txt``;
+    returns (exit codes, outputs, wall seconds)."""
+    import time
+    os.makedirs(save, exist_ok=True)
+    port = free_port()
+    procs = []
+    t0 = time.monotonic()
+    for rank in range(world):
+        env = dict(os.environ, OMP_NUM_THREADS="1", **SERVE_GATES,
+                   TPUDIST_VERDICT_PATH=os.path.join(save, "verdict.txt"))
+        env.pop("TPUDIST_CHAOS", None)
+        if world > 1:
+            env.update(TPUDIST_COORDINATOR=f"localhost:{port}",
+                       TPUDIST_NUM_PROCESSES=str(world),
+                       TPUDIST_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SERVE_CHILD, str(save), *argv,
+             "--device", "cpu", "--save-dir", str(save)], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    return [p.returncode for p in procs], outs, time.monotonic() - t0
+
+
+def serve_records(save, kind):
+    """The ``kind`` records of a serve CLI run's ``metrics.jsonl``."""
+    return [r for r in (json.loads(line) for line in open(
+        os.path.join(save, "metrics.jsonl"))) if r["kind"] == kind]

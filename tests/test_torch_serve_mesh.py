@@ -29,9 +29,10 @@ single-program serve mesh (``tests/test_serve.py:105-125,165,343-362``).
 * (f) The serve CLI on two gloo ranks equals a one-process run: tokens,
   the ``kind=serve`` partition, ``detail.n_chips`` 2, verdict
   ``success``.
-* (g) At world > 1 the CLI refuses the paged plane, speculation, the
-  shared prefix, the serve tuner, chaos and the requeue attempt, each
-  with a ``ValueError`` naming item 8c part 2; one process refuses none.
+* (g) At world 2 the CLI serves the paged plane, speculation, the shared
+  prefix, the serve tuner, chaos and the requeue attempt (one run with
+  all six on, each flag's effect read from its records); an engine
+  refusal that stands (``--speculate-k 1``) fails every rank.
 * (h) A follower that raises makes rank 0 exit non-zero, its verdict
   ``fail``, in bounded time.
 """
@@ -65,7 +66,6 @@ from tpudist_torch.models import get_model
 from tpudist_torch.models import moe as tmoe
 from tpudist_torch.parallel import mesh as tmesh
 from tpudist_torch.parallel import sharding as tshd
-from tpudist_torch.serve import cli as tcli
 from tpudist_torch.serve import kvcache as tkv
 from tpudist_torch.serve import scheduler as tsched
 from tpudist_torch.serve.engine import ServeEngine as TDense
@@ -538,25 +538,63 @@ def test_cli_on_two_ranks_equals_one_process(tmp_path, model):
         == ["success"] * 3
 
 
-REFUSED = [("--kv-page-tokens", "8"), ("--speculate-k", "2"),
-           ("--shared-prefix", "4"), ("--serve-tune", "probe"),
-           ("--chaos", "serve_kill@0:6"), ("--requeue-attempt", "0")]
+# the six flags a serve mesh refused before it served them, each with what
+# its run's records must show
+SERVED = {
+    "--kv-page-tokens": (["--kv-page-tokens", "8"],
+                         lambda s, recs: s["kv_page_tokens"] == 8),
+    "--speculate-k": (["--speculate-k", "2"],
+                      lambda s, recs: (s["speculate_k"],
+                                       s["verify_compiles"]) == (2, 1)),
+    "--shared-prefix": (["--shared-prefix", "4"],
+                        lambda s, recs: s["shared_prefix_len"] == 4),
+    "--serve-tune": (["--serve-tune", "cache-only"],
+                     lambda s, recs: [(r["source"], r["trials"]) for r in
+                                      recs["serve_tune"]]
+                     == [("heuristic", 0)]),
+    "--chaos": (["--chaos", "serve_slow@0:1,s=0.01"],
+                lambda s, recs: [(r["fault"], r["rank"]) for r in
+                                 recs["chaos"]] == [("serve_slow", 0)]),
+    "--requeue-attempt": (["--requeue-attempt", "0"],
+                          lambda s, recs: s["requeue_attempt"] == 0
+                          and len(recs["serve_request"]) > 0),
+}
 
 
-@pytest.mark.parametrize("flag,value", REFUSED)
-def test_mesh_refuses_what_serves_on_one_card(flag, value):
-    args = tcli.parse_args(["--device", "cpu", flag, value])
-    tcli.check_mesh_flags(args, 1)
-    with pytest.raises(ValueError, match=f"{flag} on a serve mesh of 2 "
-                       r"processes.*item 8c part 2"):
-        tcli.check_mesh_flags(args, 2)
+@pytest.fixture(scope="module")
+def all_flags(tmp_path_factory):
+    """The serve CLI on two gloo ranks with the six flags on at once."""
+    tmp = str(tmp_path_factory.mktemp("all_flags"))
+    argv = CLI_ARGV + [a for flag_argv, _ in SERVED.values()
+                       for a in flag_argv]
+    rcs, outs, _ = _serve_cli(tmp, 2, argv)
+    recs = [json.loads(line) for line in
+            open(os.path.join(tmp, "metrics.jsonl"))]
+    by_kind = {}
+    for r in recs:
+        by_kind.setdefault(r["kind"], []).append(r)
+    return tmp, rcs, outs, by_kind
 
 
-def test_cli_refusal_fails_every_rank(tmp_path):
+@pytest.mark.parametrize("flag", list(SERVED))
+def test_mesh_serves_what_served_on_one_card(all_flags, flag):
+    tmp, rcs, outs, recs = all_flags
+    assert rcs == [0, 0], outs
+    assert "slots 4 on every rank, pool rows replicated" in outs[0]
+    serve, = recs["serve"]
+    assert (serve["status"], serve["n_chips"]) == ("success", 2)
+    assert SERVED[flag][1](serve, recs), (flag, serve)
+    assert open(os.path.join(tmp, "verdict.txt")).read() == "success"
+
+
+def test_cli_refusal_still_fails_every_rank(tmp_path):
+    """A refusal that stands on a serve mesh (a one-token verify window)
+    fails every rank, each naming it, the verdict ``fail``."""
     rcs, outs, _ = _serve_cli(str(tmp_path), 2, CLI_ARGV + [
-        "--kv-page-tokens", "8"])
+        "--kv-page-tokens", "8", "--speculate-k", "1"])
     assert rcs == [1, 1], outs
-    assert all("item 8c part 2" in out for out in outs)
+    assert all("--speculate-k must be 0 (off) or >= 2" in out
+               for out in outs)
     assert (tmp_path / "verdict.txt").read_text() == "fail"
 
 

@@ -306,14 +306,18 @@ def _cached_hidden_states(params: MoE, tokens: torch.Tensor,
 
 def paged_hidden_states(params: MoE, tokens: torch.Tensor,
                         cfg: ModelConfig, *, dtype, pool_k, pool_v,
-                        page_table, positions, write_ok, page_tokens: int):
+                        page_table, positions, write_ok, page_tokens: int,
+                        pool_group=None):
     """Paged serving path: :func:`transformer.paged_hidden_states` with
-    the experts as the FFN half."""
+    the experts as the FFN half. The slots are never split here: every
+    rank of a serve mesh routes the whole slot batch, as one card
+    does."""
     return T.paged_hidden_states(params, tokens, cfg, dtype=dtype,
                                  pool_k=pool_k, pool_v=pool_v,
                                  page_table=page_table, positions=positions,
                                  write_ok=write_ok, page_tokens=page_tokens,
-                                 ffn=_moe_ffn_sublayer)
+                                 ffn=_moe_ffn_sublayer,
+                                 pool_group=pool_group)
 
 
 def hidden_states(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,

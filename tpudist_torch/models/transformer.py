@@ -19,7 +19,10 @@ tensors; other long causal shapes go blockwise, the rest dense. Training
 prefill rotates them up front, since the cache keeps rotated keys. The
 paged serving forward (:func:`paged_hidden_states`) attends a window of
 tokens per slot against a paged KV pool in plain PyTorch, as the JAX
-package does outside any Pallas kernel.
+package does outside any Pallas kernel. Where a serve mesh splits the
+pool's rows over its ranks (``pool_group``), each rank scores its own rows
+and the ranks' partial softmaxes are merged
+(:func:`_paged_attention_split`).
 
 The training loss's LM head (:func:`head_loss`) is plain (whole logits),
 chunked over the sequence with checkpointing, or fused
@@ -448,12 +451,79 @@ def _paged_attention(q, k_new, v_new, pool_k, pool_v, page_table,
     return o, pool_k, pool_v
 
 
+def _paged_attention_split(q, k_new, v_new, pool_k, pool_v, page_table,
+                           positions, write_ok, page_tokens: int,
+                           pool_group):
+    """:func:`_paged_attention` over a pool whose rows a serve mesh
+    splits: this rank holds ``pool_group.rows`` rows from global row
+    ``pool_group.lo`` on (``pool_k``/``pool_v``: those rows plus one
+    private DISCARD row, the last), of ``pool_group.n_rows`` in all, the
+    global trash page (row ``n_rows - 1``) on the last chunk's ranks.
+
+    WRITE: a new k/v lands on the rank that holds its row (the trash
+    page's for a masked write, as in one pool); every other rank routes
+    it to its discard row, which no read sees. READ: each rank scores
+    its own keys with :func:`_paged_attention`'s masks and ``-1e30``
+    fill, keeps its partial ``(max, sum, unnormalised acc)`` per (slot,
+    window, head) in f32, and the partials, all-gathered over the group
+    (``pool_group.gather``), are merged in rank order: the flash merge.
+    A fully masked row (an inactive slot) comes out as the one pool's
+    uniform mean over every row, on every rank alike. Returns ``(o,
+    pool_k, pool_v)``, the pools written in place."""
+    s, w, h, hd = q.shape
+    pt, g = page_tokens, pool_group
+    kv = k_new.shape[2]
+    maxp = page_table.shape[1]
+    dev = pool_k.device
+    page_table = page_table.to(torch.int64)
+    positions = positions.to(torch.int64)
+
+    pg = torch.gather(page_table, 1, positions // pt)        # (s, w)
+    pg = torch.where(write_ok & (pg >= 0), pg, g.n_rows - 1) - g.lo
+    pg = torch.where((pg >= 0) & (pg < g.rows), pg, g.rows)  # else discard
+    off = positions % pt
+    pool_k.index_put_((pg, off), k_new.to(pool_k.dtype))
+    pool_v.index_put_((pg, off), v_new.to(pool_v.dtype))
+
+    rows = torch.arange(g.lo, g.lo + g.rows, device=dev)
+    onehot = page_table[:, :, None] == rows
+    owned = onehot.any(dim=1)                                # (s, rows)
+    logical = (onehot.to(torch.int64)
+               * torch.arange(maxp, device=dev)[None, :, None]).sum(1)
+    kpos = logical[:, :, None] * pt + torch.arange(pt, device=dev)
+    mask = owned[:, None, :, None] \
+        & (kpos[:, None, :, :] <= positions[:, :, None, None])
+    mask = mask.reshape(s, w, g.rows * pt)
+
+    kf = pool_k[:g.rows].reshape(g.rows * pt, kv, hd).to(q.dtype)
+    vf = pool_v[:g.rows].reshape(g.rows * pt, kv, hd).to(torch.float32)
+    qg = q.reshape(s, w, kv, h // kv, hd)
+    scores = torch.einsum("swkgd,nkd->swkgn", qg, kf) / math.sqrt(hd)
+    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30).to(
+        torch.float32)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    acc = torch.einsum("swkgn,nkd->swkgd", p, vf)
+    parts = g.gather(torch.cat([m, p.sum(dim=-1, keepdim=True), acc], -1))
+    top = parts[..., :1].amax(dim=0)
+    den = torch.zeros_like(top)
+    num = torch.zeros_like(acc)
+    for r in range(g.ways):                  # rank order
+        scale = torch.exp(parts[r, ..., :1] - top)
+        den = den + parts[r, ..., 1:2] * scale
+        num = num + parts[r, ..., 2:] * scale
+    o = (num / den).to(q.dtype).reshape(s, w, h, hd)
+    return o, pool_k, pool_v
+
+
 def _attn_sublayer_paged(x, lp, cfg: ModelConfig, positions, write_ok,
-                         pool_k, pool_v, page_table, page_tokens: int):
+                         pool_k, pool_v, page_table, page_tokens: int,
+                         pool_group=None):
     """The paged twin of :func:`_attn_sublayer_cached`: a WINDOW of new
     tokens per slot, q/k/v projected and rotated at each token's own
-    position, attention against the layer's paged pool. Returns ``(out,
-    pool_k, pool_v)``."""
+    position, attention against the layer's paged pool (its rows split
+    over ``pool_group``'s ranks when given). Returns ``(out, pool_k,
+    pool_v)``."""
     b, w, d = x.shape
     h, kv = cfg.n_heads, cfg.n_kv_heads
     hd = d // h
@@ -464,9 +534,11 @@ def _attn_sublayer_paged(x, lp, cfg: ModelConfig, positions, write_ok,
     v = (y @ lp["wv"].to(dt)).reshape(b, w, kv, hd)
     q = window_rope(q, positions, cfg.rope_theta)
     k = window_rope(k, positions, cfg.rope_theta)
-    o, pool_k, pool_v = _paged_attention(q, k, v, pool_k, pool_v,
-                                         page_table, positions, write_ok,
-                                         page_tokens)
+    split = () if pool_group is None else (pool_group,)
+    attend = _paged_attention if pool_group is None \
+        else _paged_attention_split
+    o, pool_k, pool_v = attend(q, k, v, pool_k, pool_v, page_table,
+                               positions, write_ok, page_tokens, *split)
     o = o.reshape(b, w, h * hd)
     return x + o @ lp["wo"].to(dt), pool_k, pool_v
 
@@ -474,7 +546,8 @@ def _attn_sublayer_paged(x, lp, cfg: ModelConfig, positions, write_ok,
 def paged_hidden_states(params: Transformer, tokens: torch.Tensor,
                         cfg: ModelConfig, *, dtype, pool_k, pool_v,
                         page_table, positions, write_ok,
-                        page_tokens: int, ffn=_ffn_sublayer):
+                        page_tokens: int, ffn=_ffn_sublayer,
+                        pool_group=None):
     """Windowed incremental forward against the PAGED KV pool, the paged
     twin of :func:`_cached_hidden_states`' decode branch.
 
@@ -483,14 +556,15 @@ def paged_hidden_states(params: Transformer, tokens: torch.Tensor,
     page_table: (slots, max_pages) int, the dispatch's input (the host
     allocator owns the table). Window 1 is the paged decode step; window
     k the speculative VERIFY forward, one batched forward scoring a whole
-    draft window. Returns ``(h, pool_k, pool_v)`` with ``h``
-    final-normed."""
+    draft window. ``pool_group``: a serve mesh's, where it splits the
+    pool's rows (:func:`_paged_attention_split`). Returns ``(h, pool_k,
+    pool_v)`` with ``h`` final-normed."""
     x = _embed(params, tokens, dtype)
     for i in range(cfg.n_layers):
         lp = params.layers.layer(i)
         x, _, _ = _attn_sublayer_paged(x, lp, cfg, positions, write_ok,
                                        pool_k[i], pool_v[i], page_table,
-                                       page_tokens)
+                                       page_tokens, pool_group)
         x = ffn(x, lp, cfg)
     return rmsnorm(x, params.final_norm), pool_k, pool_v
 

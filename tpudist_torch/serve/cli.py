@@ -40,13 +40,14 @@ the run failed.
 Under the env contract (``TPUDIST_COORDINATOR`` /
 ``TPUDIST_NUM_PROCESSES`` / ``TPUDIST_PROCESS_ID``, one process a card,
 as the train CLI) the run serves on a serve mesh
-(:class:`~tpudist_torch.serve.engine.ServeEngine`, ``mesh=``): rank 0
-runs the scheduler and writes every artifact, ``n_chips`` the processes;
-the other ranks follow its engine calls. The paged plane, speculation,
-the shared prefix, the serve tuner, chaos and the requeue attempt serve
-on one process only (:func:`check_mesh_flags`). Every rank writes its
-worker verdict; a rank that fails leaves at once, so the run fails in
-bounded time.
+(:class:`~tpudist_torch.serve.engine.ServeEngine` and
+:class:`~tpudist_torch.serve.engine.PagedServeEngine`, ``mesh=``): rank 0
+runs the scheduler, the page allocator, the drafts, the chaos plan and
+the requeue replay, and writes every artifact, ``n_chips`` the
+processes; the other ranks follow its engine calls. The serve tuner runs
+on every rank in lockstep. Every rank writes its worker verdict; a rank
+that fails leaves at once, so the run fails in bounded time (a follower
+whose leader died leaves naming it).
 
 ``parse_args`` declares every option of the JAX serve CLI, with its
 default.
@@ -241,30 +242,6 @@ def parse_args(argv: Optional[Sequence[str]] = None
     return args
 
 
-def check_mesh_flags(args: argparse.Namespace, world: int) -> None:
-    """On a serve mesh (``world`` > 1 processes) refuse what serves on
-    one process only, each with a ``ValueError`` naming ROADMAP Queue A
-    item 8c part 2: the paged plane (``--kv-page-tokens``), speculation
-    and the shared prefix that ride on it, the serve tuner, chaos and
-    the requeue attempt it drives. Their ``$TPUDIST_`` twins set the same
-    flags. One process refuses nothing."""
-    if world <= 1:
-        return
-    refused = (("--kv-page-tokens", args.kv_page_tokens > 0),
-               ("--speculate-k", args.speculate_k > 0),
-               ("--shared-prefix", args.shared_prefix > 0),
-               ("--serve-tune", args.serve_tune != "off"),
-               ("--chaos", bool(args.chaos)),
-               ("--requeue-attempt", args.requeue_attempt is not None))
-    for flag, on in refused:
-        if on:
-            raise ValueError(
-                f"{flag} on a serve mesh of {world} processes: the paged "
-                f"plane, speculation, the serve tuner and serve chaos on "
-                f"several cards are ROADMAP Queue A item 8c part 2; serve "
-                f"with one process")
-
-
 def _prior_outcomes(path: str):
     """Replay a dead attempt's flushed ``kind=serve_request`` events:
     returns ``(accounted_rids, lost_rids)`` — rids with a terminal
@@ -353,7 +330,6 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     # its engine calls (ServeEngine.follow)
     ctx = distributed.initialize(device=resolve_device(args.device))
     device, world = ctx.device, ctx.process_count
-    check_mesh_flags(args, world)
     mesh = (mesh_lib.build_mesh(ParallelConfig(), device_type=device.type)
             if world > 1 else None)
 
@@ -368,7 +344,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     # a resumed attempt reads the DEAD attempt's flushed outcome events
     # before this attempt appends its own
     prior_done, prior_lost = (set(), set())
-    if attempt > 0:
+    if attempt > 0 and ctx.is_coordinator:
         prior_done, prior_lost = _prior_outcomes(metrics_path)
     metrics = MetricsLogger(path=metrics_path)
     # the run's identity on every record and trace document
@@ -432,7 +408,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                 model_cfg, device, params, slots=args.slots,
                 max_seq=args.max_seq, prompt_pad=args.prompt_pad,
                 mode=args.serve_tune, cache_dir=cache_dir, start=cand,
-                dtype=dtype, metrics=metrics)
+                dtype=dtype, metrics=metrics, mesh=mesh)
         cand = out.tuned
         log0(f"tpudist: serve tune {out.status} ({out.source}): "
              f"decode_k={cand.decode_k} layout={cand.layout} "
@@ -448,7 +424,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             prompt_pad=args.prompt_pad, decode_k=cand.decode_k,
             page_tokens=cand.kv_page_tokens, pages=max(args.kv_pages, 0),
             speculate_k=max(cand.speculate_k, 0), dtype=dtype,
-            device=device, adapt_ladder=ladder)
+            device=device, adapt_ladder=ladder, mesh=mesh)
     else:
         engine = ServeEngine(model_cfg, slots=args.slots,
                              max_seq=args.max_seq,
@@ -457,11 +433,20 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                              dtype=dtype, device=device,
                              adapt_ladder=ladder, mesh=mesh)
     if mesh is not None:
+        if engine.paged:
+            g = engine.pool_group
+            where = (f"slots {args.slots} on every rank, pool rows "
+                     + (f"split {g.rows} a rank of {g.n_rows}" if g else
+                        f"replicated ({engine.spec.pages + 1} rows, data "
+                        f"{world} does not divide them)"))
+        else:
+            where = (f"slots {args.slots} split "
+                     f"{engine.span[1] - engine.span[0]} a rank"
+                     if engine.split else
+                     f"slots {args.slots} replicated (data {world} does "
+                     f"not divide them)")
         log0(f"tpudist: serve mesh of {world} processes ({ctx.backend}): "
-             + (f"slots {args.slots} split {engine.span[1] - engine.span[0]}"
-                f" a rank" if engine.split else
-                f"slots {args.slots} replicated (data {world} does not "
-                f"divide them)")
+             + where
              + ("; MoE decode routed over the global slot batch"
                 if args.model == "moe" and engine.split else ""))
         if not ctx.is_coordinator:
@@ -488,7 +473,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         temp, temp_complete = memledger_lib.program_temp_bytes(program_mem)
         cap = engine.alloc.set_memory_bound(
             hbm_bytes=hbm_bytes, params_bytes=params_bytes,
-            program_temp_bytes=temp if temp_complete else None)
+            program_temp_bytes=temp if temp_complete else None,
+            ways=engine.pool_ways)
         log0(f"tpudist: serve kv memory bound "
              f"({engine.alloc.bound_source}): {cap}/{engine.spec.pages} "
              f"pages mappable in {hbm_bytes / 2**20:.0f} MB HBM")
@@ -576,12 +562,12 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
 
     # the serve lane's memory ledger: params, the KV cache (paged: pool
     # pages with the trash page + the table, ``spec.bytes``; on a serve
-    # mesh this rank's span of the slots, while ``kv_cache_bytes`` above
-    # stays the whole cache, as in the JAX summary) and the captured
+    # mesh this rank's span of the slots, or its chunk of a split pool's
+    # rows with its discard row, while ``kv_cache_bytes`` above stays the
+    # whole cache, as in the JAX summary) and the captured
     # programs' graph pools, partitioned against the card's memory.
     # Advisory: a failure logs a line
-    lo, hi = engine.span
-    card_cache_bytes = cache_bytes * (hi - lo) // engine.slots
+    card_cache_bytes = engine.card_kv_bytes()
     try:
         ledger = memledger_lib.build_ledger(
             total_hbm_bytes=hbm_bytes, params_bytes=params_bytes,

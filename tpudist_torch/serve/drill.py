@@ -34,9 +34,15 @@ the resilience contract end to end:
 
 The JAX drill's scenarios, flags and checks are kept as they are
 (``tests/test_torch_serve_drill*.py`` run the JAX package's verifier on
-this drill's artifacts too). The serve CLI runs on one device, so no
-device count is set; every attempt runs on the CPU unless the caller's
-``TPUDIST_PLATFORM`` names the card. ``run_scenario`` and ``run_matrix``
+this drill's artifacts too). Every attempt runs on the CPU unless the
+caller's ``TPUDIST_PLATFORM`` names the card. ``world`` (default 1)
+runs each attempt as that many serve CLI processes under the
+``TPUDIST_COORDINATOR`` / ``TPUDIST_NUM_PROCESSES`` /
+``TPUDIST_PROCESS_ID`` contract, one serve mesh, as the JAX drill's
+attempts run on its device mesh: the attempt's exit code is rank 0's
+(the scheduler's, where the faults fire), the others' are recorded
+beside it (``follower_rcs``), and each rank's output goes to the
+attempt's log (``.rank<r>`` for a follower). ``run_scenario`` and ``run_matrix``
 take ``model``, which replaces the model part of ``ENGINE_FLAGS`` and its
 cache and prompt shape (``MODEL_OPTIONS``), so the same matrix can run at
 a full width on the card with prompts the flash kernel takes. The module imports neither torch nor numpy itself; only the
@@ -49,6 +55,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -173,24 +180,48 @@ def attempt_env(environ: Mapping[str, str],
 
 def _attempt(python: str, save_dir: str, flags: Sequence[str], *,
              env_extra: Optional[Dict[str, str]] = None,
-             log_name: str = "attempt.log", timeout_s: float = 600.0
-             ) -> Tuple[subprocess.CompletedProcess, float, float]:
-    """One serve-CLI invocation in :func:`attempt_env`'s environment."""
+             log_name: str = "attempt.log", timeout_s: float = 600.0,
+             world: int = 1
+             ) -> Tuple[subprocess.CompletedProcess, float, float,
+                        List[int]]:
+    """One serve-CLI invocation in :func:`attempt_env`'s environment:
+    ``world`` processes of one serve mesh where ``world`` > 1. Returns
+    rank 0's process, the wall stamps and the followers' exit codes."""
     env = attempt_env(os.environ, env_extra)
+    argv = [python, "-m", "tpudist_torch.serve", "--save-dir", save_dir,
+            *flags]
+    envs = [env]
+    if world > 1:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        envs = [dict(env, TPUDIST_COORDINATOR=f"localhost:{port}",
+                     TPUDIST_NUM_PROCESSES=str(world),
+                     TPUDIST_PROCESS_ID=str(r)) for r in range(world)]
     start = time.time()
-    proc = subprocess.run(
-        [python, "-m", "tpudist_torch.serve", "--save-dir", save_dir,
-         *flags],
-        env=env, capture_output=True, text=True, timeout=timeout_s)
-    end = time.time()
+    running = [subprocess.Popen(argv, env=e, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+               for e in envs]
+    procs = []
     try:
-        with open(os.path.join(save_dir, log_name), "w") as f:
-            f.write(proc.stdout)
-            if proc.stderr:
-                f.write("\n--- stderr ---\n" + proc.stderr)
-    except OSError:
-        pass
-    return proc, start, end
+        for p in running:
+            out, err = p.communicate(timeout=timeout_s)
+            procs.append(subprocess.CompletedProcess(argv, p.returncode,
+                                                     out, err))
+    finally:
+        for p in running:
+            p.kill()
+    end = time.time()
+    for r, proc in enumerate(procs):
+        name = log_name if r == 0 else f"{log_name}.rank{r}"
+        try:
+            with open(os.path.join(save_dir, name), "w") as f:
+                f.write(proc.stdout)
+                if proc.stderr:
+                    f.write("\n--- stderr ---\n" + proc.stderr)
+        except OSError:
+            pass
+    return procs[0], start, end, [p.returncode for p in procs[1:]]
 
 
 def _tail(proc: subprocess.CompletedProcess, n: int = 30) -> str:
@@ -200,19 +231,22 @@ def _tail(proc: subprocess.CompletedProcess, n: int = 30) -> str:
 
 def run_scenario(run_dir: str, name: str, *,
                  python: Optional[str] = None,
-                 model: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                 model: Optional[Dict[str, Any]] = None,
+                 world: int = 1) -> Dict[str, Any]:
     """One scenario's scripted drill. Fatal scenarios (expect_rc != 0
     with a ``policy`` expectation) replay the launcher's loop: fault →
     policy classification → backoff → ``--requeue-attempt 1``
     rerun, with attempts.jsonl stamped around every invocation.
-    ``model`` replaces options of ``MODEL_OPTIONS`` in its flags."""
+    ``model`` replaces options of ``MODEL_OPTIONS`` in its flags;
+    ``world`` is each attempt's process count (:func:`_attempt`)."""
     cfg = SCENARIOS[name]
     flags = _with_model(cfg["flags"], model)
     python = python or sys.executable
     out: Dict[str, Any] = {"scenario": name, "dir": name,
                            "expect": {k: v for k, v in cfg.items()
                                       if k not in ("flags", "env")},
-                           "rcs": [], "dirs": []}
+                           "rcs": [], "dirs": [], "world": world,
+                           "follower_rcs": []}
     runs = int(cfg.get("runs", 1))
     env_extra = dict(cfg.get("env") or {})
     if cfg.get("chaos"):
@@ -226,10 +260,11 @@ def run_scenario(run_dir: str, name: str, *,
         run_id = f"serve-drill-{name}"
         attempts_path = os.path.join(d, goodput_mod.ATTEMPTS_NAME)
         env_extra["TPUDIST_RUN_ID"] = run_id
-        p0, s0, e0 = _attempt(python, d, flags,
-                              env_extra=env_extra,
-                              log_name="attempt0.log")
+        p0, s0, e0, f0 = _attempt(python, d, flags,
+                                  env_extra=env_extra,
+                                  log_name="attempt0.log", world=world)
         out["rcs"].append(p0.returncode)
+        out["follower_rcs"].append(f0)
         if p0.returncode != cfg["expect_rc"]:
             raise ServeDrillError(
                 f"{name}: attempt 0 exited {p0.returncode}, the script "
@@ -262,10 +297,12 @@ def run_scenario(run_dir: str, name: str, *,
         time.sleep(decision.backoff_s)       # the measured off-pod gap
         env1 = {k: v for k, v in env_extra.items()
                 if k != "TPUDIST_CHAOS"}
-        p1, s1, e1 = _attempt(python, d,
-                              (*flags, "--requeue-attempt", "1"),
-                              env_extra=env1, log_name="attempt1.log")
+        p1, s1, e1, f1 = _attempt(python, d,
+                                  (*flags, "--requeue-attempt", "1"),
+                                  env_extra=env1, log_name="attempt1.log",
+                                  world=world)
         out["rcs"].append(p1.returncode)
+        out["follower_rcs"].append(f1)
         goodput_mod.append_attempt(
             attempts_path, attempt=1, start_ts=s1, end_ts=e1,
             rc=p1.returncode,
@@ -280,16 +317,18 @@ def run_scenario(run_dir: str, name: str, *,
 
 def run_matrix(run_dir: str, *, python: Optional[str] = None,
                scenarios: Optional[Sequence[str]] = None,
-               model: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The whole matrix; results persisted as
-    ``serve_resilience_results.json`` so verify can replay offline."""
+               model: Optional[Dict[str, Any]] = None,
+               world: int = 1) -> Dict[str, Any]:
+    """The whole matrix, each attempt on ``world`` processes; results
+    persisted as ``serve_resilience_results.json`` so verify can replay
+    offline."""
     os.makedirs(run_dir, exist_ok=True)
     python = python or sys.executable
     results: Dict[str, Any] = {"schema": 1, "scenarios": {}}
     for name in (scenarios or SCENARIOS):
         results["scenarios"][name] = run_scenario(run_dir, name,
                                                   python=python,
-                                                  model=model)
+                                                  model=model, world=world)
         print(f"tpudist: serve drill {name}: scripted outcome held "
               f"(rcs {results['scenarios'][name]['rcs']})", flush=True)
     path = os.path.join(run_dir, RESULTS_NAME)
@@ -617,7 +656,7 @@ def bench_artifact(report: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def run_and_verify(run_dir: Optional[str] = None, *,
-                   scenarios=None) -> Dict[str, Any]:
+                   scenarios=None, world: int = 1) -> Dict[str, Any]:
     """The whole acceptance sequence in one call — drill the matrix,
     replay the invariants, persist the report — the CLI's ``drill``.
     ``run_dir`` defaults to ``$TPUDIST_SERVE_DRILL_DIR``, else a temp
@@ -627,7 +666,7 @@ def run_and_verify(run_dir: Optional[str] = None, *,
     if run_dir is None:
         run_dir = os.environ.get("TPUDIST_SERVE_DRILL_DIR") \
             or tempfile.mkdtemp(prefix="tpudist_serve_drill_")
-    results = run_matrix(run_dir, scenarios=scenarios)
+    results = run_matrix(run_dir, scenarios=scenarios, world=world)
     report = verify_matrix(run_dir, results)
     report["run_dir"] = run_dir
     return report
@@ -660,12 +699,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "default: all)")
     d.add_argument("--bench-out", type=str, default=None,
                    help="also write BENCH_SERVE_RESILIENCE.json")
+    d.add_argument("--world", type=int, default=1,
+                   help="serve CLI processes an attempt (one serve mesh; "
+                        "default 1)")
     v = sub.add_parser("verify", help="re-check an existing drill dir")
     v.add_argument("--run-dir", type=str, required=True)
     args = p.parse_args(argv)
 
     if args.cmd == "drill":
-        report = run_and_verify(args.run_dir, scenarios=args.scenario)
+        report = run_and_verify(args.run_dir, scenarios=args.scenario,
+                                world=args.world)
         if args.bench_out:
             tmp = f"{args.bench_out}.tmp"
             os.makedirs(os.path.dirname(args.bench_out) or ".",

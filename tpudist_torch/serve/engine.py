@@ -57,14 +57,22 @@ every rank; the first token and the ``(k, slots)`` tokens come back to
 rank 0's host by a gather over the host group. The MoE's decode routes
 the global slot batch: its router probabilities are all-gathered over
 the slot group (NCCL on the card, inside the decode graph). The pin and
-the launch counts hold per rank.
+the launch counts hold per rank. A follower whose leader is gone (its
+command broadcast fails) raises, naming the lost leader.
 
 :class:`PagedServeEngine` keeps the same discipline over a paged KV pool
 (:mod:`tpudist_torch.serve.kvcache`): its prefill scatters the scratch
 into the slot's pages, its decode and verify programs attend through
 ``paged_hidden_states``, and the host allocator's page table, the
 dispatch mask, the prefill's page row and the draft are copied into the
-graphs' input buffers before each replay, never rebound.
+graphs' input buffers before each replay, never rebound. On a serve mesh
+every rank holds every slot and runs every prefill, decode and verify;
+rank 0's allocator is the only one, and each command carries what its
+programs read of it (the prefill's page row and ``shared_len``, the
+dispatch's table and mask, the verify's draft). The pool's rows are
+replicated, or split over the ranks where the sanitised spec splits them
+(:func:`~tpudist_torch.serve.kvcache.pool_span`), the attention's
+partial softmaxes then all-gathered over the :class:`PoolGroup`.
 """
 
 from __future__ import annotations
@@ -86,9 +94,11 @@ from tpudist_torch.utils.platform import resolve_device
 
 
 # the commands rank 0 broadcasts to a serve mesh's followers: a header of
-# (op, eager, three ints), then a prompt's tokens
-_WARMUP, _INIT, _PREFILL, _DECODE, _STOP = range(1, 6)
-_HEAD = 5
+# (op, eager, four ints), then the payload's fields at fixed offsets (the
+# engine's _fields: a prompt's tokens; paged, the page row, the table, the
+# dispatch mask and the draft), one fixed size for every command
+_WARMUP, _INIT, _PREFILL, _DECODE, _VERIFY, _STOP = range(1, 7)
+_HEAD = 6
 
 
 class SlotGroup(NamedTuple):
@@ -104,6 +114,24 @@ class SlotGroup(NamedTuple):
         """Every rank's ``x`` stacked along dim 0 in slot order (an
         all-gather over the group, NCCL on the card)."""
         return gather_dim(x, 0, self.ways, self.group)
+
+
+class PoolGroup(NamedTuple):
+    """The ranks a serve mesh splits a paged pool's rows over: rank
+    ``index`` of ``ways`` holds ``rows`` rows from global row ``lo`` of
+    the ``n_rows`` (``pages + 1``)."""
+
+    group: object
+    ways: int
+    index: int
+    lo: int
+    rows: int
+    n_rows: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` on a new leading dim in rank order (an
+        all-gather over the group, NCCL on the card)."""
+        return gather_dim(x[None], 0, self.ways, self.group)
 
 
 class ServeState(NamedTuple):
@@ -278,9 +306,7 @@ class ServeEngine:
         if mesh is None:
             return
         from tpudist_torch.parallel import distributed
-        from tpudist_torch.parallel.mesh import (axes_group, mesh_devices,
-                                                 mesh_shape)
-        from tpudist_torch.parallel.sharding import spec_axes
+        from tpudist_torch.parallel.mesh import mesh_devices, mesh_shape
         other = {a: n for a, n in mesh_shape(mesh).items()
                  if a not in ("data", "fsdp") and n > 1}
         if other:
@@ -298,6 +324,13 @@ class ServeEngine:
         self._rank = dist.get_rank()
         self._world = dist.get_world_size()
         self.n_chips = mesh_devices(mesh).size
+        self._place(mesh)
+
+    def _place(self, mesh) -> None:
+        """This rank's slots on the joined mesh, and the slot group where
+        the cache's spec splits them."""
+        from tpudist_torch.parallel.mesh import axes_group
+        from tpudist_torch.parallel.sharding import spec_axes
         self._spans = [kvcache.slot_span(self.spec, mesh, r)
                        for r in range(self._world)]
         self._lo, self._hi = self._spans[self._rank]
@@ -322,33 +355,59 @@ class ServeEngine:
         """The global slot ids ``[lo, hi)`` this rank holds."""
         return self._lo, self._hi
 
-    def _lead(self, op: int, *ints: int, tokens=None) -> None:
-        """Rank 0's side of a command on a serve mesh: ``op`` and its
-        ints (and a prompt) broadcast over the host group, every rank
-        then running it on its own slots. A no-op without a mesh."""
+    def card_kv_bytes(self) -> int:
+        """This rank's KV cache bytes: its span's share of the cache."""
+        return self.spec.bytes * (self._hi - self._lo) // self.slots
+
+    def _fields(self) -> Dict[str, int]:
+        """The command payload's fields and their sizes, in order."""
+        return {"tokens": self.prompt_pad}
+
+    def _new_command(self) -> torch.Tensor:
+        return torch.zeros((_HEAD + sum(self._fields().values()),),
+                           dtype=torch.int64)
+
+    def _field(self, cmd: torch.Tensor, name: str) -> torch.Tensor:
+        """Field ``name`` of a command's payload (a view)."""
+        at = _HEAD
+        for field, size in self._fields().items():
+            if field == name:
+                return cmd[at:at + size]
+            at += size
+        raise KeyError(name)
+
+    def _lead(self, op: int, *ints: int, **fields) -> None:
+        """Rank 0's side of a command on a serve mesh: ``op``, its ints
+        and its payload ``fields`` (arrays, flattened into their places)
+        broadcast over the host group, every rank then running it on its
+        own slots. A no-op without a mesh."""
         if self.mesh is None:
             return
         if self._rank != 0:
             raise RuntimeError(
                 f"rank {self._rank} serves rank 0's commands (follow())")
-        cmd = torch.zeros((_HEAD + self.prompt_pad,), dtype=torch.int64)
+        cmd = self._new_command()
         cmd[:2 + len(ints)] = torch.tensor(
             [op, int(self._eager_calls), *ints], dtype=torch.int64)
-        if tokens is not None:
-            cmd[_HEAD:] = tokens
+        for name, value in fields.items():
+            self._field(cmd, name).copy_(torch.as_tensor(
+                np.asarray(value, np.int64).reshape(-1)))
         dist.broadcast(cmd, src=0, group=self._host)
 
     def _report(self, first: Optional[torch.Tensor] = None,
                 toks: Optional[torch.Tensor] = None,
-                valid: Optional[torch.Tensor] = None):
+                valid: Optional[torch.Tensor] = None,
+                emitted: Optional[torch.Tensor] = None):
         """Every rank's answer to a command, gathered on rank 0's host:
-        a prefill's first token from the ranks that ran it, a decode's
-        ``(k, local slots)`` tokens and valid flags. Returns the rows on
-        rank 0 (None elsewhere, and without a mesh)."""
+        a prefill's first token from the ranks that ran it, a decode's or
+        a verify's ``(k, local slots)`` tokens and valid flags, and a
+        verify's ``emitted``. Returns the rows on rank 0 (None elsewhere,
+        and without a mesh)."""
         if self.mesh is None:
             return None
-        n = self.ladder[0] * (self._hi - self._lo)
-        buf = torch.full((1 + 2 * n,), -1, dtype=torch.int64)
+        local = self._hi - self._lo
+        n = max(self.ladder[0], self.speculate_k) * local
+        buf = torch.full((1 + 2 * n + local,), -1, dtype=torch.int64)
         if self._rank != 0:          # rank 0 reads its own from the card
             if first is not None:
                 buf[0] = int(first)
@@ -356,6 +415,8 @@ class ServeEngine:
                 m = toks.numel()
                 buf[1:1 + m] = toks.reshape(-1).cpu()
                 buf[1 + n:1 + n + m] = valid.reshape(-1).cpu()
+            if emitted is not None:
+                buf[1 + 2 * n:] = emitted.cpu()
         rows = ([torch.empty_like(buf) for _ in range(self._world)]
                 if self._rank == 0 else None)
         dist.gather(buf, rows, dst=0, group=self._host)
@@ -420,29 +481,40 @@ class ServeEngine:
         rather than waits."""
         if self.mesh is None or self._rank == 0:
             raise RuntimeError("follow() is a serve mesh follower's loop")
-        cmd = torch.zeros((_HEAD + self.prompt_pad,), dtype=torch.int64)
+        cmd = self._new_command()
         while True:
-            dist.broadcast(cmd, src=0, group=self._host)
-            op, eager, a, b, c = (int(v) for v in cmd[:_HEAD])
+            try:
+                dist.broadcast(cmd, src=0, group=self._host)
+            except RuntimeError as e:     # gloo: the peer closed
+                raise RuntimeError(
+                    f"serve mesh rank {self._rank} lost its leader (rank "
+                    f"0): the command broadcast failed ({e!r})") from e
+            op, eager, *ints = (int(v) for v in cmd[:_HEAD])
             if op == _STOP:
                 break
             self._eager_calls = bool(eager)
             try:
-                if op == _WARMUP:
-                    self._check_call(params, self._state)
-                    self._warmup(params)
-                    self._report()
-                elif op == _INIT:
-                    self._zero_state()
-                elif op == _PREFILL:
-                    self._do_prefill(params, cmd[_HEAD:].clone(), a, b, c)
-                elif op == _DECODE:
-                    self._do_decode(params, a)
-                else:
-                    raise ValueError(f"unknown serve command {op}")
+                self._follow(params, op, ints, cmd)
             finally:
                 self._eager_calls = False
         self.assert_two_programs()
+
+    def _follow(self, params, op: int, ints, cmd: torch.Tensor) -> None:
+        """Run one of rank 0's commands on this rank."""
+        a, b, c, _ = ints
+        if op == _WARMUP:
+            self._check_call(params, self._state)
+            self._warmup(params)
+            self._report()
+        elif op == _INIT:
+            self._zero_state()
+        elif op == _PREFILL:
+            self._do_prefill(params, self._field(cmd, "tokens").clone(),
+                             a, b, c)
+        elif op == _DECODE:
+            self._do_decode(params, a)
+        else:
+            raise ValueError(f"unknown serve command {op}")
 
     def stop_followers(self) -> None:
         """Rank 0: end the followers' :meth:`follow` loops (a no-op
@@ -811,6 +883,11 @@ class PagedServeEngine(ServeEngine):
     Where the JAX decode skips a step with no active slot (``lax.cond``),
     every step runs here and the masks freeze the batch; slots outside a
     dispatch's mask keep their ``active`` untouched.
+
+    ``mesh``: a serve mesh (module docstring). Every rank holds every
+    slot, as the JAX paged state's replicated vectors, and the pool
+    whole or, where the sanitised spec splits its rows, its chunk of them
+    (``pool_group``); ``pool_ways`` is the ranks a page is spread over.
     """
 
     paged = True
@@ -819,17 +896,17 @@ class PagedServeEngine(ServeEngine):
                  max_seq: int, prompt_pad: int, decode_k: int = 8,
                  page_tokens: int = 8, pages: int = 0,
                  speculate_k: int = 0, dtype=torch.float32, device=None,
-                 adapt_ladder: Optional[Sequence[int]] = None):
+                 adapt_ladder: Optional[Sequence[int]] = None, mesh=None):
         if speculate_k == 1 or speculate_k < 0:
             raise ValueError(
                 f"--speculate-k must be 0 (off) or >= 2 (window of "
                 f"last_token + drafts), got {speculate_k}")
         self.speculate_k = int(speculate_k)
-        self._pool_kw = dict(page_tokens=page_tokens, pages=pages)
+        self._pages_kw = dict(page_tokens=page_tokens, pages=pages)
         super().__init__(model_cfg, slots=slots, max_seq=max_seq,
                          prompt_pad=prompt_pad, decode_k=decode_k,
                          layout="st", dtype=dtype, device=device,
-                         adapt_ladder=adapt_ladder)
+                         adapt_ladder=adapt_ladder, mesh=mesh)
         self.page_tokens = self.spec.page_tokens
         self.alloc = kvcache.PageAllocator(self.spec)
         self.verify_traces: list = []
@@ -848,12 +925,57 @@ class PagedServeEngine(ServeEngine):
     def _cache_spec(self) -> kvcache.PagedCacheSpec:
         return kvcache.PagedCacheSpec.from_model(
             self.model_cfg, slots=self.slots, max_seq=self.max_seq,
-            dtype=self.dtype, **self._pool_kw)
+            dtype=self.dtype, **self._pages_kw)
+
+    def _join_mesh(self, mesh) -> None:
+        self.pool_group: Optional[PoolGroup] = None
+        super()._join_mesh(mesh)
+
+    def _place(self, mesh) -> None:
+        """Every slot on every rank; this rank's rows of the pool, and
+        the pool group where the sanitised spec splits them over several
+        ranks."""
+        from tpudist_torch.parallel.mesh import axes_group
+        self._spans = [(0, self.slots)] * self._world
+        n_rows = self.spec.pages + 1
+        lo, hi = kvcache.pool_span(self.spec, mesh, self._rank)
+        if hi - lo == n_rows:
+            return
+        group = axes_group(mesh, ("data", "fsdp"))
+        index = dist.get_rank(group)
+        if index * (hi - lo) != lo:
+            raise ValueError(
+                f"rank {self._rank} holds pool rows [{lo}, {hi}) but is "
+                f"rank {index} of its batch group")
+        self.pool_group = PoolGroup(group, n_rows // (hi - lo), index, lo,
+                                    hi - lo, n_rows)
+
+    @property
+    def pool_ways(self) -> int:
+        """The ranks each page's share of the pool is spread over (1:
+        the pool is whole on every rank)."""
+        return 1 if self.pool_group is None else self.pool_group.ways
+
+    def card_kv_bytes(self) -> int:
+        """This rank's pool bytes: the whole pool, or its chunk of the
+        rows plus its discard row, beside the page table."""
+        if self.pool_group is None:
+            return self.spec.bytes
+        row = (self.spec.bytes - self.spec.table_bytes) \
+            // (self.spec.pages + 1)
+        return row * (self.pool_group.rows + 1) + self.spec.table_bytes
 
     def _new_state(self) -> PagedServeState:
-        pool = kvcache.init_paged_cache(self.spec, self.device)
+        pool = kvcache.init_paged_cache(
+            self.spec, self.device,
+            rows=0 if self.pool_group is None else self.pool_group.rows)
         return PagedServeState(pool_k=pool["k"], pool_v=pool["v"],
                                **self._vectors())
+
+    def _fields(self) -> Dict[str, int]:
+        maxp, s = self.spec.max_pages_per_slot, self.slots
+        return {**super()._fields(), "row": maxp, "table": s * maxp,
+                "mask": s, "draft": s * max(self.speculate_k - 1, 0)}
 
     def new_allocator(self) -> kvcache.PageAllocator:
         """Fresh page bookkeeping (drops any shared-prefix registry), one
@@ -878,11 +1000,21 @@ class PagedServeEngine(ServeEngine):
         t = torch.arange(self.prompt_pad, device=self.device)
         write = (t >= self._shared_len) & (t < plen)
         pg = self._page_row[t // pt]
-        pg = torch.where(write & (pg >= 0), pg, self.spec.pages)
+        pg = self._own_rows(torch.where(write & (pg >= 0), pg,
+                                        self.spec.pages))
         off = t % pt
         st = self._state
         st.pool_k[:, pg, off] = self._scratch["k"][:, 0]
         st.pool_v[:, pg, off] = self._scratch["v"][:, 0]
+
+    def _own_rows(self, pg: torch.Tensor) -> torch.Tensor:
+        """Global pool rows -> this rank's: on a split pool a row another
+        rank holds goes to the discard row."""
+        g = self.pool_group
+        if g is None:
+            return pg
+        pg = pg - g.lo
+        return torch.where((pg >= 0) & (pg < g.rows), pg, g.rows)
 
     def _paged_forward(self, params, tokens, positions, write_ok
                        ) -> torch.Tensor:
@@ -893,7 +1025,7 @@ class PagedServeEngine(ServeEngine):
             params, tokens, self.model_cfg, dtype=self.dtype,
             pool_k=st.pool_k, pool_v=st.pool_v, page_table=self._table,
             positions=positions, write_ok=write_ok,
-            page_tokens=self.spec.page_tokens)
+            page_tokens=self.spec.page_tokens, pool_group=self.pool_group)
         return self._tied_logits(params, h)
 
     def _decode_body(self, params, k: int
@@ -983,19 +1115,38 @@ class PagedServeEngine(ServeEngine):
     # ------------------------------------------------------ public API
 
     def _set_page_inputs(self, page_row, shared_len: int) -> None:
-        self._page_row.copy_(torch.as_tensor(
-            np.asarray(page_row, np.int64).reshape(
-                self.spec.max_pages_per_slot)))
+        self._page_row.copy_(torch.as_tensor(np.asarray(
+            page_row, np.int64).reshape(self.spec.max_pages_per_slot)))
         self._shared_len.fill_(int(shared_len))
 
-    def _set_dispatch_inputs(self, dispatch_active) -> None:
-        self._table.copy_(torch.as_tensor(np.asarray(self.alloc.table,
-                                                     np.int64)))
-        if dispatch_active is None:
-            self._dispatch.fill_(True)
+    def _dispatch_inputs(self, dispatch_active):
+        """The allocator's table and the dispatch mask (default: every
+        slot), as host arrays."""
+        mask = (np.ones((self.slots,), bool) if dispatch_active is None
+                else np.asarray(dispatch_active, bool).reshape(self.slots))
+        return np.asarray(self.alloc.table, np.int64), mask
+
+    def _set_dispatch_inputs(self, table, mask) -> None:
+        self._table.copy_(torch.as_tensor(np.asarray(table, np.int64))
+                          .reshape(self._table.shape))
+        self._dispatch.copy_(torch.as_tensor(np.asarray(mask, bool))
+                             .reshape(self.slots))
+
+    def _follow(self, params, op: int, ints, cmd: torch.Tensor) -> None:
+        """The dense commands, each paged one first copying what it
+        carries of rank 0's allocator into the programs' input buffers,
+        and the verify."""
+        if op == _PREFILL:
+            self._set_page_inputs(self._field(cmd, "row"), ints[3])
+        elif op in (_DECODE, _VERIFY):
+            self._set_dispatch_inputs(self._field(cmd, "table"),
+                                      self._field(cmd, "mask"))
+        if op == _VERIFY:
+            self._draft.copy_(self._field(cmd, "draft").view(
+                self._draft.shape))
+            self._do_verify(params)
         else:
-            self._dispatch.copy_(torch.as_tensor(
-                np.asarray(dispatch_active, bool).reshape(self.slots)))
+            super()._follow(params, op, ints, cmd)
 
     @torch.no_grad()
     def prefill(self, params, state: PagedServeState, tokens,
@@ -1005,14 +1156,18 @@ class PagedServeEngine(ServeEngine):
         """Admit one request into ``slot``: the dense contract plus the
         slot's page-table ROW (default: the allocator's current row for
         ``slot``) and the shared-prefix watermark ``shared_len``
-        (``alloc.admit_shared_len``), both inputs of the one program."""
+        (``alloc.admit_shared_len``), both inputs of the one program. On
+        a serve mesh the command carries both; every rank runs it."""
         self._check_call(params, state)
-        self._set_prefill_inputs(tokens, prompt_len, slot, max_new)
-        self._set_page_inputs(self.alloc.row(slot) if page_row is None
-                              else page_row, shared_len)
-        first, self.last_logits = self._run(
-            "prefill", lambda: self._prefill_body(params))
-        return state, first[0]
+        self._check_prefill(prompt_len, slot)
+        tokens = torch.as_tensor(tokens, dtype=torch.int64).reshape(
+            self.prompt_pad)
+        row = self.alloc.row(slot) if page_row is None else page_row
+        self._lead(_PREFILL, prompt_len, slot, max_new, int(shared_len),
+                   tokens=tokens, row=row)
+        self._set_page_inputs(row, shared_len)
+        return state, self._do_prefill(params, tokens, prompt_len, slot,
+                                       max_new)
 
     def register_prefix(self, params, state: PagedServeState,
                         prefix_tokens, prefix_len: int
@@ -1024,7 +1179,9 @@ class PagedServeEngine(ServeEngine):
         its entries). Causal masking makes the stored K/V what any prompt
         starting with the prefix computes there. The partial tail page
         goes to the trash page; admissions recompute it into their first
-        private page (the copy-on-write fork)."""
+        private page (the copy-on-write fork). On a serve mesh rank 0's
+        allocator reserves the pages and the prefill command carries
+        them as its page row, so every rank fills them."""
         pages = self.alloc.register_shared(prefix_len)
         if not pages:
             return state
@@ -1047,10 +1204,10 @@ class PagedServeEngine(ServeEngine):
         as :meth:`ServeEngine.decode` does."""
         k = self._rung(k)
         self._check_call(params, state)
-        self._set_dispatch_inputs(dispatch_active)
-        toks, valid = self._run(f"decode_k{k}",
-                                lambda: self._decode_body(params, k))
-        return state, toks, valid
+        table, mask = self._dispatch_inputs(dispatch_active)
+        self._lead(_DECODE, k, table=table, mask=mask)
+        self._set_dispatch_inputs(table, mask)
+        return (state, *self._do_decode(params, k))
 
     @torch.no_grad()
     def verify(self, params, state: PagedServeState, draft,
@@ -1063,12 +1220,20 @@ class PagedServeEngine(ServeEngine):
         if self.speculate_k < 2:
             raise ValueError("verify() requires speculate_k >= 2")
         self._check_call(params, state)
-        self._draft.copy_(torch.as_tensor(np.asarray(draft, np.int64)
-                                          .reshape(self._draft.shape)))
-        self._set_dispatch_inputs(dispatch_active)
+        draft = np.asarray(draft, np.int64).reshape(self._draft.shape)
+        table, mask = self._dispatch_inputs(dispatch_active)
+        self._lead(_VERIFY, table=table, mask=mask, draft=draft)
+        self._set_dispatch_inputs(table, mask)
+        self._draft.copy_(torch.as_tensor(draft))
+        return (state, *self._do_verify(params))
+
+    def _do_verify(self, params):
+        """A verify, on every rank of a serve mesh; rank 0 returns its
+        (tokens, valid, emitted), the followers' reported beside."""
         toks, valid, e = self._run("verify",
                                    lambda: self._verify_body(params))
-        return state, toks, valid, e
+        self._report(toks=toks, valid=valid, emitted=e)
+        return None if self._rank != 0 else (toks, valid, e)
 
     def eager_verify(self, *args, **kw):
         """:meth:`verify` with its body run eagerly (see

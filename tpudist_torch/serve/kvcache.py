@@ -33,6 +33,9 @@ On a serve mesh a rank holds its slots of the dense arena
 (:func:`slot_span`), as the JAX package's ``cache_shardings`` places
 them: the spec is :func:`tpudist_torch.parallel.sharding.kv_cache_specs`,
 sanitised, so a slot count the batch axes don't divide is replicated.
+The paged pool's rows are placed the same way (:func:`pool_span`, the
+JAX ``paged_cache_shardings``): split over the batch axes where they
+divide ``pages + 1``, else replicated.
 
 Either way the cache stores the COMPACT kv heads (the layout
 ``wk``/``wv`` produce); expansion to the query heads happens inside the
@@ -128,7 +131,13 @@ def slot_span(spec: CacheSpec, mesh, rank: int) -> Tuple[int, int]:
     contiguous chunks over its axes, outermost first, chunk ``i`` on the
     devices at position ``i`` of those axes; every slot where the spec
     replicates them."""
-    axes = sharding.spec_axes(cache_spec_on(spec, mesh)[1])
+    return _span(sharding.spec_axes(cache_spec_on(spec, mesh)[1]),
+                 spec.slots, mesh, rank)
+
+
+def _span(axes, size: int, mesh, rank: int) -> Tuple[int, int]:
+    """``rank``'s chunk ``[lo, hi)`` of a dim of ``size`` split over
+    ``axes`` of ``mesh`` (the whole dim for no axes)."""
     devs = mesh_devices(mesh)
     names = list(mesh.mesh_dim_names)
     pos = np.argwhere(devs == rank)
@@ -138,7 +147,7 @@ def slot_span(spec: CacheSpec, mesh, rank: int) -> Tuple[int, int]:
     for a in axes:
         n = devs.shape[names.index(a)]
         idx, ways = idx * n + int(pos[0][names.index(a)]), ways * n
-    per = spec.slots // ways
+    per = size // ways
     return idx * per, (idx + 1) * per
 
 
@@ -235,14 +244,36 @@ class PagedCacheSpec:
         return 2 * n * _itemsize(self.dtype) + self.table_bytes
 
 
-def init_paged_cache(spec: PagedCacheSpec, device
+def paged_cache_spec_on(spec: PagedCacheSpec, mesh) -> sharding.Spec:
+    """The paged pools' spec on ``mesh`` (the JAX
+    ``paged_cache_shardings``), sanitised: the ``pages + 1`` pool rows
+    ride the batch axes only where those divide them, else the pool is
+    replicated (the rule: the trash page makes the row count odd)."""
+    return sharding.sanitize_spec(spec.pool_shape,
+                                  sharding.paged_kv_cache_specs(),
+                                  mesh_shape(mesh))
+
+
+def pool_span(spec: PagedCacheSpec, mesh, rank: int) -> Tuple[int, int]:
+    """The pool rows ``[lo, hi)`` of the ``pages + 1`` that ``rank``
+    holds, as ``NamedSharding`` places them (:func:`slot_span`'s rule);
+    every row where the spec replicates the pool. The trash page, row
+    ``pages``, lies on the last chunk's ranks."""
+    return _span(sharding.spec_axes(paged_cache_spec_on(spec, mesh)[1]),
+                 spec.pages + 1, mesh, rank)
+
+
+def init_paged_cache(spec: PagedCacheSpec, device, rows: int = 0
                      ) -> Dict[str, torch.Tensor]:
     """Zero-initialised paged ``{"k", "v"}`` pool (trash page included)
-    on ``device``."""
-    return {"k": torch.zeros(spec.pool_shape, dtype=spec.dtype,
-                             device=device),
-            "v": torch.zeros(spec.pool_shape, dtype=spec.dtype,
-                             device=device)}
+    on ``device``; with ``rows``, a split pool's chunk of that many rows
+    plus one private DISCARD row, where this rank routes the writes of
+    rows other ranks hold (it belongs to no page and no read sees it)."""
+    shape = list(spec.pool_shape)
+    if rows:
+        shape[1] = rows + 1
+    return {"k": torch.zeros(shape, dtype=spec.dtype, device=device),
+            "v": torch.zeros(shape, dtype=spec.dtype, device=device)}
 
 
 class PageAllocatorError(RuntimeError):
@@ -283,8 +314,8 @@ class PageAllocator:
 
     def set_memory_bound(self, *, hbm_bytes: float,
                          params_bytes: float = 0,
-                         program_temp_bytes: Optional[int] = None
-                         ) -> int:
+                         program_temp_bytes: Optional[int] = None,
+                         ways: int = 1) -> int:
         """Cap admissions to the pages device memory can afford.
 
         The pool is allocated in full either way; this bounds how many
@@ -294,8 +325,11 @@ class PageAllocator:
         plus the programs' measured scratch (``program_temp_bytes``,
         :mod:`tpudist_torch.obs.memledger`) when known, else
         ``STAGING_STATE_HEADROOM x params``; ``bound_source`` records
-        which. Returns the page cap, clamped to [0, spec.pages], never
-        below the shared-prefix registry's pages."""
+        which. ``ways``: the cards a split pool's pages are spread over
+        (:func:`pool_span`), each holding ``1/ways`` of every page count,
+        so a card affords ``ways`` times the pages. Returns the page cap,
+        clamped to [0, spec.pages], never below the shared-prefix
+        registry's pages."""
         if program_temp_bytes is not None and program_temp_bytes >= 0:
             margin = float(params_bytes) + float(program_temp_bytes)
             self.bound_source = "ledger"
@@ -306,7 +340,7 @@ class PageAllocator:
             * self.spec.n_kv_heads * self.spec.head_dim \
             * _itemsize(self.spec.dtype)
         avail = float(hbm_bytes) - margin - self.spec.table_bytes
-        cap = int(avail // page_bytes) if page_bytes > 0 else 0
+        cap = int(avail * ways // page_bytes) if page_bytes > 0 else 0
         cap = max(cap, len(self.shared_pages))
         self.page_cap = min(max(cap, 0), self.spec.pages)
         return self.page_cap

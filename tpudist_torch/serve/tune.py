@@ -24,6 +24,14 @@ with every slot active — tokens/s at full occupancy, the number the
 (graphs, KV cache, scratch) and the allocator's cache before the next,
 and restores the kernels' launch counters, so a served run's counts
 hold its own launches only.
+
+On a serve mesh (``mesh=``, the serve CLI's under the env contract) every
+rank runs the tuner in lockstep: each trial's engine is built on the mesh
+on every rank, rank 0 drives and times it while the others follow its
+commands, and rank 0's measurement (and its cache decision) is broadcast
+so every rank walks the search the same way; the fingerprint carries the
+mesh's shape and card count, so a record of several cards never answers
+one card's run.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from tpudist_torch import verdict as verdict_lib
 from tpudist_torch.serve.kvcache import KV_CACHE_LAYOUTS
+from tpudist_torch.tune import _broadcast
 from tpudist_torch.tune import cache as cache_mod
 from tpudist_torch.tune import search as search_mod
 
@@ -93,15 +102,18 @@ def validate_serve_tuned(tuned: Dict[str, Any]) -> bool:
 
 def fingerprint(model_cfg, device, *, slots: int, max_seq: int,
                 prompt_pad: int, dtype=torch.float32,
-                device_kind: Optional[str] = None) -> str:
+                device_kind: Optional[str] = None, mesh=None) -> str:
     """Fingerprint of the serve tuning situation: the train tuner's
     recipe (:func:`tpudist_torch.tune.cache.fingerprint`: the card's
     name, torch and CUDA versions, the kernels' source hash) over the
-    serve workload — model shape, cache geometry, activation dtype."""
+    serve workload — model shape, cache geometry, activation dtype — and,
+    as the JAX fingerprint, the serve mesh's shape and its card and
+    process counts (one card without a mesh)."""
     import hashlib
     import json
 
     from tpudist_torch import __version__
+    from tpudist_torch.parallel.mesh import mesh_devices, mesh_shape
     if device_kind is None:
         device_kind = (torch.cuda.get_device_name(device)
                        if torch.device(device).type == "cuda" else "cpu")
@@ -117,7 +129,10 @@ def fingerprint(model_cfg, device, *, slots: int, max_seq: int,
         "max_seq": int(max_seq),
         "prompt_pad": int(prompt_pad),
         "dtype": str(dtype),
-        "n_devices": 1,           # one engine drives one card
+        "mesh": None if mesh is None else mesh_shape(mesh),
+        "n_devices": 1 if mesh is None else int(mesh_devices(mesh).size),
+        "n_processes": 1 if mesh is None else int(
+            mesh_devices(mesh).size),
         "device_kind": device_kind,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
@@ -144,14 +159,20 @@ def probe_candidate(model_cfg, device, params, cand: ServeCandidate, *,
                     slots: int, max_seq: int, prompt_pad: int,
                     dtype=torch.float32,
                     n_dispatches: int = DEFAULT_PROBE_DISPATCHES,
-                    repeats: int = DEFAULT_PROBE_REPEATS
-                    ) -> ServeProbeResult:
+                    repeats: int = DEFAULT_PROBE_REPEATS,
+                    mesh=None) -> ServeProbeResult:
     """Measure one candidate: build its engine on ``device`` and warm it
     (on the card: capture its graphs, off the timed path), then time its
     decode at full occupancy (:func:`_time_decode`). Never raises — any
     failure (an OOM, a failed capture) is a pruned ``feasible=False``
     result. The trial's engine is released, the allocator's cache
-    emptied and the launch counters restored whatever happened."""
+    emptied and the launch counters restored whatever happened.
+
+    On a serve ``mesh`` every rank builds the engine on it; rank 0 times
+    it and stops the followers, which follow its commands and then return
+    a placeholder (:func:`autotune_serve` hands every rank rank 0's
+    result). A follower that fails inside a command raises: rank 0 waits
+    on it in a collective, which its exit then fails."""
     from tpudist_torch import engine as engine_lib
     from tpudist_torch.serve.engine import PagedServeEngine, ServeEngine
     from tpudist_torch.tune.probe import release_memory
@@ -159,27 +180,41 @@ def probe_candidate(model_cfg, device, params, cand: ServeCandidate, *,
     device = torch.device(device)
     counts = engine_lib.kernel_launch_counts()
     engine = None
+    leading = False
     try:
         if cand.kv_page_tokens > 0:
             engine = PagedServeEngine(
                 model_cfg, slots=slots, max_seq=max_seq,
                 prompt_pad=prompt_pad, decode_k=cand.decode_k,
                 page_tokens=cand.kv_page_tokens,
-                speculate_k=cand.speculate_k, dtype=dtype, device=device)
+                speculate_k=cand.speculate_k, dtype=dtype, device=device,
+                mesh=mesh)
         else:
             engine = ServeEngine(model_cfg, slots=slots, max_seq=max_seq,
                                  prompt_pad=prompt_pad,
                                  decode_k=cand.decode_k,
                                  layout=cand.layout, dtype=dtype,
-                                 device=device)
+                                 device=device, mesh=mesh)
+        if mesh is not None and torch.distributed.get_rank() != 0:
+            try:
+                engine.follow(params)
+            except AssertionError as e:  # rank 0 stopped a failed trial
+                return ServeProbeResult(0.0, float("inf"), feasible=False,
+                                        error=f"AssertionError: {e}")
+            return ServeProbeResult(0.0, float("inf"))
+        leading = mesh is not None
         engine.warmup(params)
         return _time_decode(engine, params, n_dispatches=n_dispatches,
                             repeats=repeats)
     except Exception as e:
+        if mesh is not None and not leading:
+            raise
         return ServeProbeResult(
             0.0, float("inf"), feasible=False,
             error=f"{type(e).__name__}: {str(e)[:200]}")
     finally:
+        if leading:
+            engine.stop_followers()
         if engine is not None:
             engine.release()
         engine = None
@@ -248,30 +283,35 @@ def _time_decode(engine, params, *, n_dispatches: int,
             tv, vv = toks.cpu().numpy(), valid.cpu().numpy()
             for s in range(slots):
                 outs[s].extend(int(x) for x in tv[vv[:, s], s])
-            return state, toks
-        state, toks, _ = engine.decode(params, state)
-        return state, toks
+            return state, toks, valid
+        return engine.decode(params, state)
 
     # warm: the timed path's host work once, off the clock
     state, outs = fill()
-    state, toks = dispatch(state, outs)
+    state, toks, _ = dispatch(state, outs)
     toks.cpu()
     times: List[float] = []
     tokens = 0
     for _ in range(repeats):
         state, outs = fill()
         len0 = int(state.lengths.sum())   # fence too
+        valid_sum = 0
         t0 = time.perf_counter()
         toks = None
         for _ in range(n_disp):
-            state, toks = dispatch(state, outs)
+            state, toks, valid = dispatch(state, outs)
+            if engine.split:              # host flags, gathered already
+                valid_sum += int(valid.sum())
         toks.cpu()                        # fence on the tokens
         times.append(time.perf_counter() - t0)
         # honest token count from the device's own ledger: every emitted
         # token advanced a slot's length by exactly one, a frozen slot's
         # by zero — so an oversized decode_k or a rejected draft can
-        # never inflate the estimate
-        tokens = int(state.lengths.sum()) - len0
+        # never inflate the estimate. A serve mesh that splits the slots
+        # holds rank 0's lengths only: there every rank's valid flags,
+        # one a token, count them
+        tokens = valid_sum if engine.split \
+            else int(state.lengths.sum()) - len0
     best = min(times)
     spread = (max(times) - best) / best if best > 0 else 0.0
     return ServeProbeResult(
@@ -410,16 +450,20 @@ def autotune_serve(model_cfg, device, params, *, slots: int, max_seq: int,
                    n_dispatches: int = DEFAULT_PROBE_DISPATCHES,
                    repeats: int = DEFAULT_PROBE_REPEATS,
                    dtype=torch.float32,
-                   metrics: Any = None) -> ServeTuneOutcome:
+                   metrics: Any = None, mesh=None) -> ServeTuneOutcome:
     """Resolve the serve operating point per ``mode`` (``off`` |
     ``probe`` | ``cache-only``), as the train tuner does: a cache hit
     costs zero trials; a miss under ``probe`` runs the measured search
     and persists it; a miss under ``cache-only`` (or a probing failure)
-    keeps the heuristic start, honestly labelled. One process: the serve
-    loop is one host driving one card."""
+    keeps the heuristic start, honestly labelled. On a serve ``mesh``
+    every rank calls it: rank 0's cache decision and each trial's
+    measurement are broadcast (the train tuner's ``_sync_candidate`` /
+    ``_sync_result``), so every rank commits rank 0's candidate; only
+    rank 0 writes the cache, and a follower's failure fails its run."""
     start = start or ServeCandidate()
     fp = fingerprint(model_cfg, device, slots=slots, max_seq=max_seq,
-                     prompt_pad=prompt_pad, dtype=dtype)
+                     prompt_pad=prompt_pad, dtype=dtype, mesh=mesh)
+    lead = mesh is None or torch.distributed.get_rank() == 0
     if mode == "off":
         return _log(ServeTuneOutcome(
             tuned=start, source="heuristic",
@@ -427,21 +471,26 @@ def autotune_serve(model_cfg, device, params, *, slots: int, max_seq: int,
             fingerprint=fp, cache_dir=cache_dir), metrics)
 
     rec = cache_mod.load(cache_dir, fp, prefix="serve",
-                         validate=validate_serve_tuned)
+                         validate=validate_serve_tuned) if lead else None
+    tuned = None
     if rec is not None:
         t = rec["tuned"]
         tuned = ServeCandidate(decode_k=int(t["decode_k"]),
                                layout=t["layout"],
                                kv_page_tokens=int(t["kv_page_tokens"]),
                                speculate_k=int(t["speculate_k"]))
-        if tuned.decode_k <= max_seq - prompt_pad:
-            return _log(ServeTuneOutcome(
-                tuned=tuned, source="cache",
-                status=verdict_lib.tuning_status(mode, source="cache"),
-                trials=0, pruned=0, fingerprint=fp, cache_dir=cache_dir,
-                tokens_per_sec=rec.get("tokens_per_sec"),
-                baseline_tokens_per_sec=rec.get(
-                    "baseline_tokens_per_sec")), metrics)
+        if tuned.decode_k > max_seq - prompt_pad:
+            tuned = None
+    tuned = _sync_candidate(tuned)
+    if tuned is not None:
+        rec = rec or {}                  # a follower has no record
+        return _log(ServeTuneOutcome(
+            tuned=tuned, source="cache",
+            status=verdict_lib.tuning_status(mode, source="cache"),
+            trials=0, pruned=0, fingerprint=fp, cache_dir=cache_dir,
+            tokens_per_sec=rec.get("tokens_per_sec"),
+            baseline_tokens_per_sec=rec.get("baseline_tokens_per_sec")),
+            metrics)
 
     if mode != "probe":
         return _log(ServeTuneOutcome(
@@ -451,11 +500,10 @@ def autotune_serve(model_cfg, device, params, *, slots: int, max_seq: int,
             metrics)
 
     def measure(cand: ServeCandidate) -> ServeProbeResult:
-        return probe_candidate(model_cfg, device, params, cand,
-                               slots=slots, max_seq=max_seq,
-                               prompt_pad=prompt_pad, dtype=dtype,
-                               n_dispatches=n_dispatches,
-                               repeats=repeats)
+        return _sync_result(probe_candidate(
+            model_cfg, device, params, cand, slots=slots, max_seq=max_seq,
+            prompt_pad=prompt_pad, dtype=dtype, n_dispatches=n_dispatches,
+            repeats=repeats, mesh=mesh))
 
     try:
         out = _search(measure, start,
@@ -463,6 +511,8 @@ def autotune_serve(model_cfg, device, params, *, slots: int, max_seq: int,
                       trial_budget=trials,
                       max_page_tokens=max_seq)
     except Exception as e:
+        if not lead:
+            raise
         from tpudist_torch.metrics import log0
         log0(f"tpudist: serve autotune probing failed ({e!r}); "
              f"falling back to heuristics")
@@ -475,17 +525,43 @@ def autotune_serve(model_cfg, device, params, *, slots: int, max_seq: int,
     status = verdict_lib.tuning_status(
         mode, source="probe", tuned_steps_per_sec=out["best_tps"],
         baseline_steps_per_sec=out["baseline_tps"])
-    cache_mod.store(cache_dir, fp, {
-        "tuned": out["best"].as_dict(),
-        "tokens_per_sec": out["best_tps"],
-        "baseline_tokens_per_sec": out["baseline_tps"],
-        "trials": out["trials"], "pruned": out["pruned"],
-    }, prefix="serve")
+    if lead:
+        cache_mod.store(cache_dir, fp, {
+            "tuned": out["best"].as_dict(),
+            "tokens_per_sec": out["best_tps"],
+            "baseline_tokens_per_sec": out["baseline_tps"],
+            "trials": out["trials"], "pruned": out["pruned"],
+        }, prefix="serve")
     return _log(ServeTuneOutcome(
         tuned=out["best"], source="probe", status=status,
         trials=out["trials"], pruned=out["pruned"], fingerprint=fp,
         cache_dir=cache_dir, tokens_per_sec=out["best_tps"],
         baseline_tokens_per_sec=out["baseline_tps"]), metrics)
+
+
+def _sync_candidate(cand: Optional[ServeCandidate]
+                    ) -> Optional[ServeCandidate]:
+    """Rank 0's cache decision (its hit, or None) on every rank of a
+    serve mesh; the value as given in one process."""
+    dec = _broadcast([-1.0] * 4 if cand is None else [
+        float(cand.decode_k), float(KV_CACHE_LAYOUTS.index(cand.layout)),
+        float(cand.kv_page_tokens), float(cand.speculate_k)])
+    if dec[0] < 0:
+        return None
+    return ServeCandidate(decode_k=int(dec[0]),
+                          layout=KV_CACHE_LAYOUTS[int(dec[1])],
+                          kv_page_tokens=int(dec[2]),
+                          speculate_k=int(dec[3]))
+
+
+def _sync_result(res: ServeProbeResult) -> ServeProbeResult:
+    """Rank 0's measurement of a trial on every rank of a serve mesh, so
+    every rank's search takes the same steps (one process: as given)."""
+    dec = _broadcast([1.0 if res.feasible else 0.0, res.tokens_per_sec,
+                      res.dispatch_ms, res.spread, float(res.tokens)])
+    return dataclasses.replace(
+        res, feasible=dec[0] > 0.5, tokens_per_sec=dec[1],
+        dispatch_ms=dec[2], spread=dec[3], tokens=int(dec[4]))
 
 
 def _log(out: ServeTuneOutcome, metrics: Any) -> ServeTuneOutcome:
