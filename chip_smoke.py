@@ -7,6 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --profile    # plus a torch.profiler breakdown
     python3 chip_smoke.py --only-tp    # phases 1-3 (flash), 6 and 21
     python3 chip_smoke.py --only-serve-mesh   # phases 1-3 (forward), 4, 22-23
+    python3 chip_smoke.py --only-expert   # phases 1-3 (checks), 18a, 24
+    python3 chip_smoke.py --expert-drift  # phases 1-2; 24b's holds
+                                          # against a mesh without the
+                                          # expert axis, a planted fault
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -337,16 +341,35 @@ Phases, each of which fails the script (non-zero exit, no result line):
    one process a card. In
    ``--only-serve-mesh`` 23a's references are 14a's and 14b's engines
    run on one card there, and 23a runs without the MoE.
+24. the MoE's expert axis at phase 18a's configuration: (a) in a
+   spawned process, a one-rank NCCL mesh whose expert group the layout
+   takes (the routed FFN's entries and exit over it, this rank's
+   columns of dispatch and combine), 18a's two epochs per-step and as
+   the k = 4 superstep: the step losses at 18a's records and the evals
+   bitwise 18a's, the superstep bitwise its per-step run (2 programs,
+   one replay), exact launches, the step's all-reduces those of the
+   sharded body plus three a layer; (b) under ``--only-expert``, with
+   two cards or more, the train CLI at one NCCL process a card:
+   ``--expert <cards>`` at 18a's flags beside 18a's run (within 5e-2),
+   then in f32 over 4 steps against one card's run of the same flags
+   (rtol 2e-3 / atol 2e-4) ``--expert <cards>``, ``--data 2 --expert
+   2``, ``--fsdp 2 --expert 2``, ``--tensor 2 --expert 2`` (four cards)
+   and at ``--fsdp <cards>`` a routing group spanning ranks and
+   ``--grad-accum-steps 2``; every verdict ``success``, exact launches
+   a rank, each rank's params and Adam bytes, the step time and
+   tokens/s/chip beside one card's, rank 0's exposed comm share from a
+   ``--profile-window 1`` capture.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
 18a (both runs), 18c (both engines), 18d, 19a-19c (19c's run with the
 port), 20a (both sharded runs), 20b (both runs), 21a-b, 22a (both
-engines), 22b (its three runs), 23a (its three engines) and 23b (its
-five CLI runs) are the main paths:
+engines), 22b (its three runs), 23a (its three engines), 23b (its
+five CLI runs), 24a (both runs) and 24b (its runs and their one-card
+references) are the main paths:
 each
 runs with every launch count set to 0 just before and read just after
-(10a, 11c, 20a-23b in each rank's process; 12b's and 15a's timed
+(10a, 11c, 20a-24b in each rank's process; 12b's and 15a's timed
 runs, not
 their probes, which restore the counters), and each
 kernel must have launched the
@@ -3508,6 +3531,14 @@ MOE_MODEL = ("--model", "moe", "--vocab-size", "32000", "--n-layers", "4",
              "--d-ff", "2752", "--n-experts", "8", "--expert-top-k", "2",
              "--moe-group-size", "256")
 MOE_TRAIN_PATHS = ("train_moe_per_step", "train_moe_superstep")
+# phase 18a's flags (phases 9 and 17's: bf16, bf16 Adam nu, the fused
+# head, lr 1e-3) at seq 512, batch 8, 32 samples (4 steps an epoch), 2
+# epochs, a step record every 4
+MOE_TRAIN_ARGV = [*MOE_MODEL, "--seq-len", "512", "--train-batch-size",
+                  "8", "--n-samples", "32", "--epochs", "2", "--seed", "42",
+                  "--log-every", "4", "--dtype", "bfloat16",
+                  "--adam-nu-dtype", "bfloat16", "--lm-head", "fused",
+                  "--lr", "1e-3"]
 MOE_SERVE_PATHS = ("serve_moe", "paged_serve_moe", "serve_moe_cli")
 
 
@@ -3539,7 +3570,7 @@ def moe_step_flops(m, b: int, s: int) -> int:
             + m.n_layers * routed)
 
 
-def moe_train(torch, fa, fx, card: str):
+def moe_train(torch, fa, fx, card: str, details=None):
     """Phase 18a, the paths ``train_moe_per_step`` and
     ``train_moe_superstep``: ``python -m tpudist_torch.train --model
     moe`` (its ``main``) at ``MOE_MODEL``'s width, seq 512, bf16, bf16
@@ -3553,15 +3584,12 @@ def moe_train(torch, fa, fx, card: str):
     fused backward steps), ``kind=timing``'s flop count equal to its
     closed form and ``0 < mfu <= 1.05``; each epoch's Avg and eval loss
     bitwise equal between the two; the superstep's 2 programs and 1
-    replay. Returns each path's launches."""
+    replay. Returns each path's launches; ``details`` takes the
+    superstep run's step losses, its epochs and its timing record."""
     from tpudist_torch import config as config_lib
 
     seq, epochs, n_samples = 512, 2, 32
-    argv = [*MOE_MODEL, "--seq-len", str(seq), "--train-batch-size", "8",
-            "--n-samples", str(n_samples), "--epochs", str(epochs),
-            "--seed", "42", "--log-every", "4", "--dtype", "bfloat16",
-            "--adam-nu-dtype", "bfloat16", "--lm-head", "fused", "--lr",
-            "1e-3"]
+    argv = list(MOE_TRAIN_ARGV)
     cfg = config_lib.parse_args(argv)
     m = cfg.model
     steps = epochs * (n_samples // cfg.batch_size)
@@ -3613,6 +3641,10 @@ def moe_train(torch, fa, fx, card: str):
     if a != b or len(a) != epochs:
         fail(f"moe 18a: the epochs' losses differ: per-step {a}, "
              f"superstep {b}")
+    if details is not None:
+        details.update(
+            losses=[r["loss"] for r in sup["recs"] if r["kind"] == "step"],
+            epochs=b, timing=sup["timing"], peak_gb=sup["peak_gb"])
     return paths
 
 
@@ -3802,13 +3834,15 @@ def moe_serve_cli(torch, fa, fx, card: str):
     return {"serve_moe_cli": run["counts"]}
 
 
-def moe_phase(torch, fa, fx, card: str, profile: bool, tokens=None):
+def moe_phase(torch, fa, fx, card: str, profile: bool, tokens=None,
+              details=None):
     """Phase 18: the MoE trained (18a), one full-width step's grads
     kernels vs plain (18b, plain and fused head), served on the dense
     and the paged engine (18c) and through the serve CLI (18d). Returns
-    each main path's launches (``tokens``: as :func:`moe_serve`)."""
+    each main path's launches (``tokens``: as :func:`moe_serve`;
+    ``details``: as :func:`moe_train`)."""
     t0 = time.perf_counter()
-    paths = moe_train(torch, fa, fx, card)
+    paths = moe_train(torch, fa, fx, card, details)
     torch.cuda.empty_cache()
     for fused in (False, True):
         moe_step_check(torch, fa, fx, fused)
@@ -4262,7 +4296,8 @@ def _spawn(target, args_by_rank, timeout_s: float, what: str):
     ``args_by_rank`` (``spawn``: the card's state is not forked); each puts
     one dict with its ``rank`` on the queue. Returns them by rank; fails
     when a process exits non-zero, puts nothing or outlives
-    ``timeout_s``. Every process is gone when it returns."""
+    ``timeout_s`` (30 s past a rank's non-zero ``rc``). Every process is
+    gone when it returns."""
     import multiprocessing as mp
     import queue as queue_lib
 
@@ -4283,6 +4318,10 @@ def _spawn(target, args_by_rank, timeout_s: float, what: str):
                     break
                 continue
             results[r["rank"]] = r
+            if r.get("rc"):
+                # a rank that failed leaves its peers waiting on it: they
+                # get a short grace to fail alike, then are killed
+                deadline = min(deadline, time.monotonic() + 30)
         for p in procs:
             p.join(timeout=max(deadline - time.monotonic(), 1.0))
     finally:
@@ -4293,7 +4332,8 @@ def _spawn(target, args_by_rank, timeout_s: float, what: str):
     codes = [p.exitcode for p in procs]
     if len(results) < len(procs) or any(codes):
         fail(f"{what}: process exit codes {codes}, results from ranks "
-             f"{sorted(results)}")
+             f"{sorted(results)} (their rc "
+             f"{[results[r].get('rc') for r in sorted(results)]})")
     return [results[r] for r in range(len(procs))]
 
 
@@ -5061,12 +5101,16 @@ def tp_body(torch, fa, card: str):
     return dict(zip(TP_PATHS, (r["counts"], r["sup_counts"])))
 
 
-def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int):
+def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int,
+              fused: bool = False, n_accum: int = 1, rank_fn=None):
     """The train CLI at ``argv`` as one NCCL process a visible card
-    (``_dp_train_rank``): every verdict ``success``, the contract on rank
+    (``rank_fn``, ``_dp_train_rank`` by default): every verdict
+    ``success``, the contract on rank
     0 alone, and each rank's launches exactly one process's (the tensor
-    ranks run every layer on their heads). Returns the step losses, the
-    timing record, each rank's record and the launches summed."""
+    ranks run every layer on their heads; ``fused``: the fused head's
+    too; ``n_accum`` microbatches a step). Returns the step losses, the
+    timing record, rank 0's records, each rank's record and the launches
+    summed."""
     from tpudist_torch import config as config_lib
 
     world = torch.cuda.device_count()
@@ -5076,7 +5120,7 @@ def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int):
     cfg = config_lib.parse_args(argv)
     verdict = save / "job_status.txt"
     port = _free_port()
-    ranks = _spawn(_dp_train_rank,
+    ranks = _spawn(rank_fn or _dp_train_rank,
                    [(r, world, port, argv, str(verdict))
                     for r in range(world)], 420, f"train {tag}")
     recs = [json.loads(ln) for ln in
@@ -5097,8 +5141,8 @@ def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int):
     for r in ranks[1:]:
         if "Epoch" in r["out"] or "Training completed." in r["out"]:
             fail(f"train {tag}: rank {r['rank']} printed the contract")
-    want = want_launches(fa, cfg.model, seq, cfg.epochs * (
-        cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=False)
+    want = want_launches(fa, cfg.model, seq, n_accum * cfg.epochs * (
+        cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=fused)
     total = dict.fromkeys(want, 0)
     for r in ranks:
         if r["counts"] != want:
@@ -5118,7 +5162,7 @@ def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int):
         if line.startswith("tpudist: collectives"):
             print(f"train {tag}: rank 0's {line[len('tpudist: '):]}")
     return {"losses": losses, "timing": t, "ranks": ranks, "counts": total,
-            "cfg": cfg}
+            "cfg": cfg, "recs": recs}
 
 
 def _tp_bytes(tag: str, run, whole: int) -> None:
@@ -6265,6 +6309,417 @@ def profile_paged(torch, engine, params, requests):
             print(f"profile:   {ms:9.3f} ms {count:5d}x  {key[:80]}")
 
 
+# ------------------------------------------------ phase 24: the expert axis
+
+EXPERT_PATHS = ("train_expert_body", "train_expert_superstep")
+# 24b holds its mesh runs to one card's in f32: 18a's flags with f32
+# compute and Adam nu, over 16 samples (2 steps an epoch; k = 2, so
+# epoch 0's window runs eager with the captures and epoch 1's replays).
+# In bf16 the expert ranks sum their partial outputs (and the tokens' and
+# gates' partial grads) across cards in bf16, where one card sums them
+# inside one product: over 18a's 8 steps that moved the second eval loss
+# by 0.30 of 10.95 at --expert 4 (--fsdp 4, no expert axis: 0.043); and
+# over 8 steps even f32 drifts 0.3 % at --data 2 --expert 2 (PERF.md §6).
+# The bf16 run at 18a's own flags is measured beside 18a's and held to
+# 5e-2, which says it trains and lands near one card and no more: the
+# fault of --expert-drift (the exit's all-reduce left out) moves it by
+# 0.071 and passes. The f32 holds over 4 steps are the fault check:
+# that fault moves them by 0.023 at step 2 and 0.28 by the end
+EXPERT_F32_ARGV = [*MOE_TRAIN_ARGV[:MOE_TRAIN_ARGV.index("--n-samples")],
+                   "--n-samples", "16", "--epochs", "2", "--seed", "42",
+                   "--log-every", "2", "--dtype", "float32",
+                   "--adam-nu-dtype", "float32",
+                   *MOE_TRAIN_ARGV[MOE_TRAIN_ARGV.index("--lm-head"):]]
+EXPERT_BF16_RTOL = 5e-2
+
+
+def _expert_body_rank(port, queue):
+    """Phase 24a in a process of its own: a one-rank NCCL group and its
+    mesh, with the mesh's one-rank expert group handed to the layout, so
+    the step runs the expert path (the routed FFN's two entries and its
+    exit over the expert group, this rank's columns of dispatch and
+    combine) with every collective issued. Phase 18a's configuration
+    (``MOE_TRAIN_ARGV``) per-step over 18a's two epochs (4 steps, then
+    the eval batch, each), then as the k = 4 superstep over the same
+    steps (epoch 0's window eager with the two captures, epoch 1's
+    replayed). Launch counts set to 0 just before each run and read just
+    after."""
+    import torch
+
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.obs import devtime as devtime_lib
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+    from tpudist_torch.parallel import distributed
+    from tpudist_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    dev = ctx.device
+    cfg = config_lib.parse_args(MOE_TRAIN_ARGV)
+    m = cfg.model
+    mesh = mesh_lib.build_mesh(cfg.parallel, device_type="cuda")
+    # the train CLI's data, epoch plans and eval batch
+    tokens = data_lib.make_synthetic_tokens(
+        cfg.data.n_samples, m.max_seq_len + 1, m.vocab_size, cfg.data.seed)
+    slabs = [torch.as_tensor(data_lib.plan_epoch(
+        (tokens,), batch_size=cfg.batch_size, seed=cfg.seed,
+        epoch=e).slab(0, 4)[0], device=dev).long() for e in range(2)]
+    eval_batch = data_lib.to_device((data_lib.make_synthetic_tokens(
+        cfg.batch_size, m.max_seq_len + 1, m.vocab_size,
+        cfg.data.seed + 1),), dev)
+
+    def expert_state():
+        state = engine_lib.init_state(cfg, dev, mesh)
+        state.layout.expert_group = mesh.get_group("expert")
+        return state
+
+    def leaves(state):
+        return [t.detach().clone() for t in (
+            *state.params.parameters(), *state.opt_state.mu,
+            *state.opt_state.nu)]
+
+    out = {"rank": 0, "world": ctx.process_count,
+           "mesh": mesh_lib.mesh_shape(mesh)}
+    state = expert_state()
+    lay = state.layout
+    step = engine_lib.make_train_step(cfg, dev, mesh)
+    ev = engine_lib.make_eval_fn(cfg, dev, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches(fa, fx)
+    losses, evals, ms = [], [], []
+    for e in range(2):
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, (slabs[e][i],))
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        evals.append(ev(state, eval_batch).item())
+    torch.cuda.synchronize()
+    out.update(losses=losses, evals=evals, ms=ms,
+               counts=_launch_counts(fa, fx),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               ops=devtime_lib.collective_bytes(step.reduced_operands()),
+               n_all_reduce=sum(op == "all_reduce" for op, _, _ in
+                                step.reduced_operands()),
+               # one a param the spec keeps whole over fsdp, the loss's,
+               # and the expert path's three a layer
+               want_all_reduce=(sum(d is None for d in lay.dims) + 1
+                                + 3 * m.n_layers))
+    per_step = leaves(state)
+    del state
+    torch.cuda.empty_cache()
+
+    state = expert_state()
+    sup = engine_lib.make_superstep(cfg, dev, 4, mesh)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    _reset_launches(fa, fx)
+    sup_losses, sup_evals = [], []
+    for e in range(2):
+        t0 = time.perf_counter()
+        state, total, got = sup(state, total, (slabs[e],), 0, 4)
+        sup_losses += got.tolist()
+        out[f"window{e}_s"] = time.perf_counter() - t0
+        sup_evals.append(ev(state, eval_batch).item())
+    torch.cuda.synchronize()
+    out.update(sup_counts=_path_launches(fa, fx, [sup]),
+               graphs=(sup.programs, dict(sup.replays)),
+               pool_mb=sup.graph_pool_bytes / 2**20,
+               sup_losses=sup_losses, sup_evals=sup_evals,
+               sup_same=(sup_losses == losses and sup_evals == evals
+                         and all(torch.equal(x, y) for x, y in
+                                 zip(leaves(state), per_step))))
+    sup.release()
+    del state, per_step
+    distributed.shutdown()
+    queue.put(out)
+
+
+def expert_body(torch, fa, card: str, ref):
+    """Phase 24a (one card): :func:`_expert_body_rank` in a spawned
+    process. Fails unless its step losses at 18a's step records and its
+    eval losses are bitwise 18a's (``ref``: :func:`moe_train`'s
+    ``details``), its superstep bitwise its per-step run (2 programs, one
+    replay: the expert operators' all-reduces captured), both runs'
+    launches exact (flash forward 4 x (8 steps + 2 evals), the merged
+    backward 4 x 8, the fused head 10 and 8), and the step's all-reduces
+    those of the sharded body with the expert path's three a layer.
+    Prints the collective rows, the step times and the peak memory.
+    Returns the two paths' launches."""
+    from tpudist_torch import config as config_lib
+
+    t0 = time.perf_counter()
+    cfg = config_lib.parse_args(MOE_TRAIN_ARGV)
+    m = cfg.model
+    (r,) = _spawn(_expert_body_rank, [(_free_port(),)], 600,
+                  "train expert body")
+    want = want_launches(fa, m, 512, 8, 2, fused=True)
+    got = ([r["losses"][3], r["losses"][7]], r["evals"])
+    want18 = (ref["losses"], [ev for _, ev in ref["epochs"]])
+    print(f"train expert body: 18a's MoE (V{m.vocab_size} L{m.n_layers} "
+          f"d{m.d_model} E{m.n_experts} top{m.expert_top_k}), {cfg.dtype}, "
+          f"adam nu {cfg.adam_nu_dtype}, fused head, batch 8, seq 512, mesh "
+          f"{r['mesh']} ({r['world']} NCCL rank) with its expert group; "
+          f"{card}")
+    print(f"train expert body: step losses {r['losses']}, evals "
+          f"{r['evals']}; at 18a's step records and evals {got}, 18a's "
+          f"{want18}: bitwise {got == want18}")
+    step_ms = statistics.median(r["ms"][1:])
+    t18 = ref["timing"]
+    print(f"train expert body: step {step_ms:.3f} ms per-step (median "
+          f"after the first, host clock fenced a step) against 18a's "
+          f"superstep {1e3 * t18['run_s'] / t18['steps']:.3f} ms; peak "
+          f"device memory {r['peak_gb']:.3f} GB (18a's superstep run "
+          f"{ref['peak_gb']:.3f}); graph pool {r['pool_mb']:.1f} MB")
+    for row in r["ops"]["ops"]:
+        print(f"train expert body: collective {row['op']} {row['dtype']} "
+              f"{row['bytes']} B x {row['count']} a step")
+    print(f"train expert body: superstep k=4 losses {r['sup_losses']}, "
+          f"evals {r['sup_evals']}, bitwise its per-step run: "
+          f"{r['sup_same']}; (programs, replays) {r['graphs']}; windows "
+          f"{r['window0_s']:.3f} s (eager + captures), "
+          f"{r['window1_s']:.3f} s (replayed)")
+    print(f"train expert body: {r['n_all_reduce']} all-reduces a step "
+          f"(want {r['want_all_reduce']}); kernel launches {r['counts']}, "
+          f"superstep {r['sup_counts']} (want {want})")
+    if got != want18:
+        fail(f"train expert body: losses {got} are not bitwise 18a's "
+             f"{want18}")
+    if not r["sup_same"]:
+        fail("train expert body: the superstep is not bitwise its "
+             "per-step run")
+    if r["graphs"] != (2, {"superstep": 1, "step": 0}):
+        fail(f"train expert body: (programs, replays) {r['graphs']}")
+    if r["n_all_reduce"] != r["want_all_reduce"]:
+        fail(f"train expert body: {r['n_all_reduce']} all-reduces a "
+             f"step, the expert path issues {r['want_all_reduce']}")
+    for tag, counts in zip(EXPERT_PATHS, (r["counts"], r["sup_counts"])):
+        if counts != want:
+            fail(f"train expert body: {tag} kernel launches {counts}, "
+                 f"want {want}")
+    print(f"train expert body: phase 24a {time.perf_counter() - t0:.1f} s")
+    return dict(zip(EXPERT_PATHS, (r["counts"], r["sup_counts"])))
+
+
+def _expert_gap(got, want, rtol: float):
+    """``got``'s and ``want``'s step losses and epochs (Avg, eval), their
+    largest ``|d|`` and largest ``|d| - rtol |want|``."""
+    a = got["losses"] + [x for ep in got["epochs"] for x in ep]
+    b = want["losses"] + [x for ep in want["epochs"] for x in ep]
+    err = max((abs(x - y) - rtol * abs(y) for x, y in zip(a, b)),
+              default=math.inf)
+    worst = max((abs(x - y) for x, y in zip(a, b)), default=math.inf)
+    return a, b, worst, err
+
+
+def _expert_close(tag: str, got, want, rtol: float, atol: float) -> None:
+    """``got``'s step losses and epochs (Avg, eval) within ``rtol`` /
+    ``atol`` of ``want``'s."""
+    a, b, worst, err = _expert_gap(got, want, rtol)
+    print(f"train {tag}: step losses and epochs (Avg, eval) {a} against "
+          f"one card's {b}: max |d| {worst:.6f}")
+    if len(a) != len(b) or len(a) != 6 or err > atol:
+        fail(f"train {tag}: the losses are not within rtol {rtol} / atol "
+             f"{atol} of one card's")
+
+
+def _one_card(torch, fa, fx, tag: str, argv, n_accum: int):
+    """One card's run of ``argv`` (the train CLI in this process): the
+    contract, exact launches; its step losses, epochs and timing."""
+    from tpudist_torch import config as config_lib
+
+    cfg = config_lib.parse_args(argv)
+    run = _cli_run(torch, fa, fx, tag, argv)
+    losses = [r["loss"] for r in run["recs"] if r["kind"] == "step"]
+    check_contract(tag, run["out"], cfg.epochs, losses)
+    want = want_launches(fa, cfg.model, 512, n_accum * cfg.epochs * (
+        cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=True)
+    if run["counts"] != want:
+        fail(f"train {tag}: kernel launches {run['counts']}, want {want}")
+    print(f"train {tag}: one card, step losses {losses}; "
+          + _step_line(run, 8 * 512))
+    return run["counts"], {"losses": losses, "epochs": _epochs_of(run),
+                           "timing": run["timing"]}
+
+
+def expert_cli(torch, fa, fx, card: str, ref):
+    """Phase 24b (two cards or more): the train CLI at one NCCL process
+    a card, the superstep (k = 4) with ``--profile-window 1`` (epoch 1's
+    replayed window). At phase 18a's flags, ``--expert <cards>`` beside
+    18a's run (``ref``), held to ``EXPERT_BF16_RTOL``. Then in f32 over
+    4 steps (``EXPERT_F32_ARGV``), each held to one card's run of the
+    same flags at rtol 2e-3 / atol 2e-4: ``--expert <cards>``; with four cards or
+    a multiple, ``--data 2 --expert 2``, ``--fsdp 2 --expert 2`` and
+    ``--tensor 2 --expert 2``; and the two shapes of the global routing
+    at ``--fsdp <cards>`` (the batch split over every card; at ``--data``
+    alone each card routes its own rows, as the JAX package's
+    data-parallel path does): ``--moe-group-size 2048`` (groups of 2048
+    tokens over ranks of 4096 / cards) and ``--grad-accum-steps 2``.
+    Every verdict ``success``, exact launches on every rank. Prints, for
+    each, each rank's params and Adam bytes against the whole state's,
+    the step time and tokens/s/chip beside one card's, and rank 0's
+    exposed communication share of the window. Returns the paths'
+    launches."""
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    tokens = 8 * 512
+    window = ["--profile-window", "1"]
+    # (tag, flags, its one-card reference's tag and flags); the first at
+    # 18a's flags beside 18a's run, the rest in f32
+    runs = [("train_moe_bf16_expert", ["--expert", str(world)], None, [])]
+    meshes = [("expert", ["--expert", str(world)])]
+    if world % 4 == 0:
+        meshes += [("d2e2", ["--data", "2", "--expert", "2"]),
+                   ("f2e2", ["--fsdp", "2", "--expert", "2"]),
+                   ("t2e2", ["--tensor", "2", "--expert", "2"])]
+    runs += [(f"train_moe_f32_{name}", flags, "train_moe_f32_one", [])
+             for name, flags in meshes]
+    for name, extra in (("span", ["--moe-group-size", "2048"]),
+                        ("accum", ["--grad-accum-steps", "2"])):
+        runs.append((f"train_moe_f32_{name}", ["--fsdp", str(world)] + extra,
+                     f"train_moe_f32_one_{name}", extra))
+    paths, ones = {}, {None: ref}
+    for tag, flags, one_tag, one_flags in runs:
+        n_accum = 2 if "--grad-accum-steps" in flags else 1
+        argv = MOE_TRAIN_ARGV if one_tag is None else EXPERT_F32_ARGV
+        if one_tag not in ones:
+            paths[one_tag], ones[one_tag] = _one_card(
+                torch, fa, fx, one_tag, argv + one_flags, n_accum)
+        one = ones[one_tag]
+        whole = _whole_bytes(argv)
+        run = _mesh_cli(torch, fa, card, tag, argv + flags + window, 512,
+                        fused=True, n_accum=n_accum)
+        got = {"losses": run["losses"],
+               "epochs": [(r["avg_loss"], r["eval_loss"])
+                          for r in run["recs"] if r["kind"] == "epoch"]}
+        if one_tag is None:
+            _expert_close(tag, got, one, EXPERT_BF16_RTOL, EXPERT_BF16_RTOL)
+        else:
+            _expert_close(tag, got, one, FSDP_RTOL, FSDP_ATOL)
+        t, t1 = run["timing"], one["timing"]
+        ms, ms1 = (1e3 * x["run_s"] / x["steps"] for x in (t, t1))
+        tps, tps1 = (tokens * x["steps"] / x["run_s"] / n
+                     for x, n in ((t, world), (t1, 1)))
+        print(f"train {tag}: step {ms:.3f} ms against one card's "
+              f"{ms1:.3f} ({ms / ms1:.3f}x); tokens/s/chip {tps:.1f} "
+              f"against {tps1:.1f} ({tps / tps1:.3f}x); k="
+              f"{t['steps_per_dispatch']}; {card}")
+        for r in run["ranks"]:
+            print(f"train {tag}: rank {r['rank']} params "
+                  f"{r['params_bytes'] / 2**20:.1f} MiB against "
+                  f"{whole / 2**20:.1f} whole, Adam mu + nu "
+                  f"{r['opt_bytes'] / 2**20:.1f} MiB; peak "
+                  f"{r['peak_gb']:.3f} GB")
+        dev = [r for r in run["recs"] if r["kind"] == "devtime"]
+        rec = dev[0] if dev else {}
+        print(f"train {tag}: rank 0's window {rec.get('window_s')} s over "
+              f"{rec.get('dispatches')} dispatch(es): compute "
+              f"{rec.get('compute_s')} s, comm {rec.get('comm_s')} s, "
+              f"exposed {rec.get('exposed_comm_s')} s, exposed share "
+              f"{rec.get('exposed_comm_frac')} ({rec.get('comm_status')})")
+        if "--expert" in flags and not all(
+                r["params_bytes"] < 0.7 * whole for r in run["ranks"]):
+            fail(f"train {tag}: a rank holds more than 0.7 of the params")
+        if rec.get("dispatches") != 1:
+            fail(f"train {tag}: no device window: {rec}")
+        paths[tag] = run["counts"]
+    print(f"train expert cli: phase 24b {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _exit_fault_rank(rank, world, port, argv, verdict, queue):
+    """``_dp_train_rank`` with a fault planted for ``--expert-drift``:
+    the routed FFN's exit returns this rank's partial output, its
+    all-reduce over the expert group left out."""
+    from tpudist_torch.parallel import tensor as tensor_lib
+
+    tensor_lib.StepGroups.exit = lambda self, x, group=None: x
+    _dp_train_rank(rank, world, port, argv, verdict, queue)
+
+
+def expert_drift(torch, fa, fx, card: str) -> int:
+    """``--expert-drift`` (two cards or more): what 24b's holds tell
+    apart. A mesh without the expert axis (``--fsdp <cards>``) beside one
+    card at 18a's flags (bf16, 8 steps) and in f32 over 8 steps, where
+    24b's ``--expert`` runs drifted; the fault of ``_exit_fault_rank``
+    at ``--expert <cards>``, at 18a's flags and in f32 over 24b's 4
+    steps; and 24b's routing group spanning ranks (``--fsdp <cards>
+    --moe-group-size 2048``) at a second seed. Prints each run's
+    ``|d|`` to one card's run of the same flags and whether 24b's hold
+    (``EXPERT_BF16_RTOL``; f32 rtol 2e-3 / atol 2e-4) passes it; fails
+    only if a run fails."""
+    t0 = time.perf_counter()
+    w = str(torch.cuda.device_count())
+    f32_8 = EXPERT_F32_ARGV + ["--n-samples", "32"]
+    span7 = EXPERT_F32_ARGV + ["--seed", "7", "--moe-group-size", "2048"]
+    bf16 = (EXPERT_BF16_RTOL, EXPERT_BF16_RTOL)
+    f32 = (FSDP_RTOL, FSDP_ATOL)
+    # (tag, argv, the mesh's flags, the rank's process, the hold)
+    runs = [("drift_bf16_fsdp", MOE_TRAIN_ARGV, ["--fsdp", w], None, bf16),
+            ("drift_bf16_fault", MOE_TRAIN_ARGV, ["--expert", w],
+             _exit_fault_rank, bf16),
+            ("drift_f32_fault", EXPERT_F32_ARGV, ["--expert", w],
+             _exit_fault_rank, f32),
+            ("drift_f32_8_fsdp", f32_8, ["--fsdp", w], None, f32),
+            ("drift_f32_span_seed7", span7, ["--fsdp", w], None, f32)]
+    ones = {}
+    for tag, argv, flags, rank_fn, (rtol, atol) in runs:
+        if tuple(argv) not in ones:
+            ones[tuple(argv)] = _one_card(torch, fa, fx, f"{tag}_one",
+                                          argv, 1)[1]
+        one = ones[tuple(argv)]
+        run = _mesh_cli(torch, fa, card, tag, argv + flags, 512,
+                        fused=True, rank_fn=rank_fn)
+        got = {"losses": run["losses"], "epochs": [
+            (r["avg_loss"], r["eval_loss"]) for r in run["recs"]
+            if r["kind"] == "epoch"]}
+        a, b, worst, err = _expert_gap(got, one, rtol)
+        print(f"drift {tag}: step losses and epochs (Avg, eval) {a} "
+              f"against one card's {b}: |d| "
+              f"{[abs(x - y) for x, y in zip(a, b)]}, max {worst:.6f}; "
+              f"24b's hold (rtol {rtol} / atol {atol}) "
+              f"{'passes' if err <= atol else 'fails'} it; {card}")
+    print(f"expert drift: {time.perf_counter() - t0:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def only_expert(torch, fa, fx, card: str) -> int:
+    """``--only-expert``: phase 3's kernel checks of rows 1, 2, 5 and 6,
+    phase 18a (24a's and 24b's reference), then phase 24 on the visible
+    cards, then the result line."""
+    import torch.nn.functional as F
+
+    check_flash(torch, fa, F)
+    check_flash_bwd(torch, fa)
+    check_fused_xent(torch, fx)
+    ref = {}
+    paths = moe_train(torch, fa, fx, card, ref)
+    torch.cuda.empty_cache()
+    paths.update(expert_body(torch, fa, card, ref))
+    if torch.cuda.device_count() >= 2:
+        paths.update(expert_cli(torch, fa, fx, card, ref))
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dqkv",
+                 "fused_xent_fwd", "fused_xent_bwd"):
+        missing = [p for p in paths if paths[p].get(name, 0) < 1]
+        if missing:
+            fail(f"{name} launched no time on {missing}")
+    print(json.dumps({"launches": paths}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6278,6 +6733,16 @@ def main() -> int:
                     help="phases 1-2, phase 3's flash forward checks, "
                          "phase 4, phase 22 and phase 23 alone: serving "
                          "on the visible cards")
+    ap.add_argument("--only-expert", action="store_true",
+                    help="phases 1-2, phase 3's checks of the flash and "
+                         "fused-head kernels, phase 18a (the reference) "
+                         "and phase 24 alone: the MoE's expert axis on "
+                         "the visible cards")
+    ap.add_argument("--expert-drift", action="store_true",
+                    help="phases 1-2, then on two cards or more a mesh "
+                         "without the expert axis, a planted expert "
+                         "fault and a second seed, each against 24b's "
+                         "holds")
     args = ap.parse_args()
 
     import torch
@@ -6309,6 +6774,12 @@ def main() -> int:
         return only_tp(torch, fa, fx, card)
     if args.only_serve_mesh:
         return only_serve_mesh(torch, fa, fx, card)
+    if args.only_expert:
+        return only_expert(torch, fa, fx, card)
+    if args.expert_drift:
+        if torch.cuda.device_count() < 2:
+            fail("--expert-drift runs on two cards or more")
+        return expert_drift(torch, fa, fx, card)
 
     # phase 3: kernels vs plain versions, timings
     fwd = check_flash(torch, fa, F)
@@ -6424,8 +6895,9 @@ def main() -> int:
     # and as the superstep, (b) one step's grads kernels vs plain, (c)
     # the dense and paged engines, (d) the serve CLI
     torch.cuda.empty_cache()
+    moe18 = {}
     paths.update(moe_phase(torch, fa, fx, card, args.profile,
-                           serve_tokens))
+                           serve_tokens, moe18))
     walls.lap("18")
 
     # phase 19: the rest of observability: (a) the live bus and the
@@ -6478,6 +6950,14 @@ def main() -> int:
     if torch.cuda.device_count() >= 2:
         paths.update(paged_mesh_cli(torch, fa, fx, card))
     walls.lap("23")
+
+    # phase 24: the MoE's expert axis: (a) phase 18a's configuration on a
+    # one-rank NCCL mesh whose expert group the layout takes, bitwise
+    # 18a's losses, per-step and replayed (24b, on several cards, runs
+    # under --only-expert)
+    torch.cuda.empty_cache()
+    paths.update(expert_body(torch, fa, card, moe18))
+    walls.lap("24")
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -6507,19 +6987,20 @@ def main() -> int:
                                             *OBS_LIVE_PATHS[:2],
                                             *FSDP_PATHS, *TP_PATHS,
                                             *(p for p in TP_CLI_PATHS
-                                              if p in paths)),
+                                              if p in paths),
+                                            *EXPERT_PATHS),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
                                   TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
                                   *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2],
-                                  *FSDP_PATHS),
+                                  *FSDP_PATHS, *EXPERT_PATHS),
                "fused_xent_bwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,
                                   TUNE_PATH, *OBS_PATHS, TRAIN_DRILL_PATH,
                                   *MOE_TRAIN_PATHS, *OBS_LIVE_PATHS[:2],
-                                  *FSDP_PATHS)}
+                                  *FSDP_PATHS, *EXPERT_PATHS)}
     records = [fwd] + bwd + xent
     for rec in records:
         by_path = {p: paths[p].get(rec["name"], 0) for p in paths}

@@ -10,9 +10,9 @@ tpudist_torch.train --fsdp``.
   within rtol 2e-3 / atol 2e-4 (``tests/test_fsdp.py:51``) of the JAX
   package's step at the same mesh on four virtual CPU devices, and of
   the replicated body at four ranks (the MoE's losses only: that body
-  routes each rank's rows). A MoE routing group that would cross ranks
-  (``--moe-group-size 128`` at fsdp 4, 64 tokens a rank) is refused
-  before a step.
+  routes each rank's rows). A MoE routing group that spans ranks
+  (``--moe-group-size 128`` at fsdp 4, 64 tokens a rank) builds, with
+  the JAX package's group.
 * The CLI at two gloo processes with ``--fsdp 2`` (template
   ``tests/test_multiprocess.py:87-95``), on the JAX package's
   permutations and init (and its data for the MLP; the token data is
@@ -22,7 +22,9 @@ tpudist_torch.train --fsdp``.
   ``--fsdp 2``; the contract on rank 0, every verdict ``success``, the
   mesh and the shards in the log, the collectives in ``kind=devtime``'s
   schema and the memory ledger's halves; the transformer's superstep
-  (k = 2) bitwise its per-step run at fsdp 2.
+  (k = 2) bitwise its per-step run at fsdp 2, and its
+  ``--grad-accum-steps 2`` at fsdp 2 (each rank's rows microbatch-major)
+  within the tolerance of one process's steps and the JAX CLI's epoch.
 """
 
 import json
@@ -194,14 +196,15 @@ def test_sharded_body_matches_dp_and_jax_on_four_ranks(body_runs, tag):
     assert mine["losses"][-1] < mine["losses"][0]
 
 
-def test_moe_group_across_ranks_is_refused_before_a_step():
+def test_moe_group_across_ranks_is_routed_not_refused():
     """The JAX package routes the global batch of 256 tokens in groups of
-    128; at fsdp 4 a rank holds 64 of them, so a group would cross two
-    ranks. The port refuses the shape before a step (the train step,
-    the superstep and the eval alike), naming the global group, the
-    rank's tokens and ``--moe-group-size``."""
+    128; at fsdp 4 a rank holds 64 of them, so a group spans two ranks.
+    The port builds the train step, the superstep and the eval for the
+    shape (``tests/test_torch_moe_global.py`` holds its steps to the
+    JAX package's), with the JAX package's group."""
     from tpudist_torch import config as tconfig
     from tpudist_torch import engine as tengine
+    from tpudist_torch.models import moe as tmoe
     from tpudist_torch.parallel import mesh as tmesh
     argv = MOE + ["--fsdp", "4", "--train-batch-size", str(BATCH),
                   "--device", "cpu"]
@@ -209,20 +212,14 @@ def test_moe_group_across_ranks_is_refused_before_a_step():
     cfg = tconfig.parse_args(argv)
     grid = tmesh.rank_grid(cfg.parallel, 4)
     cpu = torch.device("cpu")
-    for make in (lambda: tengine.make_train_step(cfg, cpu, grid),
-                 lambda: tengine.make_superstep(cfg, cpu, 2, grid),
-                 lambda: tengine.make_eval_fn(cfg, cpu, grid)):
-        with pytest.raises(ValueError) as e:
-            make()
-        msg = str(e.value)
-        assert "global batch of 256 tokens in groups of 128" in msg
-        assert "--moe-group-size 128" in msg
-        assert "a rank's 64 tokens" in msg
-    # the JAX package's groups at the same mesh are 128 tokens: the
-    # shape the port refuses is one the reference routes differently
+    assert callable(tengine.make_train_step(cfg, cpu, grid))
+    assert tengine.make_superstep(cfg, cpu, 2, grid).k == 2
+    assert callable(tengine.make_eval_fn(cfg, cpu, grid))
     from tpudist.models import moe as jmoe_
     jm = jconfig.parse_args(argv[:-2]).model
-    assert jmoe_.group_size(jm, BATCH * 16) == 128
+    assert tmoe.group_size(cfg.model, BATCH * 16) == jmoe_.group_size(
+        jm, BATCH * 16) == 128
+    assert (BATCH // 4 * 16) % 128
 
 
 # ---------------------------------------------------- the CLI, 2 ranks
@@ -252,6 +249,9 @@ def cli_runs(tmp_path_factory):
                                   "2"], 2),
         "tf_f2_k2": ("tf", TF_CLI + ["--steps-per-dispatch", "2", "--fsdp",
                                      "2"], 2),
+        "tf_f2_accum": ("tf", TF_CLI + ["--steps-per-dispatch", "1",
+                                        "--fsdp", "2",
+                                        "--grad-accum-steps", "2"], 2),
         "moe1": ("moe", MOE_CLI, 1),
         "moe_f2": ("moe", MOE_CLI + ["--fsdp", "2"], 2),
     }
@@ -324,6 +324,29 @@ def test_transformer_fsdp2_superstep_is_bitwise_its_per_step_run(cli_runs):
     assert "superstep dispatch k=2" in done["tf_f2_k2"][1][0]
     for d in ("tf_f2", "tf_f2_k2"):
         assert _verdicts(str(root / d), 2) == ("success", ["success"] * 2)
+
+
+def test_transformer_fsdp2_accumulates_the_global_microbatches(cli_runs):
+    """``--grad-accum-steps 2`` at fsdp 2: each rank's rows microbatch-major
+    (its microbatch i its half of the global microbatch i, as the JAX
+    package's ``_microbatch`` splits the global batch), which for a dense
+    model means the same mean loss and grads as one process's whole
+    batch."""
+    root, done = cli_runs
+    acc, one = (_records(str(root / d), "step")
+                for d in ("tf_f2_accum", "tf1"))
+    assert len(acc) == len(one) == 2
+    np.testing.assert_allclose([r["loss"] for r in acc],
+                               [r["loss"] for r in one], rtol=RTOL,
+                               atol=ATOL)
+    ep, jx = (_records(str(root / d), "epoch")[0]
+              for d in ("tf_f2_accum", "jax_tf"))
+    np.testing.assert_allclose([ep["avg_loss"], ep["eval_loss"]],
+                               [jx["avg_loss"], jx["eval_loss"]],
+                               rtol=RTOL, atol=ATOL)
+    assert "mesh data 1 x fsdp 2" in done["tf_f2_accum"][1][0]
+    assert _verdicts(str(root / "tf_f2_accum"), 2) == ("success",
+                                                       ["success"] * 2)
 
 
 def test_moe_fsdp2_matches_one_process_and_jax(cli_runs):

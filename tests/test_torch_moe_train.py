@@ -14,7 +14,8 @@ tpudist_torch.train``) against itself and the JAX package.
   train state holds n_experts FFNs a layer, at bench.py's MoE row and a
   few batches and device memories.
 * Without a card and without ``--device cpu`` the CLI fails; nothing
-  falls back to the CPU. ``--expert`` stays refused, naming item 8b.
+  falls back to the CPU. ``--expert`` splits the expert weights'
+  experts dim (``tests/test_torch_expert.py`` trains it).
 """
 
 import dataclasses
@@ -254,8 +255,22 @@ def test_without_a_card_the_moe_does_not_fall_back(tmp_path, monkeypatch,
     assert not (tmp_path / "metrics.jsonl").exists()
 
 
-def test_expert_axis_stays_refused():
-    cfg = tconfig.parse_args(["--model", "moe", "--expert", "2",
-                              "--device", "cpu"])
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 8b$"):
-        ttrain.run(cfg)
+def test_expert_axis_splits_the_experts():
+    """At ``--expert 2`` each rank's layout keeps half the experts of the
+    three expert weights (and of their moments), every other param
+    whole; the state a rank holds is below the whole one's."""
+    from tpudist_torch.parallel import mesh as tmesh
+    cfg = tconfig.parse_args(TINY + ["--expert", "2"])
+    cpu = torch.device("cpu")
+    whole = tengine.init_state(cfg, cpu)
+    shapes = {n: tuple(p.shape) for n, p in whole.params.named_parameters()}
+    grid = tmesh.rank_grid(cfg.parallel, 2)
+    E = cfg.model.n_experts
+    for rank in (0, 1):
+        lay = tengine.make_layout(cfg, grid, shapes, rank=rank)
+        for i, name in enumerate(lay.names):
+            span = lay.span(i)
+            if name in ("layers.w_gate", "layers.w_up", "layers.w_down"):
+                assert span[1] == (rank * E // 2, (rank + 1) * E // 2)
+            else:
+                assert span == tuple((0, n) for n in shapes[name]), name

@@ -18,8 +18,9 @@ devices: data 4 x tensor 2), on the JAX package's permutations and init
   sharded manifest of the superstep's run) resumed replicated (one
   process) and at ``--fsdp 2``: the second epoch's losses within the
   tolerance of one process's uninterrupted two epochs.
-* ``--expert``, ``--context`` and ``--pipe`` refused beside ``--tensor``,
-  naming ROADMAP Queue A item 8b.
+* ``--context`` and ``--pipe`` refused beside ``--tensor``, naming
+  ROADMAP Queue A item 8b; ``--expert`` beside it splits the experts
+  over expert and their hidden dim over tensor.
 """
 
 import os
@@ -169,9 +170,34 @@ def test_tensor2_checkpoint_resumes_replicated_and_at_fsdp2(cli_runs, tag,
     assert os.path.isdir(root / tag / "ck")
 
 
-@pytest.mark.parametrize("axis", ["--expert", "--context", "--pipe"])
+@pytest.mark.parametrize("axis", ["--context", "--pipe"])
 def test_other_axes_stay_refused_beside_tensor(axis, tmp_path):
     argv = ["--model", "moe", "--tensor", "2", axis, "2", "--device",
             "cpu", "--save-dir", str(tmp_path)]
     with pytest.raises(ValueError, match="ROADMAP Queue A item 8b$"):
         ttrain.run(tconfig.parse_args(argv))
+
+
+def test_expert_beside_tensor_splits_both():
+    """``--tensor 2 --expert 2``: a rank's ``w_gate`` / ``w_up`` /
+    ``w_down`` keep the experts of its expert coordinate and the hidden
+    columns of its tensor coordinate; the router stays whole."""
+    from tpudist_torch import engine as tengine
+    from tpudist_torch.parallel import mesh as tmesh
+    argv = MOE + ["--tensor", "2", "--expert", "2", "--device", "cpu"]
+    cfg = tconfig.parse_args(argv)
+    cpu = torch.device("cpu")
+    shapes = {n: tuple(p.shape) for n, p in
+              tengine.init_state(cfg, cpu).params.named_parameters()}
+    grid = tmesh.rank_grid(cfg.parallel, 4)
+    E, dff = cfg.model.n_experts, cfg.model.d_ff
+    for rank in range(4):
+        e, t = divmod(rank, 2)       # C order: expert before tensor
+        lay = tengine.make_layout(cfg, grid, shapes, rank=rank)
+        spans = dict(zip(lay.names, map(lay.span, range(len(lay.names)))))
+        experts = (e * E // 2, (e + 1) * E // 2)
+        cols = (t * dff // 2, (t + 1) * dff // 2)
+        assert spans["layers.w_gate"][1:] == (experts, (0, 32), cols)
+        assert spans["layers.w_down"][1:] == (experts, cols, (0, 32))
+        assert spans["layers.w_router"] == tuple(
+            (0, n) for n in shapes["layers.w_router"])

@@ -214,9 +214,6 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
     # them does not
     ["--fsdp", "2", "--tensor", "2", "--context", "2"],
     ["--tensor", "2", "--pipe", "2"], ["--context", "2"], ["--pipe", "2"],
-    # the MoE trains since the port carried it; its expert axis does not
-    ["--expert", "2"], ["--model", "moe", "--expert", "2"],
-    ["--tensor", "4", "--expert", "2"],
     # the live bus trains since the port carried it; a mesh axis under
     # it is still refused
     ["--live", "on", "--fsdp", "2", "--context", "2"],
@@ -225,6 +222,29 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
 def test_flags_this_slice_does_not_carry_are_refused(flag):
     cfg = tconfig.parse_args(flag + ["--device", "cpu"])
     with pytest.raises(ValueError, match="ROADMAP Queue A item"):
+        ttrain.run(cfg)
+
+
+@pytest.mark.parametrize("flag", [["--expert", "2"],
+                                  ["--tensor", "4", "--expert", "2"]])
+def test_expert_axis_requires_the_moe(flag):
+    """The JAX package's refusal (``tpudist/engine.py:268-273``), before
+    the mesh: the MLP has no expert-sharded params."""
+    cfg = tconfig.parse_args(flag + ["--device", "cpu"])
+    with pytest.raises(ValueError, match=r"^--expert > 1 requires --model "
+                                         r"moe; 'mlp' has no "
+                                         r"expert-sharded params$"):
+        ttrain.run(cfg)
+
+
+def test_the_moe_takes_the_expert_axis():
+    """The MoE's expert axis passes the check; at one process its mesh of
+    two is then refused as any mesh wider than the world is."""
+    cfg = tconfig.parse_args(["--model", "moe", "--expert", "2",
+                              "--device", "cpu"])
+    tconfig.check_supported(cfg)
+    with pytest.raises(ValueError, match=r"^1 devices not divisible by "
+                                         r"pipe\*fsdp\*expert\*tensor"):
         ttrain.run(cfg)
 
 

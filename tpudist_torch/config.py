@@ -256,15 +256,22 @@ def resolve_requeue_attempt(cfg: TrainConfig) -> int:
 
 def check_supported(cfg: TrainConfig) -> None:
     """Refuse what this slice of the port does not carry, naming the
-    ROADMAP item (Queue A) that brings it."""
+    ROADMAP item (Queue A) that brings it, and an expert axis for a
+    model that is not the MoE, as the JAX package refuses it."""
     p = cfg.parallel
-    axes = {"pipe": p.pipe, "expert": p.expert, "context": p.context}
+    axes = {"pipe": p.pipe, "context": p.context}
     wide = {k: v for k, v in axes.items() if v != 1}
     if wide:
         raise ValueError(
             f"mesh axes {wide}: the port trains on the data x fsdp x "
-            f"tensor mesh only; the other axes come with ROADMAP Queue A "
-            f"item 8b")
+            f"expert x tensor mesh only; the other axes come with ROADMAP "
+            f"Queue A item 8b")
+    if p.expert > 1 and cfg.model.name != "moe":
+        # the JAX package's refusal (tpudist/engine.py:268-273): without
+        # expert-sharded weights the axis silently replicates all compute
+        # — half the slice doing duplicate work is a config error
+        raise ValueError(f"--expert > 1 requires --model moe; "
+                         f"{cfg.model.name!r} has no expert-sharded params")
     for name, (off, item) in ENV_NOT_CARRIED.items():
         value = os.environ.get(name, "")
         if value and not _is_off(value, off):
@@ -641,7 +648,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                         "back to one global group)")
     for axis in ("fsdp", "tensor", "context", "pipe", "expert"):
         p.add_argument(f"--{axis}", type=int, default=1,
-                       help=f"{axis} mesh axis size (1 in this slice)")
+                       help=f"{axis} mesh axis size")
     p.add_argument("--fail-at", type=int, default=None,
                    help="fault injection: fail after this epoch")
     p.add_argument("--log-every", type=int, default=100)

@@ -129,13 +129,41 @@ class EpochPlan:
         return out
 
 
+def microbatch_major(idx: np.ndarray, n_accum: int,
+                     process_count: int) -> np.ndarray:
+    """``(steps, batch)`` global gather indices -> ``(steps,
+    process_count, batch / process_count)``: process ``r``'s rows of a
+    step, microbatch by microbatch, are the global rows ``[i M + r m, i
+    M + (r + 1) m)`` of each of the ``n_accum`` microbatches (``M = batch
+    / n_accum``, ``m = M / process_count``), so its microbatch ``i`` is
+    its share of the global microbatch ``i`` the JAX package's
+    ``_microbatch`` splits off."""
+    steps, batch = idx.shape
+    m = batch // (n_accum * process_count)
+    return idx.reshape(steps, n_accum, process_count, m).transpose(
+        0, 2, 1, 3).reshape(steps, process_count, n_accum * m)
+
+
 def plan_epoch(arrays, *, batch_size: int, seed: int, epoch: int,
-               process_index: int = 0, process_count: int = 1) -> EpochPlan:
-    """This process's :class:`EpochPlan` for one epoch."""
+               process_index: int = 0, process_count: int = 1,
+               n_accum: int = 1) -> EpochPlan:
+    """This process's :class:`EpochPlan` for one epoch; with ``n_accum``
+    > 1 microbatches over several processes, its rows microbatch-major
+    (:func:`microbatch_major`)."""
     n = int(np.asarray(arrays[0]).shape[0])
-    idx = _epoch_index(n, batch_size=batch_size, seed=seed, epoch=epoch,
-                       process_index=process_index,
-                       process_count=process_count)
+    if n_accum > 1 and process_count > 1:
+        if batch_size % (n_accum * process_count):
+            raise ValueError(
+                f"global batch_size={batch_size} not divisible by "
+                f"n_accum*process_count={n_accum * process_count}")
+        whole = _epoch_index(n, batch_size=batch_size, seed=seed,
+                             epoch=epoch, process_index=0, process_count=1)
+        idx = microbatch_major(whole, n_accum, process_count)[
+            :, process_index]
+    else:
+        idx = _epoch_index(n, batch_size=batch_size, seed=seed,
+                           epoch=epoch, process_index=process_index,
+                           process_count=process_count)
     return EpochPlan(arrays, idx)
 
 

@@ -3,7 +3,7 @@ superstep, eval.
 
 Counterpart of ``tpudist/engine.py``: its replicated data-parallel path
 (``--grad-overlap off``) and its sharded path on a ``data x fsdp x
-tensor`` mesh.
+expert x tensor`` mesh.
 The JAX package's state is a pytree and its step a compiled pure
 function; here the params are an ``nn.Module``, the step runs eagerly,
 and the optimizer updates the params and its moments in place (one copy
@@ -15,16 +15,19 @@ the step means the gradients and the loss over the processes with an
 explicit all-reduce after the whole backward: the collective under test.
 
 With a mesh (:func:`init_state`'s ``mesh``; the train CLI passes one when
-``--fsdp`` or ``--tensor`` > 1) each process keeps its shard of every
-param whose spec divides (the models' ``param_specs``: 1/fsdp, and
-1/tensor of the Megatron-split weights), and Adam's moments in the same
+``--fsdp``, ``--expert`` or ``--tensor`` > 1) each process keeps its
+shard of every param whose spec divides (the models' ``param_specs``:
+1/fsdp, 1/tensor of the Megatron-split weights, 1/expert of the MoE's
+expert weights), and Adam's moments in the same
 layout (:class:`ShardLayout`, ZeRO-style as ``tpudist/engine.py:355-395``
 lays them out). The step gathers each shard over the fsdp group before
 the forward and reduce-scatters its gradient after the backward
 (:class:`_GatherShard`), as XLA's partitioner does for the JAX package;
-a tensor shard stays resident, and the models compute their tensor
-parts with the operators GSPMD would insert
-(:mod:`tpudist_torch.parallel.tensor`).
+a tensor or expert shard stays resident, and the models compute their
+tensor and expert parts with the operators GSPMD would insert
+(:mod:`tpudist_torch.parallel.tensor`). The batch splits over data x
+fsdp and is replicated over expert and tensor, as the JAX package's
+``batch_spec`` lays it out.
 
 One step body serves per-step dispatch (:func:`make_train_step`) and the
 k-step superstep (:func:`make_superstep`). It reads Adam's per-step
@@ -40,7 +43,6 @@ import contextlib
 import functools
 import os
 import time
-import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -323,11 +325,13 @@ def _auto_lm_head(cfg: TrainConfig, device: Optional[torch.device] = None,
     and nu; the MoE's FFN params times its experts) against the device's
     memory: the JAX package's closed form. Without a mesh every axis is
     1 and the tokens are the whole batch's; with one, the batch splits
-    over data x fsdp and the state over fsdp x tensor."""
+    over data x fsdp and the state over fsdp x tensor, the MoE's expert
+    FFN params over expert too."""
     m = cfg.model
     sizes = mesh_lib.mesh_shape(mesh) if mesh is not None else {}
     batch_shards = sizes.get("data", 1) * sizes.get("fsdp", 1)
     wshards = sizes.get("fsdp", 1) * sizes.get("tensor", 1)
+    eshards = sizes.get("expert", 1)
     n_tok = (max(cfg.batch_size // batch_shards, 1)
              * max(m.max_seq_len, 1))
     hd = m.d_model // m.n_heads
@@ -336,7 +340,7 @@ def _auto_lm_head(cfg: TrainConfig, device: Optional[torch.device] = None,
     # the MoE holds n_experts FFNs a layer
     expert_mult = m.n_experts if m.name == "moe" else 1
     n_params = (m.vocab_size * m.d_model + m.n_layers * attn
-                + m.n_layers * ffn * expert_mult)
+                + m.n_layers * ffn * expert_mult / eshards)
     state_bytes_per_param = (4 + (2 if cfg.dtype == "bfloat16" else 4)
                              + (2 if cfg.adam_nu_dtype == "bfloat16" else 4))
     dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
@@ -384,40 +388,7 @@ def make_loss_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
     return loss
 
 
-def check_moe_routing(cfg: TrainConfig, mesh, rows: int,
-                       n_accum: int = 1) -> None:
-    """Refuse, before a step, a batch of ``rows`` (in ``n_accum``
-    microbatches) that the MoE could not route over the global batch on
-    ``mesh``, as the JAX package's jit+shardings step does: a routing
-    group must lie inside one rank's tokens
-    (:func:`tpudist_torch.models.moe.global_group_size`), and the
-    microbatches of a batch split over several ranks are not the JAX
-    package's global ones."""
-    if cfg.model.name != "moe":
-        return
-    sizes = mesh_lib.mesh_shape(mesh)
-    ways = sizes.get("data", 1) * sizes.get("fsdp", 1)
-    if ways > 1 and n_accum > 1:
-        raise ValueError(
-            f"--grad-accum-steps {n_accum} with the MoE on a mesh that "
-            f"splits the batch {ways} ways: each rank's microbatches are "
-            f"not slices of the global microbatches the MoE routes over")
-    seq = cfg.model.max_seq_len
-    micro = rows // n_accum
-    get_model("moe").global_group_size(cfg.model, micro * seq,
-                                       micro // ways * seq)
-
-
 # --------------------------------------------------------- the layout
-
-
-def _collective(fn, *args, **kw):
-    """A ``torch.distributed`` call by a name both torch versions the
-    port meets have (newer ones deprecate ``all_gather_into_tensor`` and
-    ``reduce_scatter_tensor`` with a warning a call)."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        return fn(*args, **kw)
 
 
 def gather_dim(shard: torch.Tensor, dim: int, ways: int,
@@ -429,8 +400,8 @@ def gather_dim(shard: torch.Tensor, dim: int, ways: int,
     shape = tuple(shard.shape)
     # the chunks concatenated along dim 0, the shape gloo asks for
     buf = shard.new_empty((ways * shape[0], *shape[1:]))
-    _collective(dist.all_gather_into_tensor, buf, shard.contiguous(),
-                group=group)
+    tensor_lib.collective(dist.all_gather_into_tensor, buf,
+                          shard.contiguous(), group=group)
     full = list(shape)
     full[dim] *= ways
     return buf.view(ways, *shape).movedim(0, dim).reshape(full)
@@ -446,28 +417,32 @@ def scatter_dim(full: torch.Tensor, dim: int, ways: int,
     chunks = full.reshape(*full.shape[:dim], ways, n,
                           *full.shape[dim + 1:]).movedim(dim, 0)
     out = full.new_empty(chunks.shape[1:])
-    _collective(dist.reduce_scatter_tensor, out,
-                chunks.contiguous().view(-1, *out.shape[1:]),
-                op=dist.ReduceOp.SUM, group=group)
+    tensor_lib.collective(dist.reduce_scatter_tensor, out,
+                          chunks.contiguous().view(-1, *out.shape[1:]),
+                          op=dist.ReduceOp.SUM, group=group)
     return out
 
 
 @dataclass
 class ShardLayout:
-    """How the params lie on a ``data x fsdp x tensor`` mesh, Adam's
-    ``mu`` and ``nu`` alike: param ``i`` (``names[i]``, whole shape
-    ``shapes[i]``) is split as its sanitized spec ``specs[i]`` says,
-    ``fsdp`` ways along ``dims[i]`` and ``tensor`` ways along
-    ``tdims[i]`` (None: not split over that axis), this process keeping
-    the shard at its mesh coordinates; a dim split over a tuple of axes
-    takes them in the spec's order, the last varying fastest (the
-    embedding's ``(fsdp, tensor)``: chunk ``fsdp_index * tensor +
-    tensor_index``, as JAX places it). ``owners[i]`` is the lowest rank
-    that holds this process's shard of param ``i``: the one that writes
-    it to a checkpoint. ``tensor_group`` is None unless tensor
-    parallelism is on; ``batch_group`` is the ``data x fsdp`` ranks'
-    group (None: the world). ``reduced`` collects the ``(op, dtype,
-    bytes)`` of each collective the step issues."""
+    """How the params lie on a ``data x fsdp x expert x tensor`` mesh,
+    Adam's ``mu`` and ``nu`` alike: param ``i`` (``names[i]``, whole
+    shape ``shapes[i]``) is split as its sanitized spec ``specs[i]``
+    says, ``fsdp`` ways along ``dims[i]``, ``tensor`` ways along
+    ``tdims[i]`` (None: not split over that axis) and, for the MoE's
+    expert FFN weights, ``expert`` ways along their experts dim, this
+    process keeping the shard at its mesh coordinates; a dim split over
+    a tuple of axes takes them in the spec's order, the last varying
+    fastest (the embedding's ``(fsdp, tensor)``: chunk ``fsdp_index *
+    tensor + tensor_index``, as JAX places it). ``owners[i]`` is the
+    lowest rank that holds this process's shard of param ``i``: the one
+    that writes it to a checkpoint. ``tensor_group`` is None unless
+    tensor parallelism is on; ``expert_group`` (the expert x tensor
+    ranks of this batch place) is None unless a spec splits the experts
+    over ``expert``; ``batch_group`` is the ``data x fsdp`` ranks' group
+    (None: the world). An expert shard stays resident: a rank computes
+    with its experts and never gathers them. ``reduced`` collects the
+    ``(op, dtype, bytes)`` of each collective the step issues."""
 
     names: List[str]
     shapes: List[Tuple[int, ...]]
@@ -487,6 +462,7 @@ class ShardLayout:
     batch_group: object = None
     # each mesh axis's (size, this process's index)
     coords: Dict[str, Tuple[int, int]] = field(default_factory=dict)
+    expert_group: object = None
 
     def span(self, i: int) -> Tuple[Tuple[int, int], ...]:
         """This process's region of param ``i``: per dim ``(start,
@@ -513,16 +489,24 @@ class ShardLayout:
         """The ranks a batch splits over: data x fsdp."""
         return self.data * self.fsdp
 
+    @property
+    def place(self) -> int:
+        """This process's place among the data x fsdp ranks: its batch
+        shard (the expert and tensor ranks of a place share it)."""
+        return self.coords["data"][1] * self.fsdp + self.fsdp_index
+
     def step_groups(self, vocab_parallel: bool = False
                     ) -> tensor_lib.StepGroups:
         """What the step's loss reads of the mesh
         (:class:`tensor_lib.StepGroups`), noting into ``reduced``."""
+        expert, expert_index = self.coords.get("expert", (1, 0))
         return tensor_lib.StepGroups(
             tensor=self.tensor, tensor_index=self.tensor_index,
             tensor_group=self.tensor_group, batch=self.batch,
             batch_group=self.batch_group,
             vocab_parallel=vocab_parallel and self.tensor_group is not None,
-            reduced=self.reduced)
+            reduced=self.reduced, batch_index=self.place, expert=expert,
+            expert_index=expert_index, expert_group=self.expert_group)
 
 
 def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
@@ -530,14 +514,14 @@ def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
     """The model's ``param_specs``, sanitized on ``mesh`` for the params'
     whole ``shapes`` (by ``state_dict`` name, in ``named_parameters``
     order), as the :class:`ShardLayout` of ``rank`` (this process's by
-    default). Only the data, fsdp and tensor axes may be wider than
-    1."""
+    default). Only the data, fsdp, expert and tensor axes may be wider
+    than 1."""
     sizes = mesh_lib.mesh_shape(mesh)
     wide = {a: n for a, n in sizes.items()
-            if n > 1 and a not in ("data", "fsdp", "tensor")}
+            if n > 1 and a not in ("data", "fsdp", "expert", "tensor")}
     if wide:
         raise ValueError(f"mesh axes {wide}: the sharded step body runs "
-                         f"on the data x fsdp x tensor mesh only")
+                         f"on the data x fsdp x expert x tensor mesh only")
     if sizes["tensor"] > 1 and cfg.model.name != "mlp" \
             and cfg.model.n_heads < sizes["tensor"]:
         raise ValueError(f"--tensor {sizes['tensor']} over "
@@ -566,6 +550,17 @@ def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
 
     group = getattr(mesh, "get_group", None)
     tp = sizes["tensor"] > 1 and group is not None
+    expert_group = None
+    if group is not None and sizes["expert"] > 1 and any(
+            shd.sharded_dim(sp, "expert") is not None
+            for sp in specs.values()):
+        # the experts dim splits (expert divides it): the expert partials
+        # reduce over the expert x tensor ranks of the place
+        expert_group = (mesh_lib.axes_group(mesh, ("expert", "tensor"))
+                        if tp else group("expert"))
+    # the world is the batch ranks unless expert or tensor ranks share a
+    # place
+    shared = group is not None and sizes["expert"] * sizes["tensor"] > 1
     return ShardLayout(
         names=names, shapes=[shapes[n] for n in names],
         dims=[shd.sharded_dim(specs[n]) for n in names],
@@ -577,9 +572,9 @@ def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
         tdims=[shd.sharded_dim(specs[n], "tensor") for n in names],
         tensor=sizes["tensor"], tensor_index=coords["tensor"][1],
         tensor_group=group("tensor") if tp else None,
-        batch_group=(mesh_lib.axes_group(mesh, ("data", "fsdp")) if tp
+        batch_group=(mesh_lib.axes_group(mesh, ("data", "fsdp")) if shared
                      else None),
-        coords=coords)
+        coords=coords, expert_group=expert_group)
 
 
 def param_regions(state: TrainState) -> List[tuple]:
@@ -736,10 +731,10 @@ def _step_roles(cfg: TrainConfig, loss_fn, lay: ShardLayout):
 
 def _batch_rows(lay: ShardLayout, batch):
     """This process's rows of a global ``batch``: its place among the
-    data x fsdp ranks (the tensor ranks of one place share them)."""
-    place = lay.coords["data"][1] * lay.fsdp + lay.fsdp_index
+    data x fsdp ranks (the expert and tensor ranks of one place share
+    them)."""
     return tuple(x.reshape(lay.batch, x.shape[0] // lay.batch,
-                           *x.shape[1:])[place] for x in batch)
+                           *x.shape[1:])[lay.place] for x in batch)
 
 
 def _batch_mean(lay: ShardLayout, t: torch.Tensor) -> torch.Tensor:
@@ -804,7 +799,6 @@ def _build_step_body(cfg: TrainConfig,
     loss_fn = make_loss_fn(cfg, device, mesh)
     tx = make_optimizer(cfg)
     if mesh is not None:
-        check_moe_routing(cfg, mesh, cfg.batch_size, cfg.grad_accum_steps)
         return _sharded_step_body(cfg, loss_fn, tx), tx
     data_parallel = dist.is_initialized()
     reduced: List[Tuple[torch.dtype, int]] = []
@@ -831,7 +825,8 @@ def _build_step_body(cfg: TrainConfig,
 def _sharded_step_body(cfg: TrainConfig, loss_fn: Callable,
                        tx: Adam) -> Callable:
     """The step body on a sharded state (``state.layout``), the JAX
-    package's jit+shardings body on a ``data x fsdp x tensor`` mesh:
+    package's jit+shardings body on a ``data x fsdp x expert x tensor``
+    mesh:
     every shard gathered over its fsdp group, and over its tensor group
     unless the rank computes with its tensor shard (:func:`_step_roles`,
     :func:`_gathered`); the loss and the grads over this process's batch
@@ -844,7 +839,9 @@ def _sharded_step_body(cfg: TrainConfig, loss_fn: Callable,
     Then each grad is summed over the rest of data x fsdp (over data for
     an fsdp-split param, over data x fsdp for the others) and divided by
     data x fsdp, the loss likewise (``lax.pmean`` over the batch axes):
-    never summed over tensor. Adam updates the shards and their moments
+    never summed over tensor or expert (an expert shard's grad is whole
+    on the rank that computes those experts; every other grad is the
+    same on every expert rank). Adam updates the shards and their moments
     in place. ``body.reduced`` is the layout's list of the step's
     collectives, ``(op, dtype, bytes)`` each."""
     reduced: List[tuple] = []
@@ -1177,8 +1174,6 @@ def make_eval_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
     on every process. A sharded state is gathered for it as the step
     gathers it, and the loss computed as the step computes it."""
     loss_fn = make_loss_fn(cfg, device, mesh)
-    if mesh is not None:
-        check_moe_routing(cfg, mesh, cfg.batch_size)
     data_parallel = dist.is_initialized()
 
     @torch.no_grad()

@@ -31,18 +31,24 @@ parallelism every process computes its loss on its own batch, so routing
 is group-local, as on the JAX package's shard_map DP path:
 capacity-constrained routing is not invariant to how the batch is split,
 so N processes do not equal one process on the global batch, by design.
-On a mesh that is not pure data (``--fsdp`` or ``--tensor`` > 1, the
-JAX package's jit+shardings path) the sharded step passes its
-``groups``, and routing is over the GLOBAL batch: the group size comes
-from the global token count (:func:`global_group_size`, which refuses a
-group that would cross ranks), and the aux loss's per-expert sums are
-all-reduced over the data x fsdp ranks before their product, inside
-autograd. Under tensor parallelism the experts' hidden dim is split over
+On a mesh that is not pure data (``--fsdp``, ``--expert`` or
+``--tensor`` > 1, the JAX package's jit+shardings path) the sharded step
+passes its ``groups``, and routing is over the GLOBAL batch: the group
+size comes from the global token count. A group that lies inside one
+rank's tokens is routed there, the aux loss's per-expert sums all-reduced
+over the data x fsdp ranks before their product, inside autograd; a
+group that spans ranks (it does not divide a rank's tokens, or the
+near-prime fallback takes one global group) is routed from the router
+probabilities all-gathered over those ranks in global row order, with
+the global capacity, and each rank keeps its rows of dispatch and
+combine. Under tensor parallelism the experts' hidden dim is split over
 ``tensor`` (``w_gate``/``w_up`` column-parallel, ``w_down``
-row-parallel); the router runs whole on every tensor rank. Serving on a
-mesh that splits the decode's slot batch, the router probabilities are
-all-gathered and routed as one global group (:func:`_moe_ffn`), as
-the JAX engine's one program routes them.
+row-parallel); under expert parallelism the experts themselves are
+split over ``expert``, a rank computing its experts' capacity rows of
+the batch every expert rank shares. The router runs whole on every rank.
+Serving on a mesh that splits the decode's slot batch, the router
+probabilities are all-gathered and routed as one global group
+(:func:`_moe_ffn`), as the JAX engine's one program routes them.
 """
 
 from __future__ import annotations
@@ -136,24 +142,6 @@ def group_size(cfg: ModelConfig, n_tokens: int) -> int:
     return d if 2 * d >= g else n_tokens
 
 
-def global_group_size(cfg: ModelConfig, n_tokens: int, local: int) -> int:
-    """The routing group of a global batch of ``n_tokens`` split into
-    ranks of ``local`` tokens: :func:`group_size` of the global count, as
-    the JAX package's jit+shardings step takes it. A group that does not
-    lie inside one rank's tokens (it does not divide them, or the
-    near-prime fallback takes one global group) is refused: the port
-    routes a rank's own tokens, and never differently from the JAX
-    package in silence."""
-    g = group_size(cfg, n_tokens)
-    if local % g:
-        raise ValueError(
-            f"the MoE routes the global batch of {n_tokens} tokens in "
-            f"groups of {g} (--moe-group-size {cfg.moe_group_size}), "
-            f"which do not divide a rank's {local} tokens: choose a "
-            f"--moe-group-size whose group divides {local}")
-    return g
-
-
 def _route(probs: torch.Tensor, k: int, cap: int
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k token-choice routing with capacity, for each routing group.
@@ -197,41 +185,55 @@ def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig, groups=None,
     (ffn_out (b, s, d), aux scalar f32). Groups split the token-major
     order. The router product runs in the model dtype and the softmax in
     f32; dispatch and combine are cast to the model dtype before their
-    einsums, so bf16 rounds the gates as the JAX package does. With a
-    sharded step's ``groups`` the routing is over the global batch and,
-    under tensor parallelism, the experts' hidden dim is this rank's
-    part (module docstring).
+    einsums, so bf16 rounds the gates as the JAX package does.
 
-    A serve mesh's ``slot_group`` splits a decode's slot batch over its
-    ranks (rank ``i`` holds tokens ``[i t, (i + 1) t)``): the router
-    probabilities are all-gathered in global slot order and routed as
-    the global batch's groups, with the global capacity, and this rank
-    keeps its tokens' rows of dispatch and combine. A capacity row holds
-    one token, so the experts run on any split of this rank's tokens
-    into pieces that each lie inside one routing group."""
+    A sharded step's ``groups`` route the global batch its data x fsdp
+    ranks split (rank ``i`` holds tokens ``[i t, (i + 1) t)``), as a
+    serve mesh's ``slot_group`` routes a decode's global slot batch. A
+    routing group inside one rank's tokens is routed there; otherwise
+    the router probabilities are all-gathered in global order and routed
+    as the global batch's groups, with the global capacity, and this
+    rank keeps its tokens' rows of dispatch and combine (a serve mesh
+    always gathers). A capacity row holds one token, so the experts run
+    on any split of this rank's tokens into pieces that each lie inside
+    one routing group.
+
+    Under tensor parallelism the experts' hidden dim is this rank's
+    part; with the experts dim split over ``expert`` (``groups``'s
+    ``expert_group``) the rank runs its own experts on its columns of
+    dispatch and combine (module docstring). The tokens and the WHOLE
+    combine enter the experts through :meth:`StepGroups.enter` before
+    the columns are cut, so their grads, partials of the rank's experts,
+    sum over the group; the router and the aux loss read the tokens and
+    the probabilities outside it, so their grads, the same on every
+    rank, are not summed."""
     b, s, d = y.shape
     dt = y.dtype
     t = b * s
-    spread = groups is not None and groups.batch > 1
     if groups is not None:
-        total = t * groups.batch
-        g = global_group_size(cfg, total, t)
+        ways, index, gather = groups.batch, groups.batch_index, \
+            groups.batch_gather
+    elif slot_group is not None:
+        ways, index, gather = slot_group.ways, slot_group.index, \
+            slot_group.gather
     else:
-        total = t * (slot_group.ways if slot_group is not None else 1)
-        g = group_size(cfg, total)
+        ways, index, gather = 1, 0, None
+    total = t * ways
+    g = group_size(cfg, total)
     cap = capacity(cfg, g)
-    # g, unless a serving group spans ranks: then pieces of it
+    # g, unless a routing group spans ranks: then pieces of it
     p = math.gcd(g, t)
     yg = y.reshape(t // p, p, d)                               # (G, p, d)
 
     logits = torch.einsum("gtd,de->gte", yg,
                           lp["w_router"].to(dt)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                      # (G, p, E)
-    if slot_group is not None:
-        probs = slot_group.gather(probs.reshape(t, -1)).reshape(
+    gathered = slot_group is not None or (ways > 1 and t % g)
+    if gathered:
+        probs = gather(probs.reshape(t, -1)).reshape(
             total // g, g, -1)                                 # (G, g, E)
         dispatch, combine, assigned = _route(probs, cfg.expert_top_k, cap)
-        off = slot_group.index * t
+        off = index * t
         dispatch, combine = (x.reshape(total, *x.shape[-2:])[off:off + t]
                              .reshape(t // p, p, *x.shape[-2:])
                              for x in (dispatch, combine))
@@ -240,27 +242,34 @@ def _moe_ffn(y: torch.Tensor, lp, cfg: ModelConfig, groups=None,
 
     (wg, wu), wd = (lp["w_gate"], lp["w_up"]), lp["w_down"]
     tp = groups is not None and groups.tp
-    if tp:
-        # the experts are column- then row-parallel; the router reads
-        # the replicated activations, and the gates' grads, partials of
-        # this rank's hidden columns, are summed over tensor
-        yg = groups.enter(yg)
-        combine = groups.enter(combine)
-        (wg, wu), wd = groups.ffn_weights((wg, wu), wd, cfg.d_ff)
+    ep = groups is not None and groups.expert_group is not None
+    if tp or ep:
+        # the experts' partial sums (this rank's experts, its hidden
+        # columns) reduce over the expert x tensor ranks of the place;
+        # the router above read the replicated tokens
+        group = groups.expert_group if ep else groups.tensor_group
+        yg = groups.enter(yg, group)
+        combine = groups.enter(combine, group)
+        if ep:
+            e0, e1 = groups.expert_part(cfg.n_experts)
+            dispatch, combine = dispatch[..., e0:e1, :], combine[..., e0:e1, :]
+        if tp:
+            (wg, wu), wd = groups.ffn_weights((wg, wu), wd, cfg.d_ff)
     xe = torch.einsum("gtd,gtec->gecd", yg, dispatch.to(dt))
     gate = F.silu(torch.einsum("gecd,edf->gecf", xe, wg.to(dt)))
     up = torch.einsum("gecd,edf->gecf", xe, wu.to(dt))
     ye = torch.einsum("gecf,efd->gecd", gate * up, wd.to(dt))
     out = torch.einsum("gecd,gtec->gtd", ye, combine.to(dt))
-    if tp:
+    if tp or ep:
         # the partial sums, all-reduced after combine: (t, d) rather
         # than (G, E, cap, d), and both products are linear
-        out = groups.exit(out)
+        out = groups.exit(out, group)
 
     # Switch aux: the fraction of routed pairs per expert (pre-drop
-    # counts) times the mean router probability, scaled by E; on a
-    # split batch the per-expert sums are summed over its ranks first
-    if spread:
+    # counts) times the mean router probability, scaled by E; routed on
+    # a rank's own tokens of a split batch, the per-expert sums are
+    # summed over its ranks first
+    if ways > 1 and not gathered:
         f_e = groups.batch_sum(assigned.sum(0)) / (total
                                                    * cfg.expert_top_k)
         p_e = groups.batch_sum(probs.sum(dim=(0, 1))) / total

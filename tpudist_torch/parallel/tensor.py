@@ -18,6 +18,18 @@ columns, so it writes the collectives GSPMD would insert:
 * :meth:`StepGroups.embed`: the lookup of a rank's vocab rows, summed
   over ``tensor``, so the table's grad is a partial a rank.
 
+The routed FFN of the MoE uses the same two operators over its own group
+when the experts dim is split over ``expert`` (``expert_group``: the
+expert x tensor ranks of one batch place; the JAX package's expert
+weights ``P('pipe', 'expert', 'fsdp', 'tensor')``): a rank computes its
+experts' capacity rows (and, under ``tensor``, its hidden columns of
+them), :meth:`StepGroups.enter` sums the partial grads of the tokens and
+the combine weights over the group, :meth:`StepGroups.exit` the partial
+outputs. The batch is replicated over ``expert``, as the JAX package's
+``batch_spec`` replicates it, so nothing else of the step changes. A
+routing group that spans the data x fsdp ranks routes from the router
+probabilities :meth:`StepGroups.batch_gather` collects.
+
 Which part of a dim a rank computes is :meth:`StepGroups.part`: the even
 split where the dim divides, a nearly even one where it does not (the
 weight then reaches the step whole and its grad is summed over
@@ -30,6 +42,7 @@ FSDP gathers; a note of each goes to the step's ``reduced`` list.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
@@ -42,10 +55,14 @@ class StepGroups:
     """What a sharded step's loss needs of the mesh: the ``tensor`` ways,
     this rank's index among them and their group (None: tensor
     parallelism off, every model computes whole), the ``data x fsdp``
-    ways the batch splits over and their group (None: the world), and
-    whether the plain head and the lookup are vocab-parallel
-    (``vocab_parallel``). ``reduced`` collects the ``(op, dtype,
-    bytes)`` of each collective the operators issue."""
+    ways the batch splits over, this rank's place among them and their
+    group (None: the world), whether the plain head and the lookup are
+    vocab-parallel (``vocab_parallel``), and the ``expert`` ways, this
+    rank's index among them and the group the MoE's expert partials
+    reduce over (``expert_group``, the expert x tensor ranks of a batch
+    place; None: the experts dim is not split and every rank computes
+    every expert). ``reduced`` collects the ``(op, dtype, bytes)`` of
+    each collective the operators issue."""
 
     tensor: int = 1
     tensor_index: int = 0
@@ -54,6 +71,10 @@ class StepGroups:
     batch_group: object = None
     vocab_parallel: bool = False
     reduced: List[tuple] = field(default_factory=list)
+    batch_index: int = 0
+    expert: int = 1
+    expert_index: int = 0
+    expert_group: object = None
 
     @property
     def tp(self) -> bool:
@@ -67,6 +88,13 @@ class StepGroups:
         t, ways = self.tensor_index, self.tensor
         return t * n // ways, (t + 1) * n // ways
 
+    def expert_part(self, n: int) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of ``n`` experts split over
+        ``expert`` (the sanitized spec splits them only where that
+        divides)."""
+        e, ways = self.expert_index, self.expert
+        return e * n // ways, (e + 1) * n // ways
+
     def _all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM,
                     group=None) -> torch.Tensor:
         self.reduced.append(("all_reduce", t.dtype,
@@ -79,13 +107,28 @@ class StepGroups:
         """``t`` reduced over ``tensor`` in place."""
         return self._all_reduce(t, op, self.tensor_group)
 
-    def enter(self, x: torch.Tensor) -> torch.Tensor:
-        """Identity forward, all-reduce over ``tensor`` backward."""
-        return _Enter.apply(x, self)
+    def enter(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """Identity forward, all-reduce over ``group`` (``tensor`` by
+        default) backward."""
+        return _Enter.apply(x, self, self.tensor_group if group is None
+                            else group)
 
-    def exit(self, x: torch.Tensor) -> torch.Tensor:
-        """All-reduce over ``tensor`` forward, identity backward."""
-        return _Exit.apply(x, self)
+    def exit(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """All-reduce over ``group`` (``tensor`` by default) forward,
+        identity backward."""
+        return _Exit.apply(x, self, self.tensor_group if group is None
+                           else group)
+
+    def batch_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of every ``data x fsdp`` rank stacked along its first
+        dim in the ranks' place order (this rank's rows at ``batch_index
+        * len(x)``), differentiably: the backward reduce-scatters the
+        upstream grads onto each rank's rows, summed over the ranks,
+        which the step's divide by ``data x fsdp`` turns into the grad
+        of a global mean. Identity when the batch is not split."""
+        if self.batch == 1:
+            return x
+        return _BatchGather.apply(x, self)
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ``data x fsdp`` ranks, differentiably:
@@ -155,23 +198,57 @@ class StepGroups:
 
 class _Enter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, groups: StepGroups):
-        ctx.groups = groups
+    def forward(ctx, x, groups: StepGroups, group):
+        ctx.groups, ctx.group = groups, group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.groups.tensor_sum(g.contiguous().clone()), None
+        return ctx.groups._all_reduce(g.contiguous().clone(),
+                                      group=ctx.group), None, None
 
 
 class _Exit(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, groups: StepGroups):
-        return groups.tensor_sum(x.contiguous().clone())
+    def forward(ctx, x, groups: StepGroups, group):
+        return groups._all_reduce(x.contiguous().clone(), group=group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
+
+
+def collective(fn, *args, **kw):
+    """A ``torch.distributed`` call by a name both torch versions the
+    port meets have (newer ones deprecate ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` with a warning a call)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return fn(*args, **kw)
+
+
+class _BatchGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups: StepGroups):
+        ctx.groups = groups
+        x = x.contiguous()
+        out = x.new_empty((groups.batch * x.shape[0], *x.shape[1:]))
+        groups.reduced.append(("all_gather", out.dtype,
+                               out.numel() * out.element_size()))
+        collective(dist.all_gather_into_tensor, out, x,
+               group=groups.batch_group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        groups = ctx.groups
+        g = g.contiguous()
+        out = g.new_empty((g.shape[0] // groups.batch, *g.shape[1:]))
+        groups.reduced.append(("reduce_scatter", g.dtype,
+                               g.numel() * g.element_size()))
+        collective(dist.reduce_scatter_tensor, out, g, op=dist.ReduceOp.SUM,
+               group=groups.batch_group)
+        return out, None
 
 
 class _BatchSum(torch.autograd.Function):

@@ -144,16 +144,16 @@ def run(cfg: TrainConfig) -> float:
         ctx = distributed.initialize(device=resolve_device(cfg.device))
     device, world = ctx.device, ctx.process_count
     # the mesh: one card a process, ranks in C order over the six axes;
-    # --fsdp or --tensor > 1 shards the state over it (the JAX package's
-    # jit + shardings path), else the state is replicated and the step
-    # all-reduces (its pure-DP path, which needs no DeviceMesh)
+    # --fsdp, --expert or --tensor > 1 shards the state over it (the JAX
+    # package's jit + shardings path), else the state is replicated and
+    # the step all-reduces (its pure-DP path, which needs no DeviceMesh)
     sizes = dict(zip(mesh_lib.AXIS_NAMES,
                      mesh_lib.resolve_axis_sizes(cfg.parallel, world)))
     mesh = None
-    if sizes["fsdp"] > 1 or sizes["tensor"] > 1:
+    if sizes["fsdp"] > 1 or sizes["expert"] > 1 or sizes["tensor"] > 1:
         mesh = mesh_lib.build_mesh(cfg.parallel, device_type=device.type)
     # a process's batch shard is its position in (data, fsdp); the
-    # tensor ranks of one position share it
+    # expert and tensor ranks of one position share it
     batch_ways = sizes["data"] * sizes["fsdp"]
     if cfg.batch_size % batch_ways:
         raise ValueError(
@@ -168,6 +168,8 @@ def run(cfg: TrainConfig) -> float:
          f"device(s), {world} process(es){backend}, model "
          f"{cfg.model.name}, {cfg.dtype}"
          + (f", mesh data {sizes['data']} x fsdp {sizes['fsdp']}"
+            + (f" x expert {sizes['expert']}" if sizes["expert"] > 1
+               else "")
             + (f" x tensor {sizes['tensor']}" if sizes["tensor"] > 1
                else "") if mesh is not None else ""))
     if cfg.model.name == "moe":
@@ -176,11 +178,10 @@ def run(cfg: TrainConfig) -> float:
                  "rows (group-local, the JAX package's data-parallel "
                  "path)")
         else:
-            # refused here, before a step, if a group would cross ranks
-            engine_lib.check_moe_routing(cfg, mesh, cfg.batch_size,
-                                         cfg.grad_accum_steps)
             log0("tpudist: MoE routing over the global batch, its aux "
-                 "loss's sums all-reduced over data x fsdp")
+                 "loss's sums all-reduced over data x fsdp"
+                 + (f"; its experts split over expert {sizes['expert']}"
+                    if sizes["expert"] > 1 else ""))
 
     with trace_lib.span("data_materialize", cat="data"):
         if cfg.model.name == "mlp":
@@ -196,13 +197,19 @@ def run(cfg: TrainConfig) -> float:
     # each process computes the loss on its own rows of the batch and the
     # step means the grads. A process's batch shard is its position in
     # ("data", "fsdp"): under C order over the six axes its rank over the
-    # tensor ways (the tensor ranks of a position see the same rows)
+    # expert x tensor ways (the expert and tensor ranks of a position see
+    # the same rows). On a mesh, under --grad-accum-steps, a rank's rows
+    # are microbatch-major (its microbatch i is its share of the global
+    # microbatch i, which the MoE routes over), for every model as the
+    # JAX package's jit path splits them; replicated, each rank's
+    # microbatches are its own rows, as its data-parallel path's are
     def epoch_plan(epoch):
-        return data_lib.plan_epoch(sources, batch_size=cfg.batch_size,
-                                   seed=cfg.seed, epoch=epoch,
-                                   process_index=(ctx.process_index
-                                                  // sizes["tensor"]),
-                                   process_count=batch_ways)
+        return data_lib.plan_epoch(
+            sources, batch_size=cfg.batch_size, seed=cfg.seed, epoch=epoch,
+            process_index=(ctx.process_index
+                           // (sizes["expert"] * sizes["tensor"])),
+            process_count=batch_ways,
+            n_accum=cfg.grad_accum_steps if mesh is not None else 1)
 
     with trace_lib.span("model_init", cat="init"):
         state = (engine_lib.init_state(cfg, device) if mesh is None
@@ -211,9 +218,12 @@ def run(cfg: TrainConfig) -> float:
          f"{engine_lib.state_bytes_per_device(state) / 1e9:.3f} GB "
          f"(params + Adam moments"
          + ((f", this device's 1/{sizes['fsdp']} shards)"
-             if sizes["tensor"] == 1 else
-             f", this device's shards over fsdp {sizes['fsdp']} x tensor "
-             f"{sizes['tensor']})") if mesh is not None else ")"))
+             if sizes["tensor"] == sizes["expert"] == 1 else
+             f", this device's shards over fsdp {sizes['fsdp']}"
+             + (f" x expert {sizes['expert']}" if sizes["expert"] > 1
+                else "")
+             + (f" x tensor {sizes['tensor']}" if sizes["tensor"] > 1
+                else "") + ")") if mesh is not None else ")"))
     metrics = MetricsLogger(path=os.path.join(cfg.save_dir, "metrics.jsonl"))
     # the run's identity and the launcher's requeue attempt stamp every
     # record, trace document, beacon and checkpoint index
