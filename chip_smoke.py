@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only-tp    # phases 1-3 (flash), 6 and 21
     python3 chip_smoke.py --only-serve-mesh   # phases 1-3 (forward), 4, 22-23
     python3 chip_smoke.py --only-expert   # phases 1-3 (checks), 18a, 24
+    python3 chip_smoke.py --only-context  # phases 1-3 (checks), 25
     python3 chip_smoke.py --expert-drift  # phases 1-2; 24b's holds
                                           # against a mesh without the
                                           # expert axis, a planted fault
@@ -223,14 +224,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
    width and depth in phase 9's training configuration (bf16, bf16 nu,
    the fused head, seq 512) under the chaos drill's ``BASE_FLAGS`` (8
    steps, sharded saves at steps 3, 6 and 8): the free disk printed
-   first against the saves three families hold at once; (a)
+   first against the saves four families hold at once; (a)
    ``tpudist_torch.chaos.drill``'s
    baseline and its seven families (kill, hang, slow, corrupt_shard,
    torn_manifest, fs_error, telemetry_garbage; hang and
    telemetry_garbage with the live bus on: the mid-run ``stall`` alert,
    ``bad_frames`` >= 1 and a final ``status: ok``) with
    ``TPUDIST_PLATFORM=cuda``, every attempt
-   a ``python -m tpudist_torch.train`` process on the card, three
+   a ``python -m tpudist_torch.train`` process on the card, four
    families at a time through ``run_family``, each through
    ``verify_family`` as it ends: each ``ok``, its
    pinned facts (rcs, fired faults, policy, resume step, steps lost,
@@ -359,17 +360,40 @@ Phases, each of which fails the script (non-zero exit, no result line):
    a rank, each rank's params and Adam bytes, the step time and
    tokens/s/chip beside one card's, rank 0's exposed comm share from a
    ``--profile-window 1`` capture.
+25. context parallelism: (a) on one card, the JAX selfcheck's ring-merge
+   check (two disjoint-kv flash calls merged by ``merge_partials``
+   against one whole-kv call, forward and grads, at b2 s1024 h4 kv2 in
+   bf16 at its tolerances and in f32 at 1e-4), then the zigzag ring with
+   flash hops over 4 virtual ranks in one process (the injectable
+   rotation) at config #5's attention (b8 s2048 h16 kv16 f32, h16 kv4
+   bf16) against one causal flash call over the whole sequence and the
+   einsum ring, forward and grads at phase 3's tolerances, exact
+   launches (1 + 2 (n - 1) forward calls a virtual rank, each with its
+   merged backward), and the hop shapes' times beside their bounds and
+   SDPA; (b) under ``--only-context``, with two cards or more, the train
+   CLI at one NCCL process a card at config #5's width, seq 2048, f32,
+   over 4 steps, each against one card's run of the same flags (the
+   transformer within 2e-4 absolute, the MoE at rtol 2e-3 / atol
+   2e-4): ``--context <cards>`` with the ring and with
+   Ulysses and with the fused head, ``--data 2 --context 2``, ``--fsdp 2
+   --context 2``, ``--tensor 2 --context 2`` (four cards), the MoE in
+   f32 at capacity 4.0 at ``--data 2 --context 2`` and ``--expert 2
+   --context 2``, then ``--context <cards>`` as the k = 2 superstep
+   bitwise its per-step run; every verdict ``success``, exact launches
+   a rank, step time and tokens/s/chip beside one card's, rank 0's
+   exposed comm share.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
 18a (both runs), 18c (both engines), 18d, 19a-19c (19c's run with the
 port), 20a (both sharded runs), 20b (both runs), 21a-b, 22a (both
 engines), 22b (its three runs), 23a (its three engines), 23b (its
-five CLI runs), 24a (both runs) and 24b (its runs and their one-card
-references) are the main paths:
+five CLI runs), 24a (both runs), 24b (its runs and their one-card
+references), 25a (the flash-hop ring) and 25b (its runs, their one-card
+references and the superstep) are the main paths:
 each
 runs with every launch count set to 0 just before and read just after
-(10a, 11c, 20a-24b in each rank's process; 12b's and 15a's timed
+(10a, 11c, 20a-24b, 25b in each rank's process; 12b's and 15a's timed
 runs, not
 their probes, which restore the counters), and each
 kernel must have launched the
@@ -644,20 +668,20 @@ def backward_peak(hd: int):
 
 
 def backward_bound(b, s, h, kv, hd, dtype: str, causal: bool,
-                   products: int, outputs: str, peak):
+                   products: int, outputs: str, peak, rope: bool = True):
     """(bound_ms, bound_by) of one flash backward kernel: ``products``
     matrix products over the kept query-key pairs (dq 3, dk/dv 4, merged
     5) over ``peak[dtype]`` (:func:`backward_peak`), against the bytes of
-    q, k, v, do, lse, delta and the RoPE tables read once and of
-    ``outputs`` (a string of q/k/v: which gradients it writes) written
-    once. The merged kernel's workspace is its own traffic, not the
-    function's."""
+    q, k, v, do, lse, delta and (``rope``) the RoPE tables read once and
+    of ``outputs`` (a string of q/k/v: which gradients it writes)
+    written once. The merged kernel's workspace is its own traffic, not
+    the function's."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = products * 2 * b * h * hd * pairs
     elt = 4 if dtype == "float32" else 2
     qsz, ksz = b * s * h * hd, b * s * kv * hd
     nbytes = (elt * (2 * qsz + 2 * ksz) + 2 * 4 * b * h * s
-              + 2 * 4 * s * hd // 2
+              + (2 * 4 * s * hd // 2 if rope else 0)
               + elt * sum(qsz if o == "q" else ksz for o in outputs))
     t_ops = flops / peak[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1377,19 +1401,35 @@ def check_contract(tag: str, out: str, epochs: int, losses) -> None:
         fail(f"train {tag}: step losses {losses} do not fall")
 
 
-def want_launches(fa, m, seq: int, steps: int, epochs: int, fused: bool):
+def want_launches(fa, m, seq: int, steps: int, epochs: int, fused: bool,
+                  context: int = 1, impl: str = "ring"):
     """Each kernel's launches in one process of a training run of
-    ``steps`` steps over ``epochs`` epochs of model ``m``."""
-    fwd = m.n_layers * (steps + epochs)       # + one eval forward an epoch
-    split = not fa.uses_merged_backward(seq, seq)
-    return {"flash_attention_fwd": fwd,
-            "flash_attention_bwd_dq": m.n_layers * steps if split else 0,
-            "flash_attention_bwd_dkv": m.n_layers * steps if split else 0,
-            "flash_attention_bwd_dqkv": 0 if split else m.n_layers * steps,
-            # the fused head: one forward a step and an eval batch an
-            # epoch, one backward a step
-            "fused_xent_fwd": steps + epochs if fused else 0,
-            "fused_xent_bwd": steps if fused else 0}
+    ``steps`` steps over ``epochs`` epochs (one eval batch each) of model
+    ``m``, a rank's at ``--context`` ways: a ring rank's layer makes one
+    causal call over its s/n tokens and two unmasked calls of s/2n a
+    remote hop, a Ulysses rank (or one process) one causal call over the
+    whole sequence, each call's backward the merged kernel or the split
+    pair as ``uses_merged_backward`` routes its length."""
+    if context == 1 or impl == "ulysses":
+        calls = [seq]
+    else:
+        s_l = seq // context
+        calls = [s_l] + [s_l // 2] * (2 * (context - 1))
+    L = m.n_layers
+    out = {"flash_attention_fwd": L * len(calls) * (steps + epochs),
+           "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+           "flash_attention_bwd_dqkv": 0,
+           # the fused head: one forward a step and an eval batch an
+           # epoch, one backward a step
+           "fused_xent_fwd": steps + epochs if fused else 0,
+           "fused_xent_bwd": steps if fused else 0}
+    for s in calls:
+        if fa.uses_merged_backward(s, s):
+            out["flash_attention_bwd_dqkv"] += L * steps
+        else:
+            out["flash_attention_bwd_dq"] += L * steps
+            out["flash_attention_bwd_dkv"] += L * steps
+    return out
 
 
 @contextlib.contextmanager
@@ -3262,8 +3302,8 @@ TRAIN_DRILL_MODEL = ("--model", "transformer", "--seq-len", "512",
 TRAIN_DRILL_PATH = "train_drill_sharded"
 # the drill's families run this many at a time on the card (each a few
 # CLI processes, start-up bound; the script's time limit), so a family's
-# walls are taken beside two others'
-DRILL_LANES = 3
+# walls are taken beside three others'
+DRILL_LANES = 4
 # each family's facts that the seeded schedule fixes, as the CPU drill
 # reports them (tests/test_torch_chaos_drill*.py)
 CHAOS_FACTS = {
@@ -5102,13 +5142,15 @@ def tp_body(torch, fa, card: str):
 
 
 def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int,
-              fused: bool = False, n_accum: int = 1, rank_fn=None):
+              fused: bool = False, n_accum: int = 1, rank_fn=None,
+              want=None):
     """The train CLI at ``argv`` as one NCCL process a visible card
     (``rank_fn``, ``_dp_train_rank`` by default): every verdict
     ``success``, the contract on rank
     0 alone, and each rank's launches exactly one process's (the tensor
     ranks run every layer on their heads; ``fused``: the fused head's
-    too; ``n_accum`` microbatches a step). Returns the step losses, the
+    too; ``n_accum`` microbatches a step), or exactly ``want`` when
+    given (a context rank's share). Returns the step losses, the
     timing record, rank 0's records, each rank's record and the launches
     summed."""
     from tpudist_torch import config as config_lib
@@ -5141,8 +5183,9 @@ def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int,
     for r in ranks[1:]:
         if "Epoch" in r["out"] or "Training completed." in r["out"]:
             fail(f"train {tag}: rank {r['rank']} printed the contract")
-    want = want_launches(fa, cfg.model, seq, n_accum * cfg.epochs * (
-        cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=fused)
+    if want is None:
+        want = want_launches(fa, cfg.model, seq, n_accum * cfg.epochs * (
+            cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=fused)
     total = dict.fromkeys(want, 0)
     for r in ranks:
         if r["counts"] != want:
@@ -6517,32 +6560,36 @@ def _expert_gap(got, want, rtol: float):
     return a, b, worst, err
 
 
-def _expert_close(tag: str, got, want, rtol: float, atol: float) -> None:
+def _expert_close(tag: str, got, want, rtol: float, atol: float,
+                  count: int) -> None:
     """``got``'s step losses and epochs (Avg, eval) within ``rtol`` /
-    ``atol`` of ``want``'s."""
+    ``atol`` of ``want``'s, ``count`` of them on each side (the step
+    records and twice the epochs)."""
     a, b, worst, err = _expert_gap(got, want, rtol)
     print(f"train {tag}: step losses and epochs (Avg, eval) {a} against "
           f"one card's {b}: max |d| {worst:.6f}")
-    if len(a) != len(b) or len(a) != 6 or err > atol:
+    if len(a) != count or len(b) != count or err > atol:
         fail(f"train {tag}: the losses are not within rtol {rtol} / atol "
              f"{atol} of one card's")
 
 
-def _one_card(torch, fa, fx, tag: str, argv, n_accum: int):
+def _one_card(torch, fa, fx, tag: str, argv, n_accum: int = 1):
     """One card's run of ``argv`` (the train CLI in this process): the
     contract, exact launches; its step losses, epochs and timing."""
     from tpudist_torch import config as config_lib
 
     cfg = config_lib.parse_args(argv)
+    m = cfg.model
     run = _cli_run(torch, fa, fx, tag, argv)
     losses = [r["loss"] for r in run["recs"] if r["kind"] == "step"]
     check_contract(tag, run["out"], cfg.epochs, losses)
-    want = want_launches(fa, cfg.model, 512, n_accum * cfg.epochs * (
-        cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=True)
+    want = want_launches(fa, m, m.max_seq_len, n_accum * cfg.epochs * (
+        cfg.data.n_samples // cfg.batch_size), cfg.epochs,
+        fused=cfg.lm_head == "fused")
     if run["counts"] != want:
         fail(f"train {tag}: kernel launches {run['counts']}, want {want}")
     print(f"train {tag}: one card, step losses {losses}; "
-          + _step_line(run, 8 * 512))
+          + _step_line(run, cfg.batch_size * m.max_seq_len))
     return run["counts"], {"losses": losses, "epochs": _epochs_of(run),
                            "timing": run["timing"]}
 
@@ -6598,9 +6645,10 @@ def expert_cli(torch, fa, fx, card: str, ref):
                "epochs": [(r["avg_loss"], r["eval_loss"])
                           for r in run["recs"] if r["kind"] == "epoch"]}
         if one_tag is None:
-            _expert_close(tag, got, one, EXPERT_BF16_RTOL, EXPERT_BF16_RTOL)
+            _expert_close(tag, got, one, EXPERT_BF16_RTOL, EXPERT_BF16_RTOL,
+                          6)
         else:
-            _expert_close(tag, got, one, FSDP_RTOL, FSDP_ATOL)
+            _expert_close(tag, got, one, FSDP_RTOL, FSDP_ATOL, 6)
         t, t1 = run["timing"], one["timing"]
         ms, ms1 = (1e3 * x["run_s"] / x["steps"] for x in (t, t1))
         tps, tps1 = (tokens * x["steps"] / x["run_s"] / n
@@ -6720,6 +6768,387 @@ def only_expert(torch, fa, fx, card: str) -> int:
     return 0
 
 
+CONTEXT_PATHS = ("train_context_ring_virtual",)
+# 25b: BASELINE config #5 at full width, seq 2048, batch 8, f32, 16
+# samples (2 steps an epoch), 2 epochs: 4 steps and 2 evals, per-step
+# with a step record a step; the plain head unless a run says otherwise
+CONTEXT_ARGV = ["--model", "transformer", "--seq-len", "2048",
+                "--train-batch-size", "8", "--n-samples", "16", "--epochs",
+                "2", "--seed", "42", "--log-every", "1",
+                "--steps-per-dispatch", "1", "--lm-head", "plain"]
+# the MoE at 18a's shape in f32 (24b's flags) with ample capacity: the
+# JAX test's premise (tests/test_moe.py:159), where each context shard's
+# own routing is one card's routing
+CONTEXT_MOE_ARGV = EXPERT_F32_ARGV + ["--capacity-factor", "4.0"]
+# 25b's hold on the transformer runs: absolute, about 6x the largest
+# sound reading (3.147e-5, the ring at --context 4); the MoE keeps 24b's
+# rtol 2e-3 / atol 2e-4, its aux loss taken per context shard
+CP_ATOL = 2e-4
+
+
+def ring_merge_check(torch, fa):
+    """Phase 25a, first: the ring's hop merge on the card, the JAX
+    package's ``check_ring_flash_merge`` (``tpudist/selfcheck.py:
+    168-210``): two disjoint-kv ``flash_attention_with_lse`` calls
+    merged by ``merge_partials`` against one whole-kv call, forward and
+    the q/k/v grads of a random cotangent (the merge feeds each call's
+    backward a nonzero lse cotangent), at its shape b2 s1024 h4 kv2
+    hd128: in bf16 at its tolerances (forward atol 3e-2, grads atol
+    0.5), and in f32 at 1e-4 (the forward's max |d|, each grad's max |d|
+    / max |whole|)."""
+    from tpudist_torch.ops import ring_attention as ring
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    b, s, h, kv, hd = 2, 1024, 4, 2, 128
+    c = s // 2
+    for dt, tol, grad_tol, rel in (("bfloat16", 3e-2, 0.5, False),
+                                   ("float32", 1e-4, 1e-4, True)):
+        dtype = getattr(torch, dt)
+        q, k, v, ct = (torch.randn(b, s, n, hd, device="cuda",
+                                   generator=gen).to(dtype)
+                       for n in (h, kv, kv, h))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        o, _ = fa.flash_attention_with_lse(q, k, v, causal=False)
+        whole = o.float()
+        o1, l1 = fa.flash_attention_with_lse(q, k[:, :c].contiguous(),
+                                             v[:, :c].contiguous(),
+                                             causal=False)
+        o2, l2 = fa.flash_attention_with_lse(q, k[:, c:].contiguous(),
+                                             v[:, c:].contiguous(),
+                                             causal=False)
+        merged, _ = ring.merge_partials(o1.float(), l1, o2.float(), l2)
+        g_whole = torch.autograd.grad((whole * ct.float()).sum(), (q, k, v))
+        g_merged = torch.autograd.grad((merged * ct.float()).sum(),
+                                       (q, k, v))
+        err = (merged - whole).abs().max().item()
+        gerrs = [((g.float() - w.float()).abs().max()
+                  / (w.float().abs().max() if rel else 1)).item()
+                 for g, w in zip(g_merged, g_whole)]
+        ok = (err <= tol and max(gerrs) <= grad_tol
+              and bool(torch.isfinite(merged).all()))
+        print(f"ring merge b{b} s{s} h{h} kv{kv} hd{hd} {dt}: two kv halves "
+              f"merged against one call, forward max |d| {err:.3e} (tol "
+              f"{tol}), dq/dk/dv {'max |d| / max |whole|' if rel else 'max |d|'}"
+              f" {[f'{e:.3e}' for e in gerrs]} (tol {grad_tol})"
+              f"{'' if ok else '  FAIL'}")
+        if not ok:
+            fail(f"ring merge: two merged kernel calls disagree with one "
+                 f"whole-kv call in {dt}")
+        del q, k, v, ct, o, o1, o2, g_whole, g_merged
+    torch.cuda.empty_cache()
+
+
+def _virtual_ring(torch, ring, q, k, v, do, n: int, use_flash: bool):
+    """The zigzag ring over ``n`` virtual ranks on one card: each rank's
+    output (its zigzag rows) from :func:`ring.ring_attention` with a
+    :class:`ring.VirtualRotation` (every rank's blocks handed over in
+    ring order), the outputs concatenated in rank order and the grads
+    of ``do`` at those rows. Returns ``(o, grads, rows)``."""
+    s_l = q.shape[1] // n
+    pos = [ring.zigzag_positions(r, s_l, n, device=q.device)
+           for r in range(n)]
+    ks, vs = [k[:, p] for p in pos], [v[:, p] for p in pos]
+    outs = [ring.ring_attention(q, k, v, rot=ring.VirtualRotation(ks, vs, r),
+                                use_flash=use_flash)[0] for r in range(n)]
+    rows = torch.cat(pos)
+    o = torch.cat(outs, dim=1)
+    grads = torch.autograd.grad(o, (q, k, v), do[:, rows])
+    return o, grads, rows
+
+
+def context_ring(torch, fa, fx, F, card: str, records):
+    """Phase 25a (one card): :func:`ring_merge_check`; then the zigzag
+    ring with flash hops over 4 virtual ranks in one process (the
+    injectable rotation: ``ring.VirtualRotation``) at config #5's
+    attention, b8 s2048 h16 kv16 hd128 in f32 and h16 kv4 in bf16 (GQA
+    compact kv on the ring): its output and q/k/v grads against one
+    causal ``flash_attention`` call over the whole sequence and against
+    the port's einsum ring on the same inputs, at phase 3's tolerances
+    (forward max |d| f32 1e-4 / bf16 3e-2, grads max |d| / max |ref|
+    f32 1e-4 / bf16 5e-2). The launch counts are set to 0 just before
+    the flash ring's forward and backward and read just after: per
+    virtual rank 1 + 2 (n - 1) forward calls, each with its merged
+    backward (s_local 512, c 256), no split pair. Then the forward and
+    the merged backward at the hop shapes (b8 c256 h16 unmasked, the
+    local s512 causal) beside their bounds, their plain versions and
+    SDPA (its grad) on the same inputs; these rows join the forward's
+    and the merged backward's ``records`` as ``hop_timings``. Returns
+    the path's launches."""
+    from tpudist_torch.ops import ring_attention as ring
+
+    t0 = time.perf_counter()
+    ring_merge_check(torch, fa)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    n, b, s, h, hd = 4, 8, 2048, 16, 128
+    total = None
+    for kv, dt in ((16, "float32"), (4, "bfloat16")):
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(b, s, m, hd, device="cuda",
+                                   generator=gen).to(dtype)
+                       for m in (h, kv, kv, h))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        torch.cuda.synchronize()
+        _reset_launches(fa, fx)
+        o, grads, rows = _virtual_ring(torch, ring, q, k, v, do, n, True)
+        torch.cuda.synchronize()
+        counts = _launch_counts(fa, fx)
+        total = counts if total is None else {
+            key: total[key] + counts[key] for key in counts}
+        want = {"flash_attention_fwd": n * (1 + 2 * (n - 1)),
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_bwd_dqkv": n * (1 + 2 * (n - 1)),
+                "fused_xent_fwd": 0, "fused_xent_bwd": 0}
+        whole = fa.flash_attention(q, k, v, causal=True)[:, rows]
+        g_whole = torch.autograd.grad(whole, (q, k, v), do[:, rows])
+        o_e, g_e, _ = _virtual_ring(torch, ring, q, k, v, do, n, False)
+        shape = f"b{b} s{s} h{h} kv{kv} hd{hd} {dt}"
+        ok = counts == want and bool(torch.isfinite(o.float()).all())
+        for ref, ref_g, what in ((whole, g_whole, "one causal flash call"),
+                                 (o_e, g_e, "the einsum ring")):
+            err = (o.float() - ref.float()).abs().max().item()
+            gerrs = [((g.float() - r.float()).abs().max()
+                      / r.float().abs().max()).item()
+                     for g, r in zip(grads, ref_g)]
+            good = err <= ATOL[dt] and max(gerrs) <= BWD_RTOL[dt]
+            ok = ok and good
+            print(f"context ring 25a {shape}, {n} virtual ranks, flash hops"
+                  f" against {what}: forward max |d| {err:.3e} (tol "
+                  f"{ATOL[dt]}), dq/dk/dv max |d| / max |ref| "
+                  f"{[f'{e:.3e}' for e in gerrs]} (tol {BWD_RTOL[dt]})"
+                  f"{'' if good else '  FAIL'}")
+        print(f"context ring 25a {shape}: kernel launches {counts} (want "
+              f"{want}); {card}")
+        if not ok:
+            fail(f"context ring 25a: the flash-hop ring at {shape} "
+                 f"disagrees or launched {counts}, want {want}")
+        del q, k, v, do, o, grads, whole, g_whole, o_e, g_e
+        torch.cuda.empty_cache()
+
+    # the hop shapes' times: a remote hop's unmasked chunk call and the
+    # local causal call, f32 and (the chunk) bf16 with compact kv
+    fwd_rows, bwd_rows = [], []
+    for (sq, kv, dt, causal) in ((256, 16, "float32", False),
+                                 (512, 16, "float32", True),
+                                 (256, 4, "bfloat16", False)):
+        dtype = getattr(torch, dt)
+        q, k, v, dout = (torch.randn(b, sq, m, hd, device="cuda",
+                                     generator=gen).to(dtype)
+                         for m in (h, kv, kv, h))
+        shape = (f"b{b} s{sq} h{h} kv{kv} hd{hd} {dt} "
+                 f"{'causal' if causal else 'full'}")
+        # the library call takes the kv heads expanded to the q heads
+        qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2)
+                      .transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        with torch.no_grad():
+            kernel_ms = time_ms(torch, lambda: fa.flash_attention_with_lse(
+                q, k, v, causal=causal))
+            plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal))
+            library_ms = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal))
+            o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+            dlse = torch.randn(b, h, sq, device="cuda", generator=gen) * 0.1
+            delta = fa._delta(o, dout, dlse)
+            bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd_dqkv(
+                q, k, v, dout, lse, delta, causal=causal))
+            bwd_plain_ms = time_ms(
+                torch, lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, o, lse, dout, dlse, causal=causal))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        bwd_library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True))
+        bound_ms, bound_by = attention_bound(b, sq, sq, h, kv, hd, dt,
+                                             causal)
+        bbound_ms, bbound_by = backward_bound(b, sq, h, kv, hd, dt, causal,
+                                              5, "qkv", backward_peak(hd),
+                                              rope=False)
+        note = " (kv expanded)" if kv != h else ""
+        print(f"flash_attention_fwd at the ring hop {shape}: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention{note} {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); {card}")
+        print(f"flash_attention_bwd_dqkv at the ring hop {shape}: kernel "
+              f"{bwd_ms:.4f} ms, plain backward {bwd_plain_ms:.4f} ms, "
+              f"autograd.grad through scaled_dot_product_attention{note} "
+              f"{bwd_library_ms:.4f} ms, bound {bbound_ms:.4f} ms "
+              f"({bbound_by}); {card}")
+        fwd_rows.append({"shape": shape, "ms": kernel_ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+        bwd_rows.append({"shape": shape, "ms": bwd_ms,
+                         "plain_ms": bwd_plain_ms,
+                         "library_ms": bwd_library_ms,
+                         "bound_ms": bbound_ms, "bound_by": bbound_by})
+        del q, k, v, dout, qt, kt, vt, o, lse, delta, out
+        torch.cuda.empty_cache()
+    for rec in records:
+        if rec["name"] == "flash_attention_fwd":
+            rec["hop_timings"] = fwd_rows
+        elif rec["name"] == "flash_attention_bwd_dqkv":
+            rec["hop_timings"] = bwd_rows
+    print(f"context ring: phase 25a {time.perf_counter() - t0:.1f} s")
+    return {CONTEXT_PATHS[0]: total}
+
+
+def context_cli(torch, fa, fx, card: str):
+    """Phase 25b (two cards or more): the train CLI at one NCCL process a
+    card, each run beside one card's run of the same flags over 4 steps
+    (the transformer within ``CP_ATOL`` absolute, the MoE at rtol 2e-3 /
+    atol 2e-4). At ``CONTEXT_ARGV`` (config #5 at full
+    width, seq 2048, batch 8, f32): ``--context <cards>`` with the ring
+    and with Ulysses, ``--context <cards> --lm-head fused`` (rows 5-6 on
+    a context shard's tokens); with four cards or a multiple ``--data 2
+    --context 2``, ``--fsdp 2 --context 2`` and ``--tensor 2 --context
+    2``; the MoE (``CONTEXT_MOE_ARGV``, 18a's shape in f32 at capacity
+    4.0) at ``--data 2 --context 2`` and ``--expert 2 --context 2``;
+    then ``--context <cards>`` as the k = 2 superstep (its rotations
+    captured in the CUDA graph), bitwise its per-step run. Every
+    verdict ``success`` and the contract; exact launches a rank
+    (:func:`want_launches`); each run's step time and tokens/s/chip
+    beside one card's, rank 0's exposed comm share from a
+    ``--profile-window 1`` capture, rank 0's collectives line. Returns
+    the paths' launches."""
+    from tpudist_torch import config as config_lib
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    w = str(world)
+    window = ["--profile-window", "1"]
+    fused = [a if a != "plain" else "fused" for a in CONTEXT_ARGV]
+    # (tag, argv, its one-card reference's tag)
+    runs = [("train_cp_ring", CONTEXT_ARGV + ["--context", w], "one"),
+            ("train_cp_ulysses", CONTEXT_ARGV + ["--context", w,
+                                                 "--cp-impl", "ulysses"],
+             "one"),
+            ("train_cp_ring_fused", fused + ["--context", w], "one_fused")]
+    if world % 4 == 0:
+        runs += [(f"train_cp_ring_{name}", CONTEXT_ARGV + flags, "one")
+                 for name, flags in (
+                     ("d2c2", ["--data", "2", "--context", "2"]),
+                     ("f2c2", ["--fsdp", "2", "--context", "2"]),
+                     ("t2c2", ["--tensor", "2", "--context", "2"]))]
+        runs += [(f"train_cp_moe_{name}", CONTEXT_MOE_ARGV + flags,
+                  "one_moe")
+                 for name, flags in (
+                     ("d2c2", ["--data", "2", "--context", "2"]),
+                     ("e2c2", ["--expert", "2", "--context", "2"]))]
+    one_argv = {"one": CONTEXT_ARGV, "one_fused": fused,
+                "one_moe": CONTEXT_MOE_ARGV}
+    paths, ones = {}, {}
+    for tag, argv, one_tag in runs:
+        if one_tag not in ones:
+            paths[f"train_cp_{one_tag}"], ones[one_tag] = _one_card(
+                torch, fa, fx, f"train_cp_{one_tag}", one_argv[one_tag])
+        one = ones[one_tag]
+        cfg = config_lib.parse_args(argv)
+        m, p = cfg.model, cfg.parallel
+        steps = cfg.epochs * (cfg.data.n_samples // cfg.batch_size)
+        want = want_launches(fa, m, m.max_seq_len, steps, cfg.epochs,
+                             cfg.lm_head == "fused", p.context, cfg.cp_impl)
+        run = _mesh_cli(torch, fa, card, tag, argv + window,
+                        m.max_seq_len, want=want)
+        got = {"losses": run["losses"],
+               "epochs": [(r["avg_loss"], r["eval_loss"])
+                          for r in run["recs"] if r["kind"] == "epoch"]}
+        hold = (FSDP_RTOL, FSDP_ATOL) if m.name == "moe" else (0.0, CP_ATOL)
+        _expert_close(tag, got, one, *hold,
+                      steps // cfg.log_every + 2 * cfg.epochs)
+        t, t1 = run["timing"], one["timing"]
+        ms, ms1 = (1e3 * x["run_s"] / x["steps"] for x in (t, t1))
+        tokens = cfg.batch_size * m.max_seq_len
+        tps, tps1 = (tokens * x["steps"] / x["run_s"] / n
+                     for x, n in ((t, world), (t1, 1)))
+        print(f"train {tag}: step {ms:.3f} ms against one card's "
+              f"{ms1:.3f} ({ms / ms1:.3f}x); tokens/s/chip {tps:.1f} "
+              f"against {tps1:.1f} ({tps / tps1:.3f}x); rank walls "
+              f"{[round(r['wall'], 2) for r in run['ranks']]} s; peak "
+              f"by rank {[round(r['peak_gb'], 3) for r in run['ranks']]} "
+              f"GB; {card}")
+        dev = [r for r in run["recs"] if r["kind"] == "devtime"]
+        rec = dev[0] if dev else {}
+        print(f"train {tag}: rank 0's window {rec.get('window_s')} s over "
+              f"{rec.get('dispatches')} dispatch(es): compute "
+              f"{rec.get('compute_s')} s, comm {rec.get('comm_s')} s, "
+              f"exposed {rec.get('exposed_comm_s')} s, exposed share "
+              f"{rec.get('exposed_comm_frac')} ({rec.get('comm_status')})")
+        if rec.get("dispatches") != 1:
+            fail(f"train {tag}: no device window: {rec}")
+        paths[tag] = run["counts"]
+        if tag == "train_cp_ring":
+            # the superstep next, its rotations captured: a ring that
+            # does not capture fails before the other meshes run
+            paths.update(_cp_superstep(torch, fa, card, got))
+    print(f"train context cli: phase 25b {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _cp_superstep(torch, fa, card: str, per_step):
+    """25b's superstep: ``--context <cards>`` at k = 2 (epoch 0's window
+    eager with the two captures, epoch 1's replayed, the ring's NCCL
+    rotations inside the graph), its step records and epochs bitwise
+    the per-step run's (``per_step``), each rank (2 programs, one
+    replay), exact launches. Returns its path's launches."""
+    from tpudist_torch import config as config_lib
+
+    world = torch.cuda.device_count()
+    tag = "train_cp_ring_superstep"
+    argv = CONTEXT_ARGV + ["--context", str(world)]
+    argv[argv.index("--log-every") + 1] = "2"
+    argv[argv.index("--steps-per-dispatch") + 1] = "2"
+    cfg = config_lib.parse_args(argv)
+    m = cfg.model
+    want = want_launches(fa, m, m.max_seq_len, 4, 2, False, world, "ring")
+    run = _mesh_cli(torch, fa, card, tag, argv, m.max_seq_len, want=want)
+    got = ([r["loss"] for r in run["recs"] if r["kind"] == "step"],
+           [(r["avg_loss"], r["eval_loss"]) for r in run["recs"]
+            if r["kind"] == "epoch"])
+    ref = ([per_step["losses"][1], per_step["losses"][3]],
+           per_step["epochs"])
+    graphs = [r["graphs"] for r in run["ranks"]]
+    print(f"train {tag}: k = 2, step records and epochs {got} against the "
+          f"per-step run's {ref}: bitwise {got == ref}; each rank's "
+          f"(programs, replays) {graphs}")
+    if got != ref:
+        fail(f"train {tag}: the superstep is not bitwise its per-step run")
+    if any(g != [(2, {"superstep": 1, "step": 0})] for g in graphs):
+        fail(f"train {tag}: (programs, replays) by rank {graphs}")
+    return {tag: run["counts"]}
+
+
+def only_context(torch, fa, fx, card: str) -> int:
+    """``--only-context``: phase 3's flash checks (rows 1-4, and the
+    fused head's, rows 5-6), phase 25a, then 25b on the visible cards
+    (its one-card runs, phase 5's configuration at 4 steps, are its
+    references), then the kernels' launches by path and the result
+    line."""
+    import torch.nn.functional as F
+
+    fwd = check_flash(torch, fa, F)
+    check_flash_bwd(torch, fa)
+    check_fused_xent(torch, fx)
+    paths = context_ring(torch, fa, fx, F, card, [fwd])
+    if torch.cuda.device_count() >= 2:
+        paths.update(context_cli(torch, fa, fx, card))
+    # every path ran the flash forward and a backward (the merged kernel
+    # or the split pair, as its lengths route it); the exact counts were
+    # held path by path
+    bwd = ("flash_attention_bwd_dq", "flash_attention_bwd_dqkv")
+    missing = [p for p in paths if paths[p]["flash_attention_fwd"] < 1
+               or sum(paths[p][name] for name in bwd) < 1]
+    if missing:
+        fail(f"the flash kernels launched no time on {missing}")
+    print(json.dumps({"launches": paths, "hop_timings": fwd["hop_timings"]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6738,6 +7167,11 @@ def main() -> int:
                          "fused-head kernels, phase 18a (the reference) "
                          "and phase 24 alone: the MoE's expert axis on "
                          "the visible cards")
+    ap.add_argument("--only-context", action="store_true",
+                    help="phases 1-2, phase 3's checks of the flash and "
+                         "fused-head kernels and phase 25 alone: context "
+                         "parallelism (the ring and Ulysses) on the "
+                         "visible cards")
     ap.add_argument("--expert-drift", action="store_true",
                     help="phases 1-2, then on two cards or more a mesh "
                          "without the expert axis, a planted expert "
@@ -6776,6 +7210,8 @@ def main() -> int:
         return only_serve_mesh(torch, fa, fx, card)
     if args.only_expert:
         return only_expert(torch, fa, fx, card)
+    if args.only_context:
+        return only_context(torch, fa, fx, card)
     if args.expert_drift:
         if torch.cuda.device_count() < 2:
             fail("--expert-drift runs on two cards or more")
@@ -6958,6 +7394,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(expert_body(torch, fa, card, moe18))
     walls.lap("24")
+
+    # phase 25: context parallelism: (a) the ring's hop merge, then the
+    # zigzag ring with flash hops over 4 virtual ranks on one card against
+    # one causal kernel call and the einsum ring, and the hop shapes'
+    # times (25b, on several cards, runs under --only-context)
+    torch.cuda.empty_cache()
+    paths.update(context_ring(torch, fa, fx, F, card, [fwd] + bwd))
+    walls.lap("25")
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -6988,7 +7432,7 @@ def main() -> int:
                                             *FSDP_PATHS, *TP_PATHS,
                                             *(p for p in TP_CLI_PATHS
                                               if p in paths),
-                                            *EXPERT_PATHS),
+                                            *EXPERT_PATHS, *CONTEXT_PATHS),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,

@@ -341,28 +341,33 @@ def test_epoch_shards_match_jax(process_count, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tensor", "2", "--context", "2"], ["--context", "2"],
+    ["--tensor", "2", "--pipe", "2"], ["--context", "2", "--pipe", "2"],
     ["--pipe", "2"],
 ])
 def test_other_mesh_axes_stay_refused(flag):
-    # --tensor is carried (the first case is refused for its context)
+    # --tensor and --context are carried (the first two cases are refused
+    # for their pipe axis)
     tconfig.check_supported(tconfig.parse_args(["--tensor", "2"]))
+    tconfig.check_supported(tconfig.parse_args(["--tensor", "2",
+                                                "--context", "2"]))
     with pytest.raises(ValueError,
-                       match="data x fsdp x expert x tensor mesh only.*"
-                             "ROADMAP Queue A item 8b$"):
+                       match="data x fsdp x expert x tensor x context mesh "
+                             "only.*ROADMAP Queue A item 8b$"):
         tconfig.check_supported(tconfig.parse_args(flag))
 
 
 def test_the_moe_carries_the_expert_axis():
     """``--expert`` passes the check for the MoE, beside the other
-    carried axes; ``--context`` beside it is still refused."""
+    carried axes (``--context`` among them); ``--pipe`` beside it is
+    still refused."""
     for flag in (["--expert", "2"], ["--data", "2", "--fsdp", "2",
-                                     "--expert", "2", "--tensor", "2"]):
+                                     "--expert", "2", "--tensor", "2"],
+                 ["--expert", "2", "--context", "2"]):
         tconfig.check_supported(tconfig.parse_args(
             ["--model", "moe"] + flag))
     with pytest.raises(ValueError, match="ROADMAP Queue A item 8b$"):
         tconfig.check_supported(tconfig.parse_args(
-            ["--model", "moe", "--expert", "2", "--context", "2"]))
+            ["--model", "moe", "--expert", "2", "--pipe", "2"]))
 
 
 @pytest.mark.parametrize("argv,env", [

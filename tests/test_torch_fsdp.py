@@ -496,11 +496,13 @@ HEAD_ARGV = ["--model", "transformer", "--seq-len", "2048",
 
 
 @pytest.mark.parametrize("axes", [dict(data=-1), dict(fsdp=2),
-                                  dict(fsdp=4), dict(data=2, fsdp=2)])
+                                  dict(fsdp=4), dict(data=2, fsdp=2),
+                                  dict(context=4), dict(data=2, context=2)])
 def test_auto_head_counts_the_mesh_as_jax(devices8, monkeypatch, axes):
     """``_auto_lm_head`` on a mesh: the head tokens of a batch shard
-    (data x fsdp) and the state's 1/fsdp share, the JAX package's pick
-    at every device memory of a sweep across its boundary."""
+    (data x fsdp) and of its context shard of the sequence, and the
+    state's 1/fsdp share, the JAX package's pick at every device memory
+    of a sweep across its boundary."""
     jm = jmesh.build_mesh(jconfig.ParallelConfig(**axes),
                           devices=list(devices8[:4]))
     picks = []

@@ -210,13 +210,14 @@ def test_resume_auto_starts_fresh_from_a_broken_checkpoint(tmp_path,
 
 
 @pytest.mark.parametrize("flag", [
-    # fsdp and tensor train since the port carried them; an axis beside
-    # them does not
-    ["--fsdp", "2", "--tensor", "2", "--context", "2"],
-    ["--tensor", "2", "--pipe", "2"], ["--context", "2"], ["--pipe", "2"],
+    # fsdp, tensor and context train since the port carried them; the
+    # pipe axis beside them does not
+    ["--fsdp", "2", "--tensor", "2", "--pipe", "2"],
+    ["--tensor", "2", "--pipe", "2"], ["--context", "2", "--pipe", "2"],
+    ["--pipe", "2"],
     # the live bus trains since the port carried it; a mesh axis under
     # it is still refused
-    ["--live", "on", "--fsdp", "2", "--context", "2"],
+    ["--live", "on", "--fsdp", "2", "--pipe", "2"],
     ["--pipe", "4", "--context", "2"],
 ])
 def test_flags_this_slice_does_not_carry_are_refused(flag):

@@ -4,9 +4,10 @@ port's serving and training lanes read, with the JAX package's defaults
 is ``ModelConfig(name="transformer")``), and the train CLI's
 ``parse_args``.
 
-The training lane runs data-parallel over the processes of the JAX
-package's env contract (``tpudist_torch.parallel.distributed``), one
-device a process, and every other mesh axis at 1. ``parse_args``
+The training lane runs over the processes of the JAX package's env
+contract (``tpudist_torch.parallel.distributed``), one device a
+process, on a data x fsdp x expert x tensor x context mesh; the pipe
+axis stays at 1. ``parse_args``
 declares every option of the JAX train CLI; those this slice does not
 carry (``NOT_CARRIED``) are refused there unless left off, and their
 environment twins, with the JAX package's other switches this slice does
@@ -64,11 +65,15 @@ class ModelConfig:
     moe_group_size: int = 4096    # routing group (bounds dispatch memory)
 
 
+# context parallelism's attention: the zigzag ring or Ulysses all-to-alls
+CP_IMPLS = ("ring", "ulysses")
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh axis sizes. ``data`` is -1, "all remaining devices": the
-    world size over fsdp, one device a process; the port runs every
-    other axis at 1."""
+    world size over the other axes, one device a process; the port runs
+    the pipe axis at 1."""
 
     data: int = -1
     pipe: int = 1
@@ -97,6 +102,7 @@ class TrainConfig:
     xent_chunks: int = 0
     fused_xent: bool = False
     lm_head: str = "auto"         # auto | plain | chunked | fused
+    cp_impl: str = "ring"         # context parallelism: ring | ulysses
     fail_at: Optional[int] = None  # fault injection: fail after this epoch
     log_every: int = 100
     steps_per_dispatch: int = 0   # 0 = auto (resolve_steps_per_dispatch)
@@ -154,8 +160,6 @@ NOT_CARRIED = (
     ("--pp-microbatches", dict(type=int, default=0), (), None, "8b"),
     ("--pipeline-interleave", dict(type=int, default=0), (1,),
      "TPUDIST_PIPELINE_INTERLEAVE", "8b"),
-    ("--cp-impl", dict(choices=("ring", "ulysses"), default="ring"), (),
-     None, "8b"),
     ("--grad-overlap", dict(choices=("off", "bucketed")), ("off",),
      "TPUDIST_GRAD_OVERLAP", "8b"),
     ("--grad-bucket-mb", dict(type=float), (), "TPUDIST_GRAD_BUCKET_MB",
@@ -259,13 +263,11 @@ def check_supported(cfg: TrainConfig) -> None:
     ROADMAP item (Queue A) that brings it, and an expert axis for a
     model that is not the MoE, as the JAX package refuses it."""
     p = cfg.parallel
-    axes = {"pipe": p.pipe, "context": p.context}
-    wide = {k: v for k, v in axes.items() if v != 1}
-    if wide:
+    if p.pipe != 1:
         raise ValueError(
-            f"mesh axes {wide}: the port trains on the data x fsdp x "
-            f"expert x tensor mesh only; the other axes come with ROADMAP "
-            f"Queue A item 8b")
+            f"--pipe {p.pipe}: the port trains on the data x fsdp x expert "
+            f"x tensor x context mesh only; the pipe axis comes with "
+            f"ROADMAP Queue A item 8b")
     if p.expert > 1 and cfg.model.name != "moe":
         # the JAX package's refusal (tpudist/engine.py:268-273): without
         # expert-sharded weights the axis silently replicates all compute
@@ -649,6 +651,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     for axis in ("fsdp", "tensor", "context", "pipe", "expert"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help=f"{axis} mesh axis size")
+    p.add_argument("--cp-impl", type=str, default="ring",
+                   choices=list(CP_IMPLS),
+                   help="context-parallel attention (--context > 1): ring "
+                        "(zigzag ring attention, flash-kernel hops) or "
+                        "ulysses (head<->sequence all-to-alls; heads must "
+                        "divide by --context)")
     p.add_argument("--fail-at", type=int, default=None,
                    help="fault injection: fail after this epoch")
     p.add_argument("--log-every", type=int, default=100)
@@ -767,6 +775,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         xent_chunks=args.xent_chunks,
         fused_xent=args.fused_xent,
         lm_head=args.lm_head,
+        cp_impl=args.cp_impl,
         fail_at=args.fail_at,
         log_every=args.log_every,
         steps_per_dispatch=args.steps_per_dispatch,

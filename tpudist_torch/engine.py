@@ -3,7 +3,7 @@ superstep, eval.
 
 Counterpart of ``tpudist/engine.py``: its replicated data-parallel path
 (``--grad-overlap off``) and its sharded path on a ``data x fsdp x
-expert x tensor`` mesh.
+expert x tensor x context`` mesh.
 The JAX package's state is a pytree and its step a compiled pure
 function; here the params are an ``nn.Module``, the step runs eagerly,
 and the optimizer updates the params and its moments in place (one copy
@@ -27,7 +27,11 @@ a tensor or expert shard stays resident, and the models compute their
 tensor and expert parts with the operators GSPMD would insert
 (:mod:`tpudist_torch.parallel.tensor`). The batch splits over data x
 fsdp and is replicated over expert and tensor, as the JAX package's
-``batch_spec`` lays it out.
+``batch_spec`` lays it out. Under context parallelism (``--context``)
+the context ranks of a place share its rows and split their sequence:
+the loss is the models' ``make_cp_loss_fn`` (ring or Ulysses
+attention over the context group), and the step means the loss and the
+grads over data x fsdp x context.
 
 One step body serves per-step dispatch (:func:`make_train_step`) and the
 k-step superstep (:func:`make_superstep`). It reads Adam's per-step
@@ -325,15 +329,15 @@ def _auto_lm_head(cfg: TrainConfig, device: Optional[torch.device] = None,
     and nu; the MoE's FFN params times its experts) against the device's
     memory: the JAX package's closed form. Without a mesh every axis is
     1 and the tokens are the whole batch's; with one, the batch splits
-    over data x fsdp and the state over fsdp x tensor, the MoE's expert
-    FFN params over expert too."""
+    over data x fsdp, the sequence over context and the state over fsdp
+    x tensor, the MoE's expert FFN params over expert too."""
     m = cfg.model
     sizes = mesh_lib.mesh_shape(mesh) if mesh is not None else {}
     batch_shards = sizes.get("data", 1) * sizes.get("fsdp", 1)
     wshards = sizes.get("fsdp", 1) * sizes.get("tensor", 1)
     eshards = sizes.get("expert", 1)
     n_tok = (max(cfg.batch_size // batch_shards, 1)
-             * max(m.max_seq_len, 1))
+             * max(m.max_seq_len // sizes.get("context", 1), 1))
     hd = m.d_model // m.n_heads
     attn = 2 * m.d_model * m.d_model + 2 * m.d_model * m.n_kv_heads * hd
     ffn = 3 * m.d_model * m.d_ff
@@ -366,9 +370,12 @@ def make_loss_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
     (tokens,) for the sequence models: the transformer and the MoE).
     ``groups`` (:class:`tensor_lib.StepGroups`) is the sharded step's:
     the MoE then routes over the global batch, and under tensor
-    parallelism the models compute their tensor parts. ``plain_head``
-    says whether the LM head is the plain whole-logits one (the one the
-    vocab splits over ``tensor``)."""
+    parallelism the models compute their tensor parts. With a mesh whose
+    ``context`` axis is > 1 the sequence models run context-parallel
+    (their ``make_cp_loss_fn``, ring or Ulysses by ``cfg.cp_impl``), the
+    sequence split over ``groups``' context ranks. ``plain_head`` says
+    whether the LM head is the plain whole-logits one (the one the vocab
+    splits over ``tensor``)."""
     model = get_model(cfg.model.name)
     dt = _compute_dtype(cfg)
     if cfg.model.name == "mlp":
@@ -379,11 +386,30 @@ def make_loss_fn(cfg: TrainConfig, device: Optional[torch.device] = None,
         mlp_loss.plain_head = False
         return mlp_loss
     fused_xent, xent_chunks = _resolve_lm_head(cfg, device, mesh)
+    sizes = mesh_lib.mesh_shape(mesh) if mesh is not None else {}
+    cp = sizes.get("context", 1) > 1
+    if sizes.get("pipe", 1) > 1 and cp:
+        raise ValueError(
+            "pipe and context parallelism both manualize their own "
+            "mesh axis in a shard_map and do not compose; pick one")
+    if cp:
+        if not hasattr(model, "make_cp_loss_fn"):
+            raise ValueError(
+                f"context parallelism is not implemented for model "
+                f"{cfg.model.name!r}")
+        cp_loss = model.make_cp_loss_fn(cfg.model, dtype=dt,
+                                        remat=cfg.remat,
+                                        xent_chunks=xent_chunks,
+                                        fused_xent=fused_xent,
+                                        impl=cfg.cp_impl)
 
-    def loss(params, batch, groups=None):
-        return model.loss_fn(params, batch[0], cfg.model, dtype=dt,
-                             remat=cfg.remat, xent_chunks=xent_chunks,
-                             fused_xent=fused_xent, groups=groups)
+        def loss(params, batch, groups=None):
+            return cp_loss(params, batch[0], groups)
+    else:
+        def loss(params, batch, groups=None):
+            return model.loss_fn(params, batch[0], cfg.model, dtype=dt,
+                                 remat=cfg.remat, xent_chunks=xent_chunks,
+                                 fused_xent=fused_xent, groups=groups)
     loss.plain_head = not (fused_xent or xent_chunks)
     return loss
 
@@ -425,7 +451,8 @@ def scatter_dim(full: torch.Tensor, dim: int, ways: int,
 
 @dataclass
 class ShardLayout:
-    """How the params lie on a ``data x fsdp x expert x tensor`` mesh,
+    """How the params lie on a ``data x fsdp x expert x tensor x
+    context`` mesh,
     Adam's ``mu`` and ``nu`` alike: param ``i`` (``names[i]``, whole
     shape ``shapes[i]``) is split as its sanitized spec ``specs[i]``
     says, ``fsdp`` ways along ``dims[i]``, ``tensor`` ways along
@@ -440,9 +467,15 @@ class ShardLayout:
     tensor parallelism is on; ``expert_group`` (the expert x tensor
     ranks of this batch place) is None unless a spec splits the experts
     over ``expert``; ``batch_group`` is the ``data x fsdp`` ranks' group
-    (None: the world). An expert shard stays resident: a rank computes
-    with its experts and never gathers them. ``reduced`` collects the
-    ``(op, dtype, bytes)`` of each collective the step issues."""
+    at this rank's other coordinates (None: the world), the batch the
+    MoE routes. No spec splits a param over ``context``: its ranks
+    (``context_group``, None unless ``context`` > 1) hold the same
+    shards and split the sequence, so the step's mean runs over
+    ``mean_group``, the data x fsdp x context ranks (None: the world),
+    and an fsdp-split grad's sum over ``grad_group``, the data x context
+    ranks. An expert shard stays resident: a rank computes with its
+    experts and never gathers them. ``reduced`` collects the ``(op,
+    dtype, bytes)`` of each collective the step issues."""
 
     names: List[str]
     shapes: List[Tuple[int, ...]]
@@ -452,7 +485,6 @@ class ShardLayout:
     data: int
     owners: List[int]
     fsdp_group: object = None
-    data_group: object = None
     reduced: List[tuple] = field(default_factory=list)
     specs: List[tuple] = field(default_factory=list)
     tdims: List[Optional[int]] = field(default_factory=list)
@@ -463,6 +495,9 @@ class ShardLayout:
     # each mesh axis's (size, this process's index)
     coords: Dict[str, Tuple[int, int]] = field(default_factory=dict)
     expert_group: object = None
+    context_group: object = None
+    mean_group: object = None
+    grad_group: object = None
 
     def span(self, i: int) -> Tuple[Tuple[int, int], ...]:
         """This process's region of param ``i``: per dim ``(start,
@@ -490,6 +525,17 @@ class ShardLayout:
         return self.data * self.fsdp
 
     @property
+    def context(self) -> int:
+        """The context ways: the ranks that split a place's sequence."""
+        return self.coords.get("context", (1, 0))[0]
+
+    @property
+    def mean_ways(self) -> int:
+        """The ranks the step's loss and grads are a mean over: data x
+        fsdp x context."""
+        return self.batch * self.context
+
+    @property
     def place(self) -> int:
         """This process's place among the data x fsdp ranks: its batch
         shard (the expert and tensor ranks of a place share it)."""
@@ -500,13 +546,16 @@ class ShardLayout:
         """What the step's loss reads of the mesh
         (:class:`tensor_lib.StepGroups`), noting into ``reduced``."""
         expert, expert_index = self.coords.get("expert", (1, 0))
+        context, context_index = self.coords.get("context", (1, 0))
         return tensor_lib.StepGroups(
             tensor=self.tensor, tensor_index=self.tensor_index,
             tensor_group=self.tensor_group, batch=self.batch,
             batch_group=self.batch_group,
             vocab_parallel=vocab_parallel and self.tensor_group is not None,
             reduced=self.reduced, batch_index=self.place, expert=expert,
-            expert_index=expert_index, expert_group=self.expert_group)
+            expert_index=expert_index, expert_group=self.expert_group,
+            context=context, context_index=context_index,
+            context_group=self.context_group)
 
 
 def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
@@ -514,14 +563,12 @@ def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
     """The model's ``param_specs``, sanitized on ``mesh`` for the params'
     whole ``shapes`` (by ``state_dict`` name, in ``named_parameters``
     order), as the :class:`ShardLayout` of ``rank`` (this process's by
-    default). Only the data, fsdp, expert and tensor axes may be wider
-    than 1."""
+    default). Every axis but ``pipe`` may be wider than 1."""
     sizes = mesh_lib.mesh_shape(mesh)
-    wide = {a: n for a, n in sizes.items()
-            if n > 1 and a not in ("data", "fsdp", "expert", "tensor")}
-    if wide:
-        raise ValueError(f"mesh axes {wide}: the sharded step body runs "
-                         f"on the data x fsdp x expert x tensor mesh only")
+    if sizes["pipe"] > 1:
+        raise ValueError(f"pipe axis {sizes['pipe']}: the sharded step "
+                         f"body runs on the data x fsdp x expert x tensor "
+                         f"x context mesh only")
     if sizes["tensor"] > 1 and cfg.model.name != "mlp" \
             and cfg.model.n_heads < sizes["tensor"]:
         raise ValueError(f"--tensor {sizes['tensor']} over "
@@ -558,23 +605,32 @@ def make_layout(cfg: TrainConfig, mesh, shapes: Dict[str, Tuple[int, ...]],
         # reduce over the expert x tensor ranks of the place
         expert_group = (mesh_lib.axes_group(mesh, ("expert", "tensor"))
                         if tp else group("expert"))
-    # the world is the batch ranks unless expert or tensor ranks share a
-    # place
+    # the world is the step's mean (data x fsdp x context) unless expert
+    # or tensor ranks share a place, and the routing batch (data x fsdp)
+    # unless context ranks do too
     shared = group is not None and sizes["expert"] * sizes["tensor"] > 1
+    cp = group is not None and sizes["context"] > 1
+    batch_group = (mesh_lib.axes_group(mesh, ("data", "fsdp"))
+                   if shared or cp else None)
+    mean_group = None
+    if shared:
+        mean_group = (mesh_lib.axes_group(mesh, ("data", "fsdp", "context"))
+                      if cp else batch_group)
     return ShardLayout(
         names=names, shapes=[shapes[n] for n in names],
         dims=[shd.sharded_dim(specs[n]) for n in names],
         fsdp=sizes["fsdp"], fsdp_index=coords["fsdp"][1],
         data=sizes["data"], owners=[owner(specs[n]) for n in names],
         fsdp_group=group("fsdp") if group else None,
-        data_group=group("data") if group else None,
         specs=[specs[n] for n in names],
         tdims=[shd.sharded_dim(specs[n], "tensor") for n in names],
         tensor=sizes["tensor"], tensor_index=coords["tensor"][1],
         tensor_group=group("tensor") if tp else None,
-        batch_group=(mesh_lib.axes_group(mesh, ("data", "fsdp")) if shared
-                     else None),
-        coords=coords, expert_group=expert_group)
+        batch_group=batch_group, coords=coords, expert_group=expert_group,
+        context_group=group("context") if cp else None,
+        mean_group=mean_group,
+        grad_group=(mesh_lib.axes_group(mesh, ("data", "context")) if cp
+                    else group("data") if group else None))
 
 
 def param_regions(state: TrainState) -> List[tuple]:
@@ -738,11 +794,12 @@ def _batch_rows(lay: ShardLayout, batch):
 
 
 def _batch_mean(lay: ShardLayout, t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the data x fsdp ranks and divided by their
-    count, in place (``lax.pmean`` over the batch axes)."""
+    """``t`` summed over the data x fsdp x context ranks and divided by
+    their count, in place (``lax.pmean`` over the batch axes, then over
+    ``context``)."""
     lay.note("all_reduce", t)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=lay.batch_group)
-    return t.div_(lay.batch)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=lay.mean_group)
+    return t.div_(lay.mean_ways)
 
 
 def _microbatch(loss_fn, params: nn.Module, batch, n_accum: int,
@@ -836,9 +893,10 @@ def _sharded_step_body(cfg: TrainConfig, loss_fn: Callable,
     global batch; then ONE backward through the gathers, each grad
     reduce-scattered onto its shard. A grad that is a partial over
     tensor and whose param is whole over it is all-reduced over tensor.
-    Then each grad is summed over the rest of data x fsdp (over data for
-    an fsdp-split param, over data x fsdp for the others) and divided by
-    data x fsdp, the loss likewise (``lax.pmean`` over the batch axes):
+    Then each grad is summed over the rest of data x fsdp x context (over
+    data x context for an fsdp-split param, over data x fsdp x context
+    for the others) and divided by their count, the loss likewise
+    (``lax.pmean`` over the batch axes and ``context``):
     never summed over tensor or expert (an expert shard's grad is whole
     on the rank that computes those experts; every other grad is the
     same on every expert rank). Adam updates the shards and their moments
@@ -871,11 +929,11 @@ def _sharded_step_body(cfg: TrainConfig, loss_fn: Callable,
             if lay.dims[i] is None:
                 _batch_mean(lay, g)
                 continue
-            if lay.data > 1:
+            if lay.data * lay.context > 1:
                 lay.note("all_reduce", g)
                 dist.all_reduce(g, op=dist.ReduceOp.SUM,
-                                group=lay.data_group)
-            g.div_(lay.data * lay.fsdp)
+                                group=lay.grad_group)
+            g.div_(lay.mean_ways)
         _batch_mean(lay, loss)
         tx.apply(grads, state.opt_state, shards, count, c1, c2)
         return loss

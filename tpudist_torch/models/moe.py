@@ -331,21 +331,25 @@ def paged_hidden_states(params: MoE, tokens: torch.Tensor,
 
 def hidden_states(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,
                   dtype=torch.bfloat16, attn_impl=T._attention,
+                  rope_offset: int = 0, rope_positions=None,
                   remat: bool = False, kv_cache=None, cur_index=None,
                   groups=None, slot_group=None):
     """Backbone forward: tokens (batch, seq) -> (final-norm hidden states
     (batch, seq, d_model) in ``dtype``, the mean aux loss over layers).
-    ``remat`` checkpoints each layer. ``kv_cache``/``cur_index`` select
-    the serving path and the return becomes ``(h, kv_cache)``, its decode
-    routed over ``slot_group``'s ranks when given.
-    ``groups``: a sharded step's."""
+    ``attn_impl`` / ``rope_offset`` / ``rope_positions``: a context
+    shard's attention and absolute positions (the dense transformer's
+    contract). ``remat`` checkpoints each layer.
+    ``kv_cache``/``cur_index`` select the serving path and the return
+    becomes ``(h, kv_cache)``, its decode routed over ``slot_group``'s
+    ranks when given. ``groups``: a sharded step's."""
     if kv_cache is not None:
         return _cached_hidden_states(params, tokens, cfg, dtype=dtype,
                                      kv_cache=kv_cache, cur_index=cur_index,
                                      slot_group=slot_group)
     s = tokens.shape[1]
     hd = cfg.d_model // cfg.n_heads
-    cos, sin = T.precompute_rope(s, hd, cfg.rope_theta, device=tokens.device)
+    cos, sin = T.precompute_rope(s, hd, cfg.rope_theta, rope_positions,
+                                 device=tokens.device, offset=rope_offset)
     x = T._embed(params, tokens, dtype, groups)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
@@ -373,3 +377,28 @@ def loss_fn(params: MoE, tokens: torch.Tensor, cfg: ModelConfig, *,
                        xent_chunks=xent_chunks, fused_xent=fused_xent,
                        groups=groups)
     return xent + cfg.router_aux_weight * aux
+
+
+def make_cp_loss_fn(cfg: ModelConfig, *, dtype=torch.bfloat16,
+                    remat: bool = False, xent_chunks: int = 0,
+                    fused_xent: bool = False, impl: str = "ring"):
+    """Context-parallel MoE loss: the dense transformer's scheme
+    (:func:`transformer.make_cp_loss_fn`: the zigzag ring or Ulysses by
+    ``impl``) with the MoE's particulars. Each context shard routes its
+    OWN (zigzag-ordered) sequence slice of the batch its data x fsdp
+    ranks split: the JAX program's token-major ``(B_global, s_local)``
+    order, over ``groups``' batch group (the data x fsdp ranks at this
+    rank's context coordinate). The router aux loss is taken per context
+    shard and averaged with the xent over the context ranks by the
+    step's mean."""
+
+    def shard_loss(params, inputs, targets, attn, pos, off, groups):
+        h, aux = hidden_states(params, inputs, cfg, dtype=dtype,
+                               attn_impl=attn, rope_positions=pos,
+                               rope_offset=off, remat=remat, groups=groups)
+        local = T.head_loss(params.embed.to(dtype), h, targets,
+                            xent_chunks=xent_chunks, fused_xent=fused_xent,
+                            groups=groups)
+        return local + cfg.router_aux_weight * aux
+
+    return T.make_cp_loss(shard_loss, impl=impl)

@@ -33,6 +33,11 @@ Under a sharded step's tensor parallelism (``groups``, a
 :class:`tpudist_torch.parallel.tensor.StepGroups`) each rank computes
 its heads and FFN columns (Megatron's column- then row-parallel blocks)
 and, with the plain head, its vocab columns of the head and the lookup.
+Under context parallelism (:func:`make_cp_loss_fn`) each rank holds a
+shard of the sequence and attention is ring attention
+(:mod:`tpudist_torch.ops.ring_attention`, the zigzag layout) or Ulysses
+(:mod:`tpudist_torch.ops.ulysses`) over ``groups``' context ranks, RoPE
+at the shard's absolute positions.
 """
 
 from __future__ import annotations
@@ -45,7 +50,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from tpudist_torch.config import ModelConfig
+from tpudist_torch.config import CP_IMPLS, ModelConfig
+from tpudist_torch.ops import ring_attention as ring_lib
+from tpudist_torch.ops import ulysses as ulysses_lib
 from tpudist_torch.ops.blockwise_attention import blockwise_causal_attention
 from tpudist_torch.ops.cuda import flash_attention as fa
 from tpudist_torch.ops.cuda import fused_xent as fx
@@ -154,10 +161,12 @@ def fill_params(model: nn.Module, fan_in: Dict[str, int],
 
 def precompute_rope(seq_len: int, head_dim: int, theta: float = 10000.0,
                     positions: Optional[torch.Tensor] = None, *,
-                    device=None):
+                    device=None, offset: int = 0):
     """RoPE cos/sin tables of shape (seq_len, head_dim//2), f32, on
-    ``device`` (or ``positions``' device). ``positions`` (a (seq_len,)
-    tensor) overrides ``arange(seq_len)``."""
+    ``device`` (or ``positions``' device). ``offset`` shifts the
+    positions to ``offset + arange(seq_len)`` (a Ulysses context shard's
+    absolute positions); ``positions`` (a (seq_len,) tensor, a zigzag
+    shard's two chunks) overrides the arithmetic."""
     if positions is not None:
         device = positions.device
     inv_freq = 1.0 / (theta ** (torch.arange(
@@ -165,7 +174,8 @@ def precompute_rope(seq_len: int, head_dim: int, theta: float = 10000.0,
     if positions is not None:
         t = positions.to(torch.float32)
     else:
-        t = torch.arange(seq_len, dtype=torch.float32, device=device)
+        t = torch.arange(seq_len, dtype=torch.float32, device=device) \
+            + offset
     freqs = torch.outer(t, inv_freq)
     return torch.cos(freqs), torch.sin(freqs)
 
@@ -571,13 +581,19 @@ def paged_hidden_states(params: Transformer, tokens: torch.Tensor,
 
 def hidden_states(params: Transformer, tokens: torch.Tensor,
                   cfg: ModelConfig, *, dtype=torch.bfloat16,
-                  attn_impl=_attention, remat: bool = False, kv_cache=None,
-                  cur_index=None, groups=None, slot_group=None):
+                  attn_impl=_attention, rope_offset: int = 0,
+                  rope_positions: Optional[torch.Tensor] = None,
+                  remat: bool = False, kv_cache=None, cur_index=None,
+                  groups=None, slot_group=None):
     """Backbone forward: tokens (batch, seq) -> final-norm hidden states
-    (batch, seq, d_model) in ``dtype``. ``remat`` checkpoints each layer
-    (activations recomputed in backward). ``kv_cache``/``cur_index``
-    select the serving path (:func:`_cached_hidden_states`) and the
-    return becomes ``(h, kv_cache)``. ``groups``: a sharded step's
+    (batch, seq, d_model) in ``dtype``. ``attn_impl`` lets context-
+    parallel callers substitute ring or Ulysses attention;
+    ``rope_offset`` / ``rope_positions`` give a context shard its
+    absolute positions (:func:`precompute_rope`). ``remat`` checkpoints
+    each layer (activations recomputed in backward).
+    ``kv_cache``/``cur_index`` select the serving path
+    (:func:`_cached_hidden_states`) and the return becomes ``(h,
+    kv_cache)``. ``groups``: a sharded step's
     (:class:`tpudist_torch.parallel.tensor.StepGroups`). ``slot_group``:
     a serve mesh's, which the dense model does not read (no slot's
     tokens depend on another's)."""
@@ -586,7 +602,8 @@ def hidden_states(params: Transformer, tokens: torch.Tensor,
                                      kv_cache=kv_cache, cur_index=cur_index)
     s = tokens.shape[1]
     hd = cfg.d_model // cfg.n_heads
-    cos, sin = precompute_rope(s, hd, cfg.rope_theta, device=tokens.device)
+    cos, sin = precompute_rope(s, hd, cfg.rope_theta, rope_positions,
+                               device=tokens.device, offset=rope_offset)
     x = _embed(params, tokens, dtype, groups)
     for i in range(cfg.n_layers):
         lp = params.layers.layer(i)
@@ -731,3 +748,88 @@ def loss_fn(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     return head_loss(params.embed.to(dtype), h, targets,
                      xent_chunks=xent_chunks, fused_xent=fused_xent,
                      groups=groups)
+
+
+def cp_attention(impl: str, groups, s_local: int, device):
+    """Per-shard attention and RoPE position info for a context-parallel
+    body (``impl`` ring or ulysses, checked by :func:`make_cp_loss`):
+    ``(attn_fn, rope_positions, rope_offset)``, exactly one of the
+    two meaningful (a zigzag shard holds two non-adjacent chunks; a
+    Ulysses shard is contiguous). ``groups`` (a sharded step's
+    :class:`tpudist_torch.parallel.tensor.StepGroups`) gives the context
+    ways, this rank's index among them and their group; every rotation
+    and all-to-all is noted into ``groups.reduced``. Shared by the
+    transformer's and the MoE's loss builders."""
+    n, me = groups.context, groups.context_index
+    if impl == "ring":
+        pos = ring_lib.zigzag_positions(me, s_local, n, device=device)
+
+        def attn(q, k, v):
+            rot = ring_lib.GroupRotation(groups.context_group,
+                                         groups.reduced)
+            return ring_lib.ring_attention_local(q, k, v, rot, causal=True,
+                                                 layout="zigzag")
+        return attn, pos, 0
+
+    def attn(q, k, v):
+        return ulysses_lib.ulysses_attention(
+            q, k, v, groups.context_group, reduced=groups.reduced)
+    return attn, None, me * s_local
+
+
+def make_cp_loss(shard_loss_fn, *, impl: str = "ring"):
+    """The context-parallel scaffolding every sequence model shares:
+    ``loss(params, tokens, groups)`` over the (batch, S + 1) token rows
+    this rank holds, whose sequence its context ranks split.
+
+    ``shard_loss_fn(params, inputs, targets, attn, pos, off, groups) ->
+    scalar`` computes one shard's loss given the per-shard attention and
+    RoPE position info (:func:`cp_attention`); this wrapper owns the
+    impl check, the causal shift of the whole rows, the zigzag permute
+    (ring) and the cut to this rank's contiguous ``S / n`` of the
+    (permuted) sequence. The mean over the context ranks is the step's
+    (the JAX package's ``lax.pmean`` over ``context``): the shard's loss
+    is the mean over its own tokens."""
+    if impl not in CP_IMPLS:
+        raise ValueError(f"unknown cp impl {impl!r}: {' | '.join(CP_IMPLS)}")
+
+    def loss(params, tokens: torch.Tensor, groups) -> torch.Tensor:
+        n, r = groups.context, groups.context_index
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        if impl == "ring":
+            inputs = ring_lib.zigzag_permute(inputs, n)
+            targets = ring_lib.zigzag_permute(targets, n)
+        s_local = inputs.shape[1] // n
+        cut = slice(r * s_local, (r + 1) * s_local)
+        attn, pos, off = cp_attention(impl, groups, s_local, tokens.device)
+        return shard_loss_fn(params, inputs[:, cut], targets[:, cut], attn,
+                             pos, off, groups)
+    return loss
+
+
+def make_cp_loss_fn(cfg: ModelConfig, *, dtype=torch.bfloat16,
+                    remat: bool = False, xent_chunks: int = 0,
+                    fused_xent: bool = False, impl: str = "ring"):
+    """Context-parallel loss: ``loss(params, tokens, groups)``, the
+    sequence split over the context ranks of ``groups``.
+
+    ``impl="ring"`` (default): zigzag layout (each shard holds one early
+    and one late chunk: balanced causal work), attention through ring
+    attention (:mod:`tpudist_torch.ops.ring_attention`), RoPE from the
+    shard's absolute positions; the permutation happens before the cut
+    and the loss (a token mean) needs no inverse. ``impl="ulysses"``:
+    contiguous shards, two all-to-alls reshard heads <-> sequence around
+    the full-sequence attention (:mod:`tpudist_torch.ops.ulysses`); the
+    head counts must divide by the context ways. q/k are rotated up
+    front (the CP attention takes no tables). The scaffolding is shared
+    with the MoE (:func:`make_cp_loss`)."""
+
+    def shard_loss(params, inputs, targets, attn, pos, off, groups):
+        h = hidden_states(params, inputs, cfg, dtype=dtype, attn_impl=attn,
+                          rope_positions=pos, rope_offset=off, remat=remat,
+                          groups=groups)
+        return head_loss(params.embed.to(dtype), h, targets,
+                         xent_chunks=xent_chunks, fused_xent=fused_xent,
+                         groups=groups)
+
+    return make_cp_loss(shard_loss, impl=impl)

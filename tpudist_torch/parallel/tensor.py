@@ -35,6 +35,11 @@ split where the dim divides, a nearly even one where it does not (the
 weight then reaches the step whole and its grad is summed over
 ``tensor``; ``engine`` decides that from :func:`roles`).
 
+The context ranks of a place (``context_group``) hold the same rows and
+split their sequence; the ring's rotations and Ulysses's all-to-alls
+over them live in :mod:`tpudist_torch.ops.ring_attention` and
+:mod:`tpudist_torch.ops.ulysses`, which note theirs into ``reduced`` too.
+
 Every collective here is an in-place ``torch.distributed`` call on a
 tensor the operator owns, so a CUDA graph captures it as it captures the
 FSDP gathers; a note of each goes to the step's ``reduced`` list.
@@ -61,7 +66,10 @@ class StepGroups:
     rank's index among them and the group the MoE's expert partials
     reduce over (``expert_group``, the expert x tensor ranks of a batch
     place; None: the experts dim is not split and every rank computes
-    every expert). ``reduced`` collects the ``(op, dtype, bytes)`` of
+    every expert), and the ``context`` ways, this rank's index among
+    them and their group (``context_group``: the ranks that differ from
+    this one only along ``context``, which split the sequence of the
+    rows they share). ``reduced`` collects the ``(op, dtype, bytes)`` of
     each collective the operators issue."""
 
     tensor: int = 1
@@ -75,6 +83,9 @@ class StepGroups:
     expert: int = 1
     expert_index: int = 0
     expert_group: object = None
+    context: int = 1
+    context_index: int = 0
+    context_group: object = None
 
     @property
     def tp(self) -> bool:

@@ -10,7 +10,9 @@ all-reduced mean, Adam; with ``--fsdp N`` the state sharded N ways, each
 shard gathered for the step and its gradient reduce-scattered; with
 ``--tensor N`` each rank keeps its Megatron shard and computes its
 heads, FFN columns and vocab columns, the N tensor ranks of a batch
-shard seeing the same rows; on either mesh the MoE routes the global
+shard seeing the same rows; with ``--context N`` the sequence models'
+N context ranks of a batch shard split its sequence, ring or Ulysses
+attention by ``--cp-impl``; on a mesh the MoE routes the global
 batch),
 dispatched k steps at a time
 (``--steps-per-dispatch``, auto as the JAX CLI resolves it: k = 25 at
@@ -128,6 +130,24 @@ def device_kind(device: torch.device) -> str:
     return "cpu"
 
 
+def check_context(cfg: TrainConfig, context: int) -> None:
+    """The JAX train CLI's refusals of a context axis (``--context``
+    ways) its sequence models cannot take: a model without a sequence,
+    and a sequence the layout cannot cut (the ring's zigzag takes 2
+    chunks a shard, Ulysses one)."""
+    if context <= 1:
+        return
+    if cfg.model.name not in ("transformer", "moe"):
+        raise ValueError("--context > 1 (sequence parallelism) requires "
+                         "a sequence model (--model transformer|moe)")
+    ways = 2 * context if cfg.cp_impl == "ring" else context
+    if cfg.model.max_seq_len % ways:
+        raise ValueError(
+            f"--seq-len {cfg.model.max_seq_len} must be divisible by "
+            f"{'2x' if cfg.cp_impl == 'ring' else ''}--context "
+            f"{context} (cp-impl {cfg.cp_impl})")
+
+
 def run(cfg: TrainConfig) -> float:
     """Train per config; returns the last epoch's average loss. Raises on
     failure: :func:`main` turns exceptions into the fail verdict and
@@ -144,13 +164,15 @@ def run(cfg: TrainConfig) -> float:
         ctx = distributed.initialize(device=resolve_device(cfg.device))
     device, world = ctx.device, ctx.process_count
     # the mesh: one card a process, ranks in C order over the six axes;
-    # --fsdp, --expert or --tensor > 1 shards the state over it (the JAX
-    # package's jit + shardings path), else the state is replicated and
-    # the step all-reduces (its pure-DP path, which needs no DeviceMesh)
+    # --fsdp, --expert, --tensor or --context > 1 runs the sharded step
+    # over it (the JAX package's jit + shardings path), else the state is
+    # replicated and the step all-reduces (its pure-DP path, which needs
+    # no DeviceMesh)
     sizes = dict(zip(mesh_lib.AXIS_NAMES,
                      mesh_lib.resolve_axis_sizes(cfg.parallel, world)))
+    check_context(cfg, sizes["context"])
     mesh = None
-    if sizes["fsdp"] > 1 or sizes["expert"] > 1 or sizes["tensor"] > 1:
+    if any(sizes[a] > 1 for a in ("fsdp", "expert", "tensor", "context")):
         mesh = mesh_lib.build_mesh(cfg.parallel, device_type=device.type)
     # a process's batch shard is its position in (data, fsdp); the
     # expert and tensor ranks of one position share it
@@ -171,15 +193,20 @@ def run(cfg: TrainConfig) -> float:
             + (f" x expert {sizes['expert']}" if sizes["expert"] > 1
                else "")
             + (f" x tensor {sizes['tensor']}" if sizes["tensor"] > 1
-               else "") if mesh is not None else ""))
+               else "")
+            + (f" x context {sizes['context']} ({cfg.cp_impl})"
+               if sizes["context"] > 1 else "") if mesh is not None
+            else ""))
     if cfg.model.name == "moe":
         if mesh is None:
             log0("tpudist: MoE routing and aux loss over each process's "
                  "rows (group-local, the JAX package's data-parallel "
                  "path)")
         else:
-            log0("tpudist: MoE routing over the global batch, its aux "
-                 "loss's sums all-reduced over data x fsdp"
+            log0("tpudist: MoE routing over the global batch"
+                 + (" (each context shard its own sequence slice of it)"
+                    if sizes["context"] > 1 else "")
+                 + ", its aux loss's sums all-reduced over data x fsdp"
                  + (f"; its experts split over expert {sizes['expert']}"
                     if sizes["expert"] > 1 else ""))
 
@@ -197,8 +224,9 @@ def run(cfg: TrainConfig) -> float:
     # each process computes the loss on its own rows of the batch and the
     # step means the grads. A process's batch shard is its position in
     # ("data", "fsdp"): under C order over the six axes its rank over the
-    # expert x tensor ways (the expert and tensor ranks of a position see
-    # the same rows). On a mesh, under --grad-accum-steps, a rank's rows
+    # expert x tensor x context ways (the expert, tensor and context ranks
+    # of a position see the same rows; the context ranks split their
+    # sequence). On a mesh, under --grad-accum-steps, a rank's rows
     # are microbatch-major (its microbatch i is its share of the global
     # microbatch i, which the MoE routes over), for every model as the
     # JAX package's jit path splits them; replicated, each rank's
@@ -207,7 +235,8 @@ def run(cfg: TrainConfig) -> float:
         return data_lib.plan_epoch(
             sources, batch_size=cfg.batch_size, seed=cfg.seed, epoch=epoch,
             process_index=(ctx.process_index
-                           // (sizes["expert"] * sizes["tensor"])),
+                           // (sizes["expert"] * sizes["tensor"]
+                               * sizes["context"])),
             process_count=batch_ways,
             n_accum=cfg.grad_accum_steps if mesh is not None else 1)
 
@@ -554,12 +583,16 @@ def run(cfg: TrainConfig) -> float:
     if operands:
         # the step's collective volume, from the operands the step body
         # noted: engine.pmean's all-reduces, and under FSDP the gathers
-        # and reduce-scatters too
+        # and reduce-scatters too; context parallelism's ring rotations
+        # and Ulysses all-to-alls are named with their bytes
         coll = devtime_lib.collective_bytes(operands)
         log0(f"tpudist: collectives {coll['n_collectives']} op(s)/step: "
              f"{coll['dcn_bytes_total']} B dcn, "
              f"{coll['ici_bytes_total']} B ici (from the step body's "
-             f"operands)")
+             f"operands)" + "".join(
+                 f"; {r['op']} {r['dtype']} {r['bytes']} B x {r['count']}"
+                 for r in coll["ops"]
+                 if r["op"] in ("collective_permute", "all_to_all")))
     devtime_status, dev_events = _ingest_devtime(
         win, ctx, metrics, coll,
         mesh if mesh is not None else mesh_lib.rank_grid(cfg.parallel,
