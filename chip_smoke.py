@@ -9,6 +9,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only-serve-mesh   # phases 1-3 (forward), 4, 22-23
     python3 chip_smoke.py --only-expert   # phases 1-3 (checks), 18a, 24
     python3 chip_smoke.py --only-context  # phases 1-3 (checks), 25
+    python3 chip_smoke.py --only-overlap  # phases 1-3 (checks), 26
+    python3 chip_smoke.py --only-overlap --only-context --context-drift \
+        --only-expert    # the checks once, then 26, 25 + the CP fault, 24
     python3 chip_smoke.py --expert-drift  # phases 1-2; 24b's holds
                                           # against a mesh without the
                                           # expert axis, a planted fault
@@ -381,7 +384,34 @@ Phases, each of which fails the script (non-zero exit, no result line):
    --context 2``, then ``--context <cards>`` as the k = 2 superstep
    bitwise its per-step run; every verdict ``success``, exact launches
    a rank, step time and tokens/s/chip beside one card's, rank 0's
-   exposed comm share.
+   exposed comm share. 25a also runs the ring at the MoE's hop shape
+   under ``--context 4`` at seq 512 (hops of 64, which the kernel does
+   not take): the einsum hops, routed from the shapes and named in one
+   line, against one dense causal call, no kernel launched;
+   ``--context-drift`` adds 25b's ring run with the context ranks left
+   out of the step's mean, against 25b's hold.
+26. under ``--only-overlap``, the overlap plane and the collective
+   harness: (a) on one card, phase 6's model through the replicated
+   data-parallel step on a one-rank NCCL group, ``--grad-overlap off``
+   against ``bucketed`` at 4 MB and 1 MB bitwise over 8 steps (losses,
+   params, ``mu``, ``nu``), the bucketed k = 4 superstep bitwise its
+   per-step run (2 programs, one replay), launches exact; (b) with two
+   cards or more, the train CLI at ``--data <cards>`` with phase 6's
+   flags in f32 over 4 steps and 2 evals: ``off``, ``bucketed`` 4 MB
+   and 64 MB bitwise on every rank, the bucketed k = 2 superstep
+   bitwise its per-step run, under ``TPUDIST_SLICE_MAP=2`` ``flat``
+   against ``hierarchical`` bitwise with the gradients' cross-slice
+   bytes in the ratio 2, ``--autotune probe`` over the bucket axis
+   (committed steps/s at least the start's, losses bitwise an untuned
+   run's at the point), ``--fsdp 2 --data 2 --grad-overlap bucketed``
+   refused on every rank with the JAX message; each run's step time and
+   rank 0's exposed comm share; (c) each collective at 1 MB against
+   its closed form on the card, then ``python -m
+   tpudist_torch.bench.sweep`` over one NCCL process a card, all five
+   kinds from 1 MB to 1 GB, its exit code and verdict those of
+   ``gate(records)``, ``--peak-gbps`` far below and far above the
+   measured bus bandwidth (exit 0 ``success``, exit 1 ``fail``), the
+   best bus GB/s per kind beside the card's NVLink peak and topology.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
@@ -390,10 +420,11 @@ port), 20a (both sharded runs), 20b (both runs), 21a-b, 22a (both
 engines), 22b (its three runs), 23a (its three engines), 23b (its
 five CLI runs), 24a (both runs), 24b (its runs and their one-card
 references), 25a (the flash-hop ring) and 25b (its runs, their one-card
-references and the superstep) are the main paths:
+references and the superstep), 26a (its four runs) and 26b (its runs)
+are the main paths:
 each
 runs with every launch count set to 0 just before and read just after
-(10a, 11c, 20a-24b, 25b in each rank's process; 12b's and 15a's timed
+(10a, 11c, 20a-24b, 25b, 26a-b in each rank's process; 12b's and 15a's timed
 runs, not
 their probes, which restore the counters), and each
 kernel must have launched the
@@ -4325,10 +4356,37 @@ def remat_check(torch, card: str):
         fail(f"remat check: remat moved the step by {worst:.3e}")
 
 
+_NEXT_PORT = [None]
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A port for a spawned job's coordinator: below the kernel's
+    ephemeral range (where neither a bind to port 0 nor an outgoing
+    connection, NCCL's many among them, ever lands), each handed out
+    once a run and checked free by a bind. A port bound at 0 and
+    released could be taken by a connection before the rank binds it."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    base = low - 2000
+    if base < 1024:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+    if _NEXT_PORT[0] is None:
+        _NEXT_PORT[0] = os.getpid() % 1000
+    for _ in range(1000):
+        port = base + _NEXT_PORT[0] % 1000
+        _NEXT_PORT[0] += 1
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    fail(f"no free port in [{base}, {base + 1000})")
 
 
 def _spawn(target, args_by_rank, timeout_s: float, what: str):
@@ -5150,7 +5208,8 @@ def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int,
     0 alone, and each rank's launches exactly one process's (the tensor
     ranks run every layer on their heads; ``fused``: the fused head's
     too; ``n_accum`` microbatches a step), or exactly ``want`` when
-    given (a context rank's share). Returns the step losses, the
+    given (a context rank's share; ``False``: rank 0's). Returns the
+    step losses, the
     timing record, rank 0's records, each rank's record and the launches
     summed."""
     from tpudist_torch import config as config_lib
@@ -5186,6 +5245,10 @@ def _mesh_cli(torch, fa, card: str, tag: str, argv, seq: int,
     if want is None:
         want = want_launches(fa, cfg.model, seq, n_accum * cfg.epochs * (
             cfg.data.n_samples // cfg.batch_size), cfg.epochs, fused=fused)
+    elif want is False:
+        # a tuned run's point (remat, accumulation) is the tuner's: every
+        # rank holds rank 0's launches, which the caller compares
+        want = ranks[0]["counts"]
     total = dict.fromkeys(want, 0)
     for r in ranks:
         if r["counts"] != want:
@@ -6740,34 +6803,6 @@ def expert_drift(torch, fa, fx, card: str) -> int:
     return 0
 
 
-def only_expert(torch, fa, fx, card: str) -> int:
-    """``--only-expert``: phase 3's kernel checks of rows 1, 2, 5 and 6,
-    phase 18a (24a's and 24b's reference), then phase 24 on the visible
-    cards, then the result line."""
-    import torch.nn.functional as F
-
-    check_flash(torch, fa, F)
-    check_flash_bwd(torch, fa)
-    check_fused_xent(torch, fx)
-    ref = {}
-    paths = moe_train(torch, fa, fx, card, ref)
-    torch.cuda.empty_cache()
-    paths.update(expert_body(torch, fa, card, ref))
-    if torch.cuda.device_count() >= 2:
-        paths.update(expert_cli(torch, fa, fx, card, ref))
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dqkv",
-                 "fused_xent_fwd", "fused_xent_bwd"):
-        missing = [p for p in paths if paths[p].get(name, 0) < 1]
-        if missing:
-            fail(f"{name} launched no time on {missing}")
-    print(json.dumps({"launches": paths}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
-
-
 CONTEXT_PATHS = ("train_context_ring_virtual",)
 # 25b: BASELINE config #5 at full width, seq 2048, batch 8, f32, 16
 # samples (2 steps an epoch), 2 epochs: 4 steps and 2 evals, per-step
@@ -6857,6 +6892,68 @@ def _virtual_ring(torch, ring, q, k, v, do, n: int, use_flash: bool):
     return o, grads, rows
 
 
+def context_unsupported_hops(torch, card: str) -> None:
+    """Phase 25a, the hop shape the kernel does not take: the zigzag ring
+    at the MoE's hop shape under ``--context 4`` at seq 512 (b8, s_local
+    128, hops of 64, h16 kv16 hd128, f32) over 4 virtual ranks. Left to
+    pick its route (``use_flash=None``) on the card it raises before any
+    launch, and the train CLI's ``check_context`` refuses that
+    --seq-len / --context pair on the card (and takes it on the CPU);
+    the einsum ring (``use_flash=False``, the hops' plain version) is
+    held against one dense causal call at phase 3's f32 tolerances,
+    forward and grads. No kernel is launched."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import train as train_lib
+    from tpudist_torch.ops import ring_attention as ring
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    n, b, s, h, hd = 4, 8, 512, 16, 128
+    q, k, v, do = (torch.randn(b, s, h, hd, device="cuda", generator=gen)
+                   for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    torch.cuda.synchronize()
+    _reset_launches(fa, fx)
+    try:
+        _virtual_ring(torch, ring, q, k, v, do, n, None)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    cfg = config_lib.parse_args(["--model", "moe", "--seq-len", str(s),
+                                 "--context", str(n),
+                                 "--train-batch-size", str(b)])
+    train_lib.check_context(cfg, n)
+    try:
+        train_lib.check_context(cfg, n, device_type="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    o, grads, rows = _virtual_ring(torch, ring, q, k, v, do, n, False)
+    torch.cuda.synchronize()
+    counts = _launch_counts(fa, fx)
+    dense = fa.flash_attention_plain(q, k, v, causal=True)[0][:, rows]
+    g_dense = torch.autograd.grad(dense, (q, k, v), do[:, rows])
+    err = (o - dense).abs().max().item()
+    gerrs = [((g - r).abs().max() / r.abs().max()).item()
+             for g, r in zip(grads, g_dense)]
+    print(f"context ring 25a b{b} s{s} h{h} kv{h} hd{hd} float32, {n} "
+          f"virtual ranks (hops of {s // n // 2}): the route left to the "
+          f"ring raised {raised!r}; check_context on the card refused "
+          f"{refused!r}; the einsum ring against one dense causal call: "
+          f"forward max |d| {err:.3e} (tol {ATOL['float32']}), dq/dk/dv "
+          f"max |d| / max |ref| {[f'{e:.3e}' for e in gerrs]} (tol "
+          f"{BWD_RTOL['float32']}); kernel launches {counts}; {card}")
+    if raised is None or refused is None or any(counts.values()):
+        fail(f"context ring 25a: at hops of {s // n // 2} the card's ring "
+             f"raised {raised!r}, check_context refused {refused!r}, "
+             f"launches {counts}")
+    if err > ATOL["float32"] or max(gerrs) > BWD_RTOL["float32"]:
+        fail("context ring 25a: the einsum ring disagrees with dense "
+             "attention")
+
+
 def context_ring(torch, fa, fx, F, card: str, records):
     """Phase 25a (one card): :func:`ring_merge_check`; then the zigzag
     ring with flash hops over 4 virtual ranks in one process (the
@@ -6866,7 +6963,8 @@ def context_ring(torch, fa, fx, F, card: str, records):
     causal ``flash_attention`` call over the whole sequence and against
     the port's einsum ring on the same inputs, at phase 3's tolerances
     (forward max |d| f32 1e-4 / bf16 3e-2, grads max |d| / max |ref|
-    f32 1e-4 / bf16 5e-2). The launch counts are set to 0 just before
+    f32 1e-4 / bf16 5e-2); :func:`context_unsupported_hops`. The launch
+    counts are set to 0 just before
     the flash ring's forward and backward and read just after: per
     virtual rank 1 + 2 (n - 1) forward calls, each with its merged
     backward (s_local 512, c 256), no split pair. Then the forward and
@@ -6925,6 +7023,7 @@ def context_ring(torch, fa, fx, F, card: str, records):
                  f"disagrees or launched {counts}, want {want}")
         del q, k, v, do, o, grads, whole, g_whole, o_e, g_e
         torch.cuda.empty_cache()
+    context_unsupported_hops(torch, card)
 
     # the hop shapes' times: a remote hop's unmasked chunk call and the
     # local causal call, f32 and (the chunk) bf16 with compact kv
@@ -6994,7 +7093,7 @@ def context_ring(torch, fa, fx, F, card: str, records):
     return {CONTEXT_PATHS[0]: total}
 
 
-def context_cli(torch, fa, fx, card: str):
+def context_cli(torch, fa, fx, card: str, ones=None):
     """Phase 25b (two cards or more): the train CLI at one NCCL process a
     card, each run beside one card's run of the same flags over 4 steps
     (the transformer within ``CP_ATOL`` absolute, the MoE at rtol 2e-3 /
@@ -7011,7 +7110,8 @@ def context_cli(torch, fa, fx, card: str):
     (:func:`want_launches`); each run's step time and tokens/s/chip
     beside one card's, rank 0's exposed comm share from a
     ``--profile-window 1`` capture, rank 0's collectives line. Returns
-    the paths' launches."""
+    the paths' launches; ``ones`` (a dict) gets the one-card runs' records
+    by tag (``one``, ``one_fused``, ``one_moe``)."""
     from tpudist_torch import config as config_lib
 
     t0 = time.perf_counter()
@@ -7038,7 +7138,8 @@ def context_cli(torch, fa, fx, card: str):
                      ("e2c2", ["--expert", "2", "--context", "2"]))]
     one_argv = {"one": CONTEXT_ARGV, "one_fused": fused,
                 "one_moe": CONTEXT_MOE_ARGV}
-    paths, ones = {}, {}
+    paths = {}
+    ones = {} if ones is None else ones
     for tag, argv, one_tag in runs:
         if one_tag not in ones:
             paths[f"train_cp_{one_tag}"], ones[one_tag] = _one_card(
@@ -7119,34 +7220,634 @@ def _cp_superstep(torch, fa, card: str, per_step):
     return {tag: run["counts"]}
 
 
-def only_context(torch, fa, fx, card: str) -> int:
-    """``--only-context``: phase 3's flash checks (rows 1-4, and the
-    fused head's, rows 5-6), phase 25a, then 25b on the visible cards
-    (its one-card runs, phase 5's configuration at 4 steps, are its
-    references), then the kernels' launches by path and the result
-    line."""
+# ------------------------------------------------------------- phase 26
+
+OVERLAP_PATHS = ("train_overlap_off", "train_overlap_bucketed_4mb",
+                 "train_overlap_bucketed_1mb", "train_overlap_superstep")
+# 26a and 26b: phase 6's flags (config #5 at seq 512, f32, the plain
+# head), 16 samples (2 steps an epoch), 2 epochs: 4 steps and 2 evals,
+# per-step with a step record a step
+OVERLAP_ARGV = ["--model", "transformer", "--seq-len", "512",
+                "--train-batch-size", "8", "--n-samples", "16", "--epochs",
+                "2", "--seed", "42", "--log-every", "1",
+                "--steps-per-dispatch", "1", "--lm-head", "plain"]
+BUCKETED = ["--grad-overlap", "bucketed"]
+
+
+def _overlap_body_rank(port, queue):
+    """Phase 26a in a process of its own: a one-rank NCCL group and no
+    mesh, so the step is the replicated data-parallel body with its
+    gradient mean issued (one all-reduce a param). Phase 6's model
+    (``OVERLAP_ARGV``) over 8 steps on the CLI's data (two epochs' slabs
+    of 4): ``--grad-overlap off``, then ``bucketed`` at 4 MB and at 1 MB
+    (a hook a param counts down its bucket; the reduces issued with
+    ``async_op=True`` as the backward produces them), then the bucketed
+    4 MB step as the k = 4 superstep (epoch 0's window eager with the
+    two captures, epoch 1's replayed: the hooks' async all-reduces and
+    their waits inside the graph). Launch counts set to 0 just before
+    each run and read just after."""
+    import torch
+
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import data as data_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.obs import devtime as devtime_lib
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+    from tpudist_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = distributed.initialize(f"localhost:{port}", 1, 0, device="cuda")
+    dev = ctx.device
+    base = config_lib.parse_args(OVERLAP_ARGV)
+    m = base.model
+    tokens = data_lib.make_synthetic_tokens(
+        32, m.max_seq_len + 1, m.vocab_size, base.data.seed)
+    slabs = [torch.as_tensor(data_lib.plan_epoch(
+        (tokens,), batch_size=base.batch_size, seed=base.seed,
+        epoch=e).slab(0, 4)[0], device=dev).long() for e in range(2)]
+
+    def leaves(state):
+        return [t.detach().clone() for t in (
+            *state.params.parameters(), *state.opt_state.mu,
+            *state.opt_state.nu)]
+
+    out = {"rank": 0, "world": ctx.process_count, "runs": {}}
+    ref = None
+    for tag, flags in zip(OVERLAP_PATHS[:3], (
+            [], BUCKETED + ["--grad-bucket-mb", "4"],
+            BUCKETED + ["--grad-bucket-mb", "1"])):
+        cfg = config_lib.parse_args(OVERLAP_ARGV + flags)
+        state = engine_lib.init_state(cfg, dev)
+        step = engine_lib.make_train_step(cfg, dev)
+        torch.cuda.synchronize()
+        _reset_launches(fa, fx)
+        losses, ms = [], []
+        for e in range(2):
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, (slabs[e][i],))
+                losses.append(loss.item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        got = leaves(state)
+        run = {"losses": losses, "ms": ms, "counts": _launch_counts(fa, fx),
+               "ops": devtime_lib.collective_bytes(step.reduced_operands())}
+        if ref is None:
+            ref = (losses, got)
+            run["same"] = True
+        else:
+            run["same"] = losses == ref[0] and all(
+                torch.equal(x, y) for x, y in zip(got, ref[1]))
+        out["runs"][tag] = run
+        del state, step, got
+        torch.cuda.empty_cache()
+
+    cfg = config_lib.parse_args(OVERLAP_ARGV + BUCKETED
+                                + ["--grad-bucket-mb", "4"])
+    state = engine_lib.init_state(cfg, dev)
+    sup = engine_lib.make_superstep(cfg, dev, 4)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    _reset_launches(fa, fx)
+    sup_losses = []
+    for e in range(2):
+        t0 = time.perf_counter()
+        state, total, got = sup(state, total, (slabs[e],), 0, 4)
+        sup_losses += got.tolist()
+        out[f"window{e}_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["runs"][OVERLAP_PATHS[3]] = {
+        "losses": sup_losses, "counts": _path_launches(fa, fx, [sup]),
+        "graphs": (sup.programs, dict(sup.replays)),
+        "pool_mb": sup.graph_pool_bytes / 2**20,
+        "same": sup_losses == ref[0] and all(
+            torch.equal(x, y) for x, y in zip(leaves(state), ref[1]))}
+    sup.release()
+    del state, ref
+    distributed.shutdown()
+    queue.put(out)
+
+
+def overlap_body(torch, fa, card: str):
+    """Phase 26a (one card): :func:`_overlap_body_rank` in a spawned
+    process. Fails unless ``bucketed`` at 4 MB and at 1 MB is bitwise
+    ``off`` after 8 steps (every loss, param, ``mu`` and ``nu``), its k =
+    4 superstep bitwise too (2 programs, one replay), every run's
+    launches exact (flash forward and merged backward 4 x 8), and the
+    collective rows equal across modes. Prints the step times and the
+    rows. Returns the paths' launches."""
+    from tpudist_torch import config as config_lib
+
+    t0 = time.perf_counter()
+    m = config_lib.parse_args(OVERLAP_ARGV).model
+    (r,) = _spawn(_overlap_body_rank, [(_free_port(),)], 600,
+                  "train overlap body")
+    want = want_launches(fa, m, 512, 8, 0, fused=False)
+    runs = r["runs"]
+    print(f"train overlap body: phase 6's model (V{m.vocab_size} "
+          f"L{m.n_layers} d{m.d_model}), f32, batch 8, seq 512, the "
+          f"replicated step on {r['world']} NCCL rank; {card}")
+    for tag, run in runs.items():
+        line = (f"train {tag}: losses {run['losses']}; bitwise the off "
+                f"run: {run['same']}; kernel launches {run['counts']} "
+                f"(want {want})")
+        if "ms" in run:
+            line += (f"; step {statistics.median(run['ms'][1:]):.3f} ms "
+                     f"(median after the first, host clock fenced)")
+        else:
+            line += (f"; (programs, replays) {run['graphs']}; windows "
+                     f"{r['window0_s']:.3f} s (eager + captures), "
+                     f"{r['window1_s']:.3f} s (replayed); graph pool "
+                     f"{run['pool_mb']:.1f} MB")
+        print(line)
+        if not run["same"]:
+            fail(f"train {tag}: not bitwise the off run")
+        if run["counts"] != want:
+            fail(f"train {tag}: kernel launches {run['counts']}, want "
+                 f"{want}")
+    ops = {tag: runs[tag]["ops"] for tag in OVERLAP_PATHS[:3]}
+    print(f"train overlap body: collectives a step "
+          f"{ops[OVERLAP_PATHS[0]]['n_collectives']} "
+          f"({ops[OVERLAP_PATHS[0]]['ici_bytes_total']} B)")
+    if any(o != ops[OVERLAP_PATHS[0]] for o in ops.values()):
+        fail(f"train overlap body: the modes' collectives differ: {ops}")
+    if runs[OVERLAP_PATHS[3]]["graphs"] != (2, {"superstep": 1, "step": 0}):
+        fail(f"train overlap body: (programs, replays) "
+             f"{runs[OVERLAP_PATHS[3]]['graphs']}")
+    print(f"train overlap body: phase 26a {time.perf_counter() - t0:.1f} s")
+    return {tag: run["counts"] for tag, run in runs.items()}
+
+
+def _probe_watch_rank(rank, world, port, argv, verdict, queue):
+    """``_dp_train_rank`` with each tuner probe's candidate printed (the
+    bucket axis's trials among them)."""
+    from tpudist_torch import tune
+
+    real = tune.probe_mod.probe_candidate
+
+    def probe(cfg, device, cand, plan, **kw):
+        print(f"chip_smoke: probe k={cand.k} grad_bucket_mb="
+              f"{cand.grad_bucket_mb} remat={cand.remat} grad_accum="
+              f"{cand.grad_accum_steps}")
+        return real(cfg, device, cand, plan, **kw)
+    tune.probe_mod.probe_candidate = probe
+    _dp_train_rank(rank, world, port, argv, verdict, queue)
+
+
+def _refused_rank(rank, world, port, argv, verdict, queue):
+    """One rank of a run the train CLI refuses: its exit code and its
+    stdout and stderr."""
+    os.environ.update(TPUDIST_COORDINATOR=f"localhost:{port}",
+                      TPUDIST_NUM_PROCESSES=str(world),
+                      TPUDIST_PROCESS_ID=str(rank),
+                      TPUDIST_VERDICT_PATH=verdict)
+    from tpudist_torch import train as train_lib
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee), contextlib.redirect_stderr(tee):
+        rc = train_lib.main(argv)
+    queue.put({"rank": rank, "rc": rc, "out": tee.buf.getvalue()})
+
+
+def _grad_dcn(run) -> int:
+    """The gradient rows' cross-slice bytes of a run's devtime record
+    (the rows above the 4-byte loss all-reduce)."""
+    (rec,) = [r for r in run["recs"] if r["kind"] == "devtime"]
+    return sum(r["dcn_bytes"] for r in rec["collectives"] if r["bytes"] > 64)
+
+
+def overlap_cli(torch, fa, fx, card: str):
+    """Phase 26b (two cards or more): the train CLI at ``--data <cards>``,
+    one NCCL process a card, phase 6's flags (``OVERLAP_ARGV``) with
+    ``--profile-window 1``: ``off``, ``bucketed`` at 4 MB and at 64 MB,
+    bitwise on every rank (the step records and the epochs; a rank's
+    replica is the one it reduced); the bucketed step as the k = 2
+    superstep (epoch 0's window eager with the captures, epoch 1's
+    replayed), its records bitwise its per-step run's; under
+    ``TPUDIST_SLICE_MAP=2`` (two slices of cards) ``flat`` (off) against
+    ``hierarchical`` (bucketed), bitwise, the gradients' cross-slice
+    bytes in the ratio 2; ``--autotune probe`` with ``bucketed`` (the
+    bucket axis probed, the committed steps/s at least the start's, the
+    losses bitwise an untuned run's at the point); ``--fsdp 2 --data 2
+    --grad-overlap bucketed`` refused on every rank with the JAX
+    package's message. Every verdict ``success`` and exact launches a
+    rank. Prints each run's step time and rank 0's exposed comm share of
+    its window beside ``off``'s, with ``comm_status``. Returns the
+    paths' launches."""
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    data = ["--data", str(world)]
+    window = ["--profile-window", "1"]
+    paths, got = {}, {}
+
+    def one(tag, flags, env=None, rank_fn=None, argv=OVERLAP_ARGV,
+            want=None):
+        os.environ.update(env or {})
+        try:
+            run = _mesh_cli(torch, fa, card, tag, argv + data + flags, 512,
+                            rank_fn=rank_fn, want=want)
+        finally:
+            for k in env or {}:
+                del os.environ[k]
+        got[tag] = run
+        paths[tag] = run["counts"]
+        t = run["timing"]
+        dev = [r for r in run["recs"] if r["kind"] == "devtime"]
+        rec = dev[0] if dev else {}
+        print(f"train {tag}: step {1e3 * t['run_s'] / t['steps']:.3f} ms; "
+              f"rank 0's window {rec.get('window_s')} s: compute "
+              f"{rec.get('compute_s')} s, comm {rec.get('comm_s')} s, "
+              f"exposed {rec.get('exposed_comm_s')} s, exposed share "
+              f"{rec.get('exposed_comm_frac')} ({rec.get('comm_status')}, "
+              f"{rec.get('fabric')}); {card}")
+        return run
+
+    def records(run):
+        return ([r["loss"] for r in run["recs"] if r["kind"] == "step"],
+                [(r["avg_loss"], r["eval_loss"]) for r in run["recs"]
+                 if r["kind"] == "epoch"])
+
+    off = records(one("train_overlap_dp_off", window))
+    for mb in ("4", "64"):
+        tag = f"train_overlap_dp_bucketed_{mb}mb"
+        run = one(tag, BUCKETED + ["--grad-bucket-mb", mb] + window)
+        line = (f"tpudist: grad overlap bucketed: bucket {mb} MB over the "
+                f"data axis (reduce dispatched as backward produces each "
+                f"bucket)")
+        if line not in run["ranks"][0]["out"]:
+            fail(f"train {tag}: rank 0 did not print {line!r}")
+        print(f"train {tag}: records {records(run)} against off's {off}: "
+              f"bitwise {records(run) == off}")
+        if records(run) != off:
+            fail(f"train {tag}: not bitwise the off run")
+
+    # the superstep, its hooks' async all-reduces captured
+    sup_argv = list(OVERLAP_ARGV)
+    sup_argv[sup_argv.index("--log-every") + 1] = "2"
+    sup_argv[sup_argv.index("--steps-per-dispatch") + 1] = "2"
+    run = one("train_overlap_dp_superstep", BUCKETED
+              + ["--grad-bucket-mb", "4"], argv=sup_argv)
+    rec = records(run)
+    ref = ([off[0][1], off[0][3]], off[1])
+    graphs = [r["graphs"] for r in run["ranks"]]
+    print(f"train overlap superstep: k = 2, step records and epochs {rec} "
+          f"against the per-step run's {ref}: bitwise {rec == ref}; each "
+          f"rank's (programs, replays) {graphs}")
+    if rec != ref:
+        fail("train overlap superstep: not bitwise its per-step run")
+    if any(g != [(2, {"superstep": 1, "step": 0})] for g in graphs):
+        fail(f"train overlap superstep: (programs, replays) {graphs}")
+
+    # two slices of cards: the ladder, flat against hierarchical
+    if world % 2 == 0:
+        env = {"TPUDIST_SLICE_MAP": "2"}
+        flat = one("train_overlap_dp_flat", window, env)
+        hier = one("train_overlap_dp_hierarchical",
+                   BUCKETED + ["--grad-bucket-mb", "4", "--cross-slice",
+                               "hierarchical"] + window, env)
+        a, b = _grad_dcn(flat), _grad_dcn(hier)
+        print(f"train overlap slices: flat {records(flat)} against "
+              f"hierarchical {records(hier)}: bitwise "
+              f"{records(flat) == records(hier)}; the gradients' "
+              f"cross-slice bytes {a} against {b} ({a / max(b, 1):.4f}x)")
+        if records(flat) != records(hier):
+            fail("train overlap slices: flat and hierarchical differ")
+        if a != 2 * b or not b:
+            fail(f"train overlap slices: cross-slice bytes {a} against "
+                 f"{b}, want the ratio 2")
+
+    # the tuner's bucket axis
+    cache = ROOT / "build" / "chip_smoke_train" / "overlap_tune_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    run = one("train_overlap_dp_tuned", BUCKETED + [
+        "--grad-bucket-mb", "4", "--autotune", "probe",
+        "--autotune-cache-dir", str(cache)], rank_fn=_probe_watch_rank,
+        want=False)
+    shutil.rmtree(cache, ignore_errors=True)
+    t = _tune_record("train_overlap_dp_tuned", run)
+    probed = sorted({float(ln.split("grad_bucket_mb=")[1].split()[0])
+                     for ln in run["ranks"][0]["out"].splitlines()
+                     if ln.startswith("chip_smoke: probe")
+                     and "grad_bucket_mb=None" not in ln})
+    print(f"train overlap tuned: {t['status']} ({t['source']}), "
+          f"{t['trials']} trial(s); bucket bounds probed {probed} MB; "
+          f"committed {_point(t)}, grad_bucket_mb {t['grad_bucket_mb']}: "
+          f"{t['steps_per_sec']} steps/s against the start's "
+          f"{t['baseline_steps_per_sec']}")
+    if len(probed) < 2:
+        fail(f"train overlap tuned: the bucket axis was not probed: "
+             f"{probed}")
+    if t["status"] != "success" or t["source"] != "probe" \
+            or t["steps_per_sec"] < t["baseline_steps_per_sec"]:
+        fail(f"train overlap tuned: {t}")
+    point = _at_point(t) + ["--grad-bucket-mb", repr(t["grad_bucket_mb"])]
+    argv = list(OVERLAP_ARGV)
+    argv[argv.index("--steps-per-dispatch"):
+         argv.index("--steps-per-dispatch") + 2] = []
+    at = one("train_overlap_dp_tuned_point", BUCKETED + point, argv=argv,
+             want=False)
+    print(f"train overlap tuned: records {records(run)} against an "
+          f"untuned run's at the point {records(at)}: bitwise "
+          f"{records(run) == records(at)}; launches a rank "
+          f"{run['ranks'][0]['counts']} against {at['ranks'][0]['counts']}")
+    if records(run) != records(at) \
+            or run["ranks"][0]["counts"] != at["ranks"][0]["counts"]:
+        fail("train overlap tuned: not bitwise an untuned run at the "
+             "point")
+
+    # a sharded mesh refuses the flag, with the JAX engine's message
+    if world % 4 == 0:
+        save = ROOT / "build" / "chip_smoke_train" / "overlap_refused"
+        shutil.rmtree(save, ignore_errors=True)
+        argv = OVERLAP_ARGV + ["--fsdp", "2", "--data", str(world // 2)] \
+            + BUCKETED + ["--save-dir", str(save)]
+        port = _free_port()
+        ranks = _spawn(_refused_rank, [
+            (r, world, port, argv, str(save / "job_status.txt"))
+            for r in range(world)], 300, "train overlap refused")
+        shutil.rmtree(save, ignore_errors=True)
+        msg = ("--grad-overlap bucketed requires the explicit-collective "
+               "pure-DP mesh (only the 'data' axis > 1); this mesh routes "
+               "gradients through the jit+shardings partitioner")
+        refused = [r["rc"] == 1 and msg in r["out"] for r in ranks]
+        print(f"train overlap refused: --fsdp 2 --data {world // 2} "
+              f"--grad-overlap bucketed: exit codes "
+              f"{[r['rc'] for r in ranks]}, the JAX message on every rank "
+              f"{all(refused)}")
+        if not all(refused):
+            fail("train overlap refused: a rank did not refuse with the "
+                 "JAX message")
+    print(f"train overlap cli: phase 26b {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+SWEEP_KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+               "ppermute")
+
+
+def _collective_check_rank(rank, world, port, queue):
+    """26c's check in a process of its own (one NCCL rank a card): each
+    kind at 1 MB against its closed form (``collectives.expected``) on
+    the card."""
+    import torch
+
+    from tpudist_torch.ops import collectives
+    from tpudist_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{port}", world, rank, device="cuda")
+    out = {"rank": rank}
+    for kind in SWEEP_KINDS:
+        op, _, nbytes = collectives.build_op(kind, message_bytes=2**20,
+                                             device=torch.device("cuda"))
+        got = op()
+        want = collectives.expected(kind, world, rank, 2**20).cuda()
+        out[kind] = (nbytes, bool(torch.equal(got, want)))
+    torch.cuda.synchronize()
+    distributed.shutdown()
+    queue.put(out)
+
+
+def _sweep_cli(world: int, argv, timeout_s: float):
+    """``python -m tpudist_torch.bench.sweep`` as one process a visible
+    card under the env contract; returns each rank's exit code and rank
+    0's output. Every process is gone when it returns."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, TPUDIST_COORDINATOR=f"localhost:{port}",
+                   TPUDIST_NUM_PROCESSES=str(world),
+                   TPUDIST_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tpudist_torch.bench.sweep", *argv],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs[0]
+
+
+def overlap_sweep(torch, card: str) -> None:
+    """Phase 26c: each collective's result at 1 MB against its closed
+    form on the card (one NCCL process a card), then ``python -m
+    tpudist_torch.bench.sweep`` over one process a card: all five kinds
+    from 1 MB to 1 GB, its exit code and verdict file those of
+    ``gate(records)``, whatever it says, then ``--peak-gbps`` far below
+    and far above the measured bus bandwidth (exit 0 and ``success``,
+    exit 1 and ``fail``). Prints the best bus GB/s per kind and its
+    percentage of the peak the sweep gated on, the NVLink status it was
+    read from and the topology (``nvidia-smi topo -m``)."""
+    from tpudist_torch.bench import sweep
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    port = _free_port()
+    ranks = _spawn(_collective_check_rank,
+                   [(r, world, port) for r in range(world)], 300,
+                   "collectives check")
+    for r in ranks:
+        bad = [k for k in SWEEP_KINDS if not r[k][1]]
+        if bad:
+            fail(f"collectives: rank {r['rank']}'s {bad} at 1 MB differ "
+                 f"from their closed form")
+    print(f"collectives: {list(SWEEP_KINDS)} at 1 MB over {world} NCCL "
+          f"rank(s) equal their closed form on every rank; {card}")
+    for args in (["nvlink", "--status", "-i", "0"], ["topo", "-m"]):
+        out = sweep._smi(*args)
+        print(f"nvidia-smi {' '.join(args)}:\n{(out or '(none)').rstrip()}")
+    tmp = ROOT / "build" / "chip_smoke_sweep"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    rows, verdict = tmp / "sweep.jsonl", tmp / "status.txt"
+    rcs, out = _sweep_cli(world, [
+        "--kinds", ",".join(SWEEP_KINDS), "--min-mb", "1", "--max-mb",
+        "1024", "--iters", "10", "--out", str(rows), "--verdict-path",
+        str(verdict), "--bench-out", str(tmp / "BENCH_COLLECTIVES.json")],
+        900)
+    for line in out.splitlines():
+        if line.startswith("tpudist: sweep on"):
+            print(line)
+    records = [json.loads(ln) for ln in rows.read_text().splitlines()]
+    g = sweep.gate(records, 90.0)
+    want_rc = {True: 0, False: 1, None: 3}[g["ok"]]
+    want_status = {True: "success", False: "fail", None: "ungateable"}[
+        g["ok"]]
+    status = verdict.read_text() if verdict.is_file() else None
+    best = {}
+    for r in records:
+        if r["bus_gbps"] > best.get(r["kind"], (0, None))[0]:
+            best[r["kind"]] = (r["bus_gbps"], r)
+    for kind, (gbps, r) in best.items():
+        pct = r["pct_of_ring_peak"]
+        print(f"collectives sweep: {kind} best bus {gbps:.2f} GB/s at "
+              f"{r['message_bytes']} B (algo {r['algo_gbps']:.2f} GB/s, "
+              f"min {r['min_s'] * 1e3:.4f} ms, mean "
+              f"{r['mean_s'] * 1e3:.4f} ms); "
+              + (f"{pct:.1f} % of the peak" if pct is not None
+                 else "no peak to gate on") + f"; {world} cards; {card}")
+    print(f"collectives sweep: exit codes {rcs}, verdict {status!r}; "
+          f"gate(records) {g}")
+    if rcs != [want_rc] * world or status != want_status:
+        fail(f"collectives sweep: exit codes {rcs} and verdict {status!r}, "
+             f"gate(records) says {want_rc} and {want_status!r}")
+    # one card moves no bytes between cards: its all-reduce bus rate is
+    # 0 by the nccl-tests factor 2 (n - 1) / n, so there is no rate to
+    # set a peak far below or above (its gate is ungateable, held above)
+    bus = best["all_reduce"][0] if world > 1 else None
+    for peak, rc, word in (() if bus is None else
+                           ((bus / 1e3, 0, "success"),
+                            (bus * 1e3, 1, "fail"))):
+        verdict.unlink(missing_ok=True)
+        rcs, _ = _sweep_cli(world, [
+            "--kinds", "all_reduce", "--min-mb", "1024", "--max-mb", "1024",
+            "--iters", "3", "--peak-gbps", repr(peak), "--verdict-path",
+            str(verdict)], 300)
+        status = verdict.read_text() if verdict.is_file() else None
+        print(f"collectives sweep: --peak-gbps {peak:.4f}: exit codes "
+              f"{rcs}, verdict {status!r}")
+        if rcs != [rc] * world or status != word:
+            fail(f"collectives sweep: --peak-gbps {peak}: exit codes {rcs},"
+                 f" verdict {status!r}, want {rc} and {word!r}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"collectives: phase 26c {time.perf_counter() - t0:.1f} s")
+
+
+def _cp_fault_rank(rank, world, port, argv, verdict, queue):
+    """``_dp_train_rank`` with a fault planted for ``--context-drift``:
+    the context ranks left out of the step's mean (each rank's grads and
+    loss its own sequence chunk's, never averaged over the chunks)."""
+    from tpudist_torch import engine as engine_lib
+
+    real = engine_lib.make_layout
+
+    def make_layout(*args, **kw):
+        lay = real(*args, **kw)
+        lay.mean_group = lay.batch_group
+        return lay
+    engine_lib.make_layout = make_layout
+    engine_lib.ShardLayout.mean_ways = property(lambda self: self.batch)
+    _dp_train_rank(rank, world, port, argv, verdict, queue)
+
+
+def context_drift(torch, fa, fx, card: str, one) -> None:
+    """``--context-drift`` (two cards or more, beside ``--only-context``):
+    25b's ``--context <cards>`` ring run with :func:`_cp_fault_rank`'s
+    fault in every spawned rank, against 25b's one-card run (``one``);
+    prints each ``|d|`` and whether 25b's hold (``CP_ATOL``) passes it.
+    Fails only if the run fails."""
+    t0 = time.perf_counter()
+    tag = "drift_cp_mean"
+    argv = CONTEXT_ARGV + ["--context", str(torch.cuda.device_count())]
+    run = _mesh_cli(torch, fa, card, tag, argv, 2048,
+                    rank_fn=_cp_fault_rank, want=want_launches(
+                        fa, _model_of(argv), 2048, 4, 2, False,
+                        torch.cuda.device_count(), "ring"))
+    got = {"losses": run["losses"], "epochs": [
+        (r["avg_loss"], r["eval_loss"]) for r in run["recs"]
+        if r["kind"] == "epoch"]}
+    a, b, worst, err = _expert_gap(got, one, 0.0)
+    print(f"drift {tag}: the context ranks left out of the step's mean; "
+          f"step losses and epochs (Avg, eval) {a} against one card's {b}: "
+          f"|d| {[abs(x - y) for x, y in zip(a, b)]}, max {worst:.6f}; "
+          f"25b's hold ({CP_ATOL} absolute) "
+          f"{'passes' if err <= CP_ATOL else 'fails'} it; {card}")
+    print(f"context drift: {time.perf_counter() - t0:.1f} s")
+
+
+def _model_of(argv):
+    from tpudist_torch import config as config_lib
+    return config_lib.parse_args(argv).model
+
+
+def _guarded(what: str, fn, *args):
+    """``fn(*args)``; a phase that fails (``fail``'s exit, or an
+    exception) is reported and its paths left out, so the modes after it
+    still run. Returns ``(paths, ok)``."""
+    try:
+        return fn(*args), True
+    except SystemExit as e:
+        print(f"chip_smoke: {what} failed ({e.code}); going on",
+              flush=True)
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        print(f"chip_smoke: {what} raised; going on", flush=True)
+    return {}, False
+
+
+def only_modes(torch, fa, fx, card: str, args) -> int:
+    """``--only-overlap``, ``--only-expert`` and ``--only-context`` (any
+    of them, with ``--context-drift`` beside the last), in one run:
+    phase 3's checks of the flash and fused-head kernels once, then each
+    mode's phases, a mode that fails reported and the next run; then the
+    kernels' launches by path, and the result line unless a mode
+    failed. ``--only-overlap`` is phases 26a-c."""
     import torch.nn.functional as F
 
     fwd = check_flash(torch, fa, F)
     check_flash_bwd(torch, fa)
     check_fused_xent(torch, fx)
-    paths = context_ring(torch, fa, fx, F, card, [fwd])
-    if torch.cuda.device_count() >= 2:
-        paths.update(context_cli(torch, fa, fx, card))
+    paths, failed = {}, []
+    multi = torch.cuda.device_count() >= 2
+
+    def run(what, fn, *a):
+        got, ok = _guarded(what, fn, *a)
+        paths.update(got)
+        if not ok:
+            failed.append(what)
+        torch.cuda.empty_cache()
+
+    if args.only_overlap:
+        run("26a", overlap_body, torch, fa, card)
+        if multi:
+            run("26b", overlap_cli, torch, fa, fx, card)
+        run("26c", lambda: overlap_sweep(torch, card) or {})
+    if args.only_context:
+        run("25a", context_ring, torch, fa, fx, F, card, [fwd])
+        if multi:
+            ones = {}
+            run("25b", context_cli, torch, fa, fx, card, ones)
+            if args.context_drift and "one" in ones:
+                run("drift", lambda: context_drift(
+                    torch, fa, fx, card, ones["one"]) or {})
+    before = set(paths)
+    if args.only_expert:
+        ref = {}
+        run("18a", moe_train, torch, fa, fx, card, ref)
+        if ref:
+            run("24a", expert_body, torch, fa, card, ref)
+            if multi:
+                run("24b", expert_cli, torch, fa, fx, card, ref)
+    # the MoE's paths run the fused head as well
+    expert = set(paths) - before
     # every path ran the flash forward and a backward (the merged kernel
     # or the split pair, as its lengths route it); the exact counts were
     # held path by path
     bwd = ("flash_attention_bwd_dq", "flash_attention_bwd_dqkv")
     missing = [p for p in paths if paths[p]["flash_attention_fwd"] < 1
-               or sum(paths[p][name] for name in bwd) < 1]
+               or sum(paths[p][name] for name in bwd) < 1
+               or (p in expert and min(paths[p]["fused_xent_fwd"],
+                                       paths[p]["fused_xent_bwd"]) < 1)]
+    print(json.dumps({"launches": paths,
+                      "hop_timings": fwd.get("hop_timings")}))
     if missing:
         fail(f"the flash kernels launched no time on {missing}")
-    print(json.dumps({"launches": paths, "hop_timings": fwd["hop_timings"]}))
+    if failed:
+        fail(f"phase(s) {failed} failed")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
 
 
 def main() -> int:
@@ -7172,6 +7873,17 @@ def main() -> int:
                          "fused-head kernels and phase 25 alone: context "
                          "parallelism (the ring and Ulysses) on the "
                          "visible cards")
+    ap.add_argument("--only-overlap", action="store_true",
+                    help="phases 1-2, phase 3's checks of the flash and "
+                         "fused-head kernels and phase 26 alone: the "
+                         "overlap plane and the collective sweep on the "
+                         "visible cards (with --only-expert and "
+                         "--only-context: each mode after the checks, "
+                         "run once)")
+    ap.add_argument("--context-drift", action="store_true",
+                    help="beside --only-context, on two cards or more: "
+                         "25b's ring run with the context ranks left out "
+                         "of the step's mean, against 25b's hold")
     ap.add_argument("--expert-drift", action="store_true",
                     help="phases 1-2, then on two cards or more a mesh "
                          "without the expert axis, a planted expert "
@@ -7208,10 +7920,10 @@ def main() -> int:
         return only_tp(torch, fa, fx, card)
     if args.only_serve_mesh:
         return only_serve_mesh(torch, fa, fx, card)
-    if args.only_expert:
-        return only_expert(torch, fa, fx, card)
-    if args.only_context:
-        return only_context(torch, fa, fx, card)
+    if args.only_overlap or args.only_expert or args.only_context:
+        return only_modes(torch, fa, fx, card, args)
+    if args.context_drift:
+        fail("--context-drift runs beside --only-context")
     if args.expert_drift:
         if torch.cuda.device_count() < 2:
             fail("--expert-drift runs on two cards or more")

@@ -34,10 +34,45 @@ ARGS = sys.argv[1:]
 """
 
 
+def _ephemeral_low() -> int:
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+_BLOCK = 1000
+_next_port = [None]
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A port no other process is handed while a test's ranks start: one
+    below the kernel's ephemeral range (where neither a ``bind`` to port
+    0 nor an outgoing connection ever lands), from a block of its own for
+    each pytest-xdist worker (``PYTEST_XDIST_WORKER`` gw<i>; one more
+    block without xdist), each port handed out once a process and
+    checked free by a bind. A port bound at 0 and released could be
+    taken by another worker's connection before the ranks bind it."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
+    index = int(worker[2:]) if worker[2:].isdigit() else 15
+    base = _ephemeral_low() - 16 * _BLOCK + (index % 16) * _BLOCK
+    if base < 1024:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+    if _next_port[0] is None:
+        _next_port[0] = os.getpid() % _BLOCK
+    for _ in range(_BLOCK):
+        port = base + _next_port[0] % _BLOCK
+        _next_port[0] += 1
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in [{base}, {base + _BLOCK})")
 
 
 def run_ranks(code: str, world: int, *args, timeout: float = 180):

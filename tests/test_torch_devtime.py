@@ -12,7 +12,6 @@ import ast
 import inspect
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -32,6 +31,7 @@ from tpudist_torch import config as tconfig
 from tpudist_torch import engine as tengine
 from tpudist_torch import train as ttrain
 from tpudist_torch.obs import devtime as tdev
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -397,33 +397,33 @@ def test_windowed_run_device_rows_and_the_jax_report(windowed):
 # ------------------------------------------------- collective bytes
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
 
 def _pmean_operands():
-    """What ``engine.pmean`` reduces in one step of the default MLP: the
-    step run once in a one-process gloo group, ``pmean`` wrapped."""
+    """What the step's all-reduces reduce in one step of the default MLP
+    (``overlap.barrier_mean``: the grads, then the loss through
+    ``engine.pmean``), as ``(dtype, bytes)``: the step run once in a
+    one-process gloo group, ``barrier_mean`` wrapped; the step's own
+    notes name the same operands."""
     seen = []
-    real = tengine.pmean
+    real = tengine.overlap_lib.barrier_mean
 
-    def pmean(tensors):
+    def barrier_mean(tensors, **kw):
         seen.extend((t.dtype, t.numel() * t.element_size())
                     for t in tensors)
-        return real(tensors)
+        return real(tensors, **kw)
     cfg = tconfig.parse_args(["--device", "cpu", "--train-batch-size", "8"])
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
-        with mock.patch.object(tengine, "pmean", pmean):
+        with mock.patch.object(tengine.overlap_lib, "barrier_mean",
+                               barrier_mean):
             state = tengine.init_state(cfg, torch.device("cpu"))
             step = tengine.make_train_step(cfg, torch.device("cpu"))
             x = torch.zeros(8, 20)
             y = torch.zeros(8, 1)
             step(state, (x, y))
-        assert step.reduced_operands() == seen
+        assert [tuple(op[1:3]) if len(op) == 4 else op
+                for op in step.reduced_operands()] == seen
     finally:
         dist.destroy_process_group()
     return seen

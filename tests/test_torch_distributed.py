@@ -34,7 +34,6 @@ data, permutations and MLP init with numpy in hand and passes them in a
 import json
 import os
 import re
-import socket
 import subprocess
 import sys
 
@@ -52,6 +51,7 @@ from tpudist_torch import convert
 from tpudist_torch import data as tdata
 from tpudist_torch.metrics import StepTimer
 from tpudist_torch.parallel import distributed
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -105,11 +105,6 @@ if states:
 sys.exit(rc)
 """
 
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _launch(tmp, argv, nprocs, ref="-", env_by_rank=None,
@@ -377,10 +372,29 @@ def test_the_moe_carries_the_expert_axis():
 ])
 def test_overlapped_and_hierarchical_reduces_stay_refused(argv, env,
                                                           monkeypatch):
+    """The overlap plane's flags (and their twins) are carried: the
+    config check passes them, and the replicated step takes them. They
+    stay refused only where the JAX package refuses them: on a mesh that
+    splits more than the data axis (``--data 2 --fsdp 2``), with the
+    JAX engine's message."""
+    from tpudist import engine as jengine
+    from tpudist.parallel import build_mesh
+    from tpudist_torch import engine as tengine
+    from tpudist_torch.parallel import mesh as tmesh
+
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 8b$"):
-        tconfig.check_supported(tconfig.parse_args(argv))
+    tconfig.check_supported(tconfig.parse_args(argv))
+    sharded = argv + ["--data", "2", "--fsdp", "2"]
+    jcfg = jconfig.parse_args(sharded)
+    with pytest.raises(ValueError) as want:
+        jengine.make_train_step(jcfg, build_mesh(
+            jcfg.parallel, devices=jax.devices()[:4]))
+    grid = tmesh.rank_grid(tconfig.parse_args(sharded).parallel, 4)
+    with pytest.raises(ValueError) as got:
+        tengine.grad_overlap(tconfig.parse_args(sharded), grid)
+    assert str(got.value) == str(want.value)
+    assert "requires the explicit-collective pure-DP mesh" in str(got.value)
 
 
 def test_the_env_contract_is_read_not_refused():

@@ -20,7 +20,6 @@ documents have the same keys.
 import json
 import os
 import re
-import socket
 import subprocess
 import sys
 
@@ -39,6 +38,7 @@ from tpudist_torch import convert
 from tpudist_torch import engine as tengine
 from tpudist_torch.elastic import ckpt as eck
 from tpudist_torch.elastic import resume as eres
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -454,11 +454,6 @@ DP_ARGV = ["--epochs", "1", "--train-batch-size", "8", "--n-samples", "64",
            "--ckpt-mode", "sharded", "--ckpt-sync", "--ckpt-every-steps",
            "3", "--device", "cpu"]
 
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _train(save, world, extra=(), env=None):

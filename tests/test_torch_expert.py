@@ -32,7 +32,6 @@ meshes (``tests/test_moe.py:112-134,235-256``).
   refusal and message, from ``check_supported``.
 """
 
-import socket
 
 import numpy as np
 import pytest
@@ -48,6 +47,7 @@ from tpudist_torch import config as tconfig
 from tpudist_torch import data as tdata
 from tpudist_torch import engine as tengine
 from tpudist_torch.parallel import mesh as tmesh
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -119,11 +119,6 @@ def test_experts_that_expert_does_not_divide_stay_whole(expert_runs):
 
 
 # --------------------------------------------- one rank, in-process
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture

@@ -25,7 +25,6 @@ and step body of ``tpudist_torch/engine.py``) against the JAX package's.
 
 import dataclasses
 import json
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +49,7 @@ from tpudist_torch.models import get_model
 from tpudist_torch.obs import devtime as tdev
 from tpudist_torch.parallel import mesh as tmesh
 from tpudist_torch.parallel import sharding as tshd
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -413,11 +413,6 @@ def test_gather_and_scatter_along_every_dim_on_four_ranks():
 
 
 # ------------------------------------------ world 1: bitwise the DP body
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture

@@ -161,10 +161,15 @@ def test_constants_equal_jax():
 
 def test_scripted_and_served_stream_equal_jax(served, tmp_path, monkeypatch):
     """The scripted records, then the served run's: every rule the
-    aggregator grades fires (and some resolve) identically."""
+    aggregator grades fires (and some resolve) identically. The port's
+    live straggler ratio takes a rate from ``MIN_RATE_BEACONS`` beacons
+    on (``tests/test_torch_live_bus.py`` pins that rule); at 2, the
+    JAX aggregator's two samples, it is the JAX rule on this stream,
+    whose step counters never reset."""
     for k, v in SHED_ENV.items():
         monkeypatch.setenv(k, v)
     monkeypatch.delenv("TPUDIST_LIVE_BASELINE_SPS", raising=False)
+    monkeypatch.setattr(tlive, "MIN_RATE_BEACONS", 2)
     recs = _scripted() + served[1]
     t_dir, j_dir = _feed(tmp_path, recs)
     t_alerts, t_status = _files(t_dir)

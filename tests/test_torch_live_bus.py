@@ -11,6 +11,7 @@ import ast
 import inspect
 import json
 import socket
+import textwrap
 import time
 import urllib.error
 import urllib.request
@@ -54,10 +55,77 @@ def test_copies_pinned_to_their_sources(name):
     assert _code(getattr(tlive, name)) == _code(getattr(jlive, name)), name
 
 
+# the port's one change to the JAX aggregator: tick's live straggler
+# ratio takes a host's rate through live_rate (enough beacons, no reset)
+PORT_EDITS = {"tick": (
+    """                r = h["window"].rate()
+                if r and r > 0 and now - h["last_seen"] < self.window_s:""",
+    """                r = live_rate(h["window"])
+                if r and now - h["last_seen"] < self.window_s:""")}
+
+
+def _jax_code(method) -> str:
+    """The JAX method's code with the port's edit of it applied."""
+    src = inspect.getsource(getattr(jlive.LiveAggregator, method))
+    if method in PORT_EDITS:
+        old, new = PORT_EDITS[method]
+        assert src.count(old) == 1, method
+        src = src.replace(old, new)
+    tree = ast.parse(textwrap.dedent(src))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.FunctionDef, ast.ClassDef,
+                              ast.AsyncFunctionDef)) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
 @pytest.mark.parametrize("method", AGG_METHODS)
 def test_aggregator_pinned_method_by_method(method):
-    assert _code(getattr(tlive.LiveAggregator, method)) == _code(
-        getattr(jlive.LiveAggregator, method)), method
+    """Every method is the JAX code, ``tick`` with the port's one edit
+    (:data:`PORT_EDITS`)."""
+    assert _code(getattr(tlive.LiveAggregator, method)) == _jax_code(
+        method), method
+
+
+def test_live_rate_needs_enough_beacons_of_one_epoch(tmp_path):
+    """The live straggler ratio's rate: None under MIN_RATE_BEACONS
+    stepped beacons or across a reset of the step counter, else the
+    window's rate (two lockstep ranks' 3-beacon rates no longer make a
+    ratio)."""
+    n = tlive.MIN_RATE_BEACONS
+    w = tlive.RollingWindow(60.0)
+    for i in range(n - 1):
+        w.add(2.0 * i, 5.0 * i)
+    assert tlive.live_rate(w) is None and w.rate() == 2.5
+    w.add(2.0 * (n - 1), 5.0 * (n - 1))
+    assert tlive.live_rate(w) == w.rate() == 2.5
+    w.add(2.0 * n, 1.0)   # the next epoch's first step
+    assert tlive.live_rate(w) is None
+    agg = tlive.LiveAggregator(out_dir=str(tmp_path), window_s=60.0,
+                               start_ticker=False, clock=lambda: 100.0)
+    for t, (a, b) in enumerate(((1, 1), (3, 6), (6, 12))):
+        agg.ingest({"kind": "heartbeat", "process_index": 0, "step": a},
+                   now=2.0 * t)
+        agg.ingest({"kind": "heartbeat", "process_index": 1, "step": b},
+                   now=2.0 * t + 0.5)
+    agg.tick(now=5.0)
+    jagg = jlive.LiveAggregator(out_dir=str(tmp_path / "j"), window_s=60.0,
+                                start_ticker=False, clock=lambda: 100.0)
+    for t, (a, b) in enumerate(((1, 1), (3, 6), (6, 12))):
+        jagg.ingest({"kind": "heartbeat", "process_index": 0, "step": a},
+                    now=2.0 * t)
+        jagg.ingest({"kind": "heartbeat", "process_index": 1, "step": b},
+                    now=2.0 * t + 0.5)
+    jagg.tick(now=5.0)
+    # the JAX aggregator reads a ratio of 1.375 from three beacons a rank
+    assert "straggler" in {a["alert"] for a in jagg.engine.history}
+    jagg.close()
+    assert "straggler" not in {a["alert"] for a in agg.engine.history}
+    agg.close()
 
 
 def test_wire_constants_and_help_equal():

@@ -22,7 +22,6 @@ import dataclasses
 import json
 import os
 import re
-import socket
 import subprocess
 import sys
 
@@ -38,6 +37,7 @@ from tpudist_torch import config as tconfig
 from tpudist_torch import data as tdata
 from tpudist_torch import engine as tengine
 from tpudist_torch import train as ttrain
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -137,11 +137,6 @@ sys.exit(rc)
 DP_ARGV = TINY + ["--n-samples", "8", "--train-batch-size", "4",
                   "--epochs", "1", "--log-every", "1"]
 
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _jax_params(state_dict):

@@ -27,7 +27,6 @@ unchanged.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -41,6 +40,7 @@ from tpudist.obs import report as jreport
 from tpudist.serve import flight as jflight
 from tpudist_torch import train as ttrain
 from tpudist_torch.serve import cli as tserve
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -194,11 +194,6 @@ def test_paged_serve_run_folds_exactly(tmp_path, capsys):
             serving["shared_prefix_len"]) == (1, 4, 8)
     assert serving["kv_pages_used_peak"] == summary["kv_pages_used_peak"]
 
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def test_two_gloo_processes_gather_hosts_and_the_pod_trace(tmp_path):

@@ -371,3 +371,44 @@ def test_a_cuda_tensor_never_takes_ulysses_dense_attention(monkeypatch):
                        r"kernels only, and ulysses' head-split shapes q "
                        r"\(1, 64, 1, 128\)"):
         ulysses.ulysses_attention(*t)
+
+
+@pytest.mark.parametrize("argv,refused", [
+    # the MoE at seq 512 over 4 ring ranks: hop chunks of 64
+    (["--model", "moe", "--seq-len", "512", "--context", "4"],
+     "ring hop shapes q (64, 128, 16, 128) k (64, 128, 16, 128) "
+     "(zigzag chunks of 64)"),
+    (["--model", "moe", "--seq-len", "512", "--context", "2"], None),
+    (["--model", "transformer", "--seq-len", "2048", "--context", "4"],
+     None),
+    # Ulysses at seq 384 over 4 ranks: head dim 128 and a full sequence
+    # of 384 are taken; at d_model 1024 the head dim is 64, which is not
+    (["--model", "transformer", "--seq-len", "384", "--context", "4",
+      "--cp-impl", "ulysses"], None),
+    (["--model", "transformer", "--seq-len", "384", "--context", "4",
+      "--cp-impl", "ulysses", "--d-model", "1024"],
+     "ulysses head-split shapes q (64, 384, 4, 64) k (64, 384, 4, 64)"),
+])
+def test_the_card_refuses_context_shapes_the_kernel_does_not_take(
+        argv, refused):
+    """On the card the context axis's attention launches the flash
+    kernels or the run stops before its first step: ``check_context``
+    refuses a --seq-len / --context pair whose hop (ring) or head-split
+    (Ulysses) shapes the kernel does not take, decided from the shapes
+    alone; the CPU takes every pair (the plain versions)."""
+    from tpudist_torch import config as tconfig
+    from tpudist_torch import train as ttrain
+
+    cfg = tconfig.parse_args(argv + ["--device", "cpu"])
+    ttrain.check_context(cfg, cfg.parallel.context)
+    if refused is None:
+        ttrain.check_context(cfg, cfg.parallel.context, device_type="cuda")
+        return
+    with pytest.raises(ValueError) as got:
+        ttrain.check_context(cfg, cfg.parallel.context, device_type="cuda")
+    assert str(got.value) == (
+        f"--context {cfg.parallel.context} at --seq-len "
+        f"{cfg.model.max_seq_len} on the card: {refused} are shapes the "
+        f"flash kernel does not take (sequence chunks of a multiple of "
+        f"128, head dim 128 or 256); pick a --seq-len / --context pair "
+        f"that gives them, or run on the CPU")

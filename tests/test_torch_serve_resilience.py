@@ -27,7 +27,6 @@ import argparse
 import dataclasses
 import json
 import re
-import socket
 import urllib.request
 from unittest import mock
 
@@ -51,6 +50,7 @@ from tpudist_torch.serve import cli as tcli
 from tpudist_torch.serve import resilience as tres
 from tpudist_torch.serve import scheduler as tsched
 from tpudist_torch.serve.engine import ServeEngine as TServeEngine
+from _torch_ranks import free_port as _free_port
 
 torch.set_num_threads(1)
 
@@ -548,13 +548,6 @@ def test_flags_not_carried_exit_1_naming_their_item(flag, words, tmp_path,
     assert flag == "--live-port"
     _assert_live_port_run(tmp_path, monkeypatch, env=False)
 
-
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def _assert_live_port_run(tmp_path, monkeypatch, env: bool):

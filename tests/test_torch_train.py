@@ -321,10 +321,15 @@ ELASTIC_ENV = {"TPUDIST_CKPT_MODE", "TPUDIST_REQUEUE_ATTEMPT",
 # them)
 LIVE_ENV = {"TPUDIST_LIVE", "TPUDIST_LIVE_PORT", "TPUDIST_LIVE_ENDPOINT",
             "TPUDIST_PROFILE_WINDOW"}
+# the overlap plane's twins (tests/test_torch_overlap.py and
+# tests/test_torch_cross_slice.py hold their resolvers to the JAX
+# package's)
+OVERLAP_ENV = {"TPUDIST_GRAD_OVERLAP", "TPUDIST_GRAD_BUCKET_MB",
+               "TPUDIST_CROSS_SLICE"}
 ENV_CARRIED = {"TPUDIST_STAGING_BUDGET_MB", "TPUDIST_AUTOTUNE",
                "TPUDIST_AUTOTUNE_CACHE_DIR", "TPUDIST_AUTOTUNE_TRIALS",
                "TPUDIST_COMPILATION_CACHE_DIR"} | OBS_ENV | ELASTIC_ENV \
-    | LIVE_ENV
+    | LIVE_ENV | OVERLAP_ENV
 
 
 def test_every_jax_train_flag_is_carried_or_refused():
@@ -357,8 +362,7 @@ def test_every_jax_train_flag_is_carried_or_refused():
             tconfig.parse_args([opt, *_turn_on(kw, off)])
 
 
-ENV_ON = {"TPUDIST_GRAD_OVERLAP": "bucketed",
-          "TPUDIST_CROSS_SLICE": "hierarchical", "TPUDIST_NO_FLASH": "1"}
+ENV_ON = {"TPUDIST_NO_FLASH": "1"}
 
 
 # the observability twins were refused until the port carried them:
@@ -399,7 +403,17 @@ ENV_READ = {**OBS_ENV_READ,
                 "udp://10.0.0.1:9100", lambda c: tconfig.resolve_live(c)[2],
                 "udp://10.0.0.1:9100"),
             "TPUDIST_PROFILE_WINDOW": ("3", tconfig.resolve_profile_window,
-                                       3)}
+                                       3),
+            # the overlap plane's twins, refused until the port carried
+            # them (ROADMAP Queue A item 1)
+            "TPUDIST_GRAD_OVERLAP": (
+                "bucketed", lambda c: tconfig.resolve_grad_overlap(c)[0],
+                "bucketed"),
+            "TPUDIST_GRAD_BUCKET_MB": (
+                "3", lambda c: tconfig.resolve_grad_overlap(c)[1], 3 * 2**20),
+            "TPUDIST_CROSS_SLICE": ("hierarchical",
+                                    tconfig.resolve_cross_slice,
+                                    "hierarchical")}
 
 
 def _kill_spec():

@@ -251,16 +251,23 @@ def test_constants_and_candidate_equal_jax():
 
 
 def test_candidate_apply_folds_the_four_knobs():
-    _, t = _cfgs()
+    """The four knobs fold in, and the overlap plane's coordinates the
+    port carries (the bucket bound, the cross-slice mode) as the JAX
+    ``Candidate.apply`` folds them; nothing else moves."""
+    j, t = _cfgs()
     c = tsearch.Candidate(k=4, staging_budget_mb=1.5, remat=True,
                           grad_accum_steps=2, pipeline_interleave=1,
-                          cross_slice="flat")
+                          cross_slice="flat", grad_bucket_mb=16.0)
     got = c.apply(t)
     assert (got.steps_per_dispatch, got.staging_budget_mb, got.remat,
-            got.grad_accum_steps) == (4, 1.5, True, 2)
+            got.grad_accum_steps, got.grad_bucket_mb,
+            got.cross_slice) == (4, 1.5, True, 2, 16.0, "flat")
+    want = jsearch.Candidate(**c.as_dict()).apply(j)
+    assert (want.grad_bucket_mb, want.cross_slice) == (16.0, "flat")
     assert dataclasses.replace(got, steps_per_dispatch=0,
                                staging_budget_mb=None, remat=False,
-                               grad_accum_steps=1) == t
+                               grad_accum_steps=1, grad_bucket_mb=None,
+                               cross_slice=None) == t
 
 
 # ------------------------------------------------------- wiring (autotune)
@@ -471,13 +478,15 @@ def test_cache_store_load_roundtrip_and_atomic(tmp_path):
     {"k": 4, "staging_budget_mb": True, "remat": False,
      "grad_accum_steps": 1},
     {"k": 4, "staging_budget_mb": None, "remat": False},
-    # overlap-plane points the port does not run
+    # overlap-plane points the JAX cache refuses (a bound that is no
+    # positive number, an unknown cross-slice mode) and the pipeline's
+    # interleaving, which the port does not run
     {"k": 4, "staging_budget_mb": None, "remat": False,
-     "grad_accum_steps": 1, "grad_bucket_mb": 4.0},
+     "grad_accum_steps": 1, "grad_bucket_mb": -4.0},
     {"k": 4, "staging_budget_mb": None, "remat": False,
      "grad_accum_steps": 1, "pipeline_interleave": 2},
     {"k": 4, "staging_budget_mb": None, "remat": False,
-     "grad_accum_steps": 1, "cross_slice": "hierarchical"},
+     "grad_accum_steps": 1, "cross_slice": "diagonal"},
 ])
 def test_corrupt_or_insane_cache_file_is_a_miss(tuned, tmp_path):
     fp = _fp()

@@ -103,6 +103,13 @@ class TrainConfig:
     fused_xent: bool = False
     lm_head: str = "auto"         # auto | plain | chunked | fused
     cp_impl: str = "ring"         # context parallelism: ring | ulysses
+    # the data-parallel gradient mean's schedule (parallel.overlap):
+    # off | bucketed, the bucket bound in MB, flat | hierarchical; None =
+    # $TPUDIST_GRAD_OVERLAP / _GRAD_BUCKET_MB / _CROSS_SLICE, else off, 4
+    # and flat (resolve_grad_overlap, resolve_cross_slice)
+    grad_overlap: Optional[str] = None
+    grad_bucket_mb: Optional[float] = None
+    cross_slice: Optional[str] = None
     fail_at: Optional[int] = None  # fault injection: fail after this epoch
     log_every: int = 100
     steps_per_dispatch: int = 0   # 0 = auto (resolve_steps_per_dispatch)
@@ -160,12 +167,6 @@ NOT_CARRIED = (
     ("--pp-microbatches", dict(type=int, default=0), (), None, "8b"),
     ("--pipeline-interleave", dict(type=int, default=0), (1,),
      "TPUDIST_PIPELINE_INTERLEAVE", "8b"),
-    ("--grad-overlap", dict(choices=("off", "bucketed")), ("off",),
-     "TPUDIST_GRAD_OVERLAP", "8b"),
-    ("--grad-bucket-mb", dict(type=float), (), "TPUDIST_GRAD_BUCKET_MB",
-     "8b"),
-    ("--cross-slice", dict(choices=("flat", "hierarchical")), ("flat",),
-     "TPUDIST_CROSS_SLICE", "8b"),
 )
 
 # The environment variables the JAX package reads for what this slice does
@@ -256,6 +257,53 @@ def resolve_requeue_attempt(cfg: TrainConfig) -> int:
         return int(cfg.requeue_attempt)
     env = _env_float("TPUDIST_REQUEUE_ATTEMPT")
     return int(env) if env and env > 0 else 0
+
+
+# The gradient overlap plane (tpudist_torch.parallel.overlap): the DP
+# all-reduce schedule knob and its bucket bound, and the cross-slice
+# reduce. The vocabularies and the default bucket equal overlap's (a
+# test pins them); kept here so config imports nothing of torch.
+GRAD_OVERLAP_MODES = ("off", "bucketed")
+GRAD_BUCKET_MB_DEFAULT = 4.0
+CROSS_SLICE_MODES = ("flat", "hierarchical")
+
+
+def resolve_grad_overlap(cfg: TrainConfig) -> Tuple[str, int]:
+    """``--grad-overlap`` / ``--grad-bucket-mb`` as the concrete ``(mode,
+    bucket_bytes)`` the replicated data-parallel step dispatches on.
+    Precedence a knob: flag > ``TPUDIST_GRAD_OVERLAP`` /
+    ``TPUDIST_GRAD_BUCKET_MB`` > default (off, 4 MB). A sharded mesh
+    refuses ``bucketed`` (``engine.grad_overlap``)."""
+    mode = cfg.grad_overlap
+    if mode is None:
+        mode = os.environ.get("TPUDIST_GRAD_OVERLAP") or "off"
+    if mode not in GRAD_OVERLAP_MODES:
+        raise ValueError(
+            f"--grad-overlap must be one of {GRAD_OVERLAP_MODES}, "
+            f"got {mode!r}")
+    mb = cfg.grad_bucket_mb
+    if mb is None:
+        mb = _env_float("TPUDIST_GRAD_BUCKET_MB")
+    if mb is None:
+        mb = GRAD_BUCKET_MB_DEFAULT
+    if mb <= 0:
+        raise ValueError(f"--grad-bucket-mb must be > 0, got {mb}")
+    return mode, int(mb * 2**20)
+
+
+def resolve_cross_slice(cfg: TrainConfig) -> str:
+    """``--cross-slice`` as the concrete cross-slice reduce schedule.
+    Precedence: flag > ``TPUDIST_CROSS_SLICE`` > flat. A sharded mesh
+    refuses ``hierarchical``; a one-slice data axis downgrades it to flat
+    with a logged line (``engine.grad_overlap``)."""
+    mode = cfg.cross_slice
+    if mode is None:
+        mode = os.environ.get("TPUDIST_CROSS_SLICE") or "flat"
+    if mode not in CROSS_SLICE_MODES:
+        raise ValueError(
+            f"--cross-slice must be one of {CROSS_SLICE_MODES}, "
+            f"got {mode!r}")
+    return mode
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -651,6 +699,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     for axis in ("fsdp", "tensor", "context", "pipe", "expert"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help=f"{axis} mesh axis size")
+    p.add_argument("--grad-overlap", type=str, default=None,
+                   choices=list(GRAD_OVERLAP_MODES),
+                   help="data-parallel gradient all-reduce schedule "
+                        "(tpudist_torch.parallel.overlap): off = one "
+                        "all-reduce a param after the whole backward, "
+                        "bucketed = size-bounded buckets issued as the "
+                        "backward produces them, behind the remaining "
+                        "backward; bitwise-identical loss either way "
+                        "(default: $TPUDIST_GRAD_OVERLAP, else off)")
+    p.add_argument("--grad-bucket-mb", type=float, default=None,
+                   help="bucket size bound for --grad-overlap bucketed "
+                        "(default: $TPUDIST_GRAD_BUCKET_MB, else 4)")
+    p.add_argument("--cross-slice", type=str, default=None,
+                   choices=list(CROSS_SLICE_MODES),
+                   help="cross-slice data-parallel reduce schedule on a "
+                        "data axis $TPUDIST_SLICE_MAP splits into slices "
+                        "(tpudist_torch.parallel.overlap): flat = the "
+                        "whole gradient across slices, hierarchical = "
+                        "reduce-scatter in the slice + all-reduce of the "
+                        "1/slice_size shard across slices + all-gather "
+                        "in the slice; cuts the cross-slice bytes by the "
+                        "slice size; bitwise-identical loss either way "
+                        "(default: $TPUDIST_CROSS_SLICE, else flat)")
     p.add_argument("--cp-impl", type=str, default="ring",
                    choices=list(CP_IMPLS),
                    help="context-parallel attention (--context > 1): ring "
@@ -776,6 +847,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         fused_xent=args.fused_xent,
         lm_head=args.lm_head,
         cp_impl=args.cp_impl,
+        grad_overlap=args.grad_overlap,
+        grad_bucket_mb=args.grad_bucket_mb,
+        cross_slice=args.cross_slice,
         fail_at=args.fail_at,
         log_every=args.log_every,
         steps_per_dispatch=args.steps_per_dispatch,

@@ -2,8 +2,9 @@
 superstep, eval.
 
 Counterpart of ``tpudist/engine.py``: its replicated data-parallel path
-(``--grad-overlap off``) and its sharded path on a ``data x fsdp x
-expert x tensor x context`` mesh.
+(every ``--grad-overlap`` and ``--cross-slice`` schedule of
+``tpudist_torch.parallel.overlap``) and its sharded path on a ``data x
+fsdp x expert x tensor x context`` mesh.
 The JAX package's state is a pytree and its step a compiled pure
 function; here the params are an ``nn.Module``, the step runs eagerly,
 and the optimizer updates the params and its moments in place (one copy
@@ -11,8 +12,9 @@ of the train state on the device instead of two).
 
 Without a mesh every process holds the whole state, made alike from one
 seed; when a process group is up (``tpudist_torch.parallel.distributed``),
-the step means the gradients and the loss over the processes with an
-explicit all-reduce after the whole backward: the collective under test.
+the step means the gradients and the loss over the processes with
+explicit all-reduces, after the whole backward or bucket by bucket as
+the backward produces the grads: the collective under test.
 
 With a mesh (:func:`init_state`'s ``mesh``; the train CLI passes one when
 ``--fsdp``, ``--expert`` or ``--tensor`` > 1) each process keeps its
@@ -44,6 +46,7 @@ them; on the CPU the superstep runs the body in a loop.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import os
 import time
@@ -55,6 +58,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from tpudist_torch import config as config_lib
 from tpudist_torch.config import TrainConfig
 from tpudist_torch.metrics import log0
 from tpudist_torch.models import get_model
@@ -63,6 +67,7 @@ from tpudist_torch.obs import mfu
 from tpudist_torch.ops.cuda import flash_attention as _fa
 from tpudist_torch.ops.cuda import fused_xent as _fx
 from tpudist_torch.parallel import mesh as mesh_lib
+from tpudist_torch.parallel import overlap as overlap_lib
 from tpudist_torch.parallel import sharding as shd
 from tpudist_torch.parallel import tensor as tensor_lib
 
@@ -803,25 +808,33 @@ def _batch_mean(lay: ShardLayout, t: torch.Tensor) -> torch.Tensor:
 
 
 def _microbatch(loss_fn, params: nn.Module, batch, n_accum: int,
-                wrt: Optional[Sequence[torch.Tensor]] = None):
+                wrt: Optional[Sequence[torch.Tensor]] = None,
+                reduce: Optional[overlap_lib.BucketedMean] = None):
     """(loss, grads) over ``n_accum`` microbatches of ``batch``: the
     losses and grads summed in microbatch order, then scaled by
     1/n_accum, as the JAX package's scan does. The grads are with
-    respect to ``wrt`` (the params by default)."""
+    respect to ``wrt`` (the params by default). With ``reduce`` the last
+    microbatch's backward hands each final grad (those bits) to it as
+    the backward produces them (:meth:`overlap_lib.BucketedMean.hooked`),
+    and the grads returned are its means, waited."""
     plist = list(params.parameters()) if wrt is None else list(wrt)
-    if n_accum == 1:
-        loss = loss_fn(params, batch)
-        return loss.detach(), list(torch.autograd.grad(loss, plist))
+    inv = 1.0 / n_accum
     total, grads = None, None
     for i in range(n_accum):
-        mb = tuple(x.reshape(n_accum, x.shape[0] // n_accum,
-                             *x.shape[1:])[i] for x in batch)
+        mb = batch if n_accum == 1 else tuple(
+            x.reshape(n_accum, x.shape[0] // n_accum, *x.shape[1:])[i]
+            for x in batch)
         loss = loss_fn(params, mb)
-        g = torch.autograd.grad(loss, plist)
         total = loss.detach() if total is None else total + loss.detach()
+        if reduce is not None and i == n_accum - 1:
+            with reduce.hooked(plist, grads, None if n_accum == 1 else inv):
+                torch.autograd.grad(loss, plist)
+            return (total if n_accum == 1 else total * inv), reduce.finish()
+        g = torch.autograd.grad(loss, plist)
         grads = list(g) if grads is None else [a + b for a, b in
                                                zip(grads, g)]
-    inv = 1.0 / n_accum
+    if n_accum == 1:
+        return total, grads
     return total * inv, [g * inv for g in grads]
 
 
@@ -829,11 +842,71 @@ def pmean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """``lax.pmean`` over the processes, in place: one all-reduce SUM a
     tensor, in order, then a divide by the world size (psum, then divide:
     ``ReduceOp.AVG`` does not exist on gloo)."""
+    return overlap_lib.barrier_mean(tensors, world=dist.get_world_size())
+
+
+_OVERLAP_REFUSAL = (
+    "{flag} requires the explicit-collective pure-DP mesh (only the "
+    "'data' axis > 1); this mesh routes gradients through the "
+    "jit+shardings partitioner")
+
+# the slice groups of each (world, slice layout), made once a process:
+# every rank makes them in the same order, as dist.new_group asks
+_SLICE_COMMS: Dict[tuple, overlap_lib.SliceComms] = {}
+
+
+def grad_overlap(cfg: TrainConfig, mesh=None):
+    """``(mode, bucket_bytes, cross, slices)``: the gradient mean's
+    schedule for a step body (``--grad-overlap``, ``--grad-bucket-mb``,
+    ``--cross-slice``), as the JAX engine resolves it
+    (``tpudist/engine.py:437-479``). On a sharded ``mesh`` a bucketed or
+    hierarchical reduce is refused with the JAX message (the reduce there
+    is the sharded body's own); without a process group both are inert.
+    ``slices`` (:class:`overlap_lib.SliceComms`) is the data axis's slice
+    groups when ``TPUDIST_SLICE_MAP`` splits the world into slices, else
+    None, and then a hierarchical reduce is downgraded to flat with the
+    JAX line."""
+    mode, bucket_bytes = config_lib.resolve_grad_overlap(cfg)
+    cross = config_lib.resolve_cross_slice(cfg)
+    if mesh is not None:
+        if mode != "off":
+            raise ValueError(_OVERLAP_REFUSAL.format(
+                flag=f"--grad-overlap {mode}"))
+        if cross == "hierarchical":
+            raise ValueError(_OVERLAP_REFUSAL.format(
+                flag="--cross-slice hierarchical"))
+        return "off", bucket_bytes, "flat", None
+    if not dist.is_initialized():
+        return "off", bucket_bytes, "flat", None
     world = dist.get_world_size()
-    for t in tensors:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
-        t.div_(world)
-    return list(tensors)
+    groups = (mesh_lib.data_slice_groups(
+        mesh_lib.rank_grid(cfg.parallel, world)) if world > 1 else None)
+    if groups is None:
+        if cross == "hierarchical" and world > 1:
+            log0("tpudist: --cross-slice hierarchical downgraded to "
+                 "flat: single-slice mesh (no cross-slice DCN phase to "
+                 "shard)")
+        return mode, bucket_bytes, "flat", None
+    key = (world, groups)
+    if key not in _SLICE_COMMS:
+        _SLICE_COMMS[key] = overlap_lib.slice_comms(groups)
+    return mode, bucket_bytes, cross, _SLICE_COMMS[key]
+
+
+def bucket_plan(params: nn.Module, bucket_bytes: int
+                ) -> overlap_lib.BucketPlan:
+    """``--grad-overlap bucketed``'s plan over ``params``: packed in the
+    JAX package's leaf order, as its ``plan_buckets`` packs
+    ``jax.tree.leaves(params)`` (bucket 0 the last leaves), the indices
+    and sizes in ``named_parameters`` order."""
+    names, plist = zip(*params.named_parameters())
+    rank = jax_leaf_order(names)
+    order = sorted(range(len(names)), key=rank.__getitem__)
+    plan = overlap_lib.plan_buckets([plist[i] for i in order], bucket_bytes)
+    return dataclasses.replace(
+        plan, buckets=tuple(tuple(order[i] for i in b)
+                            for b in plan.buckets),
+        leaf_bytes=tuple(overlap_lib.leaf_nbytes(p) for p in plist))
 
 
 def _build_step_body(cfg: TrainConfig,
@@ -845,9 +918,10 @@ def _build_step_body(cfg: TrainConfig,
     processes when a process group is up, then the Adam update in place
     from the step's device scalars. It reads and writes no host counter,
     so a CUDA graph can capture it; the caller advances ``state.step``
-    and ``state.opt_state.count``. ``body.reduced`` lists the ``(dtype,
-    bytes)`` of each all-reduce its gradient mean issued, in order (the
-    grads, then the loss): a host-side note, written at every eager call
+    and ``state.opt_state.count``. ``body.reduced`` lists each
+    collective its gradient mean issued, in order: the grads'
+    ``(op, dtype, bytes, dcn_participants)`` (``parallel.overlap``),
+    then the loss's ``(dtype, bytes)``: a host-side note, written at every eager call
     and at a graph's capture, that ``obs.devtime.collective_bytes``
     turns into the run's collective volume.
 
@@ -855,23 +929,48 @@ def _build_step_body(cfg: TrainConfig,
     (:func:`_sharded_step_body`), for a state made on that mesh."""
     loss_fn = make_loss_fn(cfg, device, mesh)
     tx = make_optimizer(cfg)
+    mode, bucket_bytes, cross, slices = grad_overlap(cfg, mesh)
     if mesh is not None:
         return _sharded_step_body(cfg, loss_fn, tx), tx
     data_parallel = dist.is_initialized()
-    reduced: List[Tuple[torch.dtype, int]] = []
+    world = dist.get_world_size() if data_parallel else 1
+    reduced: List[tuple] = []
+    means: List[overlap_lib.BucketedMean] = []
+
+    def bucket_reducer(params: nn.Module) -> overlap_lib.BucketedMean:
+        # made at the first (eager) call
+        if not means:
+            means.append(overlap_lib.BucketedMean(
+                bucket_plan(params, bucket_bytes), world=world, cross=cross,
+                slices=slices, reduced=reduced))
+        return means[0]
 
     def body(state: TrainState, batch, count, c1, c2):
-        loss, grads = _microbatch(loss_fn, state.params, batch,
-                                  cfg.grad_accum_steps)
+        # THE collective under test: the gradient mean over the data
+        # axis. --grad-overlap off: one all-reduce a param in param order
+        # after the whole backward (or the slice ladder over them all);
+        # bucketed: each bucket's reduces issued as the backward produces
+        # it (parallel.overlap), the same sums. Then the loss's mean, as
+        # lax.pmean(loss, "data") gives it
+        reduced.clear()
+        if data_parallel and mode == "bucketed":
+            loss, grads = _microbatch(loss_fn, state.params, batch,
+                                      cfg.grad_accum_steps,
+                                      reduce=bucket_reducer(state.params))
+        else:
+            loss, grads = _microbatch(loss_fn, state.params, batch,
+                                      cfg.grad_accum_steps)
+            if data_parallel:
+                grads = overlap_lib.barrier_mean(
+                    grads, world=world, cross=cross, slices=slices,
+                    reduced=reduced)
         if data_parallel:
-            # THE collective under test: the gradient mean over the data
-            # axis, one all-reduce a param in param order after the whole
-            # backward (the JAX package's --grad-overlap off), and the
-            # loss's mean as lax.pmean(loss, "data") gives it
-            grads = pmean(grads)
             loss, = pmean([loss])
-            reduced[:] = [(t.dtype, t.numel() * t.element_size())
-                          for t in (*grads, loss)]
+            reduced.append((loss.dtype, loss.element_size())
+                           if slices is None else
+                           # the world's group spans the slices
+                           ("all_reduce", loss.dtype, loss.element_size(),
+                            world))
         tx.apply(grads, state.opt_state, list(state.params.parameters()),
                  count, c1, c2)
         return loss

@@ -87,26 +87,35 @@ def collective_bytes(operands: Iterable[tuple]) -> Dict[str, Any]:
     all-gather produces), ``count``, ``fabric``, ``dcn_bytes``.
 
     ``operands`` are what the step body noted in one step (its
-    ``reduced_operands()``): ``(dtype, bytes)`` for each all-reduce
-    ``engine.pmean`` issues (the grads in param order, then the loss),
-    or ``(op, dtype, bytes)`` from the sharded body (``all_gather``,
-    ``reduce_scatter``, ``all_reduce``). The JAX function reads them off
-    the lowered StableHLO text, which the port does not have. Every row
-    is labelled ``ici``, as ``tpudist/parallel/mesh.py`` labels an axis
-    within one slice, so ``dcn_bytes`` is 0."""
+    ``reduced_operands()``): ``(dtype, bytes)`` for an all-reduce
+    ``engine.pmean`` issues (the replicated step's loss),
+    ``(op, dtype, bytes)`` from the sharded body (``all_gather``,
+    ``reduce_scatter``, ``all_reduce``), or ``(op, dtype, bytes,
+    dcn_participants)`` from the gradient mean of ``parallel.overlap``.
+    The JAX function reads them off the lowered StableHLO text, which the
+    port does not have. A collective whose group spans slices
+    (``dcn_participants`` > 0, the world's members of its groups) is
+    labelled ``dcn`` and prices ``bytes`` once a participant, as the JAX
+    function prices a slice-spanning replica group; every other row is
+    ``ici``."""
     agg: Dict[tuple, Dict[str, Any]] = {}
     for operand in operands:
-        op, dtype, nbytes = (operand if len(operand) == 3
-                             else ("all_reduce", *operand))
+        if len(operand) == 2:
+            operand = ("all_reduce", *operand)
+        op, dtype, nbytes, dcn = (*operand, 0)[:4]
         name = _DTYPE_NAMES.get(dtype, str(dtype).replace("torch.", ""))
-        row = agg.setdefault((op, name, int(nbytes)), {
+        fabric = "dcn" if dcn else "ici"
+        row = agg.setdefault((op, name, int(nbytes), fabric, int(dcn)), {
             "op": op, "dtype": name, "bytes": int(nbytes),
-            "count": 0, "fabric": "ici", "dcn_bytes": 0})
+            "count": 0, "fabric": fabric, "dcn_bytes": 0})
         row["count"] += 1
+        row["dcn_bytes"] += int(nbytes) * int(dcn)
     ops = sorted(agg.values(),
                  key=lambda r: (-r["dcn_bytes"], -r["bytes"], r["op"]))
-    return {"ops": ops, "dcn_bytes_total": 0,
-            "ici_bytes_total": sum(r["bytes"] * r["count"] for r in ops),
+    return {"ops": ops,
+            "dcn_bytes_total": sum(r["dcn_bytes"] for r in ops),
+            "ici_bytes_total": sum(r["bytes"] * r["count"] for r in ops
+                                   if r["fabric"] == "ici"),
             "n_collectives": sum(r["count"] for r in ops)}
 
 

@@ -11,7 +11,10 @@ the Prometheus exporter, and the run's correlation id: the port of
     onto a bounded queue (a full queue drops and counts) and a daemon
     thread ships them as frames over TCP or UDP to the coordinator;
   * :class:`LiveAggregator` — coordinator-side, a copy of the JAX class
-    method for method: ingests every worker's stream (heartbeat beacons,
+    method for method, but for :meth:`~LiveAggregator.tick`'s live
+    straggler ratio, which takes a host's rate only from
+    :data:`MIN_RATE_BEACONS` beacons of one epoch on (:func:`live_rate`):
+    ingests every worker's stream (heartbeat beacons,
     the rank-0 metrics fan-out, the watchdog's ``stall_dump``) through
     :meth:`~LiveAggregator.ingest` or its TCP/UDP listener, keeps
     rolling windows, drives the on-line
@@ -358,6 +361,30 @@ class RollingWindow:
         return self._pts[-1][1] if self._pts else None
 
 
+# A host's beacon-derived step rate joins the live straggler ratio only
+# once its window holds this many stepped beacons with no counter reset
+# among them. The beacon samples the per-epoch step every beacon period
+# (at most 2 s), at a phase of its own on each host: over fewer beacons
+# two ranks stepping in lockstep read rates apart by up to one period
+# in the span (3 beacons of a seconds-long run: 1.254 between two gloo
+# ranks, past the 1.25 factor), and a window across an epoch's reset
+# reads no rate at all. Eight beacons span at least seven periods, so
+# the phase moves the ratio by at most 1/7.
+MIN_RATE_BEACONS = 8
+
+
+def live_rate(window: RollingWindow) -> Optional[float]:
+    """The window's step rate for the live straggler ratio, or None
+    while it holds fewer than :data:`MIN_RATE_BEACONS` samples, or a
+    step counter that went back (an epoch's reset)."""
+    pts = list(window._pts)
+    if len(pts) < MIN_RATE_BEACONS or any(
+            b[1] < a[1] for a, b in zip(pts, pts[1:])):
+        return None
+    r = window.rate()
+    return r if r and r > 0 else None
+
+
 # ------------------------------------------------------------ aggregator
 
 
@@ -653,7 +680,9 @@ class LiveAggregator:
     # ------------------------------------------------------------ tick
     def tick(self, now: Optional[float] = None) -> None:
         """Time-based rule evaluation: per-host progress ages (stall)
-        and the live straggler ratio from beacon-derived rates."""
+        and the live straggler ratio from beacon-derived rates
+        (:func:`live_rate`: the JAX package's, from
+        :data:`MIN_RATE_BEACONS` beacons of one epoch on)."""
         now = self.clock() if now is None else now
         with self._lock:
             import statistics
@@ -669,8 +698,8 @@ class LiveAggregator:
                     self.engine.observe("stall", age, host=pi,
                                         step=h.get("step"),
                                         threshold=self.stall_timeout_s)
-                r = h["window"].rate()
-                if r and r > 0 and now - h["last_seen"] < self.window_s:
+                r = live_rate(h["window"])
+                if r and now - h["last_seen"] < self.window_s:
                     step_times.append(1.0 / r)
             if len(step_times) >= 2:
                 med = statistics.median(step_times)

@@ -269,7 +269,7 @@ def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif use_flash is not False:
         if not supported:
             why = ("use_flash=True" if use_flash else
-                   "a CUDA tensor takes the flash hops only, and")
+                   "a CUDA tensor takes the flash hops only,")
             raise ValueError(
                 f"{why} but hop shapes q {tuple(q.shape)} k "
                 f"{tuple(k.shape)} (layout={layout!r}, causal={causal}, "

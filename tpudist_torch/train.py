@@ -130,11 +130,14 @@ def device_kind(device: torch.device) -> str:
     return "cpu"
 
 
-def check_context(cfg: TrainConfig, context: int) -> None:
+def check_context(cfg: TrainConfig, context: int, *,
+                  device_type: str = "cpu", tensor: int = 1,
+                  batch_ways: int = 1) -> None:
     """The JAX train CLI's refusals of a context axis (``--context``
     ways) its sequence models cannot take: a model without a sequence,
     and a sequence the layout cannot cut (the ring's zigzag takes 2
-    chunks a shard, Ulysses one)."""
+    chunks a shard, Ulysses one); on the card, also
+    :func:`check_context_kernels`."""
     if context <= 1:
         return
     if cfg.model.name not in ("transformer", "moe"):
@@ -146,6 +149,46 @@ def check_context(cfg: TrainConfig, context: int) -> None:
             f"--seq-len {cfg.model.max_seq_len} must be divisible by "
             f"{'2x' if cfg.cp_impl == 'ring' else ''}--context "
             f"{context} (cp-impl {cfg.cp_impl})")
+    if device_type == "cuda":
+        check_context_kernels(cfg, context, tensor=tensor,
+                              batch_ways=batch_ways)
+
+
+def check_context_kernels(cfg: TrainConfig, context: int, *,
+                          tensor: int = 1, batch_ways: int = 1) -> None:
+    """On the card a context axis's attention runs the flash kernels
+    only: the ring's hop chunks (:func:`ring.flash_hops_supported`) or
+    Ulysses's head-split full sequence (``transformer._use_flash``) must
+    be shapes the kernel takes, else the run is refused here, before
+    any launch (the wrappers would raise at the first step). The CPU
+    takes every shape, the einsum ring and the dense attention being
+    the kernels' plain versions."""
+    from tpudist_torch.models.transformer import _use_flash
+    from tpudist_torch.ops import ring_attention as ring_lib
+
+    m = cfg.model
+    # a rank's heads under --tensor (one kv head a q head where the kv
+    # heads do not split evenly, as ``StepGroups.attention_weights``)
+    h = m.n_heads // tensor
+    kv = m.n_kv_heads // tensor if m.n_kv_heads % tensor == 0 else h
+    hd, seq = m.d_model // m.n_heads, m.max_seq_len
+    b = max(1, cfg.batch_size // (batch_ways * cfg.grad_accum_steps))
+    s_local = seq // context
+    if cfg.cp_impl == "ring":
+        q_sh, k_sh = (b, s_local, h, hd), (b, s_local, kv, hd)
+        ok = ring_lib.flash_hops_supported(q_sh, k_sh, n_shards=context)
+        what = f"ring hop shapes q {q_sh} k {k_sh} (zigzag chunks of " \
+               f"{s_local // 2})"
+    else:
+        q_sh, k_sh = (b, seq, h // context, hd), (b, seq, kv // context, hd)
+        ok = _use_flash(q_sh, k_sh, True)
+        what = f"ulysses head-split shapes q {q_sh} k {k_sh}"
+    if not ok:
+        raise ValueError(
+            f"--context {context} at --seq-len {seq} on the card: {what} "
+            f"are shapes the flash kernel does not take (sequence chunks "
+            f"of a multiple of 128, head dim 128 or 256); pick a "
+            f"--seq-len / --context pair that gives them, or run on the CPU")
 
 
 def run(cfg: TrainConfig) -> float:
@@ -170,7 +213,9 @@ def run(cfg: TrainConfig) -> float:
     # no DeviceMesh)
     sizes = dict(zip(mesh_lib.AXIS_NAMES,
                      mesh_lib.resolve_axis_sizes(cfg.parallel, world)))
-    check_context(cfg, sizes["context"])
+    check_context(cfg, sizes["context"], device_type=device.type,
+                  tensor=sizes["tensor"],
+                  batch_ways=sizes["data"] * sizes["fsdp"])
     mesh = None
     if any(sizes[a] > 1 for a in ("fsdp", "expert", "tensor", "context")):
         mesh = mesh_lib.build_mesh(cfg.parallel, device_type=device.type)
@@ -308,6 +353,13 @@ def run(cfg: TrainConfig) -> float:
              f"k={t.k}, staging {t.staging_budget_mb} MB, "
              f"remat={t.remat}, grad_accum={t.grad_accum_steps} "
              f"({outcome.trials} probe trials, {outcome.pruned} pruned)")
+    overlap_mode, bucket_bytes = config_lib.resolve_grad_overlap(cfg)
+    if overlap_mode != "off" and mesh is None and world > 1:
+        # the schedule is claimed only where the step carries it: the
+        # replicated data-parallel step (a sharded mesh refuses the flag)
+        log0(f"tpudist: grad overlap {overlap_mode}: bucket "
+             f"{bucket_bytes / 2**20:g} MB over the data axis (reduce "
+             f"dispatched as backward produces each bucket)")
     k = config_lib.resolve_steps_per_dispatch(cfg)
     budget_bytes = None
     superstep = train_step = None
@@ -582,7 +634,8 @@ def run(cfg: TrainConfig) -> float:
                 else train_step).reduced_operands()
     if operands:
         # the step's collective volume, from the operands the step body
-        # noted: engine.pmean's all-reduces, and under FSDP the gathers
+        # noted: the gradient mean's and the loss's all-reduces (or the
+        # slice ladder's phases), and under FSDP the gathers
         # and reduce-scatters too; context parallelism's ring rotations
         # and Ulysses all-to-alls are named with their bytes
         coll = devtime_lib.collective_bytes(operands)

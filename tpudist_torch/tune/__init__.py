@@ -36,6 +36,7 @@ from tpudist_torch import config as config_lib
 from tpudist_torch import verdict as verdict_lib
 from tpudist_torch.metrics import log0
 from tpudist_torch.parallel import distributed
+from tpudist_torch.parallel import mesh as mesh_lib
 from tpudist_torch.parallel.mesh import AXIS_NAMES, resolve_axis_sizes
 from tpudist_torch.tune import cache as cache_mod
 from tpudist_torch.tune import probe as probe_mod
@@ -68,16 +69,20 @@ class TuneOutcome:
 def _heuristic_candidate(cfg, *, state_bytes: int = 0,
                          hbm_bytes: Optional[float] = None) -> Candidate:
     """The static heuristics' pick — the search's start point and the
-    floor the commit may never fall below. The overlap-plane coordinates
-    are the port's one schedule: no buckets, GPipe, the flat reduce."""
+    floor the commit may never fall below. The pipeline's coordinate is
+    GPipe's (the port refuses the pipe axis)."""
     budget = config_lib.resolve_staging_budget_bytes(
         cfg, state_bytes=state_bytes, hbm_bytes=hbm_bytes)
+    mode, bucket_bytes = config_lib.resolve_grad_overlap(cfg)
     return Candidate(
         k=config_lib.resolve_steps_per_dispatch(cfg),
         staging_budget_mb=(None if budget is None
                            else round(budget / 2**20, 4)),
         remat=cfg.remat, grad_accum_steps=cfg.grad_accum_steps,
-        grad_bucket_mb=None, pipeline_interleave=1, cross_slice="flat")
+        grad_bucket_mb=(round(bucket_bytes / 2**20, 4)
+                        if mode == "bucketed" else None),
+        pipeline_interleave=1,
+        cross_slice=config_lib.resolve_cross_slice(cfg))
 
 
 def _broadcast(values: List[float]) -> List[float]:
@@ -253,9 +258,15 @@ def _probe_search(cfg, device, plan, start: Candidate, *,
     # the batch splits over data x fsdp: one process a position
     world = dist.get_world_size() if dist.is_initialized() else 1
     sizes = dict(zip(AXIS_NAMES, resolve_axis_sizes(cfg.parallel, world)))
+    # the overlap-plane axes exist only where the run makes them real:
+    # the replicated data-parallel step (no sharded mesh, world > 1)
+    dp = mesh is None and world > 1
+    sg = (mesh_lib.data_slice_groups(mesh_lib.rank_grid(cfg.parallel, world))
+          if dp else None)
     axes = search_mod.build_space(
         cfg, batch_ways=sizes["data"] * sizes["fsdp"],
-        heuristic_budget_mb=start.staging_budget_mb)
+        heuristic_budget_mb=start.staging_budget_mb, dp_overlap=dp,
+        n_slices=sg.n_slices if sg is not None else 1)
     by_key: Dict[tuple, probe_mod.ProbeResult] = {}
 
     def raw_probe(cand: Candidate) -> probe_mod.ProbeResult:

@@ -4,8 +4,9 @@ package's ``tpudist/tune/cache.py`` with the port's fingerprint.
 A tuned operating point is only valid for the exact situation it was
 measured in, so cache entries are keyed by a FINGERPRINT of everything
 that moves the curve: the model config, global batch, dtypes, the
-log/ckpt intervals (they bound the legal k space), the world size and
-the mesh shape, the device's name, the torch and CUDA versions, the port's version and the
+log/ckpt intervals (they bound the legal k space), the gradient mean's
+schedule (``--grad-overlap``, ``--cross-slice``) and the slice map, the
+world size and the mesh shape, the device's name, the torch and CUDA versions, the port's version and the
 source hash of its CUDA kernels (a changed kernel is a changed curve).
 Any of those changing is a different workload — the lookup MUST miss
 and re-probe.
@@ -29,6 +30,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from tpudist_torch import config as config_lib
+from tpudist_torch.parallel import mesh as mesh_lib
+
 SCHEMA = 1
 
 
@@ -43,6 +47,24 @@ def kernel_sources() -> list:
             for name, sources in ((fa.LIBRARY, fa.SOURCES),
                                   (fa.BWD_LIBRARY, fa.BWD_SOURCES),
                                   (fx.LIBRARY, fx.SOURCES))]
+
+
+def _resolved(resolve, cfg, default):
+    """``resolve(cfg)``, or ``default`` where the setting is invalid (the
+    run refuses it anyway)."""
+    try:
+        return resolve(cfg)
+    except ValueError:
+        return default
+
+
+def _slices(world: int) -> list:
+    """The world's slice partition (``TPUDIST_SLICE_MAP`` resolved) as a
+    JSON-able list, [] when unsliced or malformed."""
+    try:
+        return list(mesh_lib.resolve_slice_map(world) or [])
+    except ValueError:
+        return []
 
 
 def fingerprint(cfg, device: torch.device, *, world: Optional[int] = None,
@@ -64,6 +86,16 @@ def fingerprint(cfg, device: torch.device, *, world: Optional[int] = None,
         "adam_nu_dtype": cfg.adam_nu_dtype,
         "log_every": cfg.log_every,
         "ckpt_every_steps": cfg.ckpt_every_steps,
+        # the overlap plane changes the program the knobs tune: a point
+        # measured with the per-param all-reduces must not serve a
+        # bucketed run, nor a flat one a hierarchical run (and the
+        # search space differs)
+        "grad_overlap": _resolved(config_lib.resolve_grad_overlap, cfg,
+                                  ("off",))[0],
+        "cross_slice": _resolved(config_lib.resolve_cross_slice, cfg,
+                                 "flat"),
+        # the slice partition changes which cross_slice points exist
+        "slices": _slices(int(world)),
         "world": int(world),
         # the mesh's axis sizes as configured (data -1: the rest of the
         # world), as the JAX cache key carries the mesh
@@ -86,9 +118,10 @@ def _validate_train_tuned(tuned: Dict[str, Any]) -> bool:
     """The train tuner's knob sanity check: the knobs must all be
     present and sane — an insane value (wrong type, non-positive) is a
     MISS here, not a crash later in resolve_staging_budget_bytes. The
-    overlap-plane coordinates must be those of the one schedule the port
-    runs (no buckets, GPipe, the flat reduce): a record that asks for
-    another cannot be applied, so it is a miss too."""
+    overlap-plane coordinates are validated when present: a bucket bound
+    must be a positive number, the cross-slice mode one of the two, and
+    the pipeline's coordinate GPipe's (the port refuses the pipe axis, so
+    a record that asks for interleaving cannot be applied)."""
     if int(tuned["k"]) < 1 or int(tuned["grad_accum_steps"]) < 1:
         return False
     bool(tuned["remat"])
@@ -97,9 +130,13 @@ def _validate_train_tuned(tuned: Dict[str, Any]) -> bool:
                                or not isinstance(budget, (int, float))
                                or budget <= 0):
         return False
-    return (tuned.get("grad_bucket_mb") is None
-            and tuned.get("pipeline_interleave") in (None, 0, 1)
-            and tuned.get("cross_slice") in (None, "flat"))
+    bucket = tuned.get("grad_bucket_mb")
+    if bucket is not None and (isinstance(bucket, bool)
+                               or not isinstance(bucket, (int, float))
+                               or bucket <= 0):
+        return False
+    return (tuned.get("pipeline_interleave") in (None, 0, 1)
+            and tuned.get("cross_slice") in (None, "flat", "hierarchical"))
 
 
 def load(cache_dir: str, fp: str, *, prefix: str = "tune",

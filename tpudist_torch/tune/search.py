@@ -48,8 +48,9 @@ from tpudist_torch.config import SUPERSTEP_CAP, TrainConfig
 # Axis walk order: the k axis carries the order-of-magnitude spread
 # (the MLP default's steps/s per-step against replayed, PERF.md §6),
 # so it is searched first and every later axis rides the committed k.
-# The overlap-plane knobs (grad bucket bytes, pipeline virtual stages;
-# empty in the port) sit between the dispatch knobs and the math knobs:
+# The overlap-plane knobs (grad bucket bytes, the cross-slice reduce,
+# pipeline virtual stages: empty in the port) sit between the dispatch
+# knobs and the math knobs:
 # both are pure SCHEDULE coordinates — bitwise-identical loss at every
 # value — so they never need the math-axis commit margin, just a
 # measured win.
@@ -88,10 +89,7 @@ REGRESS_STOP = 0.10
 class Candidate:
     """One point in the knob space. ``apply`` folds it into a TrainConfig
     as EXPLICIT settings (tuned values outrank env vars exactly like
-    flags do — a tuned commit is a flag the measurement wrote). The
-    overlap-plane coordinates keep the JAX package's fields and the
-    values of the one schedule the port runs (no buckets, GPipe, the
-    flat reduce); ``apply`` leaves them out."""
+    flags do — a tuned commit is a flag the measurement wrote)."""
 
     k: int = 1
     staging_budget_mb: Optional[float] = None
@@ -107,10 +105,16 @@ class Candidate:
     cross_slice: Optional[str] = None
 
     def apply(self, cfg: TrainConfig) -> TrainConfig:
-        return dataclasses.replace(
+        out = dataclasses.replace(
             cfg, steps_per_dispatch=self.k,
             staging_budget_mb=self.staging_budget_mb,
             remat=self.remat, grad_accum_steps=self.grad_accum_steps)
+        if self.grad_bucket_mb is not None:
+            out = dataclasses.replace(out,
+                                      grad_bucket_mb=self.grad_bucket_mb)
+        if self.cross_slice is not None:
+            out = dataclasses.replace(out, cross_slice=self.cross_slice)
+        return out
 
     def replace(self, **kw) -> "Candidate":
         return dataclasses.replace(self, **kw)
@@ -146,23 +150,40 @@ def k_candidates(cfg: TrainConfig) -> List[int]:
     return ladder
 
 
+# Bucket-size ladder for --grad-overlap bucketed, MB: geometric like the
+# k ladder, spanning "reduce almost per-leaf" to "one bucket ≈ barrier".
+GRAD_BUCKET_LADDER_MB = (1.0, 4.0, 16.0)
+
+
 def build_space(cfg: TrainConfig, *, batch_ways: int = 1,
-                heuristic_budget_mb: Optional[float] = None
-                ) -> Dict[str, List[Any]]:
+                heuristic_budget_mb: Optional[float] = None,
+                dp_overlap: bool = False,
+                n_slices: int = 1) -> Dict[str, List[Any]]:
     """The bounded search space for this run's config.
 
     * ``k``: the legal divisor ladder (:func:`k_candidates`).
     * ``staging_budget_mb``: the heuristic estimate, unbounded (the
       full-epoch fast path), and 2x the estimate — only when a heuristic
       estimate exists at all.
-    * ``grad_bucket_mb``, ``cross_slice``, ``pipeline_interleave``:
-      empty (the JAX package opens them on a bucketed, multi-slice or
-      pipeline mesh; the port refuses those, ROADMAP Queue A item 8b).
+    * ``grad_bucket_mb``: the geometric bucket ladder, led by the run's
+      configured value — only when ``dp_overlap`` says the run is the
+      replicated data-parallel step (world > 1, no sharded mesh) AND
+      ``--grad-overlap bucketed`` is on (a bucket size is meaningless
+      otherwise).
+    * ``cross_slice``: both reduce schedules, led by the run's resolved
+      mode — only on a multi-slice data-parallel run (``n_slices > 1``
+      with ``dp_overlap``): a one-slice hierarchical downgrades to flat
+      anyway, so the coordinate would probe the identical program twice.
+    * ``pipeline_interleave``: empty (the JAX package opens it on a
+      pipeline mesh; the port refuses the pipe axis, ROADMAP Queue A
+      item 8b).
     * ``remat``: both settings for layered models; the mlp has no layers
       to checkpoint.
     * ``grad_accum_steps``: {1, 2, 4} filtered to divide the per-shard
       batch (the same divisibility train.run enforces).
     """
+    from tpudist_torch.config import (resolve_cross_slice,
+                                      resolve_grad_overlap)
     budgets: List[Optional[float]] = [heuristic_budget_mb]
     if heuristic_budget_mb is not None:
         budgets += [None, round(heuristic_budget_mb * 2, 4)]
@@ -171,11 +192,21 @@ def build_space(cfg: TrainConfig, *, batch_ways: int = 1,
            if cfg.batch_size % (max(batch_ways, 1) * g) == 0]
     if cfg.grad_accum_steps not in gas:
         gas = sorted(set(gas) | {cfg.grad_accum_steps})
+    buckets: List[Optional[float]] = []
+    mode, bucket_bytes = resolve_grad_overlap(cfg)
+    if dp_overlap and mode == "bucketed":
+        lead = round(bucket_bytes / 2**20, 4)
+        buckets = [lead] + [b for b in GRAD_BUCKET_LADDER_MB if b != lead]
+    cross: List[Optional[str]] = []
+    if dp_overlap and n_slices > 1:
+        lead = resolve_cross_slice(cfg)
+        cross = [lead] + [m for m in ("flat", "hierarchical")
+                          if m != lead]
     return {
         "k": k_candidates(cfg),
         "staging_budget_mb": budgets,
-        "grad_bucket_mb": [],
-        "cross_slice": [],
+        "grad_bucket_mb": buckets,
+        "cross_slice": cross,
         "pipeline_interleave": [],
         "remat": ([cfg.remat, not cfg.remat] if layered else [cfg.remat]),
         "grad_accum_steps": gas,
