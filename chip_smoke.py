@@ -10,6 +10,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only-expert   # phases 1-3 (checks), 18a, 24
     python3 chip_smoke.py --only-context  # phases 1-3 (checks), 25
     python3 chip_smoke.py --only-overlap  # phases 1-3 (checks), 26
+    python3 chip_smoke.py --only-spine    # phases 1-3 (checks), 27
     python3 chip_smoke.py --only-overlap --only-context --context-drift \
         --only-expert    # the checks once, then 26, 25 + the CP fault, 24
     python3 chip_smoke.py --expert-drift  # phases 1-2; 24b's holds
@@ -412,6 +413,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ``gate(records)``, ``--peak-gbps`` far below and far above the
    measured bus bandwidth (exit 0 ``success``, exit 1 ``fail``), the
    best bus GB/s per kind beside the card's NVLink peak and topology.
+27. the acceptance spine: (a) ``python -m tpudist_torch.selfcheck`` in a
+   process of its own on the card, started beside phase 17a's drill and
+   joined after it, before 17b: exit 0 with all 17 checks passed (its
+   drills' attempts on the CPU, four families or scenarios at a time;
+   each kernel check launching its kernels and holding them against the
+   dense reference and the plain version), each check's seconds and the
+   six kernels' launches it made printed by row; then ``TPUDIST_PLATFORM=cpu``
+   without ``--allow-cpu`` exits 2 with no ``PASS`` or ``FAIL`` line and
+   ``--only no_such_check`` exits 2; (b) ``launcher/launch_gpu.sh`` end
+   to end, ``scontrol``, ``sbatch``, ``squeue``, ``scancel`` and
+   ``srun`` stubs on PATH (one node, the cards present, one task a
+   card): phase 6's flags (``--data <cards>`` on several cards), with
+   ``SKIP_SELFCHECK=1`` on one card and the selfcheck on every rank on
+   several: verdict ``success``, the stdout contract, falling losses,
+   rank 0's flash launches (its ``kind=timing`` ``kernel_launches``)
+   phase 6's; then one card more than the node has: the probe refuses
+   it (exit 1, ``fail``, nothing submitted). ``--only-spine`` runs 27a
+   alone, then 27b.
 
 Phases 4, 4b, 5-6, 8-9, 10a, 11a, 11c, 12b, 13a, 13b, 14a-14d, 15a,
 15c-15e (15d's requeued, stalled, garbage and clean runs), 16b, 17b,
@@ -420,11 +439,13 @@ port), 20a (both sharded runs), 20b (both runs), 21a-b, 22a (both
 engines), 22b (its three runs), 23a (its three engines), 23b (its
 five CLI runs), 24a (both runs), 24b (its runs and their one-card
 references), 25a (the flash-hop ring) and 25b (its runs, their one-card
-references and the superstep), 26a (its four runs) and 26b (its runs)
-are the main paths:
+references and the superstep), 26a (its four runs), 26b (its runs)
+and 27b (rank 0's run through the launcher) are the main paths:
 each
 runs with every launch count set to 0 just before and read just after
-(10a, 11c, 20a-24b, 25b, 26a-b in each rank's process; 12b's and 15a's timed
+(10a, 11c, 20a-24b, 25b, 26a-b in each rank's process; 27b's in its
+train process, from process start, read from its ``kind=timing``
+record; 12b's and 15a's timed
 runs, not
 their probes, which restore the counters), and each
 kernel must have launched the
@@ -460,6 +481,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -502,13 +524,7 @@ def build_all(build, fa, fx):
     """Phase 2: build every kernel library of the port's paths from the
     checkout, one nvcc each, all started together; print ptxas's
     register and spill report."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    libs = ((fa.LIBRARY, fa.SOURCES), (fa.BWD_LIBRARY, fa.BWD_SOURCES),
-            (fx.LIBRARY, fx.SOURCES))
-    with ThreadPoolExecutor(len(libs)) as pool:
-        results = list(pool.map(lambda lib: build.build(*lib), libs))
-    for (name, _), res in zip(libs, results):
+    for (name, _), res in zip(build.libraries(), build.build_all()):
         ptxas = [ln.strip() for ln in res.log.splitlines()
                  if "registers" in ln or "spill" in ln
                  or "Compiling entry" in ln]
@@ -3391,7 +3407,7 @@ def _fact_diff(facts, want):
     return sorted(k for k in want if got.get(k) != want[k])
 
 
-def train_chaos(torch, fa, fx, card: str):
+def train_chaos(torch, fa, fx, card: str, after_drill=None):
     """Phase 17: (a) the port's chaos drill (``run_baseline``, then
     ``run_family`` for ``DRILL_LANES`` families at a time and
     ``verify_family`` for each as it ends) with
@@ -3413,7 +3429,8 @@ def train_chaos(torch, fa, fx, card: str):
     baseline, bytes that do not depend on the process. (c) what the
     asynchronous writer buys at this width: enqueue, drain, bytes and
     the writer's GB/s, sync against async, and the steps/s with saves
-    every 2 steps against none mid-epoch. Returns (b)'s launches."""
+    every 2 steps against none mid-epoch. ``after_drill`` is called once
+    (a)'s matrix is verified, before (b). Returns (b)'s launches."""
     from tpudist_torch import config as config_lib
     from tpudist_torch.chaos import drill, verify
     from tpudist_torch.obs import goodput
@@ -3536,6 +3553,8 @@ def train_chaos(torch, fa, fx, card: str):
     if bad or not report["ok"]:
         fail(f"train 17a: families {bad} failed the verifier or left the "
              f"CPU drill's facts")
+    if after_drill is not None:
+        after_drill()
 
     # (b) the baseline's flags in this process
     argv = list(drill.BASE_FLAGS) + list(TRAIN_DRILL_MODEL)
@@ -6828,31 +6847,23 @@ def ring_merge_check(torch, fa):
     merged by ``merge_partials`` against one whole-kv call, forward and
     the q/k/v grads of a random cotangent (the merge feeds each call's
     backward a nonzero lse cotangent), at its shape b2 s1024 h4 kv2
-    hd128: in bf16 at its tolerances (forward atol 3e-2, grads atol
-    0.5), and in f32 at 1e-4 (the forward's max |d|, each grad's max |d|
-    / max |whole|)."""
-    from tpudist_torch.ops import ring_attention as ring
+    hd128, on the port selfcheck's inputs (``ring_merge_inputs``): in
+    bf16 at its tolerances (forward atol 3e-2, grads atol 0.5), and in
+    f32 at 1e-4 (the forward's max |d|, each grad's max |d| / max
+    |whole|)."""
+    from tpudist_torch import selfcheck
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(25)
-    b, s, h, kv, hd = 2, 1024, 4, 2, 128
-    c = s // 2
+    b, s, h, kv, hd = selfcheck.RING_MERGE_SHAPE
+
+    def attn(q, k, v):
+        return fa.flash_attention_with_lse(q, k, v, causal=False)
+
     for dt, tol, grad_tol, rel in (("bfloat16", 3e-2, 0.5, False),
                                    ("float32", 1e-4, 1e-4, True)):
-        dtype = getattr(torch, dt)
-        q, k, v, ct = (torch.randn(b, s, n, hd, device="cuda",
-                                   generator=gen).to(dtype)
-                       for n in (h, kv, kv, h))
+        q, k, v, ct = selfcheck.ring_merge_inputs(getattr(torch, dt),
+                                                  torch.device("cuda"))
         q, k, v = (x.requires_grad_() for x in (q, k, v))
-        o, _ = fa.flash_attention_with_lse(q, k, v, causal=False)
-        whole = o.float()
-        o1, l1 = fa.flash_attention_with_lse(q, k[:, :c].contiguous(),
-                                             v[:, :c].contiguous(),
-                                             causal=False)
-        o2, l2 = fa.flash_attention_with_lse(q, k[:, c:].contiguous(),
-                                             v[:, c:].contiguous(),
-                                             causal=False)
-        merged, _ = ring.merge_partials(o1.float(), l1, o2.float(), l2)
+        merged, whole = selfcheck.ring_merge_pair(attn, q, k, v)
         g_whole = torch.autograd.grad((whole * ct.float()).sum(), (q, k, v))
         g_merged = torch.autograd.grad((merged * ct.float()).sum(),
                                        (q, k, v))
@@ -6870,7 +6881,7 @@ def ring_merge_check(torch, fa):
         if not ok:
             fail(f"ring merge: two merged kernel calls disagree with one "
                  f"whole-kv call in {dt}")
-        del q, k, v, ct, o, o1, o2, g_whole, g_merged
+        del q, k, v, ct, merged, whole, g_whole, g_merged
     torch.cuda.empty_cache()
 
 
@@ -7762,6 +7773,306 @@ def context_drift(torch, fa, fx, card: str, one) -> None:
     print(f"context drift: {time.perf_counter() - t0:.1f} s")
 
 
+# phase 27: the acceptance spine. (a) the on-card gate, python -m
+# tpudist_torch.selfcheck, in a process of its own; (b) the SLURM launcher
+# end to end on the machine the script runs on, the SLURM commands stubs
+# on PATH
+SELFCHECK_LOG = ROOT / "build" / "chip_smoke_selfcheck.log"
+SELFCHECK_TIMEOUT_S = 900
+# each kernel's row of PERF.md §6
+KERNEL_ROWS = {"flash_attention_fwd": 1, "flash_attention_bwd_dqkv": 2,
+               "flash_attention_bwd_dq": 3, "flash_attention_bwd_dkv": 4,
+               "fused_xent_fwd": 5, "fused_xent_bwd": 6}
+# phase 6's flags: config #5, seq 512, f32, 32 samples, 4 steps
+LAUNCHER_ARGV = ["--model", "transformer", "--seq-len", "512",
+                 "--train-batch-size", "8", "--n-samples", "32",
+                 "--epochs", "1", "--seed", "42", "--log-every", "1"]
+LAUNCHER_PATH = "train_launcher"
+
+# SLURM as the launcher sees it on one node, the machine the script runs
+# on: scontrol probes it (gres/gpu = the cards present) and names it
+# localhost; sbatch runs the batch script at once with the job's
+# variables; the job has left the queue when squeue is asked; srun runs
+# its command once a task, all at once, with SLURM_PROCID /
+# SLURM_LOCALID / SLURM_NTASKS set
+SLURM_STUBS = {
+    "scontrol": r"""#!/usr/bin/env bash
+echo "scontrol $*" >> "$STUB_DIR/calls.log"
+case "$1 $2" in
+  "show nodes") echo "NodeName=localhost Arch=x86_64"
+                echo "   CfgTRES=cpu=8,billing=8,gres/gpu=$STUB_GPUS" ;;
+  "show hostnames") echo localhost ;;
+esac
+""",
+    "sbatch": r"""#!/usr/bin/env bash
+echo "sbatch $*" >> "$STUB_DIR/calls.log"
+nodes=1 per=1 dir=$PWD out=/dev/null
+while [ $# -gt 0 ]; do
+  case "$1" in
+    --nodes) nodes=$2; shift 2 ;;
+    --ntasks-per-node) per=$2; shift 2 ;;
+    --chdir) dir=$2; shift 2 ;;
+    --output) out=$2; shift 2 ;;
+    --error|--gres|--job-name) shift 2 ;;
+    --export=*) IFS=, read -ra kvs <<< "${1#--export=}"
+                for kv in "${kvs[@]}"; do [ "$kv" = ALL ] || export "$kv"; done
+                shift ;;
+    --*) shift ;;
+    *) break ;;
+  esac
+done
+script=$1; shift
+export SLURM_JOB_ID=1000 SLURM_JOB_NUM_NODES=$nodes SLURM_NNODES=$nodes \
+  SLURM_NTASKS_PER_NODE=$per SLURM_NTASKS=$((nodes * per)) \
+  SLURM_JOB_NODELIST=localhost SLURM_SUBMIT_DIR=$PWD
+(cd "$dir" && bash "$script" "$@") > "${out//%j/$SLURM_JOB_ID}" 2>&1
+echo "$SLURM_JOB_ID"
+""",
+    "squeue": "#!/usr/bin/env bash\necho \"squeue $*\" >> \"$STUB_DIR/calls.log\"\n",
+    "scancel": "#!/usr/bin/env bash\necho \"scancel $*\" >> \"$STUB_DIR/calls.log\"\n",
+    "srun": r"""#!/usr/bin/env bash
+echo "srun $*" >> "$STUB_DIR/calls.log"
+nodes=1 per=1
+while [ $# -gt 0 ]; do
+  case "$1" in
+    --nodes=*) nodes=${1#--nodes=}; shift ;;
+    --ntasks-per-node=*) per=${1#--ntasks-per-node=}; shift ;;
+    --*) shift ;;
+    *) break ;;
+  esac
+done
+pids=()
+for ((p = 0; p < nodes * per; p++)); do
+  SLURM_PROCID=$p SLURM_LOCALID=$((p % per)) SLURM_NTASKS=$((nodes * per)) \
+    "$@" &
+  pids+=($!)
+done
+rc=0
+for pid in "${pids[@]}"; do wait "$pid"; r=$?; [ "$r" -gt "$rc" ] && rc=$r; done
+exit "$rc"
+""",
+    # the tasks' python3: this interpreter
+    "python3": "#!/usr/bin/env bash\nexec \"$STUB_PYTHON\" \"$@\"\n",
+}
+
+
+def _spine_env(**extra):
+    """``os.environ`` without its ``TPUDIST_`` variables, the checkout on
+    ``PYTHONPATH``, then ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPUDIST_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env.update(extra)
+    return env
+
+
+def parse_selfcheck(out: str, ranks: int):
+    """The selfcheck's lines in ``out`` from ``ranks`` processes:
+    ``(seconds by check, launches by rank, failed checks, ok)``; ok when
+    every rank passed every check of ``CHECKS`` and printed its launches
+    and its ``n/n passed``."""
+    from tpudist_torch import selfcheck
+
+    names = [fn.__name__ for fn in selfcheck.CHECKS]
+    secs = {}
+    for name, s in re.findall(r"^PASS (\w+) \(([0-9.]+)s\)$", out, re.M):
+        secs.setdefault(name, []).append(float(s))
+    failed = re.findall(r"^FAIL (\w+)$", out, re.M)
+    launches = [json.loads(m) for m in
+                re.findall(r"^selfcheck: launches (\{.*\})$", out, re.M)]
+    n = len(names)
+    ok = (not failed and len(launches) == ranks
+          and all(len(secs.get(c, ())) == ranks for c in names)
+          and out.count(f"selfcheck: {n}/{n} passed") == ranks)
+    return secs, launches, failed, ok
+
+
+def _print_selfcheck(tag: str, secs, launches, card: str) -> None:
+    for name, s in secs.items():
+        print(f"selfcheck {tag}: PASS {name} {s} s")
+    for rank, counts in enumerate(launches):
+        print(f"selfcheck {tag}: rank {rank}'s kernel launches by row "
+              + ", ".join(f"row {KERNEL_ROWS[k]} {k} {n}"
+                          for k, n in sorted(counts.items(),
+                                             key=lambda kv: KERNEL_ROWS[kv[0]]))
+              + f"; {card}")
+
+
+def selfcheck_start():
+    """Phase 27a, started: ``python -m tpudist_torch.selfcheck`` in a
+    process of its own on the card (the libraries phase 2 built), its
+    output to :data:`SELFCHECK_LOG`. Returns ``(process, log file,
+    start)``; :func:`selfcheck_finish` joins it, :func:`selfcheck_kill`
+    stops it."""
+    SELFCHECK_LOG.parent.mkdir(parents=True, exist_ok=True)
+    fh = open(SELFCHECK_LOG, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpudist_torch.selfcheck"], cwd=ROOT,
+        env=_spine_env(), stdout=fh, stderr=subprocess.STDOUT)
+    return proc, fh, time.perf_counter()
+
+
+def selfcheck_kill(started) -> None:
+    proc, fh, _ = started
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    fh.close()
+
+
+def selfcheck_finish(started, card: str, where: str) -> None:
+    """Phase 27a, joined: exit 0 with all 17 checks passed, each check's
+    seconds and the six kernels' launches it made (by row) printed; then
+    the refusals: ``TPUDIST_PLATFORM=cpu`` without ``--allow-cpu`` exits
+    2 with no ``PASS`` or ``FAIL`` line, and ``--only no_such_check``
+    exits 2."""
+    proc, fh, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, SELFCHECK_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        selfcheck_kill(started)
+        fail(f"selfcheck 27a: still running after {SELFCHECK_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    fh.close()
+    out = SELFCHECK_LOG.read_text()
+    secs, launches, failed, ok = parse_selfcheck(out, 1)
+    _print_selfcheck("27a", secs, launches, card)
+    print(f"selfcheck 27a: exit {rc}, {sum(len(v) for v in secs.values())} "
+          f"PASS, failed {failed}, wall {wall:.1f} s ({where}); {card}")
+    if rc != 0 or not ok:
+        print("\n".join(out.splitlines()[-60:]))
+        fail(f"selfcheck 27a: exit {rc}, failed checks {failed}")
+    refusals = {}
+    for what, argv, env in (
+            ("TPUDIST_PLATFORM=cpu", [], {"TPUDIST_PLATFORM": "cpu"}),
+            ("--only no_such_check", ["--only", "no_such_check"], {})):
+        r = subprocess.run(
+            [sys.executable, "-m", "tpudist_torch.selfcheck", *argv],
+            cwd=ROOT, env=_spine_env(**env), capture_output=True, text=True,
+            timeout=300)
+        refusals[what] = r.returncode
+        lines = r.stdout.strip().splitlines()
+        print(f"selfcheck 27a: {what}: exit {r.returncode}: "
+              f"{lines[-1][:160] if lines else ''}")
+        if r.returncode != 2 or re.search(r"^(PASS|FAIL) ", r.stdout, re.M):
+            fail(f"selfcheck 27a: {what} exited {r.returncode}, want 2 "
+                 f"and no check run")
+
+
+def _launcher_run(base: Path, env, argv, timeout_s: float):
+    """``launcher/launch_gpu.sh argv`` from ``base`` with the SLURM stubs
+    on PATH: ``(process, calls log, the job's output)``."""
+    shutil.rmtree(base, ignore_errors=True)
+    stub, bin_dir = base / "stub", base / "bin"
+    for d in (stub, bin_dir):
+        d.mkdir(parents=True)
+    for name, body in SLURM_STUBS.items():
+        (bin_dir / name).write_text(body)
+        (bin_dir / name).chmod(0o755)
+    env = dict(env, PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}",
+               STUB_DIR=str(stub), STUB_PYTHON=sys.executable,
+               JOB_DIR=str(base / "job"), POLL_S="0")
+    r = subprocess.run(["bash", str(ROOT / "launcher" / "launch_gpu.sh"),
+                        *argv],
+                       cwd=base, env=env, capture_output=True, text=True,
+                       timeout=timeout_s)
+    calls = (stub / "calls.log").read_text() \
+        if (stub / "calls.log").exists() else ""
+    log = base / "job" / "logs" / "tpudist-accept_1000.out"
+    return r, calls, log.read_text() if log.exists() else ""
+
+
+def launcher_e2e(torch, fa, card: str, want=None):
+    """Phase 27b: ``launcher/launch_gpu.sh`` end to end on the machine,
+    the SLURM commands stubs on PATH (``SLURM_STUBS``), every card one
+    task: G = the cards present, phase 6's flags (config #5, seq 512,
+    f32, 32 samples, 4 steps; ``--data G`` on several cards), the kernels
+    loaded from phase 2's build. On one card with ``SKIP_SELFCHECK=1``
+    (27a is its card evidence), on several with the selfcheck on every
+    rank first. The verdict ``success``, the stdout contract, falling
+    losses, and rank 0's flash launches (its ``kind=timing``
+    ``kernel_launches``) those of phase 6 (``want``, else its closed
+    form). Then G = the cards + 1: the probe refuses, exit 1, verdict
+    ``fail``, nothing submitted and no train process. Returns the
+    launches."""
+    from tpudist_torch import config as config_lib
+    from tpudist_torch import engine as engine_lib
+    from tpudist_torch.ops.cuda import build
+
+    n = torch.cuda.device_count()
+    argv = LAUNCHER_ARGV + (["--data", str(n)] if n > 1 else [])
+    cfg = config_lib.parse_args(argv)
+    if want is None:
+        fused, _ = engine_lib._resolve_lm_head(cfg, torch.device("cuda"))
+        want = want_launches(fa, cfg.model, 512, 4, 1, fused)
+    base = ROOT / "build" / "chip_smoke_launcher"
+    env = _spine_env(
+        STUB_GPUS=str(n), NNODES="1", GPUS_PER_NODE=str(n),
+        TIMEOUT_S="900", RUN_ID="chip-smoke-27b",
+        MASTER_PORT=str(_free_port()), SKIP_SELFCHECK="1" if n == 1 else "0",
+        TPUDIST_COMPILATION_CACHE_DIR=str(build.build_root()))
+    t0 = time.perf_counter()
+    r, calls, out = _launcher_run(base, env, argv, 1200)
+    wall = time.perf_counter() - t0
+    verdict = (base / "job_status.txt").read_text() \
+        if (base / "job_status.txt").exists() else None
+    print(f"launcher 27b: {n} card(s) as 1 node x {n} task(s), "
+          f"SKIP_SELFCHECK={env['SKIP_SELFCHECK']}: exit {r.returncode}, "
+          f"verdict {verdict}, wall {wall:.1f} s; {card}")
+    print("\n".join(f"launcher 27b: | {ln}"
+                    for ln in r.stdout.strip().splitlines()[-6:]))
+    if r.returncode != 0 or verdict != "success":
+        print(r.stderr[-3000:])
+        print("\n".join(out.splitlines()[-80:]))
+        fail(f"launcher 27b: exit {r.returncode}, verdict {verdict}")
+    if n > 1:
+        secs, launches, failed, ok = parse_selfcheck(out, n)
+        _print_selfcheck("27b", secs, launches, card)
+        if not ok:
+            fail(f"launcher 27b: the selfcheck on {n} ranks: failed "
+                 f"{failed}")
+    recs = [json.loads(ln) for ln in
+            (base / "job" / "ckpt" / "metrics.jsonl").read_text()
+            .splitlines()]
+    losses = [x["loss"] for x in recs if x["kind"] == "step"]
+    check_contract("launcher 27b", out, 1, losses)
+    counts = [x for x in recs if x["kind"] == "timing"][-1]["kernel_launches"]
+    flash = {k: v for k, v in counts.items() if k.startswith("flash")}
+    want_flash = {k: v for k, v in want.items() if k.startswith("flash")}
+    print(f"launcher 27b: step losses {losses}; rank 0's kernel launches "
+          f"{counts} (flash: want {want_flash}, phase 6's)")
+    if flash != want_flash:
+        fail(f"launcher 27b: flash launches {flash}, want {want_flash}")
+    shutil.rmtree(base / "job" / "ckpt", ignore_errors=True)
+
+    # a request beyond the cluster: refused before anything is submitted
+    bad = dict(env, GPUS_PER_NODE=str(n + 1))
+    r, calls, _ = _launcher_run(base / "probe", bad, argv, 120)
+    verdict = (base / "probe" / "job_status.txt").read_text() \
+        if (base / "probe" / "job_status.txt").exists() else None
+    submitted = [ln for ln in calls.splitlines()
+                 if ln.startswith(("sbatch ", "srun "))]
+    print(f"launcher 27b: GPUS_PER_NODE={n + 1} on {n}: exit "
+          f"{r.returncode}, verdict {verdict}, submitted {len(submitted)}: "
+          f"{r.stdout.strip().splitlines()[-1][:160]}")
+    if r.returncode != 1 or verdict != "fail" or submitted:
+        fail(f"launcher 27b: the probe let {n + 1} cards a node through "
+             f"(exit {r.returncode}, verdict {verdict})")
+    print(f"launcher 27b: phase wall {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    return {LAUNCHER_PATH: counts}
+
+
+def only_spine(torch, fa, card: str):
+    """``--only-spine``: 27a alone on card 0, then 27b on the visible
+    cards. Returns 27b's launches."""
+    started = selfcheck_start()
+    selfcheck_finish(started, card, "alone")
+    return launcher_e2e(torch, fa, card)
+
+
 def _model_of(argv):
     from tpudist_torch import config as config_lib
     return config_lib.parse_args(argv).model
@@ -7784,12 +8095,14 @@ def _guarded(what: str, fn, *args):
 
 
 def only_modes(torch, fa, fx, card: str, args) -> int:
-    """``--only-overlap``, ``--only-expert`` and ``--only-context`` (any
-    of them, with ``--context-drift`` beside the last), in one run:
+    """``--only-spine``, ``--only-overlap``, ``--only-expert`` and
+    ``--only-context`` (any of them, with ``--context-drift`` beside the
+    last), in one run:
     phase 3's checks of the flash and fused-head kernels once, then each
     mode's phases, a mode that fails reported and the next run; then the
     kernels' launches by path, and the result line unless a mode
-    failed. ``--only-overlap`` is phases 26a-c."""
+    failed. ``--only-overlap`` is phases 26a-c, ``--only-spine`` 27a
+    (alone) and 27b."""
     import torch.nn.functional as F
 
     fwd = check_flash(torch, fa, F)
@@ -7805,6 +8118,8 @@ def only_modes(torch, fa, fx, card: str, args) -> int:
             failed.append(what)
         torch.cuda.empty_cache()
 
+    if args.only_spine:
+        run("27", only_spine, torch, fa, card)
     if args.only_overlap:
         run("26a", overlap_body, torch, fa, card)
         if multi:
@@ -7880,6 +8195,12 @@ def main() -> int:
                          "visible cards (with --only-expert and "
                          "--only-context: each mode after the checks, "
                          "run once)")
+    ap.add_argument("--only-spine", action="store_true",
+                    help="phases 1-2, phase 3's checks of the flash and "
+                         "fused-head kernels and phase 27 alone: the "
+                         "selfcheck and the SLURM launcher on the visible "
+                         "cards (combines with --only-overlap, "
+                         "--only-context and --only-expert)")
     ap.add_argument("--context-drift", action="store_true",
                     help="beside --only-context, on two cards or more: "
                          "25b's ring run with the context ranks left out "
@@ -7920,7 +8241,8 @@ def main() -> int:
         return only_tp(torch, fa, fx, card)
     if args.only_serve_mesh:
         return only_serve_mesh(torch, fa, fx, card)
-    if args.only_overlap or args.only_expert or args.only_context:
+    if args.only_overlap or args.only_expert or args.only_context \
+            or args.only_spine:
         return only_modes(torch, fa, fx, card, args)
     if args.context_drift:
         fail("--context-drift runs beside --only-context")
@@ -8035,9 +8357,18 @@ def main() -> int:
     # phase 17: the train side's chaos drill on the card at config #5's
     # width, its baseline in-process, and what the asynchronous
     # checkpoint writer buys
+    # phase 27a beside 17a, joined before 17b: the selfcheck's checks are
+    # correctness holds, not timings, and the drill's lanes are bound by
+    # start-up; 17b-c time steps and saves
     torch.cuda.empty_cache()
-    paths.update(train_chaos(torch, fa, fx, card))
-    walls.lap("17")
+    started = selfcheck_start()
+    try:
+        paths.update(train_chaos(
+            torch, fa, fx, card, after_drill=lambda: selfcheck_finish(
+                started, card, "beside phase 17a")))
+    finally:
+        selfcheck_kill(started)
+    walls.lap("17, 27a")
 
     # phase 18: the MoE at bench.py's width: (a) the train CLI per-step
     # and as the superstep, (b) one step's grads kernels vs plain, (c)
@@ -8114,6 +8445,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(context_ring(torch, fa, fx, F, card, [fwd] + bwd))
     walls.lap("25")
+
+    # phase 27b: the SLURM launcher end to end on the visible cards, the
+    # SLURM commands stubbed, at phase 6's flags against phase 6's launches
+    torch.cuda.empty_cache()
+    paths.update(launcher_e2e(torch, fa, card, paths["train_seq512"]))
+    walls.lap("27b")
     if args.profile:
         for seq, head, dt in ((2048, "plain", "float32"),
                               (2048, "fused", "float32"),
@@ -8144,7 +8481,8 @@ def main() -> int:
                                             *FSDP_PATHS, *TP_PATHS,
                                             *(p for p in TP_CLI_PATHS
                                               if p in paths),
-                                            *EXPERT_PATHS, *CONTEXT_PATHS),
+                                            *EXPERT_PATHS, *CONTEXT_PATHS,
+                                            LAUNCHER_PATH),
                "fused_xent_fwd": ("train_seq2048_fused",
                                   "train_seq512_bf16_auto",
                                   "train_seq512_dp", *SUPERSTEP,

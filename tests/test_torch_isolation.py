@@ -33,7 +33,8 @@ def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "tpudist_torch/__init__.py",
             "tpudist_torch/ops/cuda/flash_attention.py",
-            "tpudist_torch/serve/engine.py"} <= names
+            "tpudist_torch/serve/engine.py",
+            "tpudist_torch/selfcheck.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

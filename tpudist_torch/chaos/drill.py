@@ -27,6 +27,7 @@ The module imports neither torch nor numpy; only the subprocesses do.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -261,20 +262,27 @@ def write_results(run_dir: str, results: Dict[str, Any]) -> None:
 
 def run_matrix(run_dir: str, *, python: Optional[str] = None,
                families: Optional[Sequence[str]] = None,
-               model: Sequence[str] = ()) -> Dict[str, Any]:
+               model: Sequence[str] = (), lanes: int = 1) -> Dict[str, Any]:
     """The matrix: baseline + each family (default: all seven), results
     persisted as ``chaos_results.json`` so verify can replay them
-    offline."""
+    offline. ``lanes`` families run side by side (each in a directory of
+    its own, its attempts one after another), the results in table
+    order."""
     os.makedirs(run_dir, exist_ok=True)
     python = python or sys.executable
     results: Dict[str, Any] = {
         "schema": 1,
         "baseline": run_baseline(run_dir, python=python, model=model),
         "families": {}}
-    for family in (families or FAMILIES):
-        results["families"][family] = run_family(
-            run_dir, family, python=python, model=model)
-        print(f"tpudist: chaos drill {family}: scripted outcome held "
-              f"(rcs {results['families'][family]['rcs']})", flush=True)
+
+    def one(family):
+        return run_family(run_dir, family, python=python, model=model)
+
+    names = list(families or FAMILIES)
+    with concurrent.futures.ThreadPoolExecutor(max(1, lanes)) as pool:
+        for family, res in zip(names, pool.map(one, names)):
+            results["families"][family] = res
+            print(f"tpudist: chaos drill {family}: scripted outcome held "
+                  f"(rcs {res['rcs']})", flush=True)
     write_results(run_dir, results)
     return results

@@ -107,7 +107,9 @@ class MetricsLogger:
     flight record carries. ``emitter`` is the live fan-out: when set,
     every record also goes to ``emitter.emit(rec)`` (the serve CLI's
     loopback into :class:`~tpudist_torch.obs.live.LiveAggregator`); one
-    ``is not None`` check when unset."""
+    ``is not None`` check when unset. ``all_ranks`` lifts the rank-0
+    gate for a stream of a rank's own (the selfcheck's drills, each rank
+    in its own directory)."""
 
     path: Optional[str] = None
     _fh: Optional[IO] = None
@@ -115,13 +117,14 @@ class MetricsLogger:
     _buf: List[str] = field(default_factory=list)
     extra: Dict[str, Any] = field(default_factory=dict)
     emitter: Any = None
+    all_ranks: bool = False
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
         atexit.register(self.flush)
 
     def log(self, **kv) -> None:
-        if _rank() != 0:
+        if not self.all_ranks and _rank() != 0:
             return
         rec = {"ts": time.time(), "mono": time.perf_counter(),
                **self.extra, **kv}

@@ -116,3 +116,38 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     if lib not in _LOADED:
         _LOADED[lib] = ctypes.CDLL(str(lib))
     return _LOADED[lib]
+
+
+def libraries():
+    """``(name, sources)`` of every kernel library of the port's paths."""
+    from tpudist_torch.ops.cuda import flash_attention as fa
+    from tpudist_torch.ops.cuda import fused_xent as fx
+
+    return ((fa.LIBRARY, fa.SOURCES), (fa.BWD_LIBRARY, fa.BWD_SOURCES),
+            (fx.LIBRARY, fx.SOURCES))
+
+
+def build_all() -> list:
+    """:func:`build` every library of :func:`libraries`, one ``nvcc``
+    each, started together; their :class:`BuildResult` in that order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = libraries()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        return list(pool.map(lambda lib: build(*lib), libs))
+
+
+def main() -> int:
+    """``python -m tpudist_torch.ops.cuda.build``: :func:`build_all`
+    under :func:`build_root`. It needs ``nvcc`` but no card: an image
+    build runs it, and the SLURM launcher runs it once a node before the
+    ranks start, so they load the libraries instead of each building
+    them."""
+    for (name, _), res in zip(libraries(), build_all()):
+        print(f"build: {name}: {res.path} ({res.seconds:.2f} s)",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -52,6 +52,7 @@ drill|verify`` is the CLI.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -318,19 +319,27 @@ def run_scenario(run_dir: str, name: str, *,
 def run_matrix(run_dir: str, *, python: Optional[str] = None,
                scenarios: Optional[Sequence[str]] = None,
                model: Optional[Dict[str, Any]] = None,
-               world: int = 1) -> Dict[str, Any]:
+               world: int = 1, lanes: int = 1) -> Dict[str, Any]:
     """The whole matrix, each attempt on ``world`` processes; results
     persisted as ``serve_resilience_results.json`` so verify can replay
-    offline."""
+    offline. ``lanes`` scenarios run side by side (each in directories
+    of its own, its attempts one after another; the virtual clock keeps
+    their summaries those of a run alone), the results in table
+    order."""
     os.makedirs(run_dir, exist_ok=True)
     python = python or sys.executable
     results: Dict[str, Any] = {"schema": 1, "scenarios": {}}
-    for name in (scenarios or SCENARIOS):
-        results["scenarios"][name] = run_scenario(run_dir, name,
-                                                  python=python,
-                                                  model=model, world=world)
-        print(f"tpudist: serve drill {name}: scripted outcome held "
-              f"(rcs {results['scenarios'][name]['rcs']})", flush=True)
+
+    def one(name):
+        return run_scenario(run_dir, name, python=python, model=model,
+                            world=world)
+
+    names = list(scenarios or SCENARIOS)
+    with concurrent.futures.ThreadPoolExecutor(max(1, lanes)) as pool:
+        for name, res in zip(names, pool.map(one, names)):
+            results["scenarios"][name] = res
+            print(f"tpudist: serve drill {name}: scripted outcome held "
+                  f"(rcs {res['rcs']})", flush=True)
     path = os.path.join(run_dir, RESULTS_NAME)
     tmp = f"{path}.tmp"
     with open(tmp, "w") as f:

@@ -679,6 +679,13 @@ def run(cfg: TrainConfig) -> float:
         else:
             log0(f"tpudist: trace {trace_verdict}: export failed "
                  f"({trace_err!r})")
+    # this process's kernel launches: the wrappers' counters (from the
+    # process's start or the last reset), and the superstep's replays,
+    # which do not move them
+    launches = engine_lib.kernel_launch_counts()
+    if superstep is not None:
+        for name, n in superstep.kernel_launches().items():
+            launches[name] += n
     metrics.log(kind="timing", steps_per_dispatch=k, **timer.split(),
                 **staging.split(), staging_overlap_fraction=overlap,
                 staging_status=staging_verdict,
@@ -688,7 +695,7 @@ def run(cfg: TrainConfig) -> float:
                 comm_status=devtime_status, trace_status=trace_verdict,
                 trace_spans=(trace_summary or {}).get("spans"),
                 trace_dropped=(trace_summary or {}).get("dropped"),
-                **graphs, **obs_fields)
+                kernel_launches=launches, **graphs, **obs_fields)
     _log_ledger(cfg, ctx, device, state, programs, staging, superstep,
                 obs_fields, metrics, run_id)
     # the attempt-local goodput estimate: the cross-attempt ledger's
